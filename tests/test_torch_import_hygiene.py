@@ -1,0 +1,53 @@
+"""The port stands alone: no module of fl4health_tpu_torch, and neither
+chip_smoke.py nor tools/torch_port_round_profile.py, imports JAX, flax,
+optax or the JAX package, and the package imports with JAX made
+unimportable."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "flax", "optax", "fl4health_tpu")
+SOURCES = sorted((ROOT / "fl4health_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_port_round_profile.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+        elif (isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "import_module"
+              and node.args and isinstance(node.args[0], ast.Constant)):
+            roots.add(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    assert not (_imported_roots(path) & set(FORBIDDEN)), path
+
+
+def test_sources_were_found():
+    names = {p.name for p in SOURCES}
+    assert {"flash_attention.py", "simulation.py", "engine.py", "chip_smoke.py"} <= names
+
+
+def test_package_imports_without_jax():
+    blocked = "; ".join(f"sys.modules[{m!r}] = None" for m in FORBIDDEN)
+    modules = sorted(
+        "fl4health_tpu_torch." + ".".join(p.relative_to(ROOT / "fl4health_tpu_torch")
+                                          .with_suffix("").parts)
+        for p in (ROOT / "fl4health_tpu_torch").rglob("*.py") if p.name != "__init__.py")
+    code = (f"import sys; {blocked}; import importlib; "
+            f"[importlib.import_module(m) for m in {modules!r}]; print('ok')")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
