@@ -19,7 +19,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      T 2048, remat, bf16 compute / f32 params) for 2 FedAvg rounds of
      2 clients x 5 local SGD steps of batch 32, with the launch counts set to 0
      just before and read just after.
-Then one JSON line per kernel set, the card line again, and the result line.
+  6. Hold the DP clip kernels (K1 squared norms, K2 scaled sum, and the fused
+     clip over a tree) against their plain versions at the DP path's largest
+     leaf [32, 524288], over the whole CifarNet per-example tree and at a
+     ragged [7, 1000], in f32 and bf16; time K1 and K2 at the largest leaf and
+     over the tree, beside their plain versions and one library call each.
+  7. A tiny DP federated run on the card (kernels) against the same run on
+     the CPU (plain versions), noise_multiplier 0: within 5e-4.
+  8. The DP path: DP-FedAvg of CifarNet at full width (64 clients of 160
+     train rows, batch 32, 5 local DP-SGD steps with C = 1 and sigma = 1,
+     bf16 compute / f32 params) for 2 rounds under InstanceLevelDpServer, with
+     the DP launch counts set to 0 just before and read just after; its
+     epsilon must equal the accountant's value for this configuration.
+Both extensions are built at the start, in parallel. Then one JSON line with
+every kernel, the card line again, and the result line.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -55,6 +69,26 @@ TOL = {
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 SOURCE = "fl4health_tpu_torch/kernels/csrc/flash_attention.cu"
+DP_SOURCE = "fl4health_tpu_torch/kernels/csrc/dp_clip.cu"
+
+# The DP path: bench.py's cifar_cnn run (64 clients of 160 train + 64 val
+# rows, batch 32, 5 local steps, SGD 0.05, FedAvg, seed 0) with the
+# instance-level DP example's C = 1, sigma = 1
+DP_CLIENTS, DP_TRAIN, DP_VAL, DP_ROUNDS = 64, 160, 64, 2
+DP_CLIP, DP_SIGMA = 1.0, 1.0
+# epsilon of that run at delta = 1 / (64 * 160), from the CPU accountant
+# (tests/test_torch_dp_clip.py holds both packages' accountants to it)
+DP_EPSILON = 4.8447493207072
+# (atol, rtol) of the JAX kernel tests (tests/kernels/test_dp_clip.py), for
+# f32 and bf16 gradients alike: the kernels and the plain versions widen the
+# same values to f32 and sum the same f32 products, in another order
+DP_TOL = {"dp_sq_norms": (0.0, 1e-5), "dp_scaled_sum": (1e-5, 0.0),
+          "fused": (1e-5, 0.0)}
+# CifarNet's parameter leaves, each with a leading per-example axis on the path
+CIFAR_LEAVES = {"Conv_0/kernel": (5, 5, 3, 32), "Conv_0/bias": (32,),
+                "Conv_1/kernel": (5, 5, 32, 64), "Conv_1/bias": (64,),
+                "Dense_0/kernel": (4096, 128), "Dense_0/bias": (128,),
+                "Dense_1/kernel": (128, 10), "Dense_1/bias": (10,)}
 
 
 def fail(msg: str) -> None:
@@ -67,18 +101,25 @@ def card_line() -> str:
         check=True, capture_output=True, text=True, timeout=60).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = 7, warmup: int = 2) -> float:
-    """Median CUDA-event time of one call, in ms."""
+def cuda_ms(fn, reps: int = 7, warmup: int = 2, calls: int = 1) -> float:
+    """Median over ``reps`` CUDA-event timings of ``calls`` back-to-back
+    calls, per call, in ms. A spin kernel (~10 ms) runs ahead of the start
+    event, so the host has enqueued every call before the device reaches
+    it: the time is the device's, without the host's launch latency (which
+    is most of a 20-microsecond kernel's call)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(20_000_000)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -351,21 +392,251 @@ def main_path(fa) -> dict:
     return launches
 
 
+def dp_tree(shapes: dict, b: int, dtype: torch.dtype, seed: int,
+            grad_scale: bool = False) -> dict:
+    """Per-example gradients [b, *shape] on the card: unit normals (as the
+    JAX kernel tests draw them), or with ``grad_scale`` times a per-example
+    scale from 0.5e-3 to 2.5e-3, so that at the CifarNet tree's width C = 1
+    clips some examples and not others."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    row = (torch.linspace(0.5e-3, 2.5e-3, b, device="cuda") if grad_scale
+           else torch.ones(b, device="cuda"))
+    return {k: (torch.randn((b, *s), generator=g, device="cuda")
+                * row.view(b, *[1] * len(s))).to(dtype) for k, s in shapes.items()}
+
+
+def fused_plain(dp, tree: dict, mask: torch.Tensor, bound: float):
+    """The fused clip and sum, composed of the plain versions."""
+    mats = {k: v.reshape(v.shape[0], -1) for k, v in tree.items()}
+    norms = torch.sqrt(sum(dp.per_example_sq_norms_reference(m) for m in mats.values()))
+    scale = torch.clamp(bound / torch.clamp(norms, min=1e-12), max=1.0) * mask
+    return {k: dp.scaled_masked_sum_reference(m, scale).reshape(tree[k].shape[1:])
+            for k, m in mats.items()}, norms
+
+
+def dp_kernel_checks(dp, dtype: torch.dtype) -> dict:
+    """K1, K2 and the fused clip against their plain versions at the largest
+    leaf, over the whole CifarNet tree and at a ragged width (K1 and K2 on
+    unit normals, the fused clip on gradient-sized values that C = 1 clips in
+    part); returns the max abs error of each kernel at the largest leaf."""
+    tag = str(dtype).split(".")[-1]
+    stats, at_leaf = {}, {}
+    cases = {"leaf": {"Dense_0/kernel": (524288,)}, "tree": CIFAR_LEAVES,
+             "ragged": {"w": (1000,)}}
+    for case, shapes in cases.items():
+        b = 7 if case == "ragged" else BATCH
+        tree = dp_tree(shapes, b, dtype, seed=len(stats) + 21)
+        grads = dp_tree(shapes, b, dtype, seed=len(stats) + 22, grad_scale=True)
+        mask = torch.ones(b, device="cuda")
+        mask[1] = 0.0  # a padding example
+        scale = torch.rand(b, device="cuda") * 1.5 * mask
+        with torch.no_grad():
+            for k, leaf in tree.items():
+                m = leaf.reshape(b, -1)
+                name = f"{case} {k} {tag} {list(m.shape)}"
+                stats[f"dp_sq_norms {name}"] = check_stats(
+                    f"dp_sq_norms {name}", dp.sq_norms_kernel(m),
+                    dp.per_example_sq_norms_reference(m), *DP_TOL["dp_sq_norms"])
+                stats[f"dp_scaled_sum {name}"] = check_stats(
+                    f"dp_scaled_sum {name}", dp.scaled_sum_kernel(m, scale),
+                    dp.scaled_masked_sum_reference(m, scale), *DP_TOL["dp_scaled_sum"])
+                if case == "leaf":
+                    at_leaf = {n: stats[f"{n} {name}"]["max_abs_err"]
+                               for n in ("dp_sq_norms", "dp_scaled_sum")}
+            got, norms = dp.fused_clipped_masked_sum(grads, mask, DP_CLIP, return_norms=True)
+            want, want_norms = fused_plain(dp, grads, mask, DP_CLIP)
+            stats[f"fused norms {case} {tag}"] = check_stats(
+                f"fused norms {case} {tag}", norms, want_norms, *DP_TOL["dp_sq_norms"])
+            for k in want:
+                stats[f"fused {case} {k} {tag}"] = check_stats(
+                    f"fused {case} {k} {tag}", got[k], want[k], *DP_TOL["fused"])
+            if case == "tree":
+                clipped = int(((want_norms > DP_CLIP) * mask).sum())
+                if not 0 < clipped < int(mask.sum()):
+                    fail(f"tree check clips {clipped} examples: it must clip some, not all")
+        del tree, grads
+    print(json.dumps({"check": f"dp_clip {tag}",
+                      "max_abs_err": {k: v["max_abs_err"] for k, v in stats.items()},
+                      "bound_used": max(v["bound_used"] for v in stats.values()),
+                      "tolerance": {k: list(v) for k, v in DP_TOL.items()}}))
+    torch.cuda.empty_cache()
+    return at_leaf
+
+
+def dp_kernel_timings(dp) -> dict:
+    """K1 and K2 at the DP path's largest leaf and over its whole per-example
+    tree (f32, as the path gives them), beside their plain versions and one
+    library call computing the same function (a yardstick the port never
+    calls); device time per call, 20 calls a timing. Bounds: bytes in and out
+    once over 3.35 TB/s, against two f32 operations per element over the f32
+    rate."""
+    res = {}
+    time_it = lambda fn: cuda_ms(fn, calls=20)  # noqa: E731
+    for case, shapes in (("leaf", {"Dense_0/kernel": (524288,)}), ("tree", CIFAR_LEAVES)):
+        tree = dp_tree(shapes, BATCH, torch.float32, seed=31, grad_scale=True)
+        mats = [v.reshape(BATCH, -1) for v in tree.values()]
+        scale = torch.rand(BATCH, device="cuda")
+        widths = [m.shape[1] for m in mats]
+        elems = BATCH * sum(widths)
+        k1_bytes = 4 * elems + 4 * BATCH * len(mats)
+        k2_bytes = 4 * elems + 4 * BATCH * len(mats) + 4 * sum(widths)
+        with torch.no_grad():
+            res[case] = {
+                "dp_sq_norms": dict(
+                    ms=time_it(lambda: [dp.sq_norms_kernel(m) for m in mats]),
+                    plain_ms=time_it(lambda: [dp.per_example_sq_norms_reference(m)
+                                              for m in mats]),
+                    library_ms=time_it(lambda: [torch.linalg.vector_norm(
+                        m, dim=1, dtype=torch.float32) for m in mats]),
+                    bound=bound_ms(2 * elems, k1_bytes, torch.float32)),
+                "dp_scaled_sum": dict(
+                    ms=time_it(lambda: [dp.scaled_sum_kernel(m, scale) for m in mats]),
+                    plain_ms=time_it(lambda: [dp.scaled_masked_sum_reference(m, scale)
+                                              for m in mats]),
+                    library_ms=time_it(lambda: [torch.mv(m.t(), scale) for m in mats]),
+                    bound=bound_ms(2 * elems, k2_bytes, torch.float32)),
+            }
+        print(json.dumps({"timing": f"dp_clip {case} float32",
+                          "shape": [BATCH, widths[0]] if case == "leaf" else
+                          [BATCH, sum(widths)], "leaves": len(mats),
+                          **{k: {kk: vv for kk, vv in r.items()}
+                             for k, r in res[case].items()}}))
+        del tree, mats
+    torch.cuda.empty_cache()
+    return res
+
+
+def build_dp_sim(data, dtype, device, noise_multiplier, seed,
+                 input_shape=(32, 32, 3), batch=BATCH, local_steps=LOCAL_STEPS):
+    from fl4health_tpu_torch import optim
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.clients.instance_level_dp import InstanceLevelDpClientLogic
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.models.cnn import CifarNet
+    from fl4health_tpu_torch.server.simulation import FederatedSimulation
+    from fl4health_tpu_torch.strategies.fedavg import FedAvg
+
+    logic = InstanceLevelDpClientLogic(
+        engine.from_module(CifarNet(dtype=dtype, input_shape=input_shape)),
+        engine.masked_cross_entropy, clipping_bound=DP_CLIP,
+        noise_multiplier=noise_multiplier)
+    return FederatedSimulation(
+        logic=logic, tx=optim.sgd(0.05), strategy=FedAvg(), datasets=data,
+        batch_size=batch, metrics=MetricManager((efficient.accuracy(),)),
+        local_steps=local_steps, seed=seed, device=device)
+
+
+def image_datasets(n_clients: int, n_train: int, n_val: int, shape) -> list:
+    from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
+    from fl4health_tpu_torch.server.simulation import ClientDataset
+
+    out = []
+    for i in range(n_clients):
+        x, y = synthetic_classification(torch.Generator().manual_seed(i),
+                                        n_train + n_val, shape, 10)
+        out.append(ClientDataset(x[:n_train], y[:n_train], x[n_train:], y[n_train:]))
+    return out
+
+
+def tiny_dp_parity(dp) -> None:
+    """The same tiny DP run (f32, noise 0) on the card through the kernels
+    and on the CPU through the plain versions, from the same params."""
+    data = image_datasets(2, 16, 8, (32, 32, 3))
+    runs = []
+    for device in ("cuda", "cpu"):
+        sim = build_dp_sim(data, torch.float32, device, 0.0, seed=3, batch=8,
+                           local_steps=2)
+        if runs:
+            sim.set_global_params({k: v.cpu() for k, v in runs[0][2].items()})
+        init = {k: v.clone() for k, v in sim.global_params.items()}
+        dp.reset_launch_counts()
+        runs.append((sim.fit(2), sim.global_params, init, dict(dp.LAUNCHES)))
+    (gpu_hist, gpu_params, _, gpu_launches), (cpu_hist, cpu_params, _, cpu_launches) = runs
+    if min(gpu_launches.values()) == 0 or max(cpu_launches.values()) != 0:
+        fail(f"tiny DP run: launches {gpu_launches} on the card, {cpu_launches} on the CPU")
+    for gr, cr in zip(gpu_hist, cpu_hist):
+        check(f"tiny DP fit loss r{gr.round}", torch.tensor(gr.fit_losses["backward"]),
+              torch.tensor(cr.fit_losses["backward"]), 5e-4, 0)
+        check(f"tiny DP eval loss r{gr.round}",
+              torch.tensor(gr.eval_losses["checkpoint"]),
+              torch.tensor(cr.eval_losses["checkpoint"]), 5e-4, 0)
+    err = max(check(f"tiny DP param {k}", gpu_params[k].cpu(), cpu_params[k], 5e-4, 0)
+              for k in cpu_params)
+    print(json.dumps({"tiny_dp_parity": "cuda kernels vs cpu plain", "rounds": 2,
+                      "noise_multiplier": 0.0,
+                      "fit_losses": [r.fit_losses["backward"] for r in gpu_hist],
+                      "clip_fraction": [r.fit_losses["clip_fraction"] for r in gpu_hist],
+                      "launches": gpu_launches, "max_param_abs_err": err}))
+
+
+def dp_main_path(dp) -> dict:
+    """Full-width DP-FedAvg of CifarNet, bf16 compute, 2 rounds."""
+    from fl4health_tpu_torch.server.servers import InstanceLevelDpServer
+
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    sim = build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0)
+    server = InstanceLevelDpServer(sim, noise_multiplier=DP_SIGMA, batch_size=BATCH)
+    init = {k: v.clone() for k, v in sim.global_params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dp.reset_launch_counts()
+    t0 = time.time()
+    hist, epsilon = server.fit(DP_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = dict(dp.LAUNCHES)
+    examples = DP_CLIENTS * LOCAL_STEPS * BATCH
+    for r in hist:
+        if not all(np.isfinite(v) for v in (*r.fit_losses.values(),
+                                              *r.eval_losses.values())):
+            fail(f"DP round {r.round}: non-finite losses {r.fit_losses} {r.eval_losses}")
+        print(json.dumps({
+            "dp_round": r.round, "fit_loss": r.fit_losses["backward"],
+            "clip_fraction": r.fit_losses["clip_fraction"],
+            "eval_loss": r.eval_losses["checkpoint"],
+            "eval_accuracy": r.eval_metrics["accuracy"],
+            "fit_s": r.fit_elapsed_s, "eval_s": r.eval_elapsed_s,
+            "round_wall_s": r.fit_elapsed_s + r.eval_elapsed_s,
+            "train_examples_per_s": examples / r.fit_elapsed_s}))
+    moved = max(float((sim.global_params[k] - init[k]).abs().max()) for k in init)
+    finite = all(torch.isfinite(v).all() for v in sim.global_params.values())
+    if not finite or moved <= 0:
+        fail(f"DP global params after training: finite={finite}, max change {moved}")
+    # per round: 64 clients x 5 steps x 8 leaves, one K1 and one K2 launch each
+    per_round = DP_CLIENTS * LOCAL_STEPS * len(CIFAR_LEAVES)
+    expected = {"dp_sq_norms": DP_ROUNDS * per_round, "dp_scaled_sum": DP_ROUNDS * per_round}
+    print(json.dumps({"main_path": "dp_fedavg_cifar_cnn", "rounds": DP_ROUNDS,
+                      "wall_s": wall, "epsilon": epsilon,
+                      "n_params": sum(v.numel() for v in init.values()),
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "max_param_change": moved, "launches": launches,
+                      "expected_launches": expected}))
+    if abs(epsilon - DP_EPSILON) > 1e-9:
+        fail(f"DP epsilon {epsilon!r}, the accountant gives {DP_EPSILON!r}")
+    if launches != expected:
+        fail(f"DP main-path launches {launches}, expected {expected}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: needs an NVIDIA card; torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from fl4health_tpu_torch.kernels import dp_clip as dp
     from fl4health_tpu_torch.kernels import flash_attention as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions in full f32
-    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False  # and f32 convolutions too
     card = card_line()
     print(card)
 
     t0 = time.time()
-    fa.build_extension()
+    with ThreadPoolExecutor(2) as pool:  # each build compiles its sources in parallel
+        for build in [pool.submit(m.build_extension) for m in (fa, dp)]:
+            build.result()
     print(json.dumps({"build_s": time.time() - t0}))
 
     errs = {}
@@ -376,6 +647,12 @@ def main() -> int:
     timings = kernel_timings(fa, torch.bfloat16)
     tiny_parity()
     launches = main_path(fa)
+
+    dp_errs = {dtype: dp_kernel_checks(dp, dtype)
+               for dtype in (torch.float32, torch.bfloat16)}
+    dp_timings = dp_kernel_timings(dp)
+    tiny_dp_parity(dp)
+    dp_launches = dp_main_path(dp)
 
     replaces = {"flash_fwd": "fl4health_tpu/kernels/flash_attention.py:71",
                 "flash_bwd_dq": "fl4health_tpu/kernels/flash_attention.py:141",
@@ -393,6 +670,21 @@ def main() -> int:
             # one SDPA backward call, which computes dQ, dK and dV together
             **({"library_dqkv_ms": t["library_dqkv_ms"]} if "library_dqkv_ms" in t else {}),
             "dtype": "bfloat16", "shape": [B, T, H, D]})
+    dp_replaces = {"dp_sq_norms": "fl4health_tpu/kernels/dp_clip.py:54",
+                   "dp_scaled_sum": "fl4health_tpu/kernels/dp_clip.py:100"}
+    for name, rep in dp_replaces.items():
+        t, tree = dp_timings["leaf"][name], dp_timings["tree"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": DP_SOURCE, "replaces": rep,
+            "launches": dp_launches[name],
+            "max_abs_err": dp_errs[torch.float32][name],
+            "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            # the same over all 8 leaves of the CifarNet per-example tree
+            "tree_ms": tree["ms"], "tree_plain_ms": tree["plain_ms"],
+            "tree_bound_ms": tree["bound"][0], "tree_library_ms": tree["library_ms"],
+            "dtype": "float32", "shape": [BATCH, 524288]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -7,9 +7,15 @@ step moves nothing (params, optimizer state and meters are selected back).
 The index plans are the JAX engine's numpy code, copied unchanged, so both
 packages draw the same batches from the same entropy.
 
+Randomness: the JAX engine splits ``state.rng`` once per step. Here each
+step gets a ``torch.Generator`` on the data's device, seeded from the
+client's round entropy (the index plans' ``[0, seed, 1000 + round,
+client]``) and the step index, so every client and step draws its own
+reproducible stream; ``value_and_grads`` receives it, and a logic that draws
+nothing (the plain ``ClientLogic``) ignores it.
+
 Left out here: the precision (loss scaling), ZeRO-2 microbatching,
-telemetry and early-stopping branches; the per-step RNG (nothing on the
-port's path draws randomness during training); and the algorithm hooks no
+telemetry and early-stopping branches; and the algorithm hooks no
 ported logic overrides yet (``init_extra``/``TrainState.extra``,
 ``transform_gradients``, ``update_before_step``/``update_after_step``,
 ``finalize_round``, ``augment``).
@@ -70,10 +76,12 @@ class StepOutput:
 @dataclasses.dataclass(frozen=True)
 class ModelDef:
     """init(generator) -> params; apply(params, x, train) -> (preds, features).
-    ``preds`` holds at least ``"prediction"``."""
+    ``preds`` holds at least ``"prediction"``; ``module`` is the wrapped
+    module, for checks of its structure (DP's BatchNorm check)."""
 
     init: Callable[[torch.Generator], Params]
     apply: Callable[..., tuple[dict, dict]]
+    module: torch.nn.Module | None = None
 
 
 def from_module(module: torch.nn.Module) -> ModelDef:
@@ -88,7 +96,7 @@ def from_module(module: torch.nn.Module) -> ModelDef:
         named = {k.replace("/", "."): v for k, v in params.items()}
         return functional_call(module, named, (x,))
 
-    return ModelDef(init=init, apply=apply)
+    return ModelDef(init=init, apply=apply, module=module)
 
 
 # ---------------------------------------------------------------------------
@@ -118,8 +126,11 @@ class ClientLogic:
                   params: Params, state: TrainState, ctx: Any):
         return self.criterion(preds["prediction"], batch.y, batch.example_mask), {}
 
-    def value_and_grads(self, state: TrainState, ctx: Any, batch: Batch):
-        """-> ((backward, (preds, additional)), grads) by whole-batch autograd."""
+    def value_and_grads(self, state: TrainState, ctx: Any, batch: Batch,
+                        generator: torch.Generator):
+        """-> ((backward, (preds, additional)), grads) by whole-batch autograd.
+        ``generator`` is the step's random stream; nothing here draws."""
+        del generator
         params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
         with torch.enable_grad():
             preds, features = self.predict(params, batch, train=True, ctx=ctx)
@@ -166,11 +177,23 @@ def _mask_tree(new, old, keep: torch.Tensor):
     return tree_map(lambda n, o: torch.where(keep > 0, n, o), new, old)
 
 
-def make_train_step(logic: ClientLogic, tx: GradientTransformation):
-    """step(state, ctx, batch) -> (state, StepOutput)."""
+def step_generator(entropy: list[int], step: int,
+                   device: torch.device) -> torch.Generator:
+    """The random stream of one local step: a generator on ``device`` seeded
+    from the client's round entropy, with the step as the spawn key (so it is
+    never the stream of an index plan drawn from ``[*entropy, e]``)."""
+    seed = np.random.SeedSequence(entropy, spawn_key=(step,)).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(seed))
 
-    def step(state: TrainState, ctx: Any, batch: Batch):
-        (backward, (preds, additional)), grads = logic.value_and_grads(state, ctx, batch)
+
+def make_train_step(logic: ClientLogic, tx: GradientTransformation):
+    """step(state, ctx, batch, generator) -> (state, StepOutput)."""
+
+    def step(state: TrainState, ctx: Any, batch: Batch,
+             generator: torch.Generator):
+        (backward, (preds, additional)), grads = logic.value_and_grads(
+            state, ctx, batch, generator)
         updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
         new_params = apply_updates(state.params, updates)
         keep = batch.step_mask  # padding steps must not move anything
@@ -200,16 +223,18 @@ def _step_slice(batches: Batch, s: int) -> Batch:
 def make_local_train(logic: ClientLogic, tx: GradientTransformation,
                      metric_manager: MetricManager,
                      loss_keys: tuple[str, ...] = ("backward",)):
-    """train(state, ctx, batches) -> (state, loss_dict, metric_dict, n_steps);
-    ``batches`` carries a leading [steps] axis."""
+    """train(state, ctx, batches, entropy) -> (state, loss_dict, metric_dict,
+    n_steps); ``batches`` carries a leading [steps] axis and ``entropy`` is
+    the client's round entropy, which seeds each step's generator."""
     step_fn = make_train_step(logic, tx)
 
-    def train(state: TrainState, ctx: Any, batches: Batch):
+    def train(state: TrainState, ctx: Any, batches: Batch, entropy: list[int]):
         device = batches.step_mask.device
         meter = LossMeter.create(loss_keys, device)
         mstate = metric_manager.init(device)
         for s in range(batches.step_mask.shape[0]):
-            state, out = step_fn(state, ctx, _step_slice(batches, s))
+            state, out = step_fn(state, ctx, _step_slice(batches, s),
+                                 step_generator(entropy, s, device))
             meter = meter.update(out.losses, weight=out.step_mask)
             mstate = metric_manager.update(mstate, out.preds, out.targets,
                                            out.example_mask)

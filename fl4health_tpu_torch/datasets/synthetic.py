@@ -1,5 +1,5 @@
 """Synthetic data (counterpart of ``fl4health_tpu/datasets/synthetic.py``;
-``synthetic_text_classification`` only)."""
+``synthetic_text_classification`` and ``synthetic_classification``)."""
 
 from __future__ import annotations
 
@@ -33,3 +33,26 @@ def synthetic_text_classification(
     mask = torch.arange(seq_len)[None, :] < lengths[:, None]
     x = torch.where(mask, toks, torch.zeros_like(toks))
     return x.to(torch.int32), y.to(torch.int32)
+
+
+def synthetic_classification(
+    generator: torch.Generator,
+    n: int,
+    input_shape: tuple[int, ...],
+    n_classes: int,
+    class_sep: float = 2.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gaussian class blobs flattened into ``input_shape`` images: class means
+    ``N(0, class_sep^2)`` per pixel, unit noise, then one global
+    standardization (population std), as the JAX function draws them: the
+    same distribution, not the same draws. Returns CPU ``x [n, *input_shape]``
+    f32 and ``y [n]`` int32."""
+    dim = 1
+    for s in input_shape:
+        dim *= s
+    mus = torch.randn((n_classes, dim), generator=generator) * class_sep
+    y = torch.randint(0, n_classes, (n,), generator=generator)
+    x = mus[y] + torch.randn((n, dim), generator=generator)
+    # standardize: separability is unchanged, conditioning is image-like
+    x = (x - x.mean()) / torch.clamp(x.std(correction=0), min=1e-6)
+    return x.reshape((n, *input_shape)).to(torch.float32), y.to(torch.int32)

@@ -26,14 +26,12 @@ bf16 inputs are read as bf16 and computed in f32.
 from __future__ import annotations
 
 import functools
-from pathlib import Path
 
 import torch
 
-NEG_INF = -1e30
+from fl4health_tpu_torch.kernels.build import load_extension
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
-_BUILD = Path(__file__).resolve().parent / "_build"
+NEG_INF = -1e30
 
 # Kernel launches since the last reset: one per launch, counted by the wrapper
 # right after the launch succeeded (the plain version never counts).
@@ -49,18 +47,8 @@ def reset_launch_counts() -> None:
 def build_extension():
     """Compile (or load from ``_build/``) the kernels for sm_90a. Needs
     ``nvcc``; called on the first CUDA launch."""
-    from torch.utils.cpp_extension import load
-
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    return load(
-        name="fl4health_flash_attention",
-        sources=[str(_CSRC / "flash_attention_binding.cpp"),
-                 str(_CSRC / "flash_attention.cu")],
-        build_directory=str(_BUILD),
-        extra_cflags=["-O2"],
-        extra_cuda_cflags=["-O3", "-std=c++17",
-                           "-gencode=arch=compute_90a,code=sm_90a"],
-    )
+    return load_extension("flash_attention", ["flash_attention_binding.cpp",
+                                              "flash_attention.cu"])
 
 
 # ---------------------------------------------------------------------------

@@ -29,9 +29,11 @@ _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
 
 def _lecun_normal(shape, generator, device):
-    """flax ``lecun_normal``: truncated normal, variance 1 / fan_in."""
+    """flax ``lecun_normal``: truncated normal, variance 1 / fan_in, where
+    fan_in is every axis but the last (a Dense ``[in, out]`` or a conv
+    kernel ``[*spatial, in, out]``)."""
     t = torch.empty(shape, device=device)
-    std = math.sqrt(1.0 / shape[0]) / _TRUNC_STD
+    std = math.sqrt(1.0 / math.prod(shape[:-1])) / _TRUNC_STD
     return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                  generator=generator)
 

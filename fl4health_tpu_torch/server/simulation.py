@@ -161,16 +161,20 @@ class FederatedSimulation:
         """(client_fit, client_eval): pull -> local train -> push, and
         pull -> evaluate."""
         logic, tx, exchanger = self.logic, self.tx, self.exchanger
-        train = engine.make_local_train(logic, tx, self.metrics, ("backward",))
+        # a logic's per-step statistics (DP's clip fraction) are averaged
+        # into the fit losses beside "backward"
+        train = engine.make_local_train(
+            logic, tx, self.metrics,
+            ("backward", *getattr(logic, "telemetry_loss_keys", ())))
         evaluate = engine.make_local_eval(logic, self.metrics, ("checkpoint",))
 
         def client_fit(state: TrainState, payload, batches: Batch,
-                       participate: torch.Tensor):
+                       participate: torch.Tensor, entropy: list[int]):
             orig = state
             pulled = exchanger.pull(payload, state.params)
             state = dataclasses.replace(state, params=pulled)
             ctx = logic.init_round_context(state, payload)
-            new_state, losses, metrics, _ = train(state, ctx, batches)
+            new_state, losses, metrics, _ = train(state, ctx, batches, entropy)
             # non-participants neither pull nor train
             new_state = ptu.tree_map(
                 lambda n, o: torch.where(participate > 0, n, o), new_state, orig)
@@ -191,9 +195,9 @@ class FederatedSimulation:
         strategy = self.strategy
 
         def over_clients(fn, client_states, *per_client):
-            """Run ``fn`` client by client over the [K]-stacked state; stack
-            each output back along the clients axis."""
-            outs = [fn(ptu.client_slice(client_states, i),
+            """Run ``fn(i, state_i, *per_client_i)`` client by client over the
+            [K]-stacked state; stack each output back along the clients axis."""
+            outs = [fn(i, ptu.client_slice(client_states, i),
                        *(ptu.client_slice(a, i) for a in per_client))
                     for i in range(self.n_clients)]
             return tuple(ptu.stack_clients(list(col)) for col in zip(*outs))
@@ -201,7 +205,8 @@ class FederatedSimulation:
         def fit_round(server_state, client_states, batches, mask, round_idx):
             payload = strategy.client_payload(server_state, round_idx)
             new_states, packets, losses, metrics = over_clients(
-                lambda st, b, m: client_fit(st, payload, b, m),
+                lambda i, st, b, m: client_fit(st, payload, b, m,
+                                               self._client_entropy(round_idx, i)),
                 client_states, batches, mask)
             # failed clients (non-finite loss) are excluded from aggregation
             finite = torch.isfinite(losses["backward"])
@@ -223,7 +228,7 @@ class FederatedSimulation:
         def eval_round(server_state, client_states, batches, eval_counts):
             gp = strategy.client_payload(server_state, 0)
             new_states, losses, metrics = over_clients(
-                lambda st, b: client_eval(st, gp, b), client_states, batches)
+                lambda i, st, b: client_eval(st, gp, b), client_states, batches)
             agg_losses = {k: (v * eval_counts).sum() / torch.clamp(eval_counts.sum(), min=1.0)
                           for k, v in losses.items()}
             agg_metrics = aggregate_metrics(metrics, eval_counts)
@@ -232,9 +237,14 @@ class FederatedSimulation:
         return fit_round, eval_round
 
     # ------------------------------------------------------------------
+    def _client_entropy(self, round_idx: int, client: int) -> list[int]:
+        """Entropy of client ``client`` in round ``round_idx``: its index plan
+        and its per-step generators draw from it."""
+        return [*self._base_entropy, 1000 + round_idx, client]
+
     def _round_plan(self, round_idx: int):
         """Host-side index plan (numpy idx/example_mask/step_mask) for one round."""
-        entropies = [[*self._base_entropy, 1000 + round_idx, i]
+        entropies = [self._client_entropy(round_idx, i)
                      for i in range(self.n_clients)]
         return engine.multi_client_index_plans(
             entropies, [d.n_train for d in self.datasets], self.batch_size,

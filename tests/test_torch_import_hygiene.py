@@ -36,7 +36,8 @@ def test_no_jax_imports(path):
 
 def test_sources_were_found():
     names = {p.name for p in SOURCES}
-    assert {"flash_attention.py", "simulation.py", "engine.py", "chip_smoke.py"} <= names
+    assert {"flash_attention.py", "simulation.py", "engine.py", "chip_smoke.py",
+            "dp_clip.py", "dpsgd.py", "instance_level_dp.py"} <= names
 
 
 def test_package_imports_without_jax():

@@ -281,3 +281,34 @@ def test_non_finite_client_is_masked_out_of_the_aggregate():
         assert b.fit_losses["backward"] == a.fit_losses["backward"]
     for k in alone_params:
         assert torch.equal(both_params[k], alone_params[k]), k
+
+
+def test_plain_logic_ignores_the_step_stream(monkeypatch):
+    # every local step hands value_and_grads a generator; the non-DP logic
+    # draws nothing from it, so a run with other streams is the same run,
+    # bit for bit
+    data = [tsim.ClientDataset(*_client_data(0, 16, 6))]
+
+    def run():
+        sim = tsim.FederatedSimulation(
+            logic=tengine.ClientLogic(tengine.from_module(TTransformer(**CFG)),
+                                      tengine.masked_cross_entropy),
+            tx=optim.sgd(0.05), strategy=TFedAvg(), datasets=data, batch_size=8,
+            metrics=TMetricManager((tefficient.accuracy(),)), local_steps=2, seed=1,
+            device="cpu")
+        return sim.fit(1), sim.global_params
+
+    hist_a, params_a = run()
+    seen = []
+    real = tengine.step_generator
+
+    def other_stream(entropy, step, device):
+        seen.append((tuple(entropy), step))
+        return real([*entropy, 99], step + 7, device)
+
+    monkeypatch.setattr(tengine, "step_generator", other_stream)
+    hist_b, params_b = run()
+    assert seen == [((0, 1, 1001, 0), 0), ((0, 1, 1001, 0), 1)]
+    assert hist_a[0].fit_losses == hist_b[0].fit_losses
+    for k in params_a:
+        assert torch.equal(params_a[k], params_b[k]), k
