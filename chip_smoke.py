@@ -9,11 +9,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   3. Hold the forward, dQ and dK/dV kernels against their plain PyTorch
      versions at the main path's shapes (B=32, T=2048, H=8, D=64, ragged pad
      masks, one batch element with no real key) in f32 and bf16, and at a T
-     that is not a multiple of the 64-row tile; time each kernel, its plain
-     version and F.scaled_dot_product_attention (a yardstick the port never
-     calls) with CUDA events.
+     that is not a multiple of the 64-row tile. bf16 at D=64 takes the
+     tensor-core forward and dK/dV (wgmma): out, dK and dV are held to the
+     derived bounds of ``bf16_operand_bounds``, lse and dQ to TOL below;
+     each check prints the share of its bound used. The first slice's
+     CUDA-core bf16 forward and dK/dV are held to TOL on the same inputs,
+     and bf16 at head dim 12 runs them through the wrapper and autograd at
+     the ragged T. Time each kernel,
+     its plain version, F.scaled_dot_product_attention (a yardstick the port
+     never calls) and, for the forward and dK/dV, the CUDA-core kernel of the
+     first slice on the same bf16 inputs, with CUDA events.
   4. A tiny federated run on the card (kernels) against the same run on the
      CPU (plain version): per-round losses and final params within 5e-4.
+     Then the same tiny transformer (head dim 64) in bf16 compute for 2
+     rounds on the card through the kernels and through the plain version,
+     and the plain run in f32 compute: the kernels may move losses and
+     params by no more than bf16 compute moves the plain run.
   5. The main path: federated training of the transformer_long configuration
      at full width (vocab 8192, d_model 512, 8 heads, 4 layers, d_ff 2048,
      T 2048, remat, bf16 compute / f32 params) for 2 FedAvg rounds of
@@ -55,11 +66,13 @@ N_CLIENTS, BATCH, LOCAL_STEPS, ROUNDS = 2, 32, 5, 2
 
 # (atol, rtol) per output. f32 are the JAX kernel tests' bounds
 # (tests/kernels/test_flash_attention.py). bf16 hold the kernel (bf16 in and
-# out, f32 inside) against the plain version in f32 on the same bf16-rounded
-# inputs: both compute in f32, so they differ by the one bf16 rounding of
-# out, dq, dk and dv (at most 2^-8 relative; rtol is twice that) plus f32
-# summation noise (about 1e-6 here; atol is 100 times that). lse stays f32 in
-# the kernel, so it keeps the f32 bound.
+# out) against the plain version in f32 on the same bf16-rounded inputs: they
+# differ by the one bf16 rounding of out, dq, dk and dv (at most 2^-8
+# relative; rtol is twice that) plus f32 summation noise (about 1e-6 here;
+# atol is 100 times that). The tensor-core forward and dK/dV also round P and
+# dS to bf16 as operands: out, dk and dv add the term of
+# ``bf16_operand_bounds`` for that rounding to these. lse stays f32 in the
+# kernels, so it keeps the f32 bound; dQ is still computed in f32.
 TOL = {
     torch.float32: {"out": (2e-5, 1e-4), "lse": (2e-5, 1e-4), "grad": (5e-4, 1e-4)},
     torch.bfloat16: {"out": (1e-4, 2**-7), "lse": (2e-5, 1e-4), "grad": (1e-4, 2**-7)},
@@ -69,6 +82,7 @@ TOL = {
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 SOURCE = "fl4health_tpu_torch/kernels/csrc/flash_attention.cu"
+WGMMA_SOURCE = "fl4health_tpu_torch/kernels/csrc/flash_attention_wgmma.cu"
 DP_SOURCE = "fl4health_tpu_torch/kernels/csrc/dp_clip.cu"
 
 # The DP path: bench.py's cifar_cnn run (64 clients of 160 train + 64 val
@@ -133,23 +147,29 @@ def check_stats(name: str, got: torch.Tensor, want: torch.Tensor, atol: float,
                 rtol: float) -> dict:
     """As ``check``, with the size of the values held and the largest share
     of the bound that an element used."""
+    return check_bound(name, got, want, atol + rtol * want.float().abs(),
+                       f"atol={atol} rtol={rtol}")
+
+
+def check_bound(name: str, got: torch.Tensor, want: torch.Tensor,
+                bound: torch.Tensor, what: str = "the derived bound") -> dict:
+    """Fails where |got - want| exceeds the per-element ``bound``."""
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     if not torch.isfinite(got).all():
         fail(f"{name}: non-finite values")
-    bound = atol + rtol * want.abs()
     bad = diff > bound
     if bad.any():
-        fail(f"{name}: {int(bad.sum())} elements beyond atol={atol} rtol={rtol}, "
+        fail(f"{name}: {int(bad.sum())} elements beyond {what}, "
              f"max abs err {float(diff.max()):.3e}")
     return {"max_abs_err": float(diff.max()), "mean_abs_ref": float(want.abs().mean()),
             "max_abs_ref": float(want.abs().max()),
             "bound_used": float((diff / bound).max())}
 
 
-def attention_inputs(b: int, t: int, dtype: torch.dtype, seed: int):
+def attention_inputs(b: int, t: int, dtype: torch.dtype, seed: int, d: int = D):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (torch.randn((b, t, H, D), generator=g, device="cuda").to(dtype)
+    q, k, v, do = (torch.randn((b, t, H, d), generator=g, device="cuda").to(dtype)
                    for _ in range(4))
     dlse = torch.randn((b, H, t), generator=g, device="cuda")
     lengths = np.random.default_rng(seed).integers(t // 2, t + 1, size=b)
@@ -158,74 +178,120 @@ def attention_inputs(b: int, t: int, dtype: torch.dtype, seed: int):
     return q, k, v, mask, do, dlse
 
 
-def plain_grads(fa, q, k, v, mask, do, dlse) -> list[torch.Tensor]:
-    """dq, dk, dv of (out, lse) under cotangents (do, dlse), by the plain
-    version in f32. f32: autograd through it. bf16: the kernels' contract
+def plain_grads(fa, q, k, v, mask, do, dlse, out) -> tuple:
+    """``([dq, dk, dv], lse, delta)`` of (out, lse) under cotangents (do,
+    dlse), by the plain version in f32. f32: autograd through it (no lse or
+    delta returned). bf16: the kernels' contract
     hands out O in bf16 and the backward reads delta = rowsum(dO O) - dlse
-    from that O (as the JAX ``_bwd_call`` does), which moves dq and dk by up
-    to ~1e-3 against autograd's f32 O; so the plain backward is run on the
-    plain forward's bf16 O, in f32 otherwise."""
+    from that O (as the JAX ``_bwd_call`` does); the tensor-core forward's O
+    differs from the plain one's by its rounding of P, which would move dq
+    and dk through delta by more than the kernels' own error. So the plain
+    backward reads delta from ``out``, the O the kernel path handed out, and
+    is in f32 otherwise."""
     if q.dtype == torch.float32:
         leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
         o, lse = fa.flash_attention_reference(*leaves, mask)
         torch.autograd.backward([o, lse], [do, dlse])
-        return [x.grad for x in leaves]
+        return [x.grad for x in leaves], None, None
     with torch.no_grad():
-        o, lse = fa.flash_attention_reference(q, k, v, mask)  # o in q.dtype
-        delta = fa.backward_delta(do, o, dlse)
+        _, lse = fa.flash_attention_reference(q, k, v, mask)
+        delta = fa.backward_delta(do, out, dlse)
         qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
         return [fa.flash_bwd_dq_reference(qf, kf, vf, mask, dof, lse, delta),
-                *fa.flash_bwd_dkv_reference(qf, kf, vf, mask, dof, lse, delta)]
+                *fa.flash_bwd_dkv_reference(qf, kf, vf, mask, dof, lse, delta)], lse, delta
 
 
 def kernel_checks(fa, b: int, t: int, dtype: torch.dtype, seed: int,
-                  autograd_check: bool) -> dict:
+                  autograd_check: bool, d: int = D) -> dict:
     """Each kernel against its plain version on the same inputs; returns the
-    max abs errors and prints them with the size of the values held."""
+    max abs errors and prints them with the size of the values held and the
+    share of each bound used. On the tensor-core route the first slice's
+    CUDA-core forward and dK/dV (which bf16 at other head dims still takes)
+    are held to TOL on the same inputs too."""
     tol = TOL[dtype]
     g_atol, g_rtol = tol["grad"]
-    q, k, v, mask, do, dlse = attention_inputs(b, t, dtype, seed)
-    tag = f"{str(dtype).split('.')[-1]} B={b} T={t}"
+    q, k, v, mask, do, dlse = attention_inputs(b, t, dtype, seed, d)
+    tensor_cores = fa.wgmma_route(q)
+    tag = f"{str(dtype).split('.')[-1]} B={b} T={t}" + (f" d={d}" if d != D else "")
+
+    def bounds(*args):
+        """out, dk, dv bounds: the derived ones on the tensor-core route."""
+        if not tensor_cores:
+            return None
+        return fa.bf16_operand_bounds(*args, atol=tol["out"][0], rtol=tol["out"][1])
+
+    def held(name, got, want, bnd, key, atol, rtol):
+        if bnd is None:
+            return check_stats(name, got, want, atol, rtol)
+        return check_bound(name, got, want, bnd[key])
+
     with torch.no_grad():
+        qf, kf, vf, dof = (x.float() for x in (q, k, v, do))
         out, lse = fa.flash_fwd(q, k, v, mask)
-        ref_out, ref_lse = fa.flash_attention_reference(q.float(), k.float(),
-                                                        v.float(), mask)
+        ref_out, ref_lse = fa.flash_attention_reference(qf, kf, vf, mask)
         if not torch.all(out[-1] == 0):
             fail(f"{tag}: a row with no real key must give out = 0")
-        stats = {"out": check_stats(f"fwd out {tag}", out, ref_out, *tol["out"]),
+        stats = {"out": held(f"fwd out {tag}", out, ref_out, bounds(qf, kf, vf, mask),
+                             "out", *tol["out"]),
                  "lse": check_stats(f"fwd lse {tag}", lse, ref_lse, *tol["lse"])}
-        del ref_out, ref_lse
         delta = fa.backward_delta(do, out, dlse)
+        if tensor_cores:
+            core_fwd, core_dkv, core = cuda_core_launchers(fa, q, k, v, mask, do, lse, delta)
+            core_fwd()
+            stats["cuda_core_out"] = check_stats(f"CUDA-core fwd out {tag}", core["out"],
+                                                 ref_out, *tol["out"])
+            stats["cuda_core_lse"] = check_stats(f"CUDA-core fwd lse {tag}", core["lse"],
+                                                 ref_lse, *tol["lse"])
+        del ref_out, ref_lse
         dq = fa.flash_bwd_dq(q, k, v, mask, do, lse, delta)
-        ref = fa.flash_bwd_dq_reference(q.float(), k.float(), v.float(), mask,
-                                        do.float(), lse, delta)
+        ref = fa.flash_bwd_dq_reference(qf, kf, vf, mask, dof, lse, delta)
         stats["dq"] = check_stats(f"dq {tag}", dq, ref, g_atol, g_rtol)
         del ref
         dk, dv = fa.flash_bwd_dkv(q, k, v, mask, do, lse, delta)
-        ref_dk, ref_dv = fa.flash_bwd_dkv_reference(q.float(), k.float(), v.float(),
-                                                    mask, do.float(), lse, delta)
-        stats["dk"] = check_stats(f"dk {tag}", dk, ref_dk, g_atol, g_rtol)
-        stats["dv"] = check_stats(f"dv {tag}", dv, ref_dv, g_atol, g_rtol)
-        del ref_dk, ref_dv, dq, dk, dv
+        ref_dk, ref_dv = fa.flash_bwd_dkv_reference(qf, kf, vf, mask, dof, lse, delta)
+        bnd = bounds(qf, kf, vf, mask, dof, lse, delta)
+        stats["dk"] = held(f"dk {tag}", dk, ref_dk, bnd, "dk", g_atol, g_rtol)
+        stats["dv"] = held(f"dv {tag}", dv, ref_dv, bnd, "dv", g_atol, g_rtol)
+        if tensor_cores:
+            core_dkv()
+            stats["cuda_core_dk"] = check_stats(f"CUDA-core dk {tag}", core["dk"], ref_dk,
+                                                g_atol, g_rtol)
+            stats["cuda_core_dv"] = check_stats(f"CUDA-core dv {tag}", core["dv"], ref_dv,
+                                                g_atol, g_rtol)
+            del core
+        del ref_dk, ref_dv, dq, dk, dv, bnd
     if autograd_check:
         # the autograd.Function end to end (forward kernel, delta, both
         # backward kernels) against the plain version's gradients
         leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
         o, l_ = fa._FlashAttention.apply(*leaves, mask)
         torch.autograd.backward([o.float(), l_], [do.float(), dlse])
-        grads = [[x.grad for x in leaves], plain_grads(fa, q, k, v, mask, do, dlse)]
+        got = [x.grad for x in leaves]
+        want, p_lse, p_delta = plain_grads(fa, q, k, v, mask, do, dlse, o.detach())
+        with torch.no_grad():
+            bnd = bounds(qf, kf, vf, mask, dof, p_lse, p_delta)
         del o, l_, leaves
-        for name, g, w in zip(("dq", "dk", "dv"), *grads):
-            stats[f"autograd_{name}"] = check_stats(f"autograd {name} {tag}", g, w,
-                                                    g_atol, g_rtol)
-        del grads
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            stats[f"autograd_{name}"] = (
+                check_stats(f"autograd {name} {tag}", g, w, g_atol, g_rtol)
+                if name == "dq" else held(f"autograd {name} {tag}", g, w, bnd, name,
+                                          g_atol, g_rtol))
+        del got, want, bnd
     worst = lambda *names: max(stats[n]["max_abs_err"] for n in names)  # noqa: E731
     err = {"flash_fwd": worst("out", "lse"), "flash_bwd_dq": worst("dq"),
            "flash_bwd_dkv": worst("dk", "dv")}
-    print(json.dumps({"check": tag, "max_abs_err": err, "stats": stats,
-                      "tolerance": {name: list(b) for name, b in tol.items()}}))
+    share = {n: max(stats[x]["bound_used"] for x in xs) for n, xs in
+             (("flash_fwd", ("out", "lse")), ("flash_bwd_dq", ("dq",)),
+              ("flash_bwd_dkv", ("dk", "dv")))}
+    if tensor_cores:
+        err["cuda_core"] = {"flash_fwd": worst("cuda_core_out", "cuda_core_lse"),
+                            "flash_bwd_dkv": worst("cuda_core_dk", "cuda_core_dv")}
+    print(json.dumps({"check": tag, "tensor_cores": tensor_cores, "max_abs_err": err,
+                      "bound_used": share, "stats": stats,
+                      "tolerance": {name: list(b) for name, b in tol.items()},
+                      "derived_bounds": ["out", "dk", "dv"] if tensor_cores else []}))
     torch.cuda.empty_cache()
-    return err
+    return {"max_abs_err": err, "bound_used": share}
 
 
 def bound_ms(ops: float, nbytes: float, dtype: torch.dtype) -> tuple[float, str]:
@@ -233,8 +299,33 @@ def bound_ms(ops: float, nbytes: float, dtype: torch.dtype) -> tuple[float, str]
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def cuda_core_launchers(fa, q, k, v, mask, do, lse, delta):
+    """The first slice's CUDA-core forward and dK/dV kernels on the same
+    inputs (the route bf16 at D=64 took before the tensor-core kernels),
+    launched through the extension directly, to check and time beside them:
+    ``(fwd, dkv, outputs)``, where each launch writes ``outputs``' out and
+    lse, or dk and dv."""
+    ext, (b, t, h, d) = fa.build_extension(), q.shape
+    bf16, stream = q.dtype == torch.bfloat16, torch.cuda.current_stream().cuda_stream
+    out, lse_out = torch.empty_like(q), torch.empty_like(lse)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    ptrs = [x.data_ptr() for x in (q, k, v, mask)]
+
+    def fwd():
+        if ext.fwd(*ptrs, out.data_ptr(), lse_out.data_ptr(), b, t, h, d, d ** -0.5,
+                   bf16, stream):
+            fail("CUDA-core forward launch failed")
+
+    def dkv():
+        if ext.bwd_dkv(*ptrs, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                       dk.data_ptr(), dv.data_ptr(), b, t, h, d, d ** -0.5, bf16, stream):
+            fail("CUDA-core dK/dV launch failed")
+    return fwd, dkv, {"out": out, "lse": lse_out, "dk": dk, "dv": dv}
+
+
 def kernel_timings(fa, dtype: torch.dtype) -> dict:
-    """Kernel, plain version and SDPA times at the main path's shapes."""
+    """Kernel, plain version and SDPA times at the main path's shapes, and
+    the first slice's CUDA-core forward and dK/dV on the same inputs."""
     q, k, v, mask, do, dlse = attention_inputs(B, T, dtype, seed=11)
     es = q.element_size()
     n, rows = q.numel(), B * H * T
@@ -246,12 +337,14 @@ def kernel_timings(fa, dtype: torch.dtype) -> dict:
         delta = fa.backward_delta(do, out, dlse)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         key_ok = (mask > 0)[:, None, None, :]
+        core_fwd, core_dkv, _ = cuda_core_launchers(fa, q, k, v, mask, do, lse, delta)
         res = {
             "flash_fwd": dict(
                 ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, mask)),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_reference(q, k, v, mask), reps=3),
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, attn_mask=key_ok)),
+                cuda_core_ms=cuda_ms(core_fwd),
                 bound=bound_ms(4 * D * pairs, 4 * n * es + small, dtype)),
             "flash_bwd_dq": dict(
                 ms=cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, mask, do, lse, delta)),
@@ -264,6 +357,7 @@ def kernel_timings(fa, dtype: torch.dtype) -> dict:
                 plain_ms=cuda_ms(lambda: fa.flash_bwd_dkv_reference(
                     q, k, v, mask, do, lse, delta), reps=3),
                 library_ms=None,  # nor dK and dV alone
+                cuda_core_ms=cuda_ms(core_dkv),
                 bound=bound_ms(8 * D * pairs, 6 * n * es + small + rows * 4, dtype)),
         }
     # SDPA's backward computes dQ, dK and dV in one call: a yardstick for
@@ -285,7 +379,7 @@ def kernel_timings(fa, dtype: torch.dtype) -> dict:
     return res
 
 
-def build_sim(modules, datasets, dtype, device, seed):
+def build_sim(modules, datasets, dtype, device, seed, attention_fn=None):
     from fl4health_tpu_torch import optim
     from fl4health_tpu_torch.clients import engine
     from fl4health_tpu_torch.kernels.flash_attention import flash_attention
@@ -297,7 +391,7 @@ def build_sim(modules, datasets, dtype, device, seed):
 
     module = TransformerClassifier(
         **modules, dtype=dtype, remat=True,
-        attention_fn=flash_attention)
+        attention_fn=attention_fn or flash_attention)
     return FederatedSimulation(
         logic=engine.ClientLogic(engine.from_module(module), engine.masked_cross_entropy),
         tx=optim.sgd(0.05), strategy=FedAvg(), datasets=datasets, batch_size=BATCH,
@@ -344,6 +438,58 @@ def tiny_parity() -> None:
                       "max_param_abs_err": err}))
 
 
+def bf16_model_check(fa) -> dict:
+    """The tiny transformer at head dim 64 in bf16 compute, 2 rounds on the
+    card through the kernels (tensor-core forward and dK/dV) and through the
+    plain version, and the plain version in f32 compute, all from the same
+    params: the kernels may move the losses and the params by no more than
+    bf16 compute moves the plain run."""
+    cfg = dict(vocab_size=64, n_classes=4, d_model=128, n_heads=2, n_layers=2,
+               d_ff=256, max_len=80)
+    data = text_datasets(64, 80, 48, 40)
+
+    def plain(q, k, v, pad_mask=None):
+        return fa.flash_attention_reference(q, k, v, pad_mask)[0]
+
+    runs, init = {}, None
+    for name, dtype, attn in (("kernels_bf16", torch.bfloat16, None),
+                              ("plain_bf16", torch.bfloat16, plain),
+                              ("plain_f32", torch.float32, plain)):
+        sim = build_sim(cfg, data, dtype, "cuda", seed=3, attention_fn=attn)
+        if init is None:
+            init = {k: v.clone() for k, v in sim.global_params.items()}
+        sim.set_global_params({k: v.clone() for k, v in init.items()})
+        fa.reset_launch_counts()
+        hist = sim.fit(2)
+        torch.cuda.synchronize()
+        losses = torch.tensor([x for r in hist for x in (r.fit_losses["backward"],
+                                                         r.eval_losses["checkpoint"])])
+        runs[name] = (losses, sim.global_params, dict(fa.WGMMA_LAUNCHES))
+    if min(runs["kernels_bf16"][2].values()) == 0:
+        fail(f"bf16 model check: the tensor-core kernels never ran {runs['kernels_bf16'][2]}")
+    if max(runs["plain_bf16"][2].values()) != 0:
+        fail("bf16 model check: the plain run launched kernels")
+
+    def gap(a, b):
+        la, pa, _ = runs[a]
+        lb, pb, _ = runs[b]
+        return (float((la - lb).abs().max()),
+                max(float((pa[k] - pb[k]).abs().max()) for k in pa))
+    kernels, bf16 = gap("kernels_bf16", "plain_bf16"), gap("plain_bf16", "plain_f32")
+    res = {"bf16_model_check": "tiny transformer, head dim 64, 2 rounds",
+           "kernels_vs_plain_bf16": {"loss": kernels[0], "param": kernels[1]},
+           "plain_bf16_vs_plain_f32": {"loss": bf16[0], "param": bf16[1]},
+           "losses": {k: v[0].tolist() for k, v in runs.items()},
+           "wgmma_launches": runs["kernels_bf16"][2]}
+    print(json.dumps(res))
+    if not all(np.isfinite(runs[k][0].numpy()).all() for k in runs):
+        fail("bf16 model check: non-finite losses")
+    if kernels[0] > bf16[0] or kernels[1] > bf16[1]:
+        fail(f"bf16 model check: the kernels move (loss, param) by {kernels}, "
+             f"more than bf16 compute does {bf16}")
+    return res
+
+
 def main_path(fa) -> dict:
     """Full-width transformer_long federated training, bf16 compute."""
     cfg = dict(vocab_size=8192, n_classes=4, d_model=512, n_heads=8, n_layers=4,
@@ -358,7 +504,7 @@ def main_path(fa) -> dict:
     hist = sim.fit(ROUNDS)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = dict(fa.LAUNCHES)
+    launches, wgmma = dict(fa.LAUNCHES), dict(fa.WGMMA_LAUNCHES)
     positions = N_CLIENTS * LOCAL_STEPS * BATCH * T
     real = sum(int((d.x_train > 0).sum()) for d in data)  # one pass over each client's rows
     for r in hist:
@@ -386,9 +532,12 @@ def main_path(fa) -> dict:
                       "n_params": sum(v.numel() for v in init.values()),
                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                       "max_param_change": moved, "launches": launches,
-                      "expected_launches": expected}))
+                      "expected_launches": expected, "wgmma_launches": wgmma}))
     if launches != expected:
         fail(f"main-path launches {launches}, expected {expected}")
+    # bf16 at head dim 64: every forward and dK/dV launch took the tensor cores
+    if wgmma != {n: launches[n] for n in wgmma}:
+        fail(f"main-path tensor-core launches {wgmma}, expected all of {launches}")
     return launches
 
 
@@ -644,8 +793,12 @@ def main() -> int:
         errs[dtype] = kernel_checks(fa, B, T, dtype, seed=1,
                                     autograd_check=dtype == torch.float32)
         kernel_checks(fa, 4, RAGGED_T, dtype, seed=2, autograd_check=True)
+    # bf16 at head dim 12 (24-byte rows, no TMA stride): the CUDA-core route
+    # through the wrapper and autograd
+    kernel_checks(fa, 4, RAGGED_T, torch.bfloat16, seed=3, autograd_check=True, d=12)
     timings = kernel_timings(fa, torch.bfloat16)
     tiny_parity()
+    bf16_model_check(fa)
     launches = main_path(fa)
 
     dp_errs = {dtype: dp_kernel_checks(dp, dtype)
@@ -657,16 +810,25 @@ def main() -> int:
     replaces = {"flash_fwd": "fl4health_tpu/kernels/flash_attention.py:71",
                 "flash_bwd_dq": "fl4health_tpu/kernels/flash_attention.py:141",
                 "flash_bwd_dkv": "fl4health_tpu/kernels/flash_attention.py:175"}
+    design = {"flash_fwd": "wgmma", "flash_bwd_dq": "f32 FMA (CUDA cores)",
+              "flash_bwd_dkv": "wgmma"}
     kernels = []
     for name, rep in replaces.items():
         t = timings[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": rep,
-            "launches": launches[name],
-            "max_abs_err": errs[torch.bfloat16][name],
-            "max_abs_err_f32": errs[torch.float32][name],
+            "name": name, "route": "cuda",
+            "source": WGMMA_SOURCE if design[name] == "wgmma" else SOURCE, "replaces": rep,
+            "design": design[name], "launches": launches[name],
+            "max_abs_err": errs[torch.bfloat16]["max_abs_err"][name],
+            "bound_used": errs[torch.bfloat16]["bound_used"][name],
+            "max_abs_err_f32": errs[torch.float32]["max_abs_err"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            # the first slice's CUDA-core kernel that this one replaces for
+            # bf16, timed here on the same inputs, and its error there
+            **({"cuda_core_ms": t["cuda_core_ms"], "cuda_core_max_abs_err":
+                errs[torch.bfloat16]["max_abs_err"]["cuda_core"][name]}
+               if "cuda_core_ms" in t else {}),
             # one SDPA backward call, which computes dQ, dK and dV together
             **({"library_dqkv_ms": t["library_dqkv_ms"]} if "library_dqkv_ms" in t else {}),
             "dtype": "bfloat16", "shape": [B, T, H, D]})

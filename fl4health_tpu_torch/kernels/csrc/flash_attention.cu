@@ -1,9 +1,14 @@
-// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels.
+// Flash attention for Hopper (sm_90a) on the CUDA cores: forward, dQ and
+// dK/dV kernels.
 //
 // Replaces the three Pallas kernels of fl4health_tpu/kernels/flash_attention.py:
 //   flash_fwd_kernel     <- _fwd_kernel     (online-softmax forward, writes O and lse)
 //   flash_bwd_dq_kernel  <- _bwd_dq_kernel  (dQ over query tiles, P recomputed from lse)
 //   flash_bwd_dkv_kernel <- _bwd_dkv_kernel (dK and dV over key tiles)
+// for f32 inputs (IEEE f32, as Precision.HIGHEST demands) and for bf16 inputs
+// outside the tensor-core route; dQ for every dtype. bf16 with a head dim the
+// route takes (d <= 64, 2d a multiple of 16 bytes) runs the forward and dK/dV
+// of flash_attention_wgmma.cu instead.
 //
 // Layout: q, k, v, o, dout, dq, dk, dv are [B, T, H, D] (row stride H*d), so the
 // wrapper needs no transpose; mask is [B, T] f32 (1 = real key); lse and delta
@@ -522,7 +527,5 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const float* mask
               : dkv_impl<float, 64>(q, k, v, mask, dout, lse, delta, dk, dv, B, T, H, d, scale,
                                     s);
 }
-
-const char* flash_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
 
 }  // extern "C"

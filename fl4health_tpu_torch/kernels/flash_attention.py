@@ -3,11 +3,20 @@ hand-written Hopper kernels for the forward pass and both backward passes.
 
 Counterpart of ``fl4health_tpu/kernels/flash_attention.py``. The three
 Pallas kernels there (``_fwd_kernel``, ``_bwd_dq_kernel``,
-``_bwd_dkv_kernel``) become CUDA kernels in ``csrc/flash_attention.cu``,
-built for ``sm_90a`` with ``torch.utils.cpp_extension.load`` at first use
-(never at import) into ``kernels/_build/``. ``_FlashAttention`` is the
-``torch.autograd.Function`` counterpart of ``_flash_padded_lse``: its
-forward launches the forward kernel, its backward the dQ and dK/dV kernels.
+``_bwd_dkv_kernel``) become CUDA kernels in ``csrc/``, built for ``sm_90a``
+with ``torch.utils.cpp_extension.load`` at first use (never at import) into
+``kernels/_build/``. ``_FlashAttention`` is the ``torch.autograd.Function``
+counterpart of ``_flash_padded_lse``: its forward launches the forward
+kernel, its backward the dQ and dK/dV kernels.
+
+Two routes, chosen by a shape rule (``wgmma_route``), never on failure:
+bf16 inputs whose head dim d is at most 64 with ``2 d`` bytes a multiple of
+16 (TMA's stride rule) run the forward and dK/dV on the tensor cores
+(``csrc/flash_attention_wgmma.cu``: bf16 ``wgmma`` over TMA-fed tiles, P and
+dS rounded to bf16 as operands, as the JAX kernel's ``Precision.DEFAULT``
+does on its chip; ``bf16_operand_bounds`` states what that may cost). f32
+inputs, other bf16 head dims and the dQ kernel run the IEEE-f32 CUDA-core
+kernels of ``csrc/flash_attention.cu``.
 
 Dispatch is on the tensor's device: a CUDA tensor launches the kernels (or
 raises), a CPU tensor runs ``flash_attention_reference``, the plain dense
@@ -19,8 +28,7 @@ Contract (same as the JAX function): q, k, v are ``[B, T, H, D]``;
 ``out`` is ``[B, T, H, D]`` in ``q.dtype`` and ``lse`` ``[B, H, T]`` f32 is a
 differentiable output. A query row with no real key gets ``out = 0`` and
 ``lse = -1e30 + log(1e-20)``: finite, not ``-inf``. f32 inputs are computed
-with IEEE f32 FMAs (no TF32, as the JAX kernel forces ``Precision.HIGHEST``);
-bf16 inputs are read as bf16 and computed in f32.
+with IEEE f32 FMAs (no TF32, as the JAX kernel forces ``Precision.HIGHEST``).
 """
 
 from __future__ import annotations
@@ -36,11 +44,17 @@ NEG_INF = -1e30
 # Kernel launches since the last reset: one per launch, counted by the wrapper
 # right after the launch succeeded (the plain version never counts).
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+# Of those, the launches that took the tensor-core route (``wgmma_route``).
+WGMMA_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0}
+
+# bf16 unit roundoff: one round-to-nearest to bf16 moves x by at most u |x|
+BF16_UNIT = 2.0 ** -8
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, WGMMA_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 @functools.cache
@@ -48,7 +62,16 @@ def build_extension():
     """Compile (or load from ``_build/``) the kernels for sm_90a. Needs
     ``nvcc``; called on the first CUDA launch."""
     return load_extension("flash_attention", ["flash_attention_binding.cpp",
-                                              "flash_attention.cu"])
+                                              "flash_attention.cu",
+                                              "flash_attention_wgmma.cu"])
+
+
+def wgmma_route(q: torch.Tensor) -> bool:
+    """The shape rule for the tensor-core forward and dK/dV kernels: bf16
+    with ``2 d`` a multiple of 16 bytes (a TMA stride must be). Everything
+    else takes the CUDA-core kernels; head dims above 64 are refused by
+    both routes."""
+    return q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0
 
 
 # ---------------------------------------------------------------------------
@@ -105,6 +128,43 @@ def flash_bwd_dkv_reference(q, k, v, mask, dout, lse, delta
     dk = torch.matmul(ds.transpose(-1, -2), qf).transpose(1, 2).to(k.dtype)
     dv = torch.matmul(p.transpose(-1, -2), dof).transpose(1, 2).to(v.dtype)
     return dk, dv
+
+
+def bf16_operand_bounds(q, k, v, mask, dout=None, lse=None, delta=None, *,
+                        atol: float, rtol: float, unit: float = BF16_UNIT
+                        ) -> dict[str, torch.Tensor]:
+    """Per-element bounds on |kernel - plain version| for the tensor-core
+    route, from the plain versions in f32 on the same inputs.
+
+    Each output gets ``atol + rtol |ref|`` (f32 summation order, and the one
+    rounding of the output to bf16; rtol is twice ``unit``) plus the cost of
+    the one bf16 rounding of the operand that the route rounds, each element
+    of which moves by at most ``unit`` times itself:
+
+    - ``out``: P is rounded before P V, so ``unit * sum_k p |v| / l``, which
+      is the plain forward on ``|v|``;
+    - ``dv``: P^T is rounded before P^T dO, so ``unit * P^T |dO|``, the
+      plain dK/dV on ``|dO|``;
+    - ``dk``: dS^T is rounded before dS^T Q, so ``unit * |dS|^T |Q|``.
+
+    Q K^T and dO V^T are products of bf16 values, exact in f32, so nothing
+    else is rounded. With ``unit = 0`` the bounds are the f32 bounds
+    ``atol + rtol |ref|``. ``dv`` and ``dk`` need ``dout``, ``lse`` and
+    ``delta``; lse and dQ keep the bounds of the CUDA-core route."""
+    qf, kf, vf = (x.float() for x in (q, k, v))
+    with torch.no_grad():
+        out, _ = flash_attention_reference(qf, kf, vf, mask)
+        out_abs, _ = flash_attention_reference(qf, kf, vf.abs(), mask)
+        bounds = {"out": atol + rtol * out.abs() + unit * out_abs}
+        if dout is not None:
+            dof = dout.float()
+            dk, dv = flash_bwd_dkv_reference(qf, kf, vf, mask, dof, lse, delta)
+            _, dv_abs = flash_bwd_dkv_reference(qf, kf, vf, mask, dof.abs(), lse, delta)
+            qh, _, _, _, ds = _bwd_reference_terms(qf, kf, vf, mask, dof, lse, delta)
+            dk_abs = torch.matmul(ds.abs().transpose(-1, -2), qh.abs()).transpose(1, 2)
+            bounds["dv"] = atol + rtol * dv.abs() + unit * dv_abs
+            bounds["dk"] = atol + rtol * dk.abs() + unit * dk_abs
+    return bounds
 
 
 # ---------------------------------------------------------------------------
@@ -164,12 +224,16 @@ def flash_fwd(q, k, v, mask) -> tuple[torch.Tensor, torch.Tensor]:
     b, t, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    err = build_extension().fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, t, h, d, 1.0 / d ** 0.5,
-        q.dtype == torch.bfloat16, _stream(q))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), b, t, h, d, 1.0 / d ** 0.5)
+    tensor_cores = wgmma_route(q)
+    if tensor_cores:
+        err = build_extension().fwd_wgmma(*ptrs, _stream(q))
+    else:
+        err = build_extension().fwd(*ptrs, q.dtype == torch.bfloat16, _stream(q))
     _raise_on(err, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
+    WGMMA_LAUNCHES["flash_fwd"] += tensor_cores
     return out, lse
 
 
@@ -195,13 +259,17 @@ def flash_bwd_dkv(q, k, v, mask, dout, lse, delta
     _check_backward_inputs(q, dout, lse, delta)
     b, t, h, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = build_extension().bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, t, h, d, 1.0 / d ** 0.5, q.dtype == torch.bfloat16,
-        _stream(q))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, t, h, d, 1.0 / d ** 0.5)
+    tensor_cores = wgmma_route(q)
+    if tensor_cores:
+        err = build_extension().bwd_dkv_wgmma(*ptrs, _stream(q))
+    else:
+        err = build_extension().bwd_dkv(*ptrs, q.dtype == torch.bfloat16, _stream(q))
     _raise_on(err, "flash_bwd_dkv")
     LAUNCHES["flash_bwd_dkv"] += 1
+    WGMMA_LAUNCHES["flash_bwd_dkv"] += tensor_cores
     return dk, dv
 
 
