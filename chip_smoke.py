@@ -10,15 +10,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      versions at the main path's shapes (B=32, T=2048, H=8, D=64, ragged pad
      masks, one batch element with no real key) in f32 and bf16, and at a T
      that is not a multiple of the 64-row tile. bf16 at D=64 takes the
-     tensor-core forward and dK/dV (wgmma): out, dK and dV are held to the
-     derived bounds of ``bf16_operand_bounds``, lse and dQ to TOL below;
-     each check prints the share of its bound used. The first slice's
-     CUDA-core bf16 forward and dK/dV are held to TOL on the same inputs,
-     and bf16 at head dim 12 runs them through the wrapper and autograd at
-     the ragged T. Time each kernel,
+     tensor-core kernels (wgmma): out, dQ, dK and dV are held to the derived
+     bounds of ``bf16_operand_bounds``, lse to TOL below, and a second dQ
+     launch must be bit-identical; each check prints the share of its
+     bound used. The first slice's CUDA-core bf16 kernels
+     are held to TOL on the same inputs, and bf16 at head dim 12 runs them
+     through the wrapper and autograd at the ragged T. Time each kernel,
      its plain version, F.scaled_dot_product_attention (a yardstick the port
-     never calls) and, for the forward and dK/dV, the CUDA-core kernel of the
-     first slice on the same bf16 inputs, with CUDA events.
+     never calls) and the CUDA-core kernel of the first slice on the same
+     bf16 inputs, with CUDA events.
   4. A tiny federated run on the card (kernels) against the same run on the
      CPU (plain version): per-round losses and final params within 5e-4.
      Then the same tiny transformer (head dim 64) in bf16 compute for 2
@@ -29,12 +29,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      at full width (vocab 8192, d_model 512, 8 heads, 4 layers, d_ff 2048,
      T 2048, remat, bf16 compute / f32 params) for 2 FedAvg rounds of
      2 clients x 5 local SGD steps of batch 32, with the launch counts set to 0
-     just before and read just after.
+     just before and read just after: every launch must take the tensor
+     cores.
   6. Hold the DP clip kernels (K1 squared norms, K2 scaled sum, and the fused
      clip over a tree) against their plain versions at the DP path's largest
      leaf [32, 524288], over the whole CifarNet per-example tree and at a
-     ragged [7, 1000], in f32 and bf16; time K1 and K2 at the largest leaf and
-     over the tree, beside their plain versions and one library call each.
+     ragged [7, 1000], in f32 and bf16 (K2 splits its rows over threads on
+     the tree's narrow leaves; a second K2 launch must be bit-identical);
+     time K1 and K2 at the largest leaf and over
+     the tree, beside their plain versions and one library call each.
   7. A tiny DP federated run on the card (kernels) against the same run on
      the CPU (plain versions), noise_multiplier 0: within 5e-4.
   8. The DP path: DP-FedAvg of CifarNet at full width (64 clients of 160
@@ -69,10 +72,10 @@ N_CLIENTS, BATCH, LOCAL_STEPS, ROUNDS = 2, 32, 5, 2
 # out) against the plain version in f32 on the same bf16-rounded inputs: they
 # differ by the one bf16 rounding of out, dq, dk and dv (at most 2^-8
 # relative; rtol is twice that) plus f32 summation noise (about 1e-6 here;
-# atol is 100 times that). The tensor-core forward and dK/dV also round P and
-# dS to bf16 as operands: out, dk and dv add the term of
+# atol is 100 times that). The tensor-core kernels also round P and dS to
+# bf16 as operands: out, dq, dk and dv add the term of
 # ``bf16_operand_bounds`` for that rounding to these. lse stays f32 in the
-# kernels, so it keeps the f32 bound; dQ is still computed in f32.
+# kernels, so it keeps the f32 bound.
 TOL = {
     torch.float32: {"out": (2e-5, 1e-4), "lse": (2e-5, 1e-4), "grad": (5e-4, 1e-4)},
     torch.bfloat16: {"out": (1e-4, 2**-7), "lse": (2e-5, 1e-4), "grad": (1e-4, 2**-7)},
@@ -206,8 +209,8 @@ def kernel_checks(fa, b: int, t: int, dtype: torch.dtype, seed: int,
     """Each kernel against its plain version on the same inputs; returns the
     max abs errors and prints them with the size of the values held and the
     share of each bound used. On the tensor-core route the first slice's
-    CUDA-core forward and dK/dV (which bf16 at other head dims still takes)
-    are held to TOL on the same inputs too."""
+    CUDA-core forward, dQ and dK/dV (which bf16 at other head dims still
+    takes) are held to TOL on the same inputs too."""
     tol = TOL[dtype]
     g_atol, g_rtol = tol["grad"]
     q, k, v, mask, do, dlse = attention_inputs(b, t, dtype, seed, d)
@@ -215,7 +218,7 @@ def kernel_checks(fa, b: int, t: int, dtype: torch.dtype, seed: int,
     tag = f"{str(dtype).split('.')[-1]} B={b} T={t}" + (f" d={d}" if d != D else "")
 
     def bounds(*args):
-        """out, dk, dv bounds: the derived ones on the tensor-core route."""
+        """out, dq, dk, dv bounds: the derived ones on the tensor-core route."""
         if not tensor_cores:
             return None
         return fa.bf16_operand_bounds(*args, atol=tol["out"][0], rtol=tol["out"][1])
@@ -236,20 +239,28 @@ def kernel_checks(fa, b: int, t: int, dtype: torch.dtype, seed: int,
                  "lse": check_stats(f"fwd lse {tag}", lse, ref_lse, *tol["lse"])}
         delta = fa.backward_delta(do, out, dlse)
         if tensor_cores:
-            core_fwd, core_dkv, core = cuda_core_launchers(fa, q, k, v, mask, do, lse, delta)
+            core_fwd, core_dq, core_dkv, core = cuda_core_launchers(fa, q, k, v, mask, do,
+                                                                    lse, delta)
             core_fwd()
             stats["cuda_core_out"] = check_stats(f"CUDA-core fwd out {tag}", core["out"],
                                                  ref_out, *tol["out"])
             stats["cuda_core_lse"] = check_stats(f"CUDA-core fwd lse {tag}", core["lse"],
                                                  ref_lse, *tol["lse"])
         del ref_out, ref_lse
+        bnd = bounds(qf, kf, vf, mask, dof, lse, delta)
         dq = fa.flash_bwd_dq(q, k, v, mask, do, lse, delta)
         ref = fa.flash_bwd_dq_reference(qf, kf, vf, mask, dof, lse, delta)
-        stats["dq"] = check_stats(f"dq {tag}", dq, ref, g_atol, g_rtol)
+        stats["dq"] = held(f"dq {tag}", dq, ref, bnd, "dq", g_atol, g_rtol)
+        if tensor_cores:
+            # no atomics and each row written once: a second launch is bit-identical
+            if not torch.equal(dq, fa.flash_bwd_dq(q, k, v, mask, do, lse, delta)):
+                fail(f"dq {tag}: a second launch differs from the first")
+            core_dq()
+            stats["cuda_core_dq"] = check_stats(f"CUDA-core dq {tag}", core["dq"], ref,
+                                                g_atol, g_rtol)
         del ref
         dk, dv = fa.flash_bwd_dkv(q, k, v, mask, do, lse, delta)
         ref_dk, ref_dv = fa.flash_bwd_dkv_reference(qf, kf, vf, mask, dof, lse, delta)
-        bnd = bounds(qf, kf, vf, mask, dof, lse, delta)
         stats["dk"] = held(f"dk {tag}", dk, ref_dk, bnd, "dk", g_atol, g_rtol)
         stats["dv"] = held(f"dv {tag}", dv, ref_dv, bnd, "dv", g_atol, g_rtol)
         if tensor_cores:
@@ -272,10 +283,8 @@ def kernel_checks(fa, b: int, t: int, dtype: torch.dtype, seed: int,
             bnd = bounds(qf, kf, vf, mask, dof, p_lse, p_delta)
         del o, l_, leaves
         for name, g, w in zip(("dq", "dk", "dv"), got, want):
-            stats[f"autograd_{name}"] = (
-                check_stats(f"autograd {name} {tag}", g, w, g_atol, g_rtol)
-                if name == "dq" else held(f"autograd {name} {tag}", g, w, bnd, name,
-                                          g_atol, g_rtol))
+            stats[f"autograd_{name}"] = held(f"autograd {name} {tag}", g, w, bnd, name,
+                                             g_atol, g_rtol)
         del got, want, bnd
     worst = lambda *names: max(stats[n]["max_abs_err"] for n in names)  # noqa: E731
     err = {"flash_fwd": worst("out", "lse"), "flash_bwd_dq": worst("dq"),
@@ -285,11 +294,12 @@ def kernel_checks(fa, b: int, t: int, dtype: torch.dtype, seed: int,
               ("flash_bwd_dkv", ("dk", "dv")))}
     if tensor_cores:
         err["cuda_core"] = {"flash_fwd": worst("cuda_core_out", "cuda_core_lse"),
+                            "flash_bwd_dq": worst("cuda_core_dq"),
                             "flash_bwd_dkv": worst("cuda_core_dk", "cuda_core_dv")}
     print(json.dumps({"check": tag, "tensor_cores": tensor_cores, "max_abs_err": err,
                       "bound_used": share, "stats": stats,
                       "tolerance": {name: list(b) for name, b in tol.items()},
-                      "derived_bounds": ["out", "dk", "dv"] if tensor_cores else []}))
+                      "derived_bounds": ["out", "dq", "dk", "dv"] if tensor_cores else []}))
     torch.cuda.empty_cache()
     return {"max_abs_err": err, "bound_used": share}
 
@@ -300,32 +310,37 @@ def bound_ms(ops: float, nbytes: float, dtype: torch.dtype) -> tuple[float, str]
 
 
 def cuda_core_launchers(fa, q, k, v, mask, do, lse, delta):
-    """The first slice's CUDA-core forward and dK/dV kernels on the same
+    """The first slice's CUDA-core forward, dQ and dK/dV kernels on the same
     inputs (the route bf16 at D=64 took before the tensor-core kernels),
     launched through the extension directly, to check and time beside them:
-    ``(fwd, dkv, outputs)``, where each launch writes ``outputs``' out and
-    lse, or dk and dv."""
+    ``(fwd, dq, dkv, outputs)``, where each launch writes ``outputs``' out
+    and lse, dq, or dk and dv."""
     ext, (b, t, h, d) = fa.build_extension(), q.shape
     bf16, stream = q.dtype == torch.bfloat16, torch.cuda.current_stream().cuda_stream
     out, lse_out = torch.empty_like(q), torch.empty_like(lse)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ptrs = [x.data_ptr() for x in (q, k, v, mask)]
+    bwd = [do.data_ptr(), lse.data_ptr(), delta.data_ptr()]
 
     def fwd():
         if ext.fwd(*ptrs, out.data_ptr(), lse_out.data_ptr(), b, t, h, d, d ** -0.5,
                    bf16, stream):
             fail("CUDA-core forward launch failed")
 
+    def bwd_dq():
+        if ext.bwd_dq(*ptrs, *bwd, dq.data_ptr(), b, t, h, d, d ** -0.5, bf16, stream):
+            fail("CUDA-core dQ launch failed")
+
     def dkv():
-        if ext.bwd_dkv(*ptrs, do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                       dk.data_ptr(), dv.data_ptr(), b, t, h, d, d ** -0.5, bf16, stream):
+        if ext.bwd_dkv(*ptrs, *bwd, dk.data_ptr(), dv.data_ptr(), b, t, h, d, d ** -0.5,
+                       bf16, stream):
             fail("CUDA-core dK/dV launch failed")
-    return fwd, dkv, {"out": out, "lse": lse_out, "dk": dk, "dv": dv}
+    return fwd, bwd_dq, dkv, {"out": out, "lse": lse_out, "dq": dq, "dk": dk, "dv": dv}
 
 
 def kernel_timings(fa, dtype: torch.dtype) -> dict:
     """Kernel, plain version and SDPA times at the main path's shapes, and
-    the first slice's CUDA-core forward and dK/dV on the same inputs."""
+    the first slice's CUDA-core kernels on the same inputs."""
     q, k, v, mask, do, dlse = attention_inputs(B, T, dtype, seed=11)
     es = q.element_size()
     n, rows = q.numel(), B * H * T
@@ -337,7 +352,8 @@ def kernel_timings(fa, dtype: torch.dtype) -> dict:
         delta = fa.backward_delta(do, out, dlse)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         key_ok = (mask > 0)[:, None, None, :]
-        core_fwd, core_dkv, _ = cuda_core_launchers(fa, q, k, v, mask, do, lse, delta)
+        core_fwd, core_dq, core_dkv, _ = cuda_core_launchers(fa, q, k, v, mask, do, lse,
+                                                             delta)
         res = {
             "flash_fwd": dict(
                 ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, mask)),
@@ -351,6 +367,7 @@ def kernel_timings(fa, dtype: torch.dtype) -> dict:
                 plain_ms=cuda_ms(lambda: fa.flash_bwd_dq_reference(
                     q, k, v, mask, do, lse, delta), reps=3),
                 library_ms=None,  # no library call computes dQ alone
+                cuda_core_ms=cuda_ms(core_dq),
                 bound=bound_ms(6 * D * pairs, 5 * n * es + small + rows * 4, dtype)),
             "flash_bwd_dkv": dict(
                 ms=cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, mask, do, lse, delta)),
@@ -535,8 +552,8 @@ def main_path(fa) -> dict:
                       "expected_launches": expected, "wgmma_launches": wgmma}))
     if launches != expected:
         fail(f"main-path launches {launches}, expected {expected}")
-    # bf16 at head dim 64: every forward and dK/dV launch took the tensor cores
-    if wgmma != {n: launches[n] for n in wgmma}:
+    # bf16 at head dim 64: every launch of all three kernels took the tensor cores
+    if wgmma != launches:
         fail(f"main-path tensor-core launches {wgmma}, expected all of {launches}")
     return launches
 
@@ -586,9 +603,13 @@ def dp_kernel_checks(dp, dtype: torch.dtype) -> dict:
                 stats[f"dp_sq_norms {name}"] = check_stats(
                     f"dp_sq_norms {name}", dp.sq_norms_kernel(m),
                     dp.per_example_sq_norms_reference(m), *DP_TOL["dp_sq_norms"])
+                got = dp.scaled_sum_kernel(m, scale)
                 stats[f"dp_scaled_sum {name}"] = check_stats(
-                    f"dp_scaled_sum {name}", dp.scaled_sum_kernel(m, scale),
+                    f"dp_scaled_sum {name}", got,
                     dp.scaled_masked_sum_reference(m, scale), *DP_TOL["dp_scaled_sum"])
+                # a fixed order on both routes: a second launch is bit-identical
+                if not torch.equal(got, dp.scaled_sum_kernel(m, scale)):
+                    fail(f"dp_scaled_sum {name}: a second launch differs from the first")
                 if case == "leaf":
                     at_leaf = {n: stats[f"{n} {name}"]["max_abs_err"]
                                for n in ("dp_sq_norms", "dp_scaled_sum")}
@@ -645,9 +666,12 @@ def dp_kernel_timings(dp) -> dict:
                     library_ms=time_it(lambda: [torch.mv(m.t(), scale) for m in mats]),
                     bound=bound_ms(2 * elems, k2_bytes, torch.float32)),
             }
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
         print(json.dumps({"timing": f"dp_clip {case} float32",
                           "shape": [BATCH, widths[0]] if case == "leaf" else
                           [BATCH, sum(widths)], "leaves": len(mats),
+                          # threads that share a column group in K2, per leaf
+                          "k2_split": [dp.scaled_sum_split(BATCH, w, 4, sms) for w in widths],
                           **{k: {kk: vv for kk, vv in r.items()}
                              for k, r in res[case].items()}}))
         del tree, mats
@@ -810,25 +834,22 @@ def main() -> int:
     replaces = {"flash_fwd": "fl4health_tpu/kernels/flash_attention.py:71",
                 "flash_bwd_dq": "fl4health_tpu/kernels/flash_attention.py:141",
                 "flash_bwd_dkv": "fl4health_tpu/kernels/flash_attention.py:175"}
-    design = {"flash_fwd": "wgmma", "flash_bwd_dq": "f32 FMA (CUDA cores)",
-              "flash_bwd_dkv": "wgmma"}
     kernels = []
     for name, rep in replaces.items():
         t = timings[name]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": WGMMA_SOURCE if design[name] == "wgmma" else SOURCE, "replaces": rep,
-            "design": design[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": WGMMA_SOURCE, "replaces": rep,
+            "design": "wgmma", "launches": launches[name],
             "max_abs_err": errs[torch.bfloat16]["max_abs_err"][name],
             "bound_used": errs[torch.bfloat16]["bound_used"][name],
             "max_abs_err_f32": errs[torch.float32]["max_abs_err"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             # the first slice's CUDA-core kernel that this one replaces for
-            # bf16, timed here on the same inputs, and its error there
-            **({"cuda_core_ms": t["cuda_core_ms"], "cuda_core_max_abs_err":
-                errs[torch.bfloat16]["max_abs_err"]["cuda_core"][name]}
-               if "cuda_core_ms" in t else {}),
+            # bf16 (f32 still takes it), timed here on the same inputs, and
+            # its error there
+            "cuda_core_source": SOURCE, "cuda_core_ms": t["cuda_core_ms"],
+            "cuda_core_max_abs_err": errs[torch.bfloat16]["max_abs_err"]["cuda_core"][name],
             # one SDPA backward call, which computes dQ, dK and dV together
             **({"library_dqkv_ms": t["library_dqkv_ms"]} if "library_dqkv_ms" in t else {}),
             "dtype": "bfloat16", "shape": [B, T, H, D]})

@@ -26,7 +26,13 @@
 //
 // K2 reduces over B, which is small (the DP batch): each thread owns one 16-byte
 // group of columns and loops over the B rows in order, so no CTA needs another's
-// result and the clipped [B, W] tensor is never written.
+// result and the clipped [B, W] tensor is never written. On a narrow leaf that
+// leaves the card idle: a bias of 32 f32 columns is 8 threads, and each
+// thread's time is a chain of B loads. There the wrapper asks for a row split
+// (`split` > 1, a shape rule on W, B and the SM count, never a fallback):
+// `split` threads share each column group, each sums its B / split rows in
+// order, and the partials meet in shared memory in a fixed tree, so the
+// result is still the same bit for bit from run to run.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,6 +41,7 @@ namespace {
 
 constexpr int NT = 256;        // threads per CTA
 constexpr int CHUNK = 8192;    // K1: columns per stage-1 CTA (a multiple of every pack)
+constexpr int MAX_SPLIT = 32;  // K2: most threads that share one column group
 
 // bf16 travels as its 16 bits; widening to f32 is a shift (exact).
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -158,6 +165,63 @@ __global__ void __launch_bounds__(NT)
   for (int k = 0; k < n; ++k) out[c0 + k] = acc[k];
 }
 
+// K2 with its rows split: `split` (a power of two up to MAX_SPLIT) threads
+// share each column group. Thread t is slice r = t / (NT / split) of group
+// t % (NT / split) of the CTA's NT / split groups (neighbouring threads read
+// neighbouring groups of one row), and sums rows [r * rows, (r + 1) * rows)
+// in order, rows = ceil(B / split). Slice r + half adds into slice r, for
+// half = split / 2, ..., 1: a fixed tree through shared memory.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(NT)
+    split_scaled_sum_kernel(const T* __restrict__ g, int64_t ld, int64_t W, int B,
+                            const float* __restrict__ scale, float* __restrict__ out,
+                            int split) {
+  constexpr int P = Pack<T>::N;
+  __shared__ float part[P][NT];  // [element][thread]: a warp's stores hit 32 banks
+  const int groups = NT / split, r = threadIdx.x / groups;
+  const int64_t c0 = ((int64_t)blockIdx.x * groups + threadIdx.x % groups) * P;
+  const int rows = (B + split - 1) / split, i0 = r * rows, i1 = min(B, i0 + rows);
+  float acc[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) acc[k] = 0.f;
+  const int n = c0 >= W ? 0 : (W - c0 < P ? (int)(W - c0) : P);
+  if (VEC && n == P) {
+#pragma unroll 4
+    for (int i = i0; i < i1; ++i) {
+      const float s = __ldg(scale + i);
+      float v[P];
+      unpack(__ldg(reinterpret_cast<const uint4*>(g + (int64_t)i * ld + c0)), v);
+#pragma unroll
+      for (int k = 0; k < P; ++k) acc[k] = fmaf(s, v[k], acc[k]);
+    }
+  } else {
+    for (int i = i0; i < i1; ++i) {
+      const float s = __ldg(scale + i);
+      const T* row = g + (int64_t)i * ld + c0;
+#pragma unroll
+      for (int k = 0; k < P; ++k)  // unrolled, so acc stays in registers
+        if (k < n) acc[k] = fmaf(s, to_f32(row[k]), acc[k]);
+    }
+  }
+  // every thread takes part in the tree, also one past W (its partial is 0)
+#pragma unroll
+  for (int k = 0; k < P; ++k) part[k][threadIdx.x] = acc[k];
+  for (int half = split / 2; half > 0; half /= 2) {
+    __syncthreads();
+    if (r < half) {
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        acc[k] += part[k][threadIdx.x + half * groups];
+        part[k][threadIdx.x] = acc[k];
+      }
+    }
+  }
+  if (r == 0)
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      if (k < n) out[c0 + k] = acc[k];
+}
+
 // 16-byte loads need a 16-byte aligned base and a row stride that keeps every
 // row aligned.
 template <typename T>
@@ -183,12 +247,21 @@ int sq_norms_impl(const void* g_, int64_t ld, int64_t W, int B, float* partial, 
 
 template <typename T>
 int scaled_sum_impl(const void* g_, int64_t ld, int64_t W, int B, const float* scale, float* out,
-                    cudaStream_t s) {
+                    int split, cudaStream_t s) {
   const T* g = static_cast<const T*>(g_);
   constexpr int P = Pack<T>::N;
-  const int64_t threads = (W + P - 1) / P;
-  const unsigned grid = (unsigned)((threads + NT - 1) / NT);
-  if (vector_ok<T>(g_, ld))
+  const int64_t groups = (W + P - 1) / P;
+  const bool vec = vector_ok<T>(g_, ld);
+  if (split > 1) {
+    const unsigned grid = (unsigned)((groups + NT / split - 1) / (NT / split));
+    if (vec)
+      split_scaled_sum_kernel<T, true><<<grid, NT, 0, s>>>(g, ld, W, B, scale, out, split);
+    else
+      split_scaled_sum_kernel<T, false><<<grid, NT, 0, s>>>(g, ld, W, B, scale, out, split);
+    return (int)cudaGetLastError();
+  }
+  const unsigned grid = (unsigned)((groups + NT - 1) / NT);
+  if (vec)
     scaled_sum_kernel<T, true><<<grid, NT, 0, s>>>(g, ld, W, B, scale, out);
   else
     scaled_sum_kernel<T, false><<<grid, NT, 0, s>>>(g, ld, W, B, scale, out);
@@ -211,13 +284,15 @@ int dp_sq_norms(const void* g, int64_t ld, int64_t W, int B, float* partial, flo
               : sq_norms_impl<float>(g, ld, W, B, partial, out, s);
 }
 
-// g: [B, W] with row stride ld; scale: [B] f32; out: [W] f32.
+// g: [B, W] with row stride ld; scale: [B] f32; out: [W] f32; split: threads
+// that share a column group, a power of two from 1 to MAX_SPLIT.
 int dp_scaled_sum(const void* g, int64_t ld, int64_t W, int B, const float* scale, float* out,
-                  int bf16, void* stream) {
-  if (B <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
+                  int split, int bf16, void* stream) {
+  if (B <= 0 || W <= 0 || split < 1 || split > MAX_SPLIT || (split & (split - 1)))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? scaled_sum_impl<uint16_t>(g, ld, W, B, scale, out, s)
-              : scaled_sum_impl<float>(g, ld, W, B, scale, out, s);
+  return bf16 ? scaled_sum_impl<uint16_t>(g, ld, W, B, scale, out, split, s)
+              : scaled_sum_impl<float>(g, ld, W, B, scale, out, split, s);
 }
 
 const char* dp_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -13,7 +13,7 @@ int dp_chunk_width();
 int dp_sq_norms(const void* g, int64_t ld, int64_t W, int B, float* partial, float* out,
                 int bf16, void* stream);
 int dp_scaled_sum(const void* g, int64_t ld, int64_t W, int B, const float* scale, float* out,
-                  int bf16, void* stream);
+                  int split, int bf16, void* stream);
 const char* dp_error_string(int code);
 }
 
@@ -32,9 +32,9 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
                        bf16 ? 1 : 0, ptr<void>(stream));
   });
   m.def("scaled_sum", [](std::uintptr_t g, int64_t ld, int64_t W, int B, std::uintptr_t scale,
-                         std::uintptr_t out, bool bf16, std::uintptr_t stream) {
+                         std::uintptr_t out, int split, bool bf16, std::uintptr_t stream) {
     return dp_scaled_sum(ptr<const void>(g), ld, W, B, ptr<const float>(scale), ptr<float>(out),
-                         bf16 ? 1 : 0, ptr<void>(stream));
+                         split, bf16 ? 1 : 0, ptr<void>(stream));
   });
   m.def("error_string", [](int code) { return std::string(dp_error_string(code)); });
 }

@@ -6,9 +6,9 @@
 //   flash_bwd_dq_kernel  <- _bwd_dq_kernel  (dQ over query tiles, P recomputed from lse)
 //   flash_bwd_dkv_kernel <- _bwd_dkv_kernel (dK and dV over key tiles)
 // for f32 inputs (IEEE f32, as Precision.HIGHEST demands) and for bf16 inputs
-// outside the tensor-core route; dQ for every dtype. bf16 with a head dim the
-// route takes (d <= 64, 2d a multiple of 16 bytes) runs the forward and dK/dV
-// of flash_attention_wgmma.cu instead.
+// outside the tensor-core route. bf16 with a head dim the route takes (d <= 64,
+// 2d a multiple of 16 bytes) runs the three kernels of flash_attention_wgmma.cu
+// instead.
 //
 // Layout: q, k, v, o, dout, dq, dk, dv are [B, T, H, D] (row stride H*d), so the
 // wrapper needs no transpose; mask is [B, T] f32 (1 = real key); lse and delta

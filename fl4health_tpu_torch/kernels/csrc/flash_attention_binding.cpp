@@ -19,6 +19,9 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const float* mask
                   int B, int T, int H, int d, float scale, int bf16, void* stream);
 int flash_fwd_wgmma(const void* q, const void* k, const void* v, const float* mask, void* o,
                     float* lse, int B, int T, int H, int d, float scale, void* stream);
+int flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, const float* mask,
+                       const void* dout, const float* lse, const float* delta, void* dq, int B,
+                       int T, int H, int d, float scale, void* stream);
 int flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const float* mask,
                         const void* dout, const float* lse, const float* delta, void* dk,
                         void* dv, int B, int T, int H, int d, float scale, void* stream);
@@ -64,6 +67,15 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
     return flash_fwd_wgmma(ptr<const void>(q), ptr<const void>(k), ptr<const void>(v),
                            ptr<const float>(mask), ptr<void>(o), ptr<float>(lse), B, T, H, d,
                            scale, ptr<void>(stream));
+  });
+  m.def("bwd_dq_wgmma", [](std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,
+                           std::uintptr_t mask, std::uintptr_t dout, std::uintptr_t lse,
+                           std::uintptr_t delta, std::uintptr_t dq, int B, int T, int H, int d,
+                           float scale, std::uintptr_t stream) {
+    return flash_bwd_dq_wgmma(ptr<const void>(q), ptr<const void>(k), ptr<const void>(v),
+                              ptr<const float>(mask), ptr<const void>(dout), ptr<const float>(lse),
+                              ptr<const float>(delta), ptr<void>(dq), B, T, H, d, scale,
+                              ptr<void>(stream));
   });
   m.def("bwd_dkv_wgmma", [](std::uintptr_t q, std::uintptr_t k, std::uintptr_t v,
                             std::uintptr_t mask, std::uintptr_t dout, std::uintptr_t lse,

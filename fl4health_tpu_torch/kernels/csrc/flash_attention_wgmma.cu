@@ -1,43 +1,44 @@
-// Flash attention for Hopper (sm_90a) on the tensor cores: the bf16 forward
-// and dK/dV kernels.
+// Flash attention for Hopper (sm_90a) on the tensor cores: the bf16 forward,
+// dQ and dK/dV kernels.
 //
-// Replace two Pallas kernels of fl4health_tpu/kernels/flash_attention.py for
-// bf16 inputs whose head dim d is at most 64 with d * 2 bytes a multiple of 16
-// (the rule is the wrapper's, kernels/flash_attention.py `wgmma_route`):
+// Replace the three Pallas kernels of fl4health_tpu/kernels/flash_attention.py
+// for bf16 inputs whose head dim d is at most 64 with d * 2 bytes a multiple of
+// 16 (the rule is the wrapper's, kernels/flash_attention.py `wgmma_route`):
 //   wgmma_flash_fwd_kernel     <- _fwd_kernel     (online-softmax forward, O and lse)
-//   wgmma_flash_bwd_dkv_kernel <- _bwd_dkv_kernel (dK and dV over key tiles)
-// f32 inputs, other head dims and the dQ kernel run flash_attention.cu.
+//   wgmma_flash_bwd_dq_kernel  <- _bwd_dq_kernel  (dQ over key tiles)
+//   wgmma_flash_bwd_dkv_kernel <- _bwd_dkv_kernel (dK and dV over query tiles)
+// f32 inputs and other head dims run flash_attention.cu.
 //
 // Precision is the reference's own: the JAX kernel takes Precision.DEFAULT for
 // bf16 operands, which on its chip feeds bf16 to the matrix unit with f32
 // accumulation. Every product here is `wgmma.mma_async m64n64k16
 // .f32.bf16.bf16`: Q K^T and dO V^T of bf16 operands are exact products summed
-// in f32; P (forward; l sums the f32 P before it is rounded), P^T and dS^T
-// (dK/dV) are rounded to bf16 once, as the register A operand of the second
+// in f32; P (forward; l sums the f32 P before it is rounded), dS (dQ), P^T and
+// dS^T (dK/dV) are rounded to bf16 once, as the register A operand of the next
 // product. The wrapper's `bf16_operand_bounds` states what that rounding may
 // cost.
 //
-// What bounds them on this card: at T = 2048 both are compute-bound (4*D and
-// 8*D operations per query-key pair against 2*D bytes a row), so the ceiling
-// is the bf16 tensor-core rate. The design, for that ceiling:
+// What bounds them on this card: at T = 2048 all three are compute-bound (4*D,
+// 6*D and 8*D operations per query-key pair against 2*D bytes a row), so the
+// ceiling is the bf16 tensor-core rate. The design, for that ceiling:
 //   * one CTA = two consumer warpgroups of 64 rows each (128 query rows of one
-//     (b, h) for the forward, 128 keys for dK/dV) and one producer warp whose
-//     first thread issues TMA loads; at 288 threads and one CTA an SM every
-//     thread may hold 224 registers, which covers dK/dV's four 64 x 64 f32
-//     fragments without `setmaxnreg`;
+//     (b, h) for the forward and dQ, 128 keys for dK/dV) and one producer warp
+//     whose first thread issues TMA loads; at 288 threads and one CTA an SM
+//     every thread may hold 224 registers, which covers dK/dV's four 64 x 64
+//     f32 fragments without `setmaxnreg`;
 //   * tiles are 64 x 64 bf16 (one 128-byte row per token) loaded by TMA from a
 //     4-D tensor map {D, H, T, B} with box {64, 1, 64, 1} and the 128-byte
 //     swizzle, so rows past T and columns past d arrive as zeros with no
 //     padding copy, and wgmma reads them through matching descriptors;
-//   * a ring of K/V (forward) or Q/dO (dK/dV) stages with one `mbarrier` pair
-//     (full, empty) per stage overlaps the loads with the math;
+//   * a ring of K/V (forward, dQ) or Q/dO (dK/dV) stages with one `mbarrier`
+//     pair (full, empty) per stage overlaps the loads with the math;
 //   * the softmax runs on the f32 accumulator fragment; row reductions are two
 //     shuffles among the four threads that share a row;
-//   * the forward's producer skips key tiles that are all padding (their
-//     probabilities are exactly 0); a dK/dV warpgroup whose 64 keys are all
-//     padding writes zeros without looping;
+//   * the forward's and dQ's producers skip key tiles that are all padding
+//     (their probabilities are exactly 0); a dK/dV warpgroup whose 64 keys are
+//     all padding writes zeros without looping;
 //   * no state crosses CTAs and there are no atomics: each output row is
-//     written once, so both kernels are bit-reproducible run to run.
+//     written once, so the kernels are bit-reproducible run to run.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -254,6 +255,40 @@ __device__ __forceinline__ uint8_t* align_1024(uint8_t* raw) {
   return raw + (((a + 1023u) & ~1023u) - a);
 }
 
+// The prologue of a query-stationary kernel (forward, dQ), run by every
+// thread of the CTA: the key bitmask of its batch element (bit c of word w:
+// key 32w + c is real), built with ballots while thread 0 initialises the
+// barriers (the resident tiles' one and the key ring's full/empty pairs),
+// then the list of the `key_tiles` key tiles that hold a real key, in order.
+// Returns the list's length, the same in every thread.
+__device__ __forceinline__ int key_tile_list(const float* mrow, int T, int key_tiles, int tid,
+                                             int warp, int lane, uint32_t* key_bits, int* tiles,
+                                             int& n_tiles, uint64_t* resident, uint64_t* full,
+                                             uint64_t* empty) {
+  for (int w = warp; w < 2 * key_tiles; w += NTHREADS / 32) {
+    const int t = 32 * w + lane;
+    const unsigned bits = __ballot_sync(0xffffffffu, t < T && mrow[t] > 0.f);
+    if (lane == 0) key_bits[w] = bits;
+  }
+  if (tid == 0) {
+    mbar_init(resident, 1);
+    for (int i = 0; i < FWD_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 256);  // every consumer thread releases the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int n = 0;
+    for (int j = 0; j < key_tiles; ++j)
+      if (key_bits[2 * j] | key_bits[2 * j + 1]) tiles[n++] = j;
+    n_tiles = n;
+  }
+  __syncthreads();
+  return n_tiles;
+}
+
 // ---------------------------------------------------------------------------
 // Forward
 // ---------------------------------------------------------------------------
@@ -327,28 +362,8 @@ wgmma_flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
   const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * 2 * TILE;
   const float* mrow = mask + (size_t)b * T;
 
-  for (int w = warp; w < 2 * key_tiles; w += NTHREADS / 32) {
-    const int t = 32 * w + lane;
-    const unsigned bits = __ballot_sync(0xffffffffu, t < T && mrow[t] > 0.f);
-    if (lane == 0) key_bits[w] = bits;
-  }
-  if (tid == 0) {
-    mbar_init(&s.q_full, 1);
-    for (int i = 0; i < FWD_STAGES; ++i) {
-      mbar_init(&s.full[i], 1);
-      mbar_init(&s.empty[i], 256);  // every consumer thread releases the stage
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (tid == 0) {
-    int n = 0;
-    for (int j = 0; j < key_tiles; ++j)
-      if (key_bits[2 * j] | key_bits[2 * j + 1]) tiles[n++] = j;
-    s.n_tiles = n;
-  }
-  __syncthreads();
-  const int n_tiles = s.n_tiles;
+  const int n_tiles = key_tile_list(mrow, T, key_tiles, tid, warp, lane, key_bits, tiles,
+                                    s.n_tiles, &s.q_full, s.full, s.empty);
 
   if (warp == 8) {  // producer warp
     if (lane == 0) {
@@ -436,6 +451,151 @@ wgmma_flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
     }
     store_tile(acc, inv, reinterpret_cast<uint8_t*>(s.q[wg]),
                o + (size_t)b * T * rs + (size_t)h * d, t0, T, rs, d, r_lo, cq, tw, 1 + wg);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ
+// ---------------------------------------------------------------------------
+
+// One key tile of dQ on the S and dP fragments (raw Q K^T and dO V^T, rows
+// are queries): ds becomes dS = P (dP - delta) scale, with P = 2^(S scale
+// log2e - lse log2e) and P = 0 for padding keys. lse_l2 and del are this
+// thread's two rows' lse (log2 units) and delta. MASKED: bit 8i + e of `bits`
+// says whether this thread's column 8i + cq + e is a real key.
+template <bool MASKED>
+__device__ __forceinline__ void score_grad(const float (&sc)[32], float (&ds)[32], uint64_t bits,
+                                           float sl2, const float (&lse_l2)[2],
+                                           const float (&del)[2], float scale) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int j = 4 * i + 2 * half + e;
+        float p = ex2(fmaf(sc[j], sl2, -lse_l2[half]));
+        if (MASKED && !((bits >> (8 * i + e)) & 1)) p = 0.f;
+        ds[j] = p * (ds[j] - del[half]) * scale;
+      }
+}
+
+struct DqSmem {
+  __nv_bfloat16 q[2][TILE * TILE];  // resident: one 64-row slice per consumer warpgroup
+  __nv_bfloat16 dout[2][TILE * TILE];
+  __nv_bfloat16 k[FWD_STAGES][TILE * TILE];  // streamed key tiles
+  __nv_bfloat16 v[FWD_STAGES][TILE * TILE];
+  uint64_t qdo_full, full[FWD_STAGES], empty[FWD_STAGES];
+  int n_tiles;
+  // then key_bits and tiles, as in the forward
+};
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+wgmma_flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
+                          const __grid_constant__ CUtensorMap tm_k,
+                          const __grid_constant__ CUtensorMap tm_v,
+                          const __grid_constant__ CUtensorMap tm_do,
+                          const float* __restrict__ mask, const float* __restrict__ lse,
+                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int T,
+                          int H, int d, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = align_1024(smem_raw);
+  DqSmem& s = *reinterpret_cast<DqSmem*>(base);
+  const int key_tiles = (T + TILE - 1) / TILE;
+  uint32_t* key_bits = reinterpret_cast<uint32_t*>(base + sizeof(DqSmem));
+  int* tiles = reinterpret_cast<int*>(key_bits + 2 * key_tiles);
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * 2 * TILE;
+  const float* mrow = mask + (size_t)b * T;
+
+  // a batch element with no real key has no tile: nothing is loaded, dQ = 0
+  const int n_tiles = key_tile_list(mrow, T, key_tiles, tid, warp, lane, key_bits, tiles,
+                                    s.n_tiles, &s.qdo_full, s.full, s.empty);
+
+  if (warp == 8) {  // producer warp
+    if (lane == 0 && n_tiles > 0) {
+      const bool second = q0 + TILE < T;  // a box wholly past T is not loaded
+      mbar_expect_tx(&s.qdo_full, 2 * TILE_BYTES * (second ? 2 : 1));
+      for (int i = 0; i < (second ? 2 : 1); ++i) {
+        tma_load(s.q[i], &tm_q, &s.qdo_full, 0, h, q0 + TILE * i, b);
+        tma_load(s.dout[i], &tm_do, &s.qdo_full, 0, h, q0 + TILE * i, b);
+      }
+      for (int n = 0; n < n_tiles; ++n) {
+        const int st = n % FWD_STAGES;
+        if (n >= FWD_STAGES) mbar_wait(&s.empty[st], (n / FWD_STAGES - 1) & 1);
+        mbar_expect_tx(&s.full[st], 2 * TILE_BYTES);
+        tma_load(s.k[st], &tm_k, &s.full[st], 0, h, tiles[n] * TILE, b);
+        tma_load(s.v[st], &tm_v, &s.full[st], 0, h, tiles[n] * TILE, b);
+      }
+    }
+  } else {  // consumer warpgroup wg: query rows q0 + 64 wg + [0, 64)
+    const int wg = warp / 4, tw = tid % 128;
+    const int r_lo = 16 * (warp % 4) + lane / 4, cq = 2 * (lane % 4);
+    const int t0 = q0 + TILE * wg, rs = H * d;
+    const float sl2 = scale * LOG2E, ones[2] = {1.f, 1.f};
+    // lse (log2 units) and delta of this thread's two fragment rows; a row
+    // past T reads neither (its Q and dO rows are zeros and it is not stored)
+    float lse_l2[2], del[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int t = t0 + r_lo + 8 * half;
+      lse_l2[half] = t < T ? lse[(size_t)bh * T + t] * LOG2E : 0.f;
+      del[half] = t < T ? delta[(size_t)bh * T + t] : 0.f;
+    }
+    float acc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+
+    if (n_tiles > 0) {
+      const uint32_t q_addr = smem_u32(s.q[wg]), do_addr = smem_u32(s.dout[wg]);
+      mbar_wait(&s.qdo_full, 0);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int st = n % FWD_STAGES;
+        mbar_wait(&s.full[st], (n / FWD_STAGES) & 1);
+        const uint32_t k_addr = smem_u32(s.k[st]), v_addr = smem_u32(s.v[st]);
+        // S = Q K^T and dP = dO V^T, both issued before one wait
+        float sc[32], ds[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] = ds[i] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0>(sc, desc_kmajor(q_addr + 32 * kk), desc_kmajor(k_addr + 32 * kk), kk);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_ss<0>(ds, desc_kmajor(do_addr + 32 * kk), desc_kmajor(v_addr + 32 * kk), kk);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+        fence_regs(ds);
+
+        // dS on the fragment; only a key tile with padding pays for the mask
+        const uint32_t lo = key_bits[2 * tiles[n]], hi = key_bits[2 * tiles[n] + 1];
+        if ((lo & hi) == 0xffffffffu)
+          score_grad<false>(sc, ds, 0, sl2, lse_l2, del, scale);
+        else
+          score_grad<true>(sc, ds, (((uint64_t)hi << 32) | lo) >> cq, sl2, lse_l2, del, scale);
+
+        // dQ += dS K: dS (bf16) from registers, K [key][d] as the MN-major B
+        // operand (as V is in the forward's P V)
+        uint32_t da[16];
+        to_a_operand(ds, da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_rs<1>(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2], da[4 * kk + 3],
+                      desc_mnmajor(k_addr + 2048 * kk));
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(acc);
+        fence_regs(da);
+        mbar_arrive(&s.empty[st]);
+      }
+    }
+    // the Q slot is the staging tile: every product that read it is done
+    store_tile(acc, ones, reinterpret_cast<uint8_t*>(s.q[wg]),
+               dq + (size_t)b * T * rs + (size_t)h * d, t0, T, rs, d, r_lo, cq, tw, 1 + wg);
   }
 }
 
@@ -646,11 +806,13 @@ int encode(CUtensorMap* map, const void* ptr, int B, int T, int H, int d) {
 }
 
 // Dynamic shared memory a launch requests: the 1024-byte alignment slack,
-// the layout, and (forward) the key bitmask and tile list for T keys.
-size_t fwd_smem_bytes(int T) {
+// the layout, and (forward, dQ) the key bitmask and tile list for T keys.
+size_t key_list_bytes(int T) {
   const int key_tiles = (T + TILE - 1) / TILE;
-  return 1024 + sizeof(FwdSmem) + sizeof(uint32_t) * 2 * key_tiles + sizeof(int) * key_tiles;
+  return sizeof(uint32_t) * 2 * key_tiles + sizeof(int) * key_tiles;
 }
+size_t fwd_smem_bytes(int T) { return 1024 + sizeof(FwdSmem) + key_list_bytes(T); }
+size_t dq_smem_bytes(int T) { return 1024 + sizeof(DqSmem) + key_list_bytes(T); }
 size_t dkv_smem_bytes() { return 1024 + sizeof(DkvSmem); }
 
 }  // namespace
@@ -671,6 +833,24 @@ int flash_fwd_wgmma(const void* q, const void* k, const void* v, const float* ma
   const dim3 grid((T + 2 * TILE - 1) / (2 * TILE), B * H);
   wgmma_flash_fwd_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
       tq, tk, tv, mask, (__nv_bfloat16*)o, lse, T, H, d, scale);
+  return (int)cudaGetLastError();
+}
+
+int flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, const float* mask,
+                       const void* dout, const float* lse, const float* delta, void* dq, int B,
+                       int T, int H, int d, float scale, void* stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err;
+  if ((err = encode(&tq, q, B, T, H, d)) || (err = encode(&tk, k, B, T, H, d)) ||
+      (err = encode(&tv, v, B, T, H, d)) || (err = encode(&tdo, dout, B, T, H, d)))
+    return err;
+  const size_t smem = dq_smem_bytes(T);
+  cudaError_t e = cudaFuncSetAttribute(wgmma_flash_bwd_dq_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((T + 2 * TILE - 1) / (2 * TILE), B * H);
+  wgmma_flash_bwd_dq_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+      tq, tk, tv, tdo, mask, lse, delta, (__nv_bfloat16*)dq, T, H, d, scale);
   return (int)cudaGetLastError();
 }
 

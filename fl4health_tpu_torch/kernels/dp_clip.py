@@ -8,7 +8,9 @@ use (never at import) into ``kernels/_build/dp_clip/``:
 - K1 ``per_example_sq_norms`` (``_sq_norm_kernel``): ``[B, W] -> [B]`` f32
   squared L2 norms, a deterministic two-stage reduction over column chunks;
 - K2 ``scaled_masked_sum`` (``_scaled_sum_kernel``): ``[B, W], [B] -> [W]``
-  f32 ``sum_i scale[i] * g[i]``, so the clipped tensor never exists.
+  f32 ``sum_i scale[i] * g[i]``, so the clipped tensor never exists. On a
+  leaf too narrow to give every SM a CTA, its rows are split over threads
+  (``scaled_sum_split``, a shape rule), still in a fixed order.
 
 Both take f32 or bf16 gradients, accumulate in f32 and read a leaf in place
 as a ``[B, W]`` view: no padding copy (the JAX function's ``tile`` and
@@ -35,6 +37,11 @@ from fl4health_tpu_torch.kernels.build import load_extension
 LAUNCHES = {"dp_sq_norms": 0, "dp_scaled_sum": 0}
 
 
+# K2's launch geometry (csrc/dp_clip.cu): threads per CTA, and the most
+# threads that may share one 16-byte column group
+K2_THREADS, K2_MAX_SPLIT = 256, 32
+
+
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
@@ -45,6 +52,25 @@ def build_extension():
     """Compile (or load from ``_build/``) the kernels for sm_90a. Needs
     ``nvcc``; called on the first CUDA launch."""
     return load_extension("dp_clip", ["dp_clip_binding.cpp", "dp_clip.cu"])
+
+
+def scaled_sum_split(b: int, w: int, elem_bytes: int, n_sms: int) -> int:
+    """The shape rule for K2's row split: how many threads share each
+    16-byte column group of a ``[b, w]`` leaf. 1 (each thread walks all b
+    rows) when the leaf's column groups give every one of ``n_sms`` SMs a
+    CTA; else the smallest power of two that does, at most 32 and at most
+    b. Read from the shape alone, never from a failure."""
+    groups = -(-w // (16 // elem_bytes))
+    split = 1
+    while (-(-groups * split // K2_THREADS) < n_sms
+           and 2 * split <= min(b, K2_MAX_SPLIT)):
+        split *= 2
+    return split
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 # ---------------------------------------------------------------------------
@@ -113,9 +139,11 @@ def scaled_sum_kernel(flat_grads: torch.Tensor, scale: torch.Tensor) -> torch.Te
         raise ValueError(f"scale must be a contiguous f32 [{b}] on {flat_grads.device}, "
                          f"got {scale.dtype} {tuple(scale.shape)} {scale.device}")
     out = torch.empty((w,), dtype=torch.float32, device=flat_grads.device)
+    split = scaled_sum_split(b, w, flat_grads.element_size(),
+                             _sm_count(flat_grads.device.index))
     err = build_extension().scaled_sum(
         flat_grads.data_ptr(), flat_grads.stride(0), w, b, scale.data_ptr(),
-        out.data_ptr(), flat_grads.dtype == torch.bfloat16, _stream(flat_grads))
+        out.data_ptr(), split, flat_grads.dtype == torch.bfloat16, _stream(flat_grads))
     _raise_on(err, "dp_scaled_sum")
     LAUNCHES["dp_scaled_sum"] += 1
     return out

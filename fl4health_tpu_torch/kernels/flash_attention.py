@@ -11,12 +11,12 @@ kernel, its backward the dQ and dK/dV kernels.
 
 Two routes, chosen by a shape rule (``wgmma_route``), never on failure:
 bf16 inputs whose head dim d is at most 64 with ``2 d`` bytes a multiple of
-16 (TMA's stride rule) run the forward and dK/dV on the tensor cores
+16 (TMA's stride rule) run all three kernels on the tensor cores
 (``csrc/flash_attention_wgmma.cu``: bf16 ``wgmma`` over TMA-fed tiles, P and
 dS rounded to bf16 as operands, as the JAX kernel's ``Precision.DEFAULT``
 does on its chip; ``bf16_operand_bounds`` states what that may cost). f32
-inputs, other bf16 head dims and the dQ kernel run the IEEE-f32 CUDA-core
-kernels of ``csrc/flash_attention.cu``.
+inputs and other bf16 head dims run the IEEE-f32 CUDA-core kernels of
+``csrc/flash_attention.cu``.
 
 Dispatch is on the tensor's device: a CUDA tensor launches the kernels (or
 raises), a CPU tensor runs ``flash_attention_reference``, the plain dense
@@ -45,7 +45,7 @@ NEG_INF = -1e30
 # right after the launch succeeded (the plain version never counts).
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 # Of those, the launches that took the tensor-core route (``wgmma_route``).
-WGMMA_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0}
+WGMMA_LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
 
 # bf16 unit roundoff: one round-to-nearest to bf16 moves x by at most u |x|
 BF16_UNIT = 2.0 ** -8
@@ -67,10 +67,10 @@ def build_extension():
 
 
 def wgmma_route(q: torch.Tensor) -> bool:
-    """The shape rule for the tensor-core forward and dK/dV kernels: bf16
-    with ``2 d`` a multiple of 16 bytes (a TMA stride must be). Everything
-    else takes the CUDA-core kernels; head dims above 64 are refused by
-    both routes."""
+    """The shape rule for the tensor-core forward, dQ and dK/dV kernels:
+    bf16 with ``2 d`` a multiple of 16 bytes (a TMA stride must be).
+    Everything else takes the CUDA-core kernels; head dims above 64 are
+    refused by both routes."""
     return q.dtype == torch.bfloat16 and q.shape[-1] % 8 == 0
 
 
@@ -145,25 +145,32 @@ def bf16_operand_bounds(q, k, v, mask, dout=None, lse=None, delta=None, *,
       is the plain forward on ``|v|``;
     - ``dv``: P^T is rounded before P^T dO, so ``unit * P^T |dO|``, the
       plain dK/dV on ``|dO|``;
-    - ``dk``: dS^T is rounded before dS^T Q, so ``unit * |dS|^T |Q|``.
+    - ``dk``: dS^T is rounded before dS^T Q, so ``unit * |dS|^T |Q|``;
+    - ``dq``: dS is rounded before dS K, so ``unit * |dS| |K|``.
 
     Q K^T and dO V^T are products of bf16 values, exact in f32, so nothing
     else is rounded. With ``unit = 0`` the bounds are the f32 bounds
-    ``atol + rtol |ref|``. ``dv`` and ``dk`` need ``dout``, ``lse`` and
-    ``delta``; lse and dQ keep the bounds of the CUDA-core route."""
+    ``atol + rtol |ref|``. ``dq``, ``dk`` and ``dv`` need ``dout``, ``lse``
+    and ``delta``; lse keeps the bound of the CUDA-core route."""
     qf, kf, vf = (x.float() for x in (q, k, v))
     with torch.no_grad():
         out, _ = flash_attention_reference(qf, kf, vf, mask)
         out_abs, _ = flash_attention_reference(qf, kf, vf.abs(), mask)
         bounds = {"out": atol + rtol * out.abs() + unit * out_abs}
         if dout is not None:
-            dof = dout.float()
-            dk, dv = flash_bwd_dkv_reference(qf, kf, vf, mask, dof, lse, delta)
-            _, dv_abs = flash_bwd_dkv_reference(qf, kf, vf, mask, dof.abs(), lse, delta)
-            qh, _, _, _, ds = _bwd_reference_terms(qf, kf, vf, mask, dof, lse, delta)
-            dk_abs = torch.matmul(ds.abs().transpose(-1, -2), qh.abs()).transpose(1, 2)
-            bounds["dv"] = atol + rtol * dv.abs() + unit * dv_abs
-            bounds["dk"] = atol + rtol * dk.abs() + unit * dk_abs
+            # one dense P and dS serve every gradient and its rounding term
+            qh, kh, doh, p, ds = _bwd_reference_terms(qf, kf, vf, mask, dout.float(),
+                                                      lse, delta)
+            ds_abs = ds.abs()
+            terms = {  # name: (plain gradient, absolute product of the rounded operand)
+                "dq": (torch.matmul(ds, kh), torch.matmul(ds_abs, kh.abs())),
+                "dk": (torch.matmul(ds.transpose(-1, -2), qh),
+                       torch.matmul(ds_abs.transpose(-1, -2), qh.abs())),
+                "dv": (torch.matmul(p.transpose(-1, -2), doh),
+                       torch.matmul(p.transpose(-1, -2), doh.abs())),
+            }
+            for name, (ref, rounded) in terms.items():
+                bounds[name] = (atol + rtol * ref.abs() + unit * rounded).transpose(1, 2)
     return bounds
 
 
@@ -243,12 +250,17 @@ def flash_bwd_dq(q, k, v, mask, dout, lse, delta) -> torch.Tensor:
     _check_backward_inputs(q, dout, lse, delta)
     b, t, h, d = q.shape
     dq = torch.empty_like(q)
-    err = build_extension().bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        b, t, h, d, 1.0 / d ** 0.5, q.dtype == torch.bfloat16, _stream(q))
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            b, t, h, d, 1.0 / d ** 0.5)
+    tensor_cores = wgmma_route(q)
+    if tensor_cores:
+        err = build_extension().bwd_dq_wgmma(*ptrs, _stream(q))
+    else:
+        err = build_extension().bwd_dq(*ptrs, q.dtype == torch.bfloat16, _stream(q))
     _raise_on(err, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
+    WGMMA_LAUNCHES["flash_bwd_dq"] += tensor_cores
     return dq
 
 

@@ -228,3 +228,24 @@ def test_instance_level_accountant_matches_jax(kw):
     else:  # (64 identical clients make get_delta slow and teach nothing more)
         assert abs(t.get_delta(kw["rounds"], eps_t)
                    - j.get_delta(kw["rounds"], eps_j)) <= 1e-9
+
+
+@pytest.mark.parametrize("b,w,elem_bytes,split", [
+    (32, 524288, 4, 1),   # Dense_0/kernel: 512 CTAs unsplit
+    (32, 51200, 4, 4),    # Conv_1/kernel: 50 CTAs unsplit, 200 at 4
+    (32, 2400, 4, 32),    # Conv_0/kernel: 3 CTAs unsplit
+    (32, 1280, 4, 32),    # Dense_1/kernel
+    (32, 32, 4, 32),      # Conv_0/bias: 8 column groups
+    (32, 10, 4, 32),      # Dense_1/bias
+    (32, 134144, 4, 2),   # 33,536 groups: 131 CTAs, one short of 132 SMs
+    (32, 134148, 4, 1),   # 33,537 groups: 132 CTAs
+    (32, 268288, 2, 2),   # the same two sides in bf16 (8 columns a group)
+    (32, 268296, 2, 1),
+    (7, 1000, 4, 4),      # at most B, as a power of two
+    (1, 10, 4, 1),
+])
+def test_scaled_sum_split_rule(b, w, elem_bytes, split):
+    """K2's row split is a rule on the shape and the SM count (132 on an
+    H100): the least power of two that gives every SM a CTA, capped at 32
+    and at B."""
+    assert tdp.scaled_sum_split(b, w, elem_bytes, n_sms=132) == split

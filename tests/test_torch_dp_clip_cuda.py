@@ -35,8 +35,12 @@ def _grads(shape, dtype, device, seed=0):
 
 DTYPES = [torch.float32, torch.bfloat16]
 # widths: ragged (no multiple of any pack or chunk), a bias, one pack, and
-# more than one 8192-column chunk with a ragged tail
-WIDTHS = [(7, 1000), (32, 10), (3, 8), (4, 8192 * 2 + 5), (32, 2400)]
+# more than one 8192-column chunk with a ragged tail; CifarNet's narrow
+# leaves (10, 32, 1,280, 2,400 columns), where K2 splits its rows over
+# threads; and f32 widths of 33,536 and 33,537 column groups, one on each
+# side of the split rule on an H100's 132 SMs (dp.scaled_sum_split)
+WIDTHS = [(7, 1000), (32, 10), (3, 8), (4, 8192 * 2 + 5), (32, 2400), (32, 32),
+          (32, 1280), (32, 134144), (32, 134148)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -111,11 +115,13 @@ def test_fused_matches_plain_over_a_cifarnet_tree(cuda, dtype):
 
 
 def test_kernels_are_deterministic(cuda):
-    g = _grads((32, 524288), torch.float32, cuda, seed=9)
     scale = torch.rand(32, device=cuda)
-    a, b = dp.per_example_sq_norms(g), dp.per_example_sq_norms(g)
-    assert torch.equal(a, b)
-    assert torch.equal(dp.scaled_masked_sum(g, scale), dp.scaled_masked_sum(g, scale))
+    # the largest leaf, and a narrow one on which K2 splits its rows
+    for w in (524288, 2400):
+        g = _grads((32, w), torch.float32, cuda, seed=9)
+        a, b = dp.per_example_sq_norms(g), dp.per_example_sq_norms(g)
+        assert torch.equal(a, b)
+        assert torch.equal(dp.scaled_masked_sum(g, scale), dp.scaled_masked_sum(g, scale))
 
 
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):

@@ -23,9 +23,10 @@ F32_GRAD_ATOL = 5e-4
 # bf16 inputs against the plain version in f32 on the same bf16-rounded
 # inputs: one bf16 rounding of out, dq, dk and dv (at most 2^-8 relative;
 # rtol is twice that) plus f32 summation noise (atol). The tensor-core
-# forward and dK/dV also round P and dS to bf16 as operands: out, dk and dv
-# are held to fa.bf16_operand_bounds, which adds that rounding's term to
-# these. lse stays f32 in the kernels: the f32 bound; dQ keeps BF16_GRAD.
+# kernels also round P and dS to bf16 as operands: out, dq, dk and dv are
+# held to fa.bf16_operand_bounds, which adds that rounding's term to these;
+# the CUDA-core route keeps BF16_OUT and BF16_GRAD. lse stays f32 in the
+# kernels: the f32 bound.
 BF16_OUT = dict(atol=1e-4, rtol=2**-7)
 BF16_GRAD = dict(atol=1e-4, rtol=2**-7)
 
@@ -119,14 +120,13 @@ def test_kernels_match_plain_bf16(cuda, t, d):
                 *fa.flash_bwd_dkv_reference(qf, kf, vf, mask, dof, lse, delta)]
         bounds = fa.bf16_operand_bounds(qf, kf, vf, mask, dof, lse, delta, **BF16_OUT)
     torch.testing.assert_close(got[1], lse, **F32_FWD)
-    torch.testing.assert_close(got[2].float(), want[0], **BF16_GRAD)
     if tensor_cores:
         _within(got[0], out, bounds["out"], "out")
-        _within(got[3], want[1], bounds["dk"], "dk")
-        _within(got[4], want[2], bounds["dv"], "dv")
+        for name, g, w in zip(("dq", "dk", "dv"), got[2:], want):
+            _within(g, w, bounds[name], name)
     else:
         torch.testing.assert_close(got[0].float(), out, **BF16_OUT)
-        for g, w in zip(got[3:], want[1:]):
+        for g, w in zip(got[2:], want):
             torch.testing.assert_close(g.float(), w, **BF16_GRAD)
 
 
@@ -135,10 +135,11 @@ def test_kernels_match_plain_bf16(cuda, t, d):
     (2000, 64, [2000, 1100]),
     (130, 32, [90, 130]),  # head dim 32: box columns past d arrive as zeros
     (77, 16, [77, 40]),
+    (128, 64, [128, 64]),  # whole tiles, one of them all padding
 ])
 def test_tensor_core_kernels_match_plain(cuda, t, d, lengths):
-    """The forward and dK/dV kernels alone, on the plain version's lse and
-    delta, held to the derived bounds."""
+    """The forward, dQ and dK/dV kernels alone, on the kernel's lse and the
+    delta of its out, held to the derived bounds."""
     q, k, v, mask, do, dlse = _inputs(2, t, 3, d, lengths, torch.bfloat16, cuda, seed=t)
     assert fa.wgmma_route(q)
     with torch.no_grad():
@@ -146,16 +147,20 @@ def test_tensor_core_kernels_match_plain(cuda, t, d, lengths):
         out, lse = fa.flash_fwd(q, k, v, mask)
         ref_out, ref_lse = fa.flash_attention_reference(qf, kf, vf, mask)
         delta = fa.backward_delta(do, out, dlse)
+        dq = fa.flash_bwd_dq(q, k, v, mask, do, lse, delta)
+        ref_dq = fa.flash_bwd_dq_reference(qf, kf, vf, mask, dof, lse, delta)
         dk, dv = fa.flash_bwd_dkv(q, k, v, mask, do, lse, delta)
         ref_dk, ref_dv = fa.flash_bwd_dkv_reference(qf, kf, vf, mask, dof, lse, delta)
         bounds = fa.bf16_operand_bounds(qf, kf, vf, mask, dof, lse, delta, **BF16_OUT)
     _within(out, ref_out, bounds["out"], "out")
     torch.testing.assert_close(lse, ref_lse, **F32_FWD)
+    _within(dq, ref_dq, bounds["dq"], "dq")
     _within(dk, ref_dk, bounds["dk"], "dk")
     _within(dv, ref_dv, bounds["dv"], "dv")
     if 0 in lengths:
-        assert torch.all(out[lengths.index(0)] == 0)
-        assert torch.all(dk[lengths.index(0)] == 0) and torch.all(dv[lengths.index(0)] == 0)
+        empty = lengths.index(0)
+        assert torch.all(out[empty] == 0) and torch.all(dq[empty] == 0)
+        assert torch.all(dk[empty] == 0) and torch.all(dv[empty] == 0)
 
 
 def test_tensor_core_kernels_are_bit_reproducible(cuda):
@@ -166,7 +171,8 @@ def test_tensor_core_kernels_are_bit_reproducible(cuda):
         for _ in range(3):
             out, lse = fa.flash_fwd(q, k, v, mask)
             delta = fa.backward_delta(do, out, dlse)
-            runs.append((out, lse, *fa.flash_bwd_dkv(q, k, v, mask, do, lse, delta)))
+            runs.append((out, lse, fa.flash_bwd_dq(q, k, v, mask, do, lse, delta),
+                         *fa.flash_bwd_dkv(q, k, v, mask, do, lse, delta)))
     for again in runs[1:]:
         for a, b in zip(runs[0], again):
             assert torch.equal(a, b)
@@ -186,7 +192,7 @@ def test_route_follows_the_shape_rule(cuda, dtype, d, tensor_cores):
     torch.cuda.synchronize()
     assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
     n = int(tensor_cores)
-    assert fa.WGMMA_LAUNCHES == {"flash_fwd": n, "flash_bwd_dkv": n}
+    assert fa.WGMMA_LAUNCHES == {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
 
 
 def test_public_api_dispatches_to_kernels(cuda):

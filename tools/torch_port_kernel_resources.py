@@ -9,7 +9,7 @@ and prints one JSON line per kernel: its entry name as ptxas gives it
 (mangled), registers per thread, spill stores and loads, stack frame and
 static shared memory (bytes). The tensor-core kernels' dynamic shared
 memory is the size of their layouts (``fwd_smem_bytes``,
-``dkv_smem_bytes`` in ``flash_attention_wgmma.cu``).
+``dq_smem_bytes``, ``dkv_smem_bytes`` in ``flash_attention_wgmma.cu``).
 
 Run where nvcc is, from the repository root:
     python3 tools/torch_port_kernel_resources.py

@@ -10,8 +10,8 @@ stream, so kernels do not overlap).
 
   --config transformer_long  (default) the flash-attention path; groups: the
       three flash kernels (by name, so each group holds both routes: the
-      tensor-core ``wgmma_flash_fwd_kernel`` and ``wgmma_flash_bwd_dkv_kernel``
-      and the CUDA-core kernels), GEMMs, everything else.
+      tensor-core ``wgmma_flash_*_kernel`` and the CUDA-core kernels), GEMMs,
+      everything else.
   --config dp_cifar_cnn  the DP-FedAvg CifarNet path; the round is split by
       ``record_function`` ranges the tool wraps around the client's
       ``value_and_grads``, the DP clip-and-noise call inside it and the
