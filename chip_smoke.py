@@ -31,13 +31,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      2 clients x 5 local SGD steps of batch 32, with the launch counts set to 0
      just before and read just after: every launch must take the tensor
      cores.
-  6. Hold the DP clip kernels (K1 squared norms, K2 scaled sum, and the fused
-     clip over a tree) against their plain versions at the DP path's largest
-     leaf [32, 524288], over the whole CifarNet per-example tree and at a
-     ragged [7, 1000], in f32 and bf16 (K2 splits its rows over threads on
-     the tree's narrow leaves; a second K2 launch must be bit-identical);
-     time K1 and K2 at the largest leaf and over
-     the tree, beside their plain versions and one library call each.
+  6. Hold the DP clip kernels (K1 squared norms over a tree, K2 scaled sum,
+     and the fused clip over a tree) against their plain versions at the DP
+     path's largest leaf [32, 524288], over the whole CifarNet per-example
+     tree and at a ragged [7, 1000], in f32 and bf16 (K1 is one launch over
+     the tree; K2 splits its rows over threads on the tree's narrow leaves;
+     a second launch of either must be bit-identical); time K1 and K2 at the
+     largest leaf and over the tree (K1 as one call over the tree, as the
+     path makes it), beside their plain versions and one library call each.
   7. A tiny DP federated run on the card (kernels) against the same run on
      the CPU (plain versions), noise_multiplier 0: within 5e-4.
   8. The DP path: DP-FedAvg of CifarNet at full width (64 clients of 160
@@ -581,10 +582,11 @@ def fused_plain(dp, tree: dict, mask: torch.Tensor, bound: float):
 
 
 def dp_kernel_checks(dp, dtype: torch.dtype) -> dict:
-    """K1, K2 and the fused clip against their plain versions at the largest
-    leaf, over the whole CifarNet tree and at a ragged width (K1 and K2 on
-    unit normals, the fused clip on gradient-sized values that C = 1 clips in
-    part); returns the max abs error of each kernel at the largest leaf."""
+    """K1 (over each case's tree, and on each leaf alone), K2 and the fused
+    clip against their plain versions at the largest leaf, over the whole
+    CifarNet tree and at a ragged width (K1 and K2 on unit normals, the fused
+    clip on gradient-sized values that C = 1 clips in part); returns the max
+    abs error of each kernel at the largest leaf."""
     tag = str(dtype).split(".")[-1]
     stats, at_leaf = {}, {}
     cases = {"leaf": {"Dense_0/kernel": (524288,)}, "tree": CIFAR_LEAVES,
@@ -597,11 +599,19 @@ def dp_kernel_checks(dp, dtype: torch.dtype) -> dict:
         mask[1] = 0.0  # a padding example
         scale = torch.rand(b, device="cuda") * 1.5 * mask
         with torch.no_grad():
-            for k, leaf in tree.items():
-                m = leaf.reshape(b, -1)
+            mats = [leaf.reshape(b, -1) for leaf in tree.values()]
+            got = dp.sq_norms_tree_kernel(mats)
+            stats[f"dp_sq_norms tree of {case} {tag}"] = check_stats(
+                f"dp_sq_norms tree of {case} {tag}", got,
+                dp.per_example_tree_sq_norms_reference(mats), *DP_TOL["dp_sq_norms"])
+            # items write fixed slots and the last CTA sums them in a fixed
+            # order: a second launch is bit-identical
+            if not torch.equal(got, dp.sq_norms_tree_kernel(mats)):
+                fail(f"dp_sq_norms tree of {case} {tag}: a second launch differs")
+            for k, m in zip(tree, mats):
                 name = f"{case} {k} {tag} {list(m.shape)}"
                 stats[f"dp_sq_norms {name}"] = check_stats(
-                    f"dp_sq_norms {name}", dp.sq_norms_kernel(m),
+                    f"dp_sq_norms {name}", dp.sq_norms_tree_kernel([m]),
                     dp.per_example_sq_norms_reference(m), *DP_TOL["dp_sq_norms"])
                 got = dp.scaled_sum_kernel(m, scale)
                 stats[f"dp_scaled_sum {name}"] = check_stats(
@@ -635,11 +645,13 @@ def dp_kernel_checks(dp, dtype: torch.dtype) -> dict:
 
 def dp_kernel_timings(dp) -> dict:
     """K1 and K2 at the DP path's largest leaf and over its whole per-example
-    tree (f32, as the path gives them), beside their plain versions and one
+    tree (f32, as the path gives them), beside their plain versions and a
     library call computing the same function (a yardstick the port never
-    calls); device time per call, 20 calls a timing. Bounds: bytes in and out
-    once over 3.35 TB/s, against two f32 operations per element over the f32
-    rate."""
+    calls); device time per call, 20 calls a timing. K1 over the tree is one
+    call, as the path makes it (its library yardstick: ``vector_norm`` per
+    leaf, stacked, squared and summed); K2 is one call per leaf. Bounds:
+    bytes in and out once over 3.35 TB/s, against two f32 operations per
+    element over the f32 rate."""
     res = {}
     time_it = lambda fn: cuda_ms(fn, calls=20)  # noqa: E731
     for case, shapes in (("leaf", {"Dense_0/kernel": (524288,)}), ("tree", CIFAR_LEAVES)):
@@ -648,16 +660,20 @@ def dp_kernel_timings(dp) -> dict:
         scale = torch.rand(BATCH, device="cuda")
         widths = [m.shape[1] for m in mats]
         elems = BATCH * sum(widths)
-        k1_bytes = 4 * elems + 4 * BATCH * len(mats)
+        k1_bytes = 4 * elems + 4 * BATCH
         k2_bytes = 4 * elems + 4 * BATCH * len(mats) + 4 * sum(widths)
+        if case == "leaf":
+            k1_library = lambda: torch.linalg.vector_norm(  # noqa: E731
+                mats[0], dim=1, dtype=torch.float32)
+        else:
+            k1_library = lambda: torch.stack([torch.linalg.vector_norm(  # noqa: E731
+                m, dim=1, dtype=torch.float32) for m in mats]).square().sum(0)
         with torch.no_grad():
             res[case] = {
                 "dp_sq_norms": dict(
-                    ms=time_it(lambda: [dp.sq_norms_kernel(m) for m in mats]),
-                    plain_ms=time_it(lambda: [dp.per_example_sq_norms_reference(m)
-                                              for m in mats]),
-                    library_ms=time_it(lambda: [torch.linalg.vector_norm(
-                        m, dim=1, dtype=torch.float32) for m in mats]),
+                    ms=time_it(lambda: dp.sq_norms_tree_kernel(mats)),
+                    plain_ms=time_it(lambda: dp.per_example_tree_sq_norms_reference(mats)),
+                    library_ms=time_it(k1_library),
                     bound=bound_ms(2 * elems, k1_bytes, torch.float32)),
                 "dp_scaled_sum": dict(
                     ms=time_it(lambda: [dp.scaled_sum_kernel(m, scale) for m in mats]),
@@ -667,6 +683,11 @@ def dp_kernel_timings(dp) -> dict:
                     bound=bound_ms(2 * elems, k2_bytes, torch.float32)),
             }
         sms = torch.cuda.get_device_properties(0).multi_processor_count
+        (plan,) = dp.plan_of(mats)
+        res[case]["dp_sq_norms"]["geometry"] = {
+            "items": plan.n_items,  # one CTA each
+            # per leaf: (rows, column chunks) of an item
+            "rows_x_chunks": [[lf.rows, lf.n_chunks] for lf in plan.leaves]}
         print(json.dumps({"timing": f"dp_clip {case} float32",
                           "shape": [BATCH, widths[0]] if case == "leaf" else
                           [BATCH, sum(widths)], "leaves": len(mats),
@@ -776,9 +797,10 @@ def dp_main_path(dp) -> dict:
     finite = all(torch.isfinite(v).all() for v in sim.global_params.values())
     if not finite or moved <= 0:
         fail(f"DP global params after training: finite={finite}, max change {moved}")
-    # per round: 64 clients x 5 steps x 8 leaves, one K1 and one K2 launch each
-    per_round = DP_CLIENTS * LOCAL_STEPS * len(CIFAR_LEAVES)
-    expected = {"dp_sq_norms": DP_ROUNDS * per_round, "dp_scaled_sum": DP_ROUNDS * per_round}
+    # per round: 64 clients x 5 steps, one K1 launch over the tree and one K2
+    # launch per leaf each
+    steps = DP_ROUNDS * DP_CLIENTS * LOCAL_STEPS
+    expected = {"dp_sq_norms": steps, "dp_scaled_sum": steps * len(CIFAR_LEAVES)}
     print(json.dumps({"main_path": "dp_fedavg_cifar_cnn", "rounds": DP_ROUNDS,
                       "wall_s": wall, "epsilon": epsilon,
                       "n_params": sum(v.numel() for v in init.values()),
@@ -855,18 +877,25 @@ def main() -> int:
             "dtype": "bfloat16", "shape": [B, T, H, D]})
     dp_replaces = {"dp_sq_norms": "fl4health_tpu/kernels/dp_clip.py:54",
                    "dp_scaled_sum": "fl4health_tpu/kernels/dp_clip.py:100"}
+    dp_design = {"dp_sq_norms": "one launch over the tree: planned items, one CTA each "
+                                "(narrow rows packed, wide rows cut; 4 loads in flight a "
+                                "thread), last-CTA finish in a fixed order",
+                 "dp_scaled_sum": "16-byte column groups, rows in order; rows split "
+                                  "over threads on narrow leaves"}
     for name, rep in dp_replaces.items():
         t, tree = dp_timings["leaf"][name], dp_timings["tree"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": DP_SOURCE, "replaces": rep,
-            "launches": dp_launches[name],
+            "design": dp_design[name], "launches": dp_launches[name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
             # the same over all 8 leaves of the CifarNet per-example tree
+            # (K1: one call over the tree; K2: one call per leaf)
             "tree_ms": tree["ms"], "tree_plain_ms": tree["plain_ms"],
             "tree_bound_ms": tree["bound"][0], "tree_library_ms": tree["library_ms"],
+            **({"tree_geometry": tree["geometry"]} if "geometry" in tree else {}),
             "dtype": "float32", "shape": [BATCH, 524288]})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,17 +1,18 @@
 // Python binding of the DP clip kernels' plain C interface (dp_clip.cu).
 // Pointers and the CUDA stream arrive as integers from the wrapper in
-// fl4health_tpu_torch/kernels/dp_clip.py; only pybind11 is included, so this
-// file compiles in seconds.
+// fl4health_tpu_torch/kernels/dp_clip.py, K1's leaf table as a flat list of
+// integers; only pybind11 is included, so this file compiles in seconds.
 
 #include <pybind11/pybind11.h>
+#include <pybind11/stl.h>
 
 #include <cstdint>
 #include <string>
+#include <vector>
 
 extern "C" {
-int dp_chunk_width();
-int dp_sq_norms(const void* g, int64_t ld, int64_t W, int B, float* partial, float* out,
-                int bf16, void* stream);
+int dp_sq_norms_tree(const int64_t* leaves, int n_leaves, int n_items, int B, float* ws,
+                     unsigned* counter, float* out, int accumulate, void* stream);
 int dp_scaled_sum(const void* g, int64_t ld, int64_t W, int B, const float* scale, float* out,
                   int split, int bf16, void* stream);
 const char* dp_error_string(int code);
@@ -25,11 +26,14 @@ T* ptr(std::uintptr_t p) {
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  m.def("chunk_width", []() { return dp_chunk_width(); });
-  m.def("sq_norms", [](std::uintptr_t g, int64_t ld, int64_t W, int B, std::uintptr_t partial,
-                       std::uintptr_t out, bool bf16, std::uintptr_t stream) {
-    return dp_sq_norms(ptr<const void>(g), ld, W, B, ptr<float>(partial), ptr<float>(out),
-                       bf16 ? 1 : 0, ptr<void>(stream));
+  // leaves: 9 integers a leaf (dp_clip.cu, dp_sq_norms_tree)
+  m.def("sq_norms_tree", [](const std::vector<int64_t>& leaves, int n_items, int B,
+                            std::uintptr_t ws, std::uintptr_t counter, std::uintptr_t out,
+                            bool accumulate, std::uintptr_t stream) {
+    if (leaves.empty() || leaves.size() % 9 != 0) return 1;  // cudaErrorInvalidValue
+    return dp_sq_norms_tree(leaves.data(), (int)(leaves.size() / 9), n_items, B, ptr<float>(ws),
+                            ptr<unsigned>(counter), ptr<float>(out), accumulate ? 1 : 0,
+                            ptr<void>(stream));
   });
   m.def("scaled_sum", [](std::uintptr_t g, int64_t ld, int64_t W, int B, std::uintptr_t scale,
                          std::uintptr_t out, int split, bool bf16, std::uintptr_t stream) {

@@ -107,9 +107,139 @@ def test_plain_route_counts_no_launch_and_other_devices_raise():
 def test_kernel_wrappers_refuse_cpu_tensors():
     # the wrappers that launch never run the plain version in their place
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tdp.sq_norms_kernel(torch.ones((2, 3)))
+        tdp.sq_norms_tree_kernel([torch.ones((2, 3))])
     with pytest.raises(ValueError, match="CUDA tensors"):
         tdp.scaled_sum_kernel(torch.ones((2, 3)), torch.ones(2))
+
+
+def _many_leaves(b, dtype, seed, n=tdp.K1_MAX_LEAVES + 2):
+    """n leaves of [b, w] with ragged widths from 1 to 300: more than one K1
+    launch's table holds."""
+    rng = np.random.default_rng(seed)
+    widths = rng.integers(1, 301, size=n)
+    leaves = [(rng.standard_normal((b, w)) * 0.3).astype(np.float32).astype(DTYPES[dtype][0])
+              for w in widths]
+    return ([jnp.asarray(v) for v in leaves],
+            [torch.tensor(v.astype(np.float32)).to(DTYPES[dtype][1]) for v in leaves])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", ["tree", "more_leaves_than_a_launch"])
+def test_tree_sq_norms_match_jax(dtype, case):
+    """K1 over a tree: the JAX kernel per leaf, summed in leaf order (the JAX
+    fold), and the squared norms the JAX fused clip returns."""
+    if case == "tree":
+        jt, tt = _tree(6, dtype, seed=7)
+        keys = list(tt)
+        jmats = [jt[k].reshape(6, -1) for k in keys]
+        tmats = [tt[k].reshape(6, -1) for k in keys]
+    else:
+        jmats, tmats = _many_leaves(5, dtype, seed=8)
+        jt = {f"l{i:02d}": m for i, m in enumerate(jmats)}
+    assert len(tdp.tree_plan(tmats[0].shape[0], tuple(
+        (m.shape[1], m.element_size(), True) for m in tmats))) == (case != "tree") + 1
+    want = sum(jdp.per_example_sq_norms(m, tile=128, interpret=True) for m in jmats)
+    got = tdp.per_example_tree_sq_norms(tmats)
+    assert got.dtype == torch.float32 and got.shape == (tmats[0].shape[0],)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5)
+    if case == "tree":
+        mask = jnp.ones(6, jnp.float32)
+        _, jnorms = jdp.fused_clipped_masked_sum(jt, mask, 1.0, tile=128, interpret=True,
+                                                 return_norms=True)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jnorms) ** 2, rtol=1e-5)
+
+
+def _cifar_widths():
+    return [int(np.prod(s)) for s in chip_smoke.CIFAR_LEAVES.values()]
+
+
+def _decode(plan, item):
+    """Item ``item`` of a launch as sq_norms_tree_kernel decodes it: (leaf,
+    rows, columns, workspace slots of those rows)."""
+    leaf = 0
+    while leaf + 1 < len(plan.leaves) and item >= plan.leaves[leaf + 1].item0:
+        leaf += 1
+    lf = plan.leaves[leaf]
+    group, chunk = divmod(item - lf.item0, lf.n_chunks)
+    rows = range(group * lf.rows, min(plan.b, (group + 1) * lf.rows))
+    cols = range(chunk * lf.chunk, min(lf.width, (chunk + 1) * lf.chunk))
+    return leaf, rows, cols, [lf.ws0 + r * lf.n_chunks + chunk for r in rows]
+
+
+@pytest.mark.parametrize("b,leaves", [
+    (32, [(w, 4, True) for w in _cifar_widths()[:-1]] + [(10, 4, False)]),  # the DP path
+    (32, [(w, 2, True) for w in _cifar_widths()]),
+    (7, [(1000, 4, True), (8192 * 2 + 5, 4, True), (3, 2, False), (129, 4, False)]),
+    (1, [(1, 4, False), (tdp.K1_ITEM_LOADS * 4, 4, True), (tdp.K1_ITEM_LOADS * 4 + 4, 4, True)]),
+    (300, [(2, 2, False), (40, 4, True)]),
+    (3, [(w, 4, w % 4 == 0) for w in range(1, 3 * tdp.K1_MAX_LEAVES + 5)]),  # three launches
+])
+def test_tree_plan_covers_every_element_once(b, leaves):
+    """K1's item plan, decoded as the kernel decodes it: every (leaf, row,
+    column) belongs to exactly one item, no item leaves its leaf, each
+    launch's workspace slots belong to one item and one (row, chunk) each, and
+    the finish's fold over those slots gives the tree's squared norms."""
+    plans = tdp.tree_plan(b, tuple(leaves))
+    assert [len(p.leaves) for p in plans] == [
+        min(tdp.K1_MAX_LEAVES, len(leaves) - i) for i in range(0, len(leaves), tdp.K1_MAX_LEAVES)]
+    rng = np.random.default_rng(b)
+    data = [rng.standard_normal((b, w)).astype(np.float32) for w, _, _ in leaves]
+    want = sum((x.astype(np.float64) ** 2).sum(1) for x in data)
+    got, first = np.zeros(b), 0
+    for plan in plans:
+        covered = [np.zeros((b, lf.width), np.int64) for lf in plan.leaves]
+        ws = np.full(plan.n_slots, np.nan)
+        for lf, (width, elem, vec) in zip(plan.leaves, leaves[first:]):
+            assert lf.width == width and lf.flags == (elem == 2) | (2 * vec)
+            assert lf.n_chunks == 1 or lf.chunk * elem % 16 == 0 or not vec
+            assert (lf.n_chunks - 1) * lf.chunk < width <= lf.n_chunks * lf.chunk
+        for item in range(plan.n_items):
+            leaf, rows, cols, slots = _decode(plan, item)
+            assert len(rows) and len(cols) and cols.stop <= plan.leaves[leaf].width
+            covered[leaf][rows.start:rows.stop, cols.start:cols.stop] += 1
+            x = data[first + leaf][rows.start:rows.stop, cols.start:cols.stop]
+            for slot, part in zip(slots, (x.astype(np.float64) ** 2).sum(1)):
+                assert np.isnan(ws[slot]), f"slot {slot} written twice"
+                ws[slot] = part
+        assert all((c == 1).all() for c in covered)
+        assert not np.isnan(ws).any()
+        for lf in plan.leaves:  # the finish: column order, then leaf order
+            got += ws[lf.ws0:lf.ws0 + b * lf.n_chunks].reshape(b, lf.n_chunks).sum(1)
+        first += len(plan.leaves)
+    np.testing.assert_allclose(got, want, rtol=1e-12)
+
+
+def test_tree_plan_keeps_every_thread_loading_on_cifarnet():
+    """On the DP path's tree (B = 32, f32) every thread of every item's CTA
+    loads at least once: narrow leaves pack rows (a bias of 32 columns is 32
+    rows of 8 threads), and the tree is one launch of 586 items, one CTA
+    each: 512 chunks of Dense_0/kernel's rows, 64 of Conv_1/kernel's, 4 items
+    of 8 rows of Conv_0/kernel, 2 of 16 rows of Dense_1/kernel, and one item
+    for each bias."""
+    (plan,) = tdp.tree_plan(32, tuple([(w, 4, True) for w in _cifar_widths()[:-1]]
+                                      + [(10, 4, False)]))
+    assert (len(plan.leaves), plan.n_items) == (8, 586)
+    assert [(lf.rows, lf.n_chunks) for lf in plan.leaves] == [
+        (8, 1), (32, 1), (1, 2), (32, 1), (1, 16), (32, 1), (16, 1), (32, 1)]
+    for item in range(plan.n_items):
+        leaf, rows, cols, _ = _decode(plan, item)
+        lf = plan.leaves[leaf]
+        unit = 4 if lf.flags & 2 else 1
+        packs, tail = divmod(len(cols), unit)
+        loading = min(tdp.THREADS // lf.rows, max(packs, tail))  # threads of each row
+        assert len(rows) * loading == tdp.THREADS, (item, lf)
+
+
+def test_tree_wrappers_refuse_cpu_mixed_batches_and_mixed_devices():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tdp.sq_norms_tree_kernel([torch.ones((2, 3)), torch.ones((2, 5))])
+    for fn in (tdp.sq_norms_tree_kernel, tdp.per_example_tree_sq_norms):
+        with pytest.raises(ValueError, match=r"\[B=2, W\]"):
+            fn([torch.ones((2, 3)), torch.ones((3, 3))])
+        with pytest.raises(ValueError, match="leaves on cpu and meta"):
+            fn([torch.ones((2, 3)), torch.empty((2, 3), device="meta")])
+        with pytest.raises(ValueError, match="at least one leaf"):
+            fn([])
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))

@@ -1,5 +1,5 @@
-"""Hopper DP clip kernels (K1 squared norms, K2 scaled sum, and the fused
-clip over a tree) against their plain PyTorch versions, on the card.
+"""Hopper DP clip kernels (K1 squared norms over a tree, K2 scaled sum, and
+the fused clip over a tree) against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA card and nvcc: every test here skips with a reason where
 CUDA is absent. Run on the card with
@@ -84,12 +84,70 @@ def test_unaligned_and_strided_views(cuda, dtype):
                                    rtol=0)
 
 
+CIFAR_SHAPES = {"Conv_0/kernel": (5, 5, 3, 32), "Conv_0/bias": (32,),
+                "Conv_1/kernel": (5, 5, 32, 64), "Conv_1/bias": (64,),
+                "Dense_0/kernel": (4096, 128), "Dense_0/bias": (128,),
+                "Dense_1/kernel": (128, 10), "Dense_1/bias": (10,)}
+
+
+def _cifar_mats(b, dtype, device, seed=0):
+    return [_grads((b, *s), dtype, device, seed=seed + i).reshape(b, -1)
+            for i, s in enumerate(CIFAR_SHAPES.values())]
+
+
+def _tree_close(mats, launches):
+    dp.reset_launch_counts()
+    got = dp.sq_norms_tree_kernel(mats)
+    torch.cuda.synchronize()
+    assert dp.LAUNCHES["dp_sq_norms"] == launches
+    assert got.dtype == torch.float32 and got.shape == (mats[0].shape[0],)
+    torch.testing.assert_close(got, dp.per_example_tree_sq_norms_reference(mats), rtol=1e-5,
+                               atol=0)
+    return got
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tree_kernel_matches_plain_over_the_cifarnet_tree(cuda, dtype):
+    # the DP path's tree: eight leaves, one launch
+    _tree_close(_cifar_mats(32, dtype, cuda), launches=1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_tree_larger_than_a_launch(cuda, dtype):
+    # 70 leaves of ragged widths: three launches, each adding onto the last
+    rng = np.random.default_rng(4)
+    mats = [_grads((5, int(w)), dtype, cuda, seed=i)
+            for i, w in enumerate(rng.integers(1, 3000, size=2 * dp.K1_MAX_LEAVES + 6))]
+    _tree_close(mats, launches=3)
+
+
+def test_tree_with_unaligned_strided_and_mixed_leaves(cuda):
+    # in one launch: a view one element in (scalar loads), one whose row
+    # stride is wider than its rows, bf16 beside f32, a wide leaf cut into
+    # column chunks and a narrow scalar one
+    base = _grads((6, 1032), torch.float32, cuda, seed=3)
+    half = _grads((6, 4104), torch.bfloat16, cuda, seed=4)
+    mats = [base[:, 1:], base[:, :1000], half[:, 1:4097], half[:, :4096],
+            _grads((6, 40000), torch.float32, cuda, seed=5), _grads((6, 10), torch.float32, cuda)]
+    _tree_close(mats, launches=1)
+
+
+@pytest.mark.parametrize("b", [1, 7, 300])
+def test_tree_kernel_batch_sizes(cuda, b):
+    # one row; a ragged row group; more rows than a CTA has threads
+    _tree_close(_cifar_mats(b, torch.float32, cuda, seed=b), launches=1)
+
+
+def test_one_leaf_route_is_the_tree_kernel(cuda):
+    g = _grads((32, 524288), torch.float32, cuda, seed=6)
+    dp.reset_launch_counts()
+    assert torch.equal(dp.per_example_sq_norms(g), dp.sq_norms_tree_kernel([g]))
+    assert dp.LAUNCHES["dp_sq_norms"] == 2
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_fused_matches_plain_over_a_cifarnet_tree(cuda, dtype):
-    shapes = {"Conv_0/kernel": (5, 5, 3, 32), "Conv_0/bias": (32,),
-              "Conv_1/kernel": (5, 5, 32, 64), "Conv_1/bias": (64,),
-              "Dense_0/kernel": (4096, 128), "Dense_0/bias": (128,),
-              "Dense_1/kernel": (128, 10), "Dense_1/bias": (10,)}
+    shapes = CIFAR_SHAPES
     b = 32
     # per-example norms from about 0.4 to 1.9, so that C = 1 clips some
     row_scale = torch.linspace(0.5e-3, 2.5e-3, b, device=cuda)
@@ -101,7 +159,7 @@ def test_fused_matches_plain_over_a_cifarnet_tree(cuda, dtype):
     dp.reset_launch_counts()
     got, norms = dp.fused_clipped_masked_sum(tree, mask, 1.0, return_norms=True)
     torch.cuda.synchronize()
-    assert dp.LAUNCHES == {"dp_sq_norms": 8, "dp_scaled_sum": 8}
+    assert dp.LAUNCHES == {"dp_sq_norms": 1, "dp_scaled_sum": 8}
     mats = {k: v.reshape(b, -1) for k, v in tree.items()}
     sq = sum(dp.per_example_sq_norms_reference(m) for m in mats.values())
     want_norms = torch.sqrt(sq)
@@ -122,10 +180,23 @@ def test_kernels_are_deterministic(cuda):
         a, b = dp.per_example_sq_norms(g), dp.per_example_sq_norms(g)
         assert torch.equal(a, b)
         assert torch.equal(dp.scaled_masked_sum(g, scale), dp.scaled_masked_sum(g, scale))
+    # K1 over a tree: twice on tree A, once on tree B (other shapes, so
+    # another grid), then A again: all of A's bit-identical, so the ticket
+    # counter is back at 0 after every launch
+    tree_a = _cifar_mats(32, torch.float32, cuda, seed=10)
+    tree_b = [_grads((32, w), torch.bfloat16, cuda, seed=w) for w in (7, 300, 70000)]
+    first = dp.sq_norms_tree_kernel(tree_a)
+    assert torch.equal(first, dp.sq_norms_tree_kernel(tree_a))
+    other = dp.sq_norms_tree_kernel(tree_b)
+    assert torch.equal(first, dp.sq_norms_tree_kernel(tree_a))
+    assert torch.equal(other, dp.sq_norms_tree_kernel(tree_b))
 
 
 def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="float32 or bfloat16"):
-        dp.sq_norms_kernel(torch.ones((2, 3), dtype=torch.float16, device=cuda))
+        dp.sq_norms_tree_kernel([torch.ones((2, 3), dtype=torch.float16, device=cuda)])
+    with pytest.raises(ValueError, match=r"\[B=2, W\]"):
+        dp.sq_norms_tree_kernel([torch.ones((2, 3), device=cuda),
+                                 torch.ones((3, 3), device=cuda)])
     with pytest.raises(ValueError, match="scale"):
         dp.scaled_sum_kernel(torch.ones((2, 3), device=cuda), torch.ones(3, device=cuda))

@@ -1,6 +1,6 @@
-"""The port stands alone: no module of fl4health_tpu_torch, and neither
-chip_smoke.py nor tools/torch_port_round_profile.py, imports JAX, flax,
-optax or the JAX package, and the package imports with JAX made
+"""The port stands alone: no module of fl4health_tpu_torch, and none of
+chip_smoke.py and the port's tools (tools/torch_port_*.py) imports JAX,
+flax, optax or the JAX package, and the package imports with JAX made
 unimportable."""
 
 import ast
@@ -13,7 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "fl4health_tpu")
 SOURCES = sorted((ROOT / "fl4health_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "tools" / "torch_port_round_profile.py"]
+    ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("torch_port_*.py"))]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -37,7 +37,8 @@ def test_no_jax_imports(path):
 def test_sources_were_found():
     names = {p.name for p in SOURCES}
     assert {"flash_attention.py", "simulation.py", "engine.py", "chip_smoke.py",
-            "dp_clip.py", "dpsgd.py", "instance_level_dp.py"} <= names
+            "dp_clip.py", "dpsgd.py", "instance_level_dp.py", "torch_port_round_profile.py",
+            "torch_port_kernel_resources.py"} <= names
 
 
 def test_package_imports_without_jax():

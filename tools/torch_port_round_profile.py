@@ -52,7 +52,7 @@ def kernel_group(name: str) -> str:
         return "flash_bwd_dq"
     if "flash_bwd_dkv_kernel" in name:
         return "flash_bwd_dkv"
-    if "sq_norm_partial_kernel" in name or "sq_norm_finish_kernel" in name:
+    if "sq_norms_tree_kernel" in name:
         return "dp_sq_norms"
     if "scaled_sum_kernel" in name:
         return "dp_scaled_sum"
