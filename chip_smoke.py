@@ -46,6 +46,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      bf16 compute / f32 params) for 2 rounds under InstanceLevelDpServer, with
      the DP launch counts set to 0 just before and read just after; its
      epsilon must equal the accountant's value for this configuration.
+  9. The random stream on the card: for keys 0, 7 and 2^31 - 1, ``split``,
+     ``fold_in``, ``bits``, ``uniform`` (shapes (), (7,), (64,), (3, 5, 11)
+     and CifarNet's 579,402 parameters) and ``permutation`` (64, 1000) drawn
+     on the card equal the CPU draws bit for bit; ``normal`` within rtol/atol
+     1e-6, with the share of bit-exact draws printed; and the time of the
+     server noise of one CifarNet round.
+ 10. A tiny client-level DP run (the ``client_dp_weighted_mnist`` logic and
+     strategy: an MLP, noise 0.1, weighted, adaptive clipping; over 8
+     uneven clients, Poisson sampling at q = 0.5, 2 rounds, f32) on the card
+     against the same run on the CPU: the same sampled masks, and losses,
+     params and clipping bound within 5e-4.
+ 11. The client-level DP path, ``client_dp_cifar_cnn``: DP-FedAvgM of CifarNet
+     at full width over 64 uneven clients (the client_level_dp_weighted
+     example's size profile and strategy settings), Poisson sampling at
+     q = 0.25, batch 32, 5 local SGD(0.1) steps, bf16 compute / f32 params,
+     2 rounds under ClientLevelDpFedAvgServer. It reaches no kernel, as in
+     JAX: every launch counter must stand still over the phase; its epsilon
+     must equal the accountant's value for this configuration.
 Both extensions are built at the start, in parallel. Then one JSON line with
 every kernel, the card line again, and the result line.
 """
@@ -102,6 +120,23 @@ DP_EPSILON = 4.8447493207072
 # same values to f32 and sum the same f32 products, in another order
 DP_TOL = {"dp_sq_norms": (0.0, 1e-5), "dp_scaled_sum": (1e-5, 0.0),
           "fused": (1e-5, 0.0)}
+# The client-level DP path: examples/dp_fed_examples/client_level_dp_weighted
+# (its config.yaml's strategy settings; uneven "hospitals" from its
+# linspace(64, 256) size profile normalised to the pool) on the CifarNet of
+# dp_cifar_cnn, 64 clients from a 14,336-row pool, Poisson sampling at q = 0.25
+CDP_CLIENTS, CDP_POOL, CDP_ROUNDS, CDP_FRACTION, CDP_LR = 64, 14336, 2, 0.25, 0.1
+CDP_STRATEGY = dict(noise_multiplier=0.1, bit_noise_multiplier=1.0,
+                    initial_clipping_bound=2.0, clipping_quantile=0.5,
+                    weighted_aggregation=True, adaptive_clipping=True)
+# epsilon of that run at delta = 1 / 64, from the CPU accountant
+# (tests/test_torch_client_dp.py holds both packages' accountants to it)
+CDP_EPSILON = 125.27058177633157
+# the strategy of tests/smoke/harness.py's client_dp_weighted_mnist, for the
+# tiny card-vs-CPU run
+TINY_CDP_STRATEGY = dict(noise_multiplier=0.1, server_momentum=0.5,
+                         initial_clipping_bound=0.5, weighted_aggregation=True,
+                         adaptive_clipping=True, bit_noise_multiplier=1.0, seed=7)
+RNG_SHAPES = [(), (7,), (64,), (3, 5, 11), (579402,)]
 # CifarNet's parameter leaves, each with a leading per-example axis on the path
 CIFAR_LEAVES = {"Conv_0/kernel": (5, 5, 3, 32), "Conv_0/bias": (32,),
                 "Conv_1/kernel": (5, 5, 32, 64), "Conv_1/bias": (64,),
@@ -814,6 +849,203 @@ def dp_main_path(dp) -> dict:
     return launches
 
 
+def rng_card_check() -> None:
+    """The random stream drawn on the card against the same draws on the CPU."""
+    from fl4health_tpu_torch import rng
+
+    def same(name, got, want):
+        if got.device.type != "cuda":
+            fail(f"rng {name}: drawn on {got.device}, not on the card")
+        if not torch.equal(got.cpu(), want):
+            fail(f"rng {name}: the card's draws differ from the CPU's")
+
+    exact, n_normal, normal_err = 0, 0, 0.0
+    for seed in (0, 7, 2**31 - 1):
+        kg, kc = rng.PRNGKey(seed, "cuda"), rng.PRNGKey(seed)
+        for n in (2, 3, 8):
+            same(f"split {seed} {n}", rng.split(kg, n), rng.split(kc, n))
+        for d in (0, 2001, 2**32 - 1):
+            same(f"fold_in {seed} {d}", rng.fold_in(kg, d), rng.fold_in(kc, d))
+        for shape in RNG_SHAPES:
+            same(f"bits {seed} {shape}", rng.bits(kg, shape), rng.bits(kc, shape))
+            same(f"uniform {seed} {shape}", rng.uniform(kg, shape), rng.uniform(kc, shape))
+            same(f"uniform(-2.5, 3) {seed} {shape}", rng.uniform(kg, shape, -2.5, 3.0),
+                 rng.uniform(kc, shape, -2.5, 3.0))
+        for n in (64, 1000):
+            same(f"permutation {seed} {n}", rng.permutation(kg, n), rng.permutation(kc, n))
+        got, want = rng.normal(kg, RNG_SHAPES[-1]), rng.normal(kc, RNG_SHAPES[-1])
+        normal_err = max(normal_err, check(f"rng normal {seed}", got.cpu(), want, 1e-6, 1e-6))
+        exact += int((got.cpu() == want).sum())
+        n_normal += want.numel()
+
+    # the server's noise of one CifarNet round, as the strategy draws it: one
+    # key per leaf, one normal draw per leaf
+    key = rng.PRNGKey(0, "cuda")
+
+    def server_noise():
+        return [rng.normal(k, s) for k, s in zip(rng.split(key, len(CIFAR_LEAVES)),
+                                                  CIFAR_LEAVES.values())]
+    server_noise()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        server_noise()
+    torch.cuda.synchronize()
+    out = {"check": "rng card vs cpu", "seeds": [0, 7, 2**31 - 1],
+           "bit_exact": ["split", "fold_in", "bits", "uniform", "permutation"],
+           "normal_max_abs_err": normal_err, "normal_tolerance": [1e-6, 1e-6],
+           "normal_bit_exact_share": exact / n_normal,
+           # per draw of all 8 leaves' noise (579,402 normals): CUDA events
+           # behind the spin kernel (the draw's ~1,900 launches outlast the
+           # spin, so this reads the launch rate, not the device) and host wall
+           "server_noise_event_ms": cuda_ms(server_noise),
+           "server_noise_wall_ms": (time.perf_counter() - t0) / 20 * 1e3}
+    print(json.dumps(out))
+
+
+def hospital_datasets(n_clients: int, pool: int, shape, seed: int = 0) -> list:
+    """``pool`` synthetic rows cut into ``n_clients`` uneven clients by the
+    client_level_dp_weighted example's size profile, each split 80/20 with
+    hash key 7 + i."""
+    from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
+    from fl4health_tpu_torch.datasets.vision import split_data_and_targets
+    from fl4health_tpu_torch.server.simulation import ClientDataset
+
+    x, y = synthetic_classification(torch.Generator().manual_seed(seed), pool, shape, 10)
+    x, y = x.numpy(), y.numpy()
+    profile = np.linspace(64, 256, n_clients)
+    sizes = np.floor(profile * pool / profile.sum()).astype(int)
+    sizes[: pool - sizes.sum()] += 1  # the flooring remainder
+    offsets = np.concatenate([[0], np.cumsum(sizes)])
+    return [ClientDataset(*split_data_and_targets(x[offsets[i]:offsets[i + 1]],
+                                                  y[offsets[i]:offsets[i + 1]], 0.2, 7 + i))
+            for i in range(n_clients)]
+
+
+def build_client_dp_sim(data, module, device, fraction, seed, batch=BATCH,
+                        local_steps=LOCAL_STEPS, lr=CDP_LR, strategy=CDP_STRATEGY):
+    from fl4health_tpu_torch import optim
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.clients.clipping import ClippingClientLogic
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.server.client_manager import PoissonSamplingManager
+    from fl4health_tpu_torch.server.simulation import FederatedSimulation
+    from fl4health_tpu_torch.strategies.client_dp_fedavgm import ClientLevelDPFedAvgM
+
+    return FederatedSimulation(
+        logic=ClippingClientLogic(engine.from_module(module), engine.masked_cross_entropy,
+                                  adaptive_clipping=True),
+        tx=optim.sgd(lr), strategy=ClientLevelDPFedAvgM(**strategy), datasets=data,
+        batch_size=batch, metrics=MetricManager((efficient.accuracy(),)),
+        local_steps=local_steps, client_manager=PoissonSamplingManager(len(data), fraction),
+        seed=seed, device=device)
+
+
+def record_rounds(sim) -> tuple[list, list]:
+    """Keep every mask the manager hands out and every clipping bound the
+    strategy sets, as tensors (no sync inside the round)."""
+    masks, bounds = [], []
+    sample, aggregate = sim.client_manager.sample, sim.strategy.aggregate
+
+    def sample_rec(key, round_idx):
+        masks.append(sample(key, round_idx))
+        return masks[-1]
+
+    def aggregate_rec(*args):
+        state = aggregate(*args)
+        bounds.append(state.clipping_bound)
+        return state
+
+    sim.client_manager.sample, sim.strategy.aggregate = sample_rec, aggregate_rec
+    return masks, bounds
+
+
+def tiny_client_dp_parity() -> None:
+    """The same tiny client-level DP run (f32) on the card and on the CPU."""
+    from fl4health_tpu_torch.models.cnn import Mlp
+
+    data = hospital_datasets(8, 480, (14, 14, 1))
+    runs = []
+    for device in ("cuda", "cpu"):
+        sim = build_client_dp_sim(data, Mlp(14 * 14, (16,), 10), device, 0.5, seed=11,
+                                  batch=16, local_steps=3, lr=0.05,
+                                  strategy=TINY_CDP_STRATEGY)
+        if runs:
+            sim.set_global_params({k: v.cpu() for k, v in runs[0][2].items()})
+        init = {k: v.clone() for k, v in sim.global_params.items()}
+        masks, bounds = record_rounds(sim)
+        runs.append((sim.fit(2), sim.global_params, init, masks, bounds))
+    (gh, gp, _, gm, gb), (ch, cp, _, cm, cb) = runs
+    for r, (g, c) in enumerate(zip(gm, cm), 1):
+        if g.device.type != "cuda" or not torch.equal(g.cpu(), c):
+            fail(f"tiny client DP round {r}: masks {g.tolist()} on the card, "
+                 f"{c.tolist()} on the CPU")
+    for gr, cr in zip(gh, ch):
+        check(f"tiny client DP fit loss r{gr.round}", torch.tensor(gr.fit_losses["backward"]),
+              torch.tensor(cr.fit_losses["backward"]), 5e-4, 0)
+        check(f"tiny client DP eval loss r{gr.round}",
+              torch.tensor(gr.eval_losses["checkpoint"]),
+              torch.tensor(cr.eval_losses["checkpoint"]), 5e-4, 0)
+    for r, (g, c) in enumerate(zip(gb, cb), 1):
+        check(f"tiny client DP clipping bound r{r}", g.cpu(), c, 5e-4, 0)
+    err = max(check(f"tiny client DP param {k}", gp[k].cpu(), cp[k], 5e-4, 0) for k in cp)
+    print(json.dumps({"tiny_client_dp_parity": "cuda vs cpu", "rounds": 2,
+                      "masks": [m.tolist() for m in gm],
+                      "fit_losses": [r.fit_losses["backward"] for r in gh],
+                      "clipping_bounds": [float(b) for b in gb],
+                      "max_param_abs_err": err}))
+
+
+def client_dp_main_path(fa, dp) -> None:
+    """Full-width client-level DP-FedAvgM of CifarNet, bf16 compute, 2 rounds."""
+    from fl4health_tpu_torch.models.cnn import CifarNet
+    from fl4health_tpu_torch.server.servers import ClientLevelDpFedAvgServer
+
+    data = hospital_datasets(CDP_CLIENTS, CDP_POOL, (32, 32, 3))
+    sim = build_client_dp_sim(data, CifarNet(10, dtype=torch.bfloat16), "cuda",
+                              CDP_FRACTION, seed=0)
+    server = ClientLevelDpFedAvgServer(sim, noise_multiplier=CDP_STRATEGY["noise_multiplier"])
+    masks, bounds = record_rounds(sim)
+    init = {k: v.clone() for k, v in sim.global_params.items()}
+    counters = lambda: [dict(c) for c in (fa.LAUNCHES, fa.WGMMA_LAUNCHES, dp.LAUNCHES)]  # noqa: E731
+    before = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    hist, epsilon = server.fit(CDP_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    after = counters()
+    for r, mask, bound in zip(hist, masks, bounds):
+        values = (*r.fit_losses.values(), *r.eval_losses.values())
+        if not all(np.isfinite(v) for v in values):
+            fail(f"client DP round {r.round}: non-finite losses {r.fit_losses} "
+                 f"{r.eval_losses}")
+        print(json.dumps({
+            "client_dp_round": r.round, "fit_loss": r.fit_losses["backward"],
+            "eval_loss": r.eval_losses["checkpoint"],
+            "eval_accuracy": r.eval_metrics["accuracy"], "clipping_bound": float(bound),
+            "clients_sampled": int(mask.sum()), "fit_s": r.fit_elapsed_s,
+            "eval_s": r.eval_elapsed_s, "round_wall_s": r.fit_elapsed_s + r.eval_elapsed_s}))
+    moved = max(float((sim.global_params[k] - init[k]).abs().max()) for k in init)
+    finite = all(torch.isfinite(v).all() for v in sim.global_params.values())
+    print(json.dumps({"main_path": "client_dp_cifar_cnn", "rounds": CDP_ROUNDS,
+                      "wall_s": wall, "epsilon": epsilon,
+                      "n_params": sum(v.numel() for v in init.values()),
+                      "clients": CDP_CLIENTS,
+                      "train_rows": [min(d.n_train for d in data),
+                                     max(d.n_train for d in data)],
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "max_param_change": moved, "launch_counters_moved": before != after}))
+    if not finite or moved <= 0:
+        fail(f"client DP global params after training: finite={finite}, max change {moved}")
+    if abs(epsilon - CDP_EPSILON) > 1e-9:
+        fail(f"client DP epsilon {epsilon!r}, the accountant gives {CDP_EPSILON!r}")
+    if before != after:
+        fail(f"the client-level DP path launched kernels: {before} -> {after}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: needs an NVIDIA card; torch.cuda.is_available() is false",
@@ -852,6 +1084,10 @@ def main() -> int:
     dp_timings = dp_kernel_timings(dp)
     tiny_dp_parity(dp)
     dp_launches = dp_main_path(dp)
+
+    rng_card_check()
+    tiny_client_dp_parity()
+    client_dp_main_path(fa, dp)
 
     replaces = {"flash_fwd": "fl4health_tpu/kernels/flash_attention.py:71",
                 "flash_bwd_dq": "fl4health_tpu/kernels/flash_attention.py:141",

@@ -16,9 +16,8 @@ nothing (the plain ``ClientLogic``) ignores it.
 
 Left out here: the precision (loss scaling), ZeRO-2 microbatching,
 telemetry and early-stopping branches; and the algorithm hooks no
-ported logic overrides yet (``init_extra``/``TrainState.extra``,
-``transform_gradients``, ``update_before_step``/``update_after_step``,
-``finalize_round``, ``augment``).
+ported logic overrides yet (``transform_gradients``,
+``update_before_step``/``update_after_step``, ``augment``).
 """
 
 from __future__ import annotations
@@ -58,6 +57,7 @@ class TrainState:
     params: Params
     opt_state: Any
     step: torch.Tensor
+    extra: Any = None  # a logic's persistent state (``init_extra``); None: empty
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,8 +111,18 @@ class ClientLogic:
         self.model = model
         self.criterion = criterion  # (logits, targets, example_mask) -> scalar
 
+    def init_extra(self, params: Params) -> Any:
+        """Persistent algorithm state, created with the client's state."""
+        return None
+
     def init_round_context(self, state: TrainState, server_payload: Any) -> Any:
         return None
+
+    def finalize_round(self, state: TrainState, ctx: Any,
+                       local_steps: torch.Tensor) -> TrainState:
+        """Runs after the round's last local step (e.g. client-level DP
+        clips the round's update here)."""
+        return state
 
     def predict(self, params: Params, batch: Batch, train: bool, ctx=None):
         del ctx
@@ -169,7 +179,8 @@ def create_train_state(logic: ClientLogic, tx: GradientTransformation,
                        device: torch.device) -> TrainState:
     params = {k: v.to(device) for k, v in logic.model.init(generator).items()}
     return TrainState(params=params, opt_state=tx.init(params),
-                      step=torch.zeros((), dtype=torch.int32, device=device))
+                      step=torch.zeros((), dtype=torch.int32, device=device),
+                      extra=logic.init_extra(params))
 
 
 def _mask_tree(new, old, keep: torch.Tensor):
@@ -239,6 +250,7 @@ def make_local_train(logic: ClientLogic, tx: GradientTransformation,
             mstate = metric_manager.update(mstate, out.preds, out.targets,
                                            out.example_mask)
         n_steps = batches.step_mask.sum()
+        state = logic.finalize_round(state, ctx, n_steps)
         return state, meter.compute(), metric_manager.compute(mstate), n_steps
 
     return train

@@ -11,7 +11,7 @@ from fl4health_tpu_torch.core.pytree import tree_map
 from fl4health_tpu_torch.core.types import PyTree, StackedParams
 
 
-def _expand(w: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+def expand_clients(w: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
     """Reshape [clients] weights to broadcast against a [clients, ...] leaf."""
     return w.reshape((-1,) + (1,) * (leaf.ndim - 1))
 
@@ -37,7 +37,7 @@ def weighted_mean(stacked: StackedParams, weights: torch.Tensor) -> PyTree:
     weight-0 rows hard-zeroed so a NaN in an unsampled row cannot leak in."""
 
     def _agg(leaf: torch.Tensor) -> torch.Tensor:
-        w = _expand(weights.to(device=leaf.device, dtype=torch.float32), leaf)
+        w = expand_clients(weights.to(device=leaf.device, dtype=torch.float32), leaf)
         contrib = torch.where(w > 0, leaf.float(), torch.zeros((), device=leaf.device)) * w
         return contrib.sum(dim=0).to(leaf.dtype)
 

@@ -3,7 +3,10 @@
 
 A "tree" is a tensor, or a dict, list or tuple of trees; ``None`` is an
 empty tree. Dicts keep their key order, so two trees built the same way
-line up leaf by leaf.
+line up leaf by leaf. That is not JAX's order: ``jax.tree_util`` flattens a
+dict in sorted key order at each level, while a ``Params`` dict keeps the
+module's init order. Whatever draws one random key per leaf walks
+``flax_leaf_order``.
 """
 
 from __future__ import annotations
@@ -62,3 +65,38 @@ def tree_nbytes(tree: PyTree) -> int:
     """Total bytes of a tree's tensors, from shape and dtype only."""
     return sum(x.numel() * x.element_size() for x in tree_leaves(tree)
                if isinstance(x, torch.Tensor))
+
+
+def flax_leaf_order(params: dict) -> list[str]:
+    """The keys of a ``Params`` dict (flax paths ``"a/b/c"``) in the order
+    ``jax.tree_util.tree_flatten`` visits the nested flax dict: keys sorted
+    at each level."""
+    return sorted(params, key=lambda path: tuple(path.split("/")))
+
+
+def global_norm(params: dict) -> torch.Tensor:
+    """l2 norm over a ``Params`` dict's leaves, the squares summed in JAX's
+    leaf order."""
+    return torch.sqrt(sum(torch.sum(torch.square(params[k]))
+                          for k in flax_leaf_order(params)))
+
+
+def tree_zeros_like(tree: PyTree) -> PyTree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.add, a, b)
+
+
+def tree_sub(a: PyTree, b: PyTree) -> PyTree:
+    return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree: PyTree, c) -> PyTree:
+    return tree_map(lambda x: x * c, tree)
+
+
+def tree_axpy(a, x: PyTree, y: PyTree) -> PyTree:
+    """``a * x + y``, leafwise."""
+    return tree_map(lambda xi, yi: a * xi + yi, x, y)

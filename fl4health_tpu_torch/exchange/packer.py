@@ -1,0 +1,20 @@
+"""Parameter packets (counterpart of ``fl4health_tpu/exchange/packer.py``;
+``ClippingBitPacket`` only): a packet is a dataclass whose fields keep their
+structure, so the simulation stacks it over clients like any tree."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from fl4health_tpu_torch.core.types import Params
+
+
+@dataclasses.dataclass(frozen=True)
+class ClippingBitPacket:
+    """Client-level DP payload: the clipped update and the clipping bit (a
+    0/1 f32 scalar)."""
+
+    params: Params
+    clipping_bit: torch.Tensor

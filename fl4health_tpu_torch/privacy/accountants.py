@@ -1,13 +1,14 @@
-"""Instance-level FL privacy accountant (the port's own copy of the parts of
-``fl4health_tpu/privacy/accountants.py`` that ``FlInstanceLevelAccountant``
-uses: ``PoissonSampling`` and ``MomentsAccountant`` for one self-composed
-event). Pure numpy/scipy on the host. The client-level accountants, the
-trajectory composition and the full-participation rounds (DP-SCAFFOLD's
-warm start) wait for the slices that use them.
+"""FL privacy accountants (the port's own copy of
+``fl4health_tpu/privacy/accountants.py``, less the full-participation rounds
+of DP-SCAFFOLD's warm start): sampling strategies, a moments accountant
+that composes one self-composed event or a trajectory of events, the
+instance-level accountant and the two client-level ones. Pure numpy/scipy
+on the host.
 """
 
 from __future__ import annotations
 
+from abc import ABC, abstractmethod
 from math import ceil
 from typing import Sequence
 
@@ -16,7 +17,16 @@ import numpy as np
 from fl4health_tpu_torch.privacy import rdp as rdp_math
 
 
-class PoissonSampling:
+class SamplingStrategy(ABC):
+    """How examples or clients enter a batch or round; selects the RDP
+    formula."""
+
+    @abstractmethod
+    def step_rdp(self, noise_multiplier: float, orders: Sequence[float]) -> np.ndarray:
+        ...
+
+
+class PoissonSampling(SamplingStrategy):
     """Each example (or client) joins a batch (or round) i.i.d. Bernoulli(q)."""
 
     def __init__(self, sampling_ratio: float):
@@ -30,9 +40,23 @@ class PoissonSampling:
         )
 
 
+class FixedSamplingWithoutReplacement(SamplingStrategy):
+    """Exactly ``sample_size`` of ``population_size`` drawn per step."""
+
+    def __init__(self, population_size: int, sample_size: int):
+        self.population_size = population_size
+        self.sample_size = sample_size
+
+    def step_rdp(self, noise_multiplier, orders):
+        return rdp_math.rdp_sampled_without_replacement_gaussian(
+            self.population_size, self.sample_size, noise_multiplier, orders
+        )
+
+
 class MomentsAccountant:
-    """One (sampling, sigma, steps) event composed with itself; answers
-    epsilon/delta queries."""
+    """Compose (sampling, sigma, steps) events; answer epsilon/delta
+    queries. Scalar arguments are one self-composed event; lists are a
+    trajectory composed in sequence (a scalar broadcasts along it)."""
 
     def __init__(self, moment_orders: Sequence[float] | None = None):
         self.moment_orders = (
@@ -40,9 +64,31 @@ class MomentsAccountant:
             else rdp_math.default_orders()
         )
 
-    def _total_rdp(self, sampling: PoissonSampling, noise_multiplier: float,
-                   updates: int) -> np.ndarray:
-        return updates * sampling.step_rdp(float(noise_multiplier), self.moment_orders)
+    def _total_rdp(
+        self,
+        sampling: SamplingStrategy | Sequence[SamplingStrategy],
+        noise_multiplier: float | Sequence[float],
+        updates: int | Sequence[int],
+    ) -> np.ndarray:
+        if isinstance(sampling, SamplingStrategy):
+            sampling = [sampling]
+        n = max(
+            len(sampling),
+            len(noise_multiplier) if not isinstance(noise_multiplier, (int, float)) else 1,
+            len(updates) if not isinstance(updates, int) else 1,
+        )
+        if isinstance(noise_multiplier, (int, float)):
+            noise_multiplier = [float(noise_multiplier)] * n
+        if isinstance(updates, int):
+            updates = [updates] * n
+        if len(sampling) == 1 and n > 1:
+            sampling = list(sampling) * n
+        if not (len(sampling) == len(noise_multiplier) == len(updates)):
+            raise ValueError("trajectory lists must have equal length")
+        total = np.zeros(len(self.moment_orders), dtype=np.float64)
+        for strat, sigma, steps in zip(sampling, noise_multiplier, updates):
+            total = total + steps * strat.step_rdp(sigma, self.moment_orders)
+        return total
 
     def get_epsilon(self, sampling, noise_multiplier, updates, delta: float) -> float:
         rdp = self._total_rdp(sampling, noise_multiplier, updates)
@@ -103,3 +149,73 @@ class FlInstanceLevelAccountant:
 
     def get_delta(self, server_updates: int, epsilon: float) -> float:
         return self._per_client(self.accountant.get_delta, server_updates, epsilon)
+
+
+class ClientLevelAccountant(ABC):
+    """Client-level DP: each round is one subsampled-Gaussian query over the
+    client population."""
+
+    def __init__(
+        self,
+        noise_multiplier: float | Sequence[float],
+        moment_orders: Sequence[float] | None = None,
+    ):
+        self.noise_multiplier = noise_multiplier
+        self.accountant = MomentsAccountant(moment_orders)
+
+    @abstractmethod
+    def _sampling(self) -> SamplingStrategy | Sequence[SamplingStrategy]:
+        ...
+
+    def get_epsilon(self, server_updates: int | Sequence[int], delta: float) -> float:
+        return self.accountant.get_epsilon(
+            self._sampling(), self.noise_multiplier, server_updates, delta
+        )
+
+    def get_delta(self, server_updates: int | Sequence[int], epsilon: float) -> float:
+        return self.accountant.get_delta(
+            self._sampling(), self.noise_multiplier, server_updates, epsilon
+        )
+
+
+class FlClientLevelAccountantPoissonSampling(ClientLevelAccountant):
+    """Clients join each round i.i.d. Bernoulli(q)."""
+
+    def __init__(
+        self,
+        client_sampling_rate: float | Sequence[float],
+        noise_multiplier: float | Sequence[float],
+        moment_orders: Sequence[float] | None = None,
+    ):
+        super().__init__(noise_multiplier, moment_orders)
+        self.client_sampling_rate = client_sampling_rate
+
+    def _sampling(self):
+        if isinstance(self.client_sampling_rate, (int, float)):
+            return PoissonSampling(float(self.client_sampling_rate))
+        return [PoissonSampling(float(q)) for q in self.client_sampling_rate]
+
+
+class FlClientLevelAccountantFixedSamplingNoReplacement(ClientLevelAccountant):
+    """Exactly n of N clients sampled per round."""
+
+    def __init__(
+        self,
+        n_total_clients: int,
+        n_clients_sampled: int | Sequence[int],
+        noise_multiplier: float | Sequence[float],
+        moment_orders: Sequence[float] | None = None,
+    ):
+        super().__init__(noise_multiplier, moment_orders)
+        self.n_total_clients = n_total_clients
+        self.n_clients_sampled = n_clients_sampled
+
+    def _sampling(self):
+        if isinstance(self.n_clients_sampled, int):
+            return FixedSamplingWithoutReplacement(
+                self.n_total_clients, self.n_clients_sampled
+            )
+        return [
+            FixedSamplingWithoutReplacement(self.n_total_clients, n)
+            for n in self.n_clients_sampled
+        ]

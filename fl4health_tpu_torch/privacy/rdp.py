@@ -1,6 +1,6 @@
 """Renyi-DP accounting for the Poisson-subsampled Gaussian mechanism — pure
 math (the port's own copy of ``fl4health_tpu/privacy/rdp.py``, the parts the
-instance-level accountant uses; float64 numpy/scipy on the host).
+instance- and client-level accountants use; float64 numpy/scipy on the host).
 
 - RDP of the Poisson-subsampled Gaussian mechanism at integer and fractional
   orders alpha, per Mironov, Talwar & Zhang, "Renyi Differential Privacy of the
@@ -132,6 +132,27 @@ def rdp_poisson_subsampled_gaussian(
                 log_a = _log_a_frac(q, sigma, float(alpha))
             out[idx] = log_a / (alpha - 1.0)
     return out
+
+
+def rdp_gaussian(noise_multiplier: float, orders: Sequence[float]) -> np.ndarray:
+    """RDP(alpha) of the plain Gaussian mechanism: alpha / (2 sigma^2)."""
+    sigma = float(noise_multiplier)
+    orders_arr = np.asarray(orders, dtype=np.float64)
+    if sigma == 0.0:
+        return np.full_like(orders_arr, np.inf)
+    return orders_arr / (2.0 * sigma**2)
+
+
+def rdp_sampled_without_replacement_gaussian(
+    population: int, sample: int, noise_multiplier: float, orders: Sequence[float]
+) -> np.ndarray:
+    """RDP of fixed-size sampling without replacement under replace-one
+    adjacency, by the JAX package's amplification-free bound: in the worst
+    case the replaced element is in the sample and the query's sensitivity
+    is 2, so RDP(alpha) = 2 alpha / sigma^2. It over-estimates epsilon
+    against the Wang-Balle-Kasiviswanathan bound, never under."""
+    del population, sample  # the amplification-free bound does not use them
+    return 4.0 * rdp_gaussian(noise_multiplier, orders)
 
 
 # ---------------------------------------------------------------------------

@@ -1,14 +1,18 @@
 """Servers around the simulation (counterpart of the parts of
-``fl4health_tpu/server/servers.py`` the DP slice uses): per-client
-sample-count polling and the instance-level DP server, which configures the
-FL instance-level accountant and returns the run's epsilon with its history.
+``fl4health_tpu/server/servers.py`` the DP slices use): per-client
+sample-count polling and the instance- and client-level DP servers, which
+configure the matching accountant and return the run's epsilon with its
+history.
 """
 
 from __future__ import annotations
 
 import logging
 
-from fl4health_tpu_torch.privacy.accountants import FlInstanceLevelAccountant
+from fl4health_tpu_torch.privacy.accountants import (
+    FlClientLevelAccountantFixedSamplingNoReplacement,
+    FlClientLevelAccountantPoissonSampling, FlInstanceLevelAccountant)
+from fl4health_tpu_torch.server.client_manager import PoissonSamplingManager
 from fl4health_tpu_torch.server.simulation import FederatedSimulation
 
 logger = logging.getLogger(__name__)
@@ -58,5 +62,39 @@ class InstanceLevelDpServer:
             poll_sample_counts(self.sim))
         epsilon = accountant.get_epsilon(n_rounds, delta)
         logger.info("Instance-level DP run: epsilon=%.4f at delta=%.2e over %d rounds",
+                    epsilon, delta, n_rounds)
+        return self.sim.fit(n_rounds), epsilon
+
+
+class ClientLevelDpFedAvgServer:
+    """Client-level DP orchestration: the client-level accountant that
+    matches the manager's sampling scheme (Poisson, else fixed-size without
+    replacement at ``max(round(fraction * n), 1)`` clients), epsilon at
+    delta = 1 / n_clients unless given, logged and returned with the
+    history."""
+
+    def __init__(self, sim: FederatedSimulation, noise_multiplier: float,
+                 delta: float | None = None):
+        self.sim = sim
+        self.noise_multiplier = noise_multiplier
+        self.delta = delta
+
+    def _accountant(self):
+        manager = self.sim.client_manager
+        n = self.sim.n_clients
+        fraction = getattr(manager, "fraction", 1.0)
+        if isinstance(manager, PoissonSamplingManager):
+            return FlClientLevelAccountantPoissonSampling(
+                client_sampling_rate=fraction, noise_multiplier=self.noise_multiplier)
+        return FlClientLevelAccountantFixedSamplingNoReplacement(
+            n_total_clients=n, n_clients_sampled=max(int(round(fraction * n)), 1),
+            noise_multiplier=self.noise_multiplier)
+
+    def fit(self, n_rounds: int):
+        """-> (history, epsilon) for ``n_rounds``."""
+        accountant = self._accountant()
+        delta = self.delta if self.delta is not None else 1.0 / self.sim.n_clients
+        epsilon = accountant.get_epsilon(n_rounds, delta)
+        logger.info("Client-level DP run: epsilon=%.4f at delta=%.2e over %d rounds",
                     epsilon, delta, n_rounds)
         return self.sim.fit(n_rounds), epsilon

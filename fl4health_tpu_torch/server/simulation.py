@@ -1,17 +1,19 @@
 """In-process federated simulation (counterpart of
 ``fl4health_tpu/server/simulation.py``, its per-round pipelined path).
 
-A round: the client manager samples a participation mask; every client pulls
-the global params, trains ``local_steps`` (or ``local_epochs``) over its
-index plan and pushes its params; clients with a non-finite training loss
-are masked out of the aggregate; the strategy aggregates; then every client
-evaluates the new global model on its validation split. Clients run as a
-Python loop over a ``[K]``-stacked ``TrainState`` on one device.
+A round: the client manager samples a participation mask from
+``fold_in(PRNGKey(seed), 2000 + round)``, drawn through ``rng.py`` on the
+sim's device as JAX draws it; every client pulls the global params (the
+payload's ``params`` where the strategy sends more), trains ``local_steps``
+(or ``local_epochs``) over its index plan, lets its logic finalize the
+round, and pushes; clients with a non-finite training loss are masked out
+of the aggregate; the strategy aggregates; then every client evaluates the
+new global model on its validation split. Clients run as a Python loop over
+a ``[K]``-stacked ``TrainState`` on one device.
 
-The index plans use the JAX simulation's entropy: ``key_data(PRNGKey(seed))``
-is ``[0, seed]`` for JAX's default threefry key, so ``base_entropy`` is
-hard-coded and round ``r``, client ``i`` draws from ``[0, seed, 1000 + r, i]``
-— the same batches in both packages. The initial params come from a
+The index plans use the JAX simulation's entropy, ``key_data(PRNGKey(seed))``
+(``[0, seed]``): round ``r``, client ``i`` draws from ``[0, seed, 1000 + r,
+i]`` — the same batches in both packages. The initial params come from a
 ``torch.Generator`` seeded with ``seed`` (not the flax init); tests install
 converted flax params with ``set_global_params``.
 
@@ -29,6 +31,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from fl4health_tpu_torch import rng
 from fl4health_tpu_torch.clients import engine
 from fl4health_tpu_torch.clients.engine import Batch, ClientLogic, TrainState
 from fl4health_tpu_torch.core import pytree as ptu
@@ -43,9 +46,15 @@ from fl4health_tpu_torch.strategies.base import FitResults, Strategy
 
 
 def base_entropy(seed: int) -> list[int]:
-    """The JAX simulation's ``key_data(PRNGKey(seed))`` for the default
-    threefry key: ``[0, seed]`` (seed as an unsigned 32-bit word)."""
-    return [0, int(seed) & 0xFFFFFFFF]
+    """The JAX simulation's ``key_data(PRNGKey(seed))``."""
+    return [int(w) for w in rng.key_data(rng.PRNGKey(seed))]
+
+
+def payload_params(payload):
+    """The params a client pulls: the payload's ``params`` where the
+    strategy sends more than params (a ``ClippingPayload``), else the
+    payload itself."""
+    return payload.params if hasattr(payload, "params") else payload
 
 
 @dataclasses.dataclass
@@ -105,7 +114,11 @@ class FederatedSimulation:
             raise ValueError(
                 f"client_manager covers {self.client_manager.n_clients} clients "
                 f"but {self.n_clients} datasets were given")
+        # setup-time strategy <-> sampling-scheme check (the DP strategy
+        # derives or checks its sampling fraction against the manager's)
+        self.strategy.bind_client_manager(self.client_manager)
         self.seed = seed
+        self.rng = rng.PRNGKey(seed, self.device)
         self._base_entropy = base_entropy(seed)
         self.history: list[RoundRecord] = []
         for i, d in enumerate(self.datasets):
@@ -171,7 +184,7 @@ class FederatedSimulation:
         def client_fit(state: TrainState, payload, batches: Batch,
                        participate: torch.Tensor, entropy: list[int]):
             orig = state
-            pulled = exchanger.pull(payload, state.params)
+            pulled = exchanger.pull(payload_params(payload), state.params)
             state = dataclasses.replace(state, params=pulled)
             ctx = logic.init_round_context(state, payload)
             new_state, losses, metrics, _ = train(state, ctx, batches, entropy)
@@ -182,7 +195,7 @@ class FederatedSimulation:
             return new_state, logic.pack(new_state, pushed, losses), losses, metrics
 
         def client_eval(state: TrainState, payload, batches: Batch):
-            pulled = exchanger.pull(payload, state.params)
+            pulled = exchanger.pull(payload_params(payload), state.params)
             st = dataclasses.replace(state, params=pulled)
             ctx = logic.init_round_context(st, payload)
             losses, metrics = evaluate(st, ctx, batches)
@@ -276,7 +289,7 @@ class FederatedSimulation:
         start = len(self.history) + 1
         for rnd in range(start, start + n_rounds):
             t0 = time.time()
-            mask = self.client_manager.sample(rnd, self.device)
+            mask = self.client_manager.sample(rng.fold_in(self.rng, 2000 + rnd), rnd)
             batches = self._round_batches(rnd)
             (self.server_state, self.client_states, fit_losses, fit_metrics,
              _) = self._fit_round(self.server_state, self.client_states,

@@ -17,7 +17,7 @@ from fl4health_tpu_torch.core.types import Params
 class FitResults:
     """Stacked results of one fit round.
 
-    packets:       client-stacked payload (params)
+    packets:       client-stacked packets (params, or a logic's packet)
     sample_counts: [clients] train-set sizes
     train_losses:  dict of [clients] losses
     train_metrics: dict of [clients] metric values
@@ -32,6 +32,11 @@ class FitResults:
 
 
 class Strategy:
+    def bind_client_manager(self, client_manager: Any) -> None:
+        """Setup-time hook: the simulation calls it once with its client
+        manager, so a strategy can derive or check its sampling assumptions
+        (DP-FedAvgM's ``fraction_fit``). Default: nothing."""
+
     def init(self, params: Params) -> Any:
         raise NotImplementedError
 

@@ -21,6 +21,13 @@ stream, so kernels do not overlap).
       idle (wall less busy). A device op belongs to the range in which the
       host launched it (the trace links each kernel, copy or fill to its
       launch call); the host time spent in each range is given beside it.
+  --config client_dp_cifar_cnn  the client-level DP-FedAvgM CifarNet path
+      (64 uneven clients, Poisson sampling at q = 0.25); ranges around the
+      client's ``value_and_grads`` (forward and backward), its
+      ``finalize_round`` (the update's clip), the manager's ``sample``, the
+      strategy's ``aggregate`` (weighted sums, server noise, momentum,
+      bound update) and the evaluation phase; the rest of fit is the SGD
+      update and engine glue. The path launches none of the port's kernels.
 
 Run on the card from the repository root:
     python3 tools/torch_port_round_profile.py [--config dp_cifar_cnn]
@@ -42,6 +49,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 RANGES = ("profile::value_and_grads", "profile::dp_clip_noise", "profile::eval")
+CDP_RANGES = ("profile::value_and_grads", "profile::finalize_round", "profile::sample",
+              "profile::aggregate", "profile::eval")
 
 
 def kernel_group(name: str) -> str:
@@ -73,6 +82,31 @@ def transformer_sim():
     return cs.build_sim(cfg, data, torch.bfloat16, "cuda", seed=0)
 
 
+def ranged(name, fn):
+    def call(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return call
+
+
+def client_dp_sim():
+    """chip_smoke's client-level DP path, with profiler ranges."""
+    import chip_smoke as cs
+    from fl4health_tpu_torch.models.cnn import CifarNet
+
+    data = cs.hospital_datasets(cs.CDP_CLIENTS, cs.CDP_POOL, (32, 32, 3))
+    sim = cs.build_client_dp_sim(data, CifarNet(10, dtype=torch.bfloat16), "cuda",
+                                 cs.CDP_FRACTION, seed=0)
+    sim.sampled_masks, _ = cs.record_rounds(sim)
+    for obj, attr, name in ((sim.logic, "value_and_grads", CDP_RANGES[0]),
+                            (sim.logic, "finalize_round", CDP_RANGES[1]),
+                            (sim.client_manager, "sample", CDP_RANGES[2]),
+                            (sim.strategy, "aggregate", CDP_RANGES[3]),
+                            (sim, "_eval_round", CDP_RANGES[4])):
+        setattr(obj, attr, ranged(name, getattr(obj, attr)))
+    return sim
+
+
 def dp_sim():
     """chip_smoke's DP path, with profiler ranges around the client's
     gradient computation, its DP call and the evaluation phase."""
@@ -82,12 +116,6 @@ def dp_sim():
 
     data = cs.image_datasets(cs.DP_CLIENTS, cs.DP_TRAIN, cs.DP_VAL, (32, 32, 3))
     sim = cs.build_dp_sim(data, torch.bfloat16, "cuda", cs.DP_SIGMA, seed=0)
-
-    def ranged(name, fn):
-        def call(*args, **kwargs):
-            with torch.profiler.record_function(name):
-                return fn(*args, **kwargs)
-        return call
 
     logic = sim.logic
     logic.value_and_grads = ranged(RANGES[0], logic.value_and_grads)
@@ -130,13 +158,15 @@ def device_time_by_range(prof, names) -> tuple[dict, dict, dict]:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--config", choices=("transformer_long", "dp_cifar_cnn"),
+    parser.add_argument("--config", choices=("transformer_long", "dp_cifar_cnn",
+                                             "client_dp_cifar_cnn"),
                         default="transformer_long")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA card", file=sys.stderr)
         return 1
-    sim = dp_sim() if args.config == "dp_cifar_cnn" else transformer_sim()
+    sim = {"dp_cifar_cnn": dp_sim, "client_dp_cifar_cnn": client_dp_sim,
+           "transformer_long": transformer_sim}[args.config]()
     sim.fit(1)  # warm-up: kernel build, cuBLAS/cuDNN handles, allocator
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -153,7 +183,7 @@ def main() -> int:
             dev_us = evt.self_cuda_time_total
         if dev_us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if evt.key in RANGES:  # a range's span on the device timeline, not a kernel
+        if evt.key in RANGES + CDP_RANGES:  # a range's span on the device timeline
             continue
         g = kernel_group(evt.key)
         groups[g] = groups.get(g, 0.0) + dev_us / 1e6
@@ -180,6 +210,21 @@ def main() -> int:
             "eval": ev,
             "host_idle": wall - busy,
         }
+        out["range_device_s"], out["range_host_s"], out["range_calls"] = device, host, calls
+    if args.config == "client_dp_cifar_cnn":
+        device, host, calls = device_time_by_range(prof, CDP_RANGES)
+        vg, fin, smp, agg, ev = (device[n] for n in CDP_RANGES)
+        out["split_s"] = {
+            "forward_backward": vg,
+            "update_clip": fin,
+            "sampling": smp,
+            "server_aggregate_noise": agg,
+            "sgd_update_and_engine_glue": busy - vg - fin - smp - agg - ev,
+            "eval": ev,
+            "host_idle": wall - busy,
+        }
+        # every client trains and non-participants are masked out, as in JAX
+        out["clients_sampled"] = int(sim.sampled_masks[-1].sum())
         out["range_device_s"], out["range_host_s"], out["range_calls"] = device, host, calls
     print(json.dumps(out))
     return 0
