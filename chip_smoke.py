@@ -15,10 +15,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      launch must be bit-identical; each check prints the share of its
      bound used. The first slice's CUDA-core bf16 kernels
      are held to TOL on the same inputs, and bf16 at head dim 12 runs them
-     through the wrapper and autograd at the ragged T. Time each kernel,
-     its plain version, F.scaled_dot_product_attention (a yardstick the port
-     never calls) and the CUDA-core kernel of the first slice on the same
-     bf16 inputs, with CUDA events.
+     through the wrapper and autograd at the ragged T. Then the shape every
+     main-path launch has under the client vmap: bf16 [2 x 32, 2048, 8, 64]
+     with the mask a [2, 32, 2048] stack of row blocks, each client's own
+     (block stride 32 T), shared (stride 0) and inside a wider buffer
+     (stride 48 T), launched directly and through the Functions' vmap rules
+     (vmap over the clients of vjp), each client's rows held to the plain
+     version's bounds. Time each kernel, its plain version,
+     F.scaled_dot_product_attention (a yardstick the port never calls) at
+     that shape and at one client's, and the CUDA-core kernel of the first
+     slice on one client's bf16 inputs, with CUDA events.
   4. A tiny federated run on the card (kernels) against the same run on the
      CPU (plain version): per-round losses and final params within 5e-4.
      Then the same tiny transformer (head dim 64) in bf16 compute for 2
@@ -29,8 +35,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      at full width (vocab 8192, d_model 512, 8 heads, 4 layers, d_ff 2048,
      T 2048, remat, bf16 compute / f32 params) for 2 FedAvg rounds of
      2 clients x 5 local SGD steps of batch 32, with the launch counts set to 0
-     just before and read just after: every launch must take the tensor
-     cores.
+     just before and read just after. Every round runs both clients in one
+     torch.func.vmap, so each launch serves both (88 forward, 40 dQ, 40 dK/dV
+     launches, exactly), and every launch must take the tensor cores.
   6. Hold the DP clip kernels (K1 squared norms over a tree, K2 scaled sum,
      and the fused clip over a tree) against their plain versions at the DP
      path's largest leaf [32, 524288], over the whole CifarNet per-example
@@ -39,16 +46,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      a second launch of either must be bit-identical); time K1 and K2 at the
      largest leaf and over the tree (K1 as one call over the tree, as the
      path makes it), beside their plain versions and one library call each.
+     Then the client-batched entries at the DP path's 64 clients x 32
+     examples over the CifarNet tree, in both layouts the client vmap may
+     leave (K1: one launch of 2,048 rows through client and row strides; K2:
+     one launch a leaf with a grid row a client), against the plain versions
+     (K2 at atol 1e-5); the fused clip under torch.func.vmap over the clients
+     against the plain clip per client, with one K1 launch, one K2 launch a
+     leaf and no copy of the per-example tensor; and their times at
+     [64, 32, 524288] and over the 64-client tree, beside the plain versions,
+     torch.bmm (K2) and vector_norm (K1).
   7. A tiny DP federated run on the card (kernels) against the same run on
      the CPU (plain versions), noise_multiplier 0: within 5e-4.
   8. The DP path: DP-FedAvg of CifarNet at full width (64 clients of 160
      train rows, batch 32, 5 local DP-SGD steps with C = 1 and sigma = 1,
      bf16 compute / f32 params) for 2 rounds under InstanceLevelDpServer, with
-     the DP launch counts set to 0 just before and read just after; its
-     epsilon must equal the accountant's value for this configuration.
+     the DP launch counts set to 0 just before and read just after: all 64
+     clients in one vmap, so 10 K1 and 80 K2 launches, exactly, and no copy
+     of the per-example tensor; its epsilon must equal the accountant's
+     value for this configuration.
   9. The random stream on the card: for keys 0, 7 and 2^31 - 1, ``split``,
      ``fold_in``, ``bits``, ``uniform`` (shapes (), (7,), (64,), (3, 5, 11)
-     and CifarNet's 579,402 parameters) and ``permutation`` (64, 1000) drawn
+     and CifarNet's 579,402 parameters), ``permutation`` (64, 1000),
+     ``randint`` and ``categorical`` drawn
      on the card equal the CPU draws bit for bit; ``normal`` within rtol/atol
      1e-6, with the share of bit-exact draws printed; and the time of the
      server noise of one CifarNet round.
@@ -56,14 +75,24 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      strategy: an MLP, noise 0.1, weighted, adaptive clipping; over 8
      uneven clients, Poisson sampling at q = 0.5, 2 rounds, f32) on the card
      against the same run on the CPU: the same sampled masks, and losses,
-     params and clipping bound within 5e-4.
+     params and clipping bound within 5e-4. Then the client axis: a tiny
+     run of each path (f32, 2 rounds; the DP one at sigma = 1) through the
+     vmap and through its plain version, the Python loop over the clients,
+     from the same params: losses and params within 1e-5, and each kernel
+     launched once for all clients under the vmap, once a client in the
+     loop. Then one full-width round of transformer_long (5 local steps),
+     vmapped and looped, in bf16 and in f32: in bf16 the vmap may move the
+     round's update by no more than bf16 compute moves the loop's, in f32 by
+     at most VMAP_F32_GAP (relative l2).
  11. The client-level DP path, ``client_dp_cifar_cnn``: DP-FedAvgM of CifarNet
      at full width over 64 uneven clients (the client_level_dp_weighted
      example's size profile and strategy settings), Poisson sampling at
      q = 0.25, batch 32, 5 local SGD(0.1) steps, bf16 compute / f32 params,
-     2 rounds under ClientLevelDpFedAvgServer. It reaches no kernel, as in
-     JAX: every launch counter must stand still over the phase; its epsilon
-     must equal the accountant's value for this configuration.
+     2 rounds under ClientLevelDpFedAvgServer, all 64 clients in one vmap.
+     It reaches no kernel, as in JAX: every launch counter must stand still
+     over the phase; its epsilon must equal the accountant's value for this
+     configuration.
+Each main path prints its rounds' walls and its peak device memory.
 Both extensions are built at the start, in parallel. Then one JSON line with
 every kernel, the card line again, and the result line.
 """
@@ -355,7 +384,8 @@ def cuda_core_launchers(fa, q, k, v, mask, do, lse, delta):
     bf16, stream = q.dtype == torch.bfloat16, torch.cuda.current_stream().cuda_stream
     out, lse_out = torch.empty_like(q), torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    ptrs = [x.data_ptr() for x in (q, k, v, mask)]
+    # the [B, T] mask as one block of B rows (csrc/flash_mask.cuh)
+    ptrs = [*(x.data_ptr() for x in (q, k, v, mask)), b, 0]
     bwd = [do.data_ptr(), lse.data_ptr(), delta.data_ptr()]
 
     def fwd():
@@ -374,54 +404,62 @@ def cuda_core_launchers(fa, q, k, v, mask, do, lse, delta):
     return fwd, bwd_dq, dkv, {"out": out, "lse": lse_out, "dq": dq, "dk": dk, "dv": dv}
 
 
-def kernel_timings(fa, dtype: torch.dtype) -> dict:
-    """Kernel, plain version and SDPA times at the main path's shapes, and
-    the first slice's CUDA-core kernels on the same inputs."""
-    q, k, v, mask, do, dlse = attention_inputs(B, T, dtype, seed=11)
+def kernel_timings(fa, dtype: torch.dtype, clients: int = 1) -> dict:
+    """Kernel, plain version and SDPA times at the main path's shapes. With
+    ``clients`` > 1, the shape the client vmap hands every launch on the
+    main path: the clients' batches folded into one, ``[clients * B, T, H,
+    D]``, the mask a ``[clients, B, T]`` stack of each client's rows. With 1,
+    one client's batch, beside the first slice's CUDA-core kernels on the
+    same inputs."""
+    b = clients * B
+    q, k, v, mask, do, dlse = attention_inputs(b, T, dtype, seed=11)
+    stack = mask.view(clients, B, T) if clients > 1 else mask
     es = q.element_size()
-    n, rows = q.numel(), B * H * T
+    n, rows = q.numel(), b * H * T
     # query rows x real keys, over batch and heads: the work this data needs
     pairs = float(T * H * mask.sum())
     small = mask.numel() * 4 + rows * 4  # mask + one [B,H,T] f32 vector
     with torch.no_grad():
-        out, lse = fa.flash_fwd(q, k, v, mask)
+        out, lse = fa.flash_fwd(q, k, v, stack)
         delta = fa.backward_delta(do, out, dlse)
         qh, kh, vh = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         key_ok = (mask > 0)[:, None, None, :]
-        core_fwd, core_dq, core_dkv, _ = cuda_core_launchers(fa, q, k, v, mask, do, lse,
-                                                             delta)
+        core = (cuda_core_launchers(fa, q, k, v, mask, do, lse, delta) if clients == 1
+                else None)
         res = {
             "flash_fwd": dict(
-                ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, mask)),
+                ms=cuda_ms(lambda: fa.flash_fwd(q, k, v, stack)),
                 plain_ms=cuda_ms(lambda: fa.flash_attention_reference(q, k, v, mask), reps=3),
                 library_ms=cuda_ms(lambda: F.scaled_dot_product_attention(
                     qh, kh, vh, attn_mask=key_ok)),
-                cuda_core_ms=cuda_ms(core_fwd),
+                cuda_core_ms=cuda_ms(core[0]) if core else None,
                 bound=bound_ms(4 * D * pairs, 4 * n * es + small, dtype)),
             "flash_bwd_dq": dict(
-                ms=cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, mask, do, lse, delta)),
+                ms=cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, stack, do, lse, delta)),
                 plain_ms=cuda_ms(lambda: fa.flash_bwd_dq_reference(
                     q, k, v, mask, do, lse, delta), reps=3),
                 library_ms=None,  # no library call computes dQ alone
-                cuda_core_ms=cuda_ms(core_dq),
+                cuda_core_ms=cuda_ms(core[1]) if core else None,
                 bound=bound_ms(6 * D * pairs, 5 * n * es + small + rows * 4, dtype)),
             "flash_bwd_dkv": dict(
-                ms=cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, mask, do, lse, delta)),
+                ms=cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, stack, do, lse, delta)),
                 plain_ms=cuda_ms(lambda: fa.flash_bwd_dkv_reference(
                     q, k, v, mask, do, lse, delta), reps=3),
                 library_ms=None,  # nor dK and dV alone
-                cuda_core_ms=cuda_ms(core_dkv),
+                cuda_core_ms=cuda_ms(core[2]) if core else None,
                 bound=bound_ms(8 * D * pairs, 6 * n * es + small + rows * 4, dtype)),
         }
+        del core
+        torch.cuda.empty_cache()
     # SDPA's backward computes dQ, dK and dV in one call: a yardstick for
     # flash_bwd_dq + flash_bwd_dkv together
     leaves = [x.detach().requires_grad_(True) for x in (qh, kh, vh)]
     o = F.scaled_dot_product_attention(*leaves, attn_mask=key_ok)
     doh = do.transpose(1, 2).contiguous()
     sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(o, leaves, doh, retain_graph=True))
-    print(json.dumps({"timing": str(dtype).split(".")[-1], "shape": [B, T, H, D],
-                      **{k: {kk: vv for kk, vv in r.items() if kk != "bound"}
-                         for k, r in res.items()},
+    print(json.dumps({"timing": str(dtype).split(".")[-1], "shape": [b, T, H, D],
+                      "mask_blocks": clients,
+                      **{k: {kk: vv for kk, vv in r.items()} for k, r in res.items()},
                       "sdpa_backward_ms": sdpa_bwd,
                       "kernels_backward_ms": res["flash_bwd_dq"]["ms"]
                       + res["flash_bwd_dkv"]["ms"]}))
@@ -430,6 +468,97 @@ def kernel_timings(fa, dtype: torch.dtype) -> dict:
     res["flash_bwd_dq"]["library_dqkv_ms"] = sdpa_bwd
     res["flash_bwd_dkv"]["library_dqkv_ms"] = sdpa_bwd
     return res
+
+
+def vmapped_kernel_checks(fa, seed: int) -> dict:
+    """K3-K5 at the shape the client vmap hands them on the main path:
+    bf16 ``[N_CLIENTS * B, T, H, D]`` (both clients' batches folded), the key
+    mask an ``[N_CLIENTS, B, T]`` stack of row blocks read through its block
+    stride (csrc/flash_mask.cuh). Three stacks: each client its own rows
+    (block stride B*T, as the main path's), one mask that both clients share
+    (stride 0: a mask the vmap did not batch) and blocks inside a wider
+    buffer (stride (B + 16)*T). Each kernel's output, launched on the folded
+    inputs directly and through the Functions' vmap rules
+    (``torch.func.vmap`` over the clients of ``vjp`` of
+    ``flash_attention_lse``, as the main path differentiates it), is held per
+    client against the plain version on that client's rows and mask: out, dq,
+    dk and dv to ``bf16_operand_bounds``, lse to TOL."""
+    n, bn, tol = N_CLIENTS, N_CLIENTS * B, TOL[torch.bfloat16]
+    q, k, v, mask, do, dlse = attention_inputs(bn, T, torch.bfloat16, seed)
+    own = mask.view(n, B, T)
+    wide = torch.zeros((n, B + 16, T), device="cuda")
+    wide[:, :B] = own
+    # the shared mask: client 1's rows, which hold the row with no real key
+    stacks = {"own": own, "strided": wide[:, :B], "shared": own[1][None].expand(n, B, T)}
+
+    def one_client(q, k, v, m, do, dl):
+        (o, l_), pull = torch.func.vjp(lambda *x: fa.flash_attention_lse(*x, m), q, k, v)
+        return (o, l_, *pull((do, dl)))
+
+    per_client = lambda x: x.view(n, B, *x.shape[1:])  # noqa: E731
+    got = {}
+    for name, stack in stacks.items():
+        with torch.no_grad():
+            out, lse = fa.flash_fwd(q, k, v, stack)
+            delta = fa.backward_delta(do, out, dlse)
+            direct = (out, lse, fa.flash_bwd_dq(q, k, v, stack, do, lse, delta),
+                      *fa.flash_bwd_dkv(q, k, v, stack, do, lse, delta))
+        shared = name == "shared"
+        vmapped = torch.func.vmap(one_client, in_dims=(0, 0, 0, None if shared else 0, 0, 0),
+                                  randomness="error")(
+            *(per_client(x) for x in (q, k, v)), stack[0] if shared else stack,
+            per_client(do), per_client(dlse))
+        got[name] = {"kernels": direct,
+                     "vmap": tuple(x.reshape(bn, *x.shape[2:]) for x in vmapped),
+                     "delta": delta}
+    stats, names = {}, ("out", "lse", "dq", "dk", "dv")
+    for c in range(n):
+        rows = slice(c * B, (c + 1) * B)
+        qf, kf, vf, dof = (x[rows].float() for x in (q, k, v, do))
+        # own and strided hold the same values: one plain version serves both
+        for mask_of, which in ((own[c], ("own", "strided")), (own[1], ("shared",))):
+            with torch.no_grad():
+                ref_out, ref_lse = fa.flash_attention_reference(qf, kf, vf, mask_of)
+            for name in which:
+                for path in ("kernels", "vmap"):
+                    outs = [x[rows] for x in got[name][path]]
+                    lse, delta = outs[1], fa.backward_delta(do[rows], outs[0], dlse[rows])
+                    with torch.no_grad():
+                        bnd = fa.bf16_operand_bounds(qf, kf, vf, mask_of, dof, lse, delta,
+                                                     atol=tol["out"][0], rtol=tol["out"][1])
+                        refs = (ref_out, ref_lse,
+                                fa.flash_bwd_dq_reference(qf, kf, vf, mask_of, dof, lse,
+                                                          delta),
+                                *fa.flash_bwd_dkv_reference(qf, kf, vf, mask_of, dof, lse,
+                                                            delta))
+                    for out_name, x, ref in zip(names, outs, refs):
+                        tag = f"vmapped {path} {out_name} mask={name} client={c}"
+                        stats[(path, name, c, out_name)] = (
+                            check_stats(tag, x, ref, *tol["lse"]) if out_name == "lse"
+                            else check_bound(tag, x, ref, bnd[out_name]))
+                    del bnd, refs
+                    torch.cuda.empty_cache()
+    kernel_of = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
+                 "flash_bwd_dkv": ("dk", "dv")}
+    err = {k: max(v["max_abs_err"] for (_, _, _, o), v in stats.items() if o in outs)
+           for k, outs in kernel_of.items()}
+    share = {k: max(v["bound_used"] for (_, _, _, o), v in stats.items() if o in outs)
+             for k, outs in kernel_of.items()}
+    same = {name: all(torch.equal(a, b) for a, b in zip(g["kernels"], g["vmap"]))
+            for name, g in got.items()}
+    print(json.dumps({"check": "K3-K5 at the vmapped shape", "shape": [bn, T, H, D],
+                      "mask_stacks": {k: list(m.stride()) for k, m in stacks.items()},
+                      "max_abs_err": err, "bound_used": share,
+                      "vmap_rules_bit_identical_to_direct_launches": same,
+                      "by_mask": {name: {path: {o: max(v["max_abs_err"] for (p, m, _, oo), v
+                                                       in stats.items()
+                                                       if (p, m, oo) == (path, name, o))
+                                                for o in names}
+                                         for path in ("kernels", "vmap")}
+                                  for name in stacks}}))
+    del got
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "bound_used": share}
 
 
 def build_sim(modules, datasets, dtype, device, seed, attention_fn=None):
@@ -453,13 +582,16 @@ def build_sim(modules, datasets, dtype, device, seed, attention_fn=None):
 
 
 def text_datasets(vocab: int, seq: int, n_rows: int, n_train: int):
+    """Client i's rows from ``PRNGKey(i)``, drawn on the card as the JAX
+    generator draws them, kept on the host as the simulation takes them."""
+    from fl4health_tpu_torch import rng
     from fl4health_tpu_torch.datasets.synthetic import synthetic_text_classification
     from fl4health_tpu_torch.server.simulation import ClientDataset
 
     out = []
     for i in range(N_CLIENTS):
-        x, y = synthetic_text_classification(torch.Generator().manual_seed(i), n_rows,
-                                             vocab, seq, 4)
+        x, y = (a.cpu() for a in synthetic_text_classification(
+            rng.PRNGKey(i, "cuda"), n_rows, vocab, seq, 4))
         out.append(ClientDataset(x[:n_train], y[:n_train], x[n_train:], y[n_train:]))
     return out
 
@@ -576,10 +708,12 @@ def main_path(fa) -> dict:
     finite = all(torch.isfinite(v).all() for v in sim.global_params.values())
     if not finite or moved <= 0:
         fail(f"global params after training: finite={finite}, max change {moved}")
-    expected = {  # per round: 2 clients x 5 steps x 4 layers (x2 for remat) + eval
-        "flash_fwd": ROUNDS * (N_CLIENTS * LOCAL_STEPS * 4 * 2 + N_CLIENTS * 4),
-        "flash_bwd_dq": ROUNDS * N_CLIENTS * LOCAL_STEPS * 4,
-        "flash_bwd_dkv": ROUNDS * N_CLIENTS * LOCAL_STEPS * 4,
+    # per round, the clients folded into each launch by the vmap rules:
+    # 5 steps x 4 layers (x2 for the remat recompute) + one eval step
+    expected = {
+        "flash_fwd": ROUNDS * (LOCAL_STEPS * 4 * 2 + 4),
+        "flash_bwd_dq": ROUNDS * LOCAL_STEPS * 4,
+        "flash_bwd_dkv": ROUNDS * LOCAL_STEPS * 4,
     }
     print(json.dumps({"main_path": "transformer_long", "rounds": ROUNDS, "wall_s": wall,
                       "n_params": sum(v.numel() for v in init.values()),
@@ -735,6 +869,139 @@ def dp_kernel_timings(dp) -> dict:
     return res
 
 
+def dp_stacks(shapes: dict, c: int, b: int, dtype: torch.dtype, seed: int,
+              layout: str, scale: float = 1.0) -> dict:
+    """Normal per-example gradients (std ``scale``) of ``c`` clients,
+    ``[c, b, *shape]`` on the card, in either layout the client vmap may hand the rules:
+    ``clients`` (each client's rows together) or ``rows`` (row-major over
+    ``[b, c]``: client stride one leaf, row stride ``c`` leaves)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lead = (c, b) if layout == "clients" else (b, c)
+    out = {}
+    for k, s in shapes.items():
+        x = (torch.randn((*lead, *s), generator=g, device="cuda") * scale).to(dtype)
+        out[k] = x if layout == "clients" else x.transpose(0, 1)
+    return out
+
+
+def dp_batched_checks(dp, dtype: torch.dtype) -> dict:
+    """K1's and K2's client-batched entries (``[C, B, W]`` stacks, as the
+    vmap rules hand them over) against their plain versions over the
+    CifarNet tree of the DP path's 64 clients x 32 examples, in both
+    layouts; then the fused clip under ``torch.func.vmap`` over the clients
+    (the rules) against the plain clip client by client, with one K1 launch,
+    one K2 launch a leaf and no copy of the per-example tensor. Returns the
+    max abs error of each kernel."""
+    tag = str(dtype).split(".")[-1]
+    c, b = DP_CLIENTS, BATCH
+    stats, worst = {}, {"dp_sq_norms": 0.0, "dp_scaled_sum": 0.0}
+    for layout in ("clients", "rows"):
+        tree = dp_stacks(CIFAR_LEAVES, c, b, dtype, 51, layout)
+        mats = [v.reshape(c, b, -1) for v in tree.values()]
+        if layout == "rows" and mats[0].stride(0) == b * mats[0].stride(1):
+            fail("the rows layout must not fold as a view")
+        scale = torch.rand((c, b), device="cuda") * 1.5
+        scale[:, 1] = 0.0  # a padding example in every client
+        with torch.no_grad():
+            got = dp.sq_norms_tree_kernel(mats)
+            name = f"dp_sq_norms batched {layout} {tag}"
+            stats[name] = check_stats(name, got, dp.per_example_tree_sq_norms_reference(mats),
+                                      *DP_TOL["dp_sq_norms"])
+            if not torch.equal(got, dp.sq_norms_tree_kernel(mats)):
+                fail(f"{name}: a second launch differs")
+            worst["dp_sq_norms"] = max(worst["dp_sq_norms"], stats[name]["max_abs_err"])
+            for k, m in zip(tree, mats):
+                name = f"dp_scaled_sum batched {layout} {k} {tag}"
+                got = dp.scaled_sum_kernel(m, scale)
+                stats[name] = check_stats(name, got, dp.scaled_masked_sum_reference(m, scale),
+                                          *DP_TOL["dp_scaled_sum"])
+                if not torch.equal(got, dp.scaled_sum_kernel(m, scale)):
+                    fail(f"{name}: a second launch differs")
+                worst["dp_scaled_sum"] = max(worst["dp_scaled_sum"],
+                                             stats[name]["max_abs_err"])
+        del tree, mats
+    # the rules: the fused clip vmapped over the clients, on gradient-sized
+    # values that C = 1 clips in part, in the layout that does not fold
+    grads = dp_stacks(CIFAR_LEAVES, c, b, dtype, 52, "rows", scale=1e-3)
+    mask = torch.ones((c, b), device="cuda")
+    mask[:, 1] = 0.0
+    dp.reset_launch_counts()
+    with torch.no_grad():
+        got, norms = torch.func.vmap(
+            lambda t, m: dp.fused_clipped_masked_sum(t, m, DP_CLIP, return_norms=True),
+            randomness="error")(grads, mask)
+        torch.cuda.synchronize()
+        launches, copies = dict(dp.LAUNCHES), dict(dp.COPIES)
+        for i in range(c):
+            want, want_norms = fused_plain(dp, {k: v[i] for k, v in grads.items()}, mask[i],
+                                           DP_CLIP)
+            stats[f"vmapped fused norms {tag} client {i}"] = check_stats(
+                f"vmapped fused norms {tag}", norms[i], want_norms, *DP_TOL["dp_sq_norms"])
+            for k in want:
+                stats[f"vmapped fused {k} {tag} client {i}"] = check_stats(
+                    f"vmapped fused {k} {tag}", got[k][i], want[k], *DP_TOL["fused"])
+    want_launches = {"dp_sq_norms": 1, "dp_scaled_sum": len(CIFAR_LEAVES)}
+    print(json.dumps({"check": f"dp_clip client-batched {tag}", "clients": c, "batch": b,
+                      "max_abs_err": worst,
+                      "vmapped_fused_max_abs_err": max(
+                          v["max_abs_err"] for k, v in stats.items() if "vmapped" in k),
+                      "bound_used": max(v["bound_used"] for v in stats.values()),
+                      "vmapped_launches": launches, "vmapped_copies": copies,
+                      "tolerance": {k: list(v) for k, v in DP_TOL.items()}}))
+    if launches != want_launches or any(copies.values()):
+        fail(f"the vmapped fused clip launched {launches} (expected {want_launches}) "
+             f"and copied {copies}")
+    del grads, got
+    torch.cuda.empty_cache()
+    return worst
+
+
+def dp_batched_timings(dp) -> dict:
+    """K1 and K2 at the DP path's client-batched shapes, f32: the largest
+    leaf [64, 32, 524288] and the whole CifarNet tree of 64 clients (K1 one
+    call over the tree, K2 one call a leaf, as the path makes them), beside
+    their plain versions and a library call computing the same function
+    (``torch.bmm(scale[:, None, :], g)`` for K2; ``vector_norm`` per leaf,
+    stacked, squared and summed for K1), a yardstick the port never calls.
+    Bounds: bytes in and out once over 3.35 TB/s, against two f32
+    operations per element over the f32 rate."""
+    c, b = DP_CLIENTS, BATCH
+    res = {}
+    time_it = lambda fn: cuda_ms(fn, calls=20)  # noqa: E731
+    for case, shapes in (("leaf", {"Dense_0/kernel": (524288,)}), ("tree", CIFAR_LEAVES)):
+        tree = dp_stacks(shapes, c, b, torch.float32, 53, "clients")
+        mats = [v.reshape(c, b, -1) for v in tree.values()]
+        scale = torch.rand((c, b), device="cuda")
+        widths = [m.shape[2] for m in mats]
+        elems = c * b * sum(widths)
+        with torch.no_grad():
+            res[case] = {
+                "dp_sq_norms": dict(
+                    ms=time_it(lambda: dp.sq_norms_tree_kernel(mats)),
+                    plain_ms=time_it(lambda: dp.per_example_tree_sq_norms_reference(mats)),
+                    library_ms=time_it(lambda: torch.stack([torch.linalg.vector_norm(
+                        m, dim=2) for m in mats]).square().sum(0)),
+                    bound=bound_ms(2 * elems, 4 * elems + 4 * c * b, torch.float32)),
+                "dp_scaled_sum": dict(
+                    ms=time_it(lambda: [dp.scaled_sum_kernel(m, scale) for m in mats]),
+                    plain_ms=time_it(lambda: [dp.scaled_masked_sum_reference(m, scale)
+                                              for m in mats]),
+                    library_ms=time_it(lambda: [torch.bmm(scale[:, None, :], m)
+                                                for m in mats]),
+                    bound=bound_ms(2 * elems, 4 * elems + 4 * c * b * len(mats)
+                                   + 4 * c * sum(widths), torch.float32)),
+            }
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        print(json.dumps({"timing": f"dp_clip client-batched {case} float32",
+                          "shape": [c, b, widths[0] if case == "leaf" else sum(widths)],
+                          "leaves": len(mats),
+                          "k2_split": [dp.scaled_sum_split(b, w, 4, sms, c) for w in widths],
+                          **res[case]}))
+        del tree, mats
+    torch.cuda.empty_cache()
+    return res
+
+
 def build_dp_sim(data, dtype, device, noise_multiplier, seed,
                  input_shape=(32, 32, 3), batch=BATCH, local_steps=LOCAL_STEPS):
     from fl4health_tpu_torch import optim
@@ -757,13 +1024,15 @@ def build_dp_sim(data, dtype, device, noise_multiplier, seed,
 
 
 def image_datasets(n_clients: int, n_train: int, n_val: int, shape) -> list:
+    """Client i's rows from ``PRNGKey(i)``, drawn on the card."""
+    from fl4health_tpu_torch import rng
     from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
     from fl4health_tpu_torch.server.simulation import ClientDataset
 
     out = []
     for i in range(n_clients):
-        x, y = synthetic_classification(torch.Generator().manual_seed(i),
-                                        n_train + n_val, shape, 10)
+        x, y = (a.cpu() for a in synthetic_classification(
+            rng.PRNGKey(i, "cuda"), n_train + n_val, shape, 10))
         out.append(ClientDataset(x[:n_train], y[:n_train], x[n_train:], y[n_train:]))
     return out
 
@@ -832,20 +1101,23 @@ def dp_main_path(dp) -> dict:
     finite = all(torch.isfinite(v).all() for v in sim.global_params.values())
     if not finite or moved <= 0:
         fail(f"DP global params after training: finite={finite}, max change {moved}")
-    # per round: 64 clients x 5 steps, one K1 launch over the tree and one K2
-    # launch per leaf each
-    steps = DP_ROUNDS * DP_CLIENTS * LOCAL_STEPS
+    # per round: 5 steps of all 64 clients, each one K1 launch over the tree
+    # and one K2 launch per leaf, through the vmap rules
+    steps = DP_ROUNDS * LOCAL_STEPS
     expected = {"dp_sq_norms": steps, "dp_scaled_sum": steps * len(CIFAR_LEAVES)}
+    copies = dict(dp.COPIES)
     print(json.dumps({"main_path": "dp_fedavg_cifar_cnn", "rounds": DP_ROUNDS,
                       "wall_s": wall, "epsilon": epsilon,
                       "n_params": sum(v.numel() for v in init.values()),
                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
                       "max_param_change": moved, "launches": launches,
-                      "expected_launches": expected}))
+                      "expected_launches": expected, "per_example_copies": copies}))
     if abs(epsilon - DP_EPSILON) > 1e-9:
         fail(f"DP epsilon {epsilon!r}, the accountant gives {DP_EPSILON!r}")
     if launches != expected:
         fail(f"DP main-path launches {launches}, expected {expected}")
+    if any(copies.values()):
+        fail(f"the DP path copied per-example gradients: {copies}")
     return launches
 
 
@@ -873,6 +1145,12 @@ def rng_card_check() -> None:
                  rng.uniform(kc, shape, -2.5, 3.0))
         for n in (64, 1000):
             same(f"permutation {seed} {n}", rng.permutation(kg, n), rng.permutation(kc, n))
+        for shape, lo, hi in (((64,), 0, 10), ((3, 5, 11), -2**31, 2**31 - 1)):
+            same(f"randint {seed} {shape}", rng.randint(kg, shape, lo, hi),
+                 rng.randint(kc, shape, lo, hi))
+        logits = torch.linspace(-3.0, 3.0, 63)
+        same(f"categorical {seed}", rng.categorical(kg, logits.cuda(), (80, 40)),
+             rng.categorical(kc, logits, (80, 40)))
         got, want = rng.normal(kg, RNG_SHAPES[-1]), rng.normal(kc, RNG_SHAPES[-1])
         normal_err = max(normal_err, check(f"rng normal {seed}", got.cpu(), want, 1e-6, 1e-6))
         exact += int((got.cpu() == want).sum())
@@ -892,7 +1170,8 @@ def rng_card_check() -> None:
         server_noise()
     torch.cuda.synchronize()
     out = {"check": "rng card vs cpu", "seeds": [0, 7, 2**31 - 1],
-           "bit_exact": ["split", "fold_in", "bits", "uniform", "permutation"],
+           "bit_exact": ["split", "fold_in", "bits", "uniform", "permutation", "randint",
+                         "categorical"],
            "normal_max_abs_err": normal_err, "normal_tolerance": [1e-6, 1e-6],
            "normal_bit_exact_share": exact / n_normal,
            # per draw of all 8 leaves' noise (579,402 normals): CUDA events
@@ -907,12 +1186,13 @@ def hospital_datasets(n_clients: int, pool: int, shape, seed: int = 0) -> list:
     """``pool`` synthetic rows cut into ``n_clients`` uneven clients by the
     client_level_dp_weighted example's size profile, each split 80/20 with
     hash key 7 + i."""
+    from fl4health_tpu_torch import rng
     from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
     from fl4health_tpu_torch.datasets.vision import split_data_and_targets
     from fl4health_tpu_torch.server.simulation import ClientDataset
 
-    x, y = synthetic_classification(torch.Generator().manual_seed(seed), pool, shape, 10)
-    x, y = x.numpy(), y.numpy()
+    x, y = (a.cpu().numpy() for a in synthetic_classification(
+        rng.PRNGKey(seed, "cuda"), pool, shape, 10))
     profile = np.linspace(64, 256, n_clients)
     sizes = np.floor(profile * pool / profile.sum()).astype(int)
     sizes[: pool - sizes.sum()] += 1  # the flooring remainder
@@ -997,6 +1277,127 @@ def tiny_client_dp_parity() -> None:
                       "max_param_abs_err": err}))
 
 
+# vmapped against looped clients on the card, f32 with TF32 off: the two
+# differ only in the order of the reductions that batched and per-client
+# GEMMs and convolutions take, a few f32 ulps a step (the CPU tests hold them
+# to 1e-5 too)
+VMAP_TOL = 1e-5
+# the relative l2 gap between the vmapped and the looped update of one
+# full-width f32 round of transformer_long (5 local steps): read at 2.4e-5
+# on an H100 (the batched and the per-client GEMMs sum in other orders);
+# about 4x that
+VMAP_F32_GAP = 1e-4
+
+
+def vmap_vs_loop(fa, dp) -> dict:
+    """The client axis on the card: a tiny run of each path (f32, 2 rounds)
+    once through ``vmap_clients`` (the main path) and once through
+    ``loop_clients`` (its plain version), from the same params: per-round
+    losses and final params within VMAP_TOL. The transformer and DP runs
+    launch each kernel once for all their clients under the vmap and once a
+    client in the loop; the DP run draws its noise at sigma = 1 from the
+    clients' keys in both."""
+    from fl4health_tpu_torch.models.cnn import Mlp
+    from fl4health_tpu_torch.server import simulation as tsim
+
+    tiny_cfg = dict(vocab_size=64, n_classes=4, d_model=64, n_heads=2, n_layers=2,
+                    d_ff=128, max_len=80)
+    text, images = text_datasets(64, 80, 48, 40), image_datasets(2, 16, 8, (32, 32, 3))
+    hospitals = hospital_datasets(8, 480, (14, 14, 1))
+    builds = {
+        "transformer": lambda: build_sim(tiny_cfg, text, torch.float32, "cuda", seed=3),
+        "dp": lambda: build_dp_sim(images, torch.float32, "cuda", 1.0, seed=3, batch=8,
+                                   local_steps=2),
+        "client_dp": lambda: build_client_dp_sim(
+            hospitals, Mlp(14 * 14, (16,), 10), "cuda", 0.5, seed=11, batch=16,
+            local_steps=3, lr=0.05, strategy=TINY_CDP_STRATEGY),
+    }
+    out = {}
+    for name, build in builds.items():
+        runs, init = {}, None
+        for axis in (tsim.vmap_clients, tsim.loop_clients):
+            sim = build()
+            sim._fit_round, sim._eval_round = sim._build_round_fns(axis)
+            if init is None:
+                init = {k: v.clone() for k, v in sim.global_params.items()}
+            sim.set_global_params(init)
+            fa.reset_launch_counts()
+            dp.reset_launch_counts()
+            hist = sim.fit(2)
+            torch.cuda.synchronize()
+            losses = torch.tensor([x for r in hist for x in (*r.fit_losses.values(),
+                                                             *r.eval_losses.values())])
+            runs[axis.__name__] = (losses, sim.global_params,
+                                   {**fa.LAUNCHES, **dp.LAUNCHES})
+        (lv, pv, nv), (ll, pl, nl) = runs["vmap_clients"], runs["loop_clients"]
+        loss_err = check(f"vmap vs loop {name} losses", lv, ll, VMAP_TOL, 0)
+        param_err = max(check(f"vmap vs loop {name} param {k}", pv[k], pl[k], VMAP_TOL, 0)
+                        for k in pv)
+        n_clients = sim.n_clients
+        if any(nl[k] != n_clients * nv[k] for k in nv):
+            fail(f"vmap vs loop {name}: launches {nv} vmapped, {nl} looped over "
+                 f"{n_clients} clients")
+        out[name] = {"loss_max_abs_err": loss_err, "param_max_abs_err": param_err,
+                     "launches_vmapped": {k: v for k, v in nv.items() if v},
+                     "launches_looped": {k: v for k, v in nl.items() if v}}
+    print(json.dumps({"check": "vmapped clients vs the loop on the card", "rounds": 2,
+                      "tolerance": VMAP_TOL, **out}))
+    out["full_width"] = full_width_vmap_gap()
+    return out
+
+
+def full_width_vmap_gap() -> dict:
+    """The client axis at the main path's width and precision: one round of
+    transformer_long as the main path runs it (both clients, full width, 5
+    local steps: after the first the clients' weights differ) through
+    ``vmap_clients`` and through ``loop_clients``, in bf16 compute (the main
+    path's) and in f32, from the same params. A pair's gap is the relative
+    l2 distance between the two rounds' updates of the global params (all
+    leaves as one vector), beside the abs gap of their fit losses. Held: in
+    bf16 the vmap moves the update by no more than bf16 compute moves the
+    loop's (loop bf16 against loop f32); in f32, by at most VMAP_F32_GAP."""
+    from fl4health_tpu_torch.server import simulation as tsim
+
+    cfg = dict(vocab_size=8192, n_classes=4, d_model=512, n_heads=8, n_layers=4,
+               d_ff=2048, max_len=T)
+    data = text_datasets(8192, T, BATCH * LOCAL_STEPS + 16, BATCH * LOCAL_STEPS)
+    runs, init = {}, None
+    for dtype in (torch.bfloat16, torch.float32):
+        for axis in (tsim.vmap_clients, tsim.loop_clients):
+            sim = build_sim(cfg, data, dtype, "cuda", seed=0)
+            sim._fit_round, sim._eval_round = sim._build_round_fns(axis)
+            if init is None:
+                init = {k: v.clone() for k, v in sim.global_params.items()}
+            sim.set_global_params(init)
+            (rec,) = sim.fit(1)
+            update = torch.cat([(sim.global_params[k] - init[k]).flatten() for k in init])
+            if not torch.isfinite(update).all():
+                fail(f"full-width vmap gap: non-finite update {dtype} {axis.__name__}")
+            runs[(str(dtype).split(".")[-1], axis.__name__[:4])] = (
+                rec.fit_losses["backward"], update)
+            del sim
+            torch.cuda.empty_cache()
+
+    def gap(a, b):
+        (la, ua), (lb, ub) = runs[a], runs[b]
+        return {"update_rel_l2": float((ua - ub).norm() / ub.norm()),
+                "fit_loss_abs": abs(la - lb)}
+    res = {"vmap_vs_loop_bf16": gap(("bfloat16", "vmap"), ("bfloat16", "loop")),
+           "vmap_vs_loop_f32": gap(("float32", "vmap"), ("float32", "loop")),
+           "loop_bf16_vs_loop_f32": gap(("bfloat16", "loop"), ("float32", "loop")),
+           "fit_losses": {"_".join(k): v[0] for k, v in runs.items()},
+           "update_norms": {"_".join(k): float(v[1].norm()) for k, v in runs.items()},
+           "f32_limit": VMAP_F32_GAP}
+    print(json.dumps({"check": "vmapped clients vs the loop, one full-width round", **res}))
+    if res["vmap_vs_loop_bf16"]["update_rel_l2"] > res["loop_bf16_vs_loop_f32"]["update_rel_l2"]:
+        fail(f"full-width vmap gap: the vmap moves the bf16 update by more than bf16 "
+             f"compute does: {res}")
+    if res["vmap_vs_loop_f32"]["update_rel_l2"] > VMAP_F32_GAP:
+        fail(f"full-width vmap gap: f32 vmapped and looped updates differ by "
+             f"{res['vmap_vs_loop_f32']['update_rel_l2']}, limit {VMAP_F32_GAP}")
+    return res
+
+
 def client_dp_main_path(fa, dp) -> None:
     """Full-width client-level DP-FedAvgM of CifarNet, bf16 compute, 2 rounds."""
     from fl4health_tpu_torch.models.cnn import CifarNet
@@ -1074,7 +1475,9 @@ def main() -> int:
     # bf16 at head dim 12 (24-byte rows, no TMA stride): the CUDA-core route
     # through the wrapper and autograd
     kernel_checks(fa, 4, RAGGED_T, torch.bfloat16, seed=3, autograd_check=True, d=12)
-    timings = kernel_timings(fa, torch.bfloat16)
+    vmapped_errs = vmapped_kernel_checks(fa, seed=4)
+    per_client_timings = kernel_timings(fa, torch.bfloat16)
+    timings = kernel_timings(fa, torch.bfloat16, clients=N_CLIENTS)
     tiny_parity()
     bf16_model_check(fa)
     launches = main_path(fa)
@@ -1082,11 +1485,15 @@ def main() -> int:
     dp_errs = {dtype: dp_kernel_checks(dp, dtype)
                for dtype in (torch.float32, torch.bfloat16)}
     dp_timings = dp_kernel_timings(dp)
+    batched_errs = {dtype: dp_batched_checks(dp, dtype)
+                    for dtype in (torch.float32, torch.bfloat16)}
+    batched_timings = dp_batched_timings(dp)
     tiny_dp_parity(dp)
     dp_launches = dp_main_path(dp)
 
     rng_card_check()
     tiny_client_dp_parity()
+    vmap_vs_loop(fa, dp)
     client_dp_main_path(fa, dp)
 
     replaces = {"flash_fwd": "fl4health_tpu/kernels/flash_attention.py:71",
@@ -1094,23 +1501,32 @@ def main() -> int:
                 "flash_bwd_dkv": "fl4health_tpu/kernels/flash_attention.py:175"}
     kernels = []
     for name, rep in replaces.items():
-        t = timings[name]
+        # at the shape of every main-path launch: both clients folded, the
+        # mask a stack of their rows
+        t, one = timings[name], per_client_timings[name]
         kernels.append({
             "name": name, "route": "cuda", "source": WGMMA_SOURCE, "replaces": rep,
             "design": "wgmma", "launches": launches[name],
-            "max_abs_err": errs[torch.bfloat16]["max_abs_err"][name],
-            "bound_used": errs[torch.bfloat16]["bound_used"][name],
-            "max_abs_err_f32": errs[torch.float32]["max_abs_err"][name],
+            "max_abs_err": vmapped_errs["max_abs_err"][name],
+            "bound_used": vmapped_errs["bound_used"][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
             "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-            # the first slice's CUDA-core kernel that this one replaces for
-            # bf16 (f32 still takes it), timed here on the same inputs, and
-            # its error there
-            "cuda_core_source": SOURCE, "cuda_core_ms": t["cuda_core_ms"],
-            "cuda_core_max_abs_err": errs[torch.bfloat16]["max_abs_err"]["cuda_core"][name],
             # one SDPA backward call, which computes dQ, dK and dV together
             **({"library_dqkv_ms": t["library_dqkv_ms"]} if "library_dqkv_ms" in t else {}),
-            "dtype": "bfloat16", "shape": [B, T, H, D]})
+            "dtype": "bfloat16", "shape": [N_CLIENTS * B, T, H, D], "mask_blocks": N_CLIENTS,
+            # one client's batch [B, T, H, D], a [B, T] mask: the same
+            # numbers, the f32 error, and the first slice's CUDA-core kernel
+            # that this one replaces for bf16 (f32 still takes it), timed on
+            # the same inputs, with its error there
+            "per_client_shape": [B, T, H, D],
+            "per_client_max_abs_err": errs[torch.bfloat16]["max_abs_err"][name],
+            "per_client_max_abs_err_f32": errs[torch.float32]["max_abs_err"][name],
+            "per_client_ms": one["ms"], "per_client_plain_ms": one["plain_ms"],
+            "per_client_bound_ms": one["bound"][0], "per_client_library_ms": one["library_ms"],
+            **({"per_client_library_dqkv_ms": one["library_dqkv_ms"]}
+               if "library_dqkv_ms" in one else {}),
+            "cuda_core_source": SOURCE, "cuda_core_ms": one["cuda_core_ms"],
+            "cuda_core_max_abs_err": errs[torch.bfloat16]["max_abs_err"]["cuda_core"][name]})
     dp_replaces = {"dp_sq_norms": "fl4health_tpu/kernels/dp_clip.py:54",
                    "dp_scaled_sum": "fl4health_tpu/kernels/dp_clip.py:100"}
     dp_design = {"dp_sq_norms": "one launch over the tree: planned items, one CTA each "
@@ -1120,6 +1536,7 @@ def main() -> int:
                                   "over threads on narrow leaves"}
     for name, rep in dp_replaces.items():
         t, tree = dp_timings["leaf"][name], dp_timings["tree"][name]
+        bt, btree = batched_timings["leaf"][name], batched_timings["tree"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": DP_SOURCE, "replaces": rep,
             "design": dp_design[name], "launches": dp_launches[name],
@@ -1132,6 +1549,17 @@ def main() -> int:
             "tree_ms": tree["ms"], "tree_plain_ms": tree["plain_ms"],
             "tree_bound_ms": tree["bound"][0], "tree_library_ms": tree["library_ms"],
             **({"tree_geometry": tree["geometry"]} if "geometry" in tree else {}),
+            # the client-batched entry at the path's shapes, 64 clients: the
+            # largest leaf [64, 32, 524288] and the tree (K1 one call, K2 one
+            # a leaf); library: bmm (K2), vector_norm (K1)
+            "batched_shape": [DP_CLIENTS, BATCH, 524288],
+            "batched_max_abs_err": batched_errs[torch.float32][name],
+            "batched_max_abs_err_bf16": batched_errs[torch.bfloat16][name],
+            "batched_ms": bt["ms"], "batched_plain_ms": bt["plain_ms"],
+            "batched_bound_ms": bt["bound"][0], "batched_library_ms": bt["library_ms"],
+            "batched_tree_ms": btree["ms"], "batched_tree_plain_ms": btree["plain_ms"],
+            "batched_tree_bound_ms": btree["bound"][0],
+            "batched_tree_library_ms": btree["library_ms"],
             "dtype": "float32", "shape": [BATCH, 524288]})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -20,10 +20,12 @@ import torch
 
 from fl4health_tpu_torch.clients.engine import ClientLogic, TrainState
 from fl4health_tpu_torch.core import pytree as ptu
+from fl4health_tpu_torch.core.pytree import tree_dataclass
 from fl4health_tpu_torch.core.types import Params
 from fl4health_tpu_torch.exchange.packer import ClippingBitPacket
 
 
+@tree_dataclass
 @dataclasses.dataclass(frozen=True)
 class ClippingContext:
     initial_params: Params

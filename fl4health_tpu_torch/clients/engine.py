@@ -7,12 +7,14 @@ step moves nothing (params, optimizer state and meters are selected back).
 The index plans are the JAX engine's numpy code, copied unchanged, so both
 packages draw the same batches from the same entropy.
 
-Randomness: the JAX engine splits ``state.rng`` once per step. Here each
-step gets a ``torch.Generator`` on the data's device, seeded from the
-client's round entropy (the index plans' ``[0, seed, 1000 + round,
-client]``) and the step index, so every client and step draws its own
-reproducible stream; ``value_and_grads`` receives it, and a logic that draws
-nothing (the plain ``ClientLogic``) ignores it.
+Randomness, as in the JAX engine: ``TrainState.rng`` is a threefry key
+(``rng.py``) and each step splits it, ``rng, step_rng = split(state.rng)``;
+``value_and_grads`` receives ``step_rng`` (the DP client draws its noise
+from it, the plain ``ClientLogic`` draws nothing). Every phase is pure
+tensor code over one client, with a static Python loop over the step axis
+(JAX's ``scan``), so the simulation runs all clients at once under
+``torch.func.vmap``; gradients come from ``torch.func.grad_and_value``,
+which composes with that vmap.
 
 Left out here: the precision (loss scaling), ZeRO-2 microbatching,
 telemetry and early-stopping branches; and the algorithm hooks no
@@ -30,7 +32,8 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from fl4health_tpu_torch.core.pytree import tree_map
+from fl4health_tpu_torch import rng
+from fl4health_tpu_torch.core.pytree import tree_dataclass, tree_map
 from fl4health_tpu_torch.core.types import Params
 from fl4health_tpu_torch.losses.containers import LossMeter
 from fl4health_tpu_torch.metrics.base import MetricManager
@@ -41,6 +44,7 @@ from fl4health_tpu_torch.optim import GradientTransformation, apply_updates
 # Data containers
 # ---------------------------------------------------------------------------
 
+@tree_dataclass
 @dataclasses.dataclass(frozen=True)
 class Batch:
     """One step's data; a leading [steps] (and [clients]) axis when stacked.
@@ -52,14 +56,17 @@ class Batch:
     step_mask: torch.Tensor
 
 
+@tree_dataclass
 @dataclasses.dataclass(frozen=True)
 class TrainState:
     params: Params
     opt_state: Any
+    rng: torch.Tensor  # [2] int64 threefry key, split once a step
     step: torch.Tensor
     extra: Any = None  # a logic's persistent state (``init_extra``); None: empty
 
 
+@tree_dataclass
 @dataclasses.dataclass(frozen=True)
 class StepOutput:
     losses: dict
@@ -137,19 +144,21 @@ class ClientLogic:
         return self.criterion(preds["prediction"], batch.y, batch.example_mask), {}
 
     def value_and_grads(self, state: TrainState, ctx: Any, batch: Batch,
-                        generator: torch.Generator):
-        """-> ((backward, (preds, additional)), grads) by whole-batch autograd.
-        ``generator`` is the step's random stream; nothing here draws."""
-        del generator
-        params = {k: v.detach().requires_grad_(True) for k, v in state.params.items()}
-        with torch.enable_grad():
+                        step_rng: torch.Tensor):
+        """-> ((backward, (preds, additional)), grads) by whole-batch
+        ``torch.func.grad_and_value``. ``step_rng`` is the step's key;
+        nothing here draws from it."""
+        del step_rng
+
+        def loss(params):
             preds, features = self.predict(params, batch, train=True, ctx=ctx)
             backward, additional = self.training_loss(preds, features, batch,
                                                       params, state, ctx)
-            grads = torch.autograd.grad(backward, list(params.values()))
-        preds = tree_map(torch.Tensor.detach, preds)
-        return ((backward.detach(), (preds, additional)),
-                dict(zip(params.keys(), grads)))
+            return backward, (preds, additional)
+
+        grads, (backward, aux) = torch.func.grad_and_value(loss, has_aux=True)(
+            state.params)
+        return (backward, aux), grads
 
     def pack(self, state: TrainState, pushed_params: Params, train_losses: dict) -> Any:
         return pushed_params
@@ -175,10 +184,13 @@ def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def create_train_state(logic: ClientLogic, tx: GradientTransformation,
-                       generator: torch.Generator,
+                       key: torch.Tensor, generator: torch.Generator,
                        device: torch.device) -> TrainState:
+    """A fresh state on ``device`` whose random stream is ``key``; the params
+    are the model's init drawn from ``generator`` (not flax's init: tests
+    install converted flax params)."""
     params = {k: v.to(device) for k, v in logic.model.init(generator).items()}
-    return TrainState(params=params, opt_state=tx.init(params),
+    return TrainState(params=params, opt_state=tx.init(params), rng=key.to(device),
                       step=torch.zeros((), dtype=torch.int32, device=device),
                       extra=logic.init_extra(params))
 
@@ -188,23 +200,13 @@ def _mask_tree(new, old, keep: torch.Tensor):
     return tree_map(lambda n, o: torch.where(keep > 0, n, o), new, old)
 
 
-def step_generator(entropy: list[int], step: int,
-                   device: torch.device) -> torch.Generator:
-    """The random stream of one local step: a generator on ``device`` seeded
-    from the client's round entropy, with the step as the spawn key (so it is
-    never the stream of an index plan drawn from ``[*entropy, e]``)."""
-    seed = np.random.SeedSequence(entropy, spawn_key=(step,)).generate_state(
-        1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(seed))
-
-
 def make_train_step(logic: ClientLogic, tx: GradientTransformation):
-    """step(state, ctx, batch, generator) -> (state, StepOutput)."""
+    """step(state, ctx, batch) -> (state, StepOutput)."""
 
-    def step(state: TrainState, ctx: Any, batch: Batch,
-             generator: torch.Generator):
+    def step(state: TrainState, ctx: Any, batch: Batch):
+        next_key, step_key = rng.split(state.rng)
         (backward, (preds, additional)), grads = logic.value_and_grads(
-            state, ctx, batch, generator)
+            state, ctx, batch, step_key)
         updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
         new_params = apply_updates(state.params, updates)
         keep = batch.step_mask  # padding steps must not move anything
@@ -212,6 +214,7 @@ def make_train_step(logic: ClientLogic, tx: GradientTransformation):
             state,
             params=_mask_tree(new_params, state.params, keep),
             opt_state=_mask_tree(new_opt_state, state.opt_state, keep),
+            rng=next_key,  # every step splits, padding steps too, as in JAX
             step=state.step + keep.to(torch.int32),
         )
         out = StepOutput(
@@ -234,18 +237,16 @@ def _step_slice(batches: Batch, s: int) -> Batch:
 def make_local_train(logic: ClientLogic, tx: GradientTransformation,
                      metric_manager: MetricManager,
                      loss_keys: tuple[str, ...] = ("backward",)):
-    """train(state, ctx, batches, entropy) -> (state, loss_dict, metric_dict,
-    n_steps); ``batches`` carries a leading [steps] axis and ``entropy`` is
-    the client's round entropy, which seeds each step's generator."""
+    """train(state, ctx, batches) -> (state, loss_dict, metric_dict, n_steps);
+    ``batches`` carries a leading [steps] axis, walked by a Python loop."""
     step_fn = make_train_step(logic, tx)
 
-    def train(state: TrainState, ctx: Any, batches: Batch, entropy: list[int]):
+    def train(state: TrainState, ctx: Any, batches: Batch):
         device = batches.step_mask.device
         meter = LossMeter.create(loss_keys, device)
         mstate = metric_manager.init(device)
         for s in range(batches.step_mask.shape[0]):
-            state, out = step_fn(state, ctx, _step_slice(batches, s),
-                                 step_generator(entropy, s, device))
+            state, out = step_fn(state, ctx, _step_slice(batches, s))
             meter = meter.update(out.losses, weight=out.step_mask)
             mstate = metric_manager.update(mstate, out.preds, out.targets,
                                            out.example_mask)

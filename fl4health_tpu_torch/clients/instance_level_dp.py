@@ -4,6 +4,9 @@
 ``InstanceLevelDpMixin`` overrides only ``value_and_grads``: the whole-batch
 gradient becomes per-example gradients (``torch.func.vmap`` over singleton
 batches) -> flat clip -> masked sum -> Gaussian noise (``privacy/dpsgd.py``).
+The step's key splits into ``grad_rng, noise_rng`` as JAX's does; the noise
+draws from ``noise_rng`` (the port's models draw nothing from
+``grad_rng``).
 
 One departure from the JAX client, by design: the clip and the sum always
 take the fused route through the DP kernels (``use_fused_kernel=True``),
@@ -17,6 +20,7 @@ from typing import Any
 
 import torch
 
+from fl4health_tpu_torch import rng
 from fl4health_tpu_torch.clients.engine import Batch, ClientLogic, TrainState
 from fl4health_tpu_torch.core.pytree import tree_map
 from fl4health_tpu_torch.privacy import dpsgd
@@ -40,7 +44,9 @@ class InstanceLevelDpMixin:
         dpsgd.validate_dp_safe_model_state(self.model.module)
 
     def value_and_grads(self, state: TrainState, ctx: Any, batch: Batch,
-                        generator: torch.Generator):
+                        step_rng: torch.Tensor):
+        _, noise_rng = rng.split(step_rng)
+
         def single_loss(params, x1, y1):
             b1 = Batch(x=x1[None], y=y1[None],
                        example_mask=torch.ones((1,), dtype=torch.float32,
@@ -58,7 +64,7 @@ class InstanceLevelDpMixin:
             state.params, batch.x, batch.y)
 
         grads, clip_fraction = dpsgd.noisy_clipped_mean_grads(
-            per_grads, batch.example_mask, generator,
+            per_grads, batch.example_mask, noise_rng,
             self.clipping_bound, self.noise_multiplier,
             use_fused_kernel=True, return_clip_fraction=True,
         )
@@ -72,7 +78,7 @@ class InstanceLevelDpMixin:
         additional = {**additional, "clip_fraction": clip_fraction}
         # per-example predict ran on singleton batches: squeeze back to [B,...]
         preds = tree_map(lambda p: p[:, 0], per_preds)
-        return (backward.detach(), (preds, additional)), grads
+        return (backward, (preds, additional)), grads
 
 
 class InstanceLevelDpClientLogic(InstanceLevelDpMixin, ClientLogic):

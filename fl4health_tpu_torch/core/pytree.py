@@ -1,9 +1,12 @@
 """Tree helpers over nested dicts/lists/tuples of tensors (counterpart of
 ``fl4health_tpu/core/pytree.py``, the parts the port's path uses).
 
-A "tree" is a tensor, or a dict, list or tuple of trees; ``None`` is an
-empty tree. Dicts keep their key order, so two trees built the same way
-line up leaf by leaf. That is not JAX's order: ``jax.tree_util`` flattens a
+A "tree" is a tensor, or a dict, list or tuple of trees, or an instance of
+a dataclass registered with ``tree_dataclass`` (walked field by field);
+``None`` is an empty tree. ``tree_dataclass`` also registers the class with
+``torch.utils._pytree``, which ``torch.func`` transforms flatten with, so
+the client vmap sees the same tree as ``tree_map``. Dicts keep their key
+order, so two trees built the same way line up leaf by leaf. That is not JAX's order: ``jax.tree_util`` flattens a
 dict in sorted key order at each level, while a ``Params`` dict keeps the
 module's init order. Whatever draws one random key per leaf walks
 ``flax_leaf_order``.
@@ -15,13 +18,27 @@ import dataclasses
 from typing import Any, Callable, Sequence
 
 import torch
+import torch.utils._pytree as torch_pytree
 
 from fl4health_tpu_torch.core.types import PyTree
+
+_TREE_CLASSES: set[type] = set()
+
+
+def tree_dataclass(cls: type) -> type:
+    """Class decorator: make a dataclass a tree node, field by field, for
+    ``tree_map`` and for ``torch.utils._pytree`` (``torch.func.vmap``'s
+    flattening) alike."""
+    torch_pytree.register_dataclass(cls)
+    _TREE_CLASSES.add(cls)
+    return cls
 
 
 def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     """Apply ``fn`` leafwise over one or more trees of the same structure.
-    Dataclass instances are mapped field by field."""
+    Instances of ``tree_dataclass`` classes are mapped field by field; any
+    other dataclass instance is refused, so ``tree_map`` and ``torch.func``
+    never disagree on what is a tree."""
     if tree is None:
         return None
     if isinstance(tree, dict):
@@ -29,6 +46,9 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        if type(tree) not in _TREE_CLASSES:
+            raise TypeError(f"{type(tree).__name__} is not a tree: decorate it "
+                            "with core.pytree.tree_dataclass")
         return dataclasses.replace(tree, **{
             f.name: tree_map(fn, getattr(tree, f.name),
                              *(getattr(r, f.name) for r in rest))

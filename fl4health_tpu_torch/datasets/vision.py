@@ -8,8 +8,8 @@ build the same clients from the same arrays and hash keys, returned as the
 port's ``ClientDataset``.
 
 ``synthetic_mnist_arrays`` and ``synthetic_cifar_arrays`` draw from the
-port's ``synthetic_classification`` (a ``torch.Generator`` seeded with
-``seed``): the same distribution as the JAX functions, not the same draws.
+port's ``synthetic_classification`` with ``PRNGKey(seed)``, as the JAX
+functions do: the same labels, and images within ``rng.normal``'s 2 ulp.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ from pathlib import Path
 from typing import Sequence
 
 import numpy as np
-import torch
 
+from fl4health_tpu_torch import rng
 from fl4health_tpu_torch.datasets.samplers import LabelBasedSampler
 from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
 
@@ -144,15 +144,14 @@ def synthetic_mnist_arrays(
     n: int = 4096, seed: int = 0, class_sep: float = 2.0
 ) -> tuple[np.ndarray, np.ndarray]:
     """Deterministic MNIST-shaped stand-in (environments without the data)."""
-    x, y = synthetic_classification(torch.Generator().manual_seed(seed), n,
-                                    (28, 28, 1), 10, class_sep=class_sep)
+    x, y = synthetic_classification(rng.PRNGKey(seed), n, (28, 28, 1), 10,
+                                    class_sep=class_sep)
     return x.numpy(), y.numpy()
 
 
 def synthetic_cifar_arrays(n: int = 4096, seed: int = 0) -> tuple[np.ndarray, np.ndarray]:
     """Deterministic CIFAR-shaped stand-in."""
-    x, y = synthetic_classification(torch.Generator().manual_seed(seed), n,
-                                    (32, 32, 3), 10)
+    x, y = synthetic_classification(rng.PRNGKey(seed), n, (32, 32, 3), 10)
     return x.numpy(), y.numpy()
 
 

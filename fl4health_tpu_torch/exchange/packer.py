@@ -8,9 +8,11 @@ import dataclasses
 
 import torch
 
+from fl4health_tpu_torch.core.pytree import tree_dataclass
 from fl4health_tpu_torch.core.types import Params
 
 
+@tree_dataclass
 @dataclasses.dataclass(frozen=True)
 class ClippingBitPacket:
     """Client-level DP payload: the clipped update and the clipping bit (a

@@ -6,10 +6,16 @@
 //                           fused_clipped_masked_sum's sum(...) sums it
 //   scaled_sum_kernel    <- _scaled_sum_kernel (K2)
 //
-// Both read gradient leaves in place as [B, W] matrices (row stride ld
-// elements, unit column stride), f32 or bf16, and accumulate in f32. The TPU
-// kernels pad W to 128-lane tiles; here the ragged edge is bounds-checked and
-// nothing is copied.
+// Both read gradient leaves in place as [N, B, W] stacks of N clients'
+// [B, W] matrices (client stride cs and row stride ld elements, unit column
+// stride; N = 1 outside the client vmap), f32 or bf16, and accumulate in f32.
+// The TPU kernels pad W to 128-lane tiles; here the ragged edge is
+// bounds-checked and nothing is copied. Under the simulation's vmap over
+// clients (the JAX simulation's vmap(client_fit), under which Pallas batches
+// its kernels), K1 takes the N * B rows of all clients as one launch, row r
+// being row r % B of client r / B, and K2 takes the client as a second grid
+// dimension; neither needs the clients' rows to be adjacent in memory, so no
+// layout the vmap leaves behind costs a copy.
 //
 // What bounds them on this card: memory. Each reads its B x W elements once and
 // does one or two flops per element read, far below the ~20 flops per byte the
@@ -194,8 +200,9 @@ enum : int { LEAF_BF16 = 1, LEAF_VEC = 2 };
 
 // One leaf of K1's table, as the host plans it.
 struct TreeLeaf {
-  const void* base;  // [B, width], row stride ld elements, unit column stride
+  const void* base;  // [N, B / N, width]: client stride cs, row stride ld, unit column stride
   int64_t ld;
+  int64_t cs;
   int64_t width;
   int64_t chunk;     // columns of a row that one item reads (a multiple of the pack)
   int64_t ws0;       // the leaf's first slot: row r, chunk c at ws0 + r * n_chunks + c
@@ -208,6 +215,7 @@ struct TreeLeaf {
 struct TreeTable {
   TreeLeaf leaf[MAX_LEAVES];
   int n_leaves, n_items, B;
+  int client_rows;  // rows a client: row r is row r % client_rows of client r / client_rows
   int accumulate;  // 1: add onto out (an earlier group's result); 0: overwrite it
 };
 
@@ -240,7 +248,8 @@ __global__ void __launch_bounds__(NT)
   const int row = it.row0 + threadIdx.x / tpr;
   float x = 0.f;
   if (row < table.B) {
-    const int64_t off = row * lf.ld + it.c0;
+    const int64_t off = (int64_t)(row / table.client_rows) * lf.cs +
+                        (int64_t)(row % table.client_rows) * lf.ld + it.c0;
     switch (lf.flags) {
       case LEAF_VEC:
         x = row_part<float, true>(static_cast<const float*>(lf.base) + off, it.n, q, tpr);
@@ -290,13 +299,16 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-// K2: out[c] = sum over rows i, in order, of scale[i] * g[i, c]. Thread t owns
-// columns [t*P, t*P + P).
+// K2: out[n, c] = sum over rows i, in order, of scale[n, i] * g[n, i, c], client
+// n = blockIdx.y. Thread t owns columns [t*P, t*P + P).
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(NT)
-    scaled_sum_kernel(const T* __restrict__ g, int64_t ld, int64_t W, int B,
+    scaled_sum_kernel(const T* __restrict__ g, int64_t ld, int64_t cs, int64_t W, int B,
                       const float* __restrict__ scale, float* __restrict__ out) {
   constexpr int P = Pack<T>::N;
+  g += blockIdx.y * cs;
+  scale += (int64_t)blockIdx.y * B;
+  out += blockIdx.y * W;
   const int64_t c0 = ((int64_t)blockIdx.x * NT + threadIdx.x) * P;
   if (c0 >= W) return;
   float acc[P];
@@ -334,10 +346,13 @@ __global__ void __launch_bounds__(NT)
 // half = split / 2, ..., 1: a fixed tree through shared memory.
 template <typename T, bool VEC>
 __global__ void __launch_bounds__(NT)
-    split_scaled_sum_kernel(const T* __restrict__ g, int64_t ld, int64_t W, int B,
+    split_scaled_sum_kernel(const T* __restrict__ g, int64_t ld, int64_t cs, int64_t W, int B,
                             const float* __restrict__ scale, float* __restrict__ out,
                             int split) {
   constexpr int P = Pack<T>::N;
+  g += blockIdx.y * cs;
+  scale += (int64_t)blockIdx.y * B;
+  out += blockIdx.y * W;
   __shared__ float part[P][NT];  // [element][thread]: a warp's stores hit 32 banks
   const int groups = NT / split, r = threadIdx.x / groups;
   const int64_t c0 = ((int64_t)blockIdx.x * groups + threadIdx.x % groups) * P;
@@ -383,11 +398,12 @@ __global__ void __launch_bounds__(NT)
       if (k < n) out[c0 + k] = acc[k];
 }
 
-// 16-byte loads need a 16-byte aligned base and a row stride that keeps every
-// row aligned.
+// 16-byte loads need a 16-byte aligned base and row and client strides that
+// keep every row aligned.
 template <typename T>
-bool vector_ok(const void* g, int64_t ld) {
-  return reinterpret_cast<uintptr_t>(g) % 16 == 0 && (ld * (int64_t)sizeof(T)) % 16 == 0;
+bool vector_ok(const void* g, int64_t ld, int64_t cs) {
+  return reinterpret_cast<uintptr_t>(g) % 16 == 0 && (ld * (int64_t)sizeof(T)) % 16 == 0 &&
+         (cs * (int64_t)sizeof(T)) % 16 == 0;
 }
 
 // A table row as the host sends it, checked against what the kernel assumes.
@@ -395,9 +411,9 @@ bool leaf_ok(const TreeLeaf& lf) {
   const int64_t elem = lf.flags & LEAF_BF16 ? 2 : 4;
   const uintptr_t base = reinterpret_cast<uintptr_t>(lf.base);
   // every chunk of a row starts 16-byte aligned
-  const bool vec_ok = base % 16 == 0 && lf.ld * elem % 16 == 0 &&
+  const bool vec_ok = base % 16 == 0 && lf.ld * elem % 16 == 0 && lf.cs * elem % 16 == 0 &&
                       (lf.n_chunks == 1 || lf.chunk * elem % 16 == 0);
-  return lf.width > 0 && lf.ld >= lf.width && lf.chunk > 0 && lf.n_chunks >= 1 &&
+  return lf.width > 0 && lf.ld >= lf.width && lf.cs >= 0 && lf.chunk > 0 && lf.n_chunks >= 1 &&
          (int64_t)(lf.n_chunks - 1) * lf.chunk < lf.width &&
          (int64_t)lf.n_chunks * lf.chunk >= lf.width && lf.rows >= 1 && lf.rows <= NT &&
          (lf.rows & (lf.rows - 1)) == 0 && lf.flags >= 0 && lf.flags <= 3 &&
@@ -405,25 +421,25 @@ bool leaf_ok(const TreeLeaf& lf) {
 }
 
 template <typename T>
-int scaled_sum_impl(const void* g_, int64_t ld, int64_t W, int B, const float* scale, float* out,
-                    int split, cudaStream_t s) {
+int scaled_sum_impl(const void* g_, int64_t ld, int64_t cs, int64_t W, int B, int N,
+                    const float* scale, float* out, int split, cudaStream_t s) {
   const T* g = static_cast<const T*>(g_);
   constexpr int P = Pack<T>::N;
   const int64_t groups = (W + P - 1) / P;
-  const bool vec = vector_ok<T>(g_, ld);
+  const bool vec = vector_ok<T>(g_, ld, cs);
   if (split > 1) {
-    const unsigned grid = (unsigned)((groups + NT / split - 1) / (NT / split));
+    const dim3 grid((unsigned)((groups + NT / split - 1) / (NT / split)), (unsigned)N);
     if (vec)
-      split_scaled_sum_kernel<T, true><<<grid, NT, 0, s>>>(g, ld, W, B, scale, out, split);
+      split_scaled_sum_kernel<T, true><<<grid, NT, 0, s>>>(g, ld, cs, W, B, scale, out, split);
     else
-      split_scaled_sum_kernel<T, false><<<grid, NT, 0, s>>>(g, ld, W, B, scale, out, split);
+      split_scaled_sum_kernel<T, false><<<grid, NT, 0, s>>>(g, ld, cs, W, B, scale, out, split);
     return (int)cudaGetLastError();
   }
-  const unsigned grid = (unsigned)((groups + NT - 1) / NT);
+  const dim3 grid((unsigned)((groups + NT - 1) / NT), (unsigned)N);
   if (vec)
-    scaled_sum_kernel<T, true><<<grid, NT, 0, s>>>(g, ld, W, B, scale, out);
+    scaled_sum_kernel<T, true><<<grid, NT, 0, s>>>(g, ld, cs, W, B, scale, out);
   else
-    scaled_sum_kernel<T, false><<<grid, NT, 0, s>>>(g, ld, W, B, scale, out);
+    scaled_sum_kernel<T, false><<<grid, NT, 0, s>>>(g, ld, cs, W, B, scale, out);
   return (int)cudaGetLastError();
 }
 
@@ -431,34 +447,37 @@ int scaled_sum_impl(const void* g_, int64_t ld, int64_t W, int B, const float* s
 
 extern "C" {
 
-// leaves: n_leaves rows of 9 integers, each a TreeLeaf in its field order (base
-// address, ld, width, chunk, ws0, item0, n_chunks, rows, flags), the items of
-// leaf l running from item0 for ceil(B / rows) * n_chunks; ws: the plan's
-// slots, f32; counter: one unsigned, 0 between launches; out: [B] f32. One CTA
-// an item.
-int dp_sq_norms_tree(const int64_t* leaves, int n_leaves, int n_items, int B, float* ws,
-                     unsigned* counter, float* out, int accumulate, void* stream) {
-  if (n_leaves < 1 || n_leaves > MAX_LEAVES || n_items < 1 || B <= 0 || B > 65535)
+// leaves: n_leaves rows of 10 integers, each a TreeLeaf in its field order (base
+// address, ld, cs, width, chunk, ws0, item0, n_chunks, rows, flags), the items
+// of leaf l running from item0 for ceil(B / rows) * n_chunks; B: the rows of
+// all clients, client_rows of each; ws: the plan's slots, f32; counter: one
+// unsigned, 0 between launches; out: [B] f32. One CTA an item.
+int dp_sq_norms_tree(const int64_t* leaves, int n_leaves, int n_items, int B, int client_rows,
+                     float* ws, unsigned* counter, float* out, int accumulate, void* stream) {
+  if (n_leaves < 1 || n_leaves > MAX_LEAVES || n_items < 1 || B <= 0 || B > 65535 ||
+      client_rows < 1 || B % client_rows != 0)
     return (int)cudaErrorInvalidValue;
   TreeTable t{};
   t.n_leaves = n_leaves;
   t.n_items = n_items;
   t.B = B;
+  t.client_rows = client_rows;
   t.accumulate = accumulate ? 1 : 0;
   int64_t next_item = 0;
   for (int l = 0; l < n_leaves; ++l) {
-    const int64_t* f = leaves + 9 * l;
+    const int64_t* f = leaves + 10 * l;
     TreeLeaf& lf = t.leaf[l];
     lf.base = reinterpret_cast<const void*>(f[0]);
     lf.ld = f[1];
-    lf.width = f[2];
-    lf.chunk = f[3];
-    lf.ws0 = f[4];
-    lf.item0 = (int)f[5];
-    lf.n_chunks = (int)f[6];
-    lf.rows = (int)f[7];
-    lf.flags = (int)f[8];
-    if (!leaf_ok(lf) || f[5] != next_item) return (int)cudaErrorInvalidValue;
+    lf.cs = f[2];
+    lf.width = f[3];
+    lf.chunk = f[4];
+    lf.ws0 = f[5];
+    lf.item0 = (int)f[6];
+    lf.n_chunks = (int)f[7];
+    lf.rows = (int)f[8];
+    lf.flags = (int)f[9];
+    if (!leaf_ok(lf) || f[6] != next_item) return (int)cudaErrorInvalidValue;
     next_item += (int64_t)((B + lf.rows - 1) / lf.rows) * lf.n_chunks;
   }
   if (next_item != n_items) return (int)cudaErrorInvalidValue;
@@ -466,15 +485,17 @@ int dp_sq_norms_tree(const int64_t* leaves, int n_leaves, int n_items, int B, fl
   return (int)cudaGetLastError();
 }
 
-// g: [B, W] with row stride ld; scale: [B] f32; out: [W] f32; split: threads
-// that share a column group, a power of two from 1 to MAX_SPLIT.
-int dp_scaled_sum(const void* g, int64_t ld, int64_t W, int B, const float* scale, float* out,
-                  int split, int bf16, void* stream) {
-  if (B <= 0 || W <= 0 || split < 1 || split > MAX_SPLIT || (split & (split - 1)))
+// g: [N, B, W] with client stride cs and row stride ld; scale: [N, B] f32,
+// contiguous; out: [N, W] f32, contiguous; split: threads that share a column
+// group, a power of two from 1 to MAX_SPLIT. One launch for all N clients.
+int dp_scaled_sum(const void* g, int64_t ld, int64_t cs, int64_t W, int B, int N,
+                  const float* scale, float* out, int split, int bf16, void* stream) {
+  if (B <= 0 || W <= 0 || N < 1 || N > 65535 || ld < W || cs < 0 || split < 1 ||
+      split > MAX_SPLIT || (split & (split - 1)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? scaled_sum_impl<uint16_t>(g, ld, W, B, scale, out, split, s)
-              : scaled_sum_impl<float>(g, ld, W, B, scale, out, split, s);
+  return bf16 ? scaled_sum_impl<uint16_t>(g, ld, cs, W, B, N, scale, out, split, s)
+              : scaled_sum_impl<float>(g, ld, cs, W, B, N, scale, out, split, s);
 }
 
 const char* dp_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -11,10 +11,10 @@
 #include <vector>
 
 extern "C" {
-int dp_sq_norms_tree(const int64_t* leaves, int n_leaves, int n_items, int B, float* ws,
-                     unsigned* counter, float* out, int accumulate, void* stream);
-int dp_scaled_sum(const void* g, int64_t ld, int64_t W, int B, const float* scale, float* out,
-                  int split, int bf16, void* stream);
+int dp_sq_norms_tree(const int64_t* leaves, int n_leaves, int n_items, int B, int client_rows,
+                     float* ws, unsigned* counter, float* out, int accumulate, void* stream);
+int dp_scaled_sum(const void* g, int64_t ld, int64_t cs, int64_t W, int B, int N,
+                  const float* scale, float* out, int split, int bf16, void* stream);
 const char* dp_error_string(int code);
 }
 
@@ -26,19 +26,20 @@ T* ptr(std::uintptr_t p) {
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, m) {
-  // leaves: 9 integers a leaf (dp_clip.cu, dp_sq_norms_tree)
+  // leaves: 10 integers a leaf (dp_clip.cu, dp_sq_norms_tree)
   m.def("sq_norms_tree", [](const std::vector<int64_t>& leaves, int n_items, int B,
-                            std::uintptr_t ws, std::uintptr_t counter, std::uintptr_t out,
-                            bool accumulate, std::uintptr_t stream) {
-    if (leaves.empty() || leaves.size() % 9 != 0) return 1;  // cudaErrorInvalidValue
-    return dp_sq_norms_tree(leaves.data(), (int)(leaves.size() / 9), n_items, B, ptr<float>(ws),
-                            ptr<unsigned>(counter), ptr<float>(out), accumulate ? 1 : 0,
-                            ptr<void>(stream));
+                            int client_rows, std::uintptr_t ws, std::uintptr_t counter,
+                            std::uintptr_t out, bool accumulate, std::uintptr_t stream) {
+    if (leaves.empty() || leaves.size() % 10 != 0) return 1;  // cudaErrorInvalidValue
+    return dp_sq_norms_tree(leaves.data(), (int)(leaves.size() / 10), n_items, B, client_rows,
+                            ptr<float>(ws), ptr<unsigned>(counter), ptr<float>(out),
+                            accumulate ? 1 : 0, ptr<void>(stream));
   });
-  m.def("scaled_sum", [](std::uintptr_t g, int64_t ld, int64_t W, int B, std::uintptr_t scale,
-                         std::uintptr_t out, int split, bool bf16, std::uintptr_t stream) {
-    return dp_scaled_sum(ptr<const void>(g), ld, W, B, ptr<const float>(scale), ptr<float>(out),
-                         split, bf16 ? 1 : 0, ptr<void>(stream));
+  m.def("scaled_sum", [](std::uintptr_t g, int64_t ld, int64_t cs, int64_t W, int B, int N,
+                         std::uintptr_t scale, std::uintptr_t out, int split, bool bf16,
+                         std::uintptr_t stream) {
+    return dp_scaled_sum(ptr<const void>(g), ld, cs, W, B, N, ptr<const float>(scale),
+                         ptr<float>(out), split, bf16 ? 1 : 0, ptr<void>(stream));
   });
   m.def("error_string", [](int code) { return std::string(dp_error_string(code)); });
 }

@@ -11,8 +11,8 @@
 // instead.
 //
 // Layout: q, k, v, o, dout, dq, dk, dv are [B, T, H, D] (row stride H*d), so the
-// wrapper needs no transpose; mask is [B, T] f32 (1 = real key); lse and delta
-// are [B, H, T] f32. Ragged T is handled by bounds checks, and any head dim
+// wrapper needs no transpose; mask is B rows of T f32 (1 = real key), read
+// through MaskRows (flash_mask.cuh); lse and delta are [B, H, T] f32. Ragged T is handled by bounds checks, and any head dim
 // d <= 64 by zero-filling shared memory up to the template width D = 64 (the
 // head dim of every configuration this port runs).
 //
@@ -33,6 +33,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_mask.cuh"
 
 namespace {
 
@@ -105,7 +107,7 @@ __device__ __forceinline__ bool load_key_mask(float* dst, const float* __restric
 template <typename scalar_t, int D>
 __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict__ k,
-                 const scalar_t* __restrict__ v, const float* __restrict__ mask,
+                 const scalar_t* __restrict__ v, const MaskRows mask,
                  scalar_t* __restrict__ o, float* __restrict__ lse, int seqlen, int H, int d,
                  float scale) {
   constexpr int DP = D + 1, PP = BK + 1, DJ = D / 16;
@@ -119,7 +121,7 @@ flash_fwd_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict__ k,
   const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * BQ;
   const int rs = H * d;
   const size_t base = (size_t)b * seqlen * rs + (size_t)h * d;
-  const float* mrow = mask + (size_t)b * seqlen;
+  const float* mrow = mask_row(mask, b, seqlen);
 
   load_tile<scalar_t, D>(Qs, q + base, q0, seqlen, d, rs, scale);
   float m[4], l[4], acc[4][DJ];
@@ -212,7 +214,7 @@ flash_fwd_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict__ k,
 template <typename scalar_t, int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dq_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict__ k,
-                    const scalar_t* __restrict__ v, const float* __restrict__ mask,
+                    const scalar_t* __restrict__ v, const MaskRows mask,
                     const scalar_t* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, scalar_t* __restrict__ dq, int seqlen, int H,
                     int d, float scale) {
@@ -230,7 +232,7 @@ flash_bwd_dq_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict__
   const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * BQ;
   const int rs = H * d;
   const size_t base = (size_t)b * seqlen * rs + (size_t)h * d;
-  const float* mrow = mask + (size_t)b * seqlen;
+  const float* mrow = mask_row(mask, b, seqlen);
 
   load_tile<scalar_t, D>(Qs, q + base, q0, seqlen, d, rs, 1.f);
   load_tile<scalar_t, D>(dOs, dout + base, q0, seqlen, d, rs, 1.f);
@@ -317,7 +319,7 @@ flash_bwd_dq_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict__
 template <typename scalar_t, int D>
 __global__ void __launch_bounds__(NT)
 flash_bwd_dkv_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict__ k,
-                     const scalar_t* __restrict__ v, const float* __restrict__ mask,
+                     const scalar_t* __restrict__ v, const MaskRows mask,
                      const scalar_t* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ delta, scalar_t* __restrict__ dk,
                      scalar_t* __restrict__ dv, int seqlen, int H, int d, float scale) {
@@ -336,7 +338,7 @@ flash_bwd_dkv_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict_
   const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * BK;
   const int rs = H * d;
   const size_t base = (size_t)b * seqlen * rs + (size_t)h * d;
-  const float* mrow = mask + (size_t)b * seqlen;
+  const float* mrow = mask_row(mask, b, seqlen);
 
   float adk[4][DJ], adv[4][DJ];
 #pragma unroll
@@ -452,7 +454,7 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 }
 
 template <typename scalar_t, int D>
-int fwd_impl(const void* q, const void* k, const void* v, const float* mask, void* o, float* lse,
+int fwd_impl(const void* q, const void* k, const void* v, MaskRows mask, void* o, float* lse,
              int B, int T, int H, int d, float scale, cudaStream_t stream) {
   const size_t smem = fwd_smem(D);
   cudaError_t err = prepare(flash_fwd_kernel<scalar_t, D>, smem);
@@ -465,7 +467,7 @@ int fwd_impl(const void* q, const void* k, const void* v, const float* mask, voi
 }
 
 template <typename scalar_t, int D>
-int dq_impl(const void* q, const void* k, const void* v, const float* mask, const void* dout,
+int dq_impl(const void* q, const void* k, const void* v, MaskRows mask, const void* dout,
             const float* lse, const float* delta, void* dq, int B, int T, int H, int d,
             float scale, cudaStream_t stream) {
   const size_t smem = dq_smem(D);
@@ -479,7 +481,7 @@ int dq_impl(const void* q, const void* k, const void* v, const float* mask, cons
 }
 
 template <typename scalar_t, int D>
-int dkv_impl(const void* q, const void* k, const void* v, const float* mask, const void* dout,
+int dkv_impl(const void* q, const void* k, const void* v, MaskRows mask, const void* dout,
              const float* lse, const float* delta, void* dk, void* dv, int B, int T, int H, int d,
              float scale, cudaStream_t stream) {
   const size_t smem = dkv_smem(D);
@@ -499,32 +501,39 @@ int dkv_impl(const void* q, const void* k, const void* v, const float* mask, con
 // returns the cudaError_t of its launch (0 = launched).
 extern "C" {
 
-int flash_fwd(const void* q, const void* k, const void* v, const float* mask, void* o,
-              float* lse, int B, int T, int H, int d, float scale, int bf16, void* stream) {
+// mask: the key mask as MaskRows (flash_mask.cuh): rows of T floats, row b of
+// the batch at mask + (b / mask_rows) * mask_stride + (b % mask_rows) * T.
+int flash_fwd(const void* q, const void* k, const void* v, const float* mask, int mask_rows,
+              long long mask_stride, void* o, float* lse, int B, int T, int H, int d,
+              float scale, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (d > 64) return (int)cudaErrorInvalidValue;
-  return bf16 ? fwd_impl<__nv_bfloat16, 64>(q, k, v, mask, o, lse, B, T, H, d, scale, s)
-              : fwd_impl<float, 64>(q, k, v, mask, o, lse, B, T, H, d, scale, s);
+  if (d > 64 || mask_rows < 1 || mask_stride < 0) return (int)cudaErrorInvalidValue;
+  const MaskRows rows{mask, mask_rows, mask_stride};
+  return bf16 ? fwd_impl<__nv_bfloat16, 64>(q, k, v, rows, o, lse, B, T, H, d, scale, s)
+              : fwd_impl<float, 64>(q, k, v, rows, o, lse, B, T, H, d, scale, s);
 }
 
-int flash_bwd_dq(const void* q, const void* k, const void* v, const float* mask, const void* dout,
-                 const float* lse, const float* delta, void* dq, int B, int T, int H, int d,
-                 float scale, int bf16, void* stream) {
+int flash_bwd_dq(const void* q, const void* k, const void* v, const float* mask, int mask_rows,
+                 long long mask_stride, const void* dout, const float* lse, const float* delta,
+                 void* dq, int B, int T, int H, int d, float scale, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (d > 64) return (int)cudaErrorInvalidValue;
-  return bf16 ? dq_impl<__nv_bfloat16, 64>(q, k, v, mask, dout, lse, delta, dq, B, T, H, d,
+  if (d > 64 || mask_rows < 1 || mask_stride < 0) return (int)cudaErrorInvalidValue;
+  const MaskRows rows{mask, mask_rows, mask_stride};
+  return bf16 ? dq_impl<__nv_bfloat16, 64>(q, k, v, rows, dout, lse, delta, dq, B, T, H, d,
                                            scale, s)
-              : dq_impl<float, 64>(q, k, v, mask, dout, lse, delta, dq, B, T, H, d, scale, s);
+              : dq_impl<float, 64>(q, k, v, rows, dout, lse, delta, dq, B, T, H, d, scale, s);
 }
 
-int flash_bwd_dkv(const void* q, const void* k, const void* v, const float* mask,
-                  const void* dout, const float* lse, const float* delta, void* dk, void* dv,
-                  int B, int T, int H, int d, float scale, int bf16, void* stream) {
+int flash_bwd_dkv(const void* q, const void* k, const void* v, const float* mask, int mask_rows,
+                  long long mask_stride, const void* dout, const float* lse, const float* delta,
+                  void* dk, void* dv, int B, int T, int H, int d, float scale, int bf16,
+                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (d > 64) return (int)cudaErrorInvalidValue;
-  return bf16 ? dkv_impl<__nv_bfloat16, 64>(q, k, v, mask, dout, lse, delta, dk, dv, B, T, H, d,
+  if (d > 64 || mask_rows < 1 || mask_stride < 0) return (int)cudaErrorInvalidValue;
+  const MaskRows rows{mask, mask_rows, mask_stride};
+  return bf16 ? dkv_impl<__nv_bfloat16, 64>(q, k, v, rows, dout, lse, delta, dk, dv, B, T, H, d,
                                             scale, s)
-              : dkv_impl<float, 64>(q, k, v, mask, dout, lse, delta, dk, dv, B, T, H, d, scale,
+              : dkv_impl<float, 64>(q, k, v, rows, dout, lse, delta, dk, dv, B, T, H, d, scale,
                                     s);
 }
 

@@ -45,6 +45,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "flash_mask.cuh"
+
 namespace {
 
 constexpr int TILE = 64;                     // rows (and bf16 columns) of every tile
@@ -348,7 +350,7 @@ struct FwdSmem {
 __global__ void __launch_bounds__(NTHREADS, 1)
 wgmma_flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
                        const __grid_constant__ CUtensorMap tm_k,
-                       const __grid_constant__ CUtensorMap tm_v, const float* __restrict__ mask,
+                       const __grid_constant__ CUtensorMap tm_v, const MaskRows mask,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int T, int H,
                        int d, float scale) {
   extern __shared__ uint8_t smem_raw[];
@@ -360,7 +362,7 @@ wgmma_flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * 2 * TILE;
-  const float* mrow = mask + (size_t)b * T;
+  const float* mrow = mask_row(mask, b, T);
 
   const int n_tiles = key_tile_list(mrow, T, key_tiles, tid, warp, lane, key_bits, tiles,
                                     s.n_tiles, &s.q_full, s.full, s.empty);
@@ -495,7 +497,7 @@ wgmma_flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
                           const __grid_constant__ CUtensorMap tm_k,
                           const __grid_constant__ CUtensorMap tm_v,
                           const __grid_constant__ CUtensorMap tm_do,
-                          const float* __restrict__ mask, const float* __restrict__ lse,
+                          const MaskRows mask, const float* __restrict__ lse,
                           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int T,
                           int H, int d, float scale) {
   extern __shared__ uint8_t smem_raw[];
@@ -507,7 +509,7 @@ wgmma_flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tm_q,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int bh = blockIdx.y, b = bh / H, h = bh % H, q0 = blockIdx.x * 2 * TILE;
-  const float* mrow = mask + (size_t)b * T;
+  const float* mrow = mask_row(mask, b, T);
 
   // a batch element with no real key has no tile: nothing is loaded, dQ = 0
   const int n_tiles = key_tile_list(mrow, T, key_tiles, tid, warp, lane, key_bits, tiles,
@@ -618,14 +620,14 @@ wgmma_flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tm_q,
                            const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v,
                            const __grid_constant__ CUtensorMap tm_do,
-                           const float* __restrict__ mask, const float* __restrict__ lse,
+                           const MaskRows mask, const float* __restrict__ lse,
                            const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                            __nv_bfloat16* __restrict__ dv, int T, int H, int d, float scale) {
   extern __shared__ uint8_t smem_raw[];
   DkvSmem& s = *reinterpret_cast<DkvSmem*>(align_1024(smem_raw));
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int bh = blockIdx.y, b = bh / H, h = bh % H, k0 = blockIdx.x * 2 * TILE;
-  const float* mrow = mask + (size_t)b * T;
+  const float* mrow = mask_row(mask, b, T);
   const int n_q = (T + TILE - 1) / TILE;
 
   // which of the two 64-key slices hold a real key
@@ -819,8 +821,12 @@ size_t dkv_smem_bytes() { return 1024 + sizeof(DkvSmem); }
 
 extern "C" {
 
-int flash_fwd_wgmma(const void* q, const void* k, const void* v, const float* mask, void* o,
-                    float* lse, int B, int T, int H, int d, float scale, void* stream) {
+// mask: the key mask as MaskRows (flash_mask.cuh), as in flash_attention.cu.
+int flash_fwd_wgmma(const void* q, const void* k, const void* v, const float* mask,
+                    int mask_rows, long long mask_stride, void* o, float* lse, int B, int T,
+                    int H, int d, float scale, void* stream) {
+  if (mask_rows < 1 || mask_stride < 0) return (int)cudaErrorInvalidValue;
+  const MaskRows rows{mask, mask_rows, mask_stride};
   CUtensorMap tq, tk, tv;
   int err;
   if ((err = encode(&tq, q, B, T, H, d)) || (err = encode(&tk, k, B, T, H, d)) ||
@@ -832,13 +838,16 @@ int flash_fwd_wgmma(const void* q, const void* k, const void* v, const float* ma
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((T + 2 * TILE - 1) / (2 * TILE), B * H);
   wgmma_flash_fwd_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      tq, tk, tv, mask, (__nv_bfloat16*)o, lse, T, H, d, scale);
+      tq, tk, tv, rows, (__nv_bfloat16*)o, lse, T, H, d, scale);
   return (int)cudaGetLastError();
 }
 
 int flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, const float* mask,
-                       const void* dout, const float* lse, const float* delta, void* dq, int B,
-                       int T, int H, int d, float scale, void* stream) {
+                       int mask_rows, long long mask_stride, const void* dout, const float* lse,
+                       const float* delta, void* dq, int B, int T, int H, int d, float scale,
+                       void* stream) {
+  if (mask_rows < 1 || mask_stride < 0) return (int)cudaErrorInvalidValue;
+  const MaskRows rows{mask, mask_rows, mask_stride};
   CUtensorMap tq, tk, tv, tdo;
   int err;
   if ((err = encode(&tq, q, B, T, H, d)) || (err = encode(&tk, k, B, T, H, d)) ||
@@ -850,13 +859,16 @@ int flash_bwd_dq_wgmma(const void* q, const void* k, const void* v, const float*
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((T + 2 * TILE - 1) / (2 * TILE), B * H);
   wgmma_flash_bwd_dq_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      tq, tk, tv, tdo, mask, lse, delta, (__nv_bfloat16*)dq, T, H, d, scale);
+      tq, tk, tv, tdo, rows, lse, delta, (__nv_bfloat16*)dq, T, H, d, scale);
   return (int)cudaGetLastError();
 }
 
 int flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const float* mask,
-                        const void* dout, const float* lse, const float* delta, void* dk,
-                        void* dv, int B, int T, int H, int d, float scale, void* stream) {
+                        int mask_rows, long long mask_stride, const void* dout, const float* lse,
+                        const float* delta, void* dk, void* dv, int B, int T, int H, int d,
+                        float scale, void* stream) {
+  if (mask_rows < 1 || mask_stride < 0) return (int)cudaErrorInvalidValue;
+  const MaskRows rows{mask, mask_rows, mask_stride};
   CUtensorMap tq, tk, tv, tdo;
   int err;
   if ((err = encode(&tq, q, B, T, H, d)) || (err = encode(&tk, k, B, T, H, d)) ||
@@ -868,7 +880,7 @@ int flash_bwd_dkv_wgmma(const void* q, const void* k, const void* v, const float
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((T + 2 * TILE - 1) / (2 * TILE), B * H);
   wgmma_flash_bwd_dkv_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      tq, tk, tv, tdo, mask, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, T, H, d, scale);
+      tq, tk, tv, tdo, rows, lse, delta, (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, T, H, d, scale);
   return (int)cudaGetLastError();
 }
 

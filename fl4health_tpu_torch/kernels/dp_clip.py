@@ -17,12 +17,22 @@ use (never at import) into ``kernels/_build/dp_clip/``:
   (``scaled_sum_split``, a shape rule), still in a fixed order.
 
 Both take f32 or bf16 gradients, accumulate in f32 and read a leaf in place
-as a ``[B, W]`` view: no padding copy (the JAX function's ``tile`` and
-``interpret`` have no counterpart). Dispatch is on the tensors' device: CUDA
-tensors launch the kernel (or raise), CPU tensors run the plain version
-beside it. Nothing swaps one for the other on failure. The kernels take
-materialized per-example gradients and nothing differentiates through them,
-so they need no ``autograd.Function``.
+(no padding copy; the JAX function's ``tile`` and ``interpret`` have no
+counterpart). Each launch sits in a ``torch.autograd.Function`` whose
+inputs carry a leading client axis, ``[N, B, W]`` (N = 1 outside the
+client vmap), with a ``vmap`` rule: under the simulation's
+``torch.func.vmap`` over clients (JAX's ``vmap(client_fit)``, under which
+Pallas batches its kernels), the rule folds the vmapped axis into N as a
+view and calls the Function again, so one launch serves every client. K1
+reads the ``N * B`` rows through a client stride and a row stride, K2 takes
+the client as a grid dimension: no layout the vmap leaves behind needs the
+per-example tensor copied, and ``COPIES`` counts any copy of it that a
+rule or wrapper does make. The Functions' backwards are plain tensor code,
+so they compose with ``torch.func.grad``.
+
+Dispatch is on the tensors' device: CUDA tensors launch the kernel (or
+raise), CPU tensors run the plain version beside it, through the same
+Functions and rules. Nothing swaps one for the other on failure.
 """
 
 from __future__ import annotations
@@ -35,10 +45,15 @@ import torch
 from fl4health_tpu_torch.core.pytree import tree_leaves, tree_map
 from fl4health_tpu_torch.core.types import Params
 from fl4health_tpu_torch.kernels.build import load_extension
+from fl4health_tpu_torch.kernels.fold import fold_vmapped
 
 # Kernel launches since the last reset: one per launch, counted by the wrapper
 # right after the launch succeeded (the plain versions never count).
 LAUNCHES = {"dp_sq_norms": 0, "dp_scaled_sum": 0}
+# Copies of per-example gradients that a wrapper or a vmap rule made on the
+# card (a leaf without unit column stride, or vmapped axes that do not fold
+# as a view): the main path makes none.
+COPIES = {"dp_per_example": 0}
 
 
 # Launch geometry (csrc/dp_clip.cu): threads per CTA; K1: leaves in one
@@ -51,8 +66,9 @@ K2_MAX_SPLIT = 32
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, COPIES):
+        for name in counts:
+            counts[name] = 0
 
 
 @functools.cache
@@ -62,15 +78,16 @@ def build_extension():
     return load_extension("dp_clip", ["dp_clip_binding.cpp", "dp_clip.cu"])
 
 
-def scaled_sum_split(b: int, w: int, elem_bytes: int, n_sms: int) -> int:
+def scaled_sum_split(b: int, w: int, elem_bytes: int, n_sms: int, n: int = 1) -> int:
     """The shape rule for K2's row split: how many threads share each
-    16-byte column group of a ``[b, w]`` leaf. 1 (each thread walks all b
-    rows) when the leaf's column groups give every one of ``n_sms`` SMs a
-    CTA; else the smallest power of two that does, at most 32 and at most
-    b. Read from the shape alone, never from a failure."""
+    16-byte column group of ``n`` clients' ``[b, w]`` leaves (one launch, a
+    grid row of CTAs a client). 1 (each thread walks all b rows) when the
+    column groups give every one of ``n_sms`` SMs a CTA; else the smallest
+    power of two that does, at most 32 and at most b. Read from the shape
+    alone, never from a failure."""
     groups = -(-w // (16 // elem_bytes))
     split = 1
-    while (-(-groups * split // THREADS) < n_sms
+    while (n * -(-groups * split // THREADS) < n_sms
            and 2 * split <= min(b, K2_MAX_SPLIT)):
         split *= 2
     return split
@@ -147,36 +164,52 @@ def tree_plan(b: int, leaves: tuple[tuple[int, int, bool], ...]) -> tuple[TreePl
 # ---------------------------------------------------------------------------
 
 def per_example_sq_norms_reference(flat_grads: torch.Tensor) -> torch.Tensor:
-    """[B, W] -> [B] f32 squared norms, in plain PyTorch."""
-    return (flat_grads.float() ** 2).sum(1)
+    """[..., B, W] -> [..., B] f32 squared norms, in plain PyTorch."""
+    return (flat_grads.float() ** 2).sum(-1)
 
 
 def per_example_tree_sq_norms_reference(mats: list[torch.Tensor]) -> torch.Tensor:
-    """[B, W_l] leaves -> [B] f32: each leaf's squared norms, summed over
-    the leaves in leaf order (the JAX function's fold), in plain PyTorch."""
+    """[..., B, W_l] leaves -> [..., B] f32: each leaf's squared norms,
+    summed over the leaves in leaf order (the JAX function's fold), in plain
+    PyTorch."""
     return sum(per_example_sq_norms_reference(m) for m in mats)
 
 
 def scaled_masked_sum_reference(flat_grads: torch.Tensor,
                                 scale: torch.Tensor) -> torch.Tensor:
-    """[B, W], [B] -> [W] f32 ``sum_i scale[i] * g[i]``, in plain PyTorch."""
-    return (flat_grads.float() * scale.float()[:, None]).sum(0)
+    """[..., B, W], [..., B] -> [..., W] f32 ``sum_i scale[i] * g[i]`` (for
+    each client of a leading client axis), in plain PyTorch."""
+    return (flat_grads.float() * scale.float()[..., None]).sum(-2)
 
 
 # ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
 
-def _check_matrix(g: torch.Tensor) -> None:
+def _as_stack(g: torch.Tensor) -> torch.Tensor:
+    """A [B, W] matrix as a stack of one client, [1, B, W] (a view)."""
+    return g[None] if g.ndim == 2 else g
+
+
+def _strides(g: torch.Tensor) -> tuple[int, int]:
+    """(client stride, row stride) of an [N, B, W] stack, in elements; a
+    size-1 axis is never stepped, so it reads 0 (client) or W (row)."""
+    n, b, w = g.shape
+    return (g.stride(0) if n > 1 else 0), (g.stride(1) if b > 1 else w)
+
+
+def _check_stack(g: torch.Tensor) -> None:
     if g.device.type != "cuda":
         raise ValueError(f"dp_clip kernels need CUDA tensors, got {g.device}")
     if g.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dp_clip kernels take float32 or bfloat16, got {g.dtype}")
-    if g.ndim != 2 or g.stride(1) != 1 or g.stride(0) < g.shape[1]:
-        raise ValueError("dp_clip kernels take a [B, W] matrix with unit column "
-                         f"stride, got shape {tuple(g.shape)} strides {g.stride()}")
-    if g.shape[0] > 65535:
-        raise ValueError(f"B={g.shape[0]} exceeds the kernels' limit of 65535 rows")
+    if g.ndim != 3 or g.stride(2) != 1 or _strides(g)[1] < g.shape[2] or g.stride(0) < 0:
+        raise ValueError("dp_clip kernels take [B, W] matrices, or [N, B, W] stacks of "
+                         "them, with unit column stride and rows that do not overlap; "
+                         f"got shape {tuple(g.shape)} strides {g.stride()}")
+    if g.shape[0] * g.shape[1] > 65535 or g.shape[0] > 65535:
+        raise ValueError(f"N*B={g.shape[0] * g.shape[1]} exceeds the kernels' limit "
+                         "of 65535 rows")
 
 
 def _raise_on(err: int, kernel: str) -> None:
@@ -189,18 +222,20 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _tree_batch(mats: list[torch.Tensor]) -> tuple[int, torch.device]:
-    """B and the device that all leaves share; raises where they differ."""
+def _tree_batch(mats: list[torch.Tensor]) -> tuple[tuple[int, ...], torch.device]:
+    """The leading (client and row) shape and the device that all leaves
+    share; raises where they differ."""
     if not mats:
         raise ValueError("dp_clip needs at least one leaf")
-    b, device = mats[0].shape[0], mats[0].device
+    lead, device = tuple(mats[0].shape[:-1]), mats[0].device
     for m in mats:
         if m.device != device:
             raise ValueError(f"dp_clip leaves on {device} and {m.device}")
-        if m.ndim != 2 or m.shape[0] != b:
-            raise ValueError(f"dp_clip leaves must be [B={b}, W] matrices, "
-                             f"got shape {tuple(m.shape)}")
-    return b, device
+        if tuple(m.shape[:-1]) != lead or m.ndim not in (2, 3):
+            want = ", ".join(f"{n}={v}" for n, v in zip("NB"[-len(lead):], lead))
+            raise ValueError(f"dp_clip leaves must be [{want}, W] matrices (or "
+                             f"stacks of them), got shape {tuple(m.shape)}")
+    return lead, device
 
 
 # K1's counter (zeroed once) and workspace for each (device, stream). Launches
@@ -219,78 +254,166 @@ def _k1_scratch(device: torch.device, stream: int, n_slots: int):
     return got
 
 
+def _vec(g: torch.Tensor) -> bool:
+    """16-byte loads: the base and both strides 16-byte aligned."""
+    cs, ld = _strides(g)
+    e = g.element_size()
+    return g.data_ptr() % 16 == 0 and ld * e % 16 == 0 and cs * e % 16 == 0
+
+
 def plan_of(mats: list[torch.Tensor]) -> tuple[TreePlan, ...]:
-    """K1's launches over these [B, W_l] leaves: 16-byte loads where a
-    leaf's base and row stride are 16-byte aligned, elements elsewhere."""
-    return tree_plan(mats[0].shape[0], tuple(
-        (m.shape[1], m.element_size(),
-         m.data_ptr() % 16 == 0 and m.stride(0) * m.element_size() % 16 == 0)
-        for m in mats))
+    """K1's launches over these [B, W_l] leaves (or [N, B, W_l] stacks, as
+    N * B rows): 16-byte loads where a leaf's base and strides are 16-byte
+    aligned, elements elsewhere."""
+    stacks = [_as_stack(m) for m in mats]
+    n, b = stacks[0].shape[:2]
+    return tree_plan(n * b, tuple((g.shape[2], g.element_size(), _vec(g)) for g in stacks))
 
 
 def sq_norms_tree_kernel(mats: list[torch.Tensor]) -> torch.Tensor:
-    """K1 on the card: ``[B, W_l]`` leaves (f32 or bf16, each may differ) ->
-    [B] f32 squared norms of the whole tree, one launch per
-    ``K1_MAX_LEAVES`` leaves."""
-    b, device = _tree_batch(mats)
-    for m in mats:
-        _check_matrix(m)
-    ext, stream = build_extension(), _stream(mats[0])
-    plans = plan_of(mats)
+    """K1 on the card: ``[B, W_l]`` leaves -> [B] f32 squared norms of the
+    whole tree, or ``[N, B, W_l]`` stacks -> [N, B] (the ``N * B`` rows in
+    the same launch, read through the client and row strides); f32 or bf16,
+    each leaf may differ; one launch per ``K1_MAX_LEAVES`` leaves."""
+    lead, device = _tree_batch(mats)
+    stacks = [_as_stack(m) for m in mats]
+    for g in stacks:
+        _check_stack(g)
+    n, b = stacks[0].shape[:2]
+    ext, stream = build_extension(), _stream(stacks[0])
+    plans = plan_of(stacks)
     counter, ws = _k1_scratch(device, stream, max(p.n_slots for p in plans))
-    out = torch.empty((b,), dtype=torch.float32, device=device)
+    out = torch.empty((n * b,), dtype=torch.float32, device=device)
     first = 0
     for plan in plans:
         table = []
-        for m, lf in zip(mats[first:], plan.leaves):
-            table += [m.data_ptr(), m.stride(0), lf.width, lf.chunk, lf.ws0, lf.item0,
+        for g, lf in zip(stacks[first:], plan.leaves):
+            cs, ld = _strides(g)
+            table += [g.data_ptr(), ld, cs, lf.width, lf.chunk, lf.ws0, lf.item0,
                       lf.n_chunks, lf.rows, lf.flags]
-        err = ext.sq_norms_tree(table, plan.n_items, b, ws.data_ptr(), counter.data_ptr(),
-                                out.data_ptr(), first > 0, stream)
+        err = ext.sq_norms_tree(table, plan.n_items, n * b, b, ws.data_ptr(),
+                                counter.data_ptr(), out.data_ptr(), first > 0, stream)
         _raise_on(err, "dp_sq_norms")
         LAUNCHES["dp_sq_norms"] += 1
         first += len(plan.leaves)
-    return out
+    return out.reshape(lead)
 
 
 def scaled_sum_kernel(flat_grads: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """K2 on the card: [B, W], [B] f32 -> [W] f32."""
-    _check_matrix(flat_grads)
-    b, w = flat_grads.shape
-    if (scale.shape != (b,) or scale.dtype != torch.float32
-            or scale.device != flat_grads.device or not scale.is_contiguous()):
-        raise ValueError(f"scale must be a contiguous f32 [{b}] on {flat_grads.device}, "
-                         f"got {scale.dtype} {tuple(scale.shape)} {scale.device}")
-    out = torch.empty((w,), dtype=torch.float32, device=flat_grads.device)
-    split = scaled_sum_split(b, w, flat_grads.element_size(),
-                             _sm_count(flat_grads.device.index))
+    """K2 on the card: [B, W], [B] f32 -> [W] f32, or the client-batched
+    entry [N, B, W], [N, B] -> [N, W] (one launch, a grid row of CTAs a
+    client, the stack read through its client and row strides)."""
+    g = _as_stack(flat_grads)
+    _check_stack(g)
+    n, b, w = g.shape
+    if (scale.shape != flat_grads.shape[:-1] or scale.dtype != torch.float32
+            or scale.device != g.device or not scale.is_contiguous()):
+        raise ValueError(f"scale must be a contiguous f32 {list(flat_grads.shape[:-1])} on "
+                         f"{g.device}, got {scale.dtype} {tuple(scale.shape)} {scale.device}")
+    out = torch.empty((n, w), dtype=torch.float32, device=g.device)
+    split = scaled_sum_split(b, w, g.element_size(), _sm_count(g.device.index), n)
+    cs, ld = _strides(g)
     err = build_extension().scaled_sum(
-        flat_grads.data_ptr(), flat_grads.stride(0), w, b, scale.data_ptr(),
-        out.data_ptr(), split, flat_grads.dtype == torch.bfloat16, _stream(flat_grads))
+        g.data_ptr(), ld, cs, w, b, n, scale.data_ptr(), out.data_ptr(), split,
+        g.dtype == torch.bfloat16, _stream(g))
     _raise_on(err, "dp_scaled_sum")
     LAUNCHES["dp_scaled_sum"] += 1
-    return out
+    return out.reshape(*flat_grads.shape[:-2], w)
+
+
+# ---------------------------------------------------------------------------
+# autograd.Functions with client-vmap rules
+# ---------------------------------------------------------------------------
+
+def _unit_column_stride(g: torch.Tensor) -> torch.Tensor:
+    # a leaf reshaped to [B, W] is a view when the leaf is contiguous, as
+    # per-example gradients are; a strided one is copied once, and counted
+    if g.stride(-1) == 1 or g.shape[-1] == 1:
+        return g
+    if g.device.type == "cuda":
+        COPIES["dp_per_example"] += 1
+    return g.contiguous()
+
+
+def _fold_clients(x: torch.Tensor, bdim: int | None, size: int) -> torch.Tensor:
+    """The rule's batched input as one more set of clients, ``[size * N,
+    ...]``: a view whenever the two axes step evenly, as every layout of the
+    simulation's does; else a copy, counted on the card."""
+    folded, copied = fold_vmapped(x, bdim, size)
+    if copied and x.device.type == "cuda":
+        COPIES["dp_per_example"] += 1
+    return folded
+
+
+class _TreeSqNorms(torch.autograd.Function):
+    """K1: ``[N, B, W_l]`` leaves -> ``[N, B]`` f32 squared norms of the tree."""
+
+    @staticmethod
+    def forward(*stacks):
+        if stacks[0].device.type == "cuda":
+            return sq_norms_tree_kernel([_unit_column_stride(g) for g in stacks])
+        if stacks[0].device.type == "cpu":
+            return per_example_tree_sq_norms_reference(list(stacks))
+        raise ValueError(f"dp_clip runs on cuda or cpu, not {stacks[0].device}")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return tuple((2.0 * g.float() * dout[..., None]).to(g.dtype)
+                     for g in ctx.saved_tensors)
+
+    @staticmethod
+    def vmap(info, in_dims, *stacks):
+        # the vmapped axis joins the client axis; the Function runs again
+        # on the folded stacks (and again under another vmap level)
+        folded = [_fold_clients(g, d, info.batch_size) for g, d in zip(stacks, in_dims)]
+        out = _TreeSqNorms.apply(*folded)
+        return out.view(info.batch_size, -1, out.shape[-1]), 0
+
+
+class _ScaledSum(torch.autograd.Function):
+    """K2: ``[N, B, W], [N, B] -> [N, W]`` f32 ``sum_i scale[n, i] g[n, i]``."""
+
+    @staticmethod
+    def forward(stack, scale):
+        if stack.device.type == "cuda":
+            return scaled_sum_kernel(_unit_column_stride(stack),
+                                     scale.float().contiguous())
+        if stack.device.type == "cpu":
+            return scaled_masked_sum_reference(stack, scale)
+        raise ValueError(f"dp_clip runs on cuda or cpu, not {stack.device}")
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, dout):
+        g, scale = ctx.saved_tensors
+        dg = (scale.float()[..., None] * dout[..., None, :]).to(g.dtype)
+        dscale = (g.float() * dout[..., None, :]).sum(-1).to(scale.dtype)
+        return dg, dscale
+
+    @staticmethod
+    def vmap(info, in_dims, stack, scale):
+        n = info.batch_size
+        out = _ScaledSum.apply(_fold_clients(stack, in_dims[0], n),
+                               _fold_clients(scale, in_dims[1], n))
+        return out.view(n, -1, out.shape[-1]), 0
 
 
 # ---------------------------------------------------------------------------
 # Public functions
 # ---------------------------------------------------------------------------
 
-def _unit_column_stride(g: torch.Tensor) -> torch.Tensor:
-    # a leaf reshaped to [B, W] is a view when the leaf is contiguous, as
-    # per-example gradients are; a strided one is copied once
-    return g if g.stride(1) == 1 else g.contiguous()
-
-
 def per_example_tree_sq_norms(mats: list[torch.Tensor]) -> torch.Tensor:
     """[B, W_l] leaves -> [B] f32 squared L2 norms of the whole tree (summed
     over the leaves in order), one pass over the gradients."""
-    _, device = _tree_batch(mats)
-    if device.type == "cuda":
-        return sq_norms_tree_kernel([_unit_column_stride(m) for m in mats])
-    if device.type == "cpu":
-        return per_example_tree_sq_norms_reference(mats)
-    raise ValueError(f"dp_clip runs on cuda or cpu, not {device}")
+    _tree_batch(mats)
+    return _TreeSqNorms.apply(*(m[None] for m in mats))[0]
 
 
 def per_example_sq_norms(flat_grads: torch.Tensor) -> torch.Tensor:
@@ -300,12 +423,7 @@ def per_example_sq_norms(flat_grads: torch.Tensor) -> torch.Tensor:
 
 def scaled_masked_sum(flat_grads: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """sum_i scale[i] * g[i]  ([B, W], [B] -> [W] f32), one pass."""
-    if flat_grads.device.type == "cuda":
-        return scaled_sum_kernel(_unit_column_stride(flat_grads),
-                                 scale.float().contiguous())
-    if flat_grads.device.type == "cpu":
-        return scaled_masked_sum_reference(flat_grads, scale)
-    raise ValueError(f"dp_clip runs on cuda or cpu, not {flat_grads.device}")
+    return _ScaledSum.apply(flat_grads[None], scale[None])[0]
 
 
 def fused_clipped_masked_sum(

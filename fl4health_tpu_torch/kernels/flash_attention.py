@@ -7,7 +7,17 @@ Pallas kernels there (``_fwd_kernel``, ``_bwd_dq_kernel``,
 with ``torch.utils.cpp_extension.load`` at first use (never at import) into
 ``kernels/_build/``. ``_FlashAttention`` is the ``torch.autograd.Function``
 counterpart of ``_flash_padded_lse``: its forward launches the forward
-kernel, its backward the dQ and dK/dV kernels.
+kernel, its backward calls ``_FlashAttentionGrads``, a second Function that
+launches the dQ and dK/dV kernels.
+
+Both Functions have a ``vmap`` rule, so attention runs under the
+simulation's ``torch.func.vmap`` over clients (JAX's ``vmap(client_fit)``,
+under which Pallas batches its kernels): the rule folds the vmapped axis
+into the batch axis and calls the Function again, so one launch serves
+every client. The key mask is a stack ``[N, B / N, T]`` of row blocks that
+the kernels read through a block stride (``csrc/flash_mask.cuh``): a mask
+that was not vmapped is expanded over the clients with stride 0, never
+copied.
 
 Two routes, chosen by a shape rule (``wgmma_route``), never on failure:
 bf16 inputs whose head dim d is at most 64 with ``2 d`` bytes a multiple of
@@ -18,10 +28,11 @@ does on its chip; ``bf16_operand_bounds`` states what that may cost). f32
 inputs and other bf16 head dims run the IEEE-f32 CUDA-core kernels of
 ``csrc/flash_attention.cu``.
 
-Dispatch is on the tensor's device: a CUDA tensor launches the kernels (or
-raises), a CPU tensor runs ``flash_attention_reference``, the plain dense
-version with the same ``(out, lse)`` contract. Nothing swaps one for the
-other on failure.
+Dispatch is on the tensor's device, inside both Functions: a CUDA tensor
+launches the kernels (or raises), a CPU tensor runs
+``flash_attention_reference`` and the plain backward versions beside it,
+with the same ``(out, lse)`` contract, through the same rules. Nothing
+swaps one for the other on failure.
 
 Contract (same as the JAX function): q, k, v are ``[B, T, H, D]``;
 ``pad_mask`` ``[B, T]`` marks real keys with 1 and is not differentiable;
@@ -38,6 +49,7 @@ import functools
 import torch
 
 from fl4health_tpu_torch.kernels.build import load_extension
+from fl4health_tpu_torch.kernels.fold import fold_vmapped
 
 NEG_INF = -1e30
 
@@ -178,6 +190,18 @@ def bf16_operand_bounds(q, k, v, mask, dout=None, lse=None, delta=None, *,
 # Kernel launches
 # ---------------------------------------------------------------------------
 
+def _mask_stack(mask: torch.Tensor) -> torch.Tensor:
+    """A key mask as the kernels read it: a ``[B, T]`` mask is one block of
+    B rows (a view); an ``[N, B / N, T]`` stack stays as it is."""
+    return mask[None] if mask.ndim == 2 else mask
+
+
+def _mask_args(mask: torch.Tensor) -> tuple[int, int, int]:
+    """(pointer, rows a block, block stride in floats) of a mask stack."""
+    n, rows, _ = mask.shape
+    return mask.data_ptr(), rows, (mask.stride(0) if n > 1 else 0)
+
+
 def _check_inputs(q, k, v, mask) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash kernels need CUDA tensors, got {q.device}")
@@ -194,10 +218,13 @@ def _check_inputs(q, k, v, mask) -> None:
         raise ValueError(f"flash kernels take head dims up to 64, got {d}")
     if b * h > 65535:
         raise ValueError(f"batch*heads={b * h} exceeds the grid limit 65535")
-    if mask.shape != (b, t) or mask.dtype != torch.float32 or mask.device != q.device:
-        raise ValueError(f"pad_mask must be f32 [{b}, {t}] on {q.device}, got "
-                         f"{mask.dtype} {tuple(mask.shape)} {mask.device}")
-    for x in (q, k, v, mask):
+    if (mask.ndim != 3 or mask.shape[0] * mask.shape[1] != b or mask.shape[2] != t
+            or mask.dtype != torch.float32 or mask.device != q.device):
+        raise ValueError(f"pad_mask must be f32 [{b}, {t}] (or [N, {b} / N, {t}]) on "
+                         f"{q.device}, got {mask.dtype} {tuple(mask.shape)} {mask.device}")
+    if mask.stride(2) != 1 or (mask.shape[1] > 1 and mask.stride(1) != t):
+        raise ValueError(f"pad_mask rows must be contiguous, got strides {mask.stride()}")
+    for x in (q, k, v):
         if not x.is_contiguous():
             raise ValueError("flash kernels take contiguous tensors")
 
@@ -226,12 +253,14 @@ def _stream(x: torch.Tensor) -> int:
 
 
 def flash_fwd(q, k, v, mask) -> tuple[torch.Tensor, torch.Tensor]:
-    """Forward kernel: ``(out [B,T,H,D] in q.dtype, lse [B,H,T] f32)``."""
+    """Forward kernel: ``(out [B,T,H,D] in q.dtype, lse [B,H,T] f32)``;
+    ``mask`` is ``[B, T]`` or an ``[N, B / N, T]`` stack."""
+    mask = _mask_stack(mask)
     _check_inputs(q, k, v, mask)
     b, t, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *_mask_args(mask),
             out.data_ptr(), lse.data_ptr(), b, t, h, d, 1.0 / d ** 0.5)
     tensor_cores = wgmma_route(q)
     if tensor_cores:
@@ -246,11 +275,12 @@ def flash_fwd(q, k, v, mask) -> tuple[torch.Tensor, torch.Tensor]:
 
 def flash_bwd_dq(q, k, v, mask, dout, lse, delta) -> torch.Tensor:
     """dQ kernel; ``delta = rowsum(dO * O) - dlse`` as [B,H,T] f32."""
+    mask = _mask_stack(mask)
     _check_inputs(q, k, v, mask)
     _check_backward_inputs(q, dout, lse, delta)
     b, t, h, d = q.shape
     dq = torch.empty_like(q)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *_mask_args(mask),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             b, t, h, d, 1.0 / d ** 0.5)
     tensor_cores = wgmma_route(q)
@@ -267,11 +297,12 @@ def flash_bwd_dq(q, k, v, mask, dout, lse, delta) -> torch.Tensor:
 def flash_bwd_dkv(q, k, v, mask, dout, lse, delta
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """dK/dV kernel."""
+    mask = _mask_stack(mask)
     _check_inputs(q, k, v, mask)
     _check_backward_inputs(q, dout, lse, delta)
     b, t, h, d = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), *_mask_args(mask),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, t, h, d, 1.0 / d ** 0.5)
     tensor_cores = wgmma_route(q)
@@ -293,24 +324,78 @@ def backward_delta(dout, out, dlse) -> torch.Tensor:
     return (rowsum.transpose(1, 2) - dlse.float()).contiguous()
 
 
+# ---------------------------------------------------------------------------
+# autograd.Functions with client-vmap rules
+# ---------------------------------------------------------------------------
+
+def _unfold(x: torch.Tensor, size: int) -> torch.Tensor:
+    return x.view(size, x.shape[0] // size, *x.shape[1:])
+
+
+def _plain_mask(mask: torch.Tensor) -> torch.Tensor:
+    """A mask stack as the plain versions take it, ``[B, T]``."""
+    return mask.reshape(-1, mask.shape[-1])
+
+
 class _FlashAttention(torch.autograd.Function):
-    """``(out, lse)`` with both outputs differentiable; ``pad_mask`` gets no
-    gradient (counterpart of ``_flash_padded_lse``)."""
+    """``(out, lse)`` with both outputs differentiable; the mask stack gets
+    no gradient (counterpart of ``_flash_padded_lse``)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask):
-        out, lse = flash_fwd(q, k, v, mask)
-        ctx.save_for_backward(q, k, v, mask, out, lse)
-        return out, lse
+    def forward(q, k, v, mask):
+        if q.device.type == "cuda":
+            return flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), mask)
+        return flash_attention_reference(q, k, v, _plain_mask(mask))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs, *output)
 
     @staticmethod
     def backward(ctx, dout, dlse):
-        q, k, v, mask, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
-        delta = backward_delta(dout, out, dlse)
-        dq = flash_bwd_dq(q, k, v, mask, dout, lse, delta)
-        dk, dv = flash_bwd_dkv(q, k, v, mask, dout, lse, delta)
+        dq, dk, dv = _FlashAttentionGrads.apply(*ctx.saved_tensors, dout, dlse)
         return dq, dk, dv, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, mask):
+        n = info.batch_size
+        out, lse = _FlashAttention.apply(*(fold_vmapped(x, d, n)[0] for x, d in
+                                           zip((q, k, v), in_dims)),
+                                         fold_vmapped(mask, in_dims[3], n)[0])
+        return (_unfold(out, n), _unfold(lse, n)), (0, 0)
+
+
+class _FlashAttentionGrads(torch.autograd.Function):
+    """``(dq, dk, dv)`` of ``_FlashAttention`` from its saved tensors and the
+    cotangents of ``(out, lse)``: ``delta`` in plain tensor code, then the
+    dQ and dK/dV kernels. A Function of its own so that the backward, which
+    receives vmapped cotangents under the client vmap, launches through a
+    ``vmap`` rule too."""
+
+    @staticmethod
+    def forward(q, k, v, mask, out, lse, dout, dlse):
+        delta = backward_delta(dout, out, dlse)
+        if q.device.type == "cuda":
+            q, k, v, dout = (x.contiguous() for x in (q, k, v, dout))
+            return (flash_bwd_dq(q, k, v, mask, dout, lse, delta),
+                    *flash_bwd_dkv(q, k, v, mask, dout, lse, delta))
+        mask = _plain_mask(mask)
+        return (flash_bwd_dq_reference(q, k, v, mask, dout, lse, delta),
+                *flash_bwd_dkv_reference(q, k, v, mask, dout, lse, delta))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass  # never differentiated: the attention's gradients are first order
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, mask, out, lse, dout, dlse):
+        n = info.batch_size
+        args = [fold_vmapped(x, d, n)[0] for x, d in zip((q, k, v), in_dims[:3])]
+        args.append(fold_vmapped(mask, in_dims[3], n)[0])
+        args += [fold_vmapped(x, d, n)[0].contiguous() for x, d in
+                 zip((out, lse, dout, dlse), in_dims[4:])]
+        grads = _FlashAttentionGrads.apply(*args)
+        return tuple(_unfold(g, n) for g in grads), (0, 0, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -326,15 +411,12 @@ def flash_attention_lse(
     The JAX function's ``block_q``/``block_k`` have no counterpart: the
     Hopper kernels tile 64 x 64 and the plain version is dense."""
     b, t = q.shape[:2]
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
     if pad_mask is None:
         pad_mask = torch.ones((b, t), dtype=torch.float32, device=q.device)
     pad_mask = pad_mask.detach().to(torch.float32)
-    if q.device.type == "cuda":
-        return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                     v.contiguous(), pad_mask.contiguous())
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, pad_mask)
-    raise ValueError(f"flash attention runs on cuda or cpu, not {q.device}")
+    return _FlashAttention.apply(q, k, v, _mask_stack(pad_mask))
 
 
 def flash_attention(

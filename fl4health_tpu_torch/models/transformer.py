@@ -21,7 +21,6 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
-from torch.utils.checkpoint import checkpoint
 
 from fl4health_tpu_torch.core.types import Params
 
@@ -217,8 +216,7 @@ class TransformerClassifier(nn.Module):
                 # current tensors go in as arguments, so the recompute uses
                 # the params the forward used, also under functional_call
                 names, tensors = zip(*block.named_parameters())
-                h = checkpoint(_call_block, block, names, h, pad_mask, *tensors,
-                               use_reentrant=False)
+                h = _Remat.apply(block, names, h, pad_mask, *tensors)
             else:
                 h = block(h, pad_mask)
         h = self.ln_final(h.float())
@@ -230,6 +228,46 @@ class TransformerClassifier(nn.Module):
 
 def _call_block(block, names, h, pad_mask, *tensors):
     return functional_call(block, dict(zip(names, tensors)), (h, pad_mask))
+
+
+class _Remat(torch.autograd.Function):
+    """flax ``nn.remat`` of one encoder block. The forward runs the block
+    without keeping its activations and saves only its inputs: ``h``, the
+    pad mask and the block's params. The backward recomputes the block under
+    ``torch.func.vjp`` and pulls the cotangent through it.
+    (``torch.utils.checkpoint``'s saved-tensor hooks raise under
+    ``torch.func.grad``.) The vmap rule is generated: under the client vmap
+    both passes run batched, and the attention Functions inside them reach
+    their own rules."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(block, names, h, pad_mask, *tensors):
+        with torch.no_grad():
+            return _call_block(block, names, h, pad_mask, *tensors)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        block, names, h, pad_mask, *tensors = inputs
+        ctx.block, ctx.names = block, names
+        ctx.save_for_backward(h, pad_mask, *tensors)
+
+    @staticmethod
+    def backward(ctx, dout):
+        h, pad_mask, *tensors = ctx.saved_tensors
+
+        def block_fn(h, *tensors):
+            return _call_block(ctx.block, ctx.names, h, pad_mask, *tensors)
+
+        # torch.func.grad differentiates with create_graph=True: a graph
+        # recorded here would keep this block's recomputed activations alive
+        # to the end of the backward, every block's at once. Under no_grad
+        # the vjp still runs (its own transform level) and records nothing.
+        with torch.no_grad():
+            _, vjp_fn = torch.func.vjp(block_fn, h, *tensors)
+            dh, *dtensors = vjp_fn(dout)
+        return (None, None, dh, None, *dtensors)
 
 
 def param_dict(module: nn.Module) -> Params:

@@ -3,9 +3,10 @@
 ``torch.func.vmap(grad)``, a flat per-example clip, a masked sum and one
 Gaussian draw per parameter leaf.
 
-Noise comes from an explicit ``torch.Generator`` on the leaf's device. The
-port cannot reproduce ``jax.random.normal``, so the two packages agree in
-distribution, not in draws; parity runs use ``noise_multiplier=0``.
+The noise is JAX's stream: a threefry key splits into one key per leaf in
+JAX's flatten order (``flax_leaf_order``), and each leaf draws one
+``rng.normal`` on its device; the draws equal JAX's within ``normal``'s 2
+ulp. All of it is pure tensor code, so it runs under the client vmap.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ from typing import Any, Callable
 
 import torch
 
-from fl4health_tpu_torch.core.pytree import tree_leaves, tree_map
+from fl4health_tpu_torch import rng
+from fl4health_tpu_torch.core.pytree import flax_leaf_order, tree_leaves, tree_map
 from fl4health_tpu_torch.core.types import Params
 
 
@@ -36,26 +38,28 @@ def clip_per_example(per_example_grads: Params, bound: float
     return tree_map(scale, per_example_grads), norms
 
 
-def gaussian_noise_like(generator: torch.Generator, tree: Params, stddev) -> Params:
-    """One independent standard-normal draw per leaf, in tree order, times
-    ``stddev``; drawn in f32 and cast to the leaf's dtype."""
-    return tree_map(
-        lambda leaf: torch.randn(leaf.shape, generator=generator, device=leaf.device,
-                                 dtype=torch.float32).to(leaf.dtype) * stddev,
-        tree)
+def gaussian_noise_like(key: torch.Tensor, tree: Params, stddev) -> Params:
+    """One independent standard-normal draw per leaf of a ``Params`` dict,
+    times ``stddev``: ``split(key, n_leaves)`` in JAX's leaf order, each
+    leaf drawn in f32 and cast to its dtype."""
+    order = flax_leaf_order(tree)
+    keys = dict(zip(order, rng.split(key, len(order))))
+    return {k: rng.normal(keys[k], leaf.shape).to(leaf.dtype) * stddev
+            for k, leaf in tree.items()}
 
 
 def noisy_clipped_mean_grads(
     per_example_grads: Params,
     example_mask: torch.Tensor,
-    generator: torch.Generator,
+    key: torch.Tensor,
     clipping_bound: float,
     noise_multiplier: float,
     use_fused_kernel: bool = False,
     return_clip_fraction: bool = False,
 ):
     """DP-SGD gradient: clip each example to C, masked-sum, add
-    N(0, (sigma C)^2) per coordinate, divide by the number of real examples.
+    N(0, (sigma C)^2) per coordinate (drawn from ``key``), divide by the
+    number of real examples.
 
     ``use_fused_kernel`` routes the clip and the sum through the kernels of
     ``kernels/dp_clip.py`` (two passes over the [B, D] per-example tensor, no
@@ -72,7 +76,7 @@ def noisy_clipped_mean_grads(
         clipped, norms = clip_per_example(per_example_grads, clipping_bound)
         summed = tree_map(
             lambda g: (g * m.reshape((-1,) + (1,) * (g.ndim - 1))).sum(0), clipped)
-    noise = gaussian_noise_like(generator, summed, noise_multiplier * clipping_bound)
+    noise = gaussian_noise_like(key, summed, noise_multiplier * clipping_bound)
     denom = torch.clamp(m.sum(), min=1.0)
     grads = tree_map(lambda s, n: (s + n) / denom, summed, noise)
     if return_clip_fraction:

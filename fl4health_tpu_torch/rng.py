@@ -13,13 +13,20 @@ multiply-add (``uniform``'s scale and shift, each Horner step of
 ``erf_inv``); ``_fma`` does the same in f64, where the product of two f32 is
 exact. ``normal`` applies XLA's single-precision ``erf_inv`` polynomial and
 agrees with JAX to about 2 ulp: ``log1p`` may round differently in the two
-libraries.
+libraries, and ``gumbel`` by as much through ``log``; ``categorical`` (an
+argmax over Gumbel noise plus logits) gives JAX's indices.
+
+Every function is pure tensor code on the key, with no host copy and no
+branch on a tensor's value, so it runs under ``torch.func.vmap(...,
+randomness="error")`` over a ``[K, 2]`` stack of keys and equals the
+per-key loop bit for bit.
 
 32-bit words are held in int64 tensors and masked to 32 bits after each add
 and shift: CUDA builds of torch lack shifts and adds on ``torch.uint32``.
 Sources: ``jax/_src/prng.py`` (``threefry_2x32``, ``_threefry_split``,
 ``threefry_fold_in``, ``_threefry_random_bits_partitionable``) and
-``jax/_src/random.py`` (``_uniform``, ``_shuffle``, ``_normal_real``).
+``jax/_src/random.py`` (``_uniform``, ``_randint``, ``_shuffle``,
+``_normal_real``, ``_gumbel``, ``categorical``).
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import torch
 
 _MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-_ONE_F32_BITS = 0x3F800000
+_F32_TINY = float(np.finfo(np.float32).tiny)
 # XLA's ErfInv32: Giles' polynomial, split at w = -log1p(-x^2) < 5
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
                0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
@@ -121,12 +128,55 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
     as the mantissa of a float in [1, 2), less 1, scaled and shifted with one
     rounding."""
     shape = _shape(shape)
-    mantissa = (bits(key, shape) >> 9) | _ONE_F32_BITS  # below 2^31
-    floats = mantissa.to(torch.int32).view(torch.float32) - 1.0
+    # JAX ors the top 23 bits into the mantissa of 1.0 and subtracts 1: that
+    # is m * 2^-23 exactly, which the conversion of m (< 2^23) gives too
+    # (and without a dtype view, which older torch cannot vmap)
+    floats = (bits(key, shape) >> 9).to(torch.float32) * 2.0 ** -23
     # the bounds as f32 values, their difference rounded in f32; python
     # scalars, so nothing is copied to the device
     lo, hi = np.float32(minval), np.float32(maxval)
     return torch.clamp(_fma(floats, float(hi - lo), float(lo)), min=float(lo))
+
+
+def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint`` into int32 on ``[minval, maxval)``: JAX's two
+    draws of 32 bits (from ``split(key)``), each taken modulo the span and
+    joined as ``hi * m + lo`` with ``m = (2^16 mod span)^2 mod span``, every
+    product and sum in wrapping uint32 arithmetic as JAX's, then modulo the
+    span again. A span of 0 or less returns ``minval``."""
+    shape = _shape(shape)
+    lo_val, hi_val = int(minval), int(maxval)
+    for v in (lo_val, hi_val):
+        if not -2**31 <= v <= 2**31 - 1:
+            raise OverflowError(f"randint bound {v} is out of int32's range")
+    span = (hi_val - lo_val) & _MASK if hi_val > lo_val else 1
+    multiplier = ((2**16 % span) ** 2 & _MASK) % span  # a uint32 product wraps
+    k1, k2 = split(key)
+    higher, lower = bits(k1, shape), bits(k2, shape)
+    offset = ((higher % span) * multiplier & _MASK) + lower % span
+    return (lo_val + (offset & _MASK) % span).to(torch.int32)
+
+
+def gumbel(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+    """``jax.random.gumbel`` in f32, its default (low) mode:
+    ``-log(-log(u))`` with ``u`` uniform on ``[tiny, 1)``."""
+    return -torch.log(-torch.log(uniform(key, shape, _F32_TINY, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor,
+                shape: Shape | None = None) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, axis=-1, shape=shape)`` with
+    replacement: the argmax over the last axis of Gumbel noise of shape
+    ``(*shape, n_categories)`` plus the logits, broadcast over the leading
+    axes that ``shape`` adds; int32 indices (the first of equal maxima, as
+    both argmaxes take)."""
+    batch = tuple(logits.shape[:-1])
+    shape = batch if shape is None else _shape(shape)
+    if tuple(shape[len(shape) - len(batch):]) != batch:
+        raise ValueError(f"categorical shape {shape} must end in the logits' "
+                         f"batch shape {batch}")
+    noise = gumbel(key, (*shape, logits.shape[-1]))
+    return torch.argmax(noise + logits.float(), dim=-1).to(torch.int32)
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:

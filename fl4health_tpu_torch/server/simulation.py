@@ -8,14 +8,27 @@ payload's ``params`` where the strategy sends more), trains ``local_steps``
 (or ``local_epochs``) over its index plan, lets its logic finalize the
 round, and pushes; clients with a non-finite training loss are masked out
 of the aggregate; the strategy aggregates; then every client evaluates the
-new global model on its validation split. Clients run as a Python loop over
-a ``[K]``-stacked ``TrainState`` on one device.
+new global model on its validation split.
 
-The index plans use the JAX simulation's entropy, ``key_data(PRNGKey(seed))``
-(``[0, seed]``): round ``r``, client ``i`` draws from ``[0, seed, 1000 + r,
-i]`` — the same batches in both packages. The initial params come from a
-``torch.Generator`` seeded with ``seed`` (not the flax init); tests install
-converted flax params with ``set_global_params``.
+The clients are one program, as in JAX: ``fit_round`` and ``eval_round``
+call ``client_fit`` and ``client_eval`` once a round under
+``torch.func.vmap`` over the ``[K]``-stacked ``TrainState``
+(``vmap_clients``, JAX's ``jax.vmap(client_fit, in_axes=(0, None, 0, 0,
+0))`` less its last argument, the validation batches that only early
+stopping reads, which is not ported), with ``randomness="error"``: every draw comes from the clients'
+threefry keys. The kernels inside batch over the clients through their
+Functions' ``vmap`` rules. ``loop_clients`` runs the same functions client
+by client: the client axis's plain version, which the tests hold the vmap
+against and nothing else calls. Masks, the finite screen and aggregation
+run outside the vmap.
+
+Keys, as in JAX: client ``i`` starts from ``fold_in(fold_in(PRNGKey(seed),
+0), i + 1)`` and splits its key once a local step. The index plans use the
+JAX simulation's entropy, ``key_data(PRNGKey(seed))`` (``[0, seed]``):
+round ``r``, client ``i`` draws from ``[0, seed, 1000 + r, i]`` — the same
+batches in both packages. The initial params come from a ``torch.Generator``
+seeded with ``seed`` (not the flax init); tests install converted flax
+params with ``set_global_params``.
 
 Left out here: chunked, cohort and async execution, the host pipeline's
 background consumer/prefetcher threads, precision configs, observability,
@@ -43,6 +56,28 @@ from fl4health_tpu_torch.optim import GradientTransformation
 from fl4health_tpu_torch.server.client_manager import (ClientManager,
                                                        FullParticipationManager)
 from fl4health_tpu_torch.strategies.base import FitResults, Strategy
+
+
+def vmap_clients(fn, in_dims):
+    """The client axis: ``fn`` over the ``[K]``-stacked arguments (``in_dims``
+    0) and shared ones (None) as one ``torch.func.vmap``; no random op may
+    run inside it."""
+    return torch.func.vmap(fn, in_dims=in_dims, randomness="error")
+
+
+def loop_clients(fn, in_dims):
+    """The client axis's plain version: ``fn`` client by client over the
+    ``[K]``-stacked arguments (``in_dims`` 0) and shared ones (None), each
+    output stacked back along the clients axis. The tests hold
+    ``vmap_clients`` against it; nothing else calls it."""
+
+    def run(*args):
+        n = next(ptu.tree_leaves(a)[0].shape[0] for a, d in zip(args, in_dims) if d == 0)
+        outs = [fn(*(ptu.client_slice(a, i) if d == 0 else a
+                     for a, d in zip(args, in_dims))) for i in range(n)]
+        return tuple(ptu.stack_clients(list(col)) for col in zip(*outs))
+
+    return run
 
 
 def base_entropy(seed: int) -> list[int]:
@@ -143,9 +178,14 @@ class FederatedSimulation:
 
     # ------------------------------------------------------------------
     def _init_states(self) -> None:
-        generator = torch.Generator().manual_seed(self.seed)
-        proto = engine.create_train_state(self.logic, self.tx, generator, self.device)
-        self.client_states: TrainState = ptu.stack_clients([proto] * self.n_clients)
+        init_rng = rng.fold_in(self.rng, 0)
+        proto = engine.create_train_state(
+            self.logic, self.tx, init_rng, torch.Generator().manual_seed(self.seed),
+            self.device)
+        # every client starts from the same params; only the key differs
+        keys = torch.stack([rng.fold_in(init_rng, i + 1) for i in range(self.n_clients)])
+        self.client_states: TrainState = dataclasses.replace(
+            ptu.stack_clients([proto] * self.n_clients), rng=keys)
         self.server_state = self.strategy.init(proto.params)
 
     @property
@@ -171,8 +211,8 @@ class FederatedSimulation:
 
     # ------------------------------------------------------------------
     def _build_client_fns(self):
-        """(client_fit, client_eval): pull -> local train -> push, and
-        pull -> evaluate."""
+        """(client_fit, client_eval) of one client: pull -> local train ->
+        push, and pull -> evaluate."""
         logic, tx, exchanger = self.logic, self.tx, self.exchanger
         # a logic's per-step statistics (DP's clip fraction) are averaged
         # into the fit losses beside "backward"
@@ -182,12 +222,12 @@ class FederatedSimulation:
         evaluate = engine.make_local_eval(logic, self.metrics, ("checkpoint",))
 
         def client_fit(state: TrainState, payload, batches: Batch,
-                       participate: torch.Tensor, entropy: list[int]):
+                       participate: torch.Tensor):
             orig = state
             pulled = exchanger.pull(payload_params(payload), state.params)
             state = dataclasses.replace(state, params=pulled)
             ctx = logic.init_round_context(state, payload)
-            new_state, losses, metrics, _ = train(state, ctx, batches, entropy)
+            new_state, losses, metrics, _ = train(state, ctx, batches)
             # non-participants neither pull nor train
             new_state = ptu.tree_map(
                 lambda n, o: torch.where(participate > 0, n, o), new_state, orig)
@@ -203,24 +243,19 @@ class FederatedSimulation:
 
         return client_fit, client_eval
 
-    def _build_round_fns(self):
+    def _build_round_fns(self, client_axis=vmap_clients):
+        """(fit_round, eval_round), each running the clients through
+        ``client_axis`` (``vmap_clients``; the tests pass
+        ``loop_clients``)."""
         client_fit, client_eval = self._build_client_fns()
+        fit_clients = client_axis(client_fit, (0, None, 0, 0))
+        eval_clients = client_axis(client_eval, (0, None, 0))
         strategy = self.strategy
-
-        def over_clients(fn, client_states, *per_client):
-            """Run ``fn(i, state_i, *per_client_i)`` client by client over the
-            [K]-stacked state; stack each output back along the clients axis."""
-            outs = [fn(i, ptu.client_slice(client_states, i),
-                       *(ptu.client_slice(a, i) for a in per_client))
-                    for i in range(self.n_clients)]
-            return tuple(ptu.stack_clients(list(col)) for col in zip(*outs))
 
         def fit_round(server_state, client_states, batches, mask, round_idx):
             payload = strategy.client_payload(server_state, round_idx)
-            new_states, packets, losses, metrics = over_clients(
-                lambda i, st, b, m: client_fit(st, payload, b, m,
-                                               self._client_entropy(round_idx, i)),
-                client_states, batches, mask)
+            new_states, packets, losses, metrics = fit_clients(
+                client_states, payload, batches, mask)
             # failed clients (non-finite loss) are excluded from aggregation
             finite = torch.isfinite(losses["backward"])
             results = FitResults(packets=packets,
@@ -240,8 +275,7 @@ class FederatedSimulation:
 
         def eval_round(server_state, client_states, batches, eval_counts):
             gp = strategy.client_payload(server_state, 0)
-            new_states, losses, metrics = over_clients(
-                lambda i, st, b: client_eval(st, gp, b), client_states, batches)
+            new_states, losses, metrics = eval_clients(client_states, gp, batches)
             agg_losses = {k: (v * eval_counts).sum() / torch.clamp(eval_counts.sum(), min=1.0)
                           for k, v in losses.items()}
             agg_metrics = aggregate_metrics(metrics, eval_counts)
@@ -251,8 +285,8 @@ class FederatedSimulation:
 
     # ------------------------------------------------------------------
     def _client_entropy(self, round_idx: int, client: int) -> list[int]:
-        """Entropy of client ``client`` in round ``round_idx``: its index plan
-        and its per-step generators draw from it."""
+        """Entropy of client ``client`` in round ``round_idx``, from which its
+        index plan draws."""
         return [*self._base_entropy, 1000 + round_idx, client]
 
     def _round_plan(self, round_idx: int):

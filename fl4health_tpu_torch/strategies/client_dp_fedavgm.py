@@ -23,9 +23,9 @@ bit too. Sigma is computed from the pre-round bound C_t, and only then is the
 bound updated to C_{t+1}: the JAX package's documented ordering.
 
 The noise is the JAX strategy's stream: the state's key splits into
-``(next, k_delta, k_bit)``, ``k_delta`` splits into one key per leaf in JAX's
-leaf order (``ptu.flax_leaf_order``), and every normal is drawn through
-``rng.py`` on the device the params live on.
+``(next, k_delta, k_bit)``, and ``k_delta`` draws one normal per leaf
+(``dpsgd.gaussian_noise_like``: one key per leaf in JAX's leaf order),
+through ``rng.py`` on the device the params live on.
 
 ``fraction_fit`` (q) defaults to None, derived from the client manager at
 ``bind_client_manager``; an explicit value must equal the manager's
@@ -42,11 +42,14 @@ import torch
 from fl4health_tpu_torch import rng
 from fl4health_tpu_torch.core import pytree as ptu
 from fl4health_tpu_torch.core.aggregate import expand_clients
+from fl4health_tpu_torch.core.pytree import tree_dataclass
 from fl4health_tpu_torch.core.types import Params
 from fl4health_tpu_torch.exchange.packer import ClippingBitPacket
+from fl4health_tpu_torch.privacy.dpsgd import gaussian_noise_like
 from fl4health_tpu_torch.strategies.base import FitResults, Strategy
 
 
+@tree_dataclass
 @dataclasses.dataclass(frozen=True)
 class ClientDpFedAvgMState:
     params: Params
@@ -55,6 +58,7 @@ class ClientDpFedAvgMState:
     rng: torch.Tensor
 
 
+@tree_dataclass
 @dataclasses.dataclass(frozen=True)
 class ClippingPayload:
     params: Params
@@ -183,11 +187,8 @@ class ClientLevelDPFedAvgM(Strategy):
                          for k, v in packets.params.items()}
             # Gaussian mechanism: sensitivity C / |S|
             sigma = z_eff * server_state.clipping_bound / n_sampled
-        order = ptu.flax_leaf_order(delta_bar)
-        keys = rng.split(k_delta, len(order))
-        for k, key in zip(order, keys):
-            leaf = delta_bar[k]
-            delta_bar[k] = leaf + sigma * rng.normal(key, leaf.shape).to(leaf.dtype)
+        noise = gaussian_noise_like(k_delta, delta_bar, sigma)
+        delta_bar = {k: v + noise[k] for k, v in delta_bar.items()}
 
         new_momentum = ptu.tree_axpy(self.beta, server_state.momentum, delta_bar)
         new_params = ptu.tree_add(server_state.params, new_momentum)

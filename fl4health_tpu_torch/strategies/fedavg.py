@@ -8,10 +8,12 @@ import dataclasses
 import torch
 
 from fl4health_tpu_torch.core import aggregate as agg
+from fl4health_tpu_torch.core.pytree import tree_dataclass
 from fl4health_tpu_torch.core.types import Params
 from fl4health_tpu_torch.strategies.base import FitResults, Strategy
 
 
+@tree_dataclass
 @dataclasses.dataclass(frozen=True)
 class FedAvgState:
     params: Params

@@ -23,6 +23,7 @@ from fl4health_tpu.privacy import rdp as jrdp
 from fl4health_tpu.server import client_manager as jcm
 from fl4health_tpu.strategies.base import FitResults as JFitResults
 from fl4health_tpu.strategies.client_dp_fedavgm import ClientLevelDPFedAvgM as JStrategy
+from fl4health_tpu_torch import rng
 from fl4health_tpu_torch.clients import engine as tengine
 from fl4health_tpu_torch.clients.clipping import ClippingClientLogic as TClipLogic
 from fl4health_tpu_torch.clients.clipping import ClippingContext as TClipContext
@@ -94,7 +95,7 @@ def test_finalize_round_matches_jax(where, adaptive):
     jout = jlogic.finalize_round(
         jstate, JClipContext(_nested(init), jnp.asarray(bound, jnp.float32)), 1)
     tparams = {k: torch.tensor(v) for k, v in trained.items()}
-    tstate = tengine.TrainState(params=tparams, opt_state={},
+    tstate = tengine.TrainState(params=tparams, opt_state={}, rng=rng.PRNGKey(0),
                                 step=torch.zeros((), dtype=torch.int32),
                                 extra=tlogic.init_extra(tparams))
     tout = tlogic.finalize_round(

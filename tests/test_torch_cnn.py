@@ -13,6 +13,7 @@ import torch
 from fl4health_tpu.clients import engine as jengine
 from fl4health_tpu.datasets.synthetic import synthetic_classification as jsynth
 from fl4health_tpu.models import cnn as jcnn
+from fl4health_tpu_torch import rng
 from fl4health_tpu_torch.clients import engine as tengine
 from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
 from fl4health_tpu_torch.models import cnn as tcnn
@@ -150,13 +151,17 @@ def test_init_draws_lecun_normal_fan_in():
 
 def test_synthetic_classification_matches_the_jax_distribution():
     n, shape, k = 5000, (4, 4, 3), 50
-    x, y = synthetic_classification(torch.Generator().manual_seed(0), n, shape, k)
-    x2, y2 = synthetic_classification(torch.Generator().manual_seed(0), n, shape, k)
+    x, y = synthetic_classification(rng.PRNGKey(0), n, shape, k)
+    x2, y2 = synthetic_classification(rng.PRNGKey(0), n, shape, k)
     assert torch.equal(x, x2) and torch.equal(y, y2)
     assert x.shape == (n, *shape) and x.dtype == torch.float32
     assert y.shape == (n,) and y.dtype == torch.int32
     assert set(y.tolist()) == set(range(k))
     jx, jy = (np.asarray(a) for a in jsynth(jax.random.PRNGKey(0), n, shape, k))
+    # the same draws: labels equal, images within rng.normal's 2 ulp, carried
+    # through the class_sep scale and the standardization (values up to ~5)
+    np.testing.assert_array_equal(y.numpy(), jy)
+    np.testing.assert_allclose(x.numpy(), jx, rtol=0, atol=1e-5)
     # globally standardized in both; class structure of the same strength:
     # after standardization the within-class variance is the unit noise over
     # the total, about 1 / (1 + sep^2 (k - 1) / k) for k drawn class means

@@ -6,9 +6,9 @@ Bounds are the JAX kernel tests' (tests/kernels/test_dp_clip.py): squared
 norms rtol 1e-5, sums atol 1e-5, for f32 and bf16 gradients alike: both
 packages widen the same bf16 values to f32 and sum f32 products, so they
 differ only in summation order. The JAX side runs its Pallas kernels in
-interpret mode. Noise cannot match draw for draw (``jax.random`` vs a
-``torch.Generator``), so the routes are compared at ``noise_multiplier=0``
-and the noise by its statistics."""
+interpret mode. The routes are compared at ``noise_multiplier=0``; the noise
+itself is JAX's stream (``gaussian_noise_like`` against JAX's at 1e-6, the
+2 ulp of ``rng.normal``) and is checked by its statistics too."""
 
 import chip_smoke
 import jax
@@ -21,7 +21,7 @@ import torch
 from fl4health_tpu.kernels import dp_clip as jdp
 from fl4health_tpu.privacy import accountants as jacc
 from fl4health_tpu.privacy import dpsgd as jdpsgd
-from fl4health_tpu_torch.clients import engine as tengine
+from fl4health_tpu_torch import rng
 from fl4health_tpu_torch.kernels import dp_clip as tdp
 from fl4health_tpu_torch.privacy import accountants as tacc
 from fl4health_tpu_torch.privacy import dpsgd as tdpsgd
@@ -268,7 +268,7 @@ def test_noisy_clipped_mean_grads_routes_match_jax(fused_port, fused_jax):
         jt, jnp.asarray(mask), jax.random.PRNGKey(9), 0.5, 0.0,
         use_fused_kernel=fused_jax, return_clip_fraction=True)
     got, gfrac = tdpsgd.noisy_clipped_mean_grads(
-        tt, torch.tensor(mask), torch.Generator().manual_seed(9), 0.5, 0.0,
+        tt, torch.tensor(mask), rng.PRNGKey(9), 0.5, 0.0,
         use_fused_kernel=fused_port, return_clip_fraction=True)
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), atol=1e-5,
@@ -280,16 +280,21 @@ def test_noisy_clipped_mean_grads_routes_match_jax(fused_port, fused_jax):
 def test_noise_has_the_dp_std_and_fresh_draws_per_client_and_step():
     """Zero gradients isolate the noise: every coordinate is
     N(0, (sigma C)^2) / n_real. 200,000 draws estimate the std within
-    ~0.16% (one standard error), so 1% is six standard errors."""
+    ~0.16% (one standard error), so 1% is six standard errors. Each client
+    and step draws from its own key (the client's key split once a step, as
+    the engine splits it), and the same key draws the same noise again."""
     b, sigma, bound = 8, 1.3, 0.7
     mask = torch.tensor([1, 1, 1, 0, 1, 1, 0, 1], dtype=torch.float32)
     zeros = {"w": torch.zeros((b, 400, 500))}
-    draws = {}
+    init_rng = rng.fold_in(rng.PRNGKey(3), 0)
+    draws, step_keys = {}, {}
     for client in (0, 1):
+        key = rng.fold_in(init_rng, client + 1)
         for step in (0, 1):
-            gen = tengine.step_generator([0, 3, 1001, client], step, torch.device("cpu"))
+            key, step_keys[client, step] = rng.split(key)
             draws[client, step] = tdpsgd.noisy_clipped_mean_grads(
-                zeros, mask, gen, bound, sigma, use_fused_kernel=True)["w"]
+                zeros, mask, step_keys[client, step], bound, sigma,
+                use_fused_kernel=True)["w"]
     want_std = sigma * bound / float(mask.sum())
     for d in draws.values():
         assert float(d.mean()) == pytest.approx(0.0, abs=5 * want_std / 200_000 ** 0.5)
@@ -298,11 +303,31 @@ def test_noise_has_the_dp_std_and_fresh_draws_per_client_and_step():
     for i, a in enumerate(keys):
         for c in keys[i + 1:]:
             assert not torch.equal(draws[a], draws[c]), (a, c)
-    # the same client, step and entropy draw the same noise again
-    gen = tengine.step_generator([0, 3, 1001, 1], 1, torch.device("cpu"))
-    again = tdpsgd.noisy_clipped_mean_grads(zeros, mask, gen, bound, sigma,
-                                            use_fused_kernel=True)["w"]
+    # the same key draws the same noise again
+    again = tdpsgd.noisy_clipped_mean_grads(zeros, mask, step_keys[1, 1].clone(), bound,
+                                            sigma, use_fused_kernel=True)["w"]
     assert torch.equal(again, draws[1, 1])
+
+
+@pytest.mark.parametrize("seed", [0, 9])
+def test_gaussian_noise_like_matches_jax(seed):
+    """One key per leaf in JAX's flatten order (keys sorted at each level of
+    the nested flax dict), whatever the order of the port's flat dict; f32
+    draws cast to the leaf's dtype. 1e-6: ``rng.normal``'s 2 ulp."""
+    shapes = {"Dense_1/kernel": (20, 7), "Conv_0/kernel": (3, 3, 3, 4),
+              "Dense_0/bias": (20,), "Conv_0/bias": (4,), "Dense_0/kernel": (36, 20)}
+    tree = {k: torch.zeros(s) for k, s in shapes.items()}
+    nested = {}
+    for k, s in shapes.items():
+        mod, leaf = k.split("/")
+        nested.setdefault(mod, {})[leaf] = jnp.zeros(s)
+    want = jdpsgd.gaussian_noise_like(jax.random.PRNGKey(seed), nested, 0.7)
+    got = tdpsgd.gaussian_noise_like(rng.PRNGKey(seed), tree, 0.7)
+    assert list(got) == list(tree)
+    for k in shapes:
+        mod, leaf = k.split("/")
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[mod][leaf]),
+                                   rtol=1e-6, atol=1e-6, err_msg=k)
 
 
 def test_make_per_example_grads_matches_jax():

@@ -200,3 +200,50 @@ def test_kernel_wrappers_refuse_what_they_do_not_take(cuda):
                                  torch.ones((3, 3), device=cuda)])
     with pytest.raises(ValueError, match="scale"):
         dp.scaled_sum_kernel(torch.ones((2, 3), device=cuda), torch.ones(3, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layout", ["clients", "rows"])
+@pytest.mark.parametrize("b,w", [(5, 1000), (32, 32), (32, 2400), (4, 8192 * 2 + 5)])
+def test_client_batched_entries_match_plain(cuda, dtype, layout, b, w):
+    """K1 over [C, B, W] stacks as one launch of C * B rows, K2's batched
+    entry as one launch with a grid row a client: both read the stack
+    through its client and row strides, in either layout the client vmap
+    leaves (each client's rows together, or row-major over [B, C])."""
+    c = 6
+    x = _grads((c, b, w) if layout == "clients" else (b, c, w), dtype, cuda, seed=w + b)
+    g = x if layout == "clients" else x.transpose(0, 1)
+    scale = torch.rand((c, b), device=cuda)
+    dp.reset_launch_counts()
+    norms, sums = dp.sq_norms_tree_kernel([g, g[..., : w // 2]]), dp.scaled_sum_kernel(g, scale)
+    torch.cuda.synchronize()
+    assert dp.LAUNCHES == {"dp_sq_norms": 1, "dp_scaled_sum": 1}
+    assert norms.shape == (c, b) and sums.shape == (c, w)
+    torch.testing.assert_close(
+        norms, dp.per_example_tree_sq_norms_reference([g, g[..., : w // 2]]), rtol=1e-5,
+        atol=0)
+    torch.testing.assert_close(sums, dp.scaled_masked_sum_reference(g, scale), rtol=0,
+                               atol=1e-5)
+
+
+def test_fused_clip_under_vmap_launches_once_and_copies_nothing(cuda):
+    """The fused clip under torch.func.vmap over 4 clients, per-example
+    gradients in the layout that does not fold as a view: one K1 launch,
+    one K2 launch a leaf, no copy, and the plain clip's result per client."""
+    tree = {k: _grads((7, 4, *s), torch.float32, cuda, seed=i).transpose(0, 1)
+            for i, (k, s) in enumerate({"a": (3, 5), "b": (11,)}.items())}
+    mask = torch.ones((4, 7), device=cuda)
+    mask[:, 2] = 0.0
+    dp.reset_launch_counts()
+    got = torch.func.vmap(lambda t, m: dp.fused_clipped_masked_sum(t, m, 2.0))(tree, mask)
+    torch.cuda.synchronize()
+    assert dp.LAUNCHES == {"dp_sq_norms": 1, "dp_scaled_sum": 2}
+    assert dp.COPIES == {"dp_per_example": 0}
+    for i in range(4):
+        leaves = {k: v[i].reshape(7, -1) for k, v in tree.items()}
+        norms = torch.sqrt(dp.per_example_tree_sq_norms_reference(list(leaves.values())))
+        scale = torch.clamp(2.0 / torch.clamp(norms, min=1e-12), max=1.0) * mask[i]
+        for k, m in leaves.items():
+            torch.testing.assert_close(got[k][i].reshape(-1),
+                                       dp.scaled_masked_sum_reference(m, scale),
+                                       rtol=0, atol=1e-5)

@@ -1,8 +1,9 @@
 """The DP slice as a whole against the JAX package: FedAvg over clients that
 take instance-level DP-SGD steps (per-example grads -> clip -> masked sum ->
 noise), 2 rounds from the same converted flax init and the same numpy data,
-at ``noise_multiplier=0`` (the two packages' random streams differ), per-round
-losses and final global params within 5e-4; and the non-DP ``fedavg_mnist``
+at ``noise_multiplier`` 0 and 1 (the same noise: both draw it from the
+clients' threefry keys), per-round losses and final global params within
+5e-4; and the non-DP ``fedavg_mnist``
 smoke config per round within 5e-4 over 5 rounds, reproducing its golden
 under the harness's tolerances. The port runs its plain versions on the CPU;
 the JAX client takes its XLA clip route, the port the fused kernel route
@@ -88,19 +89,22 @@ def _assert_params_close(tparams, jparams, tol):
                                    rtol=0, err_msg=k)
 
 
-def test_dp_fedavg_run_matches_jax():
+@pytest.mark.parametrize("sigma", [0.0, 1.0])
+def test_dp_fedavg_run_matches_jax(sigma):
+    # sigma 1: both packages draw the noise from the clients' threefry keys,
+    # split once a step, one normal draw per leaf in JAX's leaf order
     data = _dp_data()
     js = jsim.FederatedSimulation(
         logic=JDpLogic(jengine.from_flax(jcnn.CifarNet()), jengine.masked_cross_entropy,
-                       clipping_bound=1.0, noise_multiplier=0.0),
+                       clipping_bound=1.0, noise_multiplier=sigma),
         tx=optax.sgd(0.05), strategy=JFedAvg(),
         datasets=[jsim.ClientDataset(*d) for d in data], batch_size=8,
         metrics=JMetricManager((jefficient.accuracy(),)), local_steps=3, seed=5,
         execution_mode="pipelined")
-    ts = _port_dp_sim(data, noise_multiplier=0.0)
+    ts = _port_dp_sim(data, noise_multiplier=sigma)
     init = convert.flax_to_torch(jax.tree_util.tree_map(np.asarray, js.global_params))
     ts.set_global_params(init)
-    # the servers account with sigma 1 (the clients' noise is 0 for parity)
+    # the servers account with sigma 1 (the clients' noise may be 0)
     jhist, jeps = jservers.InstanceLevelDpServer(js, 1.0, 8).fit(2)
     thist, teps = tservers.InstanceLevelDpServer(ts, 1.0, 8).fit(2)
     assert abs(teps - jeps) <= 1e-9 and 0.0 < teps < np.inf

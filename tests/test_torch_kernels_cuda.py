@@ -209,3 +209,68 @@ def test_head_dims_above_64_are_refused(cuda, dtype):
     q, k, v, mask, _, _ = _inputs(1, 16, 1, 128, [16], dtype, cuda)
     with pytest.raises(ValueError, match="head dims up to 64"):
         fa.flash_fwd(q, k, v, mask)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64), (torch.float32, 32)])
+@pytest.mark.parametrize("mask_batched", [True, False])
+def test_kernels_under_the_client_vmap(cuda, dtype, d, mask_batched):
+    """Forward and both backward kernels under torch.func.vmap(grad) over 3
+    clients: one launch of each for all clients (the rules fold the clients
+    into the batch), a shared mask expanded with block stride 0, and the
+    gradients of the kernels run one client at a time."""
+    q, k, v, _, do, _ = _inputs(6, 70, 2, d, [70] * 6, dtype, cuda, seed=4)
+    q, k, v, do = (x.view(3, 2, *x.shape[1:]) for x in (q, k, v, do))
+    lengths = torch.tensor([[60, 70], [33, 0], [70, 12]], device=cuda)
+    mask = (torch.arange(70, device=cuda) < lengths[..., None]).float()
+    if not mask_batched:
+        mask = mask[0]
+
+    def loss(q, k, v, mask, do):
+        return (fa.flash_attention(q, k, v, mask).float() * do.float()).sum()
+
+    grads = torch.func.grad(loss, argnums=(0, 1, 2))
+    fa.reset_launch_counts()
+    got = torch.func.vmap(grads, in_dims=(0, 0, 0, 0 if mask_batched else None, 0))(
+        q, k, v, mask, do)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}
+    # the same kernels on the same rows; only delta = rowsum(dO O), summed
+    # outside the kernels over a larger tensor, may take another order (an
+    # f32 ulp, which can move a bf16 gradient by one rounding)
+    tol = dict(rtol=2**-7, atol=1e-4) if dtype == torch.bfloat16 else dict(rtol=1e-5,
+                                                                           atol=1e-6)
+    for i in range(3):
+        want = grads(q[i], k[i], v[i], mask[i] if mask_batched else mask, do[i])
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g[i], w, **tol)
+
+
+def test_remat_keeps_one_block_of_activations_under_func_grad(cuda):
+    """flax's remat keeps one block's activations at a time. Under
+    torch.func.grad (create_graph=True), as the client vmap differentiates,
+    the port's remat must too: the peak memory of the gradient of a 6-block
+    transformer stays well below the same model's without remat (one block
+    of activations and the blocks' inputs, against all six blocks')."""
+    from fl4health_tpu_torch.models.transformer import TransformerClassifier
+
+    cfg = dict(vocab_size=64, n_classes=4, d_model=256, n_heads=4, n_layers=6, d_ff=1024,
+               max_len=1024, dtype=torch.bfloat16, attention_fn=fa.flash_attention)
+    x = torch.randint(1, 64, (8, 1024), generator=torch.Generator().manual_seed(0)).to(cuda)
+    peaks = {}
+    for remat in (False, True):
+        module = TransformerClassifier(**cfg, remat=remat)
+        params = {k: v.to(cuda) for k, v in
+                  module.init_params(torch.Generator().manual_seed(1)).items()}
+        module.to(cuda)
+
+        def loss(p):
+            named = {k.replace("/", "."): t for k, t in p.items()}
+            return torch.func.functional_call(module, named, (x,))[0]["prediction"].pow(2).mean()
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        torch.func.grad(loss)(params)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() - base
+    assert peaks[True] < 0.6 * peaks[False], peaks

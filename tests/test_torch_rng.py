@@ -1,7 +1,8 @@
 """The port's random stream (``fl4health_tpu_torch/rng.py``) against
 ``jax.random`` on the CPU: keys, ``split``, ``fold_in``, ``bits``,
-``uniform`` and ``permutation`` bit for bit, ``normal`` within rtol/atol
-1e-6 over a million draws (XLA's ``log1p`` rounds a few draws an ulp away)."""
+``uniform``, ``randint``, ``permutation`` and ``categorical`` bit for bit,
+``normal`` within rtol/atol 1e-6 over a million draws (XLA's ``log1p`` rounds
+a few draws an ulp away) and ``gumbel`` within 5e-7 (two ``log``s)."""
 
 import jax
 import numpy as np
@@ -112,3 +113,39 @@ def test_erf_inv_matches_lax_over_the_open_interval():
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
     ends = rng.erf_inv(torch.tensor([-1.0, 1.0])).numpy()
     np.testing.assert_array_equal(ends, np.asarray(jax.lax.erf_inv(np.float32([-1, 1]))))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape,lo,hi", [
+    ((7,), 0, 10), ((1000,), 5, 37), ((3, 5), -2**31, 2**31 - 1),
+    ((64,), 3, 3), ((50,), 9, 2), ((100,), 0, 2**31 - 1), ((50,), -1000, 70000),
+], ids=str)
+def test_randint(seed, shape, lo, hi):
+    jk, tk = _keys(seed)
+    got = rng.randint(tk, shape, lo, hi)
+    want = np.asarray(jax.random.randint(jk, shape, lo, hi))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_categorical(seed):
+    logits = np.asarray(jax.random.normal(jax.random.PRNGKey(seed + 1), (40, 63))) * 2
+    jk, tk = _keys(seed)
+    want = np.asarray(jax.random.categorical(jk, logits, axis=-1, shape=(80, 40)))
+    got = rng.categorical(tk, torch.tensor(logits), shape=(80, 40))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(rng.categorical(tk, torch.tensor(logits)).numpy(),
+                                  np.asarray(jax.random.categorical(jk, logits)))
+    with pytest.raises(ValueError, match="batch shape"):
+        rng.categorical(tk, torch.tensor(logits), shape=(80, 41))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gumbel(seed):
+    jk, tk = _keys(seed)
+    want = np.asarray(jax.random.gumbel(jk, (100_000,)))
+    got = rng.gumbel(tk, (100_000,)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-7)
+    assert np.isfinite(got).all()

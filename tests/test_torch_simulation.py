@@ -5,6 +5,7 @@ global params within 5e-4 (the f32 CPU tolerance of tests/conftest.py);
 plus the pieces under it (seeds, index plans, aggregation, FedAvg, SGD, the
 data generator, device selection)."""
 
+import dataclasses
 import functools
 import importlib
 
@@ -17,12 +18,13 @@ import torch
 
 from fl4health_tpu.clients import engine as jengine
 from fl4health_tpu.core import aggregate as jagg
+from fl4health_tpu.datasets.synthetic import synthetic_text_classification as jsynth_text
 from fl4health_tpu.metrics import efficient as jefficient
 from fl4health_tpu.metrics.base import MetricManager as JMetricManager
 from fl4health_tpu.models.transformer import TransformerClassifier as JTransformer
 from fl4health_tpu.server import simulation as jsim
 from fl4health_tpu.strategies.fedavg import FedAvg as JFedAvg
-from fl4health_tpu_torch import optim
+from fl4health_tpu_torch import optim, rng
 from fl4health_tpu_torch.clients import engine as tengine
 from fl4health_tpu_torch.core import aggregate as tagg
 from fl4health_tpu_torch.datasets.synthetic import synthetic_text_classification
@@ -195,9 +197,9 @@ def test_masked_cross_entropy_matches_jax():
 
 
 def test_synthetic_text_has_the_jax_generators_shape_and_support():
-    x, y = synthetic_text_classification(torch.Generator().manual_seed(0), 64,
+    x, y = synthetic_text_classification(rng.PRNGKey(0), 64,
                                          vocab_size=50, seq_len=20, n_classes=4)
-    x2, _ = synthetic_text_classification(torch.Generator().manual_seed(0), 64,
+    x2, _ = synthetic_text_classification(rng.PRNGKey(0), 64,
                                           vocab_size=50, seq_len=20, n_classes=4)
     assert torch.equal(x, x2)
     assert x.shape == (64, 20) and y.shape == (64,)
@@ -208,6 +210,36 @@ def test_synthetic_text_has_the_jax_generators_shape_and_support():
     # real tokens form a prefix: PAD only in the tail
     assert torch.all((x > 0).int().diff(dim=1) <= 0)
     assert set(y.tolist()) <= {0, 1, 2, 3}
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_synthetic_text_equals_jax(seed):
+    # n * seq * vocab <= 2^28: categorical (Gumbel) tokens, the same as JAX's
+    jx, jy = (np.asarray(a) for a in jsynth_text(jax.random.PRNGKey(seed), 64, 50, 20, 4))
+    x, y = synthetic_text_classification(rng.PRNGKey(seed), 64, 50, 20, 4)
+    np.testing.assert_array_equal(y.numpy(), jy)
+    np.testing.assert_array_equal(x.numpy(), jx)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_synthetic_text_inverse_cdf_branch_matches_jax(seed):
+    """Above 2^28 draws, tokens by inverse CDF over the class's softmax (the
+    long-context bench's vocab 8192). Labels, lengths and padding equal
+    JAX's. The CDFs are summed in XLA's order (``_prefix_sums``) but start
+    from class logits within ``rng.normal``'s 2 ulp of JAX's, so a uniform
+    draw that falls within those few ulps of a bin edge takes the
+    neighbouring token: at most 1 in 1,000 positions here (0.03% seen), each
+    one id away."""
+    n, vocab, seq = 3, 8192, 16384
+    jx, jy = (np.asarray(a) for a in jsynth_text(jax.random.PRNGKey(seed), n, vocab,
+                                                  seq, 4))
+    x, y = (a.numpy() for a in synthetic_text_classification(rng.PRNGKey(seed), n,
+                                                             vocab, seq, 4))
+    np.testing.assert_array_equal(y, jy)
+    np.testing.assert_array_equal(x > 0, jx > 0)
+    moved = x != jx
+    assert moved.mean() <= 1e-3
+    assert np.all(np.abs(x[moved].astype(np.int64) - jx[moved]) == 1)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
@@ -283,32 +315,32 @@ def test_non_finite_client_is_masked_out_of_the_aggregate():
         assert torch.equal(both_params[k], alone_params[k]), k
 
 
-def test_plain_logic_ignores_the_step_stream(monkeypatch):
-    # every local step hands value_and_grads a generator; the non-DP logic
-    # draws nothing from it, so a run with other streams is the same run,
-    # bit for bit
+def test_plain_logic_ignores_the_step_stream():
+    # every local step splits the client's key and hands value_and_grads the
+    # step's key; the non-DP logic draws nothing from it, so a run from other
+    # keys is the same run, bit for bit
     data = [tsim.ClientDataset(*_client_data(0, 16, 6))]
 
-    def run():
+    def run(keys=None):
         sim = tsim.FederatedSimulation(
             logic=tengine.ClientLogic(tengine.from_module(TTransformer(**CFG)),
                                       tengine.masked_cross_entropy),
             tx=optim.sgd(0.05), strategy=TFedAvg(), datasets=data, batch_size=8,
             metrics=TMetricManager((tefficient.accuracy(),)), local_steps=2, seed=1,
             device="cpu")
-        return sim.fit(1), sim.global_params
+        start = sim.client_states.rng.clone()
+        if keys is not None:
+            sim.client_states = dataclasses.replace(sim.client_states, rng=keys)
+        hist = sim.fit(1)
+        # two steps split the key twice
+        want = start if keys is None else keys
+        for _ in range(2):
+            want = torch.stack([rng.split(k)[0] for k in want])
+        assert torch.equal(sim.client_states.rng, want)
+        return hist, sim.global_params
 
     hist_a, params_a = run()
-    seen = []
-    real = tengine.step_generator
-
-    def other_stream(entropy, step, device):
-        seen.append((tuple(entropy), step))
-        return real([*entropy, 99], step + 7, device)
-
-    monkeypatch.setattr(tengine, "step_generator", other_stream)
-    hist_b, params_b = run()
-    assert seen == [((0, 1, 1001, 0), 0), ((0, 1, 1001, 0), 1)]
+    hist_b, params_b = run(torch.stack([rng.PRNGKey(99)]))
     assert hist_a[0].fit_losses == hist_b[0].fit_losses
     for k in params_a:
         assert torch.equal(params_a[k], params_b[k]), k

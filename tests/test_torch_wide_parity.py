@@ -18,7 +18,7 @@ from fl4health_tpu.metrics.base import MetricManager as JMetricManager
 from fl4health_tpu.models.transformer import TransformerClassifier as JTransformer
 from fl4health_tpu.server import simulation as jsim
 from fl4health_tpu.strategies.fedavg import FedAvg as JFedAvg
-from fl4health_tpu_torch import optim
+from fl4health_tpu_torch import optim, rng
 from fl4health_tpu_torch.clients import engine as tengine
 from fl4health_tpu_torch.datasets.synthetic import synthetic_text_classification
 from fl4health_tpu_torch.kernels.flash_attention import flash_attention
@@ -38,8 +38,7 @@ CFG = dict(vocab_size=8192, n_classes=4, d_model=512, n_heads=8, n_layers=4,
 def test_full_width_fedavg_matches_jax():
     data = []
     for i in range(2):
-        x, y = synthetic_text_classification(torch.Generator().manual_seed(i), 176,
-                                             8192, T, 4)
+        x, y = synthetic_text_classification(rng.PRNGKey(i), 176, 8192, T, 4)
         x, y = x.numpy(), y.numpy()
         data.append((x[:160], y[:160], x[160:], y[160:]))
     js = jsim.FederatedSimulation(

@@ -4,16 +4,20 @@
 Builds one of ``chip_smoke.py``'s full-width federated runs on the card, runs
 one warm-up round, then profiles the next round with ``torch.profiler`` (CPU
 + CUDA activities) and prints one JSON line: the round's host wall time, the
-summed device time by kernel group, the top kernels by device time and the
+summed device time by kernel group, the top kernels by device time, the
 device busy share (summed kernel time over the profiled wall; a single
-stream, so kernels do not overlap).
+stream, so kernels do not overlap) and the round's peak device memory.
+
+The rounds run every client in one ``torch.func.vmap`` (the simulation's
+``vmap_clients``), so each range below opens once a local step (or once a
+round) for all clients at once; ``range_calls`` counts them.
 
   --config transformer_long  (default) the flash-attention path; groups: the
       three flash kernels (by name, so each group holds both routes: the
       tensor-core ``wgmma_flash_*_kernel`` and the CUDA-core kernels), GEMMs,
       everything else.
   --config dp_cifar_cnn  the DP-FedAvg CifarNet path; the round is split by
-      ``record_function`` ranges the tool wraps around the client's
+      ``record_function`` ranges the tool wraps around the clients'
       ``value_and_grads``, the DP clip-and-noise call inside it and the
       evaluation phase: per-example grads (value_and_grads less the DP call),
       the K1/K2 kernels, the rest of the DP call (norms, clip factor, noise),
@@ -23,7 +27,7 @@ stream, so kernels do not overlap).
       launch call); the host time spent in each range is given beside it.
   --config client_dp_cifar_cnn  the client-level DP-FedAvgM CifarNet path
       (64 uneven clients, Poisson sampling at q = 0.25); ranges around the
-      client's ``value_and_grads`` (forward and backward), its
+      clients' ``value_and_grads`` (forward and backward), their
       ``finalize_round`` (the update's clip), the manager's ``sample``, the
       strategy's ``aggregate`` (weighted sums, server noise, momentum,
       bound update) and the evaluation phase; the rest of fit is the SGD
@@ -170,6 +174,7 @@ def main() -> int:
     sim.fit(1)  # warm-up: kernel build, cuBLAS/cuDNN handles, allocator
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.time()
         sim.fit(1)
@@ -196,6 +201,7 @@ def main() -> int:
         "fit_s": rec.fit_elapsed_s, "eval_s": rec.eval_elapsed_s,
         "device_s_by_group": groups, "device_busy_s": busy,
         "device_busy_share": busy / wall,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "top_kernels": [{"s": s, "count": c, "name": n} for s, c, n in kernels[:12]],
     }
     if args.config == "dp_cifar_cnn":
