@@ -92,7 +92,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      It reaches no kernel, as in JAX: every launch counter must stand still
      over the phase; its epsilon must equal the accountant's value for this
      configuration.
-Each main path prints its rounds' walls and its peak device memory.
+ 12. The pipelined round made whole, ``pipelined_dp_cifar_cnn``: the DP
+     path's configuration (64 clients of 160 train and 64 val rows, batch 32,
+     5 local DP-SGD steps, C = 1, sigma = 1, bf16 compute) with a 64-row test
+     split a client (from ``PRNGKey(10_000 + i)``), early stopping in chunks
+     of 2 steps at patience 1 (3 chunks a round, the last padded: 18 K1 and
+     144 K2 launches over 3 rounds, stopped or not, exactly),
+     ``FailurePolicy(accept_failures=False)``, a ``JsonReporter`` and
+     ``pipeline_depth`` 2, for 3 rounds: finite losses with the ``"test - "``
+     keys in every record, the report's rounds equal to the history, and the
+     same 3 rounds through the pipeline's plain version (each round's
+     epilogue inline) from the same state equal to the pipelined history
+     bit for bit (cuDNN deterministic for both). Then a tiny run with a
+     NaN-poisoned client: under ``accept_failures=False`` it must raise
+     ``ClientFailuresError`` naming that client and round 1; under True it
+     must finish, within VMAP_TOL of the run without that client.
+Every ``fit`` is the pipelined path: the producer never waits for the
+device, so ``fit_elapsed_s``/``eval_elapsed_s`` are dispatch times. Each main
+path prints the synchronised wall of its rounds and its peak device memory,
+then its warm rounds' walls through the pipelined ``fit`` and through the
+plain version (pipelined, inline, inline, pipelined, 2 rounds each); its
+throughput is over the pipelined warm walls.
 Both extensions are built at the start, in parallel. Then one JSON line with
 every kernel, the card line again, and the result line.
 """
@@ -165,6 +185,11 @@ CDP_EPSILON = 125.27058177633157
 TINY_CDP_STRATEGY = dict(noise_multiplier=0.1, server_momentum=0.5,
                          initial_clipping_bound=0.5, weighted_aggregation=True,
                          adaptive_clipping=True, bit_noise_multiplier=1.0, seed=7)
+# The pipelined phase: the DP path with a test split, early stopping in
+# chunks of 2 steps at patience 1, a strict failure policy and a JSON report
+PIPE_ROUNDS, PIPE_TEST, PIPE_INTERVAL, PIPE_PATIENCE = 3, 64, 2, 1
+# warm rounds a main path runs through each of the pipelined and inline fits
+WARM_ROUNDS = 2
 RNG_SHAPES = [(), (7,), (64,), (3, 5, 11), (579402,)]
 # CifarNet's parameter leaves, each with a leading per-example axis on the path
 CIFAR_LEAVES = {"Conv_0/kernel": (5, 5, 3, 32), "Conv_0/bias": (32,),
@@ -233,6 +258,32 @@ def check_bound(name: str, got: torch.Tensor, want: torch.Tensor,
     return {"max_abs_err": float(diff.max()), "mean_abs_ref": float(want.abs().mean()),
             "max_abs_ref": float(want.abs().max()),
             "bound_used": float((diff / bound).max())}
+
+
+def inline_rounds(sim, rounds: int) -> None:
+    """``rounds`` more rounds through the pipeline's plain version: each
+    round's epilogue (and so its pull, which waits for the device) inline,
+    no consumer, no prefetcher."""
+    val_batches, val_counts = sim._val_batches()
+    first = len(sim.history) + 1
+    for rnd in range(first, first + rounds):
+        sim._run_round(rnd, val_batches, val_counts)
+
+
+def pipeline_walls(sim, rounds: int = WARM_ROUNDS) -> dict:
+    """Synchronised walls of ``rounds`` warm rounds through the pipelined
+    ``fit`` and through ``inline_rounds``, in turns."""
+    walls = {"pipelined_s": [], "inline_s": []}
+    for mode in ("pipelined", "inline", "inline", "pipelined"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if mode == "pipelined":
+            sim.fit(rounds)
+        else:
+            inline_rounds(sim, rounds)
+        torch.cuda.synchronize()
+        walls[f"{mode}_s"].append(time.time() - t0)
+    return {"rounds": rounds, **walls}
 
 
 def attention_inputs(b: int, t: int, dtype: torch.dtype, seed: int, d: int = D):
@@ -690,6 +741,7 @@ def main_path(fa) -> dict:
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches, wgmma = dict(fa.LAUNCHES), dict(fa.WGMMA_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     positions = N_CLIENTS * LOCAL_STEPS * BATCH * T
     real = sum(int((d.x_train > 0).sum()) for d in data)  # one pass over each client's rows
     for r in hist:
@@ -700,14 +752,13 @@ def main_path(fa) -> dict:
             "round": r.round, "fit_loss": r.fit_losses["backward"],
             "eval_loss": r.eval_losses["checkpoint"],
             "eval_accuracy": r.eval_metrics["accuracy"],
-            "fit_s": r.fit_elapsed_s, "eval_s": r.eval_elapsed_s,
-            "round_wall_s": r.fit_elapsed_s + r.eval_elapsed_s,
-            "train_token_positions_per_s": positions / r.fit_elapsed_s,
-            "train_real_tokens_per_s": real / r.fit_elapsed_s}))
+            "fit_dispatch_s": r.fit_elapsed_s, "eval_dispatch_s": r.eval_elapsed_s}))
     moved = max(float((sim.global_params[k] - init[k]).abs().max()) for k in init)
     finite = all(torch.isfinite(v).all() for v in sim.global_params.values())
     if not finite or moved <= 0:
         fail(f"global params after training: finite={finite}, max change {moved}")
+    walls = pipeline_walls(sim)
+    warm = walls["pipelined_s"]
     # per round, the clients folded into each launch by the vmap rules:
     # 5 steps x 4 layers (x2 for the remat recompute) + one eval step
     expected = {
@@ -716,8 +767,13 @@ def main_path(fa) -> dict:
         "flash_bwd_dkv": ROUNDS * LOCAL_STEPS * 4,
     }
     print(json.dumps({"main_path": "transformer_long", "rounds": ROUNDS, "wall_s": wall,
+                      "warm_walls": walls,
+                      # per second of synchronised round wall (fit and eval)
+                      "train_token_positions_per_s": [
+                          WARM_ROUNDS * positions / w for w in warm],
+                      "train_real_tokens_per_s": [WARM_ROUNDS * real / w for w in warm],
                       "n_params": sum(v.numel() for v in init.values()),
-                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "peak_mem_gib": peak,
                       "max_param_change": moved, "launches": launches,
                       "expected_launches": expected, "wgmma_launches": wgmma}))
     if launches != expected:
@@ -913,8 +969,15 @@ def dp_batched_checks(dp, dtype: torch.dtype) -> dict:
             for k, m in zip(tree, mats):
                 name = f"dp_scaled_sum batched {layout} {k} {tag}"
                 got = dp.scaled_sum_kernel(m, scale)
-                stats[name] = check_stats(name, got, dp.scaled_masked_sum_reference(m, scale),
-                                          *DP_TOL["dp_scaled_sum"])
+                # held against the plain version's sum evaluated in f64: at
+                # sums of up to ~27 (32 products, scale up to 1.5) the bound
+                # is 5 f32 ulps, which the kernel's rounding and the f32
+                # plain version's, in two orders, can exceed together
+                exact = (m.double() * scale.double()[..., None]).sum(-2)
+                stats[name] = check_stats(name, got, exact, *DP_TOL["dp_scaled_sum"])
+                stats[name]["f32_plain_max_abs_err"] = float(
+                    (got - dp.scaled_masked_sum_reference(m, scale)).abs().max())
+                del exact
                 if not torch.equal(got, dp.scaled_sum_kernel(m, scale)):
                     fail(f"{name}: a second launch differs")
                 worst["dp_scaled_sum"] = max(worst["dp_scaled_sum"],
@@ -943,6 +1006,8 @@ def dp_batched_checks(dp, dtype: torch.dtype) -> dict:
     want_launches = {"dp_sq_norms": 1, "dp_scaled_sum": len(CIFAR_LEAVES)}
     print(json.dumps({"check": f"dp_clip client-batched {tag}", "clients": c, "batch": b,
                       "max_abs_err": worst,
+                      "scaled_sum_vs_f32_plain_max_abs_err": max(
+                          v.get("f32_plain_max_abs_err", 0.0) for v in stats.values()),
                       "vmapped_fused_max_abs_err": max(
                           v["max_abs_err"] for k, v in stats.items() if "vmapped" in k),
                       "bound_used": max(v["bound_used"] for v in stats.values()),
@@ -1003,7 +1068,7 @@ def dp_batched_timings(dp) -> dict:
 
 
 def build_dp_sim(data, dtype, device, noise_multiplier, seed,
-                 input_shape=(32, 32, 3), batch=BATCH, local_steps=LOCAL_STEPS):
+                 input_shape=(32, 32, 3), batch=BATCH, local_steps=LOCAL_STEPS, **sim_kw):
     from fl4health_tpu_torch import optim
     from fl4health_tpu_torch.clients import engine
     from fl4health_tpu_torch.clients.instance_level_dp import InstanceLevelDpClientLogic
@@ -1020,11 +1085,13 @@ def build_dp_sim(data, dtype, device, noise_multiplier, seed,
     return FederatedSimulation(
         logic=logic, tx=optim.sgd(0.05), strategy=FedAvg(), datasets=data,
         batch_size=batch, metrics=MetricManager((efficient.accuracy(),)),
-        local_steps=local_steps, seed=seed, device=device)
+        local_steps=local_steps, seed=seed, device=device, **sim_kw)
 
 
-def image_datasets(n_clients: int, n_train: int, n_val: int, shape) -> list:
-    """Client i's rows from ``PRNGKey(i)``, drawn on the card."""
+def image_datasets(n_clients: int, n_train: int, n_val: int, shape,
+                   n_test: int = 0) -> list:
+    """Client i's rows from ``PRNGKey(i)``, drawn on the card; its test rows,
+    if any, from ``PRNGKey(10_000 + i)``."""
     from fl4health_tpu_torch import rng
     from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
     from fl4health_tpu_torch.server.simulation import ClientDataset
@@ -1033,7 +1100,13 @@ def image_datasets(n_clients: int, n_train: int, n_val: int, shape) -> list:
     for i in range(n_clients):
         x, y = (a.cpu() for a in synthetic_classification(
             rng.PRNGKey(i, "cuda"), n_train + n_val, shape, 10))
-        out.append(ClientDataset(x[:n_train], y[:n_train], x[n_train:], y[n_train:]))
+        test = {}
+        if n_test:
+            xt, yt = (a.cpu() for a in synthetic_classification(
+                rng.PRNGKey(10_000 + i, "cuda"), n_test, shape, 10))
+            test = dict(x_test=xt, y_test=yt)
+        out.append(ClientDataset(x[:n_train], y[:n_train], x[n_train:], y[n_train:],
+                                 **test))
     return out
 
 
@@ -1083,7 +1156,8 @@ def dp_main_path(dp) -> dict:
     hist, epsilon = server.fit(DP_ROUNDS)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches = dict(dp.LAUNCHES)
+    launches, copies = dict(dp.LAUNCHES), dict(dp.COPIES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     examples = DP_CLIENTS * LOCAL_STEPS * BATCH
     for r in hist:
         if not all(np.isfinite(v) for v in (*r.fit_losses.values(),
@@ -1094,9 +1168,7 @@ def dp_main_path(dp) -> dict:
             "clip_fraction": r.fit_losses["clip_fraction"],
             "eval_loss": r.eval_losses["checkpoint"],
             "eval_accuracy": r.eval_metrics["accuracy"],
-            "fit_s": r.fit_elapsed_s, "eval_s": r.eval_elapsed_s,
-            "round_wall_s": r.fit_elapsed_s + r.eval_elapsed_s,
-            "train_examples_per_s": examples / r.fit_elapsed_s}))
+            "fit_dispatch_s": r.fit_elapsed_s, "eval_dispatch_s": r.eval_elapsed_s}))
     moved = max(float((sim.global_params[k] - init[k]).abs().max()) for k in init)
     finite = all(torch.isfinite(v).all() for v in sim.global_params.values())
     if not finite or moved <= 0:
@@ -1105,11 +1177,15 @@ def dp_main_path(dp) -> dict:
     # and one K2 launch per leaf, through the vmap rules
     steps = DP_ROUNDS * LOCAL_STEPS
     expected = {"dp_sq_norms": steps, "dp_scaled_sum": steps * len(CIFAR_LEAVES)}
-    copies = dict(dp.COPIES)
+    walls = pipeline_walls(sim)
     print(json.dumps({"main_path": "dp_fedavg_cifar_cnn", "rounds": DP_ROUNDS,
-                      "wall_s": wall, "epsilon": epsilon,
+                      "wall_s": wall, "warm_walls": walls,
+                      # per second of synchronised round wall (fit and eval)
+                      "train_examples_per_s": [WARM_ROUNDS * examples / w
+                                               for w in walls["pipelined_s"]],
+                      "epsilon": epsilon,
                       "n_params": sum(v.numel() for v in init.values()),
-                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "peak_mem_gib": peak,
                       "max_param_change": moved, "launches": launches,
                       "expected_launches": expected, "per_example_copies": copies}))
     if abs(epsilon - DP_EPSILON) > 1e-9:
@@ -1418,6 +1494,7 @@ def client_dp_main_path(fa, dp) -> None:
     torch.cuda.synchronize()
     wall = time.time() - t0
     after = counters()
+    peak = torch.cuda.max_memory_allocated() / 2**30
     for r, mask, bound in zip(hist, masks, bounds):
         values = (*r.fit_losses.values(), *r.eval_losses.values())
         if not all(np.isfinite(v) for v in values):
@@ -1427,17 +1504,18 @@ def client_dp_main_path(fa, dp) -> None:
             "client_dp_round": r.round, "fit_loss": r.fit_losses["backward"],
             "eval_loss": r.eval_losses["checkpoint"],
             "eval_accuracy": r.eval_metrics["accuracy"], "clipping_bound": float(bound),
-            "clients_sampled": int(mask.sum()), "fit_s": r.fit_elapsed_s,
-            "eval_s": r.eval_elapsed_s, "round_wall_s": r.fit_elapsed_s + r.eval_elapsed_s}))
+            "clients_sampled": int(mask.sum()), "fit_dispatch_s": r.fit_elapsed_s,
+            "eval_dispatch_s": r.eval_elapsed_s}))
     moved = max(float((sim.global_params[k] - init[k]).abs().max()) for k in init)
     finite = all(torch.isfinite(v).all() for v in sim.global_params.values())
+    walls = pipeline_walls(sim)
     print(json.dumps({"main_path": "client_dp_cifar_cnn", "rounds": CDP_ROUNDS,
-                      "wall_s": wall, "epsilon": epsilon,
+                      "wall_s": wall, "warm_walls": walls, "epsilon": epsilon,
                       "n_params": sum(v.numel() for v in init.values()),
                       "clients": CDP_CLIENTS,
                       "train_rows": [min(d.n_train for d in data),
                                      max(d.n_train for d in data)],
-                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                      "peak_mem_gib": peak,
                       "max_param_change": moved, "launch_counters_moved": before != after}))
     if not finite or moved <= 0:
         fail(f"client DP global params after training: finite={finite}, max change {moved}")
@@ -1445,6 +1523,147 @@ def client_dp_main_path(fa, dp) -> None:
         fail(f"client DP epsilon {epsilon!r}, the accountant gives {CDP_EPSILON!r}")
     if before != after:
         fail(f"the client-level DP path launched kernels: {before} -> {after}")
+
+
+def pipelined_dp_path(dp) -> dict:
+    """The DP path with every feature of the pipelined round: a test split,
+    early stopping, a strict failure policy, a JSON report; 3 rounds
+    pipelined, then the same 3 rounds through the plain version from the
+    same state, which must agree bit for bit."""
+    import tempfile
+
+    from fl4health_tpu_torch.clients.engine import EarlyStoppingConfig
+    from fl4health_tpu_torch.reporting.base import JsonReporter
+    from fl4health_tpu_torch.server.simulation import FailurePolicy
+
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3), n_test=PIPE_TEST)
+
+    def build(**kw):
+        return build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                            early_stopping=EarlyStoppingConfig(PIPE_INTERVAL, PIPE_PATIENCE),
+                            failure_policy=FailurePolicy(accept_failures=False),
+                            pipeline_depth=2, **kw)
+
+    # both runs take the same cuDNN algorithms, so the plain version can
+    # repeat the pipelined run bit for bit
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            sim = build(reporters=[JsonReporter(out_dir, run_id="pipelined")])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dp.reset_launch_counts()
+            t0 = time.time()
+            hist = sim.fit(PIPE_ROUNDS)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            launches = dict(dp.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            report = json.loads((Path(out_dir) / "pipelined.json").read_text())
+        inline = build()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        inline_rounds(inline, PIPE_ROUNDS)
+        torch.cuda.synchronize()
+        inline_wall = time.time() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    fields = ("fit_losses", "fit_metrics", "eval_losses", "eval_metrics")
+    for r in hist:
+        values = [v for f in fields for v in getattr(r, f).values()]
+        if not all(np.isfinite(v) for v in values):
+            fail(f"pipelined round {r.round}: non-finite values {r}")
+        if "test - checkpoint" not in r.eval_losses or "test - accuracy" not in r.eval_metrics:
+            fail(f"pipelined round {r.round}: no test-split keys {r.eval_losses} "
+                 f"{r.eval_metrics}")
+        print(json.dumps({"pipelined_round": r.round, "fit_loss": r.fit_losses["backward"],
+                          "eval_loss": r.eval_losses["checkpoint"],
+                          "test_loss": r.eval_losses["test - checkpoint"],
+                          "test_accuracy": r.eval_metrics["test - accuracy"],
+                          "fit_dispatch_s": r.fit_elapsed_s,
+                          "eval_dispatch_s": r.eval_elapsed_s}))
+    reported = {r: {f: v[f] for f in fields} for r, v in report["rounds"].items()}
+    if reported != {str(r.round): {f: getattr(r, f) for f in fields} for r in hist}:
+        fail(f"the JSON report's rounds differ from the history: {reported}")
+    inline_equal = (
+        all(getattr(a, f) == getattr(b, f) for a, b in zip(hist, inline.history)
+            for f in fields)
+        and [r.round for r in hist] == [r.round for r in inline.history]
+        and all(torch.equal(sim.global_params[k], v) for k, v in inline.global_params.items())
+        and torch.equal(sim.client_states.step, inline.client_states.step))
+    # every chunk's steps launch, stopped or not: 3 chunks of 2 a round
+    n_chunks = -(-LOCAL_STEPS // PIPE_INTERVAL)
+    steps = PIPE_ROUNDS * n_chunks * PIPE_INTERVAL
+    expected = {"dp_sq_norms": steps, "dp_scaled_sum": steps * len(CIFAR_LEAVES)}
+    moved_steps = sim.client_states.step.cpu()
+    res = {"phase": "pipelined_dp_cifar_cnn", "rounds": PIPE_ROUNDS, "wall_s": wall,
+           "dispatch_s": sum(r.fit_elapsed_s + r.eval_elapsed_s for r in hist),
+           "inline_wall_s": inline_wall, "peak_mem_gib": peak,
+           "launches": launches, "expected_launches": expected,
+           "steps_moved": int(moved_steps.sum()),
+           "steps_scheduled": PIPE_ROUNDS * LOCAL_STEPS * DP_CLIENTS,
+           "clients_stopped_early": int((moved_steps < PIPE_ROUNDS * LOCAL_STEPS).sum()),
+           "report_rounds": sorted(report["rounds"]), "inline_bit_equal": inline_equal}
+    print(json.dumps(res))
+    if launches != expected:
+        fail(f"pipelined phase launches {launches}, expected {expected}")
+    if not inline_equal:
+        fail("the pipelined history differs from the inline path's")
+    res["nan_client"] = nan_client_check()
+    return res
+
+
+def nan_client_check() -> dict:
+    """A tiny DP run (f32, sigma 0) on the card with the last of 4 clients'
+    train features NaN: under accept_failures=False, fit raises
+    ClientFailuresError naming that client and round 1; under True it
+    finishes, screening the client out every round, within VMAP_TOL of the
+    run of the other 3 (the same keys and index plans: the poisoned client
+    is the last)."""
+    import dataclasses
+
+    from fl4health_tpu_torch.server.simulation import ClientFailuresError, FailurePolicy
+
+    clean = image_datasets(4, 16, 8, (32, 32, 3))
+    poisoned = [*clean[:3], dataclasses.replace(
+        clean[3], x_train=torch.full_like(clean[3].x_train, float("nan")))]
+
+    def build(data, accept):
+        return build_dp_sim(data, torch.float32, "cuda", 0.0, seed=3, batch=8, local_steps=2,
+                            failure_policy=FailurePolicy(accept_failures=accept))
+
+    strict = build(poisoned, False)
+    raised = None
+    try:
+        strict.fit(2)
+    except ClientFailuresError as err:
+        raised = err
+    if raised is None:
+        fail("a NaN-poisoned client did not raise under accept_failures=False")
+    if raised.clients != [3] or raised.round != 1 or strict.history:
+        fail(f"ClientFailuresError named clients {raised.clients}, round {raised.round} "
+             f"({len(strict.history)} rounds recorded); expected [3], round 1, none")
+    lenient, alone = build(poisoned, True), build(clean[:3], True)
+    screened = []
+    screen = lenient.failure_policy.check
+    lenient.failure_policy.check = lambda *a: screened.append(screen(*a)) or screened[-1]
+    hist, alone_hist = lenient.fit(2), alone.fit(2)
+    torch.cuda.synchronize()
+    if screened != [[3], [3]]:
+        fail(f"the lenient run screened {screened}, expected client 3 in both rounds")
+    for a, b in zip(hist, alone_hist):
+        check(f"NaN client excluded, round {a.round} fit loss",
+              torch.tensor(a.fit_losses["backward"]),
+              torch.tensor(b.fit_losses["backward"]), VMAP_TOL, 0)
+    err = max(check(f"NaN client excluded, param {k}", v, alone.global_params[k], VMAP_TOL, 0)
+              for k, v in lenient.global_params.items())
+    res = {"raised": type(raised).__name__, "clients": raised.clients,
+           "round": raised.round, "screened": screened,
+           "fit_losses": [r.fit_losses["backward"] for r in hist],
+           "max_param_abs_err_vs_without_client": err}
+    print(json.dumps({"check": "NaN-poisoned client on the card", **res}))
+    return res
 
 
 def main() -> int:
@@ -1495,6 +1714,7 @@ def main() -> int:
     tiny_client_dp_parity()
     vmap_vs_loop(fa, dp)
     client_dp_main_path(fa, dp)
+    pipelined_launches = pipelined_dp_path(dp)["launches"]
 
     replaces = {"flash_fwd": "fl4health_tpu/kernels/flash_attention.py:71",
                 "flash_bwd_dq": "fl4health_tpu/kernels/flash_attention.py:141",
@@ -1540,6 +1760,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": DP_SOURCE, "replaces": rep,
             "design": dp_design[name], "launches": dp_launches[name],
+            # the early-stopped pipelined phase's own count (3 rounds)
+            "launches_pipelined_dp_cifar_cnn": pipelined_launches[name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

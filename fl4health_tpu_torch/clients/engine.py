@@ -16,8 +16,8 @@ tensor code over one client, with a static Python loop over the step axis
 ``torch.func.vmap``; gradients come from ``torch.func.grad_and_value``,
 which composes with that vmap.
 
-Left out here: the precision (loss scaling), ZeRO-2 microbatching,
-telemetry and early-stopping branches; and the algorithm hooks no
+Left out here: the precision (loss scaling), ZeRO-2 microbatching and
+telemetry branches; and the algorithm hooks no
 ported logic overrides yet (``transform_gradients``,
 ``update_before_step``/``update_after_step``, ``augment``).
 """
@@ -282,6 +282,82 @@ def make_local_eval(logic: ClientLogic, metric_manager: MetricManager,
     return evaluate
 
 
+@dataclasses.dataclass(frozen=True)
+class EarlyStoppingConfig:
+    """Snapshot the best state every ``interval_steps`` local steps; stop
+    when validation has not improved for ``patience`` consecutive checks;
+    restore the best snapshot (the reference's ``EarlyStopper``)."""
+
+    interval_steps: int
+    patience: int
+
+
+def make_local_train_with_early_stopping(
+    logic: ClientLogic,
+    tx: GradientTransformation,
+    metric_manager: MetricManager,
+    config: EarlyStoppingConfig,
+    loss_keys: tuple[str, ...] = ("backward",),
+):
+    """Early-stopped local training (the JAX engine's
+    ``make_local_train_with_early_stopping``).
+
+    The steps run in chunks of ``interval_steps`` (the last chunk padded
+    with full no-op steps). After each chunk the client validates, keeps
+    the best full-state snapshot, and raises a ``stopped`` flag once
+    ``patience`` checks passed without improvement; a stopped client's
+    later steps have ``step_mask`` 0, so they run and move nothing, as
+    padding steps do, and every step splits the key whether or not it
+    moved. Then the best snapshot is restored with the advanced key, and
+    ``finalize_round`` runs on it. ``stopped``, ``bad`` and ``best_score``
+    are per-client tensors under the client vmap: every branch on them is
+    a ``torch.where``.
+
+    Returns train(state, ctx, batches, val_batches) with the outputs of
+    ``make_local_train``; ``n_steps`` counts the steps that ran unmasked."""
+    step_fn = make_train_step(logic, tx)
+    evaluate = make_local_eval(logic, metric_manager)
+    interval, patience = config.interval_steps, config.patience
+
+    def train(state: TrainState, ctx: Any, batches: Batch, val_batches: Batch):
+        device = batches.step_mask.device
+        meter = LossMeter.create(loss_keys, device)
+        mstate = metric_manager.init(device)
+        total = batches.step_mask.shape[0]
+        n_chunks = -(-total // interval)
+        no_op = (tree_map(lambda x: torch.zeros_like(x[0]), batches)
+                 if n_chunks * interval > total else None)
+        best_state = state
+        best_score = torch.full((), float("inf"), device=device)
+        bad = torch.zeros((), dtype=torch.int32, device=device)
+        stopped = torch.zeros((), device=device)
+        executed = torch.zeros((), device=device)
+        for c in range(n_chunks):
+            for s in range(c * interval, (c + 1) * interval):
+                batch = _step_slice(batches, s) if s < total else no_op
+                batch = dataclasses.replace(
+                    batch, step_mask=batch.step_mask * (1.0 - stopped))
+                state, out = step_fn(state, ctx, batch)
+                meter = meter.update(out.losses, weight=out.step_mask)
+                mstate = metric_manager.update(mstate, out.preds, out.targets,
+                                               out.example_mask)
+                executed = executed + out.step_mask
+            score = evaluate(state, ctx, val_batches)[0]["checkpoint"]
+            live = stopped < 0.5
+            improved = (score < best_score) & live
+            best_state = _mask_tree(state, best_state, improved)
+            best_score = torch.where(improved, score, best_score)
+            bad = torch.where(live, torch.where(improved, 0, bad + 1), bad)
+            stopped = torch.maximum(stopped, (bad >= patience).to(stopped.dtype))
+        # the FULL best snapshot (params, optimizer state, extra) with the
+        # advanced key: randomness is never replayed
+        state = dataclasses.replace(best_state, rng=state.rng)
+        state = logic.finalize_round(state, ctx, executed)
+        return state, meter.compute(), metric_manager.compute(mstate), executed
+
+    return train
+
+
 # ---------------------------------------------------------------------------
 # Host-side batching: index plans (numpy, copied from the JAX engine)
 # ---------------------------------------------------------------------------
@@ -404,7 +480,18 @@ def pad_and_stack_data(arrays: list, name: str,
                      host[0].dtype)
     for i, a in enumerate(host):
         stack[i, : a.shape[0]] = a
-    return torch.from_numpy(stack).to(device)
+    return host_to_device(stack, device)
+
+
+def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``array`` on ``device``. To a card, the copy goes from pinned memory
+    without blocking the host: a blocking copy would wait for every kernel
+    already enqueued on the stream, and the round pipeline's threads must
+    not wait for the device."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def gather_batches(x_stack: torch.Tensor, y_stack: torch.Tensor,
@@ -412,11 +499,11 @@ def gather_batches(x_stack: torch.Tensor, y_stack: torch.Tensor,
                    step_mask: np.ndarray) -> Batch:
     """One device-side gather from pre-stacked data -> [C,S,B,...] Batch."""
     device = x_stack.device
-    idx_t = torch.from_numpy(np.asarray(idx, np.int64)).to(device)
+    idx_t = host_to_device(np.asarray(idx, np.int64), device)
     c = torch.arange(idx_t.shape[0], device=device)[:, None, None]
     return Batch(
         x=x_stack[c, idx_t],
         y=y_stack[c, idx_t],
-        example_mask=torch.from_numpy(np.asarray(example_mask)).to(device),
-        step_mask=torch.from_numpy(np.asarray(step_mask)).to(device),
+        example_mask=host_to_device(np.asarray(example_mask), device),
+        step_mask=host_to_device(np.asarray(step_mask), device),
     )

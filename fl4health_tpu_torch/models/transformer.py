@@ -23,6 +23,7 @@ from torch import nn
 from torch.func import functional_call
 
 from fl4health_tpu_torch.core.types import Params
+from fl4health_tpu_torch.kernels.fold import fold_vmapped
 
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
@@ -76,9 +77,126 @@ class LoraDense(nn.Module):
         return y
 
 
+# ---------------------------------------------------------------------------
+# Layer norm with a client-vmap rule
+# ---------------------------------------------------------------------------
+#
+# Under the simulation's client vmap a block's layer norm sees per-client
+# ``scale``/``bias``. Left to itself, vmap decomposes layer norm's backward
+# with batched weights into broadcast elementwise passes over the f32
+# activations. Where there is a backward (grad mode on), the Functions below
+# batch it themselves instead, as the kernels' Functions do: the vmapped
+# axis joins a leading client axis N of ``x [N, ..., D]`` and of
+# ``scale``/``bias [N, D]``, and each of the N clients runs the fused
+# ``native_layer_norm`` and its backward with its own weights. Where there
+# is none (evaluation, the remat's forward), the weight-less layer norm and
+# one ``addcmul`` are as few passes and cost the host no Function call,
+# whose dispatch under the transforms costs far more than the op.
+
+def layer_norm_clients_forward(x: torch.Tensor, scale: torch.Tensor,
+                               bias: torch.Tensor, eps: float):
+    """``(y, mean, rstd)`` of ``x [N, ..., D]`` under client ``n``'s
+    ``scale[n]``/``bias[n]``; ``mean``/``rstd`` are ``[N, ..., 1]``."""
+    d = (x.shape[-1],)
+    outs = [torch.native_layer_norm(x[n], d, scale[n], bias[n], eps)
+            for n in range(x.shape[0])]
+    if len(outs) == 1:  # one client: its own tensors, no copy
+        return tuple(t.unsqueeze(0) for t in outs[0])
+    return tuple(torch.stack(ts) for ts in zip(*outs))
+
+
+def layer_norm_clients_backward(dy: torch.Tensor, x: torch.Tensor,
+                                mean: torch.Tensor, rstd: torch.Tensor,
+                                scale: torch.Tensor, bias: torch.Tensor):
+    """``(dx, dscale, dbias)`` of ``layer_norm_clients_forward``."""
+    d = (x.shape[-1],)
+    outs = [torch.ops.aten.native_layer_norm_backward(
+        dy[n], x[n], d, mean[n], rstd[n], scale[n], bias[n], [True, True, True])
+        for n in range(x.shape[0])]
+    if len(outs) == 1:
+        return tuple(t.unsqueeze(0) for t in outs[0])
+    return tuple(torch.stack(ts) for ts in zip(*outs))
+
+
+def _unfold_clients(t: torch.Tensor, size: int) -> torch.Tensor:
+    return t.view(size, t.shape[0] // size, *t.shape[1:])
+
+
+class _LayerNorm(torch.autograd.Function):
+    """``(y, mean, rstd)`` of ``x [N, ..., D]`` under per-client weights
+    ``[N, D]``; ``mean``/``rstd`` are outputs (not differentiable) so that
+    the backward, at any transform level, reads the statistics of the
+    forward it belongs to."""
+
+    @staticmethod
+    def forward(x, scale, bias, eps):
+        return layer_norm_clients_forward(x, scale, bias, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, scale, bias, _ = inputs
+        _, mean, rstd = output
+        ctx.mark_non_differentiable(mean, rstd)
+        ctx.save_for_backward(x, scale, bias, mean, rstd)
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _drstd):
+        x, scale, bias, mean, rstd = ctx.saved_tensors
+        return (*_LayerNormGrads.apply(dy, x, mean, rstd, scale, bias), None)
+
+    @staticmethod
+    def vmap(info, in_dims, x, scale, bias, eps):
+        n = info.batch_size
+        outs = _LayerNorm.apply(*(fold_vmapped(t, d, n)[0] for t, d in
+                                  zip((x, scale, bias), in_dims)), eps)
+        return tuple(_unfold_clients(t, n) for t in outs), (0, 0, 0)
+
+
+class _LayerNormGrads(torch.autograd.Function):
+    """``(dx, dscale, dbias)`` of ``_LayerNorm``: a Function of its own so
+    that the backward, which receives vmapped cotangents under the client
+    vmap, batches through a ``vmap`` rule too."""
+
+    @staticmethod
+    def forward(dy, x, mean, rstd, scale, bias):
+        return layer_norm_clients_backward(dy, x, mean, rstd, scale, bias)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass  # never differentiated: the gradients are first order
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        n = info.batch_size
+        grads = _LayerNormGrads.apply(*(fold_vmapped(t, d, n)[0]
+                                        for t, d in zip(args, in_dims)))
+        return tuple(_unfold_clients(g, n) for g in grads), (0, 0, 0)
+
+
+def layer_norm_clients(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                       eps: float = 1e-6) -> torch.Tensor:
+    """Client-batched layer norm: ``x [K, ..., D]`` normalised over its last
+    axis, then scaled and shifted by client ``k``'s ``scale[k]``/``bias[k]``
+    ``[K, D]``. The dtype is ``x``'s (the model passes f32)."""
+    return _LayerNorm.apply(x, scale, bias, eps)[0]
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """``F.layer_norm(x, scale.shape, scale, bias, eps)`` for one client. With
+    grad mode on, as one client of ``layer_norm_clients``: under the client
+    vmap the clients fold into its client axis instead of vmap's
+    decomposition. Without, the weight-less layer norm and the affine as one
+    ``addcmul``, which vmap batches as they are."""
+    if not torch.is_grad_enabled():
+        return torch.addcmul(bias, F.layer_norm(x, scale.shape, None, None, eps), scale)
+    return layer_norm_clients(x[None], scale[None], bias[None], eps)[0]
+
+
 class LayerNorm(nn.Module):
     """flax ``nn.LayerNorm``: params ``scale``/``bias``, eps 1e-6, computed
-    in f32 (flax promotes a bf16 input with the f32 params)."""
+    in f32 (flax promotes a bf16 input with the f32 params), through
+    ``layer_norm`` and its client-vmap rule."""
 
     def __init__(self, features: int, epsilon: float = 1e-6):
         super().__init__()
@@ -92,8 +210,7 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x.float(), self.scale.shape, self.scale, self.bias,
-                            self.epsilon)
+        return layer_norm(x.float(), self.scale, self.bias, self.epsilon)
 
 
 class Embed(nn.Module):

@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 from torch.func import grad, vmap
 
 from fl4health_tpu_torch import optim, rng
@@ -33,7 +34,9 @@ from fl4health_tpu_torch.losses.containers import LossMeter
 from fl4health_tpu_torch.metrics import efficient
 from fl4health_tpu_torch.metrics.base import MetricManager
 from fl4health_tpu_torch.models import cnn
-from fl4health_tpu_torch.models.transformer import TransformerClassifier
+from fl4health_tpu_torch.models import transformer as trm
+from fl4health_tpu_torch.models.transformer import (TransformerClassifier, layer_norm,
+                                                    layer_norm_clients)
 from fl4health_tpu_torch.server import simulation as tsim
 from fl4health_tpu_torch.server.client_manager import PoissonSamplingManager
 from fl4health_tpu_torch.strategies.client_dp_fedavgm import ClientLevelDPFedAvgM
@@ -165,7 +168,7 @@ def test_the_main_path_runs_the_vmap(monkeypatch):
     monkeypatch.setattr(tsim, "loop_clients", None)
     sim = _fedavg_mlp()
     sim.fit(2)
-    assert calls == [("client_fit", (0, None, 0, 0), "error"),
+    assert calls == [("client_fit", (0, None, 0, 0, 0), "error"),
                      ("client_eval", (0, None, 0), "error")] * 2
 
 
@@ -412,3 +415,102 @@ def test_remat_backward_records_no_graph():
     for name, g in grads.items():
         if name.startswith("layer_"):
             assert g.grad_fn is None, name
+
+
+# ---------------------------------------------------------------------------
+# Layer norm: the client-batched Function and its rule
+# ---------------------------------------------------------------------------
+
+def _ln_inputs(k=3, seed=0, d=8):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((k, 4, 5, d), generator=g)
+    scale = 1.0 + 0.5 * torch.randn((k, d), generator=g)
+    bias = torch.randn((k, d), generator=g)
+    w = torch.randn((5, d), generator=g)  # a loss weight: uneven cotangents
+    return x, scale, bias, w
+
+
+def _ln_loss(layer_norm):
+    def loss(scale, bias, x, w):
+        return (layer_norm(x, scale, bias).pow(2) * w).sum()
+    return loss
+
+
+def _plain_ln(x, scale, bias):
+    return F.layer_norm(x, scale.shape, scale, bias, 1e-6)
+
+
+def test_layer_norm_clients_matches_f_layer_norm_per_client():
+    x, scale, bias, _ = _ln_inputs()
+    got = layer_norm_clients(x, scale, bias)
+    for i in range(3):
+        torch.testing.assert_close(got[i], _plain_ln(x[i], scale[i], bias[i]), **RULE_TOL)
+
+
+@pytest.mark.parametrize("transform", ["vmap", "vmap_no_grad", "vmap_grad",
+                                       "vmap_vmap_grad"])
+def test_layer_norm_rule_matches_f_layer_norm_per_client(transform):
+    """The rule under vmap over clients, vmap(grad) and vmap(vmap(grad))
+    (clients, then examples with the client's weights shared), and the plain
+    ops under vmap without grad mode, against F.layer_norm and autograd
+    client by client (and example by example)."""
+    x, scale, bias, w = _ln_inputs(seed=1)
+    if transform in ("vmap", "vmap_no_grad"):
+        with torch.set_grad_enabled(transform == "vmap"):
+            got = vmap(layer_norm)(x, scale, bias)
+        for i in range(3):
+            torch.testing.assert_close(got[i], _plain_ln(x[i], scale[i], bias[i]),
+                                       **RULE_TOL)
+        return
+    argnums = (0, 1, 2)
+    if transform == "vmap_grad":
+        got = vmap(grad(_ln_loss(layer_norm), argnums), in_dims=(0, 0, 0, None))(
+            scale, bias, x, w)
+        want = [grad(_ln_loss(_plain_ln), argnums)(scale[i], bias[i], x[i], w)
+                for i in range(3)]
+    else:
+        per_example = vmap(grad(_ln_loss(layer_norm), argnums), in_dims=(None, None, 0, None))
+        got = vmap(per_example, in_dims=(0, 0, 0, None))(scale, bias, x, w)
+        want = [[grad(_ln_loss(_plain_ln), argnums)(scale[i], bias[i], x[i, e], w)
+                 for e in range(x.shape[1])] for i in range(3)]
+        want = [tuple(torch.stack([per[e][j] for e in range(len(per))]) for j in range(3))
+                for per in want]
+    for i in range(3):
+        for a, b in zip(got, want[i]):
+            torch.testing.assert_close(a[i], b, **RULE_TOL)
+
+
+def test_layer_norm_rule_folds_the_clients_inside_remat(monkeypatch):
+    """Under vmap(grad) over 3 clients of a remat transformer, every layer
+    norm that is differentiated (the remat's recompute inside its backward,
+    and ln_final) runs forward and backward once for all clients: the rule
+    folds them into its client axis and vmap's decomposition never runs; the
+    remat's forward, under no_grad, takes the plain ops. The grads equal the
+    loop's, where each client's layer norm runs alone."""
+    seen = {"forward": [], "backward": []}
+    for name, fn in (("forward", trm.layer_norm_clients_forward),
+                     ("backward", trm.layer_norm_clients_backward)):
+        def counting(*args, _fn=fn, _name=name):
+            seen[_name].append(args[0].shape[0])
+            return _fn(*args)
+        monkeypatch.setattr(trm, f"layer_norm_clients_{name}", counting)
+    cfg = dict(vocab_size=20, n_classes=3, d_model=8, n_heads=2, n_layers=2, d_ff=16,
+               max_len=10, attention_fn=fa.flash_attention, remat=True)
+    module = TransformerClassifier(**cfg)
+    g = torch.Generator().manual_seed(3)
+    stacked = ptu.stack_clients([module.init_params(g) for _ in range(3)])
+    x = torch.randint(1, 20, (3, 4, 10), generator=g)
+
+    def loss(p, xs):
+        named = {k.replace("/", "."): t for k, t in p.items()}
+        return torch.func.functional_call(module, named, (xs,))[0]["prediction"].pow(2).mean()
+
+    got = vmap(grad(loss))(stacked, x)
+    # 2 blocks x 2 norms in the recompute, and ln_final
+    assert seen["forward"] == [3] * 5 and seen["backward"] == [3] * 5
+    seen["forward"].clear()
+    for i in range(3):
+        want = grad(loss)(ptu.client_slice(stacked, i), x[i])
+        for name, t in want.items():
+            torch.testing.assert_close(got[name][i], t, rtol=1e-5, atol=1e-6)
+    assert set(seen["forward"]) == {1}

@@ -40,7 +40,8 @@ def test_sources_were_found():
             "dp_clip.py", "dpsgd.py", "instance_level_dp.py", "torch_port_round_profile.py",
             "torch_port_kernel_resources.py", "rng.py", "client_manager.py",
             "clipping.py", "client_dp_fedavgm.py", "packer.py", "partitioners.py",
-            "samplers.py", "vision.py", "accountants.py", "rdp.py", "servers.py"} <= names
+            "samplers.py", "vision.py", "accountants.py", "rdp.py", "servers.py",
+            "workqueue.py", "io.py", "pipeline.py", "base.py"} <= names
 
 
 def test_package_imports_without_jax():

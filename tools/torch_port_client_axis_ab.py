@@ -18,6 +18,24 @@ how much more the vmap spends on it.
 Run on the card from the repository root:
     python3 tools/torch_port_client_axis_ab.py [--config dp_cifar_cnn]
 
+``--layer-norm`` (transformer_long) measures the layer norm's client-vmap
+rule instead: the vmapped round under four layer norms, and the loop, in
+turns (decomposed, affine, per_client, fold_rows, loop, loop, fold_rows,
+per_client, affine, decomposed). With grad mode on, ``per_client`` (the
+model's rule) runs each client's fused ``native_layer_norm`` and its
+backward with its own weights, and ``fold_rows`` folds the clients into the
+rows (one weight-less ``native_layer_norm`` over all rows and the
+per-client affine as one ``addcmul``; the backward one weight-less
+``native_layer_norm_backward`` of ``dy * scale``, with ``dscale``/``dbias``
+summed per client); both take the model's plain ops without grad mode.
+``affine`` is those plain ops (weight-less ``F.layer_norm`` and
+``addcmul``) everywhere, differentiated by autograd; ``decomposed`` calls
+``F.layer_norm`` with the weights, which vmap decomposes for batched
+weights (the model before the rule). The loop runs ``decomposed``: for one
+client that is ``F.layer_norm``'s own fused op, the loop of the model
+before the rule. The last line gives, for each vmapped variant, the kernels
+and aten ops whose device time differs most from the loop's.
+
 Every run starts from the same params and data; how far the two axes'
 losses part over the rounds is ``tools/torch_port_client_axis_drift.py``'s
 to measure.
@@ -27,12 +45,14 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import sys
 import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
@@ -55,6 +75,51 @@ def build(config: str, dtype: torch.dtype):
     data = cs.hospital_datasets(cs.CDP_CLIENTS, cs.CDP_POOL, (32, 32, 3))
     return lambda: cs.build_client_dp_sim(data, CifarNet(10, dtype=dtype), "cuda",
                                           cs.CDP_FRACTION, seed=0)
+
+
+def fold_rows_forward(x, scale, bias, eps):
+    """The ``fold_rows`` design of ``layer_norm_clients_forward``."""
+    n, d = x.shape[0], x.shape[-1]
+    xhat, mean, rstd = torch.native_layer_norm(x.reshape(-1, d), (d,), None, None, eps)
+    y = torch.addcmul(bias[:, None], xhat.view(n, -1, d), scale[:, None])
+    stats = (*x.shape[:-1], 1)
+    return y.view(x.shape), mean.view(stats), rstd.view(stats)
+
+
+def fold_rows_backward(dy, x, mean, rstd, scale, bias):
+    """The ``fold_rows`` design of ``layer_norm_clients_backward``."""
+    n, d = x.shape[0], x.shape[-1]
+    dy3, x2 = dy.reshape(n, -1, d), x.reshape(-1, d)
+    m2, r2 = mean.reshape(-1, 1), rstd.reshape(-1, 1)
+    dx = torch.ops.aten.native_layer_norm_backward(
+        (dy3 * scale[:, None]).view(-1, d), x2, (d,), m2, r2, None, None,
+        [True, False, False])[0]
+    xhat = ((x2 - m2) * r2).view(n, -1, d)
+    return dx.view(x.shape), (dy3 * xhat).sum(1), dy3.sum(1)
+
+
+@contextlib.contextmanager
+def layer_norm_design(name: str):
+    """Run the model's layer norm as ``name``: ``per_client`` (the model's
+    own), ``fold_rows`` or ``decomposed``."""
+    from fl4health_tpu_torch.models import transformer as trm
+
+    saved = (trm.layer_norm, trm.layer_norm_clients_forward,
+             trm.layer_norm_clients_backward)
+    if name == "fold_rows":
+        trm.layer_norm_clients_forward = fold_rows_forward
+        trm.layer_norm_clients_backward = fold_rows_backward
+    elif name == "decomposed":
+        trm.layer_norm = lambda x, scale, bias, eps=1e-6: F.layer_norm(  # noqa: E731
+            x, scale.shape, scale, bias, eps)
+    elif name == "affine":
+        trm.layer_norm = lambda x, scale, bias, eps=1e-6: torch.addcmul(  # noqa: E731
+            bias, F.layer_norm(x, scale.shape, None, None, eps), scale)
+    try:
+        yield
+    finally:
+        (trm.layer_norm, trm.layer_norm_clients_forward,
+         trm.layer_norm_clients_backward) = saved
 
 
 def run(make_sim, axis, rounds: int) -> tuple[dict, collections.Counter,
@@ -94,6 +159,8 @@ def main() -> int:
                                              "client_dp_cifar_cnn"),
                         default="transformer_long")
     parser.add_argument("--rounds", type=int, default=3)
+    parser.add_argument("--layer-norm", action="store_true",
+                        help="compare the layer norm's vmap designs (transformer_long)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA card", file=sys.stderr)
@@ -101,6 +168,8 @@ def main() -> int:
     from fl4health_tpu_torch.server import simulation as tsim
 
     make_sim = build(args.config, torch.bfloat16)
+    if args.layer_norm:
+        return layer_norm_ab(make_sim, args, tsim)
     profiles = {}
     for axis in (tsim.vmap_clients, tsim.loop_clients, tsim.loop_clients,
                  tsim.vmap_clients):
@@ -114,6 +183,30 @@ def main() -> int:
                 for n in sorted(set(v) | set(lp), key=lambda n: lp[n] - v[n])]
     print(json.dumps({"config": args.config, "device_s_by_kernel": by_name(0),
                       "device_s_by_aten_op": by_name(1)}))
+    return 0
+
+
+def layer_norm_ab(make_sim, args, tsim) -> int:
+    order = ["decomposed", "affine", "per_client", "fold_rows", "loop", "loop",
+             "fold_rows", "per_client", "affine", "decomposed"]
+    profiles = {}
+    for name in order:
+        axis = tsim.loop_clients if name == "loop" else tsim.vmap_clients
+        with layer_norm_design("decomposed" if name == "loop" else name):
+            rec, *counters = run(make_sim, axis, args.rounds)
+        profiles.setdefault(name, counters)
+        print(json.dumps({"config": args.config, "layer_norm": name, **rec}), flush=True)
+
+    def top(name, i, n=12):
+        v, lp = profiles[name][i], profiles["loop"][i]
+        keys = sorted(set(v) | set(lp), key=lambda k: -abs(v[k] - lp[k]))[:n]
+        return [{"name": k, "vmap_s": v[k], "loop_s": lp[k]} for k in keys]
+
+    print(json.dumps({"config": args.config, "against_loop": {
+        name: {"device_s": sum(profiles[name][0].values()),
+               "loop_device_s": sum(profiles["loop"][0].values()),
+               "by_kernel": top(name, 0), "by_aten_op": top(name, 1)}
+        for name in ("decomposed", "affine", "per_client", "fold_rows")}}))
     return 0
 
 

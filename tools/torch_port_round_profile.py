@@ -2,11 +2,16 @@
 """Where one round of a port path spends its device time.
 
 Builds one of ``chip_smoke.py``'s full-width federated runs on the card, runs
-one warm-up round, then profiles the next round with ``torch.profiler`` (CPU
-+ CUDA activities) and prints one JSON line: the round's host wall time, the
-summed device time by kernel group, the top kernels by device time, the
-device busy share (summed kernel time over the profiled wall; a single
-stream, so kernels do not overlap) and the round's peak device memory.
+one warm-up round, then profiles the next round (``--rounds N``: the next N,
+in one pipelined ``fit``, so the producer runs ahead across them) with
+``torch.profiler`` (CPU + CUDA activities) and prints one JSON line: the
+rounds' host wall time, the summed device time by kernel group, the top
+kernels by device time, the device busy share (summed kernel time over the
+profiled wall; a single stream, so kernels do not overlap), the rounds' peak
+device memory, and the host pipeline's share (``pipeline``: the host time
+of the consumer's epilogues, of the index plans and of the batch gathers,
+each on the thread that ran it, and the bytes of a round's one
+device-to-host pull).
 
 The rounds run every client in one ``torch.func.vmap`` (the simulation's
 ``vmap_clients``), so each range below opens once a local step (or once a
@@ -41,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import bisect
+import collections
 import json
 import os
 import sys
@@ -53,6 +59,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 RANGES = ("profile::value_and_grads", "profile::dp_clip_noise", "profile::eval")
+
 CDP_RANGES = ("profile::value_and_grads", "profile::finalize_round", "profile::sample",
               "profile::aggregate", "profile::eval")
 
@@ -129,6 +136,39 @@ def dp_sim():
     return sim
 
 
+def pipeline_timers(sim) -> dict:
+    """Host clocks around the round pipeline's work, on whichever thread runs
+    it (the profiler records no ranges on the pipeline's own threads): the
+    consumer's epilogue (its one pull included), the index plans and the
+    batch gathers (the prefetcher's, on its worker thread). Returns the dict
+    the seconds, calls and each round's pull size go into."""
+    from fl4health_tpu_torch.clients import engine
+
+    timed = {"host_s": collections.Counter(), "calls": collections.Counter(),
+             "pull_bytes": []}
+
+    def clocked(name, fn):
+        def call(*args):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                timed["host_s"][name] += time.perf_counter() - t0
+                timed["calls"][name] += 1
+        return call
+
+    finish = clocked("finish_round", sim._finish_round)
+
+    def finish_round(work):
+        timed["pull_bytes"].append(work.pull.nbytes)
+        return finish(work)
+
+    sim._finish_round = finish_round
+    sim._round_plan = clocked("round_plan", sim._round_plan)
+    engine.gather_batches = clocked("gather", engine.gather_batches)
+    return timed
+
+
 def device_time_by_range(prof, names) -> tuple[dict, dict, dict]:
     """(device s, host s, calls) per range name, from the profiler's trace:
     a device op (kernel, copy, fill) counts for the range whose host
@@ -165,19 +205,25 @@ def main() -> int:
     parser.add_argument("--config", choices=("transformer_long", "dp_cifar_cnn",
                                              "client_dp_cifar_cnn"),
                         default="transformer_long")
+    parser.add_argument("--rounds", type=int, default=1,
+                        help="profile this many rounds in one pipelined fit (the "
+                             "times are their sums, the busy share over their wall)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA card", file=sys.stderr)
         return 1
     sim = {"dp_cifar_cnn": dp_sim, "client_dp_cifar_cnn": client_dp_sim,
            "transformer_long": transformer_sim}[args.config]()
+    timed = pipeline_timers(sim)
     sim.fit(1)  # warm-up: kernel build, cuBLAS/cuDNN handles, allocator
     torch.cuda.synchronize()
+    for counter in (timed["host_s"], timed["calls"]):
+        counter.clear()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.reset_peak_memory_stats()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.time()
-        sim.fit(1)
+        sim.fit(args.rounds)
         torch.cuda.synchronize()
         wall = time.time() - t0
     groups: dict[str, float] = {}
@@ -195,15 +241,21 @@ def main() -> int:
         kernels.append((dev_us / 1e6, evt.count, evt.key[:90]))
     busy = sum(groups.values())
     kernels.sort(reverse=True)
-    rec = sim.history[-1]
+    recs = sim.history[-args.rounds:]
     out = {
-        "config": args.config, "profiled_round": rec.round, "round_wall_s": wall,
-        "fit_s": rec.fit_elapsed_s, "eval_s": rec.eval_elapsed_s,
+        "config": args.config, "profiled_rounds": [r.round for r in recs],
+        "round_wall_s": wall,
+        # host time around the dispatches: the pipelined producer never
+        # waits for the device
+        "fit_dispatch_s": sum(r.fit_elapsed_s for r in recs),
+        "eval_dispatch_s": sum(r.eval_elapsed_s for r in recs),
         "device_s_by_group": groups, "device_busy_s": busy,
         "device_busy_share": busy / wall,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
         "top_kernels": [{"s": s, "count": c, "name": n} for s, c, n in kernels[:12]],
     }
+    out["pipeline"] = {"host_s": dict(timed["host_s"]), "calls": dict(timed["calls"]),
+                       "pull_bytes": timed["pull_bytes"][-1]}
     if args.config == "dp_cifar_cnn":
         device, host, calls = device_time_by_range(prof, RANGES)
         vg, dpc, ev = (device[n] for n in RANGES)
