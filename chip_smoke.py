@@ -107,6 +107,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      NaN-poisoned client: under ``accept_failures=False`` it must raise
      ``ClientFailuresError`` naming that client and round 1; under True it
      must finish, within VMAP_TOL of the run without that client.
+ 13. Tiny card-vs-CPU runs of the config-2 algorithms (f32, 3 clients, 2
+     rounds, the same params): SCAFFOLD with its warm start, FedProx, MOON
+     (buffer 2: the contrastive term 0 in round 1, positive in round 2) and
+     DP-SCAFFOLD at sigma 1 with its warm start (the kernels on the card):
+     losses and params within 5e-4.
+ 14. ``scaffold_cifar_cnn``, BASELINE.json config 2: CifarNet at full width,
+     bf16 compute, over 16 non-IID Dirichlet clients (beta 0.5) of a
+     3,584-row pool, batch 32, one local epoch (uneven clients: padded
+     steps), SGD(0.01) (the examples' 0.1 diverges on this pool, in the JAX
+     package as in the port: ``tests/test_torch_scaffold.py``),
+     ``scaffold_warm_start`` then 3 pipelined rounds, under
+     ``FailurePolicy(accept_failures=False)`` (a client whose loss turns
+     non-finite ends the run): the global params after the warm start equal
+     the init bit for bit, the control variates' norm after the warm start
+     and each round, finite losses, moving params, no kernel launched (as
+     in JAX).
+ 15. ``fedprox_cifar_cnn``: the same model and clients under
+     ``FedAvgWithAdaptiveConstraint`` (mu 0.1, delta 0.1, patience 5) and
+     ``FedProxServer``, SGD(0.01), 3 rounds under the same strict policy:
+     mu's trajectory, the vanilla and penalty losses.
+ 16. ``dp_scaffold_cifar_cnn``: the DP path's model and data under
+     DP-SCAFFOLD (lr 0.05, C = 1, sigma = 1), ``DpScaffoldServer`` with the
+     warm start, 2 rounds under the strict policy: (2 + 1) x 5 steps, so 15
+     K1 and 120 K2 launches, exactly, and no copy of the per-example tensor;
+     the accountant's epsilon, with the warm start charged as one
+     full-participation round, must equal its CPU value. It is printed as
+     the accountant's, not as the run's guarantee: the warm start rolls the
+     clients' keys back, so round 1 redraws the warm start's noise.
 Every ``fit`` is the pipelined path: the producer never waits for the
 device, so ``fit_elapsed_s``/``eval_elapsed_s`` are dispatch times. Each main
 path prints the synchronised wall of its rounds and its peak device memory,
@@ -119,6 +147,7 @@ every kernel, the card line again, and the result line.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -188,6 +217,26 @@ TINY_CDP_STRATEGY = dict(noise_multiplier=0.1, server_momentum=0.5,
 # The pipelined phase: the DP path with a test split, early stopping in
 # chunks of 2 steps at patience 1, a strict failure policy and a JSON report
 PIPE_ROUNDS, PIPE_TEST, PIPE_INTERVAL, PIPE_PATIENCE = 3, 64, 2, 1
+# BASELINE.json config 2 (CIFAR-10 FedProx + SCAFFOLD, 16 non-IID clients):
+# CifarNet over 16 clients cut by DirichletLabelBasedAllocation(beta 0.5, at
+# least 1 example of each label a client, hash key 42) from a 3,584-row pool
+# (16 x 224, cifar_cnn's rows a client), each split 80/20 with hash key
+# 7 + i; batch 32, one local epoch, SCAFFOLD's server lr 1.0 with the warm
+# start, FedProx's mu 0.1, delta 0.1 and patience 5 (examples/scaffold_example
+# and examples/fedprox_example). Their SGD(0.1) diverges on this pool, in the
+# JAX package as in the port (tests/test_torch_scaffold.py: round 1 after
+# the warm start loses the same clients to losses past 1e4 in both), so
+# both phases' clients take SGD(0.01), under a strict failure policy
+ALG_CLIENTS, ALG_POOL, ALG_ROUNDS, ALG_LR, ALG_BETA = 16, 3584, 3, 0.01, 0.5
+PROX_STRATEGY = dict(initial_drift_penalty_weight=0.1, loss_weight_delta=0.1,
+                     loss_weight_patience=5)
+# DP-SCAFFOLD on the DP path's model and data: DpScaffoldClientLogic(lr
+# 0.05), Scaffold(1.0), DpScaffoldServer with the warm start, 2 rounds
+DPS_ROUNDS, DPS_LR = 2, 0.05
+# epsilon of that run at delta = 1 / (64 * 160): 2 rounds and the warm start
+# as one full-participation round, from the CPU accountant
+# (tests/test_torch_dp_scaffold.py holds both packages' accountants to it)
+DPS_EPSILON = 5.731070434636602
 # warm rounds a main path runs through each of the pipelined and inline fits
 WARM_ROUNDS = 2
 RNG_SHAPES = [(), (7,), (64,), (3, 5, 11), (579402,)]
@@ -1666,6 +1715,284 @@ def nan_client_check() -> dict:
     return res
 
 
+def dirichlet_cifar_datasets() -> list:
+    """Config 2's 16 non-IID clients: the pool from ``PRNGKey(0)``, drawn on
+    the card, partitioned on the host. At beta 0.5 over 16 clients the
+    Dirichlet draws need more than the default 5 retries to give every
+    client each label, so they retry until they do."""
+    from fl4health_tpu_torch import rng
+    from fl4health_tpu_torch.datasets.partitioners import DirichletLabelBasedAllocation
+    from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
+    from fl4health_tpu_torch.datasets.vision import split_data_and_targets
+    from fl4health_tpu_torch.server.simulation import ClientDataset
+
+    x, y = (a.cpu().numpy() for a in synthetic_classification(
+        rng.PRNGKey(0, "cuda"), ALG_POOL, (32, 32, 3), 10))
+    partitioner = DirichletLabelBasedAllocation(ALG_CLIENTS, list(range(10)),
+                                                min_label_examples=1, beta=ALG_BETA,
+                                                hash_key=42)
+    parts = partitioner.partition_dataset(x, y, max_retries=None)[0]
+    return [ClientDataset(*split_data_and_targets(px, py, 0.2, 7 + i))
+            for i, (px, py) in enumerate(parts)]
+
+
+def build_alg_sim(kind, data, device, dtype=torch.bfloat16, input_shape=(32, 32, 3),
+                  batch=BATCH, seed=0, module=None, **sim_kw):
+    """A config-2 simulation: ``kind`` "scaffold", "fedprox", "moon" (a
+    ``MoonModel`` over dense blocks, FedAvg) or "dp_scaffold" (the DP
+    path's settings); one local epoch unless ``local_steps`` is given.
+    ``FailurePolicy(accept_failures=False)``: a client whose training loss
+    turns non-finite ends the run, where the default would drop it from
+    the round's aggregate and go on."""
+    from fl4health_tpu_torch import optim
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.clients.fedprox import FedProxClientLogic
+    from fl4health_tpu_torch.clients.instance_level_dp import DpScaffoldClientLogic
+    from fl4health_tpu_torch.clients.moon import MoonClientLogic
+    from fl4health_tpu_torch.clients.scaffold import ScaffoldClientLogic
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.models.cnn import CifarNet
+    from fl4health_tpu_torch.server.simulation import FailurePolicy, FederatedSimulation
+    from fl4health_tpu_torch.strategies.fedavg import FedAvg
+    from fl4health_tpu_torch.strategies.fedprox import FedAvgWithAdaptiveConstraint
+    from fl4health_tpu_torch.strategies.scaffold import Scaffold
+
+    model = engine.from_module(module or CifarNet(10, dtype=dtype, input_shape=input_shape))
+    ce = engine.masked_cross_entropy
+    lr = DPS_LR if kind == "dp_scaffold" else ALG_LR
+    logic, strategy = {
+        "scaffold": lambda: (ScaffoldClientLogic(model, ce, learning_rate=lr), Scaffold(1.0)),
+        "fedprox": lambda: (FedProxClientLogic(model, ce),
+                            FedAvgWithAdaptiveConstraint(**PROX_STRATEGY)),
+        "moon": lambda: (MoonClientLogic(model, ce, contrastive_weight=1.0, buffer_len=2),
+                         FedAvg()),
+        "dp_scaffold": lambda: (DpScaffoldClientLogic(model, ce, learning_rate=lr,
+                                                      clipping_bound=DP_CLIP,
+                                                      noise_multiplier=DP_SIGMA),
+                                Scaffold(1.0)),
+    }[kind]()
+    if "local_steps" not in sim_kw:
+        sim_kw["local_epochs"] = 1
+    sim_kw.setdefault("failure_policy", FailurePolicy(accept_failures=False))
+    return FederatedSimulation(
+        logic=logic, tx=optim.sgd(lr), strategy=strategy, datasets=data, batch_size=batch,
+        metrics=MetricManager((efficient.accuracy(),)), seed=seed, device=device, **sim_kw)
+
+
+@contextlib.contextmanager
+def recorded_states(sim, *fields):
+    """Within the block, every server state the strategy's ``aggregate``
+    returns, as the named fields' tensors (kept on the device: no sync
+    inside the round); the strategy's own ``aggregate`` again after it."""
+    states = []
+    aggregate = sim.strategy.aggregate
+
+    def aggregate_rec(*args):
+        state = aggregate(*args)
+        states.append({f: getattr(state, f) for f in fields})
+        return state
+
+    sim.strategy.aggregate = aggregate_rec
+    try:
+        yield states
+    finally:
+        del sim.strategy.aggregate
+
+
+def tiny_algorithm_parity(dp) -> dict:
+    """The same tiny run of each algorithm (f32, 2 rounds) on the card and on
+    the CPU from the same params: SCAFFOLD with its warm start, FedProx,
+    MOON (buffer 2) and DP-SCAFFOLD at sigma 1 with its warm start (the
+    noise from the clients' keys on both, the kernels on the card); losses
+    and params within 5e-4."""
+    from fl4health_tpu_torch.models.bases import DenseFeatures, DenseHead, MoonModel
+    from fl4health_tpu_torch.server.servers import (DpScaffoldServer, FedProxServer,
+                                                    ScaffoldServer)
+
+    images = image_datasets(3, 19, 8, (8, 8, 3))
+    out = {}
+    for kind in ("scaffold", "fedprox", "moon", "dp_scaffold"):
+        runs = []
+        for device in ("cuda", "cpu"):
+            module = (MoonModel(DenseFeatures(8 * 8 * 3, (16,)), DenseHead(16, 10))
+                      if kind == "moon" else None)
+            sim = build_alg_sim(kind, images, device, torch.float32, (8, 8, 3), batch=8,
+                                seed=3, module=module)
+            if runs:
+                sim.set_global_params({k: v.cpu() for k, v in runs[0][2].items()})
+            init = {k: v.clone() for k, v in sim.global_params.items()}
+            server = {"scaffold": lambda: ScaffoldServer(sim, warm_start=True),
+                      "fedprox": lambda: FedProxServer(sim),
+                      "moon": lambda: sim,
+                      "dp_scaffold": lambda: DpScaffoldServer(sim, DP_SIGMA, 8,
+                                                              warm_start=True)}[kind]()
+            dp.reset_launch_counts()
+            hist = server.fit(2)
+            if kind == "dp_scaffold":
+                hist = hist[0]
+            runs.append((hist, sim.global_params, init, dict(dp.LAUNCHES)))
+        (gh, gp, _, gl), (ch, cp, _, cl) = runs
+        if kind == "dp_scaffold" and (min(gl.values()) == 0 or max(cl.values()) != 0):
+            fail(f"tiny dp_scaffold run: launches {gl} on the card, {cl} on the CPU")
+        for gr, cr in zip(gh, ch):
+            for key in cr.fit_losses:
+                check(f"tiny {kind} fit {key} r{gr.round}", torch.tensor(gr.fit_losses[key]),
+                      torch.tensor(cr.fit_losses[key]), 5e-4, 0)
+            check(f"tiny {kind} eval loss r{gr.round}",
+                  torch.tensor(gr.eval_losses["checkpoint"]),
+                  torch.tensor(cr.eval_losses["checkpoint"]), 5e-4, 0)
+        err = max(check(f"tiny {kind} param {k}", gp[k].cpu(), cp[k], 5e-4, 0) for k in cp)
+        out[kind] = {"fit_losses": [r.fit_losses for r in gh], "max_param_abs_err": err,
+                     **({"launches": gl} if kind == "dp_scaffold" else {})}
+    contrastive = [r["contrastive"] for r in out["moon"]["fit_losses"]]
+    if not (contrastive[0] == 0.0 and contrastive[1] > 0):
+        fail(f"tiny moon run: the contrastive term {contrastive} is not 0 in round 1 and "
+             "positive in round 2")
+    print(json.dumps({"tiny_algorithm_parity": "cuda vs cpu", "rounds": 2, **out}))
+    return out
+
+
+def alg_main_path(kind: str, fa, dp, data: list) -> dict:
+    """Config 2 at full width on the card, ``kind`` "scaffold" (the warm
+    start, then the rounds: what ``ScaffoldServer(warm_start=True).fit``
+    does, with the params read between) or "fedprox" (``FedProxServer``):
+    16 non-IID clients, 3 pipelined rounds, all clients in one vmap, no
+    client lost. It reaches no kernel, as in JAX: every launch counter must
+    stand still over the phase."""
+    from fl4health_tpu_torch.core.pytree import global_norm, tree_nbytes
+    from fl4health_tpu_torch.server.servers import FedProxServer, scaffold_warm_start
+
+    sim = build_alg_sim(kind, data, "cuda")
+    fields = (("control_variates",) if kind == "scaffold"
+              else ("drift_penalty_weight", "loss_drop_streak", "previous_loss"))
+    init = {k: v.clone() for k, v in sim.global_params.items()}
+    counters = lambda: [dict(c) for c in (fa.LAUNCHES, fa.WGMMA_LAUNCHES, dp.LAUNCHES)]  # noqa: E731
+    before = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with recorded_states(sim, *fields) as states:
+        if kind == "scaffold":
+            scaffold_warm_start(sim)
+            warm_kept_params = all(torch.equal(sim.global_params[k], v)
+                                   for k, v in init.items())
+            hist = sim.fit(ALG_ROUNDS)
+        else:
+            hist = FedProxServer(sim).fit(ALG_ROUNDS)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    after = counters()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = sim._round_plan(1)[2].sum(axis=1).astype(int).tolist()
+    for r in hist:
+        values = (*r.fit_losses.values(), *r.eval_losses.values())
+        if not all(np.isfinite(v) for v in values):
+            fail(f"{kind} round {r.round}: non-finite losses {r.fit_losses} {r.eval_losses}")
+        print(json.dumps({f"{kind}_round": r.round, "fit_losses": r.fit_losses,
+                          "eval_loss": r.eval_losses["checkpoint"],
+                          "eval_accuracy": r.eval_metrics["accuracy"],
+                          "fit_dispatch_s": r.fit_elapsed_s,
+                          "eval_dispatch_s": r.eval_elapsed_s}))
+    moved = max(float((sim.global_params[k] - init[k]).abs().max()) for k in init)
+    finite = all(torch.isfinite(v).all() for v in sim.global_params.values())
+    res = {"main_path": f"{kind}_cifar_cnn", "rounds": ALG_ROUNDS, "wall_s": wall,
+           "clients": ALG_CLIENTS, "train_rows": [d.n_train for d in data],
+           "steps_per_client": steps, "n_params": sum(v.numel() for v in init.values()),
+           "peak_mem_gib": peak, "max_param_change": moved,
+           "launch_counters_moved": before != after}
+    if kind == "scaffold":
+        # the warm start's aggregate is the first: its variates are kept
+        res["control_variate_norms"] = [float(global_norm(s["control_variates"]))
+                                        for s in states]
+        res["warm_start_kept_params"] = warm_kept_params
+        res["extra_bytes"] = tree_nbytes(sim.client_states.extra)
+        if not res["warm_start_kept_params"]:
+            fail("scaffold: the warm start moved the global params")
+        if len(states) != ALG_ROUNDS + 1 or not all(
+                np.isfinite(n) and n > 0 for n in res["control_variate_norms"]):
+            fail(f"scaffold: control variate norms {res['control_variate_norms']}")
+    else:
+        res["mu"] = [float(s["drift_penalty_weight"]) for s in states]
+        res["loss_drop_streak"] = [int(s["loss_drop_streak"]) for s in states]
+        if not all(r.fit_losses["penalty"] > 0 for r in hist[1:]):
+            fail(f"fedprox: no drift penalty after round 1: {[r.fit_losses for r in hist]}")
+    # under the strict policy: a client lost in these rounds ends the run
+    res["warm_walls"] = pipeline_walls(sim)
+    print(json.dumps(res))
+    if not finite or moved <= 0:
+        fail(f"{kind} global params after training: finite={finite}, max change {moved}")
+    if min(steps) == max(steps):
+        fail(f"{kind}: the clients are not uneven: {steps}")
+    if before != after:
+        fail(f"the {kind} path launched kernels: {before} -> {after}")
+    return res
+
+
+def dp_scaffold_main_path(dp) -> dict:
+    """Full-width DP-SCAFFOLD of CifarNet, bf16 compute, the warm start and 2
+    rounds under DpScaffoldServer, the DP launch counts set to 0 just before
+    and read just after: (2 rounds + the warm start) x 5 steps, each one K1
+    launch and one K2 launch a leaf for all 64 clients."""
+    from fl4health_tpu_torch.core.pytree import global_norm
+    from fl4health_tpu_torch.server.servers import DpScaffoldServer
+
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    sim = build_alg_sim("dp_scaffold", data, "cuda", local_steps=LOCAL_STEPS)
+    server = DpScaffoldServer(sim, noise_multiplier=DP_SIGMA, batch_size=BATCH,
+                              warm_start=True, delta=1 / (DP_CLIENTS * DP_TRAIN))
+    init = {k: v.clone() for k, v in sim.global_params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dp.reset_launch_counts()
+    t0 = time.time()
+    with recorded_states(sim, "control_variates") as states:
+        hist, epsilon = server.fit(DPS_ROUNDS)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, copies = dict(dp.LAUNCHES), dict(dp.COPIES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for r in hist:
+        if not all(np.isfinite(v) for v in (*r.fit_losses.values(), *r.eval_losses.values())):
+            fail(f"DP-SCAFFOLD round {r.round}: non-finite losses {r.fit_losses} "
+                 f"{r.eval_losses}")
+        print(json.dumps({"dp_scaffold_round": r.round, "fit_loss": r.fit_losses["backward"],
+                          "clip_fraction": r.fit_losses["clip_fraction"],
+                          "eval_loss": r.eval_losses["checkpoint"],
+                          "eval_accuracy": r.eval_metrics["accuracy"],
+                          "fit_dispatch_s": r.fit_elapsed_s,
+                          "eval_dispatch_s": r.eval_elapsed_s}))
+    moved = max(float((sim.global_params[k] - init[k]).abs().max()) for k in init)
+    finite = all(torch.isfinite(v).all() for v in sim.global_params.values())
+    steps = (DPS_ROUNDS + 1) * LOCAL_STEPS
+    expected = {"dp_sq_norms": steps, "dp_scaled_sum": steps * len(CIFAR_LEAVES)}
+    norms = [float(global_norm(s["control_variates"])) for s in states]
+    walls = pipeline_walls(sim)
+    print(json.dumps({"main_path": "dp_scaffold_cifar_cnn", "rounds": DPS_ROUNDS,
+                      "warm_start": True, "wall_s": wall, "warm_walls": walls,
+                      "train_examples_per_s": [WARM_ROUNDS * DP_CLIENTS * LOCAL_STEPS * BATCH
+                                               / w for w in walls["pipelined_s"]],
+                      # the accountant's arithmetic, not this run's
+                      # guarantee: round 1 redraws the warm start's noise
+                      "accountant_epsilon": epsilon, "epsilon_is_a_guarantee": False,
+                      "full_participation_rounds": 1,
+                      "control_variate_norms": norms, "peak_mem_gib": peak,
+                      "max_param_change": moved, "launches": launches,
+                      "expected_launches": expected, "per_example_copies": copies}))
+    if not finite or moved <= 0:
+        fail(f"DP-SCAFFOLD global params: finite={finite}, max change {moved}")
+    if len(norms) != DPS_ROUNDS + 1 or not all(np.isfinite(n) and n > 0 for n in norms):
+        fail(f"DP-SCAFFOLD control variate norms {norms}")
+    if abs(epsilon - DPS_EPSILON) > 1e-9:
+        fail(f"DP-SCAFFOLD accountant epsilon {epsilon!r}, the CPU accountant gives "
+             f"{DPS_EPSILON!r}")
+    if launches != expected:
+        fail(f"DP-SCAFFOLD launches {launches}, expected {expected}")
+    if any(copies.values()):
+        fail(f"the DP-SCAFFOLD path copied per-example gradients: {copies}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: needs an NVIDIA card; torch.cuda.is_available() is false",
@@ -1716,6 +2043,12 @@ def main() -> int:
     client_dp_main_path(fa, dp)
     pipelined_launches = pipelined_dp_path(dp)["launches"]
 
+    tiny_algorithm_parity(dp)
+    config2 = dirichlet_cifar_datasets()
+    alg_main_path("scaffold", fa, dp, config2)
+    alg_main_path("fedprox", fa, dp, config2)
+    dp_scaffold_launches = dp_scaffold_main_path(dp)
+
     replaces = {"flash_fwd": "fl4health_tpu/kernels/flash_attention.py:71",
                 "flash_bwd_dq": "fl4health_tpu/kernels/flash_attention.py:141",
                 "flash_bwd_dkv": "fl4health_tpu/kernels/flash_attention.py:175"}
@@ -1762,6 +2095,8 @@ def main() -> int:
             "design": dp_design[name], "launches": dp_launches[name],
             # the early-stopped pipelined phase's own count (3 rounds)
             "launches_pipelined_dp_cifar_cnn": pipelined_launches[name],
+            # DP-SCAFFOLD's: the warm start and 2 rounds
+            "launches_dp_scaffold_cifar_cnn": dp_scaffold_launches[name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

@@ -16,10 +16,13 @@ tensor code over one client, with a static Python loop over the step axis
 ``torch.func.vmap``; gradients come from ``torch.func.grad_and_value``,
 which composes with that vmap.
 
-Left out here: the precision (loss scaling), ZeRO-2 microbatching and
-telemetry branches; and the algorithm hooks no
-ported logic overrides yet (``transform_gradients``,
-``update_before_step``/``update_after_step``, ``augment``).
+A step's gradients pass through ``ClientLogic.transform_gradients`` after
+``value_and_grads`` and before the optimizer, as in JAX: SCAFFOLD's
+correction ``g - c_i + c`` lands there, and under DP on the clipped and
+noised mean, once a step. Left out here: the precision (loss scaling),
+ZeRO-2 microbatching and telemetry branches; and the algorithm hooks no
+ported logic overrides yet (``update_before_step``/``update_after_step``,
+``augment``).
 """
 
 from __future__ import annotations
@@ -160,6 +163,11 @@ class ClientLogic:
             state.params)
         return (backward, aux), grads
 
+    def transform_gradients(self, grads: Params, state: TrainState, ctx: Any) -> Params:
+        """The step's gradients before the optimizer sees them (SCAFFOLD's
+        variate correction)."""
+        return grads
+
     def pack(self, state: TrainState, pushed_params: Params, train_losses: dict) -> Any:
         return pushed_params
 
@@ -207,6 +215,7 @@ def make_train_step(logic: ClientLogic, tx: GradientTransformation):
         next_key, step_key = rng.split(state.rng)
         (backward, (preds, additional)), grads = logic.value_and_grads(
             state, ctx, batch, step_key)
+        grads = logic.transform_gradients(grads, state, ctx)
         updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
         new_params = apply_updates(state.params, updates)
         keep = batch.step_mask  # padding steps must not move anything

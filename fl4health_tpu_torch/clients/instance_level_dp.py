@@ -8,10 +8,15 @@ The step's key splits into ``grad_rng, noise_rng`` as JAX's does; the noise
 draws from ``noise_rng`` (the port's models draw nothing from
 ``grad_rng``).
 
-One departure from the JAX client, by design: the clip and the sum always
+As a mixin over the ``ClientLogic`` hooks it composes with SCAFFOLD
+(``DpScaffoldClientLogic``): the engine applies ``transform_gradients``
+(``g - c_i + c``) after this hook, to the clipped and noised mean, once a
+step.
+
+One departure from the JAX clients, by design: the clip and the sum always
 take the fused route through the DP kernels (``use_fused_kernel=True``),
-which the JAX client leaves off. Both routes compute the same function.
-``DpScaffoldClientLogic`` waits for the SCAFFOLD port.
+which the JAX clients, DP-SCAFFOLD's included, leave off. Both routes
+compute the same function.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from fl4health_tpu_torch import rng
 from fl4health_tpu_torch.clients.engine import Batch, ClientLogic, TrainState
+from fl4health_tpu_torch.clients.scaffold import ScaffoldClientLogic
 from fl4health_tpu_torch.core.pytree import tree_map
 from fl4health_tpu_torch.privacy import dpsgd
 
@@ -83,3 +89,8 @@ class InstanceLevelDpMixin:
 
 class InstanceLevelDpClientLogic(InstanceLevelDpMixin, ClientLogic):
     """Plain FedAvg client with instance-level DP-SGD."""
+
+
+class DpScaffoldClientLogic(InstanceLevelDpMixin, ScaffoldClientLogic):
+    """DP-SCAFFOLD: noisy per-example gradients with the control-variate
+    correction and variate updates."""

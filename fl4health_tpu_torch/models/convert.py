@@ -2,7 +2,9 @@
 
 The port keeps flax names and layouts (Dense kernels ``[in, out]``, embedding
 ``[vocab, d]``), so conversion is flattening the nested flax dict into
-``"a/b/c"`` keys and back; no transposes.
+``"a/b/c"`` keys and back; no transposes. Nested modules flatten the same
+way: a ``MoonModel``'s tree ``{"base_module": {"Dense_0": {...}},
+"head_module": {...}}`` becomes ``base_module/Dense_0/kernel``, ...
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """FL privacy accountants (the port's own copy of
-``fl4health_tpu/privacy/accountants.py``, less the full-participation rounds
-of DP-SCAFFOLD's warm start): sampling strategies, a moments accountant
-that composes one self-composed event or a trajectory of events, the
-instance-level accountant and the two client-level ones. Pure numpy/scipy
-on the host.
+``fl4health_tpu/privacy/accountants.py``): sampling strategies, a moments
+accountant that composes one self-composed event or a trajectory of
+events, the instance-level accountant (with the full-participation rounds
+of DP-SCAFFOLD's warm start) and the two client-level ones. Pure
+numpy/scipy on the host.
 """
 
 from __future__ import annotations
@@ -104,7 +104,10 @@ class FlInstanceLevelAccountant:
     the per-step inclusion probability of a data point on client c is
     client_sampling_rate * (batch_c / dataset_c); total steps = rounds *
     steps_per_round (or epochs_per_round * batches_per_epoch_c); epsilon is
-    the max over clients."""
+    the max over clients. ``full_participation_rounds`` are rounds in which
+    every client touched its data (DP-SCAFFOLD's warm start): they compose
+    at rate batch_c / dataset_c, without the client-sampling
+    amplification."""
 
     def __init__(
         self,
@@ -130,6 +133,9 @@ class FlInstanceLevelAccountant:
             PoissonSampling(client_sampling_rate * b / d)
             for b, d in zip(client_batch_sizes, client_dataset_sizes)
         ]
+        self.full_sampling_per_client = [
+            PoissonSampling(b / d) for b, d in zip(client_batch_sizes, client_dataset_sizes)
+        ]
         self.accountant = MomentsAccountant(moment_orders)
 
     def _updates_for(self, rounds: int, n_batches: int) -> int:
@@ -137,18 +143,32 @@ class FlInstanceLevelAccountant:
             return ceil(rounds * self.steps_per_round)
         return ceil(rounds * self.epochs_per_round * n_batches)
 
-    def _per_client(self, fn, server_updates: int, value: float) -> float:
-        return max(
-            fn(sampling, self.noise_multiplier,
-               self._updates_for(server_updates, n_batches), value)
-            for n_batches, sampling in zip(self.num_batches_per_client,
-                                           self.sampling_per_client))
+    def _per_client(self, fn, server_updates: int, value: float,
+                    full_participation_rounds: int = 0) -> float:
+        results = []
+        for n_batches, sampling, full_sampling in zip(
+                self.num_batches_per_client, self.sampling_per_client,
+                self.full_sampling_per_client):
+            total = self._updates_for(server_updates, n_batches)
+            if full_participation_rounds:
+                # the subsampled rounds and the full ones, composed as a
+                # trajectory (added in RDP space)
+                extra = self._updates_for(full_participation_rounds, n_batches)
+                results.append(fn([sampling, full_sampling], self.noise_multiplier,
+                                  [total, extra], value))
+            else:
+                results.append(fn(sampling, self.noise_multiplier, total, value))
+        return max(results)
 
-    def get_epsilon(self, server_updates: int, delta: float) -> float:
-        return self._per_client(self.accountant.get_epsilon, server_updates, delta)
+    def get_epsilon(self, server_updates: int, delta: float,
+                    full_participation_rounds: int = 0) -> float:
+        return self._per_client(self.accountant.get_epsilon, server_updates, delta,
+                                full_participation_rounds)
 
-    def get_delta(self, server_updates: int, epsilon: float) -> float:
-        return self._per_client(self.accountant.get_delta, server_updates, epsilon)
+    def get_delta(self, server_updates: int, epsilon: float,
+                  full_participation_rounds: int = 0) -> float:
+        return self._per_client(self.accountant.get_delta, server_updates, epsilon,
+                                full_participation_rounds)
 
 
 class ClientLevelAccountant(ABC):

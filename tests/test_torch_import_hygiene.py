@@ -41,7 +41,8 @@ def test_sources_were_found():
             "torch_port_kernel_resources.py", "rng.py", "client_manager.py",
             "clipping.py", "client_dp_fedavgm.py", "packer.py", "partitioners.py",
             "samplers.py", "vision.py", "accountants.py", "rdp.py", "servers.py",
-            "workqueue.py", "io.py", "pipeline.py", "base.py"} <= names
+            "workqueue.py", "io.py", "pipeline.py", "base.py", "scaffold.py", "fedprox.py",
+            "moon.py", "drift.py", "contrastive.py", "bases.py"} <= names
 
 
 def test_package_imports_without_jax():

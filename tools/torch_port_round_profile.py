@@ -37,6 +37,17 @@ round) for all clients at once; ``range_calls`` counts them.
       strategy's ``aggregate`` (weighted sums, server noise, momentum,
       bound update) and the evaluation phase; the rest of fit is the SGD
       update and engine glue. The path launches none of the port's kernels.
+  --config scaffold_cifar_cnn | fedprox_cifar_cnn  BASELINE.json config 2
+      (16 non-IID clients, one local epoch padded to the longest client's
+      12 steps; SCAFFOLD after its warm start); ranges around the clients'
+      ``value_and_grads`` (forward and backward, FedProx's penalty
+      included), ``transform_gradients`` (SCAFFOLD's correction),
+      ``finalize_round`` (its variate update), the strategy's ``aggregate``
+      and the evaluation phase; the rest of fit is the SGD update and
+      engine glue. No kernel of the port's.
+  --config dp_scaffold_cifar_cnn  DP-SCAFFOLD on the DP path (after its
+      warm start): the dp_cifar_cnn split, with the correction and the
+      variate update split out as above.
 
 Run on the card from the repository root:
     python3 tools/torch_port_round_profile.py [--config dp_cifar_cnn]
@@ -62,6 +73,10 @@ RANGES = ("profile::value_and_grads", "profile::dp_clip_noise", "profile::eval")
 
 CDP_RANGES = ("profile::value_and_grads", "profile::finalize_round", "profile::sample",
               "profile::aggregate", "profile::eval")
+
+ALG_RANGES = ("profile::value_and_grads", "profile::transform_gradients",
+              "profile::finalize_round", "profile::aggregate", "profile::eval",
+              "profile::dp_clip_noise")
 
 
 def kernel_group(name: str) -> str:
@@ -136,6 +151,32 @@ def dp_sim():
     return sim
 
 
+def alg_sim(kind: str):
+    """chip_smoke's config-2 path ``kind`` ("scaffold", "fedprox" or
+    "dp_scaffold"), warm-started where SCAFFOLD is, with profiler ranges."""
+    import chip_smoke as cs
+    from fl4health_tpu_torch.clients import instance_level_dp
+    from fl4health_tpu_torch.privacy import dpsgd
+    from fl4health_tpu_torch.server.servers import scaffold_warm_start
+
+    if kind == "dp_scaffold":
+        data = cs.image_datasets(cs.DP_CLIENTS, cs.DP_TRAIN, cs.DP_VAL, (32, 32, 3))
+        sim = cs.build_alg_sim(kind, data, "cuda", local_steps=cs.LOCAL_STEPS)
+        instance_level_dp.dpsgd.noisy_clipped_mean_grads = ranged(
+            ALG_RANGES[5], dpsgd.noisy_clipped_mean_grads)
+    else:
+        sim = cs.build_alg_sim(kind, cs.dirichlet_cifar_datasets(), "cuda")
+    if kind != "fedprox":
+        scaffold_warm_start(sim)
+    for obj, attr, name in ((sim.logic, "value_and_grads", ALG_RANGES[0]),
+                            (sim.logic, "transform_gradients", ALG_RANGES[1]),
+                            (sim.logic, "finalize_round", ALG_RANGES[2]),
+                            (sim.strategy, "aggregate", ALG_RANGES[3]),
+                            (sim, "_eval_round", ALG_RANGES[4])):
+        setattr(obj, attr, ranged(name, getattr(obj, attr)))
+    return sim
+
+
 def pipeline_timers(sim) -> dict:
     """Host clocks around the round pipeline's work, on whichever thread runs
     it (the profiler records no ranges on the pipeline's own threads): the
@@ -203,7 +244,8 @@ def device_time_by_range(prof, names) -> tuple[dict, dict, dict]:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", choices=("transformer_long", "dp_cifar_cnn",
-                                             "client_dp_cifar_cnn"),
+                                             "client_dp_cifar_cnn", "scaffold_cifar_cnn",
+                                             "fedprox_cifar_cnn", "dp_scaffold_cifar_cnn"),
                         default="transformer_long")
     parser.add_argument("--rounds", type=int, default=1,
                         help="profile this many rounds in one pipelined fit (the "
@@ -213,7 +255,10 @@ def main() -> int:
         print("needs an NVIDIA card", file=sys.stderr)
         return 1
     sim = {"dp_cifar_cnn": dp_sim, "client_dp_cifar_cnn": client_dp_sim,
-           "transformer_long": transformer_sim}[args.config]()
+           "transformer_long": transformer_sim,
+           "scaffold_cifar_cnn": lambda: alg_sim("scaffold"),
+           "fedprox_cifar_cnn": lambda: alg_sim("fedprox"),
+           "dp_scaffold_cifar_cnn": lambda: alg_sim("dp_scaffold")}[args.config]()
     timed = pipeline_timers(sim)
     sim.fit(1)  # warm-up: kernel build, cuBLAS/cuDNN handles, allocator
     torch.cuda.synchronize()
@@ -234,7 +279,7 @@ def main() -> int:
             dev_us = evt.self_cuda_time_total
         if dev_us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if evt.key in RANGES + CDP_RANGES:  # a range's span on the device timeline
+        if evt.key in RANGES + CDP_RANGES + ALG_RANGES:  # a range's span on the device
             continue
         g = kernel_group(evt.key)
         groups[g] = groups.get(g, 0.0) + dev_us / 1e6
@@ -283,6 +328,17 @@ def main() -> int:
         }
         # every client trains and non-participants are masked out, as in JAX
         out["clients_sampled"] = int(sim.sampled_masks[-1].sum())
+        out["range_device_s"], out["range_host_s"], out["range_calls"] = device, host, calls
+    if args.config in ("scaffold_cifar_cnn", "fedprox_cifar_cnn", "dp_scaffold_cifar_cnn"):
+        device, host, calls = device_time_by_range(prof, ALG_RANGES)
+        vg, tg, fin, agg, ev, dpc = (device[n] for n in ALG_RANGES)
+        split = {"forward_backward": vg - dpc, "correction": tg, "variate_update": fin,
+                 "server_aggregate": agg, "sgd_update_and_engine_glue":
+                 busy - vg - tg - fin - agg - ev, "eval": ev, "host_idle": wall - busy}
+        if dpc:
+            k12 = groups.get("dp_sq_norms", 0.0) + groups.get("dp_scaled_sum", 0.0)
+            split.update(dp_kernels_k1_k2=k12, dp_norms_clip_noise_glue=dpc - k12)
+        out["split_s"] = split
         out["range_device_s"], out["range_host_s"], out["range_calls"] = device, host, calls
     print(json.dumps(out))
     return 0
