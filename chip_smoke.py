@@ -135,6 +135,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      full-participation round, must equal its CPU value. It is printed as
      the accountant's, not as the run's guarantee: the warm start rolls the
      clients' keys back, so round 1 redraws the warm start's noise.
+ 17. K3-K5 at config 3's shape, bf16 [4 x 32, 128, 12, 64] with a [4, 32,
+     128] mask stack (own, shared and strided), directly and through the
+     vmap rules, held to the plain version's bounds; and their times there,
+     beside their plain versions and SDPA's forward and backward.
+ 18. Tiny card-vs-CPU runs of config 3's recipe at the bert_lora_fedopt smoke
+     config's widths (LoRA rank 4, masked adam, FedOpt(adam), LoRA-only
+     exchange, remat, f32): through flash attention (K3-K5 on the card, the
+     plain version on the CPU), and with dropout 0.1 in the dense core,
+     whose masks on the card equal the CPU's bit for bit (one train call,
+     the remat's recompute included); losses and params within 5e-4.
+ 19. ``bert_lora_fedopt_base``, BASELINE.json config 3 at BERT-base width
+     (98,403,844 params in 342 leaves, 666,628 of them trainable), 4 clients
+     of 160 train and 32 val rows, batch 32, 5 local steps, bf16 compute,
+     flash attention, no remat, 2 pipelined rounds under a strict failure
+     policy: 144 forward, 120 dQ and 120 dK/dV launches, exactly, all on
+     the tensor cores; finite losses falling over the rounds; each client
+     pushes exactly its trainable elements; no frozen leaf of any client
+     moves.
+ 20. ``precision_mnist``: MnistNet (dtype=None) on bench.py's cifar_cnn
+     traffic (64 clients, batch 32, 5 SGD(0.05) steps, FedAvg, 28x28x1), 3
+     rounds in each of the f32, bf16 and fp16 (dynamic loss scaling) arms
+     from the same params: finite falling training losses, a final
+     validation loss within 0.05 of f32's, f32 master params and optimizer
+     state, the fp16 arm's skipped steps and scale, and no kernel launched.
 Every ``fit`` is the pipelined path: the producer never waits for the
 device, so ``fit_elapsed_s``/``eval_elapsed_s`` are dispatch times. Each main
 path prints the synchronised wall of its rounds and its peak device memory,
@@ -239,6 +263,27 @@ DPS_ROUNDS, DPS_LR = 2, 0.05
 DPS_EPSILON = 5.731070434636602
 # warm rounds a main path runs through each of the pipelined and inline fits
 WARM_ROUNDS = 2
+# BASELINE.json config 3 (BERT fine-tuning, FedOpt, AG-News-shaped text):
+# bench.py's transformer config (vocab 16384, d_model 768, 12 heads, 12
+# layers, d_ff 3072, T 128, bf16 compute on f32 params, flash attention, no
+# remat) with examples/bert_finetuning_example's LoRA (rank 4), client
+# masked adam(0.01), server FedOpt(adam(0.01)) and LoRA-only exchange; 4
+# clients of 160 train and 32 val rows, batch 32, 5 local steps, dropout 0
+BERT_CFG = dict(vocab_size=16384, n_classes=4, d_model=768, n_heads=12, n_layers=12,
+                d_ff=3072, max_len=128)
+BERT_CLIENTS, BERT_TRAIN, BERT_VAL, BERT_ROUNDS, BERT_LORA, BERT_LR = 4, 160, 32, 2, 4, 0.01
+BERT_PARAMS, BERT_LEAVES, BERT_TRAINABLE = 98_403_844, 342, 666_628
+# tests/smoke/harness.py's bert_lora_fedopt, for the tiny card-vs-CPU runs
+TINY_BERT = dict(vocab_size=96, n_classes=4, d_model=32, n_heads=2, n_layers=2, d_ff=64,
+                 max_len=12)
+# precision_mnist: bench.py's cifar_cnn traffic (64 clients of 160 train and
+# 64 val rows, batch 32, 5 local SGD(0.05) steps, FedAvg, seed 0) on config
+# 1's MnistNet (dtype=None, which the policy reaches) at 28x28x1, 3 rounds
+# in each of the f32, bf16 and fp16 arms
+PREC_CLIENTS, PREC_ROUNDS = 64, 3
+# the pinned bf16-vs-f32 loss gap (tests/precision/test_precision_sim.py's
+# CIFAR_BF16_LOSS_ATOL), held here for both low-precision arms
+PREC_LOSS_ATOL = 0.05
 RNG_SHAPES = [(), (7,), (64,), (3, 5, 11), (579402,)]
 # CifarNet's parameter leaves, each with a leading per-example axis on the path
 CIFAR_LEAVES = {"Conv_0/kernel": (5, 5, 3, 32), "Conv_0/bias": (32,),
@@ -335,11 +380,12 @@ def pipeline_walls(sim, rounds: int = WARM_ROUNDS) -> dict:
     return {"rounds": rounds, **walls}
 
 
-def attention_inputs(b: int, t: int, dtype: torch.dtype, seed: int, d: int = D):
+def attention_inputs(b: int, t: int, dtype: torch.dtype, seed: int, d: int = D,
+                     h: int = H):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = (torch.randn((b, t, H, d), generator=g, device="cuda").to(dtype)
+    q, k, v, do = (torch.randn((b, t, h, d), generator=g, device="cuda").to(dtype)
                    for _ in range(4))
-    dlse = torch.randn((b, H, t), generator=g, device="cuda")
+    dlse = torch.randn((b, h, t), generator=g, device="cuda")
     lengths = np.random.default_rng(seed).integers(t // 2, t + 1, size=b)
     lengths[-1] = 0  # one batch element with no real key
     mask = (torch.arange(t)[None, :] < torch.tensor(lengths)[:, None]).float().cuda()
@@ -504,20 +550,21 @@ def cuda_core_launchers(fa, q, k, v, mask, do, lse, delta):
     return fwd, bwd_dq, dkv, {"out": out, "lse": lse_out, "dq": dq, "dk": dk, "dv": dv}
 
 
-def kernel_timings(fa, dtype: torch.dtype, clients: int = 1) -> dict:
-    """Kernel, plain version and SDPA times at the main path's shapes. With
-    ``clients`` > 1, the shape the client vmap hands every launch on the
-    main path: the clients' batches folded into one, ``[clients * B, T, H,
-    D]``, the mask a ``[clients, B, T]`` stack of each client's rows. With 1,
-    one client's batch, beside the first slice's CUDA-core kernels on the
-    same inputs."""
-    b = clients * B
-    q, k, v, mask, do, dlse = attention_inputs(b, T, dtype, seed=11)
-    stack = mask.view(clients, B, T) if clients > 1 else mask
+def kernel_timings(fa, dtype: torch.dtype, clients: int = 1, batch: int = B, t: int = T,
+                   h: int = H) -> dict:
+    """Kernel, plain version and SDPA times at a main path's shapes
+    (transformer_long's by default). With ``clients`` > 1, the shape the
+    client vmap hands every launch on the path: the clients' batches folded
+    into one, ``[clients * batch, t, h, D]``, the mask a ``[clients, batch,
+    t]`` stack of each client's rows. With 1, one client's batch, beside the
+    first slice's CUDA-core kernels on the same inputs."""
+    b = clients * batch
+    q, k, v, mask, do, dlse = attention_inputs(b, t, dtype, seed=11, h=h)
+    stack = mask.view(clients, batch, t) if clients > 1 else mask
     es = q.element_size()
-    n, rows = q.numel(), b * H * T
+    n, rows = q.numel(), b * h * t
     # query rows x real keys, over batch and heads: the work this data needs
-    pairs = float(T * H * mask.sum())
+    pairs = float(t * h * mask.sum())
     small = mask.numel() * 4 + rows * 4  # mask + one [B,H,T] f32 vector
     with torch.no_grad():
         out, lse = fa.flash_fwd(q, k, v, stack)
@@ -557,7 +604,7 @@ def kernel_timings(fa, dtype: torch.dtype, clients: int = 1) -> dict:
     o = F.scaled_dot_product_attention(*leaves, attn_mask=key_ok)
     doh = do.transpose(1, 2).contiguous()
     sdpa_bwd = cuda_ms(lambda: torch.autograd.grad(o, leaves, doh, retain_graph=True))
-    print(json.dumps({"timing": str(dtype).split(".")[-1], "shape": [b, T, H, D],
+    print(json.dumps({"timing": str(dtype).split(".")[-1], "shape": [b, t, h, D],
                       "mask_blocks": clients,
                       **{k: {kk: vv for kk, vv in r.items()} for k, r in res.items()},
                       "sdpa_backward_ms": sdpa_bwd,
@@ -570,7 +617,8 @@ def kernel_timings(fa, dtype: torch.dtype, clients: int = 1) -> dict:
     return res
 
 
-def vmapped_kernel_checks(fa, seed: int) -> dict:
+def vmapped_kernel_checks(fa, seed: int, n: int = N_CLIENTS, batch: int = B, t: int = T,
+                          h: int = H) -> dict:
     """K3-K5 at the shape the client vmap hands them on the main path:
     bf16 ``[N_CLIENTS * B, T, H, D]`` (both clients' batches folded), the key
     mask an ``[N_CLIENTS, B, T]`` stack of row blocks read through its block
@@ -582,20 +630,22 @@ def vmapped_kernel_checks(fa, seed: int) -> dict:
     (``torch.func.vmap`` over the clients of ``vjp`` of
     ``flash_attention_lse``, as the main path differentiates it), is held per
     client against the plain version on that client's rows and mask: out, dq,
-    dk and dv to ``bf16_operand_bounds``, lse to TOL."""
-    n, bn, tol = N_CLIENTS, N_CLIENTS * B, TOL[torch.bfloat16]
-    q, k, v, mask, do, dlse = attention_inputs(bn, T, torch.bfloat16, seed)
-    own = mask.view(n, B, T)
-    wide = torch.zeros((n, B + 16, T), device="cuda")
-    wide[:, :B] = own
+    dk and dv to ``bf16_operand_bounds``, lse to TOL. The defaults are
+    transformer_long's shapes; bert_lora_fedopt_base passes its own."""
+    bn, tol = n * batch, TOL[torch.bfloat16]
+    q, k, v, mask, do, dlse = attention_inputs(bn, t, torch.bfloat16, seed, h=h)
+    own = mask.view(n, batch, t)
+    wide = torch.zeros((n, batch + 16, t), device="cuda")
+    wide[:, :batch] = own
     # the shared mask: client 1's rows, which hold the row with no real key
-    stacks = {"own": own, "strided": wide[:, :B], "shared": own[1][None].expand(n, B, T)}
+    stacks = {"own": own, "strided": wide[:, :batch],
+              "shared": own[1][None].expand(n, batch, t)}
 
     def one_client(q, k, v, m, do, dl):
         (o, l_), pull = torch.func.vjp(lambda *x: fa.flash_attention_lse(*x, m), q, k, v)
         return (o, l_, *pull((do, dl)))
 
-    per_client = lambda x: x.view(n, B, *x.shape[1:])  # noqa: E731
+    per_client = lambda x: x.view(n, batch, *x.shape[1:])  # noqa: E731
     got = {}
     for name, stack in stacks.items():
         with torch.no_grad():
@@ -613,7 +663,7 @@ def vmapped_kernel_checks(fa, seed: int) -> dict:
                      "delta": delta}
     stats, names = {}, ("out", "lse", "dq", "dk", "dv")
     for c in range(n):
-        rows = slice(c * B, (c + 1) * B)
+        rows = slice(c * batch, (c + 1) * batch)
         qf, kf, vf, dof = (x[rows].float() for x in (q, k, v, do))
         # own and strided hold the same values: one plain version serves both
         for mask_of, which in ((own[c], ("own", "strided")), (own[1], ("shared",))):
@@ -646,7 +696,7 @@ def vmapped_kernel_checks(fa, seed: int) -> dict:
              for k, outs in kernel_of.items()}
     same = {name: all(torch.equal(a, b) for a, b in zip(g["kernels"], g["vmap"]))
             for name, g in got.items()}
-    print(json.dumps({"check": "K3-K5 at the vmapped shape", "shape": [bn, T, H, D],
+    print(json.dumps({"check": "K3-K5 at the vmapped shape", "shape": [bn, t, h, D],
                       "mask_stacks": {k: list(m.stride()) for k, m in stacks.items()},
                       "max_abs_err": err, "bound_used": share,
                       "vmap_rules_bit_identical_to_direct_launches": same,
@@ -702,25 +752,9 @@ def tiny_parity() -> None:
     cfg = dict(vocab_size=64, n_classes=4, d_model=64, n_heads=2, n_layers=2,
                d_ff=128, max_len=80)
     data = text_datasets(64, 80, 48, 40)
-    runs = []
-    for device in ("cuda", "cpu"):
-        sim = build_sim(cfg, data, torch.float32, device, seed=3)
-        if runs:
-            sim.set_global_params({k: v.cpu() for k, v in runs[0][2].items()})
-        init = {k: v.clone() for k, v in sim.global_params.items()}
-        runs.append((sim.fit(2), sim.global_params, init))
-    (gpu_hist, gpu_params, _), (cpu_hist, cpu_params, _) = runs
-    for gr, cr in zip(gpu_hist, cpu_hist):
-        for key in ("backward",):
-            check(f"tiny fit loss r{gr.round}", torch.tensor(gr.fit_losses[key]),
-                  torch.tensor(cr.fit_losses[key]), 5e-4, 0)
-        check(f"tiny eval loss r{gr.round}", torch.tensor(gr.eval_losses["checkpoint"]),
-              torch.tensor(cr.eval_losses["checkpoint"]), 5e-4, 0)
-    err = max(check(f"tiny param {k}", gpu_params[k].cpu(), cpu_params[k], 5e-4, 0)
-              for k in cpu_params)
-    print(json.dumps({"tiny_parity": "cuda kernels vs cpu plain", "rounds": 2,
-                      "fit_losses": [r.fit_losses["backward"] for r in gpu_hist],
-                      "max_param_abs_err": err}))
+    res = card_vs_cpu("tiny", lambda device: build_sim(cfg, data, torch.float32, device,
+                                                        seed=3), 2)
+    print(json.dumps({"tiny_parity": "cuda kernels vs cpu plain", **res}))
 
 
 def bf16_model_check(fa) -> dict:
@@ -1993,6 +2027,308 @@ def dp_scaffold_main_path(dp) -> dict:
     return launches
 
 
+def bert_datasets(cfg: dict, n_clients: int, n_rows: int, n_train: int,
+                  first_key: int = 0, **kw) -> list:
+    """Client i's rows from ``PRNGKey(first_key + i)``, drawn on the card as
+    the JAX generator draws them, kept on the host as the simulation takes
+    them."""
+    from fl4health_tpu_torch import rng
+    from fl4health_tpu_torch.datasets.synthetic import synthetic_text_classification
+    from fl4health_tpu_torch.server.simulation import ClientDataset
+
+    out = []
+    for i in range(n_clients):
+        x, y = (a.cpu() for a in synthetic_text_classification(
+            rng.PRNGKey(first_key + i, "cuda"), n_rows, cfg["vocab_size"], cfg["max_len"],
+            cfg["n_classes"], **kw))
+        out.append(ClientDataset(x[:n_train], y[:n_train], x[n_train:], y[n_train:]))
+    return out
+
+
+def build_bert_sim(cfg: dict, data, dtype, device, seed, attention_fn, remat: bool,
+                   client_lr: float, batch: int, local_steps: int, dropout_rate: float = 0.0,
+                   **sim_kw):
+    """Config 3's recipe: LoRA (rank 4) on the transformer, client
+    ``masked_optimizer(adam)``, server ``FedOpt(adam(0.01))``,
+    ``lora_exchanger``."""
+    from fl4health_tpu_torch import optim
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.models.transformer import TransformerClassifier
+    from fl4health_tpu_torch.server.simulation import FederatedSimulation
+    from fl4health_tpu_torch.strategies.fedopt import FedOpt
+    from fl4health_tpu_torch.utils.peft import (lora_exchanger, lora_trainable_mask,
+                                                masked_optimizer)
+
+    module = TransformerClassifier(**cfg, lora_rank=BERT_LORA, dtype=dtype, remat=remat,
+                                   attention_fn=attention_fn, dropout_rate=dropout_rate)
+    paths = {name.replace(".", "/"): None for name, _ in module.named_parameters()}
+    return FederatedSimulation(
+        logic=engine.ClientLogic(engine.from_module(module), engine.masked_cross_entropy),
+        tx=masked_optimizer(optim.adam(client_lr), lora_trainable_mask(paths)),
+        strategy=FedOpt(optim.adam(BERT_LR)), datasets=data, batch_size=batch,
+        metrics=MetricManager((efficient.accuracy(),)), local_steps=local_steps, seed=seed,
+        exchanger=lora_exchanger(), device=device, **sim_kw)
+
+
+def card_vs_cpu(name: str, make_sim, rounds: int) -> dict:
+    """The same run on the card and on the CPU from the same params: losses
+    and params within 5e-4."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        sim = make_sim(device)
+        if runs:
+            sim.set_global_params({k: v.cpu() for k, v in runs[0][2].items()})
+        init = {k: v.clone() for k, v in sim.global_params.items()}
+        runs.append((sim.fit(rounds), sim.global_params, init))
+    (gpu_hist, gpu_params, _), (cpu_hist, cpu_params, _) = runs
+    for gr, cr in zip(gpu_hist, cpu_hist, strict=True):
+        check(f"{name} fit loss r{gr.round}", torch.tensor(gr.fit_losses["backward"]),
+              torch.tensor(cr.fit_losses["backward"]), 5e-4, 0)
+        check(f"{name} eval loss r{gr.round}", torch.tensor(gr.eval_losses["checkpoint"]),
+              torch.tensor(cr.eval_losses["checkpoint"]), 5e-4, 0)
+    err = max(check(f"{name} param {k}", gpu_params[k].cpu(), cpu_params[k], 5e-4, 0)
+              for k in cpu_params)
+    return {"rounds": rounds, "fit_losses": [r.fit_losses["backward"] for r in gpu_hist],
+            "max_param_abs_err": err}
+
+
+def tiny_bert_parity(fa) -> None:
+    """tests/smoke/harness.py's bert_lora_fedopt (3 clients, LoRA rank 4,
+    masked adam(5e-3), FedOpt(adam(0.01)), batch 12, 6 steps, remat, f32)
+    through flash attention: K3-K5 on the card (head dim 16, the CUDA-core
+    route) against the plain version on the CPU, 2 rounds."""
+    from fl4health_tpu_torch.kernels.flash_attention import flash_attention
+
+    data = bert_datasets(TINY_BERT, 3, 48, 36, first_key=60, class_sep=2.5)
+    fa.reset_launch_counts()
+    res = card_vs_cpu("tiny bert_lora_fedopt", lambda device: build_bert_sim(
+        TINY_BERT, data, torch.float32, device, 11, flash_attention, True, 5e-3, 12, 6), 2)
+    launches = dict(fa.LAUNCHES)
+    print(json.dumps({"tiny_parity": "bert_lora_fedopt, cuda kernels vs cpu plain",
+                      **res, "launches": launches}))
+    if min(launches.values()) == 0:
+        fail(f"tiny bert_lora_fedopt: a kernel never ran on the card {launches}")
+
+
+def dropout_parity() -> None:
+    """The tiny config with dropout 0.1 (dense attention core, remat): one
+    train call's dropout masks on the card equal the CPU's bit for bit, for
+    every Dropout and the remat's recompute, and 2 federated rounds agree
+    within 5e-4."""
+    from fl4health_tpu_torch import rng
+    from fl4health_tpu_torch.models import transformer as tr
+
+    module = tr.TransformerClassifier(**TINY_BERT, lora_rank=BERT_LORA, remat=True,
+                                      dropout_rate=0.1)
+    params = module.init_params(torch.Generator().manual_seed(3))
+    x = torch.randint(1, TINY_BERT["vocab_size"], (12, TINY_BERT["max_len"]),
+                      generator=torch.Generator().manual_seed(4))
+    x[3, 6:] = 0
+    orig, masks = tr.dropout_mask, []  # one list of draws a device
+
+    def recording(key, shape, rate):
+        mask = orig(key, shape, rate)
+        # the remat's recompute runs under torch.func.vjp's wrappers
+        plain = mask
+        while torch._C._functorch.is_functorch_wrapped_tensor(plain):
+            plain = torch._C._functorch.get_unwrapped(plain)
+        with torch._C._DisableFuncTorch():
+            masks[-1].append(plain.cpu().clone())
+        return mask
+
+    tr.dropout_mask = recording
+    try:
+        for device in ("cuda", "cpu"):
+            masks.append([])
+            named = {k.replace("/", "."): v.to(device).requires_grad_(True)
+                     for k, v in params.items()}
+            out = torch.func.functional_call(module.to(device), named, (x.to(device),),
+                                             {"train": True, "rng": rng.PRNGKey(9, device)})
+            out[0]["prediction"].sum().backward()
+    finally:
+        tr.dropout_mask = orig
+    card, cpu = masks
+    if len(card) != 12 or len(cpu) != 12:
+        fail(f"dropout: expected 12 draws a device (6 and the remat's 6), got "
+             f"{len(card)} on the card and {len(cpu)} on the CPU")
+    same = all(torch.equal(a, b) for a, b in zip(card, cpu))
+    if not same:
+        fail("dropout: the masks on the card differ from the CPU's")
+    data = bert_datasets(TINY_BERT, 3, 48, 36, first_key=60, class_sep=2.5)
+    res = card_vs_cpu("tiny dropout", lambda device: build_bert_sim(
+        TINY_BERT, data, torch.float32, device, 11, None, True, 5e-3, 12, 6,
+        dropout_rate=0.1), 2)
+    print(json.dumps({"tiny_parity": "dropout 0.1, dense core, cuda vs cpu",
+                      "masks_bit_identical": same, "mask_draws": len(card),
+                      "keep_share": float(np.mean([m.float().mean() for m in card])),
+                      **res}))
+
+
+def bert_main_path(fa) -> dict:
+    """bert_lora_fedopt_base: config 3 at BERT-base width, 4 clients, 2
+    FedOpt rounds through K3-K5, pipelined under a strict failure policy."""
+    from fl4health_tpu_torch.kernels.flash_attention import flash_attention
+    from fl4health_tpu_torch.server.simulation import FailurePolicy
+    from fl4health_tpu_torch.utils.peft import lora_trainable_mask
+
+    steps, layers, batch = LOCAL_STEPS, BERT_CFG["n_layers"], BATCH
+    data = bert_datasets(BERT_CFG, BERT_CLIENTS, BERT_TRAIN + BERT_VAL, BERT_TRAIN)
+    sim = build_bert_sim(BERT_CFG, data, torch.bfloat16, "cuda", 0, flash_attention, False,
+                         BERT_LR, batch, steps,
+                         failure_policy=FailurePolicy(accept_failures=False))
+    init = {k: v.clone() for k, v in sim.global_params.items()}
+    trainable = lora_trainable_mask(init)
+    frozen = [k for k, t in trainable.items() if not t]
+    n_params, n_trainable = (sum(init[k].numel() for k in keys) for keys in
+                             (init, [k for k in init if trainable[k]]))
+    if (n_params, len(init), n_trainable) != (BERT_PARAMS, BERT_LEAVES, BERT_TRAINABLE):
+        fail(f"config 3 tree: {n_params} params in {len(init)} leaves, {n_trainable} "
+             f"trainable; expected {BERT_PARAMS}, {BERT_LEAVES}, {BERT_TRAINABLE}")
+
+    def frozen_unmoved() -> bool:
+        return all(torch.equal(sim.client_states.params[k],
+                               init[k].expand_as(sim.client_states.params[k]))
+                   for k in frozen)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    t0 = time.time()
+    hist = sim.fit(BERT_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, wgmma = dict(fa.LAUNCHES), dict(fa.WGMMA_LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for r in hist:
+        if not all(np.isfinite(v) for v in (*r.fit_losses.values(),
+                                              *r.eval_losses.values())):
+            fail(f"config 3 round {r.round}: non-finite losses {r.fit_losses} "
+                 f"{r.eval_losses}")
+        print(json.dumps({
+            "bert_round": r.round, "fit_loss": r.fit_losses["backward"],
+            "eval_loss": r.eval_losses["checkpoint"],
+            "eval_accuracy": r.eval_metrics["accuracy"],
+            "fit_dispatch_s": r.fit_elapsed_s, "eval_dispatch_s": r.eval_elapsed_s}))
+    # what a client sends: the adapters and the head, zeros elsewhere
+    pushed = [int(sum((v != 0).sum() for v in sim.exchanger.push(
+        {k: p[c] for k, p in sim.client_states.params.items()}).values()))
+        for c in range(BERT_CLIENTS)]
+    unmoved_after_fit = frozen_unmoved()
+    # the server's frozen leaves drift by about lr a round (ROADMAP C: the
+    # zeros a partial push sends become FedOpt's pseudo-gradient)
+    server_drift = max(float((sim.global_params[k] - init[k]).abs().max()) for k in frozen)
+    walls = pipeline_walls(sim)
+    losses = [r.fit_losses["backward"] for r in sim.history]
+    positions = BERT_CLIENTS * steps * batch * BERT_CFG["max_len"]
+    real = sum(int((d.x_train[: steps * batch] > 0).sum()) for d in data)
+    # per round, all clients folded into each launch by the vmap rules:
+    # 5 steps x 12 layers (no remat) + one validation batch's forward
+    expected = {"flash_fwd": BERT_ROUNDS * layers * (steps + 1),
+                "flash_bwd_dq": BERT_ROUNDS * layers * steps,
+                "flash_bwd_dkv": BERT_ROUNDS * layers * steps}
+    print(json.dumps({"main_path": "bert_lora_fedopt_base", "rounds": BERT_ROUNDS,
+                      "wall_s": wall, "warm_walls": walls,
+                      "train_token_positions_per_s": [WARM_ROUNDS * positions / w
+                                                      for w in walls["pipelined_s"]],
+                      "train_real_tokens_per_s": [WARM_ROUNDS * real / w
+                                                  for w in walls["pipelined_s"]],
+                      "n_params": n_params, "n_leaves": len(init),
+                      "n_trainable": n_trainable, "clients": BERT_CLIENTS,
+                      "peak_mem_gib": peak, "fit_losses_all_rounds": losses,
+                      "pushed_nonzero_per_client": pushed,
+                      "frozen_leaves_unmoved_on_every_client": unmoved_after_fit,
+                      "server_frozen_leaf_drift_max": server_drift,
+                      "launches": launches, "expected_launches": expected,
+                      "wgmma_launches": wgmma}))
+    if launches != expected:
+        fail(f"config 3 launches {launches}, expected {expected}")
+    if wgmma != launches:
+        fail(f"config 3 tensor-core launches {wgmma}, expected all of {launches}")
+    if not unmoved_after_fit or not frozen_unmoved():
+        fail("config 3: a frozen leaf of a client's params moved")
+    if pushed != [n_trainable] * BERT_CLIENTS:
+        fail(f"config 3: non-zero pushed elements {pushed}, the trainable count is "
+             f"{n_trainable}")
+    if not losses[-1] < losses[0]:
+        fail(f"config 3: the training loss did not fall over the rounds {losses}")
+    return launches
+
+
+def precision_main_path(fa, dp) -> dict:
+    """precision_mnist: MnistNet (dtype=None) under no policy,
+    PrecisionConfig("bf16") and PrecisionConfig("fp16") (dynamic loss
+    scaling), 64 clients, 3 rounds each from the same params and seed."""
+    from fl4health_tpu_torch import optim
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.core.pytree import tree_leaves
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.models.cnn import MnistNet
+    from fl4health_tpu_torch.precision import PrecisionConfig
+    from fl4health_tpu_torch.server.simulation import FailurePolicy, FederatedSimulation
+    from fl4health_tpu_torch.strategies.fedavg import FedAvg
+
+    data = image_datasets(PREC_CLIENTS, BATCH * LOCAL_STEPS, 64, (28, 28, 1))
+    counters = lambda: [dict(c) for c in (fa.LAUNCHES, fa.WGMMA_LAUNCHES, dp.LAUNCHES)]  # noqa: E731
+    before, init, arms = counters(), None, {}
+    for name, precision in (("f32", None), ("bf16", PrecisionConfig("bf16")),
+                            ("fp16", PrecisionConfig("fp16"))):
+        sim = FederatedSimulation(
+            logic=engine.ClientLogic(engine.from_module(MnistNet(input_shape=(28, 28, 1))),
+                                     engine.masked_cross_entropy),
+            tx=optim.sgd(0.05), strategy=FedAvg(), datasets=data, batch_size=BATCH,
+            metrics=MetricManager((efficient.accuracy(),)), local_steps=LOCAL_STEPS,
+            seed=0, precision=precision, device="cuda",
+            failure_policy=FailurePolicy(accept_failures=False))
+        if init is None:
+            init = {k: v.clone() for k, v in sim.global_params.items()}
+        sim.set_global_params({k: v.clone() for k, v in init.items()})
+        torch.cuda.synchronize()
+        t0 = time.time()
+        hist = sim.fit(PREC_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        st = sim.client_states
+        masters = {str(x.dtype) for x in tree_leaves((st.params, st.opt_state,
+                                                      sim.global_params))}
+        arm = {"wall_s": wall, "fit_losses": [r.fit_losses["backward"] for r in hist],
+               "eval_losses": [r.eval_losses["checkpoint"] for r in hist],
+               "eval_accuracy": hist[-1].eval_metrics["accuracy"],
+               "master_dtypes": sorted(masters)}
+        if st.loss_scale is not None:
+            arm["skipped_steps"] = float(st.loss_scale["skipped"].sum())
+            arm["final_scale"] = [float(st.loss_scale["scale"].min()),
+                                  float(st.loss_scale["scale"].max())]
+        arm["warm_walls"] = pipeline_walls(sim)
+        arms[name] = arm
+    for name, arm in arms.items():
+        # the final model on the validation rows (evaluated on the f32
+        # masters), and the last round's mean training loss
+        arm["final_eval_loss_gap_to_f32"] = abs(arm["eval_losses"][-1]
+                                                - arms["f32"]["eval_losses"][-1])
+        arm["final_fit_loss_gap_to_f32"] = abs(arm["fit_losses"][-1]
+                                               - arms["f32"]["fit_losses"][-1])
+    after = counters()
+    print(json.dumps({"main_path": "precision_mnist", "rounds": PREC_ROUNDS,
+                      "clients": PREC_CLIENTS, "arms": arms,
+                      "launch_counters_moved": before != after}))
+    for name, arm in arms.items():
+        if not all(np.isfinite(v) for v in arm["fit_losses"] + arm["eval_losses"]):
+            fail(f"precision_mnist {name}: non-finite losses {arm}")
+        if arm["master_dtypes"] != ["torch.float32"]:
+            fail(f"precision_mnist {name}: masters are {arm['master_dtypes']}, not f32")
+        if not arm["fit_losses"][-1] < arm["fit_losses"][0]:
+            fail(f"precision_mnist {name}: the loss did not fall {arm['fit_losses']}")
+        if arm["final_eval_loss_gap_to_f32"] > PREC_LOSS_ATOL:
+            fail(f"precision_mnist {name}: final eval loss "
+                 f"{arm['final_eval_loss_gap_to_f32']} from f32's, beyond {PREC_LOSS_ATOL}")
+    if before != after:
+        fail(f"precision_mnist launched kernels: {before} -> {after}")
+    return arms
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: needs an NVIDIA card; torch.cuda.is_available() is false",
@@ -2049,6 +2385,17 @@ def main() -> int:
     alg_main_path("fedprox", fa, dp, config2)
     dp_scaffold_launches = dp_scaffold_main_path(dp)
 
+    # config 3: K3-K5 at its shape (4 clients folded, T 128, 12 heads), the
+    # tiny card-vs-CPU runs, the main path, and the precision policy's arms
+    bert_shape = dict(batch=BATCH, t=BERT_CFG["max_len"],
+                      h=BERT_CFG["n_heads"])
+    t128_errs = vmapped_kernel_checks(fa, seed=5, n=BERT_CLIENTS, **bert_shape)
+    t128 = kernel_timings(fa, torch.bfloat16, clients=BERT_CLIENTS, **bert_shape)
+    tiny_bert_parity(fa)
+    dropout_parity()
+    bert_launches = bert_main_path(fa)
+    precision_main_path(fa, dp)
+
     replaces = {"flash_fwd": "fl4health_tpu/kernels/flash_attention.py:71",
                 "flash_bwd_dq": "fl4health_tpu/kernels/flash_attention.py:141",
                 "flash_bwd_dkv": "fl4health_tpu/kernels/flash_attention.py:175"}
@@ -2079,7 +2426,18 @@ def main() -> int:
             **({"per_client_library_dqkv_ms": one["library_dqkv_ms"]}
                if "library_dqkv_ms" in one else {}),
             "cuda_core_source": SOURCE, "cuda_core_ms": one["cuda_core_ms"],
-            "cuda_core_max_abs_err": errs[torch.bfloat16]["max_abs_err"]["cuda_core"][name]})
+            "cuda_core_max_abs_err": errs[torch.bfloat16]["max_abs_err"]["cuda_core"][name],
+            # config 3 (bert_lora_fedopt_base): its launches, and the kernel at
+            # its shape, 4 clients folded at T 128, 12 heads, bf16
+            "launches_bert_lora_fedopt_base": bert_launches[name],
+            "t128_shape": [BERT_CLIENTS * BATCH, BERT_CFG["max_len"], BERT_CFG["n_heads"], D],
+            "t128_max_abs_err": t128_errs["max_abs_err"][name],
+            "t128_bound_used": t128_errs["bound_used"][name],
+            "t128_ms": t128[name]["ms"], "t128_plain_ms": t128[name]["plain_ms"],
+            "t128_bound_ms": t128[name]["bound"][0], "t128_bound_by": t128[name]["bound"][1],
+            "t128_library_ms": t128[name]["library_ms"],
+            **({"t128_library_dqkv_ms": t128[name]["library_dqkv_ms"]}
+               if "library_dqkv_ms" in t128[name] else {})})
     dp_replaces = {"dp_sq_norms": "fl4health_tpu/kernels/dp_clip.py:54",
                    "dp_scaled_sum": "fl4health_tpu/kernels/dp_clip.py:100"}
     dp_design = {"dp_sq_norms": "one launch over the tree: planned items, one CTA each "

@@ -19,15 +19,28 @@ which composes with that vmap.
 A step's gradients pass through ``ClientLogic.transform_gradients`` after
 ``value_and_grads`` and before the optimizer, as in JAX: SCAFFOLD's
 correction ``g - c_i + c`` lands there, and under DP on the clipped and
-noised mean, once a step. Left out here: the precision (loss scaling),
-ZeRO-2 microbatching and telemetry branches; and the algorithm hooks no
-ported logic overrides yet (``update_before_step``/``update_after_step``,
-``augment``).
+noised mean, once a step.
+
+The step key also reaches the model, as flax's ``rngs["dropout"]``: a model
+whose ``forward`` takes ``train`` and ``rng`` (``TransformerClassifier``)
+draws its dropout masks from it on train calls.
+
+Precision (``precision/policy.py``), as in JAX's ``make_train_step``: a
+low-precision compute dtype wraps the logic's model so float params and
+inputs are cast on train calls; under loss scaling (fp16) the backward is
+seeded with the scale through ``torch.func.vjp``, the gradients are
+unscaled in f32, a non-finite gradient skips the optimizer step (``keep *
+finite``) and the scaler state in ``TrainState.loss_scale`` advances on
+real steps only. A logic that computes its own gradients (DP) is refused
+under scaling. Left out here: ZeRO-2 microbatching and telemetry; and the
+algorithm hooks no ported logic overrides yet
+(``update_before_step``/``update_after_step``, ``augment``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any, Callable
 
 import numpy as np
@@ -41,6 +54,7 @@ from fl4health_tpu_torch.core.types import Params
 from fl4health_tpu_torch.losses.containers import LossMeter
 from fl4health_tpu_torch.metrics.base import MetricManager
 from fl4health_tpu_torch.optim import GradientTransformation, apply_updates
+from fl4health_tpu_torch.precision import policy as precision_policy
 
 
 # ---------------------------------------------------------------------------
@@ -67,6 +81,9 @@ class TrainState:
     rng: torch.Tensor  # [2] int64 threefry key, split once a step
     step: torch.Tensor
     extra: Any = None  # a logic's persistent state (``init_extra``); None: empty
+    # the loss-scale state {"scale", "growth", "skipped"} where the precision
+    # policy scales (fp16); None otherwise
+    loss_scale: Any = None
 
 
 @tree_dataclass
@@ -85,28 +102,34 @@ class StepOutput:
 
 @dataclasses.dataclass(frozen=True)
 class ModelDef:
-    """init(generator) -> params; apply(params, x, train) -> (preds, features).
-    ``preds`` holds at least ``"prediction"``; ``module`` is the wrapped
-    module, for checks of its structure (DP's BatchNorm check)."""
+    """init(generator) -> params; apply(params, x, train) -> (preds,
+    features). ``preds`` holds at least ``"prediction"``; ``module`` is the
+    wrapped module, for checks of its structure (DP's BatchNorm check).
+    Where ``takes_rng``, apply also takes ``rng=``, the step's key (flax's
+    ``rngs["dropout"]``)."""
 
     init: Callable[[torch.Generator], Params]
     apply: Callable[..., tuple[dict, dict]]
     module: torch.nn.Module | None = None
+    takes_rng: bool = False
 
 
 def from_module(module: torch.nn.Module) -> ModelDef:
     """Wrap a module with ``init_params(generator)`` whose forward returns
     ``(preds_dict, features_dict)``; params are applied functionally, keyed
-    by flax path."""
+    by flax path. A forward that takes ``train`` and ``rng`` gets them."""
+    takes = inspect.signature(module.forward).parameters
+    stochastic = "train" in takes and "rng" in takes
 
     def init(generator: torch.Generator) -> Params:
         return module.init_params(generator)
 
-    def apply(params: Params, x: torch.Tensor, train: bool = True):
+    def apply(params: Params, x: torch.Tensor, train: bool = True, rng=None):
         named = {k.replace("/", "."): v for k, v in params.items()}
-        return functional_call(module, named, (x,))
+        kwargs = {"train": train, "rng": rng} if stochastic else {}
+        return functional_call(module, named, (x,), kwargs)
 
-    return ModelDef(init=init, apply=apply, module=module)
+    return ModelDef(init=init, apply=apply, module=module, takes_rng=stochastic)
 
 
 # ---------------------------------------------------------------------------
@@ -134,9 +157,10 @@ class ClientLogic:
         clips the round's update here)."""
         return state
 
-    def predict(self, params: Params, batch: Batch, train: bool, ctx=None):
+    def predict(self, params: Params, batch: Batch, train: bool, ctx=None, rng=None):
         del ctx
-        return self.model.apply(params, batch.x, train=train)
+        kwargs = {"rng": rng} if self.model.takes_rng else {}
+        return self.model.apply(params, batch.x, train=train, **kwargs)
 
     def training_loss(self, preds: dict, features: dict, batch: Batch,
                       params: Params, state: TrainState, ctx: Any):
@@ -146,21 +170,27 @@ class ClientLogic:
                   params: Params, state: TrainState, ctx: Any):
         return self.criterion(preds["prediction"], batch.y, batch.example_mask), {}
 
-    def value_and_grads(self, state: TrainState, ctx: Any, batch: Batch,
-                        step_rng: torch.Tensor):
-        """-> ((backward, (preds, additional)), grads) by whole-batch
-        ``torch.func.grad_and_value``. ``step_rng`` is the step's key;
-        nothing here draws from it."""
-        del step_rng
+    def _loss_fn(self, state: TrainState, ctx: Any, batch: Batch,
+                 step_rng: torch.Tensor):
+        """The differentiated closure params -> (backward, (preds,
+        additional)), shared by ``value_and_grads`` and the engine's loss
+        scaling. ``step_rng`` is the model's dropout key."""
 
         def loss(params):
-            preds, features = self.predict(params, batch, train=True, ctx=ctx)
+            preds, features = self.predict(params, batch, train=True, ctx=ctx,
+                                           rng=step_rng)
             backward, additional = self.training_loss(preds, features, batch,
                                                       params, state, ctx)
             return backward, (preds, additional)
 
-        grads, (backward, aux) = torch.func.grad_and_value(loss, has_aux=True)(
-            state.params)
+        return loss
+
+    def value_and_grads(self, state: TrainState, ctx: Any, batch: Batch,
+                        step_rng: torch.Tensor):
+        """-> ((backward, (preds, additional)), grads) by whole-batch
+        ``torch.func.grad_and_value``."""
+        grads, (backward, aux) = torch.func.grad_and_value(
+            self._loss_fn(state, ctx, batch, step_rng), has_aux=True)(state.params)
         return (backward, aux), grads
 
     def transform_gradients(self, grads: Params, state: TrainState, ctx: Any) -> Params:
@@ -193,14 +223,17 @@ def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 
 def create_train_state(logic: ClientLogic, tx: GradientTransformation,
                        key: torch.Tensor, generator: torch.Generator,
-                       device: torch.device) -> TrainState:
+                       device: torch.device, precision: Any = None) -> TrainState:
     """A fresh state on ``device`` whose random stream is ``key``; the params
     are the model's init drawn from ``generator`` (not flax's init: tests
-    install converted flax params)."""
+    install converted flax params). The params and the optimizer state are
+    f32 masters whatever ``precision`` says; a scaling policy adds the
+    loss-scale state."""
     params = {k: v.to(device) for k, v in logic.model.init(generator).items()}
     return TrainState(params=params, opt_state=tx.init(params), rng=key.to(device),
                       step=torch.zeros((), dtype=torch.int32, device=device),
-                      extra=logic.init_extra(params))
+                      extra=logic.init_extra(params),
+                      loss_scale=precision_policy.loss_scale_init(precision, device))
 
 
 def _mask_tree(new, old, keep: torch.Tensor):
@@ -208,24 +241,62 @@ def _mask_tree(new, old, keep: torch.Tensor):
     return tree_map(lambda n, o: torch.where(keep > 0, n, o), new, old)
 
 
-def make_train_step(logic: ClientLogic, tx: GradientTransformation):
-    """step(state, ctx, batch) -> (state, StepOutput)."""
+def make_train_step(logic: ClientLogic, tx: GradientTransformation,
+                    precision: Any = None):
+    """step(state, ctx, batch) -> (state, StepOutput). ``precision`` (a
+    ``PrecisionConfig`` or None) is the mixed-precision policy; None or an
+    inactive config builds the step without it."""
+    precision = precision_policy.resolve(precision)
+    if precision is not None and precision.casts_compute:
+        logic = precision_policy.wrap_logic_compute(logic, precision.compute_torch_dtype)
+    scaling = precision is not None and precision.scaling_active
+    if scaling and type(logic).value_and_grads is not ClientLogic.value_and_grads:
+        # the logic's own mechanism (DP's clip and noise) would see scaled
+        # gradients: its bound and noise would be mis-calibrated
+        raise TypeError(
+            f"in-graph loss scaling wraps the engine's default gradient path only: "
+            f"{type(logic).__name__} overrides value_and_grads (e.g. DP per-example "
+            "gradients), whose clip/noise calibration breaks under a scaled backward; "
+            "use compute_dtype='bfloat16' with loss_scale='none'")
 
     def step(state: TrainState, ctx: Any, batch: Batch):
         next_key, step_key = rng.split(state.rng)
-        (backward, (preds, additional)), grads = logic.value_and_grads(
-            state, ctx, batch, step_key)
+        finite = None
+        if scaling:
+            ls = state.loss_scale
+            if ls is None:
+                raise ValueError("loss scaling needs the carried scaler state: build the "
+                                 "TrainState with create_train_state(..., precision=...)")
+            # the backward seeded with the scale as the loss's cotangent; the
+            # primal loss stays unscaled
+            backward, vjp_fn, (preds, additional) = torch.func.vjp(
+                logic._loss_fn(state, ctx, batch, step_key), state.params, has_aux=True)
+            grads = vjp_fn(ls["scale"].to(backward.dtype))[0]
+            # unscaled in f32; the finite screen reads the unscaled gradient
+            inv = 1.0 / ls["scale"]
+            grads = {k: g * inv for k, g in grads.items()}
+            finite = precision_policy.tree_all_finite(grads)
+        else:
+            (backward, (preds, additional)), grads = logic.value_and_grads(
+                state, ctx, batch, step_key)
         grads = logic.transform_gradients(grads, state, ctx)
         updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
         new_params = apply_updates(state.params, updates)
         keep = batch.step_mask  # padding steps must not move anything
+        # a non-finite scaled gradient also skips the optimizer step
+        keep_update = keep if finite is None else keep * finite
         new_state = dataclasses.replace(
             state,
-            params=_mask_tree(new_params, state.params, keep),
-            opt_state=_mask_tree(new_opt_state, state.opt_state, keep),
+            params=_mask_tree(new_params, state.params, keep_update),
+            opt_state=_mask_tree(new_opt_state, state.opt_state, keep_update),
             rng=next_key,  # every step splits, padding steps too, as in JAX
-            step=state.step + keep.to(torch.int32),
+            step=state.step + keep_update.to(torch.int32),
         )
+        if scaling:
+            # the scaler advances on real steps only, skipped ones included
+            new_ls = precision_policy.loss_scale_step(state.loss_scale, finite, precision)
+            new_state = dataclasses.replace(
+                new_state, loss_scale=_mask_tree(new_ls, state.loss_scale, keep))
         out = StepOutput(
             losses={"backward": backward, **additional},
             preds=preds["prediction"],
@@ -245,10 +316,12 @@ def _step_slice(batches: Batch, s: int) -> Batch:
 
 def make_local_train(logic: ClientLogic, tx: GradientTransformation,
                      metric_manager: MetricManager,
-                     loss_keys: tuple[str, ...] = ("backward",)):
+                     loss_keys: tuple[str, ...] = ("backward",),
+                     precision: Any = None):
     """train(state, ctx, batches) -> (state, loss_dict, metric_dict, n_steps);
-    ``batches`` carries a leading [steps] axis, walked by a Python loop."""
-    step_fn = make_train_step(logic, tx)
+    ``batches`` carries a leading [steps] axis, walked by a Python loop.
+    ``precision`` reaches every step."""
+    step_fn = make_train_step(logic, tx, precision)
 
     def train(state: TrainState, ctx: Any, batches: Batch):
         device = batches.step_mask.device
@@ -307,6 +380,7 @@ def make_local_train_with_early_stopping(
     metric_manager: MetricManager,
     config: EarlyStoppingConfig,
     loss_keys: tuple[str, ...] = ("backward",),
+    precision: Any = None,
 ):
     """Early-stopped local training (the JAX engine's
     ``make_local_train_with_early_stopping``).
@@ -323,8 +397,9 @@ def make_local_train_with_early_stopping(
     a ``torch.where``.
 
     Returns train(state, ctx, batches, val_batches) with the outputs of
-    ``make_local_train``; ``n_steps`` counts the steps that ran unmasked."""
-    step_fn = make_train_step(logic, tx)
+    ``make_local_train``; ``n_steps`` counts the steps that ran unmasked.
+    ``precision`` reaches the train steps only."""
+    step_fn = make_train_step(logic, tx, precision)
     evaluate = make_local_eval(logic, metric_manager)
     interval, patience = config.interval_steps, config.patience
 

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from fl4health_tpu_torch.core.pytree import tree_map
+from fl4health_tpu_torch.core.pytree import tree_leaves, tree_map
 from fl4health_tpu_torch.core.types import PyTree, StackedParams
 
 
@@ -32,16 +32,42 @@ def effective_weights(
                        torch.zeros_like(raw))
 
 
+# Up to this many clients XLA compiles JAX's masked weighted sum into one
+# fused multiply-add a client, in client order (checked on the CPU); beyond,
+# it splits the sum another way, which the port does not reproduce.
+FMA_CHAIN_MAX_CLIENTS = 32
+
+
 def weighted_mean(stacked: StackedParams, weights: torch.Tensor) -> PyTree:
     """``sum_i w_i * leaf_i`` over the clients axis, accumulated in f32, with
-    weight-0 rows hard-zeroed so a NaN in an unsampled row cannot leak in."""
+    weight-0 rows hard-zeroed so a NaN in an unsampled row cannot leak in.
 
-    def _agg(leaf: torch.Tensor) -> torch.Tensor:
-        w = expand_clients(weights.to(device=leaf.device, dtype=torch.float32), leaf)
-        contrib = torch.where(w > 0, leaf.float(), torch.zeros((), device=leaf.device)) * w
-        return contrib.sum(dim=0).to(leaf.dtype)
-
-    return tree_map(_agg, stacked)
+    Every leaf goes into one ``[clients, elements]`` buffer, so the sum is a
+    few ops for the whole tree. Up to ``FMA_CHAIN_MAX_CLIENTS`` clients it
+    runs client by client as one fused multiply-add each, ``acc =
+    fma(leaf_i, w_i, acc)``, rounded to f32 once a step, which is JAX's sum
+    bit for bit (the product of two f32 is exact in f64, so the f64
+    multiply-add rounds once, as an fma does): a server optimizer that
+    normalises its input (FedOpt's Adam) turns the last bit of a
+    pseudo-gradient that should be zero into a full step. With more
+    clients, where neither order is JAX's, it is one reduction."""
+    leaves = tree_leaves(stacked)
+    if not leaves:
+        return stacked
+    n, device = leaves[0].shape[0], leaves[0].device
+    w = weights.to(device=device, dtype=torch.float32)
+    flat = torch.cat([x.reshape(n, -1).float() for x in leaves], dim=1)
+    zero = torch.zeros((), device=device)
+    if n > FMA_CHAIN_MAX_CLIENTS:
+        out = (torch.where(w[:, None] > 0, flat, zero) * w[:, None]).sum(dim=0)
+    else:
+        acc = torch.zeros(flat.shape[1], dtype=torch.float64, device=device)
+        for i in range(n):
+            row = torch.where(w[i] > 0, flat[i], zero).double()
+            acc = torch.addcmul(acc, row, w[i].double()).float().double()
+        out = acc.float()
+    pieces = iter(torch.split(out, [x[0].numel() for x in leaves]))
+    return tree_map(lambda x: next(pieces).view(x.shape[1:]).to(x.dtype), stacked)
 
 
 def aggregate(

@@ -1,5 +1,6 @@
 """Tree helpers over nested dicts/lists/tuples of tensors (counterpart of
-``fl4health_tpu/core/pytree.py``, the parts the port's path uses).
+``fl4health_tpu/core/pytree.py``, the parts the port's path uses; the path
+helpers take a ``Params`` dict, whose keys are the flax paths).
 
 A "tree" is a tensor, or a dict, list or tuple of trees, or an instance of
 a dataclass registered with ``tree_dataclass`` (walked field by field);
@@ -99,6 +100,36 @@ def global_norm(params: dict) -> torch.Tensor:
     leaf order."""
     return torch.sqrt(sum(torch.sum(torch.square(params[k]))
                           for k in flax_leaf_order(params)))
+
+
+def dotted(path: str) -> str:
+    """A ``Params`` key as JAX's ``leaf_paths`` spells it: ``"a/b/c"`` ->
+    ``"a.b.c"``."""
+    return path.replace("/", ".")
+
+
+def leaf_paths(params: dict) -> list[str]:
+    """The dotted path of every leaf of a ``Params`` dict, in JAX's order
+    (``jax.tree_util.tree_flatten_with_path`` of the flax tree)."""
+    return [dotted(k) for k in flax_leaf_order(params)]
+
+
+def select_by_path(params: dict, predicate: Callable[[str], bool]) -> dict[str, bool]:
+    """A mask: True where the leaf's dotted path satisfies ``predicate``.
+    The mask is static (Python bools), so selecting by it never branches on
+    a tensor."""
+    return {k: bool(predicate(dotted(k))) for k in params}
+
+
+def merge_by_mask(mask: dict[str, bool], if_true: dict, if_false: dict) -> dict:
+    """Leafwise pick between two ``Params`` dicts by a static mask, in
+    ``if_false``'s key order."""
+    return {k: if_true[k] if mask[k] else v for k, v in if_false.items()}
+
+
+def tree_astype(tree: PyTree, dtype: torch.dtype) -> PyTree:
+    """Cast every floating leaf to ``dtype``; integer leaves pass through."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x, tree)
 
 
 def tree_zeros_like(tree: PyTree) -> PyTree:

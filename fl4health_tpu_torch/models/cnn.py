@@ -14,6 +14,12 @@ flax infers a Dense's input width at init; here the models take the input
 shape (or width) at construction. The JAX ``MxuConv``/``conv_impl`` switch
 (an im2col lowering for XLA's sharded grouped-conv partitioner) has no
 counterpart: cuDNN runs the plain convolution.
+
+``dtype`` is flax's: a compute dtype that every operand is cast to, or
+None, which computes in the promoted dtype of the input and the params
+(``precision.policy.conv_compute_dtype``). ``MnistNet``, ``Mlp`` and
+``LogisticRegression`` use None, as their flax modules do, so the precision
+policy's cast reaches them; ``CifarNet`` keeps its explicit f32 default.
 """
 
 from __future__ import annotations
@@ -26,19 +32,22 @@ from torch import nn
 
 from fl4health_tpu_torch.core.types import Params
 from fl4health_tpu_torch.models.transformer import LoraDense, _lecun_normal, param_dict
+from fl4health_tpu_torch.precision.policy import conv_compute_dtype
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` with SAME padding and stride 1 on NCHW activations:
-    ``kernel`` HWIO, ``bias`` [out]; computes in ``dtype`` (input, kernel and
-    bias cast to it, as flax's ``dtype`` does)."""
+    """flax ``nn.Conv`` with SAME padding on NCHW activations: ``kernel``
+    HWIO, ``bias`` [out]; computes in ``dtype`` (input, kernel and bias cast
+    to it), or with None in their promoted dtype. With a ``stride``, SAME
+    pads as flax does: ``(out - 1) * stride + k - in`` in all, the odd row
+    and column at the end."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype | None = torch.float32, stride: int = 1):
         super().__init__()
         if kernel_size % 2 != 1:
             raise ValueError("SAME padding is symmetric only for odd kernels")
-        self.dtype = dtype
+        self.dtype, self.stride = dtype, stride
         self.kernel = nn.Parameter(torch.empty(kernel_size, kernel_size,
                                                in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -50,9 +59,18 @@ class Conv(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.kernel.to(self.dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
-        return F.conv2d(x.to(self.dtype), w, self.bias.to(self.dtype),
-                        padding=self.kernel.shape[0] // 2)
+        dtype = (self.dtype if self.dtype is not None
+                 else conv_compute_dtype(x.dtype, self.kernel.dtype, self.bias.dtype))
+        w = self.kernel.to(dtype).permute(3, 2, 0, 1)  # HWIO -> OIHW
+        k = self.kernel.shape[0]
+        if self.stride == 1:
+            return F.conv2d(x.to(dtype), w, self.bias.to(dtype), padding=k // 2)
+        pads = []
+        for size in (x.shape[3], x.shape[2]):  # F.pad's order: W, then H
+            total = max((-(-size // self.stride) - 1) * self.stride + k - size, 0)
+            pads += [total // 2, total - total // 2]
+        return F.conv2d(F.pad(x.to(dtype), pads), w, self.bias.to(dtype),
+                        stride=self.stride)
 
 
 def _init_params(module: nn.Module, generator: torch.Generator) -> Params:
@@ -76,7 +94,7 @@ class _ConvNet(nn.Module):
     and the classifier Dense."""
 
     def __init__(self, channels: tuple[int, int], hidden: int, n_classes: int,
-                 input_shape: tuple[int, int, int], dtype: torch.dtype):
+                 input_shape: tuple[int, int, int], dtype: torch.dtype | None):
         super().__init__()
         h, w, c = input_shape
         self.dtype = dtype
@@ -91,19 +109,24 @@ class _ConvNet(nn.Module):
         return _init_params(self, generator)
 
     def forward(self, x: torch.Tensor):
-        x = x.to(self.dtype).permute(0, 3, 1, 2)  # NHWC -> NCHW
-        x = _conv_block(self.Conv_1, _conv_block(self.Conv_0, x))
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        x = _conv_block(self.Conv_1, _conv_block(self.Conv_0, x.permute(0, 3, 1, 2)))
         features = F.relu(self.Dense_0(_flatten_hwc(x)))
-        return {"prediction": self.Dense_1(features).float()}, {"features": features}
+        logits = self.Dense_1(features)
+        # a pinned dtype hands back f32 logits; None keeps the computed dtype
+        return ({"prediction": logits.float() if self.dtype is not None else logits},
+                {"features": features})
 
 
 class MnistNet(_ConvNet):
     """Small MNIST CNN: conv 16 and conv 32 blocks, Dense ``hidden``, Dense
-    ``n_classes``; f32. ``input_shape`` is one example's HWC shape."""
+    ``n_classes``, every layer ``dtype=None`` (f32 on f32 params and
+    inputs). ``input_shape`` is one example's HWC shape."""
 
     def __init__(self, n_classes: int = 10, hidden: int = 120,
                  input_shape: tuple[int, int, int] = (28, 28, 1)):
-        super().__init__((16, 32), hidden, n_classes, input_shape, torch.float32)
+        super().__init__((16, 32), hidden, n_classes, input_shape, None)
 
 
 class CifarNet(_ConvNet):
@@ -126,8 +149,8 @@ class Mlp(nn.Module):
         widths = [in_features, *features]
         self.n_hidden = len(features)
         for i, (a, b) in enumerate(zip(widths[:-1], widths[1:])):
-            setattr(self, f"Dense_{i}", LoraDense(a, b))
-        setattr(self, f"Dense_{self.n_hidden}", LoraDense(widths[-1], n_outputs))
+            setattr(self, f"Dense_{i}", LoraDense(a, b, dtype=None))
+        setattr(self, f"Dense_{self.n_hidden}", LoraDense(widths[-1], n_outputs, dtype=None))
         self.init_params(torch.Generator().manual_seed(0))
 
     def init_params(self, generator: torch.Generator) -> Params:
@@ -146,7 +169,7 @@ class LogisticRegression(nn.Module):
 
     def __init__(self, in_features: int, n_outputs: int = 2):
         super().__init__()
-        self.Dense_0 = LoraDense(in_features, n_outputs)
+        self.Dense_0 = LoraDense(in_features, n_outputs, dtype=None)
         self.init_params(torch.Generator().manual_seed(0))
 
     def init_params(self, generator: torch.Generator) -> Params:

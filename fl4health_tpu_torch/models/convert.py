@@ -47,3 +47,48 @@ def torch_to_flax(params: Params) -> dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = val.detach().cpu().numpy()
     return out
+
+
+def _flat_moments(tree: Any, device) -> dict[str, torch.Tensor]:
+    """A param-shaped flax tree of numpy arrays -> a path-keyed dict; the
+    leaves a mask left out (optax's ``MaskedNode``) have no entry."""
+    flat = _flatten(tree)
+    return {k: torch.tensor(np.asarray(v), device=device) for k, v in sorted(flat.items())
+            if type(v).__name__ != "MaskedNode"}
+
+
+def optax_state_to_torch(state: Any, device: str | torch.device = "cpu") -> Any:
+    """An optax optimizer state (its arrays as numpy) -> the matching
+    ``optim`` state, so both packages can start from the same state
+    mid-run: ``ScaleByAdamState`` (adam, yogi), ``ScaleByRssState``,
+    ``TraceState``, ``EmptyState`` (-> ``()``), a chain's tuple,
+    ``MaskedState``, ``PartitionState``/``MultiTransformState`` and
+    ``InjectHyperparamsState``/``InjectStatefulHyperparamsState``. The
+    states are read by their optax class names; optax is not imported."""
+    from fl4health_tpu_torch import optim
+
+    kind = type(state).__name__
+    scalar = lambda x, dtype: torch.tensor(np.asarray(x), dtype=dtype, device=device)  # noqa: E731
+    if kind == "ScaleByAdamState":
+        return optim.ScaleByAdamState(count=scalar(state.count, torch.int32),
+                                      mu=_flat_moments(state.mu, device),
+                                      nu=_flat_moments(state.nu, device))
+    if kind == "ScaleByRssState":
+        return optim.ScaleByRssState(_flat_moments(state.sum_of_squares, device))
+    if kind == "TraceState":
+        return optim.TraceState(_flat_moments(state.trace, device))
+    if kind == "EmptyState":
+        return ()
+    if kind == "MaskedState":
+        return optim.MaskedState(optax_state_to_torch(state.inner_state, device))
+    if kind in ("PartitionState", "MultiTransformState"):
+        return optim.MultiTransformState({g: optax_state_to_torch(s, device)
+                                          for g, s in state.inner_states.items()})
+    if kind in ("InjectHyperparamsState", "InjectStatefulHyperparamsState"):
+        return optim.InjectHyperparamsState(
+            count=scalar(state.count, torch.int32),
+            hyperparams={k: scalar(v, torch.float32) for k, v in state.hyperparams.items()},
+            inner_state=optax_state_to_torch(state.inner_state, device))
+    if isinstance(state, tuple) and not hasattr(state, "_fields"):  # a chain
+        return tuple(optax_state_to_torch(s, device) for s in state)
+    raise TypeError(f"no conversion for an optax state of type {kind}")

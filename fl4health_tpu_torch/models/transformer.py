@@ -9,11 +9,25 @@ each ``LoraDense`` casts its input and weights to it, as the flax module does,
 while params stay f32. Layer norms compute in f32 with flax's ``epsilon=1e-6``
 and return f32; GELU is the tanh form (flax ``nn.gelu``); the masked dense
 core fills padded keys with ``finfo(f32).min``; mean-pool, ``ln_final`` and
-the classifier run in f32.
+the classifier run in f32. ``LoraDense(dtype=None)`` is flax's ``nn.Dense``
+with ``dtype=None``: it computes in the promoted dtype of its input and
+params (the classifier head, and the small models of ``cnn.py``).
+
+Dropout (``dropout_rate``) is flax's ``nn.Dropout`` where the flax module
+applies it, on train calls only: on the attention probabilities in the
+dense core (an ``attention_fn`` skips it, as JAX's does), after the
+attention block and after the MLP. A mask is ``uniform(key) < 1 - rate``
+through ``rng.py`` and the kept values are divided by ``1 - rate``. The key
+of each ``Dropout`` is flax's: the model's ``rng`` (the engine's step key,
+flax's ``rngs["dropout"]``) folded with the SHA-1 hash of the module path
+and the scope's call counter (``flax/core/scope.py`` ``_fold_in_static``),
+e.g. ``("layer_0", "attn", "Dropout_0", 1)``. Under remat the recompute
+draws the same mask from the same key.
 """
 
 from __future__ import annotations
 
+import hashlib
 import math
 from typing import Callable
 
@@ -22,8 +36,10 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from fl4health_tpu_torch import rng as jrng
 from fl4health_tpu_torch.core.types import Params
 from fl4health_tpu_torch.kernels.fold import fold_vmapped
+from fl4health_tpu_torch.precision.policy import conv_compute_dtype
 
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
@@ -45,10 +61,12 @@ def _normal(shape, std, generator, device):
 
 class LoraDense(nn.Module):
     """Dense with an additive low-rank adapter: ``y = xW + s (x A) B``;
-    ``lora_b`` starts at zero so the adapted model starts at the base model."""
+    ``lora_b`` starts at zero so the adapted model starts at the base model.
+    ``dtype`` is the compute dtype; None computes in the promoted dtype of
+    the input, kernel and bias (flax ``nn.Dense(dtype=None)``)."""
 
     def __init__(self, in_features: int, features: int, rank: int = 0,
-                 alpha: float = 16.0, dtype: torch.dtype = torch.float32):
+                 alpha: float = 16.0, dtype: torch.dtype | None = torch.float32):
         super().__init__()
         self.rank, self.alpha, self.dtype = rank, alpha, dtype
         self.kernel = nn.Parameter(torch.empty(in_features, features))
@@ -68,13 +86,54 @@ class LoraDense(nn.Module):
                 self.lora_b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xd = x.to(self.dtype)
-        y = xd @ self.kernel.to(self.dtype) + self.bias.to(self.dtype)
+        dtype = (self.dtype if self.dtype is not None
+                 else conv_compute_dtype(x.dtype, self.kernel.dtype, self.bias.dtype))
+        xd = x.to(dtype)
+        y = xd @ self.kernel.to(dtype) + self.bias.to(dtype)
         if self.rank > 0:
             scale = self.alpha / self.rank
-            y = y + scale * ((xd @ self.lora_a.to(self.dtype))
-                             @ self.lora_b.to(self.dtype))
+            y = y + scale * ((xd @ self.lora_a.to(dtype)) @ self.lora_b.to(dtype))
         return y
+
+
+# ---------------------------------------------------------------------------
+# Dropout (flax nn.Dropout, keyed as flax's Scope.make_rng keys it)
+# ---------------------------------------------------------------------------
+
+def flax_scope_hash(path: tuple) -> int:
+    """The 32-bit word flax folds into a key for a scope path of strings and
+    ints: the first 4 bytes of the SHA-1 of the segments, without
+    separators (``config.flax_fix_rng_separator`` off, its default)."""
+    m = hashlib.sha1()
+    for x in path:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        else:
+            m.update(x.to_bytes((x.bit_length() + 7) // 8, byteorder="big"))
+    return int.from_bytes(m.digest()[:4], byteorder="big")
+
+
+def dropout_key(key: torch.Tensor, path: tuple[str, ...]) -> torch.Tensor:
+    """The key the ``Dropout`` at ``path`` draws from: its scope's first
+    ``make_rng("dropout")`` (counter 1) under the model's ``rng``."""
+    return jrng.fold_in(key, flax_scope_hash((*path, 1)))
+
+
+def dropout_mask(key: torch.Tensor, shape: tuple[int, ...], rate: float) -> torch.Tensor:
+    """``jax.random.bernoulli(key, 1 - rate, shape)``: ``uniform(key, shape)
+    < 1 - rate`` in f32."""
+    keep = torch.tensor(1.0 - rate, dtype=torch.float32, device=key.device)
+    return jrng.uniform(key, shape) < keep
+
+
+def dropout(x: torch.Tensor, rate: float, key: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.Dropout``: the kept values divided by ``1 - rate`` (in
+    ``x``'s dtype, as JAX's weak scalar is), the rest zero."""
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    mask = dropout_mask(key, tuple(x.shape), rate)
+    return torch.where(mask, x / torch.tensor(1.0 - rate, dtype=x.dtype, device=x.device),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -239,16 +298,19 @@ class MultiHeadSelfAttention(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, lora_rank: int = 0,
                  dtype: torch.dtype = torch.float32,
-                 attention_fn: AttentionFn | None = None):
+                 attention_fn: AttentionFn | None = None, dropout_rate: float = 0.0):
         super().__init__()
         if d_model % n_heads != 0:
             raise ValueError(f"d_model={d_model} must divide by n_heads={n_heads}")
         self.d_model, self.n_heads, self.dtype = d_model, n_heads, dtype
-        self.attention_fn = attention_fn
+        self.attention_fn, self.dropout_rate = attention_fn, dropout_rate
         for name in ("q_proj", "k_proj", "v_proj", "o_proj"):
             setattr(self, name, LoraDense(d_model, d_model, lora_rank, dtype=dtype))
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                drop_key: torch.Tensor | None = None) -> torch.Tensor:
+        """``drop_key``: the key of the probabilities' ``Dropout`` on a train
+        call with dropout, else None."""
         head_dim = self.d_model // self.n_heads
 
         def split(t):
@@ -264,29 +326,48 @@ class MultiHeadSelfAttention(nn.Module):
                                dtype=scores.dtype, device=q.device)
             scores = torch.where(pad_mask[:, None, None, :] > 0, scores, neg)
             attn = torch.softmax(scores.float(), dim=-1).to(self.dtype)
+            if drop_key is not None:
+                attn = dropout(attn, self.dropout_rate, drop_key)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         out = out.reshape(*out.shape[:-2], self.d_model)
         return self.o_proj(out)
 
 
 class EncoderBlock(nn.Module):
-    """Pre-LN encoder block: x + attn(ln(x)), then x + mlp(ln(x))."""
+    """Pre-LN encoder block: x + attn(ln(x)), then x + mlp(ln(x)); ``name``
+    is its flax scope (``layer_i``), which keys its dropout masks."""
 
     def __init__(self, d_model: int, n_heads: int, d_ff: int,
                  lora_rank: int = 0, dtype: torch.dtype = torch.float32,
-                 attention_fn: AttentionFn | None = None):
+                 attention_fn: AttentionFn | None = None, dropout_rate: float = 0.0,
+                 name: str = "layer_0"):
         super().__init__()
+        self.name, self.dropout_rate = name, dropout_rate
         self.ln_attn = LayerNorm(d_model)
         self.attn = MultiHeadSelfAttention(d_model, n_heads, lora_rank, dtype,
-                                           attention_fn)
+                                           attention_fn, dropout_rate)
         self.ln_mlp = LayerNorm(d_model)
         self.ff_in = LoraDense(d_model, d_ff, lora_rank, dtype=dtype)
         self.ff_out = LoraDense(d_ff, d_model, lora_rank, dtype=dtype)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln_attn(x), pad_mask)
-        h = F.gelu(self.ff_in(self.ln_mlp(x)), approximate="tanh")
-        return x + self.ff_out(h)
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor,
+                rng: torch.Tensor | None = None) -> torch.Tensor:
+        """``rng``: the model's dropout key on a train call with dropout,
+        else None (no dropout)."""
+        def key(*path):
+            return dropout_key(rng, (self.name, *path))
+
+        # the dense core drops attention probabilities; an attention_fn does not
+        attn_key = (key("attn", "Dropout_0")
+                    if rng is not None and self.attn.attention_fn is None else None)
+        h = self.attn(self.ln_attn(x), pad_mask, attn_key)
+        if rng is not None:
+            h = dropout(h, self.dropout_rate, key("Dropout_0"))
+        x = x + h
+        h = self.ff_out(F.gelu(self.ff_in(self.ln_mlp(x)), approximate="tanh"))
+        if rng is not None:
+            h = dropout(h, self.dropout_rate, key("Dropout_1"))
+        return x + h
 
 
 class TransformerClassifier(nn.Module):
@@ -299,17 +380,18 @@ class TransformerClassifier(nn.Module):
                  max_len: int = 128, lora_rank: int = 0,
                  dtype: torch.dtype = torch.float32,
                  attention_fn: AttentionFn | None = None,
-                 remat: bool = False):
+                 remat: bool = False, dropout_rate: float = 0.0):
         super().__init__()
-        self.n_layers, self.remat = n_layers, remat
+        self.n_layers, self.remat, self.dropout_rate = n_layers, remat, dropout_rate
         self.tok_embed = Embed(vocab_size, d_model)
         self.pos_embed = nn.Parameter(torch.empty(max_len, d_model))
         self.dtype = dtype
         for i in range(n_layers):
             setattr(self, f"layer_{i}", EncoderBlock(
-                d_model, n_heads, d_ff, lora_rank, dtype, attention_fn))
+                d_model, n_heads, d_ff, lora_rank, dtype, attention_fn, dropout_rate,
+                name=f"layer_{i}"))
         self.ln_final = LayerNorm(d_model)
-        self.classifier = LoraDense(d_model, n_classes)  # flax nn.Dense, f32
+        self.classifier = LoraDense(d_model, n_classes, dtype=None)  # flax nn.Dense
         self.init_params(torch.Generator().manual_seed(0))
 
     def init_params(self, generator: torch.Generator) -> Params:
@@ -322,8 +404,14 @@ class TransformerClassifier(nn.Module):
                                          self.pos_embed.device))
         return param_dict(self)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor, train: bool = True,
+                rng: torch.Tensor | None = None):
+        """``rng``: the dropout key (flax's ``rngs["dropout"]``); dropout
+        runs on train calls that have one."""
         pad_mask = (x > 0).to(torch.float32)
+        drop_rng = rng if train and self.dropout_rate > 0 else None
+        if self.dropout_rate > 0 and train and rng is None:
+            raise ValueError("dropout on a train call needs the model's rng")
         h = (self.tok_embed(x) + self.pos_embed[None, : x.shape[1]]).to(self.dtype)
         for i in range(self.n_layers):
             block = getattr(self, f"layer_{i}")
@@ -331,11 +419,12 @@ class TransformerClassifier(nn.Module):
                 # recompute the block on the backward pass: one layer's
                 # activations live at a time (flax nn.remat). The block's
                 # current tensors go in as arguments, so the recompute uses
-                # the params the forward used, also under functional_call
+                # the params (and the dropout key) the forward used, also
+                # under functional_call
                 names, tensors = zip(*block.named_parameters())
-                h = _Remat.apply(block, names, h, pad_mask, *tensors)
+                h = _Remat.apply(block, names, h, pad_mask, drop_rng, *tensors)
             else:
-                h = block(h, pad_mask)
+                h = block(h, pad_mask, drop_rng)
         h = self.ln_final(h.float())
         denom = torch.clamp(pad_mask.sum(dim=1, keepdim=True), min=1.0)
         pooled = (h * pad_mask[..., None]).sum(dim=1) / denom
@@ -343,8 +432,8 @@ class TransformerClassifier(nn.Module):
         return {"prediction": logits.float()}, {"features": pooled}
 
 
-def _call_block(block, names, h, pad_mask, *tensors):
-    return functional_call(block, dict(zip(names, tensors)), (h, pad_mask))
+def _call_block(block, names, h, pad_mask, rng, *tensors):
+    return functional_call(block, dict(zip(names, tensors)), (h, pad_mask, rng))
 
 
 class _Remat(torch.autograd.Function):
@@ -360,22 +449,22 @@ class _Remat(torch.autograd.Function):
     generate_vmap_rule = True
 
     @staticmethod
-    def forward(block, names, h, pad_mask, *tensors):
+    def forward(block, names, h, pad_mask, rng, *tensors):
         with torch.no_grad():
-            return _call_block(block, names, h, pad_mask, *tensors)
+            return _call_block(block, names, h, pad_mask, rng, *tensors)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        block, names, h, pad_mask, *tensors = inputs
+        block, names, h, pad_mask, rng, *tensors = inputs
         ctx.block, ctx.names = block, names
-        ctx.save_for_backward(h, pad_mask, *tensors)
+        ctx.save_for_backward(h, pad_mask, rng, *tensors)
 
     @staticmethod
     def backward(ctx, dout):
-        h, pad_mask, *tensors = ctx.saved_tensors
+        h, pad_mask, rng, *tensors = ctx.saved_tensors
 
         def block_fn(h, *tensors):
-            return _call_block(ctx.block, ctx.names, h, pad_mask, *tensors)
+            return _call_block(ctx.block, ctx.names, h, pad_mask, rng, *tensors)
 
         # torch.func.grad differentiates with create_graph=True: a graph
         # recorded here would keep this block's recomputed activations alive
@@ -384,7 +473,7 @@ class _Remat(torch.autograd.Function):
         with torch.no_grad():
             _, vjp_fn = torch.func.vjp(block_fn, h, *tensors)
             dh, *dtensors = vjp_fn(dout)
-        return (None, None, dh, None, *dtensors)
+        return (None, None, dh, None, None, *dtensors)
 
 
 def param_dict(module: nn.Module) -> Params:

@@ -45,12 +45,19 @@ batches in both packages. The initial params come from a ``torch.Generator``
 seeded with ``seed`` (not the flax init); tests install converted flax
 params with ``set_global_params``.
 
+A partial ``exchanger`` (``FixedLayerExchanger``, e.g. ``lora_exchanger``)
+runs its ``pull`` and ``push`` inside the client vmap, in ``client_fit``
+and ``client_eval``, as in JAX. The clients' whole ``TrainState``, their
+optimizer state included, carries over from round to round; nothing
+re-initialises it. A stateful server optimizer (``FedOpt``) keeps its state
+in ``server_state``. ``precision`` (a ``PrecisionConfig``) reaches the
+clients' train steps and their initial state (``loss_scale``).
+
 Departures: ``fit(n)`` runs ``n`` more rounds, numbered after ``history``;
 a logic's ``telemetry_loss_keys`` are always averaged beside ``backward``.
 Left out here: chunked, cohort and async execution (and the prefetcher's
-cohort/chunk staging), precision configs, observability, resilience,
-checkpointing (model and state), mesh placement, FLASH early stopping and
-the ``WandBReporter``.
+cohort/chunk staging), observability, resilience, checkpointing (model and
+state), mesh placement, FLASH early stopping and the ``WandBReporter``.
 """
 
 from __future__ import annotations
@@ -73,6 +80,7 @@ from fl4health_tpu_torch.exchange.exchanger import FullExchanger
 from fl4health_tpu_torch.metrics.aggregation import aggregate_metrics
 from fl4health_tpu_torch.metrics.base import MetricManager
 from fl4health_tpu_torch.optim import GradientTransformation
+from fl4health_tpu_torch.precision.policy import PrecisionConfig
 from fl4health_tpu_torch.server.client_manager import (ClientManager,
                                                        FullParticipationManager)
 from fl4health_tpu_torch.server.pipeline import HostPull, RoundConsumer, RoundPrefetcher
@@ -216,10 +224,16 @@ class FederatedSimulation:
         failure_policy: FailurePolicy | None = None,
         train_data_provider: Any = None,
         pipeline_depth: int = 2,
+        precision: PrecisionConfig | None = None,
         device: str | torch.device = "cuda",
     ):
         if (local_epochs is None) == (local_steps is None):
             raise ValueError("specify exactly one of local_epochs / local_steps")
+        if precision is not None and not isinstance(precision, PrecisionConfig):
+            raise TypeError(
+                "precision must be a PrecisionConfig (or None); got "
+                f"{type(precision).__name__}: a duck-typed config would skip its checks")
+        self.precision = precision
         self.device = resolve_device(device)
         self._extra_loss_keys = tuple(extra_loss_keys)
         self._eval_loss_keys = tuple(eval_loss_keys)
@@ -292,7 +306,7 @@ class FederatedSimulation:
         init_rng = rng.fold_in(self.rng, 0)
         proto = engine.create_train_state(
             self.logic, self.tx, init_rng, torch.Generator().manual_seed(self.seed),
-            self.device)
+            self.device, precision=self.precision)
         # every client starts from the same params; only the key differs
         keys = torch.stack([rng.fold_in(init_rng, i + 1) for i in range(self.n_clients)])
         self.client_states: TrainState = dataclasses.replace(
@@ -346,9 +360,11 @@ class FederatedSimulation:
                            if k not in loss_keys)
         if self.early_stopping is not None:
             train = engine.make_local_train_with_early_stopping(
-                logic, tx, self.metrics, self.early_stopping, loss_keys)
+                logic, tx, self.metrics, self.early_stopping, loss_keys,
+                precision=self.precision)
         else:
-            plain_train = engine.make_local_train(logic, tx, self.metrics, loss_keys)
+            plain_train = engine.make_local_train(logic, tx, self.metrics, loss_keys,
+                                                  precision=self.precision)
 
             def train(state, ctx, batches, val_batches):
                 return plain_train(state, ctx, batches)

@@ -42,7 +42,8 @@ def test_sources_were_found():
             "clipping.py", "client_dp_fedavgm.py", "packer.py", "partitioners.py",
             "samplers.py", "vision.py", "accountants.py", "rdp.py", "servers.py",
             "workqueue.py", "io.py", "pipeline.py", "base.py", "scaffold.py", "fedprox.py",
-            "moon.py", "drift.py", "contrastive.py", "bases.py"} <= names
+            "moon.py", "drift.py", "contrastive.py", "bases.py", "optim.py", "fedopt.py",
+            "exchanger.py", "peft.py", "policy.py", "convert.py"} <= names
 
 
 def test_package_imports_without_jax():

@@ -48,6 +48,16 @@ round) for all clients at once; ``range_calls`` counts them.
   --config dp_scaffold_cifar_cnn  DP-SCAFFOLD on the DP path (after its
       warm start): the dp_cifar_cnn split, with the correction and the
       variate update split out as above.
+  --config bert_lora_fedopt_base  BASELINE.json config 3 at BERT-base width
+      (LoRA rank 4, 4 clients, bf16, flash attention); ranges around the
+      clients' ``value_and_grads`` (forward and backward, every leaf's
+      gradient, as JAX computes them), their masked Adam (``tx.update``),
+      the server's ``aggregate`` (the weighted mean and FedOpt's Adam over
+      the whole tree) and the evaluation phase; groups: K3-K5 by name,
+      GEMMs, the rest. Then a second profiled round in which the clients
+      differentiate only the trainable leaves (a measurement variant, not
+      the port's path): the forward-backward's device time that goes is
+      the frozen leaves' gradients (``frozen_leaf_grads_s``).
 
 Run on the card from the repository root:
     python3 tools/torch_port_round_profile.py [--config dp_cifar_cnn]
@@ -77,6 +87,9 @@ CDP_RANGES = ("profile::value_and_grads", "profile::finalize_round", "profile::s
 ALG_RANGES = ("profile::value_and_grads", "profile::transform_gradients",
               "profile::finalize_round", "profile::aggregate", "profile::eval",
               "profile::dp_clip_noise")
+
+BERT_RANGES = ("profile::value_and_grads", "profile::client_adam", "profile::aggregate",
+               "profile::eval")
 
 
 def kernel_group(name: str) -> str:
@@ -177,6 +190,52 @@ def alg_sim(kind: str):
     return sim
 
 
+def bert_sim():
+    """chip_smoke's config-3 path, with profiler ranges."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from fl4health_tpu_torch.kernels.flash_attention import flash_attention
+
+    data = cs.bert_datasets(cs.BERT_CFG, cs.BERT_CLIENTS, cs.BERT_TRAIN + cs.BERT_VAL,
+                            cs.BERT_TRAIN)
+    sim = cs.build_bert_sim(cs.BERT_CFG, data, torch.bfloat16, "cuda", 0, flash_attention,
+                            False, cs.BERT_LR, cs.BATCH, cs.LOCAL_STEPS)
+    sim.logic.value_and_grads = ranged(BERT_RANGES[0], sim.logic.value_and_grads)
+    sim.tx = dataclasses.replace(sim.tx, update=ranged(BERT_RANGES[1], sim.tx.update))
+    sim.strategy.aggregate = ranged(BERT_RANGES[2], sim.strategy.aggregate)
+    sim._eval_round = ranged(BERT_RANGES[3], sim._eval_round)
+    sim._fit_round, _ = sim._build_round_fns()  # the step closes over tx
+    return sim
+
+
+def trainable_only_grads(sim) -> None:
+    """Make the clients differentiate only the trainable (LoRA and head)
+    leaves, the frozen leaves' gradients zeros: a measurement of what the
+    frozen leaves' gradients cost, not the port's path."""
+    from fl4health_tpu_torch.utils.peft import lora_trainable_mask
+
+    logic = sim.logic
+    mask = lora_trainable_mask(sim.global_params)
+
+    def value_and_grads(state, ctx, batch, step_rng):
+        def loss(trainable):
+            params = {**state.params, **trainable}
+            preds, features = logic.predict(params, batch, train=True, ctx=ctx,
+                                            rng=step_rng)
+            backward, additional = logic.training_loss(preds, features, batch, params,
+                                                       state, ctx)
+            return backward, (preds, additional)
+
+        grads, (backward, aux) = torch.func.grad_and_value(loss, has_aux=True)(
+            {k: v for k, v in state.params.items() if mask[k]})
+        return (backward, aux), {k: grads[k] if mask[k] else torch.zeros_like(v)
+                                 for k, v in state.params.items()}
+
+    logic.value_and_grads = ranged(BERT_RANGES[0], value_and_grads)
+    sim._fit_round, _ = sim._build_round_fns()
+
+
 def pipeline_timers(sim) -> dict:
     """Host clocks around the round pipeline's work, on whichever thread runs
     it (the profiler records no ranges on the pipeline's own threads): the
@@ -245,7 +304,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--config", choices=("transformer_long", "dp_cifar_cnn",
                                              "client_dp_cifar_cnn", "scaffold_cifar_cnn",
-                                             "fedprox_cifar_cnn", "dp_scaffold_cifar_cnn"),
+                                             "fedprox_cifar_cnn", "dp_scaffold_cifar_cnn",
+                                             "bert_lora_fedopt_base"),
                         default="transformer_long")
     parser.add_argument("--rounds", type=int, default=1,
                         help="profile this many rounds in one pipelined fit (the "
@@ -258,7 +318,8 @@ def main() -> int:
            "transformer_long": transformer_sim,
            "scaffold_cifar_cnn": lambda: alg_sim("scaffold"),
            "fedprox_cifar_cnn": lambda: alg_sim("fedprox"),
-           "dp_scaffold_cifar_cnn": lambda: alg_sim("dp_scaffold")}[args.config]()
+           "dp_scaffold_cifar_cnn": lambda: alg_sim("dp_scaffold"),
+           "bert_lora_fedopt_base": bert_sim}[args.config]()
     timed = pipeline_timers(sim)
     sim.fit(1)  # warm-up: kernel build, cuBLAS/cuDNN handles, allocator
     torch.cuda.synchronize()
@@ -279,7 +340,7 @@ def main() -> int:
             dev_us = evt.self_cuda_time_total
         if dev_us <= 0 or evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        if evt.key in RANGES + CDP_RANGES + ALG_RANGES:  # a range's span on the device
+        if evt.key in RANGES + CDP_RANGES + ALG_RANGES + BERT_RANGES:  # a range's span
             continue
         g = kernel_group(evt.key)
         groups[g] = groups.get(g, 0.0) + dev_us / 1e6
@@ -340,6 +401,31 @@ def main() -> int:
             split.update(dp_kernels_k1_k2=k12, dp_norms_clip_noise_glue=dpc - k12)
         out["split_s"] = split
         out["range_device_s"], out["range_host_s"], out["range_calls"] = device, host, calls
+    if args.config == "bert_lora_fedopt_base":
+        device, host, calls = device_time_by_range(prof, BERT_RANGES)
+        vg, adam, agg, ev = (device[n] for n in BERT_RANGES)
+        flash = sum(groups.get(k, 0.0) for k in ("flash_fwd", "flash_bwd_dq",
+                                                 "flash_bwd_dkv"))
+        out["split_s"] = {"forward_backward": vg, "client_masked_adam": adam,
+                          "server_aggregate_fedopt_adam": agg,
+                          "engine_glue": busy - vg - adam - agg - ev, "eval": ev,
+                          "host_idle": wall - busy, "flash_k3_k5": flash,
+                          "gemm": groups.get("gemm", 0.0)}
+        out["range_device_s"], out["range_host_s"], out["range_calls"] = device, host, calls
+        # the same rounds again with the clients differentiating only the
+        # trainable leaves: the forward-backward time that goes is the
+        # frozen leaves' gradients
+        trainable_only_grads(sim)
+        sim.fit(1)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof2:
+            t0 = time.time()
+            sim.fit(args.rounds)
+            torch.cuda.synchronize()
+            wall2 = time.time() - t0
+        device2 = device_time_by_range(prof2, BERT_RANGES)[0]
+        out["trainable_only"] = {"round_wall_s": wall2, "range_device_s": device2}
+        out["frozen_leaf_grads_s"] = vg - device2[BERT_RANGES[0]]
     print(json.dumps(out))
     return 0
 
