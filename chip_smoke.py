@@ -159,12 +159,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      from the same params: finite falling training losses, a final
      validation loss within 0.05 of f32's, f32 master params and optimizer
      state, the fp16 arm's skipped steps and scale, and no kernel launched.
-Every ``fit`` is the pipelined path: the producer never waits for the
-device, so ``fit_elapsed_s``/``eval_elapsed_s`` are dispatch times. Each main
-path prints the synchronised wall of its rounds and its peak device memory,
-then its warm rounds' walls through the pipelined ``fit`` and through the
-plain version (pipelined, inline, inline, pipelined, 2 rounds each); its
-throughput is over the pipelined warm walls.
+ 21. ``aggregate_64``: the weighted mean at the DP path's 64 clients over
+     the CifarNet tree, in XLA's windows of 32 rows: equal on the card and
+     the CPU bit for bit, within f32 rounding of the one reduction it
+     replaced, both timed. (The DP path's warm walls, phase 8, are read
+     with each of the two swapped in, in turns.)
+ 22. ``tiny_nnunet_parity``: tests/smoke/harness.py's nnunet_synthetic
+     (12^3 spheres, features / 4, plans through the handshake) for 2
+     rounds on the card and on the CPU from the same params, with and
+     without augmentation, TF32 off: losses and params within 5e-4.
+ 23. ``chunked_vs_pipelined``, cuDNN deterministic in this phase only: the
+     DP path (64 clients) and the tiny nnU-Net with augmentation, 2 rounds
+     each with ``execution_mode`` "auto" (which must take the chunked route)
+     and "pipelined": histories and states equal bit for bit; then both
+     routes' warm walls in turns.
+ 24. ``nnunet_fullres``, BASELINE.json config 5 at nnU-Net's published
+     width: the default plans of synthetic spheres at volume size 128 (a
+     128^3 patch, batch 2, 6 stages, features 32-320), 2 clients of 10
+     patches (8 train), 4 local steps of nnunet_optimizer(5e-3), FedAvg,
+     augmentation on, through ``NnunetServer`` and ``execution_mode`` "auto"
+     (which must report ``chunked_scan``), cuDNN's TF32 on (PyTorch's
+     default; printed): 1 cold and 2 warm rounds with the launch counts set
+     to 0 before and read after (none of K1-K5), finite falling losses,
+     voxels a second, peak memory, one round under the profiler (busy
+     share), then rounds through the client vmap and the loop in turns.
+``fit`` takes its default route, ``execution_mode`` "auto": chunked unless
+something needs the host between rounds (a strict failure policy, a data
+provider), then pipelined. Neither waits for the device inside a round, so
+``fit_elapsed_s``/``eval_elapsed_s`` are dispatch times (the chunked
+route's ``fit_elapsed_s`` its chunk's wall a round, ``eval_elapsed_s``
+0). Each main path prints the synchronised wall of its rounds and its peak
+device memory, then its warm rounds' walls through the pipelined ``fit``
+and through the plain version (pipelined, inline, inline, pipelined, 2
+rounds each); its throughput is over the pipelined warm walls.
 Both extensions are built at the start, in parallel. Then one JSON line with
 every kernel, the card line again, and the result line.
 """
@@ -284,6 +311,20 @@ PREC_CLIENTS, PREC_ROUNDS = 64, 3
 # the pinned bf16-vs-f32 loss gap (tests/precision/test_precision_sim.py's
 # CIFAR_BF16_LOSS_ATOL), held here for both low-precision arms
 PREC_LOSS_ATOL = 0.05
+# BASELINE.json config 5 (nnU-Net 3D segmentation, FedAvg): the plans
+# generate_plans makes by default from tests/smoke/harness.py's synthetic
+# spheres at volume size 128 (a 128^3 patch, 6 stages, features 32 to 320,
+# 3^3 kernels, 2 convs a stage, deep supervision, batch 2 by the 5% rule),
+# with examples/nnunet_example/config.yaml's traffic: 2 clients of 4
+# volumes, 10 patches each (8 train, 2 val), 4 local steps,
+# nnunet_optimizer(5e-3), FedAvg, augmentation on; 1 cold round, 2 warm,
+# then the client vmap against the loop in turns
+NNU_CLIENTS, NNU_VOLUMES, NNU_SIZE, NNU_PATCHES, NNU_TRAIN = 2, 4, 128, 10, 8
+NNU_STEPS, NNU_LR, NNU_WARM, NNU_AXIS_ROUNDS = 4, 5e-3, 2, 4
+NNU_ROUNDS = 1 + NNU_WARM + 1 + NNU_AXIS_ROUNDS  # a profiled round too
+NNU_FEATURES = [32, 64, 128, 256, 320, 320]
+# the nnunet_synthetic smoke config's size: 12^3 volumes, features / 4
+TINY_NNU_SIZE = 12
 RNG_SHAPES = [(), (7,), (64,), (3, 5, 11), (579402,)]
 # CifarNet's parameter leaves, each with a leading per-example axis on the path
 CIFAR_LEAVES = {"Conv_0/kernel": (5, 5, 3, 32), "Conv_0/bias": (32,),
@@ -366,17 +407,37 @@ def inline_rounds(sim, rounds: int) -> None:
 
 def pipeline_walls(sim, rounds: int = WARM_ROUNDS) -> dict:
     """Synchronised walls of ``rounds`` warm rounds through the pipelined
-    ``fit`` and through ``inline_rounds``, in turns."""
+    ``fit`` (``execution_mode`` pinned to it) and through ``inline_rounds``,
+    in turns."""
     walls = {"pipelined_s": [], "inline_s": []}
+    mode_before = sim.execution_mode
     for mode in ("pipelined", "inline", "inline", "pipelined"):
         torch.cuda.synchronize()
         t0 = time.time()
         if mode == "pipelined":
+            sim.execution_mode = "pipelined"
             sim.fit(rounds)
+            sim.execution_mode = mode_before
         else:
             inline_rounds(sim, rounds)
         torch.cuda.synchronize()
         walls[f"{mode}_s"].append(time.time() - t0)
+    return {"rounds": rounds, **walls}
+
+
+def mode_walls(sim, rounds: int = WARM_ROUNDS) -> dict:
+    """Synchronised walls of ``rounds`` warm rounds through ``fit`` on the
+    chunked and the pipelined route, in turns."""
+    walls = {"chunked_s": [], "pipelined_s": []}
+    mode_before = sim.execution_mode
+    for mode in ("chunked", "pipelined", "pipelined", "chunked"):
+        sim.execution_mode = mode
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sim.fit(rounds)
+        torch.cuda.synchronize()
+        walls[f"{mode}_s"].append(time.time() - t0)
+    sim.execution_mode = mode_before
     return {"rounds": rounds, **walls}
 
 
@@ -1261,8 +1322,11 @@ def dp_main_path(dp) -> dict:
     steps = DP_ROUNDS * LOCAL_STEPS
     expected = {"dp_sq_norms": steps, "dp_scaled_sum": steps * len(CIFAR_LEAVES)}
     walls = pipeline_walls(sim)
+    # 64 clients: the aggregate's windowed sum, and the one reduction it
+    # replaced swapped in, in turns
+    agg_walls = aggregate_walls(sim)
     print(json.dumps({"main_path": "dp_fedavg_cifar_cnn", "rounds": DP_ROUNDS,
-                      "wall_s": wall, "warm_walls": walls,
+                      "wall_s": wall, "warm_walls": walls, "aggregate_walls": agg_walls,
                       # per second of synchronised round wall (fit and eval)
                       "train_examples_per_s": [WARM_ROUNDS * examples / w
                                                for w in walls["pipelined_s"]],
@@ -2329,6 +2393,362 @@ def precision_main_path(fa, dp) -> dict:
     return arms
 
 
+# ---------------------------------------------------------------------------
+# Config 5 (nnU-Net), the chunked route and the >32-client aggregate
+# ---------------------------------------------------------------------------
+
+def one_reduction_weighted_mean(stacked, weights):
+    """The weighted mean above 32 clients as the previous slice summed it:
+    the products in one ``sum(dim=0)``, whose order is not JAX's. Timed
+    beside ``core.aggregate.weighted_mean``; nothing else calls it."""
+    from fl4health_tpu_torch.core.pytree import tree_leaves, tree_map
+
+    leaves = tree_leaves(stacked)
+    n = leaves[0].shape[0]
+    w = weights.to(device=leaves[0].device, dtype=torch.float32)
+    flat = torch.cat([x.reshape(n, -1).float() for x in leaves], dim=1)
+    out = (torch.where(w[:, None] > 0, flat, torch.zeros((), device=flat.device))
+           * w[:, None]).sum(dim=0)
+    pieces = iter(torch.split(out, [x[0].numel() for x in leaves]))
+    return tree_map(lambda x: next(pieces).view(x.shape[1:]).to(x.dtype), stacked)
+
+
+def aggregate_64() -> dict:
+    """The aggregate at the DP path's 64 clients over the CifarNet tree: the
+    windowed sum on the card equal to the CPU's bit for bit (both JAX's
+    order), within f32 rounding of the one reduction, and both timed (20
+    calls a timing)."""
+    from fl4health_tpu_torch.core import aggregate as agg
+
+    g = torch.Generator(device="cuda").manual_seed(64)
+    packets = {k: torch.randn((DP_CLIENTS, *shape), generator=g, device="cuda")
+               for k, shape in CIFAR_LEAVES.items()}
+    counts = torch.arange(1, DP_CLIENTS + 1, dtype=torch.float32, device="cuda")
+    mask = (torch.arange(DP_CLIENTS, device="cuda") % 7 != 3).float()
+    w = agg.effective_weights(counts, mask)
+    got = agg.weighted_mean(packets, w)
+    cpu = agg.weighted_mean({k: v.cpu() for k, v in packets.items()}, w.cpu())
+    if not all(torch.equal(got[k].cpu(), cpu[k]) for k in cpu):
+        fail("aggregate_64: the windowed sum on the card differs from the CPU's")
+    old = one_reduction_weighted_mean(packets, w)
+    err = max(check(f"aggregate_64 {k}", got[k], old[k], 1e-6, 1e-5) for k in got)
+    res = {"phase": "aggregate_64", "clients": DP_CLIENTS,
+           "elements": sum(v[0].numel() for v in packets.values()),
+           "windowed_us": 1e3 * cuda_ms(lambda: agg.weighted_mean(packets, w), calls=20),
+           "one_reduction_us": 1e3 * cuda_ms(
+               lambda: one_reduction_weighted_mean(packets, w), calls=20),
+           "card_equals_cpu": True, "max_abs_diff_vs_one_reduction": err}
+    print(json.dumps(res))
+    return res
+
+
+def aggregate_walls(sim, rounds: int = WARM_ROUNDS) -> dict:
+    """Warm walls of ``rounds`` rounds with the windowed aggregate and with
+    the one reduction swapped in, in turns."""
+    from fl4health_tpu_torch.core import aggregate as agg
+
+    windowed = agg.weighted_mean
+    walls = {"windowed_s": [], "one_reduction_s": []}
+    try:
+        for arm in ("windowed", "one_reduction", "one_reduction", "windowed"):
+            agg.weighted_mean = windowed if arm == "windowed" else one_reduction_weighted_mean
+            torch.cuda.synchronize()
+            t0 = time.time()
+            sim.fit(rounds)
+            torch.cuda.synchronize()
+            walls[f"{arm}_s"].append(time.time() - t0)
+    finally:
+        agg.weighted_mean = windowed
+    return {"rounds": rounds, **walls}
+
+
+def synth_volumes(n: int, size: int, seed: int):
+    """tests/smoke/harness.py's synthetic spheres: ``n`` volumes of
+    ``size``^3, one sphere each (label 1) in a channel of N(0, 0.3) noise."""
+    g = np.random.default_rng(seed)
+    vols, segs = [], []
+    coords = np.stack(np.meshgrid(*[np.arange(size)] * 3, indexing="ij"), -1).astype(float)
+    for _ in range(n):
+        c = np.asarray([g.uniform(size * 0.3, size * 0.7) for _ in range(3)])
+        r = size * g.uniform(0.2, 0.3)
+        seg = (np.sqrt(((coords - c) ** 2).sum(-1)) < r).astype(np.int32)
+        vols.append((g.normal(0, 0.3, (size,) * 3)[..., None] + seg[..., None]).astype(
+            np.float32))
+        segs.append(seg)
+    return vols, segs
+
+
+def busy_share(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its synchronised wall
+    (the profiler's cost included), the union of the device's kernel,
+    copy and memset intervals over it, and the kernels with the most
+    device time."""
+    import collections
+    import tempfile
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "trace.json")
+        prof.export_chrome_trace(path)
+        events = json.loads(Path(path).read_text())["traceEvents"]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy, end = 0.0, -1.0
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in device):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = collections.Counter()
+    for e in device:
+        by_name[e["name"][:80]] += e["dur"] / 1e6
+    return {"wall_s": wall, "device_busy_s": busy / 1e6, "busy_share": busy / 1e6 / wall,
+            "device_ops": len(device),
+            "top_device_s": [[n, t] for n, t in by_name.most_common(6)]}
+
+
+class ModeRecorder:
+    """A reporter that keeps each report's ``execution_mode``."""
+
+    def __init__(self):
+        self.modes = []
+
+    def report(self, data, round=None, epoch=None, step=None):
+        if "execution_mode" in data:
+            self.modes.append((round, data["execution_mode"],
+                               data.get("execution_mode_reason")))
+
+    def shutdown(self):
+        pass
+
+
+def build_nnunet_server(size: int, device: str, augment: bool, rounds: int,
+                        shrink: bool = False, **sim_kw):
+    """tests/smoke/harness.py's nnunet_synthetic at volume size ``size``:
+    two clients' plans handshake through ``NnunetServer``; their builder
+    cuts 10 patches a client (8 train, 2 val) and runs 4 local steps of
+    ``nnunet_optimizer(5e-3)`` over ``rounds`` rounds, FedAvg, batch from
+    the plans. ``shrink`` divides the features by 4 (the smoke config's
+    CPU size)."""
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.clients.nnunet import (NnunetClientLogic,
+                                                    make_nnunet_properties_provider)
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.models.unet import deep_supervision_strides, unet_from_plans
+    from fl4health_tpu_torch.nnunet import extract_patch_dataset, nnunet_optimizer
+    from fl4health_tpu_torch.server.nnunet import NnunetServer
+    from fl4health_tpu_torch.server.simulation import ClientDataset, FederatedSimulation
+    from fl4health_tpu_torch.strategies.fedavg import FedAvg
+
+    client_data = [synth_volumes(NNU_VOLUMES, size, 10), synth_volumes(NNU_VOLUMES, size, 20)]
+    providers = [make_nnunet_properties_provider(v, [(1.0, 1.0, 1.0)] * len(v), s)
+                 for v, s in client_data]
+
+    def sim_builder(plans, n_in, n_heads):
+        cfg = plans["configurations"]["3d_fullres"]
+        if shrink:
+            cfg["features_per_stage"] = [max(f // 4, 8) for f in cfg["features_per_stage"]]
+        logic = NnunetClientLogic(
+            engine.from_module(unet_from_plans(plans, n_in, n_heads)),
+            ds_strides=deep_supervision_strides(plans), augment=augment)
+        datasets = []
+        for i, (v, s) in enumerate(client_data):
+            x, y = extract_patch_dataset(v, s, plans, n_patches=NNU_PATCHES, seed=i)
+            datasets.append(ClientDataset(x[:NNU_TRAIN], y[:NNU_TRAIN], x[NNU_TRAIN:],
+                                          y[NNU_TRAIN:]))
+        return FederatedSimulation(
+            logic=logic, tx=nnunet_optimizer(NNU_LR, rounds * NNU_STEPS), strategy=FedAvg(),
+            datasets=datasets, batch_size=int(cfg["batch_size"]),
+            metrics=MetricManager((efficient.segmentation_dice(n_heads),)),
+            local_steps=NNU_STEPS, seed=0, extra_loss_keys=("dice", "ce"), device=device,
+            **sim_kw)
+
+    return NnunetServer(config={"n_server_rounds": rounds}, property_providers=providers,
+                        sim_builder=sim_builder)
+
+
+def tiny_nnunet_sim(device: str, augment: bool, **sim_kw):
+    """The nnunet_synthetic smoke config's simulation (12^3, features / 4),
+    its plans negotiated through ``NnunetServer``'s handshake."""
+    server = build_nnunet_server(TINY_NNU_SIZE, device, augment, rounds=2, shrink=True,
+                                 **sim_kw)
+    server.update_before_fit()
+    return server.sim_builder(server.plans, server.num_input_channels,
+                              server.num_segmentation_heads)
+
+
+def tiny_nnunet_parity() -> dict:
+    """The nnunet_synthetic smoke config's sizes for 2 rounds on the card
+    and on the CPU from the same params, with and without augmentation:
+    losses and params within 5e-4. cuDNN's TF32 is off (the script turns
+    it off for every phase but the full-width one)."""
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        fail("tiny nnU-Net parity must run with TF32 off")
+    out = {"phase": "tiny_nnunet_parity", "cudnn_allow_tf32": False}
+    for augment in (False, True):
+        out[f"augment_{augment}"] = card_vs_cpu(
+            f"tiny nnU-Net (augment={augment})",
+            lambda device, a=augment: tiny_nnunet_sim(device, a), 2)
+    print(json.dumps(out))
+    return out
+
+
+def history_equal(a, b) -> bool:
+    fields = ("fit_losses", "fit_metrics", "eval_losses", "eval_metrics")
+    return ([r.round for r in a.history] == [r.round for r in b.history]
+            and all(getattr(x, f) == getattr(y, f) for x, y in zip(a.history, b.history)
+                    for f in fields))
+
+
+def states_equal(a, b) -> bool:
+    from fl4health_tpu_torch.core.pytree import tree_leaves
+
+    return all(torch.equal(x, y) for x, y in zip(
+        tree_leaves((a.server_state, a.client_states)),
+        tree_leaves((b.server_state, b.client_states))))
+
+
+def chunked_vs_pipelined(dp) -> dict:
+    """The chunked route against the pipelined one on the card, cuDNN
+    deterministic in this phase only: the DP path (64 clients, so the
+    windowed aggregate, and K1/K2) and the tiny nnU-Net config with
+    augmentation, each 2 rounds from the same seed with ``execution_mode``
+    "auto" (which must take the chunked route) and "pipelined": histories,
+    server and client states equal bit for bit; then both routes' warm
+    walls in turns."""
+    from fl4health_tpu_torch.server import simulation as tsim
+
+    dp_data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    builds = {
+        "dp_cifar_cnn": lambda mode: build_dp_sim(dp_data, torch.bfloat16, "cuda", DP_SIGMA,
+                                                  seed=0, execution_mode=mode),
+        "nnunet_synthetic": lambda mode: tiny_nnunet_sim("cuda", True, execution_mode=mode),
+    }
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {"phase": "chunked_vs_pipelined", "cudnn_deterministic": True}
+    try:
+        for name, build in builds.items():
+            auto, piped = build("auto"), build("pipelined")
+            mode = auto._select_execution_mode(2)
+            if mode[0] != tsim.EXEC_CHUNKED:
+                fail(f"{name}: execution_mode='auto' took {mode}")
+            auto.fit(2)
+            piped.fit(2)
+            torch.cuda.synchronize()
+            equal = history_equal(auto, piped) and states_equal(auto, piped)
+            if not equal:
+                fail(f"{name}: the chunked history or state differs from the pipelined one")
+            out[name] = {"mode": list(mode), "bit_equal": equal,
+                         "fit_losses": [r.fit_losses["backward"] for r in auto.history],
+                         "warm_walls": mode_walls(auto)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(json.dumps(out))
+    return out
+
+
+def nnunet_main_path(fa, dp) -> dict:
+    """BASELINE.json config 5 at nnU-Net's published width through
+    ``NnunetServer`` (plans negotiated from a client) and the default
+    ``execution_mode``, which must take the chunked route: 1 cold round and
+    2 warm, the launch counts set to 0 before and read after (none of
+    K1-K5, as in JAX); losses finite and falling; then rounds through the
+    client vmap and the loop over clients in turns. cuDNN may use TF32, as
+    PyTorch's default has it; printed."""
+    from fl4health_tpu_torch.server import simulation as tsim
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        recorder = ModeRecorder()
+        t0 = time.time()
+        server = build_nnunet_server(NNU_SIZE, "cuda", augment=True, rounds=NNU_ROUNDS,
+                                     reporters=[recorder])
+        server.update_before_fit()
+        setup_s = time.time() - t0
+        cfg = server.plans["configurations"]["3d_fullres"]
+        shape = {"features_per_stage": cfg["features_per_stage"],
+                 "patch_size": cfg["patch_size"], "batch_size": cfg["batch_size"],
+                 "n_stages": cfg["n_stages"], "kernel_sizes": cfg["kernel_sizes"][0]}
+        if (cfg["features_per_stage"] != NNU_FEATURES or cfg["patch_size"] != [NNU_SIZE] * 3
+                or cfg["batch_size"] != 2):
+            fail(f"nnU-Net plans {shape}: not the published width at a 128^3 patch")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        dp.reset_launch_counts()
+        t0 = time.time()
+        server.fit(1)
+        torch.cuda.synchronize()
+        cold = time.time() - t0
+        sim = server.sim
+        warm = []
+        for _ in range(NNU_WARM):
+            t0 = time.time()
+            sim.fit(1)
+            torch.cuda.synchronize()
+            warm.append(time.time() - t0)
+        launches = {**fa.LAUNCHES, **dp.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        hist = list(sim.history)
+        profiled = busy_share(lambda: sim.fit(1))
+        for r in hist:
+            values = [*r.fit_losses.values(), *r.eval_losses.values(), *r.eval_metrics.values()]
+            if not all(np.isfinite(v) for v in values):
+                fail(f"nnU-Net round {r.round}: non-finite values {r}")
+            print(json.dumps({"nnunet_round": r.round, "fit_losses": r.fit_losses,
+                              "eval_losses": r.eval_losses,
+                              "seg_dice": r.eval_metrics["seg_dice"],
+                              "fit_elapsed_s": r.fit_elapsed_s,
+                              "eval_elapsed_s": r.eval_elapsed_s}))
+        falling = (hist[-1].fit_losses["backward"] < hist[0].fit_losses["backward"]
+                   and hist[-1].eval_losses["checkpoint"] < hist[0].eval_losses["checkpoint"])
+        modes = {m for _, m, _ in recorder.modes}
+        n_params = sum(v.numel() for v in sim.global_params.values())
+        # the client axis: rounds through the vmap and the loop, in turns
+        vmapped = (sim._fit_round, sim._eval_round)
+        looped = sim._build_round_fns(tsim.loop_clients)
+        axis = {"vmap_clients_s": [], "loop_clients_s": []}
+        axis_peak = {"vmap_clients": 0.0, "loop_clients": 0.0}
+        for arm in ("vmap_clients", "loop_clients", "loop_clients", "vmap_clients"):
+            sim._fit_round, sim._eval_round = vmapped if arm == "vmap_clients" else looped
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            sim.fit(1)
+            torch.cuda.synchronize()
+            axis[f"{arm}_s"].append(time.time() - t0)
+            axis_peak[arm] = max(axis_peak[arm], torch.cuda.max_memory_allocated() / 2**30)
+        sim._fit_round, sim._eval_round = vmapped
+        voxels = NNU_CLIENTS * NNU_STEPS * int(cfg["batch_size"]) * NNU_SIZE ** 3
+        res = {"main_path": "nnunet_fullres", "plans": shape, "n_params": n_params,
+               "clients": NNU_CLIENTS, "local_steps": NNU_STEPS, "augment": True,
+               "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+               "cuda_matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+               "execution_modes": sorted(modes), "setup_s": setup_s, "cold_round_s": cold,
+               "warm_round_s": warm, "train_voxels_per_s": [voxels / w for w in warm],
+               "peak_mem_gib": peak, "profiled_round": profiled, "launches": launches,
+               "falling": falling,
+               "client_axis_walls": axis, "client_axis_peak_gib": axis_peak}
+        print(json.dumps(res))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    if modes != {tsim.EXEC_CHUNKED}:
+        fail(f"nnU-Net fit took {recorder.modes}, not the chunked route")
+    if any(launches.values()):
+        fail(f"the nnU-Net path launched kernels: {launches}")
+    if not falling:
+        fail("nnU-Net losses did not fall over the first 3 rounds")
+    return res
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: needs an NVIDIA card; torch.cuda.is_available() is false",
@@ -2396,6 +2816,13 @@ def main() -> int:
     bert_launches = bert_main_path(fa)
     precision_main_path(fa, dp)
 
+    # config 5 and the chunked route: the aggregate above 32 clients, the
+    # tiny card-vs-CPU nnU-Net runs, chunked against pipelined, the main path
+    aggregate_64()
+    tiny_nnunet_parity()
+    chunked_vs_pipelined(dp)
+    nnunet_launches = nnunet_main_path(fa, dp)["launches"]
+
     replaces = {"flash_fwd": "fl4health_tpu/kernels/flash_attention.py:71",
                 "flash_bwd_dq": "fl4health_tpu/kernels/flash_attention.py:141",
                 "flash_bwd_dkv": "fl4health_tpu/kernels/flash_attention.py:175"}
@@ -2430,6 +2857,7 @@ def main() -> int:
             # config 3 (bert_lora_fedopt_base): its launches, and the kernel at
             # its shape, 4 clients folded at T 128, 12 heads, bf16
             "launches_bert_lora_fedopt_base": bert_launches[name],
+            "launches_nnunet_fullres": nnunet_launches[name],
             "t128_shape": [BERT_CLIENTS * BATCH, BERT_CFG["max_len"], BERT_CFG["n_heads"], D],
             "t128_max_abs_err": t128_errs["max_abs_err"][name],
             "t128_bound_used": t128_errs["bound_used"][name],
@@ -2455,6 +2883,7 @@ def main() -> int:
             "launches_pipelined_dp_cifar_cnn": pipelined_launches[name],
             # DP-SCAFFOLD's: the warm start and 2 rounds
             "launches_dp_scaffold_cifar_cnn": dp_scaffold_launches[name],
+            "launches_nnunet_fullres": nnunet_launches[name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

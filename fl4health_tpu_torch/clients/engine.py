@@ -16,6 +16,11 @@ tensor code over one client, with a static Python loop over the step axis
 ``torch.func.vmap``; gradients come from ``torch.func.grad_and_value``,
 which composes with that vmap.
 
+A train step first hands its batch to ``ClientLogic.augment`` with the key
+``fold_in(step_rng, 0xA6)``, right after the step's key split, as in JAX:
+the default returns the batch unchanged, so no other stream moves; the
+nnU-Net logic augments its patches there.
+
 A step's gradients pass through ``ClientLogic.transform_gradients`` after
 ``value_and_grads`` and before the optimizer, as in JAX: SCAFFOLD's
 correction ``g - c_i + c`` lands there, and under DP on the clipped and
@@ -34,7 +39,12 @@ finite``) and the scaler state in ``TrainState.loss_scale`` advances on
 real steps only. A logic that computes its own gradients (DP) is refused
 under scaling. Left out here: ZeRO-2 microbatching and telemetry; and the
 algorithm hooks no ported logic overrides yet
-(``update_before_step``/``update_after_step``, ``augment``).
+(``update_before_step``/``update_after_step``).
+
+Data may be a tree: ``x`` (or ``y``) a dict of arrays that share axis 0
+(multi-input models, the reference's ``DictionaryDataset``); the stacking,
+the index plans' gathers and the step slices go leaf by leaf, and the model
+receives the structure it was given.
 """
 
 from __future__ import annotations
@@ -49,7 +59,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from fl4health_tpu_torch import rng
-from fl4health_tpu_torch.core.pytree import tree_dataclass, tree_map
+from fl4health_tpu_torch.core.pytree import tree_dataclass, tree_leaves, tree_map
 from fl4health_tpu_torch.core.types import Params
 from fl4health_tpu_torch.losses.containers import LossMeter
 from fl4health_tpu_torch.metrics.base import MetricManager
@@ -198,6 +208,12 @@ class ClientLogic:
         variate correction)."""
         return grads
 
+    def augment(self, batch: Batch, rng_key: torch.Tensor, ctx: Any) -> Batch:
+        """Train-time augmentation of one step's batch, keyed by
+        ``fold_in(step_rng, 0xA6)``; the default leaves it as it is."""
+        del rng_key, ctx
+        return batch
+
     def pack(self, state: TrainState, pushed_params: Params, train_losses: dict) -> Any:
         return pushed_params
 
@@ -261,6 +277,7 @@ def make_train_step(logic: ClientLogic, tx: GradientTransformation,
 
     def step(state: TrainState, ctx: Any, batch: Batch):
         next_key, step_key = rng.split(state.rng)
+        batch = logic.augment(batch, rng.fold_in(step_key, 0xA6), ctx)
         finite = None
         if scaling:
             ls = state.loss_scale
@@ -310,8 +327,7 @@ def make_train_step(logic: ClientLogic, tx: GradientTransformation,
 
 
 def _step_slice(batches: Batch, s: int) -> Batch:
-    return Batch(batches.x[s], batches.y[s], batches.example_mask[s],
-                 batches.step_mask[s])
+    return tree_map(lambda a: a[s], batches)
 
 
 def make_local_train(logic: ClientLogic, tx: GradientTransformation,
@@ -547,11 +563,66 @@ def multi_client_index_plans(
     return idx_all, em_all, sm_all
 
 
-def pad_and_stack_data(arrays: list, name: str,
-                       device: torch.device) -> torch.Tensor:
-    """Zero-pad per-client arrays along axis 0 to the longest and stack them
-    -> one [C, max_n, ...] tensor on ``device`` (one transfer). Every client
-    must share the example shape and dtype."""
+def data_rows(tree) -> int:
+    """Example count of a data tree (axis 0 of its first leaf), for arrays
+    and dicts of arrays alike."""
+    return int(tree_leaves(tree)[0].shape[0])
+
+
+def leaves_with_paths(tree, path: str = "") -> list[tuple[str, Any]]:
+    """(path, leaf) pairs in JAX's flatten order (dict keys sorted), the
+    paths written as ``jax.tree_util.keystr`` writes them (``"['a']"``)."""
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree) for pair in
+                leaves_with_paths(tree[k], f"{path}[{k!r}]")]
+    if isinstance(tree, (list, tuple)):
+        return [pair for i, t in enumerate(tree) for pair in
+                leaves_with_paths(t, f"{path}[{i}]")]
+    return [(path, tree)]
+
+
+def data_structure(tree) -> str:
+    """A data tree's structure, its leaves written ``*``."""
+    if isinstance(tree, dict):
+        return "{" + ", ".join(f"{k!r}: {data_structure(tree[k])}" for k in sorted(tree)) + "}"
+    if isinstance(tree, (list, tuple)):
+        inner = ", ".join(data_structure(t) for t in tree)
+        return f"[{inner}]" if isinstance(tree, list) else f"({inner})"
+    return "*"
+
+
+def pad_and_stack_data(arrays: list, name: str, device: torch.device):
+    """Zero-pad per-client data along axis 0 to the longest and stack it ->
+    ``[C, max_n, ...]`` on ``device`` (one transfer a leaf), leaf by leaf
+    over a data tree (an array, or a dict of arrays). Every client must
+    give the same structure, and within a client every leaf the same row
+    count; every client must share each leaf's example shape and dtype."""
+    structure = data_structure(arrays[0])
+    for i, a in enumerate(arrays):
+        if data_structure(a) != structure:
+            raise ValueError(
+                f"client {i}'s {name} pytree structure {data_structure(a)} differs from "
+                f"client 0's {structure}; every client must provide the same input keys.")
+    for i, a in enumerate(arrays):
+        ns = {path: leaf.shape[0] for path, leaf in leaves_with_paths(a)}
+        if len(set(ns.values())) > 1:
+            raise ValueError(f"client {i}'s {name} leaves disagree on example count: {ns}")
+    return _stack_tree(arrays, name, device)
+
+
+def _stack_tree(trees: list, name: str, device: torch.device):
+    """The clients' trees stacked leaf by leaf, ``name`` the leaf's path."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_tree([t[k] for t in trees], f"{name}[{k!r}]", device)
+                for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack_tree([t[i] for t in trees], f"{name}[{i}]", device)
+                           for i in range(len(first)))
+    return _pad_and_stack_leaf(trees, name, device)
+
+
+def _pad_and_stack_leaf(arrays: list, name: str, device: torch.device) -> torch.Tensor:
     host = [np.asarray(a) for a in arrays]
     base = host[0].shape[1:]
     for i, a in enumerate(host):
@@ -578,16 +649,53 @@ def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
-def gather_batches(x_stack: torch.Tensor, y_stack: torch.Tensor,
-                   idx: np.ndarray, example_mask: np.ndarray,
+def gather_batches(x_stack, y_stack, idx: np.ndarray, example_mask: np.ndarray,
                    step_mask: np.ndarray) -> Batch:
-    """One device-side gather from pre-stacked data -> [C,S,B,...] Batch."""
-    device = x_stack.device
-    idx_t = host_to_device(np.asarray(idx, np.int64), device)
+    """One device-side gather from pre-stacked data -> [C,S,B,...] Batch;
+    the same index plan gathers every leaf of a data tree. The plan is
+    numpy (copied over here) or already on the stacks' device."""
+    device = tree_leaves(x_stack)[0].device
+    idx_t, example_mask, step_mask = (
+        a if isinstance(a, torch.Tensor) else host_to_device(np.asarray(a, dtype), device)
+        for a, dtype in ((idx, np.int64), (example_mask, np.float32),
+                         (step_mask, np.float32)))
     c = torch.arange(idx_t.shape[0], device=device)[:, None, None]
-    return Batch(
-        x=x_stack[c, idx_t],
-        y=y_stack[c, idx_t],
-        example_mask=host_to_device(np.asarray(example_mask), device),
-        step_mask=host_to_device(np.asarray(step_mask), device),
-    )
+    gather = lambda s: s[c, idx_t]  # noqa: E731
+    return Batch(x=tree_map(gather, x_stack), y=tree_map(gather, y_stack),
+                 example_mask=example_mask, step_mask=step_mask)
+
+
+def epoch_batches(key: torch.Tensor, x, y, batch_size: int, n_steps: int | None = None,
+                  shuffle: bool = True, drop_last: bool = False) -> Batch:
+    """A ``[steps, B, ...]`` Batch stack for one epoch (or exactly
+    ``n_steps``, wrapping with a fresh shuffle) of one client's data, its
+    plan drawn from the key's words as JAX's ``epoch_batches`` draws it.
+    ``x``/``y`` are tensors or trees of tensors sharing axis 0."""
+    ns = {leaf.shape[0] for tree in (x, y) for leaf in tree_leaves(tree)}
+    if len(ns) > 1:
+        raise ValueError(
+            f"epoch_batches: x/y leaves disagree on example count: {sorted(ns)}")
+    entropy = [int(w) for w in rng.key_data(key)]
+    idx, example_mask, step_mask = epoch_index_plan(
+        entropy, data_rows(x), batch_size, n_steps, shuffle, drop_last)
+    device = tree_leaves(x)[0].device
+    idx_t = host_to_device(np.asarray(idx, np.int64), device)
+    take = lambda a: a[idx_t]  # noqa: E731
+    return Batch(x=tree_map(take, x), y=tree_map(take, y),
+                 example_mask=host_to_device(example_mask, device),
+                 step_mask=host_to_device(step_mask, device))
+
+
+def pad_batch_stacks(stacks: list[Batch]) -> Batch:
+    """Pad per-client Batch stacks to a common ``[steps]`` length (padding
+    steps all zeros, ``step_mask`` 0) and stack them along a new leading
+    clients axis -> ``[clients, steps, B, ...]``."""
+    max_steps = max(b.step_mask.shape[0] for b in stacks)
+
+    def pad_one(b: Batch) -> Batch:
+        pad = max_steps - b.step_mask.shape[0]
+        if pad == 0:
+            return b
+        return tree_map(lambda a: torch.cat([a, a.new_zeros((pad, *a.shape[1:]))]), b)
+
+    return tree_map(lambda *xs: torch.stack(xs, dim=0), *[pad_one(b) for b in stacks])

@@ -34,8 +34,28 @@ def effective_weights(
 
 # Up to this many clients XLA compiles JAX's masked weighted sum into one
 # fused multiply-add a client, in client order (checked on the CPU); beyond,
-# it splits the sum another way, which the port does not reproduce.
+# into windows of this many rows (``_windowed_sum``).
 FMA_CHAIN_MAX_CLIENTS = 32
+
+
+def _windowed_sum(products: torch.Tensor) -> torch.Tensor:
+    """XLA's order for a sum over more than ``FMA_CHAIN_MAX_CLIENTS`` rows of
+    ``[n, E]`` f32 products: the rows zero-padded to a multiple of 32, half
+    the padding (rounded down) before them, each window of 32 rows summed in
+    order, then the windows' partial sums added in order; every add an f32
+    add, as explicit adds (``torch.sum`` promises no order)."""
+    n, width = products.shape
+    windows = -(-n // FMA_CHAIN_MAX_CLIENTS)
+    pad = windows * FMA_CHAIN_MAX_CLIENTS - n
+    padded = torch.nn.functional.pad(products, (0, 0, pad // 2, pad - pad // 2))
+    rows = padded.view(windows, FMA_CHAIN_MAX_CLIENTS, width)
+    acc = rows[:, 0]
+    for j in range(1, FMA_CHAIN_MAX_CLIENTS):
+        acc = acc + rows[:, j]
+    out = acc[0]
+    for i in range(1, windows):
+        out = out + acc[i]
+    return out
 
 
 def weighted_mean(stacked: StackedParams, weights: torch.Tensor) -> PyTree:
@@ -43,14 +63,14 @@ def weighted_mean(stacked: StackedParams, weights: torch.Tensor) -> PyTree:
     weight-0 rows hard-zeroed so a NaN in an unsampled row cannot leak in.
 
     Every leaf goes into one ``[clients, elements]`` buffer, so the sum is a
-    few ops for the whole tree. Up to ``FMA_CHAIN_MAX_CLIENTS`` clients it
-    runs client by client as one fused multiply-add each, ``acc =
-    fma(leaf_i, w_i, acc)``, rounded to f32 once a step, which is JAX's sum
-    bit for bit (the product of two f32 is exact in f64, so the f64
-    multiply-add rounds once, as an fma does): a server optimizer that
-    normalises its input (FedOpt's Adam) turns the last bit of a
-    pseudo-gradient that should be zero into a full step. With more
-    clients, where neither order is JAX's, it is one reduction."""
+    few ops for the whole tree, in the order XLA compiles JAX's sum, bit for
+    bit: a server optimizer that normalises its input (FedOpt's Adam) turns
+    the last bit of a pseudo-gradient that should be zero into a full step.
+    Up to ``FMA_CHAIN_MAX_CLIENTS`` clients it runs client by client as one
+    fused multiply-add each, ``acc = fma(leaf_i, w_i, acc)``, rounded to f32
+    once a step (the product of two f32 is exact in f64, so the f64
+    multiply-add rounds once, as an fma does); with more, each product is
+    rounded to f32 on its own and summed by ``_windowed_sum``."""
     leaves = tree_leaves(stacked)
     if not leaves:
         return stacked
@@ -59,7 +79,7 @@ def weighted_mean(stacked: StackedParams, weights: torch.Tensor) -> PyTree:
     flat = torch.cat([x.reshape(n, -1).float() for x in leaves], dim=1)
     zero = torch.zeros((), device=device)
     if n > FMA_CHAIN_MAX_CLIENTS:
-        out = (torch.where(w[:, None] > 0, flat, zero) * w[:, None]).sum(dim=0)
+        out = _windowed_sum(torch.where(w[:, None] > 0, flat, zero) * w[:, None])
     else:
         acc = torch.zeros(flat.shape[1], dtype=torch.float64, device=device)
         for i in range(n):

@@ -1,10 +1,13 @@
 """flax params <-> the port's ``Params`` (flax path -> tensor).
 
 The port keeps flax names and layouts (Dense kernels ``[in, out]``, embedding
-``[vocab, d]``), so conversion is flattening the nested flax dict into
-``"a/b/c"`` keys and back; no transposes. Nested modules flatten the same
-way: a ``MoonModel``'s tree ``{"base_module": {"Dense_0": {...}},
-"head_module": {...}}`` becomes ``base_module/Dense_0/kernel``, ...
+``[vocab, d]``, convolution and transposed-convolution kernels ``[*k, in,
+out]`` in 1-D, 2-D and 3-D, ``InstanceNorm``'s ``scale`` and ``bias``), so
+conversion is flattening the nested flax dict into ``"a/b/c"`` keys and
+back; no transposes. Nested modules flatten the same way: a ``MoonModel``'s
+tree ``{"base_module": {"Dense_0": {...}}, "head_module": {...}}`` becomes
+``base_module/Dense_0/kernel``, ... A model turns a kernel into torch's
+layout where it applies it: ``conv_weight`` and ``conv_transpose_weight``.
 """
 
 from __future__ import annotations
@@ -37,6 +40,23 @@ def flax_to_torch(params: Mapping[str, Any],
             for k in sorted(flat)}
 
 
+def conv_weight(kernel: torch.Tensor) -> torch.Tensor:
+    """A flax convolution kernel ``[*k, in, out]`` as ``F.conv*d``'s weight
+    ``[out, in, *k]`` (a permuted view)."""
+    nd = kernel.ndim - 2
+    return kernel.permute(nd + 1, nd, *range(nd))
+
+
+def conv_transpose_weight(kernel: torch.Tensor) -> torch.Tensor:
+    """A flax ``ConvTranspose`` kernel ``[*k, in, out]`` as
+    ``F.conv_transpose*d``'s weight ``[in, out, *k]``, its spatial axes
+    flipped: flax (``transpose_kernel=False``) runs ``lax.conv_transpose``,
+    which applies the kernel unflipped, so at kernel = stride output voxel
+    ``s * i + t`` takes tap ``k - 1 - t`` where torch takes tap ``t``."""
+    nd = kernel.ndim - 2
+    return kernel.flip(tuple(range(nd))).permute(nd, nd + 1, *range(nd))
+
+
 def torch_to_flax(params: Params) -> dict[str, Any]:
     """Params -> the nested flax dict of numpy arrays."""
     out: dict[str, Any] = {}
@@ -61,7 +81,7 @@ def optax_state_to_torch(state: Any, device: str | torch.device = "cpu") -> Any:
     """An optax optimizer state (its arrays as numpy) -> the matching
     ``optim`` state, so both packages can start from the same state
     mid-run: ``ScaleByAdamState`` (adam, yogi), ``ScaleByRssState``,
-    ``TraceState``, ``EmptyState`` (-> ``()``), a chain's tuple,
+    ``TraceState``, ``ScaleByScheduleState``, ``EmptyState`` (-> ``()``), a chain's tuple,
     ``MaskedState``, ``PartitionState``/``MultiTransformState`` and
     ``InjectHyperparamsState``/``InjectStatefulHyperparamsState``. The
     states are read by their optax class names; optax is not imported."""
@@ -77,6 +97,8 @@ def optax_state_to_torch(state: Any, device: str | torch.device = "cpu") -> Any:
         return optim.ScaleByRssState(_flat_moments(state.sum_of_squares, device))
     if kind == "TraceState":
         return optim.TraceState(_flat_moments(state.trace, device))
+    if kind == "ScaleByScheduleState":
+        return optim.ScaleByScheduleState(count=scalar(state.count, torch.int32))
     if kind == "EmptyState":
         return ()
     if kind == "MaskedState":

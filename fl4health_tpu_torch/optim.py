@@ -17,7 +17,10 @@ Each transform is optax's update rule and state, read from optax's source
 - ``trace`` (sgd's momentum): ``t = g + decay t``, and ``g + decay t``
   again under Nesterov;
 - ``add_decayed_weights``: ``g + wd p``; ``scale_by_learning_rate``:
-  ``-lr g``; ``clip_by_global_norm``; ``set_to_zero``;
+  ``-lr g``, or for a callable ``lr`` (a schedule) ``scale_by_schedule``,
+  whose int32 ``count`` starts at 0: the step is ``-lr(count)`` in the
+  update's dtype, then ``count + 1``; ``clip_by_global_norm``;
+  ``set_to_zero``;
 - ``chain`` (a tuple of states), ``masked`` and ``multi_transform`` over a
   label per param path. A leaf outside a mask has no state, as optax's
   ``MaskedNode``: the masked transform sees the sub-dict of its leaves;
@@ -86,6 +89,12 @@ class MultiTransformState:
 
 @tree_dataclass
 @dataclasses.dataclass(frozen=True)
+class ScaleByScheduleState:
+    count: torch.Tensor  # int32 scalar
+
+
+@tree_dataclass
+@dataclasses.dataclass(frozen=True)
 class InjectHyperparamsState:
     count: torch.Tensor  # int32 scalar
     hyperparams: dict  # name -> 0-d tensor
@@ -127,7 +136,28 @@ def scale(step_size) -> GradientTransformation:
     return GradientTransformation(_empty_init, update)
 
 
+def scale_by_schedule(step_size_fn: Callable[[torch.Tensor], Any]) -> GradientTransformation:
+    """optax's ``scale_by_schedule``: ``step_size_fn(count) * g``, the step
+    in the update's dtype, from a ``count`` that starts at 0 and moves by
+    one an update."""
+
+    def init(params: Params):
+        return ScaleByScheduleState(count=_count0(params))
+
+    def update(updates: Params, state: ScaleByScheduleState, params: Params | None = None):
+        step = step_size_fn(state.count)
+        out = {k: (step.to(g.dtype) if isinstance(step, torch.Tensor) else step) * g
+               for k, g in updates.items()}
+        return out, ScaleByScheduleState(count=safe_increment(state.count))
+
+    return GradientTransformation(init, update)
+
+
 def scale_by_learning_rate(learning_rate) -> GradientTransformation:
+    """``-lr g``; a callable ``learning_rate`` is a schedule of the step
+    count (``scale_by_schedule``)."""
+    if callable(learning_rate):
+        return scale_by_schedule(lambda count: -1 * learning_rate(count))
     return scale(-1 * learning_rate)
 
 

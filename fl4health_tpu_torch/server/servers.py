@@ -1,6 +1,6 @@
 """Servers around the simulation (counterpart of the parts of
-``fl4health_tpu/server/servers.py`` the port's slices use): per-client
-sample-count polling; SCAFFOLD's warm start and ``ScaffoldServer``;
+``fl4health_tpu/server/servers.py`` the port's slices use): the polling
+protocol (``poll_clients``); per-client sample-count polling; SCAFFOLD's warm start and ``ScaffoldServer``;
 ``FedProxServer``; and the instance-level, DP-SCAFFOLD and client-level DP
 servers, which configure the matching accountant and return the run's
 epsilon with its history.
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
@@ -22,6 +23,13 @@ from fl4health_tpu_torch.strategies.fedprox import FedAvgWithAdaptiveConstraint
 from fl4health_tpu_torch.strategies.scaffold import Scaffold
 
 logger = logging.getLogger(__name__)
+
+
+def poll_clients(providers: Sequence[Callable[[Mapping[str, Any]], Mapping[str, Any]]],
+                 request: Mapping[str, Any]) -> list[dict[str, Any]]:
+    """``get_properties`` fan-out: each provider is a client's in-process
+    properties handler, asked in turn."""
+    return [dict(provider(request)) for provider in providers]
 
 
 def poll_sample_counts(sim: FederatedSimulation) -> list[int]:

@@ -23,7 +23,21 @@ same functions client by client: the client axis's plain version, which the
 tests hold the vmap against and nothing else calls. Masks, the finite
 screen and aggregation run outside the vmap.
 
-``fit`` runs the rounds pipelined (``server/pipeline.py``): this thread, the
+``fit`` takes one of two routes (``execution_mode``, ``"auto"`` by default,
+as in JAX: ``_select_execution_mode`` gives the route and its reason).
+
+The chunked route (``chunked_scan``), which ``"auto"`` takes unless
+something needs the host between rounds (``_chunk_ineligibility``: a
+``train_data_provider``, ``accept_failures=False``, a strategy that
+overrides ``update_after_eval``): the masks and index plans of every round
+are drawn up front from the same streams, and the rounds (fit, eval, the
+test eval) are dispatched back to back from this thread over the resident
+stacks, JAX's ``lax.scan`` over rounds; their outputs stack on the device,
+one ``HostPull`` brings them over, and the epilogue screens failures and
+records each round, its ``fit_elapsed_s`` the chunk's wall amortised and
+its ``eval_elapsed_s`` 0. It equals the pipelined route bit for bit.
+
+The pipelined route (``server/pipeline.py``): this thread, the
 producer, samples the mask, takes the batches the ``RoundPrefetcher``
 staged, stages the next round's, and dispatches fit, eval (and the test
 eval) and ``update_after_eval`` without waiting for the device; it hands the
@@ -55,9 +69,11 @@ clients' train steps and their initial state (``loss_scale``).
 
 Departures: ``fit(n)`` runs ``n`` more rounds, numbered after ``history``;
 a logic's ``telemetry_loss_keys`` are always averaged beside ``backward``.
-Left out here: chunked, cohort and async execution (and the prefetcher's
-cohort/chunk staging), observability, resilience, checkpointing (model and
-state), mesh placement, FLASH early stopping and the ``WandBReporter``.
+Left out here: cohort and async execution (and the prefetcher's cohort
+chunk staging), observability, resilience, checkpointing (model and
+state), mesh placement, FLASH early stopping and the ``WandBReporter``;
+so of JAX's reasons for the pipelined route, only those of the features
+above apply.
 """
 
 from __future__ import annotations
@@ -122,12 +138,14 @@ def payload_params(payload):
 
 
 EXEC_PIPELINED = "pipelined_per_round"
+EXEC_CHUNKED = "chunked_scan"
 
 
 @dataclasses.dataclass
 class ClientDataset:
-    """Host-side per-client data (numpy arrays or CPU tensors); the test
-    split is optional, and taken only when every client has one."""
+    """Host-side per-client data (numpy arrays or CPU tensors, or dicts of
+    them sharing axis 0: multi-input models get the dict); the test split
+    is optional, and taken only when every client has one."""
 
     x_train: Any
     y_train: Any
@@ -138,7 +156,7 @@ class ClientDataset:
 
     @property
     def n_train(self) -> int:
-        return int(self.x_train.shape[0])
+        return engine.data_rows(self.x_train)
 
 
 class ClientFailuresError(RuntimeError):
@@ -225,10 +243,16 @@ class FederatedSimulation:
         train_data_provider: Any = None,
         pipeline_depth: int = 2,
         precision: PrecisionConfig | None = None,
+        execution_mode: str = "auto",
         device: str | torch.device = "cuda",
     ):
         if (local_epochs is None) == (local_steps is None):
             raise ValueError("specify exactly one of local_epochs / local_steps")
+        if execution_mode not in ("auto", "pipelined", "chunked"):
+            raise ValueError(
+                f"execution_mode must be 'auto', 'pipelined' or 'chunked'; "
+                f"got {execution_mode!r}")
+        self.execution_mode = execution_mode
         if precision is not None and not isinstance(precision, PrecisionConfig):
             raise TypeError(
                 "precision must be a PrecisionConfig (or None); got "
@@ -284,10 +308,11 @@ class FederatedSimulation:
                     raise ValueError(f"client {i}: x_test set but y_test is None")
                 splits.append((d.x_test, d.y_test, "test"))
             for xs, ys, split in splits:
-                if xs.shape[0] != ys.shape[0]:
+                nx, ny = engine.data_rows(xs), engine.data_rows(ys)
+                if nx != ny:
                     raise ValueError(
-                        f"client {i}: x_{split} has {xs.shape[0]} rows but "
-                        f"y_{split} has {ys.shape[0]}")
+                        f"client {i}: x_{split} has {nx} rows but y_{split} has {ny}; "
+                        "each client's features and labels must pair one-to-one.")
         self.sample_counts = torch.tensor(
             [d.n_train for d in self.datasets], dtype=torch.float32,
             device=self.device)
@@ -341,11 +366,17 @@ class FederatedSimulation:
         new_y = engine.pad_and_stack_data(ys, "y_train", self.device)
         for name, new, old in (("x_train", new_x, self._x_train_stack),
                                ("y_train", new_y, self._y_train_stack)):
-            if new.shape != old.shape or new.dtype != old.dtype:
+            if engine.data_structure(new) != engine.data_structure(old):
                 raise ValueError(
-                    f"set_train_data: {name} stack {tuple(new.shape)}/{new.dtype} "
-                    f"must match the original {tuple(old.shape)}/{old.dtype} "
+                    f"set_train_data: {name} pytree structure changed "
                     "(per-round refresh may not change the data layout)")
+            for (path, a), (_, b) in zip(engine.leaves_with_paths(new),
+                                         engine.leaves_with_paths(old)):
+                if a.shape != b.shape or a.dtype != b.dtype:
+                    raise ValueError(
+                        f"set_train_data: {name}{path} stack {tuple(a.shape)}/{a.dtype} "
+                        f"must match the original {tuple(b.shape)}/{b.dtype} "
+                        "(per-round refresh may not change the data layout)")
         self._x_train_stack, self._y_train_stack = new_x, new_y
 
     # ------------------------------------------------------------------
@@ -481,7 +512,7 @@ class FederatedSimulation:
         if self._val_cache is None:
             self._val_cache = self._eval_split_batches(
                 self._x_val_stack, self._y_val_stack,
-                [int(d.x_val.shape[0]) for d in self.datasets])
+                [engine.data_rows(d.x_val) for d in self.datasets])
         return self._val_cache
 
     def _test_batches(self) -> tuple[Batch, torch.Tensor] | None:
@@ -494,23 +525,59 @@ class FederatedSimulation:
             self._test_cache = self._eval_split_batches(
                 stack([d.x_test for d in self.datasets], "x_test", self.device),
                 stack([d.y_test for d in self.datasets], "y_test", self.device),
-                [int(d.x_test.shape[0]) for d in self.datasets])
+                [engine.data_rows(d.x_test) for d in self.datasets])
         return self._test_cache
 
     # ------------------------------------------------------------------
+    def _chunk_ineligibility(self) -> str | None:
+        """Why ``fit`` may not take the chunked route (None: eligible):
+        anything that needs the host between rounds keeps it pipelined."""
+        if self.train_data_provider is not None:
+            return "train_data_provider needs a host data refresh every round"
+        if not self.failure_policy.accept_failures:
+            return "accept_failures=False must be able to terminate mid-run"
+        overrides = getattr(self.strategy, "overrides_update_after_eval", None)
+        if overrides is None:
+            overrides = (type(self.strategy).update_after_eval
+                         is not Strategy.update_after_eval)
+        if overrides:
+            return ("strategy overrides update_after_eval (host-side "
+                    "per-round eval consumption)")
+        return None
+
+    def _select_execution_mode(self, n_rounds: int) -> tuple[str, str]:
+        """(mode, reason) for this ``fit`` call: ``"auto"`` takes the
+        chunked route unless something needs the host between rounds."""
+        if n_rounds < 1:
+            return EXEC_PIPELINED, "n_rounds < 1 (no rounds to run)"
+        if self.execution_mode == "pipelined":
+            return EXEC_PIPELINED, "forced by execution_mode='pipelined'"
+        why = self._chunk_ineligibility()
+        if self.execution_mode == "chunked":
+            if why:
+                raise ValueError(f"execution_mode='chunked' but {why}")
+            return EXEC_CHUNKED, "forced by execution_mode='chunked'"
+        if why:
+            return EXEC_PIPELINED, why
+        return EXEC_CHUNKED, "auto: no per-round host dependencies"
+
     def fit(self, n_rounds: int) -> list[RoundRecord]:
         """Run ``n_rounds`` more rounds (numbered after those already in
-        ``history``) through the pipelined path; returns the whole history.
-        ``fit(0)`` runs nothing."""
-        reason = ("n_rounds < 1 (no rounds to run)" if n_rounds < 1
-                  else "the port's only execution mode")
+        ``history``) through the chunked or the pipelined route
+        (``execution_mode``); returns the whole history. ``fit(0)`` runs
+        nothing."""
+        mode, reason = self._select_execution_mode(n_rounds)
+        logging.getLogger(__name__).info("fit: execution_mode=%s (%s)", mode, reason)
         for rep in self.reporters:
             rep.report({"host_type": "server", "fit_start": time.time(),
-                        "num_rounds": n_rounds, "execution_mode": EXEC_PIPELINED,
+                        "num_rounds": n_rounds, "execution_mode": mode,
                         "execution_mode_reason": reason})
         if n_rounds >= 1:
             first = len(self.history) + 1
-            self._fit_pipelined(first, first + n_rounds - 1)
+            if mode == EXEC_CHUNKED:
+                self._fit_chunked(first, first + n_rounds - 1)
+            else:
+                self._fit_pipelined(first, first + n_rounds - 1)
         for rep in self.reporters:
             rep.report({"fit_end": time.time()})
             rep.shutdown()
@@ -608,3 +675,161 @@ class FederatedSimulation:
                         "fit_elapsed_s": rec.fit_elapsed_s,
                         "eval_elapsed_s": rec.eval_elapsed_s,
                         "execution_mode": EXEC_PIPELINED}, round=work.round)
+
+    # -- the chunked route ---------------------------------------------
+    def _chunk_plans(self, start_round: int, k: int, mask=None):
+        """Rounds ``[start_round, start_round + k)``'s index plans, moved to
+        the device in one copy each (``[k, C, S, B]``, ``[k, C, S]``), and
+        their ``[k, C]`` masks: drawn from ``fold_in(rng, 2000 + r)`` as the
+        pipelined rounds draw them, or ``mask`` (``[C]`` or ``[k, C]``)."""
+        plans = [self._round_plan(start_round + i) for i in range(k)]
+        idx, em, sm = (engine.host_to_device(np.stack([p[j] for p in plans]).astype(dtype),
+                                             self.device)
+                       for j, dtype in enumerate((np.int64, np.float32, np.float32)))
+        if mask is None:
+            masks = torch.stack([
+                self.client_manager.sample(rng.fold_in(self.rng, 2000 + r), r)
+                for r in range(start_round, start_round + k)])
+        else:
+            mask = torch.as_tensor(mask, dtype=torch.float32, device=self.device)
+            if tuple(mask.shape) not in ((k, self.n_clients), (self.n_clients,)):
+                raise ValueError(
+                    f"fit_chunk mask must have shape ({k}, {self.n_clients}) "
+                    f"or ({self.n_clients},); got {tuple(mask.shape)}")
+            masks = mask if mask.ndim == 2 else mask.expand(k, self.n_clients)
+        return idx, em, sm, masks
+
+    def make_chunked_fit(self):
+        """The chunk of ``fit_chunk``: ``chunk(server_state, client_states,
+        x_stack, y_stack, idx, em, sm, masks, start_round, val_batches) ->
+        (server_state, client_states, losses, metrics)``, the last two
+        stacked ``[k]`` a key. Its ``k`` rounds run ``_fit_round`` back to
+        back, each on batches gathered from the resident stacks by its
+        ``[k, ...]`` plan row, with nothing pulled to the host in between:
+        the JAX package's ``lax.scan`` over rounds, dispatched from this
+        thread. Each round's math is ``_fit_round``'s on the same plans and
+        masks, so the trajectory equals the per-round path's bit for bit.
+        The failure screen, records and reports do not run inside it."""
+
+        def chunk(server_state, client_states, x_stack, y_stack, idx, em, sm, masks,
+                  start_round, val_batches):
+            losses, metrics = [], []
+            for i in range(idx.shape[0]):
+                batches = engine.gather_batches(x_stack, y_stack, idx[i], em[i], sm[i])
+                server_state, client_states, round_losses, round_metrics, _ = (
+                    self._fit_round(server_state, client_states, batches, masks[i],
+                                    start_round + i, val_batches))
+                losses.append(round_losses)
+                metrics.append(round_metrics)
+            return (server_state, client_states, ptu.stack_clients(losses),
+                    ptu.stack_clients(metrics))
+
+        return chunk
+
+    def fit_chunk(self, start_round: int, k: int, mask=None):
+        """Run rounds ``[start_round, start_round + k)`` as one chunk; returns
+        the per-round ``(losses, metrics)`` stacked ``[k]`` and updates the
+        simulation's state (no ``RoundRecord``, no report). Each round's mask
+        is drawn as ``fit`` draws it, unless ``mask`` (``[clients]`` or
+        ``[k, clients]``) pins it. Refuses a ``train_data_provider``: the
+        chunk trains on the stacks it was given."""
+        if self.train_data_provider is not None:
+            raise ValueError(
+                "fit_chunk cannot honor train_data_provider (per-round data "
+                "refresh happens on the host, between dispatches); use "
+                "fit(), or chunk with the provider disabled if a frozen "
+                "bank is acceptable")
+        idx, em, sm, masks = self._chunk_plans(start_round, k, mask)
+        self.server_state, self.client_states, losses, metrics = self.make_chunked_fit()(
+            self.server_state, self.client_states, self._x_train_stack, self._y_train_stack,
+            idx, em, sm, masks, start_round, self._val_batches()[0])
+        return losses, metrics
+
+    def _make_chunked_fit_with_eval(self):
+        """``fit``'s chunk: each round runs what a pipelined round dispatches
+        (``_fit_round``, the val ``_eval_round`` and, where every client has
+        one, the test split's), and its outputs stack ``[k]`` on the
+        device for the chunk's one pull."""
+
+        def chunk(server_state, client_states, x_stack, y_stack, idx, em, sm, masks,
+                  start_round, val_batches, val_counts, test_batches=None, test_counts=None):
+            outs = []
+            for i in range(idx.shape[0]):
+                batches = engine.gather_batches(x_stack, y_stack, idx[i], em[i], sm[i])
+                server_state, client_states, fit_losses, fit_metrics, per_fit = (
+                    self._fit_round(server_state, client_states, batches, masks[i],
+                                    start_round + i, val_batches))
+                client_states, eval_losses, eval_metrics, _, _ = self._eval_round(
+                    server_state, client_states, val_batches, val_counts)
+                out = {"fit_losses": fit_losses, "fit_metrics": fit_metrics,
+                       "per_client_fit_losses": per_fit,
+                       "eval_losses": eval_losses, "eval_metrics": eval_metrics}
+                if test_batches is not None:
+                    client_states, out["test_losses"], out["test_metrics"] = (
+                        self._eval_round(server_state, client_states, test_batches,
+                                         test_counts)[:3])
+                outs.append(out)
+            return server_state, client_states, ptu.stack_clients(outs)
+
+        return chunk
+
+    def _rounds_per_dispatch(self, n_rounds: int, start_round: int = 1) -> int:
+        """Rounds in the chunked route's next chunk: all that remain up to
+        round ``n_rounds`` (the port has no state checkpointer whose cadence
+        would cut it)."""
+        return max(n_rounds - start_round + 1, 1)
+
+    def _fit_chunked(self, first: int, last: int) -> None:
+        """Rounds ``first..last`` through the chunked route: each chunk
+        dispatches its rounds back to back, then one ``HostPull`` brings
+        every round's results over and ``_chunked_epilogue`` records them."""
+        s = first
+        while s <= last:
+            k = self._rounds_per_dispatch(last, s)
+            self._run_sync_chunk(s, k)
+            s += k
+
+    def _run_sync_chunk(self, start_round: int, k: int) -> None:
+        """Dispatch rounds ``[start_round, start_round + k)`` as one chunk
+        and run their host epilogue."""
+        t_start = time.time()
+        val_batches, val_counts = self._val_batches()
+        test = self._test_batches()
+        idx, em, sm, masks = self._chunk_plans(start_round, k)
+        self.server_state, self.client_states, outs = self._make_chunked_fit_with_eval()(
+            self.server_state, self.client_states, self._x_train_stack, self._y_train_stack,
+            idx, em, sm, masks, start_round, val_batches, val_counts, *(test or ()))
+        stacked = HostPull({**outs, "mask": masks}).result()  # the chunk's one pull
+        per_round_s = (time.time() - t_start) / max(k, 1)
+        self._chunked_epilogue(k, stacked, stacked.pop("mask"), per_round_s,
+                               start_round=start_round)
+
+    def _chunked_epilogue(self, n_rounds: int, stacked: dict, masks_np: np.ndarray,
+                          per_round_s: float, start_round: int = 1) -> None:
+        """Each round of a chunk on the host, from the stacked pull: the
+        failure screen (it logs; ``accept_failures`` is True on this
+        route), the ``RoundRecord`` with ``fit_elapsed_s`` the chunk's wall
+        amortised a round and ``eval_elapsed_s`` 0 (no separate eval wall),
+        and the reports."""
+        for i in range(n_rounds):
+            rnd = start_round + i
+            self.failure_policy.check(
+                {k: v[i] for k, v in stacked["per_client_fit_losses"].items()}, masks_np[i])
+            floats = lambda d, prefix="": {  # noqa: E731
+                f"{prefix}{k}": float(v[i]) for k, v in d.items()}
+            eval_losses, eval_metrics = (floats(stacked["eval_losses"]),
+                                         floats(stacked["eval_metrics"]))
+            if "test_losses" in stacked:
+                eval_losses.update(floats(stacked["test_losses"], "test - "))
+                eval_metrics.update(floats(stacked["test_metrics"], "test - "))
+            rec = RoundRecord(round=rnd, fit_losses=floats(stacked["fit_losses"]),
+                              fit_metrics=floats(stacked["fit_metrics"]),
+                              eval_losses=eval_losses, eval_metrics=eval_metrics,
+                              fit_elapsed_s=per_round_s, eval_elapsed_s=0.0)
+            self.history.append(rec)
+            for rep in self.reporters:
+                rep.report({"fit_losses": rec.fit_losses, "fit_metrics": rec.fit_metrics,
+                            "eval_losses": rec.eval_losses, "eval_metrics": rec.eval_metrics,
+                            "fit_elapsed_s": rec.fit_elapsed_s,
+                            "eval_elapsed_s": rec.eval_elapsed_s,
+                            "execution_mode": EXEC_CHUNKED}, round=rnd)

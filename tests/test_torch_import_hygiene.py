@@ -43,7 +43,9 @@ def test_sources_were_found():
             "samplers.py", "vision.py", "accountants.py", "rdp.py", "servers.py",
             "workqueue.py", "io.py", "pipeline.py", "base.py", "scaffold.py", "fedprox.py",
             "moon.py", "drift.py", "contrastive.py", "bases.py", "optim.py", "fedopt.py",
-            "exchanger.py", "peft.py", "policy.py", "convert.py"} <= names
+            "exchanger.py", "peft.py", "policy.py", "convert.py", "unet.py", "plans.py",
+            "data.py", "augment.py", "segmentation.py", "nnunet.py", "efficient.py",
+            "aggregate.py"} <= names
 
 
 def test_package_imports_without_jax():

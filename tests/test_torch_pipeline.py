@@ -63,7 +63,7 @@ def _sim(**kwargs):
                                   tengine.masked_cross_entropy),
         tx=optim.sgd(0.05), strategy=TFedAvg(), datasets=_datasets(tsim), batch_size=8,
         metrics=TMetricManager((tefficient.accuracy(),)), local_epochs=1, seed=5,
-        device="cpu")
+        execution_mode="pipelined", device="cpu")
     defaults.update(kwargs)
     return tsim.FederatedSimulation(**defaults)
 

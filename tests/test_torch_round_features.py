@@ -84,7 +84,7 @@ def _pair(jlogic=None, tlogic=None, jstrategy=None, tstrategy=None, datasets=Non
     ts = tsim.FederatedSimulation(
         logic=tlogic, tx=optim.sgd(0.05), strategy=tstrategy or TFedAvg(),
         datasets=datasets(tsim), metrics=TMetricManager((tefficient.accuracy(),)),
-        device="cpu", **common, **tkw)
+        execution_mode="pipelined", device="cpu", **common, **tkw)
     ts.set_global_params(convert.flax_to_torch(
         jax.tree_util.tree_map(np.asarray, js.global_params)))
     return js, ts

@@ -320,6 +320,7 @@ def main() -> int:
            "fedprox_cifar_cnn": lambda: alg_sim("fedprox"),
            "dp_scaffold_cifar_cnn": lambda: alg_sim("dp_scaffold"),
            "bert_lora_fedopt_base": bert_sim}[args.config]()
+    sim.execution_mode = "pipelined"  # the route whose pipeline the clocks read
     timed = pipeline_timers(sim)
     sim.fit(1)  # warm-up: kernel build, cuBLAS/cuDNN handles, allocator
     torch.cuda.synchronize()
