@@ -183,6 +183,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      to 0 before and read after (none of K1-K5), finite falling losses,
      voxels a second, peak memory, one round under the profiler (busy
      share), then rounds through the client vmap and the loop in turns.
+ 25. ``tiny_cohort_parity``: a cohort run (6 clients of a ListDataSource
+     registry, 3 slots, FixedFractionManager(6, 0.5), the chunked cohort
+     route, f32 DP at noise 0, K1/K2 on the card) for 3 rounds on the card
+     and on the CPU from the same params: losses and params within 5e-4.
+ 26. ``cohort_dp_cifar_cnn``: the DP path's model and client (CifarNet,
+     bf16, batch 32, 5 DP-SGD steps, C 1, sigma 1, SGD(0.05), FedAvg) over
+     ``dirichlet_registry_source`` of a 50,000-row synthetic CIFAR pool
+     (drawn on the card) at N 1,000 and N 100,000 clients, beta 0.5,
+     ``CohortConfig(slots=64)``, ``FixedFractionManager(N, 64 / N)``,
+     ``execution_mode`` "auto" (the chunked cohort route: draws on the
+     card): a cold round, then 3 warm rounds with the counts and the peak
+     reset: exactly 15 K1 and 120 K2 launches (5 and 40 a round), none of
+     K3-K5; the warm round walls, peak device memory, staging, gather and
+     scatter ms, staged and pulled bytes, dirty rows and host memory at
+     each size, and the 100k-to-1k ratios of the peak and the wall.
+ 27. ``cohort_chunked_vs_pipelined``, cuDNN deterministic in this phase
+     only: N 1,000 with the compressed exchange (top-k 0.1, 8 bits, error
+     feedback, seed 3) through both cohort routes, 3 rounds: histories,
+     states and the registry's client and error-feedback rows equal bit for
+     bit; both routes' warm walls in turns.
+ 28. ``compressed_dp_cifar_cnn``: the dense DP path without and with that
+     compression, warm walls in turns; ``logical_nbytes`` and
+     ``estimate_wire_nbytes`` of the update; ``compress_update`` over the
+     CifarNet tree on the card equal to the CPU's bit for bit.
 ``fit`` takes its default route, ``execution_mode`` "auto": chunked unless
 something needs the host between rounds (a strict failure policy, a data
 provider), then pipelined. Neither waits for the device inside a round, so
@@ -2749,6 +2773,247 @@ def nnunet_main_path(fa, dp) -> dict:
 
 
 
+
+# -- the cohort slice: cohort-slot execution over a client registry and the
+# compressed exchange ----------------------------------------------------
+COHORT_SLOTS, COHORT_ROUNDS, COHORT_POOL = 64, 3, 50_000  # the pool: CIFAR-10's train size
+COHORT_SIZES = (1_000, 100_000)  # bench.py's smallest and largest registries
+COMPRESSION = dict(topk_fraction=0.1, error_feedback=True, quant_bits=8, seed=3)
+
+
+def host_rss_gib() -> dict:
+    """This process's resident host memory now and at its peak, GiB."""
+    import resource
+
+    with open("/proc/self/status") as f:
+        now_kib = next(int(line.split()[1]) for line in f if line.startswith("VmRSS:"))
+    return {"host_rss_gib": now_kib / 2**20,
+            "host_rss_peak_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20}
+
+
+def cifar_pool() -> tuple:
+    """The registry's 50,000-row pool: ``synthetic_classification`` drawn on
+    the card (the JAX preset's generator; the CPU takes ~1 min for it),
+    copied to the host once."""
+    from fl4health_tpu_torch import rng
+    from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
+
+    t0 = time.time()
+    x, y = synthetic_classification(rng.PRNGKey(0, "cuda"), COHORT_POOL, (32, 32, 3), 10)
+    x, y = x.cpu().numpy(), y.cpu().numpy()
+    print(json.dumps({"cohort_pool": list(x.shape), "pool_bytes": x.nbytes + y.nbytes,
+                      "pool_s": time.time() - t0}))
+    return x, y
+
+
+def build_cohort_sim(source, n: int, **sim_kw):
+    """``dp_cifar_cnn``'s model and client over a registry: 64 slots,
+    ``FixedFractionManager(N, 64 / N)``, ``execution_mode`` "auto"."""
+    from fl4health_tpu_torch.server.client_manager import FixedFractionManager
+    from fl4health_tpu_torch.server.registry import CohortConfig
+
+    return build_dp_sim(source, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                        cohort=CohortConfig(slots=COHORT_SLOTS),
+                        client_manager=FixedFractionManager(n, COHORT_SLOTS / n), **sim_kw)
+
+
+def cohort_dp_cifar_cnn(fa, dp, pool) -> dict:
+    """``cohort_dp_cifar_cnn``: the DP path's model and client over a
+    Dirichlet(0.5) registry of the pool at N 1,000 and N 100,000 clients,
+    64 slots, through the chunked cohort route (in-graph draws): a cold
+    round, then 3 warm rounds with the launch counts and the peak set to 0
+    before and read after. 5 K1 and 40 K2 launches a round, none of K3-K5;
+    finite losses; the round walls, peak, staging facts and host memory at
+    both sizes, and their ratios."""
+    from fl4health_tpu_torch.datasets.registry_presets import dirichlet_registry_source
+    from fl4health_tpu_torch.server import simulation as tsim
+
+    x, y = pool
+    out, sources = {"phase": "cohort_dp_cifar_cnn", "slots": COHORT_SLOTS}, {}
+    for n in COHORT_SIZES:
+        t0 = time.time()
+        source = sources[n] = dirichlet_registry_source(x, y, n, beta=0.5, seed=0)
+        build_s = time.time() - t0
+        sizes = source.train_sizes()
+        sim = build_cohort_sim(source, n)
+        mode = sim._select_execution_mode(COHORT_ROUNDS)
+        if mode[0] != tsim.EXEC_CHUNKED:
+            fail(f"cohort N={n}: execution_mode='auto' took {mode}")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sim.fit(1)  # cold: the first vmapped round
+        torch.cuda.synchronize()
+        cold_s = time.time() - t0
+        torch.cuda.reset_peak_memory_stats()
+        dp.reset_launch_counts()
+        fa.reset_launch_counts()
+        t0 = time.time()
+        sim.fit(COHORT_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = {**dp.LAUNCHES, **fa.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        expected = {"dp_sq_norms": COHORT_ROUNDS * LOCAL_STEPS,
+                    "dp_scaled_sum": COHORT_ROUNDS * LOCAL_STEPS * len(CIFAR_LEAVES),
+                    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        if launches != expected:
+            fail(f"cohort N={n}: launches {launches}, expected {expected}")
+        for r in sim.history:
+            if not all(np.isfinite(v) for v in (*r.fit_losses.values(),
+                                                  *r.eval_losses.values())):
+                fail(f"cohort N={n} round {r.round}: non-finite losses {r.fit_losses}")
+        warm = sim.round_metrics[-COHORT_ROUNDS:]
+        if any(m["cohort_valid"] != COHORT_SLOTS or m["cohort_draw"] != "in_graph"
+               for m in warm):
+            fail(f"cohort N={n}: round facts {warm}")
+        out[f"n_{n}"] = {
+            "registry_size": n, "registry_build_s": build_s,
+            "train_rows_min_mean_max": [int(sizes.min()), float(sizes.mean()),
+                                        int(sizes.max())],
+            "mode": list(mode), "cold_round_s": cold_s, "warm_rounds": COHORT_ROUNDS,
+            "warm_wall_s": wall, "warm_round_s": wall / COHORT_ROUNDS,
+            "peak_mem_gib": peak, "launches": launches,
+            "fit_losses": [r.fit_losses["backward"] for r in sim.history],
+            "eval_losses": [r.eval_losses["checkpoint"] for r in sim.history],
+            "registry_dirty_rows": sim.registry.dirty_rows,
+            "round_facts": {k: warm[-1][k] for k in (
+                "stage_ms", "gather_ms", "scatter_ms", "staged_bytes", "pull_bytes",
+                "pull_ms", "rounds_per_dispatch", "cohort_draw")},
+            **host_rss_gib()}
+        del sim
+        torch.cuda.empty_cache()
+    small, large = (out[f"n_{n}"] for n in COHORT_SIZES)
+    out["peak_ratio_100k_to_1k"] = large["peak_mem_gib"] / small["peak_mem_gib"]
+    out["round_wall_ratio_100k_to_1k"] = large["warm_round_s"] / small["warm_round_s"]
+    print(json.dumps(out))
+    out["sources"] = sources
+    return out
+
+
+def registry_rows_equal(a, b) -> bool:
+    """Two registries store the same rows, bit for bit."""
+    stores = [(a._client_store, b._client_store), (a._strategy_store, b._strategy_store)]
+    return all(sa._rows.keys() == sb._rows.keys() and all(
+        len(sa._rows[k]) == len(sb._rows[k])
+        and all(np.array_equal(x, y) for x, y in zip(sa._rows[k], sb._rows[k]))
+        for k in sa._rows) for sa, sb in stores)
+
+
+def cohort_chunked_vs_pipelined(source) -> dict:
+    """``cohort_chunked_vs_pipelined``, cuDNN deterministic in this phase
+    only: N 1,000 with the compressed exchange (top-k 0.1, 8 bits, error
+    feedback) through the chunked cohort route ("auto") and the pipelined
+    one, 3 rounds each: histories, server and client states, and the
+    registry's client and error-feedback rows equal bit for bit; then both
+    routes' warm walls in turns."""
+    from fl4health_tpu_torch.compression.config import CompressionConfig
+    from fl4health_tpu_torch.server import simulation as tsim
+
+    n = COHORT_SIZES[0]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sims = {mode: build_cohort_sim(source, n, execution_mode=mode,
+                                       compression=CompressionConfig(**COMPRESSION))
+                for mode in ("auto", "pipelined")}
+        auto, piped = sims["auto"], sims["pipelined"]
+        mode = auto._select_execution_mode(COHORT_ROUNDS)
+        if mode[0] != tsim.EXEC_CHUNKED:
+            fail(f"cohort_chunked_vs_pipelined: 'auto' took {mode}")
+        auto.fit(COHORT_ROUNDS)
+        piped.fit(COHORT_ROUNDS)
+        torch.cuda.synchronize()
+        equal = {"history": history_equal(auto, piped), "states": states_equal(auto, piped),
+                 "registry_rows": registry_rows_equal(auto.registry, piped.registry)}
+        if not all(equal.values()):
+            fail(f"cohort_chunked_vs_pipelined: the routes differ: {equal}")
+        if not auto.registry.has_strategy_rows or auto.registry._strategy_store.dirty == 0:
+            fail("cohort_chunked_vs_pipelined: no error-feedback rows in the registry")
+        out = {"phase": "cohort_chunked_vs_pipelined", "registry_size": n,
+               "cudnn_deterministic": True, "compression": COMPRESSION,
+               "mode": list(mode), "bit_equal": equal,
+               "dirty_rows": [auto.registry.dirty_rows,
+                              auto.registry._strategy_store.dirty],
+               "fit_losses": [r.fit_losses["backward"] for r in auto.history],
+               "round_facts": {m: {k: s.round_metrics[-1][k] for k in (
+                   "stage_ms", "gather_ms", "scatter_ms", "pull_bytes", "pull_ms")}
+                   for m, s in sims.items()},
+               "warm_walls": mode_walls(auto, COHORT_ROUNDS)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(json.dumps(out))
+    return out
+
+
+def compressed_dp_cifar_cnn() -> dict:
+    """``compressed_dp_cifar_cnn``: the dense DP path (64 clients, 2
+    rounds a reading) without and with the compressed exchange, warm walls
+    in turns (plain, compressed, compressed, plain; bench.py's
+    ``round_s_plain``/``round_s_compressed``); the update's logical and
+    estimated wire bytes; and one client's ``compress_update`` over the
+    CifarNet tree on the card equal to the CPU's bit for bit."""
+    from fl4health_tpu_torch import rng
+    from fl4health_tpu_torch.compression import codecs
+    from fl4health_tpu_torch.compression.config import CompressionConfig
+
+    cfg = CompressionConfig(**COMPRESSION)
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    sims = {"plain": build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0),
+            "compressed": build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                                       compression=cfg)}
+    for sim in sims.values():
+        sim.fit(1)  # cold
+    walls = {"plain_s": [], "compressed_s": []}
+    for name in ("plain", "compressed", "compressed", "plain"):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        sims[name].fit(WARM_ROUNDS)
+        torch.cuda.synchronize()
+        walls[f"{name}_s"].append(time.time() - t0)
+    for name, sim in sims.items():
+        if not all(np.isfinite(r.fit_losses["backward"]) for r in sim.history):
+            fail(f"compressed_dp_cifar_cnn {name}: non-finite losses")
+    params = sims["plain"].global_params
+    # one client's update over the CifarNet tree: the card's codec equals
+    # the CPU's (the same draws, sort and arithmetic)
+    gen = torch.Generator().manual_seed(0)
+    update = {k: 0.01 * torch.randn(v.shape, generator=gen) for k, v in params.items()}
+    residual = {k: 0.001 * torch.randn(v.shape, generator=gen) for k, v in params.items()}
+    runs = [codecs.compress_update({k: v.to(dev) for k, v in update.items()},
+                                   {k: v.to(dev) for k, v in residual.items()},
+                                   rng.PRNGKey(11, dev), cfg) for dev in ("cuda", "cpu")]
+    codec_equal = all(torch.equal(runs[0][i][k].cpu(), runs[1][i][k])
+                      for i in (0, 1) for k in update)
+    if not codec_equal:
+        fail("compress_update on the card differs from the CPU's")
+    out = {"phase": "compressed_dp_cifar_cnn", "clients": DP_CLIENTS,
+           "compression": COMPRESSION, "rounds_a_reading": WARM_ROUNDS, "walls": walls,
+           "round_s_plain": [w / WARM_ROUNDS for w in walls["plain_s"]],
+           "round_s_compressed": [w / WARM_ROUNDS for w in walls["compressed_s"]],
+           "logical_nbytes": codecs.logical_nbytes(params),
+           "estimate_wire_nbytes": codecs.estimate_wire_nbytes(params, cfg),
+           "codec_card_equals_cpu": codec_equal,
+           "fit_losses": {n: [r.fit_losses["backward"] for r in s.history]
+                          for n, s in sims.items()}}
+    print(json.dumps(out))
+    return out
+
+
+def tiny_cohort_parity() -> dict:
+    """A tiny cohort run (6 clients, 3 slots, FixedFractionManager(6, 0.5),
+    the chunked route, f32 DP at noise 0: K1/K2 on the card) on the card and
+    the CPU from the same params: within 5e-4."""
+    from fl4health_tpu_torch.server.client_manager import FixedFractionManager
+    from fl4health_tpu_torch.server.registry import CohortConfig
+
+    data = image_datasets(6, 16, 8, (32, 32, 3))
+    out = card_vs_cpu("tiny_cohort", lambda device: build_dp_sim(
+        data, torch.float32, device, 0.0, seed=3, batch=8, local_steps=2,
+        cohort=CohortConfig(slots=3), client_manager=FixedFractionManager(6, 0.5)), 3)
+    print(json.dumps({"tiny_cohort_parity": "cuda vs cpu", **out}))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: needs an NVIDIA card; torch.cuda.is_available() is false",
@@ -2823,6 +3088,14 @@ def main() -> int:
     chunked_vs_pipelined(dp)
     nnunet_launches = nnunet_main_path(fa, dp)["launches"]
 
+    # the cohort slice: cohort slots over a registry, the compressed exchange
+    tiny_cohort_parity()
+    cohort = cohort_dp_cifar_cnn(fa, dp, cifar_pool())
+    cohort_launches = cohort[f"n_{COHORT_SIZES[-1]}"]["launches"]
+    cohort_chunked_vs_pipelined(cohort["sources"][COHORT_SIZES[0]])
+    del cohort
+    compressed_dp_cifar_cnn()
+
     replaces = {"flash_fwd": "fl4health_tpu/kernels/flash_attention.py:71",
                 "flash_bwd_dq": "fl4health_tpu/kernels/flash_attention.py:141",
                 "flash_bwd_dkv": "fl4health_tpu/kernels/flash_attention.py:175"}
@@ -2858,6 +3131,7 @@ def main() -> int:
             # its shape, 4 clients folded at T 128, 12 heads, bf16
             "launches_bert_lora_fedopt_base": bert_launches[name],
             "launches_nnunet_fullres": nnunet_launches[name],
+            "launches_cohort_dp_cifar_cnn": cohort_launches[name],
             "t128_shape": [BERT_CLIENTS * BATCH, BERT_CFG["max_len"], BERT_CFG["n_heads"], D],
             "t128_max_abs_err": t128_errs["max_abs_err"][name],
             "t128_bound_used": t128_errs["bound_used"][name],
@@ -2884,6 +3158,8 @@ def main() -> int:
             # DP-SCAFFOLD's: the warm start and 2 rounds
             "launches_dp_scaffold_cifar_cnn": dp_scaffold_launches[name],
             "launches_nnunet_fullres": nnunet_launches[name],
+            # 3 warm rounds over the 100,000-client registry, 64 slots
+            "launches_cohort_dp_cifar_cnn": cohort_launches[name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

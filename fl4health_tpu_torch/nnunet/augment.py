@@ -45,15 +45,11 @@ import torch
 from fl4health_tpu_torch import rng
 
 
-def _bernoulli(key: torch.Tensor, p: float) -> torch.Tensor:
-    return rng.uniform(key) < p
-
-
 def _mirror_one(x, y, key, spatial_axes, p):
     """Flip each spatial axis w.p. ``p``, image and labels together (x
     ``[*spatial, C]``, y ``[*spatial]``)."""
     for i, ax in enumerate(spatial_axes):
-        do = _bernoulli(rng.fold_in(key, i), p)
+        do = rng.bernoulli(rng.fold_in(key, i), p)
         x = torch.where(do, torch.flip(x, dims=(ax,)), x)
         y = torch.where(do, torch.flip(y, dims=(ax,)), y)
     return x, y
@@ -72,7 +68,7 @@ def _rot90_one(x, y, key, pairs, p):
     ``p``."""
     if not pairs:
         return x, y
-    do = _bernoulli(rng.fold_in(key, 0), p)
+    do = rng.bernoulli(rng.fold_in(key, 0), p)
     pair_idx = rng.randint(rng.fold_in(key, 1), (), 0, len(pairs))
     k = rng.randint(rng.fold_in(key, 2), (), 1, 4)
     sel = pair_idx * 3 + (k - 1)
@@ -84,7 +80,7 @@ def _rot90_one(x, y, key, pairs, p):
 def _noise_one(x, key, p, variance_max):
     """Additive Gaussian noise whose variance is drawn from U(0,
     ``variance_max``)."""
-    do = _bernoulli(rng.fold_in(key, 0), p)
+    do = rng.bernoulli(rng.fold_in(key, 0), p)
     var = rng.uniform(rng.fold_in(key, 1), (), 0.0, variance_max)
     noise = torch.sqrt(var) * rng.normal(rng.fold_in(key, 2), tuple(x.shape)).to(x.dtype)
     return torch.where(do, x + noise, x)
@@ -93,7 +89,7 @@ def _noise_one(x, key, p, variance_max):
 def _blur_one(x, key, p, sigma_lo=0.5, sigma_hi=1.0, radius=2):
     """Separable Gaussian blur, sigma ~ U(``sigma_lo``, ``sigma_hi``), a
     ``2 * radius + 1`` tap kernel, edges replicated."""
-    do = _bernoulli(rng.fold_in(key, 0), p)
+    do = rng.bernoulli(rng.fold_in(key, 0), p)
     sigma = rng.uniform(rng.fold_in(key, 1), (), sigma_lo, sigma_hi)
     offs = torch.arange(-radius, radius + 1, dtype=torch.float32, device=x.device)
     w = torch.exp(-0.5 * torch.square(offs / sigma))
@@ -110,7 +106,7 @@ def _blur_one(x, key, p, sigma_lo=0.5, sigma_hi=1.0, radius=2):
 
 
 def _brightness_one(x, key, p, lo, hi):
-    do = _bernoulli(rng.fold_in(key, 0), p)
+    do = rng.bernoulli(rng.fold_in(key, 0), p)
     mult = rng.uniform(rng.fold_in(key, 1), (), lo, hi)
     return torch.where(do, x * mult, x)
 
@@ -125,7 +121,7 @@ def _amax(x, dims):
 
 def _contrast_one(x, key, p, lo, hi):
     """Scale about the per-channel mean, clipped to the channel's range."""
-    do = _bernoulli(rng.fold_in(key, 0), p)
+    do = rng.bernoulli(rng.fold_in(key, 0), p)
     factor = rng.uniform(rng.fold_in(key, 1), (), lo, hi)
     spatial = tuple(range(x.ndim - 1))
     mean = x.mean(dim=spatial, keepdim=True)
@@ -138,7 +134,7 @@ def _gamma_one(x, key, p, lo, hi, invert):
     """Gamma on the patch rescaled to [0, 1] a channel and mapped back, the
     channel's mean and std restored (retain stats); ``invert`` applies it
     to the negated image."""
-    do = _bernoulli(rng.fold_in(key, 0), p)
+    do = rng.bernoulli(rng.fold_in(key, 0), p)
     gamma = rng.uniform(rng.fold_in(key, 1), (), lo, hi)
     spatial = tuple(range(x.ndim - 1))
     mean0 = x.mean(dim=spatial, keepdim=True)
@@ -212,8 +208,8 @@ def _spatial_resample_one(x, y, key, p_rotation, p_scaling, rot_max_rad, scale_l
     linearly (order 1), the labels by nearest (order 0)."""
     spatial = tuple(y.shape)
     nd = len(spatial)
-    do_rot = _bernoulli(rng.fold_in(key, 0), p_rotation)
-    do_scale = _bernoulli(rng.fold_in(key, 1), p_scaling)
+    do_rot = rng.bernoulli(rng.fold_in(key, 0), p_rotation)
+    do_scale = rng.bernoulli(rng.fold_in(key, 1), p_scaling)
     angles = rng.uniform(rng.fold_in(key, 2), (1 if nd == 2 else 3,),
                          -rot_max_rad, rot_max_rad) * do_rot
     scale = torch.where(do_scale, rng.uniform(rng.fold_in(key, 3), (), scale_lo, scale_hi),
@@ -225,7 +221,7 @@ def _spatial_resample_one(x, y, key, p_rotation, p_scaling, rot_max_rad, scale_l
     grid = torch.stack(torch.meshgrid(
         *[torch.arange(s, dtype=torch.float32, device=dev) for s in spatial], indexing="ij"))
     mapped = scale * torch.tensordot(rot, grid - center, dims=1) + center
-    do_elastic = _bernoulli(rng.fold_in(key, 4), p_elastic)
+    do_elastic = rng.bernoulli(rng.fold_in(key, 4), p_elastic)
     if p_elastic > 0.0:
         coarse = rng.normal(rng.fold_in(key, 5), (nd,) + (4,) * nd)
         alpha = rng.uniform(rng.fold_in(key, 6), (), 0.0, elastic_alpha)
@@ -298,7 +294,7 @@ _LOWRES_ZOOMS = (0.5, 0.65, 0.8, 0.95)
 def _lowres_one(x, key, p):
     """Nearest-downsample by a random zoom and cubic-upsample back (image
     only), each zoom a branch, one selected."""
-    do = _bernoulli(rng.fold_in(key, 0), p)
+    do = rng.bernoulli(rng.fold_in(key, 0), p)
     zi = rng.randint(rng.fold_in(key, 1), (), 0, len(_LOWRES_ZOOMS))
     spatial = x.shape[:-1]
     branches = []

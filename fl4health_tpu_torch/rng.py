@@ -5,7 +5,8 @@ A key is a ``[2]`` int64 tensor holding two unsigned 32-bit words, the
 ``key_data`` of JAX's default threefry key; ``split`` gives ``[n, 2]``. Every
 function runs on the device its key lives on, so a key on the card draws on
 the card. The draws equal JAX's bit for bit (``split``, ``fold_in``,
-``bits``, ``uniform``, ``permutation``) under JAX's default
+``bits``, ``uniform``, ``bernoulli``, ``rademacher``, ``permutation``)
+under JAX's default
 ``jax_threefry_partitionable=True``: the counter of element ``i`` is the
 hi/lo word pair of the flat index ``i``, and a 32-bit draw is the XOR of the
 hash's two output words. XLA contracts a multiply and an add into one fused
@@ -116,6 +117,15 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([w0, w1])
 
 
+def fold_in_many(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``jax.vmap(lambda d: jax.random.fold_in(key, d))(data)``: one key a
+    value of the integer tensor ``data`` (each in ``[0, 2**32)``), as
+    ``[*data.shape, 2]``, in one pass of the hash."""
+    data = data.to(device=key.device, dtype=torch.int64) & _MASK
+    w0, w1 = _threefry2x32(key[0], key[1], torch.zeros_like(data), data)
+    return torch.stack([w0, w1], dim=-1)
+
+
 def bits(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
     """``jax.random.bits`` (32-bit): uniform 32-bit words, held in int64."""
     w0, w1 = _hash_iota(key, _shape(shape))
@@ -136,6 +146,26 @@ def uniform(key: torch.Tensor, shape: Shape = (), minval: float = 0.0,
     # scalars, so nothing is copied to the device
     lo, hi = np.float32(minval), np.float32(maxval)
     return torch.clamp(_fma(floats, float(hi - lo), float(lo)), min=float(lo))
+
+
+def bernoulli(key: torch.Tensor, p: float | torch.Tensor = 0.5,
+              shape: Shape | None = None) -> torch.Tensor:
+    """``jax.random.bernoulli`` (its default ``mode="low"``) for an f32
+    ``p``: ``uniform(key, shape) < p``, ``shape`` defaulting to ``p``'s; a
+    bool tensor. A python ``p`` is compared as the f32 value JAX converts it
+    to."""
+    if shape is None:
+        shape = tuple(p.shape) if isinstance(p, torch.Tensor) else ()
+    if not isinstance(p, torch.Tensor):
+        p = float(np.float32(p))
+    return uniform(key, shape) < p
+
+
+def rademacher(key: torch.Tensor, shape: Shape = (),
+               dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """``jax.random.rademacher``: ``2 * bernoulli(key, 0.5, shape) - 1``
+    in ``dtype`` (int32 by default, as 32-bit JAX's ``int``)."""
+    return (2 * bernoulli(key, 0.5, shape).to(dtype) - 1).to(dtype)
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int) -> torch.Tensor:

@@ -16,6 +16,13 @@ work of round r overlaps the device's work on round r+1.
   issued again against the new stacks (compared by identity).
 - ``HostPull``: the one device->host transfer of a round's results.
 
+Under a cohort (``CohortConfig``) the prefetcher stages the next round's
+slot tensors instead (``sim._stage_cohort_round``: the host draw, the
+registry's numpy staging, the copies to the device), and on the chunked
+cohort route the next chunk's (``schedule_chunk``/``take_chunk``). The
+clients' state rows are never staged here: they depend on the previous
+round's registry scatter, so the producer gathers them.
+
 Streams and syncs: every thread enqueues on the device's legacy default
 stream, so the prefetcher's gather is ordered behind the kernels enqueued
 before it, and the producer consumes its batches on that same stream: no
@@ -33,7 +40,6 @@ import math
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
-import numpy as np
 import torch
 import torch.utils._pytree as torch_pytree
 
@@ -82,6 +88,11 @@ class RoundPrefetcher:
 
     def schedule(self, round_idx: int) -> None:
         sim = self._sim
+        if getattr(sim, "_cohort_active", False):
+            # a cohort round's slot data: its draw, staging and copies are
+            # a function of (key, round, registry data) alone
+            self._pending = (round_idx, self._pool.submit(sim._stage_cohort_round, round_idx))
+            return
         # the stacks as of NOW: take() compares them by identity
         x_stack, y_stack = sim._x_train_stack, sim._y_train_stack
 
@@ -92,9 +103,28 @@ class RoundPrefetcher:
 
         self._pending = (round_idx, self._pool.submit(build))
 
+    def schedule_chunk(self, start_round: int, k: int) -> None:
+        """The chunked cohort route: stage chunk ``[start_round, start_round
+        + k)``'s draws, stacked slot tensors and window ids on the worker
+        while the previous chunk runs. The window's state rows are left to
+        ``_run_cohort_chunk``: they depend on the previous chunk's scatter."""
+        self._pending = (("chunk", start_round),
+                         self._pool.submit(self._sim._stage_cohort_chunk, start_round, k))
+
+    def take_chunk(self, start_round: int, k: int):
+        """The staged chunk, or the chunk staged on this thread on a miss."""
+        pending, self._pending = self._pending, None
+        if pending is not None and pending[0] == ("chunk", start_round):
+            return pending[1].result()
+        return self._sim._stage_cohort_chunk(start_round, k)
+
     def take(self, round_idx: int):
         sim = self._sim
         pending, self._pending = self._pending, None
+        if getattr(sim, "_cohort_active", False):
+            if pending is not None and pending[0] == round_idx:
+                return pending[1].result()
+            return sim._stage_cohort_round(round_idx)
         if pending is None or pending[0] != round_idx:
             return sim._round_batches(round_idx)
         (x_stack, y_stack), plan, batches = pending[1].result()
@@ -114,36 +144,52 @@ class HostPull:
     per-client rows).
 
     Built on the producer's thread: the leaves are flattened into one buffer
-    on their device (f32 when every leaf is f32, else f64, which holds every
-    value of the others exactly) and, on a card, copied into pinned host
-    memory without a host sync, behind an event. ``result()``, on any
-    thread, waits for that event alone and returns the tree with numpy
-    leaves of the same shapes (f32 leaves as f32; others widened to f64)."""
+    a dtype on their device (bf16 widened to f32, exactly) and, on a card,
+    copied into pinned host memory without a host sync, behind one event.
+    ``result()``, on any thread, waits for that event alone and returns the
+    tree with numpy leaves of the same shapes, each in its own dtype, so
+    state rows go back into a registry as they are. On a card,
+    ``device_ms`` is the device time of the flatten and the copies (CUDA
+    events around them), once ``result()`` has returned; None on the CPU."""
 
     def __init__(self, tree: Any):
         leaves, self._spec = torch_pytree.tree_flatten(tree)
+        # None is a leaf to torch's pytree (an empty field of a state): it
+        # comes back as None
+        self._none = [x is None for x in leaves]
+        leaves = [x.detach() for x in leaves if x is not None]
+        on_card = bool(leaves) and leaves[0].device.type == "cuda"
+        self._start = self._done = self.device_ms = None
+        if on_card:
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._start.record()
+        leaves = [x.float() if x.dtype == torch.bfloat16 else x for x in leaves]
         self._shapes = [tuple(x.shape) for x in leaves]
-        self._f32 = [x.dtype == torch.float32 for x in leaves]
-        dtype = torch.float32 if all(self._f32) else torch.float64
-        flat = torch.cat([x.detach().reshape(-1).to(dtype) for x in leaves])
-        self.nbytes = flat.numel() * flat.element_size()
-        self._done = None
-        if flat.device.type == "cuda":
-            self._host = torch.empty(flat.shape, dtype=dtype, pin_memory=True)
-            self._host.copy_(flat, non_blocking=True)
-            self._done = torch.cuda.Event()
+        self._dtypes = [x.dtype for x in leaves]
+        self._buffers: dict[torch.dtype, torch.Tensor] = {}
+        for dtype in dict.fromkeys(self._dtypes):
+            flat = torch.cat([x.reshape(-1) for x in leaves if x.dtype == dtype])
+            if flat.device.type == "cuda":
+                host = torch.empty(flat.shape, dtype=dtype, pin_memory=True)
+                host.copy_(flat, non_blocking=True)
+                flat = host
+            self._buffers[dtype] = flat
+        self.nbytes = sum(b.numel() * b.element_size() for b in self._buffers.values())
+        if on_card:
+            self._done = torch.cuda.Event(enable_timing=True)
             self._done.record()
-        else:
-            self._host = flat
 
     def result(self) -> Any:
         if self._done is not None:
             self._done.synchronize()
-        flat = self._host.numpy()
-        out, start = [], 0
-        for shape, f32 in zip(self._shapes, self._f32):
-            n = math.prod(shape)
-            leaf = flat[start:start + n].reshape(shape)
-            out.append(leaf.astype(np.float32) if f32 else leaf)
-            start += n
+            self.device_ms = self._start.elapsed_time(self._done)
+        flats = {d: b.numpy() for d, b in self._buffers.items()}
+        starts = dict.fromkeys(flats, 0)
+        out = []
+        for shape, dtype in zip(self._shapes, self._dtypes):
+            n, start = math.prod(shape), starts[dtype]
+            out.append(flats[dtype][start:start + n].reshape(shape))
+            starts[dtype] = start + n
+        it = iter(out)
+        out = [None if none else next(it) for none in self._none]
         return torch_pytree.tree_unflatten(out, self._spec)

@@ -67,11 +67,37 @@ re-initialises it. A stateful server optimizer (``FedOpt``) keeps its state
 in ``server_state``. ``precision`` (a ``PrecisionConfig``) reaches the
 clients' train steps and their initial state (``loss_scale``).
 
+Cohort-slot execution (``cohort=CohortConfig(slots=K)``, JAX's
+``_fit_cohort``/``_fit_cohort_chunked``): the population lives in a host
+``ClientRegistry`` (``server/registry.py``) and every round runs over ``K``
+slots, so device memory and a round's work grow with K, not with the
+registry. The manager samples over the registry (``sample_indices``, drawn
+from a CPU copy of the simulation's key, so the host view never waits for
+the card). Pipelined: the prefetcher stages round r+1's slot data while
+round r runs; the producer waits for the consumer to have stored round r's
+rows in the registry (``_await_registry_scatter``), gathers the sampled
+clients' rows (and the strategy's, ``state_rows``), dispatches fit and
+eval, and the round's one pull brings the updated rows back for the
+consumer's ``registry.scatter``. Chunked (a manager with ``draw_cohort``):
+a chunk's draws, slot tensors and registry window (``chunk_window``) are
+staged up front; each round draws its cohort on the device, finds its rows
+in the window (``searchsorted``), gathers, fits, evaluates and writes the
+rows back into the window, pad slots dropped; one pull at the chunk's end,
+where the device draws must equal the host's or ``RuntimeError`` is raised,
+then the window's rows go back into the registry. Both routes give the same
+history and rows bit for bit; ``slots == N`` under full participation gives
+the dense run's.
+
+``compression=CompressionConfig(...)`` wraps the strategy in a
+``CompressingStrategy`` (``compression/``), whose error-feedback residuals
+are per-client server rows.
+
 Departures: ``fit(n)`` runs ``n`` more rounds, numbered after ``history``;
-a logic's ``telemetry_loss_keys`` are always averaged beside ``backward``.
-Left out here: cohort and async execution (and the prefetcher's cohort
-chunk staging), observability, resilience, checkpointing (model and
-state), mesh placement, FLASH early stopping and the ``WandBReporter``;
+a logic's ``telemetry_loss_keys`` are always averaged beside ``backward``;
+a cohort round's facts (``cohort_info``) land in ``round_metrics``, where
+the observability records would read them. Left out here: async execution,
+observability, resilience, checkpointing (model and state, cohort rows
+included), mesh placement, FLASH early stopping and the ``WandBReporter``;
 so of JAX's reasons for the pipelined route, only those of the features
 above apply.
 """
@@ -81,6 +107,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import logging
+import threading
 import time
 from typing import Any, Sequence
 
@@ -90,9 +117,11 @@ import torch
 from fl4health_tpu_torch import rng
 from fl4health_tpu_torch.clients import engine
 from fl4health_tpu_torch.clients.engine import Batch, ClientLogic, TrainState
+from fl4health_tpu_torch.compression.config import CompressionConfig
+from fl4health_tpu_torch.compression.strategy import CompressingStrategy
 from fl4health_tpu_torch.core import pytree as ptu
 from fl4health_tpu_torch.device import resolve_device
-from fl4health_tpu_torch.exchange.exchanger import FullExchanger
+from fl4health_tpu_torch.exchange.exchanger import FixedLayerExchanger, FullExchanger
 from fl4health_tpu_torch.metrics.aggregation import aggregate_metrics
 from fl4health_tpu_torch.metrics.base import MetricManager
 from fl4health_tpu_torch.optim import GradientTransformation
@@ -100,7 +129,11 @@ from fl4health_tpu_torch.precision.policy import PrecisionConfig
 from fl4health_tpu_torch.server.client_manager import (ClientManager,
                                                        FullParticipationManager)
 from fl4health_tpu_torch.server.pipeline import HostPull, RoundConsumer, RoundPrefetcher
-from fl4health_tpu_torch.strategies.base import FitResults, Strategy
+from fl4health_tpu_torch.server.registry import (ClientRegistry, CohortConfig,
+                                                 _SlotManagerView, as_registry_source,
+                                                 rows_to_device)
+from fl4health_tpu_torch.strategies.base import (FitResults, Strategy,
+                                                 replace_global_params)
 
 
 def vmap_clients(fn, in_dims):
@@ -168,6 +201,8 @@ class ClientFailuresError(RuntimeError):
         super().__init__(message)
         self.clients = [int(c) for c in clients]
         self.round: int | None = None
+        # a cohort round's failed slots as registry ids
+        self.registry_clients: list[int] | None = None
 
 
 @dataclasses.dataclass
@@ -217,6 +252,9 @@ class _RoundWork:
     pull: HostPull
     fit_elapsed_s: float
     eval_elapsed_s: float
+    # cohort rounds only: the sampled registry ids, valid count, staging
+    # facts and the event the producer's next gather waits on
+    cohort_meta: dict | None = None
 
 
 class FederatedSimulation:
@@ -244,6 +282,8 @@ class FederatedSimulation:
         pipeline_depth: int = 2,
         precision: PrecisionConfig | None = None,
         execution_mode: str = "auto",
+        compression: CompressionConfig | None = None,
+        cohort: CohortConfig | None = None,
         device: str | torch.device = "cuda",
     ):
         if (local_epochs is None) == (local_steps is None):
@@ -253,6 +293,20 @@ class FederatedSimulation:
                 f"execution_mode must be 'auto', 'pipelined' or 'chunked'; "
                 f"got {execution_mode!r}")
         self.execution_mode = execution_mode
+        if cohort is not None and not isinstance(cohort, CohortConfig):
+            raise TypeError(
+                "cohort must be a CohortConfig (or None); got "
+                f"{type(cohort).__name__} — pass server.registry.CohortConfig")
+        self.cohort_config = cohort
+        self._cohort_active = cohort is not None
+        self.registry: ClientRegistry | None = None
+        self.registry_size: int | None = None
+        if self._cohort_active:
+            source = as_registry_source(datasets)
+            self.registry = ClientRegistry(source, batch_size, local_steps, local_epochs)
+            self.registry_size = source.n_clients
+            # every round is slot-shaped; the registry keeps the O(N) facts
+            datasets = []
         if precision is not None and not isinstance(precision, PrecisionConfig):
             raise TypeError(
                 "precision must be a PrecisionConfig (or None); got "
@@ -275,20 +329,80 @@ class FederatedSimulation:
         self._fit_last_round = 0
         self.logic, self.tx, self.strategy = logic, tx, strategy
         self.datasets = list(datasets)
-        self.n_clients = len(self.datasets)
+        self.n_clients = cohort.slots if self._cohort_active else len(self.datasets)
         self.batch_size, self.metrics = batch_size, metrics
         self.local_epochs, self.local_steps = local_epochs, local_steps
         self.exchanger = exchanger or FullExchanger()
-        self.client_manager = client_manager or FullParticipationManager(self.n_clients)
-        if self.client_manager.n_clients != self.n_clients:
-            raise ValueError(
-                f"client_manager covers {self.client_manager.n_clients} clients "
-                f"but {self.n_clients} datasets were given")
+        # the compressed exchange runs inside aggregate, through a
+        # CompressingStrategy wrapper; a config with no lossy stage wraps
+        # nothing
+        self.compression = compression
+        if compression is not None and not isinstance(compression, CompressionConfig):
+            raise TypeError(
+                "compression must be a CompressionConfig (or None); got "
+                f"{type(compression).__name__} — a duck-typed config "
+                "would silently train uncompressed")
+        if compression is not None and compression.enabled:
+            if (getattr(self.exchanger, "wants_packet_payload", False)
+                    or isinstance(self.exchanger, FixedLayerExchanger)):
+                # a partial exchange's zeroed leaves would read as deltas
+                raise ValueError(
+                    "compression composes with full-model exchange only: "
+                    f"{type(self.exchanger).__name__} ships partial "
+                    "payloads whose zeroed/masked entries would read as "
+                    "real deltas (it is already a compression scheme)")
+            self.strategy = CompressingStrategy(self.strategy, compression)
+        if self._cohort_active:
+            # the manager samples over the registry; the rounds are
+            # slot-shaped
+            self.client_manager = client_manager or FullParticipationManager(
+                self.registry_size)
+            if self.client_manager.n_clients != self.registry_size:
+                raise ValueError(
+                    f"client_manager covers {self.client_manager.n_clients} "
+                    f"clients but the registry holds {self.registry_size}; "
+                    "the sampling manager must be built over the registry")
+            if (isinstance(self.client_manager, FullParticipationManager)
+                    and cohort.slots < self.registry_size):
+                raise ValueError(
+                    f"full participation needs slots >= registry size "
+                    f"({self.registry_size}); got slots={cohort.slots} — pass "
+                    "a sampling manager (FixedFractionManager/"
+                    "PoissonSamplingManager) whose worst-case draw fits the slots")
+        else:
+            self.client_manager = client_manager or FullParticipationManager(self.n_clients)
+            if self.client_manager.n_clients != self.n_clients:
+                raise ValueError(
+                    f"client_manager covers {self.client_manager.n_clients} clients "
+                    f"but {self.n_clients} datasets were given")
         # setup-time strategy <-> sampling-scheme check (the DP strategy
         # derives or checks its sampling fraction against the manager's)
         self.strategy.bind_client_manager(self.client_manager)
+        if self._cohort_active:
+            # bind again through a slot-count view, so a wrapper sizes its
+            # per-client server rows [slots]; the checks above saw the real
+            # manager
+            self.strategy.bind_client_manager(
+                _SlotManagerView(self.client_manager, cohort.slots))
+            # the slot round evaluates the sampled cohort, and its data
+            # lives in the registry
+            if self._strategy_consumes_eval():
+                raise ValueError(
+                    "cohort=CohortConfig(...) is not composable with "
+                    "strategies that consume per-round eval results on the "
+                    "host (update_after_eval override): slot eval covers "
+                    "the sampled cohort, not the population")
+            if self.train_data_provider is not None:
+                raise ValueError(
+                    "cohort=CohortConfig(...) is not composable with "
+                    "train_data_provider: per-round data lives in the "
+                    "registry source — refresh it there")
         self.seed = seed
         self.rng = rng.PRNGKey(seed, self.device)
+        self._host_rng_of = (self.rng, self.rng.cpu())
+        self._registry_scatter_event: threading.Event | None = None
+        # per-round summaries of cohort rounds (cohort_info), in round order
+        self.round_metrics: list[dict] = []
         self._base_entropy = base_entropy(seed)
         self.history: list[RoundRecord] = []
         for i, d in enumerate(self.datasets):
@@ -313,14 +427,24 @@ class FederatedSimulation:
                     raise ValueError(
                         f"client {i}: x_{split} has {nx} rows but y_{split} has {ny}; "
                         "each client's features and labels must pair one-to-one.")
-        self.sample_counts = torch.tensor(
-            [d.n_train for d in self.datasets], dtype=torch.float32,
-            device=self.device)
-        stack = engine.pad_and_stack_data
-        self._x_train_stack = stack([d.x_train for d in self.datasets], "x_train", self.device)
-        self._y_train_stack = stack([d.y_train for d in self.datasets], "y_train", self.device)
-        self._x_val_stack = stack([d.x_val for d in self.datasets], "x_val", self.device)
-        self._y_val_stack = stack([d.y_val for d in self.datasets], "y_val", self.device)
+        if self._cohort_active:
+            # a cohort round passes its own sample counts; no device banks:
+            # a round's slot batches come from the registry
+            self.sample_counts = torch.zeros((self.n_clients,), dtype=torch.float32,
+                                             device=self.device)
+            self._x_train_stack = self._y_train_stack = None
+            self._x_val_stack = self._y_val_stack = None
+        else:
+            self.sample_counts = torch.tensor(
+                [d.n_train for d in self.datasets], dtype=torch.float32,
+                device=self.device)
+            stack = engine.pad_and_stack_data
+            self._x_train_stack = stack([d.x_train for d in self.datasets], "x_train",
+                                        self.device)
+            self._y_train_stack = stack([d.y_train for d in self.datasets], "y_train",
+                                        self.device)
+            self._x_val_stack = stack([d.x_val for d in self.datasets], "x_val", self.device)
+            self._y_val_stack = stack([d.y_val for d in self.datasets], "y_val", self.device)
         self._val_cache: tuple[Batch, torch.Tensor] | None = None
         self._test_cache: tuple[Batch, torch.Tensor] | None = None
         self._init_states()
@@ -337,6 +461,12 @@ class FederatedSimulation:
         self.client_states: TrainState = dataclasses.replace(
             ptu.stack_clients([proto] * self.n_clients), rng=keys)
         self.server_state = self.strategy.init(proto.params)
+        if self._cohort_active:
+            # client i's row derives from (proto, fold_in(init_rng, i + 1)),
+            # the dense derivation; the strategy's rows from the slot
+            # init's row 0 (checked client-symmetric)
+            self.registry.bind_client_states(proto, init_rng)
+            self.registry.bind_strategy_rows(self.strategy.state_rows(self.server_state))
 
     @property
     def global_params(self):
@@ -355,13 +485,19 @@ class FederatedSimulation:
                                  f"{tuple(v.shape)}, model expects {tuple(ref[k].shape)}")
         params = {k: torch.as_tensor(params[k]).to(device=self.device, dtype=r.dtype)
                   for k, r in ref.items()}
-        self.server_state = dataclasses.replace(self.server_state, params=params)
+        # through any wrapper (CompressingStrategy keeps the params inside)
+        self.server_state = replace_global_params(self.strategy, self.server_state, params)
         self.client_states = dataclasses.replace(
             self.client_states, params=ptu.stack_clients([params] * self.n_clients))
 
     def set_train_data(self, xs: Sequence[Any], ys: Sequence[Any]) -> None:
         """Swap every client's training arrays (per-round data refresh).
         The new stacks must have the original shapes and dtypes."""
+        if self._cohort_active:
+            raise ValueError(
+                "set_train_data swaps the dense device banks; a cohort-slot "
+                "simulation has none — refresh the registry's data source "
+                "instead (the next round's staging reads it)")
         new_x = engine.pad_and_stack_data(xs, "x_train", self.device)
         new_y = engine.pad_and_stack_data(ys, "y_train", self.device)
         for name, new, old in (("x_train", new_x, self._x_train_stack),
@@ -440,25 +576,28 @@ class FederatedSimulation:
         strategy = self.strategy
 
         def fit_round(server_state, client_states, batches, mask, round_idx,
-                      val_batches):
+                      val_batches, sample_counts=None):
+            # a cohort round passes its slots' counts; others the baked ones
+            if sample_counts is None:
+                sample_counts = self.sample_counts
             payload = strategy.client_payload(server_state, round_idx)
             new_states, packets, losses, metrics = fit_clients(
                 client_states, payload, batches, mask, val_batches)
             # failed clients (non-finite loss) are excluded from aggregation
             finite = torch.isfinite(losses["backward"])
             results = FitResults(packets=packets,
-                                 sample_counts=self.sample_counts,
+                                 sample_counts=sample_counts,
                                  train_losses=losses, train_metrics=metrics,
                                  mask=mask * finite.to(mask.dtype))
             new_server_state = strategy.aggregate(server_state, results, round_idx)
-            w = results.mask * self.sample_counts
+            w = results.mask * sample_counts
             agg_losses = {
                 # where() not multiply: an excluded client's NaN must not leak
                 k: (torch.where(results.mask > 0, v, torch.zeros_like(v)) * w).sum()
                 / torch.clamp(w.sum(), min=1.0)
                 for k, v in losses.items()
             }
-            agg_metrics = aggregate_metrics(metrics, self.sample_counts, results.mask)
+            agg_metrics = aggregate_metrics(metrics, sample_counts, results.mask)
             return new_server_state, new_states, agg_losses, agg_metrics, losses
 
         def eval_round(server_state, client_states, batches, eval_counts):
@@ -532,18 +671,30 @@ class FederatedSimulation:
     def _chunk_ineligibility(self) -> str | None:
         """Why ``fit`` may not take the chunked route (None: eligible):
         anything that needs the host between rounds keeps it pipelined."""
+        if self._cohort_active and getattr(self.client_manager, "draw_cohort", None) is None:
+            # a cohort chunks with its draw on the device, the window
+            # exchange in place of the per-round gather and scatter
+            return (f"{type(self.client_manager).__name__} provides no "
+                    "in-graph draw_cohort; the cohort draw must run on "
+                    "the host every round")
         if self.train_data_provider is not None:
             return "train_data_provider needs a host data refresh every round"
         if not self.failure_policy.accept_failures:
             return "accept_failures=False must be able to terminate mid-run"
+        if self._strategy_consumes_eval():
+            return ("strategy overrides update_after_eval (host-side "
+                    "per-round eval consumption)")
+        return None
+
+    def _strategy_consumes_eval(self) -> bool:
+        """Whether the strategy reads each round's per-client eval on the
+        host (overrides ``update_after_eval``; a wrapper says for its inner
+        strategy through ``overrides_update_after_eval``)."""
         overrides = getattr(self.strategy, "overrides_update_after_eval", None)
         if overrides is None:
             overrides = (type(self.strategy).update_after_eval
                          is not Strategy.update_after_eval)
-        if overrides:
-            return ("strategy overrides update_after_eval (host-side "
-                    "per-round eval consumption)")
-        return None
+        return bool(overrides)
 
     def _select_execution_mode(self, n_rounds: int) -> tuple[str, str]:
         """(mode, reason) for this ``fit`` call: ``"auto"`` takes the
@@ -574,10 +725,14 @@ class FederatedSimulation:
                         "execution_mode_reason": reason})
         if n_rounds >= 1:
             first = len(self.history) + 1
-            if mode == EXEC_CHUNKED:
-                self._fit_chunked(first, first + n_rounds - 1)
+            last = first + n_rounds - 1
+            if self._cohort_active:
+                (self._fit_cohort_chunked if mode == EXEC_CHUNKED
+                 else self._fit_cohort)(first, last)
+            elif mode == EXEC_CHUNKED:
+                self._fit_chunked(first, last)
             else:
-                self._fit_pipelined(first, first + n_rounds - 1)
+                self._fit_pipelined(first, last)
         for rep in self.reporters:
             rep.report({"fit_end": time.time()})
             rep.shutdown()
@@ -650,12 +805,28 @@ class FederatedSimulation:
     def _finish_round(self, work: _RoundWork) -> None:
         """The consumer's half of a round: the round's one device->host
         pull, the failure screen, the ``RoundRecord`` and the reports, in
-        round order. Launches nothing on the device."""
+        round order. Launches nothing on the device. A cohort round's pull
+        also brought its updated rows: they go into the registry first,
+        then the producer's next gather may run."""
         host = work.pull.result()
+        registry_rows = host.pop("_registry_rows", None)
+        cohort_info = None
+        if registry_rows is not None:
+            meta = work.cohort_meta
+            s0 = time.perf_counter()
+            self.registry.scatter(meta["idx"], meta["valid"], registry_rows["client_states"],
+                                  registry_rows.get("strategy_rows"))
+            scatter_ms = (time.perf_counter() - s0) * 1e3
+            meta["scatter_event"].set()
+            cohort_info = self._cohort_info(meta, scatter_ms, work.pull)
         try:
             self.failure_policy.check(host["per_client_fit_losses"], host["mask"])
         except ClientFailuresError as cf:
             cf.round = work.round
+            if work.cohort_meta is not None:
+                # a cohort round fails by slot: name the registry ids
+                ids = np.asarray(work.cohort_meta["idx"])
+                cf.registry_clients = [int(ids[c]) for c in cf.clients if 0 <= c < len(ids)]
             raise
         floats = lambda d, prefix="": {  # noqa: E731
             f"{prefix}{k}": float(v) for k, v in d.items()}
@@ -669,12 +840,21 @@ class FederatedSimulation:
                           fit_elapsed_s=work.fit_elapsed_s,
                           eval_elapsed_s=work.eval_elapsed_s)
         self.history.append(rec)
+        if cohort_info is not None:
+            self._record_round_metrics(work.round, cohort_info)
         for rep in self.reporters:
             rep.report({"fit_losses": rec.fit_losses, "fit_metrics": rec.fit_metrics,
                         "eval_losses": rec.eval_losses, "eval_metrics": rec.eval_metrics,
                         "fit_elapsed_s": rec.fit_elapsed_s,
                         "eval_elapsed_s": rec.eval_elapsed_s,
                         "execution_mode": EXEC_PIPELINED}, round=work.round)
+
+    def _record_round_metrics(self, rnd: int, cohort_info: dict) -> None:
+        """A round's summary, kept in ``round_metrics``: so far the cohort
+        facts (slots, valid, registry size and dirty rows, the staging,
+        gather and scatter walls, staged and pulled bytes, the pull's
+        device ms, rounds a dispatch, where the draw ran)."""
+        self.round_metrics.append({"round": rnd, **cohort_info})
 
     # -- the chunked route ---------------------------------------------
     def _chunk_plans(self, start_round: int, k: int, mask=None):
@@ -805,12 +985,14 @@ class FederatedSimulation:
                                start_round=start_round)
 
     def _chunked_epilogue(self, n_rounds: int, stacked: dict, masks_np: np.ndarray,
-                          per_round_s: float, start_round: int = 1) -> None:
+                          per_round_s: float, start_round: int = 1,
+                          cohort_infos: list[dict] | None = None) -> None:
         """Each round of a chunk on the host, from the stacked pull: the
         failure screen (it logs; ``accept_failures`` is True on this
         route), the ``RoundRecord`` with ``fit_elapsed_s`` the chunk's wall
         amortised a round and ``eval_elapsed_s`` 0 (no separate eval wall),
-        and the reports."""
+        the cohort facts of each round (``cohort_infos``) and the
+        reports."""
         for i in range(n_rounds):
             rnd = start_round + i
             self.failure_policy.check(
@@ -827,9 +1009,294 @@ class FederatedSimulation:
                               eval_losses=eval_losses, eval_metrics=eval_metrics,
                               fit_elapsed_s=per_round_s, eval_elapsed_s=0.0)
             self.history.append(rec)
+            if cohort_infos is not None:
+                self._record_round_metrics(rnd, cohort_infos[i])
             for rep in self.reporters:
                 rep.report({"fit_losses": rec.fit_losses, "fit_metrics": rec.fit_metrics,
                             "eval_losses": rec.eval_losses, "eval_metrics": rec.eval_metrics,
                             "fit_elapsed_s": rec.fit_elapsed_s,
                             "eval_elapsed_s": rec.eval_elapsed_s,
                             "execution_mode": EXEC_CHUNKED}, round=rnd)
+
+    # -- the cohort-slot routes (server/registry.py) ---------------------
+    def _to_device(self, tree):
+        return ptu.tree_map(lambda a: engine.host_to_device(np.asarray(a), self.device), tree)
+
+    def _cohort_info(self, meta: dict, scatter_ms: float, pull: HostPull) -> dict:
+        """One round's cohort facts, as JAX's consumer builds them, and the
+        round's pulled bytes and the pull's device ms (None on the CPU)."""
+        k = meta.get("rounds_per_dispatch", 1)
+        return {"cohort_slots": self.n_clients, "cohort_valid": meta["valid"],
+                "registry_size": self.registry_size,
+                "registry_dirty_rows": self.registry.dirty_rows,
+                "stage_ms": round(meta["stage_ms"] / k, 3),
+                "gather_ms": round(meta["gather_ms"] / k, 3),
+                "scatter_ms": round(scatter_ms / k, 3),
+                "staged_bytes": int(meta["staged_bytes"] // k),
+                "pull_bytes": int(pull.nbytes // k),
+                "pull_ms": None if pull.device_ms is None else round(pull.device_ms / k, 3),
+                "rounds_per_dispatch": k,
+                "cohort_draw": meta.get("cohort_draw", "host")}
+
+    @property
+    def _host_rng(self) -> torch.Tensor:
+        """``self.rng`` on the CPU, for the cohort's host draws: copied once
+        a key object (the constructor's copy waits for nothing), so the
+        host draws follow ``rng`` even when it is reassigned."""
+        key, host = self._host_rng_of
+        if key is not self.rng:
+            key = self.rng
+            self._host_rng_of = (key, key.cpu())
+        return self._host_rng_of[1]
+
+    def _stage_cohort_round(self, rnd: int) -> dict:
+        """One round's slot data, staged: the cohort's ids from the dense
+        path's stream (``fold_in(rng, 2000 + round)``, the CPU copy), the
+        registry's ``[K, ...]`` numpy tensors, and their copies to the
+        device. A function of (key, round, registry data) alone, so it runs
+        on the prefetcher's thread; the clients' state rows are absent (they
+        wait for the previous round's scatter)."""
+        idx, valid = self.client_manager.sample_indices(
+            rng.fold_in(self._host_rng, 2000 + rnd), rnd, self.n_clients)
+        t0 = time.perf_counter()
+        staged = self.registry.stage_round(idx, valid, self._base_entropy, rnd)
+        for name in ("batches", "val_batches", "mask", "sample_counts", "val_counts"):
+            staged[name] = self._to_device(staged[name])
+        staged["stage_ms"] = (time.perf_counter() - t0) * 1e3
+        return staged
+
+    def _await_registry_scatter(self) -> None:
+        """Wait until the consumer has stored the previous round's rows in
+        the registry (the read-after-write edge of the gather and scatter),
+        raising the consumer's error if its epilogue failed meanwhile."""
+        ev = self._registry_scatter_event
+        if ev is None:
+            return
+        while not ev.wait(0.05):
+            if self._consumer is not None:
+                self._consumer.raise_pending()
+        self._registry_scatter_event = None
+
+    def _gather_cohort_rows(self, idx: np.ndarray) -> float:
+        """Install the ids' client rows as ``client_states`` and their
+        strategy rows in ``server_state``; returns the host ms it took."""
+        g0 = time.perf_counter()
+        reg = self.registry
+        self.client_states = rows_to_device(reg.gather_client_states(idx),
+                                            reg.client_dtypes, self.device)
+        srows = reg.gather_strategy_rows(idx)
+        if srows is not None:
+            self.server_state = self.strategy.scatter_state_rows(
+                self.server_state, rows_to_device(srows, reg.strategy_dtypes, self.device))
+        return (time.perf_counter() - g0) * 1e3
+
+    def _fit_cohort(self, first: int, last: int) -> None:
+        """Rounds ``first..last`` of a cohort through the pipelined route:
+        the prefetcher stages round r+1's slot data while round r runs; each
+        round gathers its clients' rows once round r-1's are stored, and
+        its epilogue (the pull, the registry scatter, the record) runs on
+        the consumer."""
+        self._fit_last_round = last
+        self._registry_scatter_event = None
+        consumer = self._consumer = RoundConsumer(maxsize=self.pipeline_depth)
+        prefetcher = self._prefetcher = RoundPrefetcher(self)
+        try:
+            prefetcher.schedule(first)
+            for rnd in range(first, last + 1):
+                consumer.raise_pending()
+                self._run_cohort_round(rnd)
+            consumer.flush()
+        finally:
+            consumer.close()
+            prefetcher.close()
+            self._consumer = self._prefetcher = None
+            self._registry_scatter_event = None
+
+    def _run_cohort_round(self, rnd: int) -> None:
+        """The producer's half of a cohort round: the staged slot data, the
+        rows gathered after the previous scatter, fit and eval dispatched,
+        and the epilogue (its pull carries the updated rows) handed to the
+        consumer."""
+        consumer, prefetcher = self._consumer, self._prefetcher
+        t0 = time.time()
+        staged = prefetcher.take(rnd) if prefetcher is not None else self._stage_cohort_round(rnd)
+        if prefetcher is not None and rnd < self._fit_last_round:
+            # round r+1's data has no state dependency; only the row
+            # gather below waits for round r's scatter
+            prefetcher.schedule(rnd + 1)
+        self._await_registry_scatter()
+        idx, valid = staged["idx"], staged["valid"]
+        gather_ms = self._gather_cohort_rows(idx)
+        (self.server_state, self.client_states, fit_losses, fit_metrics,
+         per_client_fit_losses) = self._fit_round(
+            self.server_state, self.client_states, staged["batches"], staged["mask"], rnd,
+            staged["val_batches"], staged["sample_counts"])
+        t1 = time.time()
+        self.client_states, eval_losses, eval_metrics, _, _ = self._eval_round(
+            self.server_state, self.client_states, staged["val_batches"], staged["val_counts"])
+        results = {"mask": staged["mask"], "fit_losses": fit_losses, "fit_metrics": fit_metrics,
+                   "per_client_fit_losses": per_client_fit_losses,
+                   "eval_losses": eval_losses, "eval_metrics": eval_metrics,
+                   # the updated rows ride the round's one pull
+                   "_registry_rows": {"client_states": self.client_states,
+                                      "strategy_rows": self.strategy.state_rows(
+                                          self.server_state)}}
+        scatter_event = self._registry_scatter_event = threading.Event()
+        work = _RoundWork(
+            round=rnd, pull=HostPull(results), fit_elapsed_s=t1 - t0,
+            eval_elapsed_s=time.time() - t1,
+            cohort_meta={"idx": idx, "valid": valid, "stage_ms": staged["stage_ms"],
+                         "gather_ms": gather_ms, "staged_bytes": staged["staged_bytes"],
+                         "scatter_event": scatter_event, "rounds_per_dispatch": 1,
+                         "cohort_draw": "host"})
+        if consumer is None:  # no pipeline: the epilogue inline
+            self._finish_round(work)
+            return
+        consumer.submit_round(rnd, functools.partial(self._finish_round, work))
+        if not self.failure_policy.accept_failures:
+            consumer.flush()
+
+    # -- the chunked cohort route (draws on the device, window exchange) -
+    def _make_cohort_chunk(self):
+        """The chunked cohort route's chunk: its rounds dispatched back to
+        back, each drawing its cohort on the device (``draw_cohort`` of
+        ``fold_in(rng, 2000 + round)``, equal to the host draw), finding
+        the ids' rows in the staged window (``searchsorted``; a pad slot
+        repeats a real id), running the slot round's fit and eval, and
+        writing the post-eval rows (client states and strategy rows) back
+        into the window, pad slots into a scratch row that is dropped. The
+        outputs carry each round's drawn ids and count for the check at the
+        pull. JAX's ``lax.scan`` body, without the scan."""
+        draw = self.client_manager.draw_cohort
+        slots = self.n_clients
+        has_srows = self.registry.has_strategy_rows
+        strategy = self.strategy
+
+        def chunk(server_state, client_states, w_client, w_srows, base_rng, window_ids,
+                  batches, masks, sample_counts, val_batches, val_counts, start_round):
+            w = window_ids.shape[0]
+            slot_ids = torch.arange(slots, device=window_ids.device)
+            # one scratch row past the window takes the pad slots' writes
+            scratch = lambda t: torch.cat([t, t[:1]])  # noqa: E731
+            w_client = ptu.tree_map(scratch, w_client)
+            w_srows = ptu.tree_map(scratch, w_srows) if has_srows else None
+            outs = []
+            for i in range(masks.shape[0]):
+                r = start_round + i
+                ids, valid = draw(rng.fold_in(base_rng, 2000 + r), r, slots)
+                pos = torch.searchsorted(window_ids, ids.to(window_ids.dtype))
+                client_states = ptu.tree_map(lambda t: t[pos], w_client)
+                if has_srows:
+                    server_state = strategy.scatter_state_rows(
+                        server_state, ptu.tree_map(lambda t: t[pos], w_srows))
+                at = lambda tree: ptu.tree_map(lambda t: t[i], tree)  # noqa: E731
+                server_state, client_states, fit_losses, fit_metrics, per_fit = (
+                    self._fit_round(server_state, client_states, at(batches), masks[i], r,
+                                    at(val_batches), sample_counts[i]))
+                client_states, eval_losses, eval_metrics, _, _ = self._eval_round(
+                    server_state, client_states, at(val_batches), val_counts[i])
+                outs.append({"fit_losses": fit_losses, "fit_metrics": fit_metrics,
+                             "per_client_fit_losses": per_fit,
+                             "eval_losses": eval_losses, "eval_metrics": eval_metrics,
+                             "cohort_ids": ids, "cohort_valid": valid})
+                dest = torch.where(slot_ids < valid, pos, w)
+                w_client = ptu.tree_map(lambda wt, c: wt.index_copy(0, dest, c),
+                                        w_client, client_states)
+                if has_srows:
+                    w_srows = ptu.tree_map(lambda wt, c: wt.index_copy(0, dest, c),
+                                           w_srows, strategy.state_rows(server_state))
+            cut = lambda t: t[:w]  # noqa: E731
+            return (server_state, client_states, ptu.tree_map(cut, w_client),
+                    ptu.tree_map(cut, w_srows) if has_srows else None,
+                    ptu.stack_clients(outs))
+
+        return chunk
+
+    def _stage_cohort_chunk(self, start_round: int, k: int) -> dict:
+        """One chunk's staging: rounds ``[start_round, start_round + k)``
+        drawn on the host (the mirror of the device draw; an overflow
+        raises here, before any device work), their slot tensors stacked,
+        the chunk's window built, and the lot copied to the device; on the
+        prefetcher's thread. The window's state rows are gathered later, by
+        ``_run_cohort_chunk``."""
+        draws = [self.client_manager.sample_indices(
+            rng.fold_in(self._host_rng, 2000 + r), r, self.n_clients)
+            for r in range(start_round, start_round + k)]
+        t0 = time.perf_counter()
+        staged = self.registry.stage_chunk(draws, self._base_entropy, start_round)
+        staged["window_ids"], staged["w_real"] = self.registry.chunk_window(
+            [d[0] for d in draws], [d[1] for d in draws], self.n_clients, k)
+        staged["mask_np"] = staged["mask"]
+        for name in ("batches", "val_batches", "mask", "sample_counts", "val_counts"):
+            staged[name] = self._to_device(staged[name])
+        staged["window_ids_dev"] = engine.host_to_device(staged["window_ids"], self.device)
+        staged["stage_ms"] = (time.perf_counter() - t0) * 1e3
+        return staged
+
+    def _fit_cohort_chunked(self, first: int, last: int) -> None:
+        """Rounds ``first..last`` of a cohort through the chunked route: a
+        chunk is every round that remains (no state checkpointer cuts it),
+        staged by the prefetcher; the next chunk's staging would overlap
+        this one's device work."""
+        prefetcher = self._prefetcher = RoundPrefetcher(self)
+        try:
+            s = first
+            prefetcher.schedule_chunk(s, self._rounds_per_dispatch(last, s))
+            while s <= last:
+                k = self._rounds_per_dispatch(last, s)
+                staged = prefetcher.take_chunk(s, k)
+                if s + k <= last:
+                    prefetcher.schedule_chunk(s + k, self._rounds_per_dispatch(last, s + k))
+                self._run_cohort_chunk(s, k, staged)
+                s += k
+        finally:
+            prefetcher.close()
+            self._prefetcher = None
+
+    def _run_cohort_chunk(self, start_round: int, k: int, staged: dict) -> None:
+        """One cohort chunk: the window's rows gathered (after the previous
+        chunk's scatter: same thread), its rounds dispatched, one pull of
+        the outputs and the window, the device draws checked against the
+        host's, the window's rows stored in the registry, and the shared
+        chunked epilogue with each round's cohort facts."""
+        t_start = time.time()
+        chunk = self._make_cohort_chunk()
+        reg = self.registry
+        g0 = time.perf_counter()
+        w_client_h, w_srows_h = reg.gather_window(staged["window_ids"])
+        w_client = rows_to_device(w_client_h, reg.client_dtypes, self.device)
+        w_srows = (rows_to_device(w_srows_h, reg.strategy_dtypes, self.device)
+                   if w_srows_h is not None else None)
+        gather_ms = (time.perf_counter() - g0) * 1e3
+        self.server_state, self.client_states, w_client, w_srows, outs = chunk(
+            self.server_state, self.client_states, w_client, w_srows, self.rng,
+            staged["window_ids_dev"], staged["batches"], staged["mask"],
+            staged["sample_counts"], staged["val_batches"], staged["val_counts"], start_round)
+        pull = HostPull({"outs": outs, "client_rows": w_client, "strategy_rows": w_srows})
+        host = pull.result()  # the chunk's one pull
+        stacked = host["outs"]
+        # the window was built from the host draws: a device draw that
+        # differs would gather and store the wrong rows
+        ids_dev = np.asarray(stacked.pop("cohort_ids"), np.int64)
+        valid_dev = np.asarray(stacked.pop("cohort_valid"), np.int64)
+        ids_host = np.asarray(staged["idx"], np.int64)
+        valid_host = np.asarray(staged["valid"], np.int64)
+        if not (np.array_equal(ids_dev, ids_host) and np.array_equal(valid_dev, valid_host)):
+            raise RuntimeError(
+                "in-graph cohort draw diverged from the host sampler for "
+                f"rounds [{start_round}, {start_round + k}): the "
+                f"{type(self.client_manager).__name__}.draw_cohort "
+                "contract (bit-identical to sample_indices) is broken — "
+                "the chunk's window exchange cannot be trusted")
+        s0 = time.perf_counter()
+        reg.scatter(staged["window_ids"], int(staged["w_real"]), host["client_rows"],
+                    host["strategy_rows"] if w_srows_h is not None else None)
+        scatter_ms = (time.perf_counter() - s0) * 1e3
+        per_round_s = (time.time() - t_start) / max(k, 1)
+        meta = {"stage_ms": staged["stage_ms"], "gather_ms": gather_ms,
+                "staged_bytes": staged["staged_bytes"], "rounds_per_dispatch": k,
+                "cohort_draw": "in_graph"}
+        infos = [self._cohort_info({**meta, "valid": int(valid_host[i])}, scatter_ms, pull)
+                 for i in range(k)]
+        self._chunked_epilogue(k, stacked, np.asarray(staged["mask_np"]), per_round_s,
+                               start_round=start_round, cohort_infos=infos)

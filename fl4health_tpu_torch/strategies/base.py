@@ -1,7 +1,10 @@
 """Strategy abstraction (counterpart of ``fl4health_tpu/strategies/base.py``):
 a strategy owns a server state and two functions, ``client_payload`` (what
 every client receives) and ``aggregate`` (stacked client packets -> new
-server state)."""
+server state). A strategy that keeps per-client server rows exposes them
+through ``state_rows``/``scatter_state_rows`` (cohort-slot execution moves
+them through the client registry); a wrapper strategy (``.inner`` on the
+strategy and its state) installs params through ``replace_global_params``."""
 
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ from typing import Any
 
 import torch
 
+from fl4health_tpu_torch.core.pytree import tree_leaves
 from fl4health_tpu_torch.core.types import Params
 
 
@@ -31,6 +35,18 @@ class FitResults:
     mask: torch.Tensor
 
 
+def replace_global_params(strategy: "Strategy", server_state: Any, params) -> Any:
+    """``server_state`` with the innermost strategy's params replaced,
+    through any nesting of wrappers (``CompressingStrategy``: ``.inner`` on
+    the strategy and on its state). Every path that installs params goes
+    through this: ``dataclasses.replace(state, params=...)`` works on an
+    unwrapped state only."""
+    if hasattr(strategy, "inner") and hasattr(server_state, "inner"):
+        return dataclasses.replace(server_state, inner=replace_global_params(
+            strategy.inner, server_state.inner, params))
+    return dataclasses.replace(server_state, params=params)
+
+
 class Strategy:
     def bind_client_manager(self, client_manager: Any) -> None:
         """Setup-time hook: the simulation calls it once with its client
@@ -39,6 +55,27 @@ class Strategy:
 
     def init(self, params: Params) -> Any:
         raise NotImplementedError
+
+    def state_rows(self, server_state: Any) -> Any:
+        """The server state's per-client rows, a tree whose every leaf has a
+        leading ``[C]`` clients axis (error-feedback residuals), or None
+        when the strategy keeps none. Cohort-slot execution gathers the
+        sampled cohort's rows into ``[K]`` slots before a round and stores
+        the updated rows afterwards, so a strategy with rows must start
+        every client's row the same in ``init`` and keep client i's row a
+        function of client i's participation only. A wrapper puts the inner
+        strategy's rows under ``"inner"``."""
+        return None
+
+    def scatter_state_rows(self, server_state: Any, rows: Any) -> Any:
+        """The inverse of ``state_rows``: the state with its per-client
+        rows replaced by ``rows``; tree surgery only, so a gather and
+        scatter round-trips bit for bit."""
+        if tree_leaves(rows):
+            raise ValueError(
+                f"{type(self).__name__} has no per-client state rows to "
+                "scatter into (state_rows() is None)")
+        return server_state
 
     def global_params(self, server_state: Any) -> Params:
         return server_state.params

@@ -45,7 +45,8 @@ def test_sources_were_found():
             "moon.py", "drift.py", "contrastive.py", "bases.py", "optim.py", "fedopt.py",
             "exchanger.py", "peft.py", "policy.py", "convert.py", "unet.py", "plans.py",
             "data.py", "augment.py", "segmentation.py", "nnunet.py", "efficient.py",
-            "aggregate.py"} <= names
+            "aggregate.py", "registry.py", "registry_presets.py", "codecs.py",
+            "config.py", "strategy.py"} <= names
 
 
 def test_package_imports_without_jax():

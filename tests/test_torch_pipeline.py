@@ -183,7 +183,7 @@ def test_host_pull_is_one_buffer_with_the_trees_values():
     np.testing.assert_array_equal(host["rows"]["backward"], [1.5, -2.0, np.inf])
     assert float(host["fit"]["backward"]) == 0.25
     assert np.isnan(host["fit"]["acc"])
-    # a leaf of another dtype widens the buffer to f64; every value stays exact
+    # a leaf of another dtype gets a buffer of its own; every value stays exact
     mixed = HostPull({"n": torch.tensor([2**24 + 1], dtype=torch.int64),
                       "x": torch.tensor(0.1)})
     got = mixed.result()
