@@ -207,6 +207,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      compression, warm walls in turns; ``logical_nbytes`` and
      ``estimate_wire_nbytes`` of the update; ``compress_update`` over the
      CifarNet tree on the card equal to the CPU's bit for bit.
+ 29. ``tiny_async_parity``: buffered-async runs (FedBuff) of
+     tests/server/test_async_fit.py's Mlp recipe, 4 events, on the card
+     through each route and on the CPU from the same params: stragglers,
+     dropout, a scaling attacker under RobustFedAvg's median and trimmed
+     mean, a 6-client registry in 3 seats. Card within 5e-4 of the CPU; the
+     card's two routes bit-equal.
+ 30. ``async_dp_cifar_cnn``: the DP path under bench.py's
+     ``timed_async_block`` recipe (buffer 32 of 64, jitter 0.05, clients 0
+     and 1 at 5x compute time), 6 events, cuDNN deterministic in this phase
+     only: the chunked ("auto") and the pipelined route, each exactly 35 K1
+     and 280 K2 launches (7 waves of 5 steps), none of K3-K5, bit-equal to
+     each other; buffer 64 without faults bit-equal to the synchronous run
+     on both routes; warm walls of 6 events a route and of 6 synchronous
+     rounds in turns; peaks; the virtual cadences.
+ 31. ``async_cohort_dp_cifar_cnn``: the N 1,000 registry of phase 26 in 64
+     seats, the same recipe, 4 events on the registry route: exactly 25 K1
+     and 200 K2; the seats change occupants; every evicted occupant's stored
+     row equals its state when it left its seat; each event's swap, staging
+     and scatter ms.
 ``fit`` takes its default route, ``execution_mode`` "auto": chunked unless
 something needs the host between rounds (a strict failure policy, a data
 provider), then pipelined. Neither waits for the device inside a round, so
@@ -3014,6 +3033,315 @@ def tiny_cohort_parity() -> dict:
     return out
 
 
+# The async slice: dp_cifar_cnn under bench.py:1430 timed_async_block's
+# recipe (a buffer of half the cohort, jitter 0.05, two clients at 5x compute
+# time, max(2 * TIMED_ROUNDS, 6) events); over the registry, 4 events
+ASYNC_EVENTS, ASYNC_BUFFER, ASYNC_SLOW, ASYNC_COHORT_EVENTS = 6, 32, 5.0, 4
+
+
+def async_recipe(slow: tuple = (0, 1)) -> tuple:
+    """The ``AsyncConfig`` (buffer ``ASYNC_BUFFER``, jitter 0.05) and the
+    ``FaultPlan`` of the slow clients (5x compute time)."""
+    from fl4health_tpu_torch.resilience.faults import ClientFault, FaultPlan
+    from fl4health_tpu_torch.server.async_schedule import AsyncConfig
+
+    return (AsyncConfig(buffer_size=ASYNC_BUFFER, compute_jitter=0.05),
+            FaultPlan(client_faults=(ClientFault(clients=slow, kind="slow", scale=ASYNC_SLOW),)))
+
+
+def tiny_mlp_sim(device: str, mode: str = "auto", n: int = 4, **sim_kw):
+    """tests/server/test_async_fit.py's recipe: an Mlp (12 hidden) over
+    ``n`` uneven clients of 6 features and 3 classes (numpy, seed 0), batch 8,
+    one local epoch of SGD(0.05), FedAvg unless ``strategy`` is given."""
+    from fl4health_tpu_torch import optim
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.models.cnn import Mlp
+    from fl4health_tpu_torch.server.simulation import ClientDataset, FederatedSimulation
+    from fl4health_tpu_torch.strategies.fedavg import FedAvg
+
+    r, data = np.random.default_rng(0), []
+    for i in range(n):
+        m = 40 - 2 * (i % 3)
+        x = r.standard_normal((m, 6)).astype(np.float32)
+        y = r.integers(0, 3, m).astype(np.int32)
+        data.append(ClientDataset(x[:m - 8], y[:m - 8], x[m - 8:], y[m - 8:]))
+    return FederatedSimulation(
+        logic=engine.ClientLogic(engine.from_module(Mlp(6, (12,), 3)),
+                                 engine.masked_cross_entropy),
+        tx=optim.sgd(0.05), strategy=sim_kw.pop("strategy", None) or FedAvg(), datasets=data,
+        batch_size=8, metrics=MetricManager((efficient.accuracy(),)), local_epochs=1,
+        seed=5, execution_mode=mode, device=device, **sim_kw)
+
+
+def tiny_async_parity() -> dict:
+    """``tiny_async_parity``: buffered-async runs of the tiny Mlp recipe, 4
+    events, on the card through each route and on the CPU, from the same
+    params: stragglers (buffer 2 of 4, jitter 0.05, seed 3, client 0 at 5x),
+    dropout beside a straggler, a scaling attacker under RobustFedAvg's
+    median and trimmed mean (buffer 3), and async over a 6-client registry in
+    3 seats (buffer 2, the seats swapping). Card within 5e-4 of the CPU;
+    the card's pipelined and chunked routes equal bit for bit."""
+    from fl4health_tpu_torch.resilience import aggregators
+    from fl4health_tpu_torch.resilience.faults import ClientFault, FaultPlan
+    from fl4health_tpu_torch.server.async_schedule import AsyncConfig
+    from fl4health_tpu_torch.server.registry import CohortConfig
+
+    slow = ClientFault(clients=(0,), kind="slow", scale=5.0)
+    cases = {
+        "stragglers": dict(async_config=AsyncConfig(buffer_size=2, compute_jitter=0.05, seed=3),
+                           fault_plan=FaultPlan(client_faults=(slow,))),
+        "dropout": dict(async_config=AsyncConfig(buffer_size=2, compute_jitter=0.05),
+                        fault_plan=FaultPlan(client_faults=(
+                            ClientFault(clients=(1,), kind="dropout", probability=0.5),
+                            ClientFault(clients=(0,), kind="slow", scale=4.0)))),
+        "scale_median": dict(async_config=AsyncConfig(buffer_size=3, compute_jitter=0.05),
+                             fault_plan=FaultPlan(client_faults=(
+                                 ClientFault(clients=(1,), kind="scale", scale=5.0), slow)),
+                             strategy=lambda: aggregators.RobustFedAvg("median")),
+        "scale_trimmed_mean": dict(
+            async_config=AsyncConfig(buffer_size=3, compute_jitter=0.05),
+            fault_plan=FaultPlan(client_faults=(
+                ClientFault(clients=(1,), kind="scale", scale=5.0), slow)),
+            strategy=lambda: aggregators.RobustFedAvg("trimmed_mean", trim_fraction=0.25)),
+        "registry": dict(async_config=AsyncConfig(buffer_size=2, compute_jitter=0.05),
+                         fault_plan=FaultPlan(client_faults=(slow,)),
+                         cohort=CohortConfig(slots=3), n=6),
+    }
+    out = {"phase": "tiny_async_parity", "events": 4}
+    for name, kw in cases.items():
+        def build(device, mode="auto", kw=kw):
+            args = dict(kw)
+            if "strategy" in args:
+                args["strategy"] = args["strategy"]()
+            return tiny_mlp_sim(device, mode, **args)
+
+        cpu = build("cpu")
+        init = {k: v.clone() for k, v in cpu.global_params.items()}
+        cpu.fit(4)
+        card = {}
+        for mode in (("pipelined",) if name == "registry" else ("pipelined", "auto")):
+            sim = build("cuda", mode)
+            sim.set_global_params(init)
+            sim.fit(4)
+            card[mode] = sim
+            for gr, cr in zip(sim.history, cpu.history, strict=True):
+                check(f"tiny async {name} {mode} fit loss r{gr.round}",
+                      torch.tensor(gr.fit_losses["backward"]),
+                      torch.tensor(cr.fit_losses["backward"]), 5e-4, 0)
+                check(f"tiny async {name} {mode} eval loss r{gr.round}",
+                      torch.tensor(gr.eval_losses["checkpoint"]),
+                      torch.tensor(cr.eval_losses["checkpoint"]), 5e-4, 0)
+            err = max(check(f"tiny async {name} {mode} param {k}", sim.global_params[k].cpu(),
+                            cpu.global_params[k], 5e-4, 0) for k in init)
+        routes_equal = None
+        if len(card) == 2:
+            routes_equal = (history_equal(*card.values())
+                            and states_equal(*card.values()))
+            if not routes_equal:
+                fail(f"tiny async {name}: the card's chunked route differs from the pipelined")
+        plan = card["pipelined"]._async_plan
+        out[name] = {"fit_losses": [r.fit_losses["backward"] for r in cpu.history],
+                     "max_param_abs_err": err, "routes_bit_equal": routes_equal,
+                     "staleness_max": float(plan.staleness.max()),
+                     "swapped": [m.get("swapped") for m in card["pipelined"].round_metrics]}
+    if not any(out["registry"]["swapped"]):
+        fail("tiny async registry: no seat changed occupant")
+    print(json.dumps(out))
+    return out
+
+
+def async_dp_cifar_cnn(fa, dp) -> dict:
+    """``async_dp_cifar_cnn``: the DP path (64 clients of 160 train and 64 val
+    rows, batch 32, 5 DP-SGD steps at C 1, sigma 1, bf16, SGD(0.05)) under
+    buffered async (buffer 32, jitter 0.05, clients 0 and 1 at 5x), 6
+    events, cuDNN deterministic in this phase only: the "auto" route (which
+    must be the chunked one) with the launch counts and the peak set to 0
+    before, then the pipelined route; exactly 35 K1 and 280 K2 launches each
+    (7 waves of 5 steps, all 64 clients under one vmap), none of K3-K5;
+    histories and states equal bit for bit; the plan's staleness reaching 1;
+    finite losses. Then buffer 64 without faults against the synchronous run
+    over 2 rounds on both routes, bit for bit; the warm walls of 6 events on
+    both routes and of 6 synchronous rounds (chunked), in turns; the virtual
+    cadences."""
+    from fl4health_tpu_torch.server import simulation as tsim
+    from fl4health_tpu_torch.server.async_schedule import AsyncConfig, sync_round_times
+
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    cfg, faults = async_recipe()
+    build = lambda mode, **kw: build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA,  # noqa: E731
+                                            seed=0, execution_mode=mode, **kw)
+    expected = {"dp_sq_norms": (ASYNC_EVENTS + 1) * LOCAL_STEPS,
+                "dp_scaled_sum": (ASYNC_EVENTS + 1) * LOCAL_STEPS * len(CIFAR_LEAVES),
+                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {"phase": "async_dp_cifar_cnn", "clients": DP_CLIENTS, "events": ASYNC_EVENTS,
+           "buffer_size": ASYNC_BUFFER, "slow_clients": [0, 1], "slow_scale": ASYNC_SLOW,
+           "cudnn_deterministic": True}
+    try:
+        sims = {m: build(m, async_config=cfg, fault_plan=faults) for m in ("auto", "pipelined")}
+        mode = sims["auto"]._select_execution_mode(ASYNC_EVENTS)
+        if mode[0] != tsim.EXEC_CHUNKED:
+            fail(f"async_dp_cifar_cnn: execution_mode='auto' took {mode}")
+        launches, cold = {}, {}
+        for m, sim in sims.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            in_use = torch.cuda.memory_allocated()
+            dp.reset_launch_counts()
+            fa.reset_launch_counts()
+            t0 = time.time()
+            sim.fit(ASYNC_EVENTS)
+            torch.cuda.synchronize()
+            cold[m] = time.time() - t0
+            launches[m] = {**dp.LAUNCHES, **fa.LAUNCHES}
+            out[f"peak_mem_gib_{m}"] = torch.cuda.max_memory_allocated() / 2**30
+            # above what was held before the run (the other sim's banks)
+            out[f"peak_above_start_gib_{m}"] = (torch.cuda.max_memory_allocated()
+                                                - in_use) / 2**30
+            if launches[m] != expected:
+                fail(f"async_dp_cifar_cnn {m}: launches {launches[m]}, expected {expected}")
+            for r in sim.history:
+                if not all(np.isfinite(v) for v in (*r.fit_losses.values(),
+                                                      *r.eval_losses.values())):
+                    fail(f"async_dp_cifar_cnn {m} event {r.round}: non-finite {r.fit_losses}")
+        equal = history_equal(*sims.values()) and states_equal(*sims.values())
+        if not equal:
+            fail("async_dp_cifar_cnn: the chunked history or state differs from the pipelined")
+        plan = sims["auto"]._async_plan
+        stal = plan.staleness[plan.arrivals > 0]
+        if stal.max() < 1:
+            fail(f"async_dp_cifar_cnn: no stale update consumed (max {stal.max()})")
+        # the degenerate plan: a buffer of the whole cohort, no stragglers
+        degenerate = {}
+        for m in ("pipelined", "auto"):  # the last, chunked, sync run is timed below
+            sync = build(m)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            in_use = torch.cuda.memory_allocated()
+            sync.fit(2)
+            torch.cuda.synchronize()
+            sync_peak = torch.cuda.max_memory_allocated() / 2**30
+            sync_above = (torch.cuda.max_memory_allocated() - in_use) / 2**30
+            asy = build(m, async_config=AsyncConfig(buffer_size=DP_CLIENTS))
+            asy.fit(2)
+            degenerate[m] = history_equal(sync, asy) and all(
+                torch.equal(sync.global_params[k], asy.global_params[k])
+                for k in sync.global_params)
+            if not degenerate[m]:
+                fail(f"async_dp_cifar_cnn: buffer 64 without faults differs from sync ({m})")
+        # warm walls in turns: 6 events a route, 6 synchronous rounds
+        runs = {"chunked": sims["auto"], "pipelined": sims["pipelined"], "sync": sync}
+        walls = {k: [] for k in runs}
+        for name in ("chunked", "pipelined", "sync", "sync", "pipelined", "chunked"):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            runs[name].fit(ASYNC_EVENTS)
+            torch.cuda.synchronize()
+            walls[name].append(time.time() - t0)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out.update({
+        "mode": list(mode), "launches": launches["auto"], "expected_launches": expected,
+        "routes_bit_equal": equal, "degenerate_equals_sync": degenerate,
+        # the synchronous chunked run's (2 rounds), its sim built before
+        # the window, as the async runs' were
+        "cold_s": cold, "peak_mem_gib_sync": sync_peak,
+        "peak_above_start_gib_sync": sync_above,
+        "warm_walls_s": walls,
+        "s_per_event": {k: [w / ASYNC_EVENTS for w in v] for k, v in walls.items()},
+        "fit_losses": [r.fit_losses["backward"] for r in sims["auto"].history[:ASYNC_EVENTS]],
+        "eval_losses": [r.eval_losses["checkpoint"]
+                        for r in sims["auto"].history[:ASYNC_EVENTS]],
+        # bench.py's timed_async_block numbers on the virtual clock
+        "staleness_mean": float(stal.mean()), "staleness_max": float(stal.max()),
+        "sync_round_vs_clean": float(np.mean(sync_round_times(cfg, ASYNC_EVENTS, DP_CLIENTS))),
+        "sync_round_vs_straggler": float(np.mean(sync_round_times(
+            cfg, ASYNC_EVENTS, DP_CLIENTS, faults))),
+        "async_cadence_vs": float(np.mean(plan.cadences()))})
+    print(json.dumps(out))
+    return out
+
+
+def async_cohort_dp_cifar_cnn(fa, dp, source) -> dict:
+    """``async_cohort_dp_cifar_cnn``: the DP path's model and client over
+    the N 1,000 Dirichlet(0.5) registry, 64 seats under
+    ``FullParticipationManager(1000)``, buffered async (buffer 32, jitter
+    0.05, seats 0 and 1 at 5x): a cold event, then 4 events on the registry
+    route with the launch counts and the peak set to 0 before: exactly 25
+    K1 and 200 K2, none
+    of K3-K5; the seats change occupants; finite losses; each event's swap,
+    staging and scatter ms. Then 4 more events (a fresh plan) with every
+    evicted occupant's stored row checked against its state when it left
+    its seat, at each swap (untimed: the check pulls the rows again)."""
+    from fl4health_tpu_torch.core.pytree import tree_leaves, tree_map
+    from fl4health_tpu_torch.server import simulation as tsim
+    from fl4health_tpu_torch.server.client_manager import FullParticipationManager
+    from fl4health_tpu_torch.server.registry import CohortConfig
+
+    n = COHORT_SIZES[0]
+    cfg, faults = async_recipe()
+    sim = build_dp_sim(source, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                       cohort=CohortConfig(slots=COHORT_SLOTS),
+                       client_manager=FullParticipationManager(n), async_config=cfg,
+                       fault_plan=faults)
+    mode = sim._select_execution_mode(ASYNC_COHORT_EVENTS)
+    if mode[0] != tsim.EXEC_PIPELINED:
+        fail(f"async_cohort_dp_cifar_cnn: took {mode}")
+    swap, checked = sim._swap_seats, []
+
+    def checked_swap(changed, old_ids, new_ids):
+        # the leaving occupants' rows as they stand before the swap
+        idx = torch.as_tensor(changed, device="cuda")
+        before = [x.cpu().numpy() for x in tree_leaves(
+            tree_map(lambda t: t.index_select(0, idx), sim.client_states))]
+        res = swap(changed, old_ids, new_ids)
+        stored = tree_leaves(sim.registry.gather_client_states(np.asarray(old_ids)))
+        checked.append(len(changed))
+        if not all(np.array_equal(np.asarray(a), b) for a, b in zip(stored, before)):
+            fail("async_cohort_dp_cifar_cnn: an evicted row differs from its seat's state")
+        return res
+
+    sim.fit(1)  # cold: a prologue and one event
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dp.reset_launch_counts()
+    fa.reset_launch_counts()
+    t0 = time.time()
+    sim.fit(ASYNC_COHORT_EVENTS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {**dp.LAUNCHES, **fa.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    facts = [{k: m[k] for k in ("swapped", "stage_ms", "gather_ms", "scatter_ms",
+                                "staged_bytes", "staleness_max")}
+             for m in sim.round_metrics[-ASYNC_COHORT_EVENTS:]]
+    slot_ids = sim._async_plan.slot_ids
+    sim._swap_seats = checked_swap
+    sim.fit(ASYNC_COHORT_EVENTS)
+    expected = {"dp_sq_norms": (ASYNC_COHORT_EVENTS + 1) * LOCAL_STEPS,
+                "dp_scaled_sum": (ASYNC_COHORT_EVENTS + 1) * LOCAL_STEPS * len(CIFAR_LEAVES),
+                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    if launches != expected:
+        fail(f"async_cohort_dp_cifar_cnn: launches {launches}, expected {expected}")
+    if not (slot_ids[1:] != slot_ids[:-1]).any() or not checked or sum(checked) == 0:
+        fail("async_cohort_dp_cifar_cnn: no seat changed occupant")
+    for r in sim.history:
+        if not all(np.isfinite(v) for v in (*r.fit_losses.values(), *r.eval_losses.values())):
+            fail(f"async_cohort_dp_cifar_cnn event {r.round}: non-finite {r.fit_losses}")
+    out = {"phase": "async_cohort_dp_cifar_cnn", "registry_size": n, "slots": COHORT_SLOTS,
+           "events": ASYNC_COHORT_EVENTS, "buffer_size": ASYNC_BUFFER, "mode": list(mode),
+           "wall_s": wall, "s_per_event": wall / ASYNC_COHORT_EVENTS, "peak_mem_gib": peak,
+           "launches": launches, "evicted_rows_checked": checked,
+           "registry_dirty_rows": sim.registry.dirty_rows,
+           "fit_losses": [r.fit_losses["backward"] for r in sim.history],
+           "event_facts": facts, **host_rss_gib()}
+    print(json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: needs an NVIDIA card; torch.cuda.is_available() is false",
@@ -3093,8 +3421,15 @@ def main() -> int:
     cohort = cohort_dp_cifar_cnn(fa, dp, cifar_pool())
     cohort_launches = cohort[f"n_{COHORT_SIZES[-1]}"]["launches"]
     cohort_chunked_vs_pipelined(cohort["sources"][COHORT_SIZES[0]])
-    del cohort
     compressed_dp_cifar_cnn()
+
+    # the async slice: buffered async (FedBuff) with the fault plan and
+    # the robust aggregators, dense and over the registry
+    tiny_async_parity()
+    async_launches = async_dp_cifar_cnn(fa, dp)["launches"]
+    async_cohort_launches = async_cohort_dp_cifar_cnn(
+        fa, dp, cohort["sources"][COHORT_SIZES[0]])["launches"]
+    del cohort
 
     replaces = {"flash_fwd": "fl4health_tpu/kernels/flash_attention.py:71",
                 "flash_bwd_dq": "fl4health_tpu/kernels/flash_attention.py:141",
@@ -3132,6 +3467,8 @@ def main() -> int:
             "launches_bert_lora_fedopt_base": bert_launches[name],
             "launches_nnunet_fullres": nnunet_launches[name],
             "launches_cohort_dp_cifar_cnn": cohort_launches[name],
+            "launches_async_dp_cifar_cnn": async_launches[name],
+            "launches_async_cohort_dp_cifar_cnn": async_cohort_launches[name],
             "t128_shape": [BERT_CLIENTS * BATCH, BERT_CFG["max_len"], BERT_CFG["n_heads"], D],
             "t128_max_abs_err": t128_errs["max_abs_err"][name],
             "t128_bound_used": t128_errs["bound_used"][name],
@@ -3160,6 +3497,9 @@ def main() -> int:
             "launches_nnunet_fullres": nnunet_launches[name],
             # 3 warm rounds over the 100,000-client registry, 64 slots
             "launches_cohort_dp_cifar_cnn": cohort_launches[name],
+            # 6 events (7 waves) of buffered async, and 4 over the registry
+            "launches_async_dp_cifar_cnn": async_launches[name],
+            "launches_async_cohort_dp_cifar_cnn": async_cohort_launches[name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

@@ -92,11 +92,42 @@ the dense run's.
 ``CompressingStrategy`` (``compression/``), whose error-feedback residuals
 are per-client server rows.
 
+``fault_plan=FaultPlan(...)`` (``resilience/faults.py``) injects seeded
+client faults into every round program: dropout multiplies the mask before
+the client vmap, corruption rewrites the packets after it, drawn from
+``(plan seed, fault, round)`` on the sim's device, so both routes (and both
+packages) inject the same faults; an empty plan changes nothing.
+
+Buffered async (``async_config=AsyncConfig(...)``, FedBuff, JAX's
+``_build_async_fns``/``_fit_async``): ``fit(n)`` resolves ``n``
+buffer-fill events to a static plan (``server/async_schedule.py``: seeded
+virtual compute times, the plan's ``kind="slow"`` stragglers) and runs a
+prologue (every client trains on data plan 1 into the ``pending`` buffer),
+then one program an event: the ``K`` arrived updates aggregate under the
+staleness-discounted mask (``FedBuff.async_aggregation_mask``, the strategy
+wrapped as the outermost wrapper), the fresh global is evaluated, and the
+arrived clients restart on data plan ``e+1`` from their post-eval states,
+their new packets merged into ``pending``. Each event is one
+``RoundRecord``; its plan facts go to ``round_metrics``. Three routes: the
+pipelined one (producer, consumer, the prefetcher staging plan ``e+1``),
+the chunked one (every event dispatched back to back over the resident
+stacks, ``pending`` carried on the device, one pull), bit-equal to each
+other; and over a client registry (pipelined only): a consumed seat whose
+occupant changes (``RegistryEventPlan.slot_ids``) has its rows pulled and
+stored under its old id, then the new occupant's rows gathered in, before
+the event dispatches. With ``K`` = the cohort and no stragglers every
+event is a synchronous round, bit for bit. As in JAX each ``fit`` call
+builds a fresh plan over its own events and a new prologue from event 1
+(the programs see JAX's event indices); its records are numbered after
+``history``.
+
 Departures: ``fit(n)`` runs ``n`` more rounds, numbered after ``history``;
 a logic's ``telemetry_loss_keys`` are always averaged beside ``backward``;
-a cohort round's facts (``cohort_info``) land in ``round_metrics``, where
-the observability records would read them. Left out here: async execution,
-observability, resilience, checkpointing (model and state, cohort rows
+a round's facts (a cohort round's ``cohort_info``, an async event's plan
+facts, the fault plan's ``summarize_round`` under ``"fault"``) land in
+``round_metrics``, where the observability records would read them. Left
+out here: observability, the rest of resilience (quarantine, recovery),
+checkpointing (model and state, cohort rows and the async snapshot
 included), mesh placement, FLASH early stopping and the ``WandBReporter``;
 so of JAX's reasons for the pipelined route, only those of the features
 above apply.
@@ -106,6 +137,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import inspect
 import logging
 import threading
 import time
@@ -126,6 +158,9 @@ from fl4health_tpu_torch.metrics.aggregation import aggregate_metrics
 from fl4health_tpu_torch.metrics.base import MetricManager
 from fl4health_tpu_torch.optim import GradientTransformation
 from fl4health_tpu_torch.precision.policy import PrecisionConfig
+from fl4health_tpu_torch.resilience.faults import FaultPlan
+from fl4health_tpu_torch.server.async_schedule import (AsyncConfig, build_event_plan,
+                                                       build_registry_event_plan)
 from fl4health_tpu_torch.server.client_manager import (ClientManager,
                                                        FullParticipationManager)
 from fl4health_tpu_torch.server.pipeline import HostPull, RoundConsumer, RoundPrefetcher
@@ -134,6 +169,7 @@ from fl4health_tpu_torch.server.registry import (ClientRegistry, CohortConfig,
                                                  rows_to_device)
 from fl4health_tpu_torch.strategies.base import (FitResults, Strategy,
                                                  replace_global_params)
+from fl4health_tpu_torch.strategies.fedbuff import FedBuff
 
 
 def vmap_clients(fn, in_dims):
@@ -156,6 +192,20 @@ def loop_clients(fn, in_dims):
         return tuple(ptu.stack_clients(list(col)) for col in zip(*outs))
 
     return run
+
+
+def fit_summary(losses: dict, metrics: dict, mask: torch.Tensor,
+                counts: torch.Tensor) -> tuple[dict, dict]:
+    """A round's (or an event's) training losses and metrics, weighted by
+    ``mask * counts`` over the clients."""
+    w = mask * counts
+    agg_losses = {
+        # where() not multiply: an excluded client's NaN must not leak
+        k: (torch.where(mask > 0, v, torch.zeros_like(v)) * w).sum()
+        / torch.clamp(w.sum(), min=1.0)
+        for k, v in losses.items()
+    }
+    return agg_losses, aggregate_metrics(metrics, counts, mask)
 
 
 def base_entropy(seed: int) -> list[int]:
@@ -255,6 +305,14 @@ class _RoundWork:
     # cohort rounds only: the sampled registry ids, valid count, staging
     # facts and the event the producer's next gather waits on
     cohort_meta: dict | None = None
+    # an async event over the registry: its cohort facts, built by the
+    # producer (no rows ride its pull)
+    cohort_info: dict | None = None
+    # async events only: the plan's facts (``_async_event_info``) and the
+    # event index the round programs drew at (the record's round is
+    # numbered after ``history``)
+    async_info: dict | None = None
+    event: int | None = None
 
 
 class FederatedSimulation:
@@ -284,6 +342,8 @@ class FederatedSimulation:
         execution_mode: str = "auto",
         compression: CompressionConfig | None = None,
         cohort: CohortConfig | None = None,
+        fault_plan: FaultPlan | None = None,
+        async_config: AsyncConfig | None = None,
         device: str | torch.device = "cuda",
     ):
         if (local_epochs is None) == (local_steps is None):
@@ -352,6 +412,57 @@ class FederatedSimulation:
                     "payloads whose zeroed/masked entries would read as "
                     "real deltas (it is already a compression scheme)")
             self.strategy = CompressingStrategy(self.strategy, compression)
+        # buffered async (FedBuff): the schedule resolves to a static event
+        # plan at fit(); None keeps the synchronous programs
+        self.async_config = async_config
+        if async_config is not None:
+            if not isinstance(async_config, AsyncConfig):
+                raise TypeError(
+                    "async_config must be an AsyncConfig (or None); got "
+                    f"{type(async_config).__name__} — a duck-typed config "
+                    "would silently train synchronously")
+            if self._cohort_active:
+                # over the registry the buffer fills from the seated slots
+                if async_config.buffer_size > cohort.slots:
+                    raise ValueError(
+                        f"async_config.buffer_size="
+                        f"{async_config.buffer_size} exceeds the cohort "
+                        f"slots ({cohort.slots}): the buffer "
+                        "fills from the seated slots, so it could never "
+                        "fill")
+            elif async_config.buffer_size > len(self.datasets):
+                raise ValueError(
+                    f"async_config.buffer_size={async_config.buffer_size} "
+                    f"exceeds the cohort ({len(self.datasets)} clients): the "
+                    "buffer could never fill")
+            if isinstance(self.strategy, FedBuff):
+                # a pre-wrapped FedBuff must agree with the config
+                fb = self.strategy
+                if (fb.staleness_exponent != float(async_config.staleness_exponent)
+                        or fb.max_staleness != async_config.max_staleness):
+                    raise ValueError(
+                        "the provided FedBuff wrapper's staleness "
+                        f"parameters (exponent={fb.staleness_exponent}"
+                        f", max_staleness={fb.max_staleness}) differ "
+                        "from async_config's "
+                        f"(exponent={async_config.staleness_exponent}, "
+                        f"max_staleness={async_config.max_staleness}) — "
+                        "the manifest records the config's values, so "
+                        "they must match (simplest: pass the bare inner "
+                        "strategy and let async_config do the wrapping)")
+            else:
+                # the outermost wrapper: the async programs call its mask
+                # hook, and inner wrappers see the discounted fractional
+                # mask as a sampled one
+                self.strategy = FedBuff(
+                    self.strategy, staleness_exponent=async_config.staleness_exponent,
+                    max_staleness=async_config.max_staleness)
+        self._async_active = async_config is not None
+        # the last fit's event plan; the async programs, built at first use
+        self._async_plan = None
+        self._async_fns = None
+        self._async_pending = None
+        self._fault_plan = fault_plan
         if self._cohort_active:
             # the manager samples over the registry; the rounds are
             # slot-shaped
@@ -363,7 +474,10 @@ class FederatedSimulation:
                     f"clients but the registry holds {self.registry_size}; "
                     "the sampling manager must be built over the registry")
             if (isinstance(self.client_manager, FullParticipationManager)
-                    and cohort.slots < self.registry_size):
+                    and cohort.slots < self.registry_size
+                    and not self._async_active):
+                # (async over the registry seats K of N clients by the
+                # plan: full participation means every seated slot)
                 raise ValueError(
                     f"full participation needs slots >= registry size "
                     f"({self.registry_size}); got slots={cohort.slots} — pass "
@@ -378,6 +492,26 @@ class FederatedSimulation:
         # setup-time strategy <-> sampling-scheme check (the DP strategy
         # derives or checks its sampling fraction against the manager's)
         self.strategy.bind_client_manager(self.client_manager)
+        if self._async_active:
+            # the event programs fuse aggregate, eval and restart, and the
+            # arrival schedule decides participation
+            if not isinstance(self.client_manager, FullParticipationManager):
+                raise ValueError(
+                    "async_config derives participation from the buffer's "
+                    "arrival schedule; a sampling client manager "
+                    f"({type(self.client_manager).__name__}) is not "
+                    "composable with buffered-async mode")
+            if self._strategy_consumes_eval():
+                raise ValueError(
+                    "async_config is not composable with strategies that "
+                    "consume per-round eval results on the host "
+                    "(update_after_eval override): the async event "
+                    "program fuses aggregate+eval+retrain in one dispatch")
+            if self.train_data_provider is not None:
+                raise ValueError(
+                    "async_config is not composable with "
+                    "train_data_provider: the async event programs bake "
+                    "their data at dispatch time")
         if self._cohort_active:
             # bind again through a slot-count view, so a wrapper sizes its
             # per-client server rows [slots]; the checks above saw the real
@@ -574,6 +708,11 @@ class FederatedSimulation:
         fit_clients = client_axis(client_fit, (0, None, 0, 0, 0))
         eval_clients = client_axis(client_eval, (0, None, 0))
         strategy = self.strategy
+        # the fault plan's draws run only where it has specs of that kind:
+        # without (or with an empty plan) the round is the plain one
+        fault_plan, n_clients = self._fault_plan, self.n_clients
+        inject_dropout = bool(fault_plan is not None and fault_plan.dropout_faults)
+        inject_corruption = bool(fault_plan is not None and fault_plan.corruption_faults)
 
         def fit_round(server_state, client_states, batches, mask, round_idx,
                       val_batches, sample_counts=None):
@@ -581,8 +720,17 @@ class FederatedSimulation:
             if sample_counts is None:
                 sample_counts = self.sample_counts
             payload = strategy.client_payload(server_state, round_idx)
+            if inject_dropout:
+                # a dropped client is an unsampled one: mask math only
+                mask = mask * fault_plan.participation_factor(round_idx, n_clients,
+                                                              mask.device)
             new_states, packets, losses, metrics = fit_clients(
                 client_states, payload, batches, mask, val_batches)
+            if inject_corruption:
+                # the wire update is corrupted, not the client's state:
+                # byzantine clients train honestly and lie upstream
+                packets = fault_plan.corrupt_packets(packets, payload_params(payload),
+                                                     round_idx, n_clients)
             # failed clients (non-finite loss) are excluded from aggregation
             finite = torch.isfinite(losses["backward"])
             results = FitResults(packets=packets,
@@ -590,14 +738,7 @@ class FederatedSimulation:
                                  train_losses=losses, train_metrics=metrics,
                                  mask=mask * finite.to(mask.dtype))
             new_server_state = strategy.aggregate(server_state, results, round_idx)
-            w = results.mask * sample_counts
-            agg_losses = {
-                # where() not multiply: an excluded client's NaN must not leak
-                k: (torch.where(results.mask > 0, v, torch.zeros_like(v)) * w).sum()
-                / torch.clamp(w.sum(), min=1.0)
-                for k, v in losses.items()
-            }
-            agg_metrics = aggregate_metrics(metrics, sample_counts, results.mask)
+            agg_losses, agg_metrics = fit_summary(losses, metrics, results.mask, sample_counts)
             return new_server_state, new_states, agg_losses, agg_metrics, losses
 
         def eval_round(server_state, client_states, batches, eval_counts):
@@ -609,6 +750,136 @@ class FederatedSimulation:
             return new_states, agg_losses, agg_metrics, losses, metrics
 
         return fit_round, eval_round
+
+    # -- buffered-async programs (server/async_schedule.py) -------------
+    def _build_async_fns(self):
+        """(async_prologue, async_event) of the buffered-async mode.
+
+        One buffer-fill event takes the place of a synchronous round:
+        consume (the event's arrivals aggregate under the staleness-
+        discounted mask times the finite screen of the buffered losses),
+        eval (the fresh global, as a synchronous round evaluates), the
+        optional test eval, then restart (the arrived clients pull the
+        fresh global and train on data plan ``e+1`` from their post-eval
+        states; their packets replace theirs in ``pending``, the others'
+        stay buffered). The prologue trains every client on plan 1 into
+        ``pending``. The clients run ``client_fit`` (the synchronous
+        rounds' client) and ``eval_round``, so with every arrival at
+        staleness 0 an event is a synchronous round bit for bit."""
+        client_fit, _ = self._build_client_fns()
+        fit_clients = vmap_clients(client_fit, (0, None, 0, 0, 0))
+        eval_round = self._eval_round
+        strategy = self.strategy
+        fault_plan, n_clients = self._fault_plan, self.n_clients
+        inject_dropout = bool(fault_plan is not None and fault_plan.dropout_faults)
+        inject_corruption = bool(fault_plan is not None and fault_plan.corruption_faults)
+        sample_counts = self.sample_counts
+        # over the registry a slot's count is its occupant's, and a packet
+        # is consumed after its trainer may have left the seat: the counts
+        # ride the pending buffer with the packet
+        cohort_active = self._cohort_active
+        async_mask = getattr(strategy, "async_aggregation_mask", None)
+        if async_mask is not None:
+            # a hook with the 2-argument signature keeps working: the
+            # exponent is passed (positionally) only where it is taken
+            params = inspect.signature(async_mask).parameters.values()
+            positional = sum(1 for p in params
+                             if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD))
+            takes_exponent = positional >= 3 or any(p.kind == p.VAR_POSITIONAL
+                                                    for p in params)
+            if not takes_exponent:
+                raw_mask = async_mask
+                async_mask = lambda arr, stal, _exp: raw_mask(arr, stal)  # noqa: E731
+            elif not hasattr(strategy, "staleness_exponent"):
+                # it would receive the 0.0 fallback: no discount at all
+                raise ValueError(
+                    f"{type(strategy).__name__}.async_aggregation_mask "
+                    "accepts an exponent argument but the strategy exposes "
+                    "no 'staleness_exponent' attribute for the async round "
+                    "programs to feed it from; expose the attribute (as "
+                    "FedBuff does), or drop the parameter to use internal "
+                    "defaults")
+
+        def train_wave(server_state, client_states, batches, train_mask, round_idx,
+                       val_batches, wave_counts=None):
+            """One training wave on data plan ``round_idx``: the masked
+            clients pull the payload and train, and the wire packets are
+            corrupted with the synchronous round's draws. Returns the new
+            client stack and the wave's pending pieces."""
+            payload = strategy.client_payload(server_state, round_idx)
+            new_states, packets, losses, metrics = fit_clients(
+                client_states, payload, batches, train_mask, val_batches)
+            if inject_corruption:
+                packets = fault_plan.corrupt_packets(packets, payload_params(payload),
+                                                     round_idx, n_clients)
+            pending = {"packets": packets, "losses": losses, "metrics": metrics}
+            if cohort_active:
+                pending["sample_counts"] = (sample_counts if wave_counts is None
+                                            else wave_counts)
+            return new_states, pending
+
+        def merge_pending(old, new, arrivals):
+            """An arrived client's row takes its fresh wave output; every
+            other row stays buffered (a NaN packet of a non-arrived row
+            never crosses: ``where``, not arithmetic)."""
+            def sel(n, o):
+                return torch.where(arrivals.reshape((-1,) + (1,) * (n.ndim - 1)) > 0, n, o)
+
+            return ptu.tree_map(sel, new, old)
+
+        def async_prologue(server_state, client_states, batches, val_batches,
+                           wave_counts=None):
+            ones = torch.ones((n_clients,), dtype=torch.float32,
+                              device=ptu.tree_leaves(client_states)[0].device)
+            return train_wave(server_state, client_states, batches, ones, 1, val_batches,
+                              wave_counts)
+
+        def async_event(server_state, client_states, pending, batches_next, arrivals,
+                        staleness, event_idx, val_batches, val_counts, staleness_exponent,
+                        test_batches=None, test_counts=None, wave_counts=None):
+            # -- consume: the buffer under the discounted mask -------------
+            arr = arrivals
+            if inject_dropout:
+                # a dropped update is lost on the wire: it fills its slot
+                # but aggregates with weight 0 (its client restarts)
+                arr = arr * fault_plan.participation_factor(event_idx, n_clients,
+                                                            arr.device)
+            disc_mask = (async_mask(arr, staleness, staleness_exponent)
+                         if async_mask is not None else arr)
+            # the finite screen reads the buffered losses, not the packets
+            finite = torch.isfinite(pending["losses"]["backward"])
+            agg_mask = disc_mask * finite.to(disc_mask.dtype)
+            counts = pending["sample_counts"] if cohort_active else sample_counts
+            results = FitResults(packets=pending["packets"], sample_counts=counts,
+                                 train_losses=pending["losses"],
+                                 train_metrics=pending["metrics"], mask=agg_mask)
+            new_server = strategy.aggregate(server_state, results, event_idx)
+            agg_losses, agg_metrics = fit_summary(pending["losses"], pending["metrics"],
+                                                  results.mask, counts)
+            # -- eval: the fresh global, as a synchronous round -----------
+            client_states, ev_losses, ev_metrics, _, _ = eval_round(
+                new_server, client_states, val_batches, val_counts)
+            out = {"fit_losses": agg_losses, "fit_metrics": agg_metrics,
+                   "per_client_fit_losses": pending["losses"],
+                   "eval_losses": ev_losses, "eval_metrics": ev_metrics}
+            if test_batches is not None:
+                client_states, out["test_losses"], out["test_metrics"] = eval_round(
+                    new_server, client_states, test_batches, test_counts)[:3]
+            # -- restart: the arrived clients train for a later event -----
+            # on data plan event_idx + 1 and its fault draws, the streams a
+            # synchronous round event_idx + 1 would use
+            client_states, fresh = train_wave(new_server, client_states, batches_next,
+                                              arrivals, event_idx + 1, val_batches,
+                                              wave_counts)
+            return new_server, client_states, merge_pending(pending, fresh, arrivals), out
+
+        return async_prologue, async_event
+
+    def _async_programs(self):
+        """The async programs, built once a simulation."""
+        if self._async_fns is None:
+            self._async_fns = self._build_async_fns()
+        return self._async_fns
 
     def _extra_keys(self) -> tuple[str, ...]:
         # explicit constructor keys win; else the logic's declared keys
@@ -671,6 +942,10 @@ class FederatedSimulation:
     def _chunk_ineligibility(self) -> str | None:
         """Why ``fit`` may not take the chunked route (None: eligible):
         anything that needs the host between rounds keeps it pipelined."""
+        if self._cohort_active and self._async_active:
+            return ("buffered-async over the registry swaps slot "
+                    "occupants host-side per event (pipelined "
+                    "per-event path)")
         if self._cohort_active and getattr(self.client_manager, "draw_cohort", None) is None:
             # a cohort chunks with its draw on the device, the window
             # exchange in place of the per-round gather and scatter
@@ -715,8 +990,9 @@ class FederatedSimulation:
     def fit(self, n_rounds: int) -> list[RoundRecord]:
         """Run ``n_rounds`` more rounds (numbered after those already in
         ``history``) through the chunked or the pipelined route
-        (``execution_mode``); returns the whole history. ``fit(0)`` runs
-        nothing."""
+        (``execution_mode``); under ``async_config`` each round is a
+        buffer-fill event of a fresh plan. Returns the whole history.
+        ``fit(0)`` runs nothing."""
         mode, reason = self._select_execution_mode(n_rounds)
         logging.getLogger(__name__).info("fit: execution_mode=%s (%s)", mode, reason)
         for rep in self.reporters:
@@ -726,7 +1002,9 @@ class FederatedSimulation:
         if n_rounds >= 1:
             first = len(self.history) + 1
             last = first + n_rounds - 1
-            if self._cohort_active:
+            if self._async_active:
+                self._fit_async(n_rounds, mode, first)
+            elif self._cohort_active:
                 (self._fit_cohort_chunked if mode == EXEC_CHUNKED
                  else self._fit_cohort)(first, last)
             elif mode == EXEC_CHUNKED:
@@ -810,7 +1088,7 @@ class FederatedSimulation:
         then the producer's next gather may run."""
         host = work.pull.result()
         registry_rows = host.pop("_registry_rows", None)
-        cohort_info = None
+        cohort_info = work.cohort_info
         if registry_rows is not None:
             meta = work.cohort_meta
             s0 = time.perf_counter()
@@ -840,8 +1118,8 @@ class FederatedSimulation:
                           fit_elapsed_s=work.fit_elapsed_s,
                           eval_elapsed_s=work.eval_elapsed_s)
         self.history.append(rec)
-        if cohort_info is not None:
-            self._record_round_metrics(work.round, cohort_info)
+        self._record_round_metrics(work.round, cohort_info, work.async_info,
+                                   work.event if work.event is not None else work.round)
         for rep in self.reporters:
             rep.report({"fit_losses": rec.fit_losses, "fit_metrics": rec.fit_metrics,
                         "eval_losses": rec.eval_losses, "eval_metrics": rec.eval_metrics,
@@ -849,12 +1127,26 @@ class FederatedSimulation:
                         "eval_elapsed_s": rec.eval_elapsed_s,
                         "execution_mode": EXEC_PIPELINED}, round=work.round)
 
-    def _record_round_metrics(self, rnd: int, cohort_info: dict) -> None:
-        """A round's summary, kept in ``round_metrics``: so far the cohort
-        facts (slots, valid, registry size and dirty rows, the staging,
-        gather and scatter walls, staged and pulled bytes, the pull's
-        device ms, rounds a dispatch, where the draw ran)."""
-        self.round_metrics.append({"round": rnd, **cohort_info})
+    def _record_round_metrics(self, rnd: int, cohort_info: dict | None = None,
+                              async_info: dict | None = None,
+                              fault_round: int | None = None) -> None:
+        """A round's summary, kept in ``round_metrics`` where a cohort, an
+        async event or a fault plan with client faults has something to
+        say: the cohort facts (slots, valid, registry size and dirty rows,
+        the staging, gather and scatter walls, staged and pulled bytes, the
+        pull's device ms, rounds a dispatch, where the draw ran), the
+        event's plan facts (``AsyncEventPlan.summarize_event`` and the
+        arrived updates' ``_staleness_values``), and under ``"fault"`` the
+        plan's ``summarize_round`` at the index the programs drew at
+        (``fault_round``: an async event's own index)."""
+        faults = self._fault_plan is not None and self._fault_plan.has_client_faults
+        if cohort_info is None and async_info is None and not faults:
+            return
+        entry = {"round": rnd, **(cohort_info or {}), **(async_info or {})}
+        if faults:
+            entry["fault"] = self._fault_plan.summarize_round(
+                rnd if fault_round is None else fault_round, self.n_clients)
+        self.round_metrics.append(entry)
 
     # -- the chunked route ---------------------------------------------
     def _chunk_plans(self, start_round: int, k: int, mask=None):
@@ -986,13 +1278,15 @@ class FederatedSimulation:
 
     def _chunked_epilogue(self, n_rounds: int, stacked: dict, masks_np: np.ndarray,
                           per_round_s: float, start_round: int = 1,
-                          cohort_infos: list[dict] | None = None) -> None:
+                          cohort_infos: list[dict] | None = None,
+                          async_plan=None) -> None:
         """Each round of a chunk on the host, from the stacked pull: the
         failure screen (it logs; ``accept_failures`` is True on this
         route), the ``RoundRecord`` with ``fit_elapsed_s`` the chunk's wall
         amortised a round and ``eval_elapsed_s`` 0 (no separate eval wall),
-        the cohort facts of each round (``cohort_infos``) and the
-        reports."""
+        the cohort facts of each round (``cohort_infos``), an async chunk's
+        event facts (``async_plan``: the chunk is the plan's every event),
+        and the reports."""
         for i in range(n_rounds):
             rnd = start_round + i
             self.failure_policy.check(
@@ -1009,8 +1303,11 @@ class FederatedSimulation:
                               eval_losses=eval_losses, eval_metrics=eval_metrics,
                               fit_elapsed_s=per_round_s, eval_elapsed_s=0.0)
             self.history.append(rec)
-            if cohort_infos is not None:
-                self._record_round_metrics(rnd, cohort_infos[i])
+            event = i + 1 if async_plan is not None else rnd
+            self._record_round_metrics(
+                rnd, cohort_infos[i] if cohort_infos is not None else None,
+                self._async_event_info(async_plan, event - 1)
+                if async_plan is not None else None, event)
             for rep in self.reporters:
                 rep.report({"fit_losses": rec.fit_losses, "fit_metrics": rec.fit_metrics,
                             "eval_losses": rec.eval_losses, "eval_metrics": rec.eval_metrics,
@@ -1300,3 +1597,255 @@ class FederatedSimulation:
                  for i in range(k)]
         self._chunked_epilogue(k, stacked, np.asarray(staged["mask_np"]), per_round_s,
                                start_round=start_round, cohort_infos=infos)
+
+    # -- buffered-async routes (server/async_schedule.py) ----------------
+    @staticmethod
+    def _async_event_info(plan, i: int) -> dict:
+        """Event ``i + 1``'s plan facts for its record, and the arrived
+        updates' staleness values (``_staleness_values``; JAX's histogram
+        reads them)."""
+        info = plan.summarize_event(i)
+        info["_staleness_values"] = [float(v) for v in plan.staleness[i][plan.arrivals[i] > 0]]
+        return info
+
+    def _staleness_exponent_input(self) -> torch.Tensor:
+        """The staleness exponent as a program input, read from the live
+        (outermost) strategy at every dispatch, so a rebind of
+        ``strategy.staleness_exponent`` reaches the next event; 0.0 for a
+        strategy without it (a 2-argument mask hook never receives it). A
+        0-d CPU tensor: torch reads it as a scalar on the card, no copy."""
+        return torch.tensor(float(getattr(self.strategy, "staleness_exponent", 0.0)),
+                            dtype=torch.float32)
+
+    def _fit_async(self, n_events: int, mode: str, first: int) -> None:
+        """``fit``'s buffered-async route: a fresh static plan over this
+        call's ``n_events`` events (the async config's seed, the fault
+        plan's stragglers, the cohort), then its events from a new prologue,
+        numbered ``first..`` in ``history``."""
+        if self._cohort_active:
+            plan = build_registry_event_plan(self.async_config, n_events, self.n_clients,
+                                             self.registry_size, self._fault_plan)
+        else:
+            plan = build_event_plan(self.async_config, n_events, self.n_clients,
+                                    self._fault_plan)
+        self._async_plan = plan
+        if self._cohort_active:
+            # seat swaps are host work between events: pipelined only
+            self._fit_async_registry(plan, first)
+        elif mode == EXEC_CHUNKED:
+            self._fit_async_chunked(plan, first)
+        else:
+            self._fit_async_pipelined(plan, first)
+
+    def _fit_async_pipelined(self, plan, first: int) -> None:
+        """Per-event route: the prologue fills ``pending``, then each event
+        dispatches consume, eval and restart while the ``RoundConsumer``
+        runs the previous event's epilogue and the ``RoundPrefetcher``
+        stages the next event's restart batches (data plan ``e+2``)."""
+        prologue, _ = self._async_programs()
+        val_batches, val_counts = self._val_batches()
+        self._fit_last_round = plan.n_events
+        consumer = self._consumer = RoundConsumer(maxsize=self.pipeline_depth)
+        prefetcher = self._prefetcher = RoundPrefetcher(self)
+        try:
+            self.client_states, self._async_pending = prologue(
+                self.server_state, self.client_states, self._round_batches(1), val_batches)
+            prefetcher.schedule(2)  # event e restarts on data plan e+1
+            for e in range(1, plan.n_events + 1):
+                consumer.raise_pending()
+                self._run_async_event(e, plan, first, val_batches, val_counts)
+            consumer.flush()
+        finally:
+            consumer.close()
+            prefetcher.close()
+            self._consumer = self._prefetcher = None
+            self._async_pending = None
+
+    def _run_async_event(self, e: int, plan, first: int, val_batches, val_counts) -> None:
+        """The producer's half of event ``e``: its plan row and the staged
+        restart batches in, one dispatch of consume, eval and restart, the
+        pull started and the epilogue handed to the consumer. Nothing here
+        waits for the device."""
+        consumer, prefetcher = self._consumer, self._prefetcher
+        _, event = self._async_programs()
+        t0 = time.time()
+        arrivals = engine.host_to_device(plan.arrivals[e - 1], self.device)
+        staleness = engine.host_to_device(plan.staleness[e - 1], self.device)
+        batches_next = (prefetcher.take(e + 1) if prefetcher is not None
+                        else self._round_batches(e + 1))
+        if prefetcher is not None and e < self._fit_last_round:
+            prefetcher.schedule(e + 2)
+        (self.server_state, self.client_states, self._async_pending, out) = event(
+            self.server_state, self.client_states, self._async_pending, batches_next,
+            arrivals, staleness, e, val_batches, val_counts,
+            self._staleness_exponent_input(), *(self._test_batches() or ()))
+        work = _RoundWork(round=first + e - 1, pull=HostPull({"mask": arrivals, **out}),
+                          fit_elapsed_s=time.time() - t0,
+                          eval_elapsed_s=0.0,  # eval is fused into the event
+                          async_info=self._async_event_info(plan, e - 1), event=e)
+        if consumer is None:  # no pipeline: the epilogue inline
+            self._finish_round(work)
+            return
+        consumer.submit_round(work.round, functools.partial(self._finish_round, work))
+        if not self.failure_policy.accept_failures:
+            # the failure screen must end the run before the next event
+            consumer.flush()
+
+    def _make_async_chunked(self):
+        """The async chunked route's chunk: its events dispatched back to
+        back over the resident stacks, each gathering its restart batches
+        by its plan row, the server, client and ``pending`` trees carried on
+        the device, the outputs stacked for one pull: JAX's ``lax.scan``
+        over the event plan, without the scan."""
+        _, event = self._async_programs()
+
+        def chunk(server_state, client_states, pending, x_stack, y_stack, idx, em, sm,
+                  arrivals, staleness, start_event, val_batches, val_counts,
+                  staleness_exponent, test_batches=None, test_counts=None):
+            outs = []
+            for i in range(idx.shape[0]):
+                batches_next = engine.gather_batches(x_stack, y_stack, idx[i], em[i], sm[i])
+                server_state, client_states, pending, out = event(
+                    server_state, client_states, pending, batches_next, arrivals[i],
+                    staleness[i], start_event + i, val_batches, val_counts,
+                    staleness_exponent, test_batches, test_counts)
+                outs.append(out)
+            return server_state, client_states, pending, ptu.stack_clients(outs)
+
+        return chunk
+
+    def _fit_async_chunked(self, plan, first: int) -> None:
+        """The chunked route over the whole plan: the prologue, one chunk
+        of every event (restart plans ``2..E+1``), one pull, and the shared
+        epilogue with each event's facts."""
+        t_start = time.time()
+        prologue, _ = self._async_programs()
+        val_batches, val_counts = self._val_batches()
+        k = plan.n_events
+        self.client_states, pending = prologue(
+            self.server_state, self.client_states, self._round_batches(1), val_batches)
+        plans = [self._round_plan(e + 1) for e in range(1, k + 1)]
+        idx, em, sm = (engine.host_to_device(np.stack([p[j] for p in plans]).astype(dtype),
+                                             self.device)
+                       for j, dtype in enumerate((np.int64, np.float32, np.float32)))
+        arrivals = engine.host_to_device(plan.arrivals, self.device)
+        staleness = engine.host_to_device(plan.staleness, self.device)
+        self.server_state, self.client_states, _, outs = self._make_async_chunked()(
+            self.server_state, self.client_states, pending, self._x_train_stack,
+            self._y_train_stack, idx, em, sm, arrivals, staleness, 1, val_batches,
+            val_counts, self._staleness_exponent_input(), *(self._test_batches() or ()))
+        stacked = HostPull(outs).result()  # the chunk's one pull
+        self._chunked_epilogue(k, stacked, plan.arrivals, (time.time() - t_start) / k,
+                               start_round=first, async_plan=plan)
+
+    # -- buffered async over the registry (FedBuff x cohort slots) -------
+    def _fit_async_registry(self, plan, first: int) -> None:
+        """FedBuff over the registry: the ``K`` buffer slots are seats, and
+        the ``RegistryEventPlan`` says who holds each seat at every event.
+        The initial occupants' rows (and strategy rows) are gathered, the
+        prologue trains them on plan 1, each event swaps the consumed seats
+        whose occupant changes and dispatches, and at the end every seat's
+        row goes back into the registry. The occupants' sample counts ride
+        ``pending`` with their packets, so a packet is weighted by the
+        counts it trained under."""
+        prologue, _ = self._async_programs()
+        slots, reg = self.n_clients, self.registry
+        occ = np.asarray(plan.slot_ids[0])
+        self._gather_cohort_rows(occ)
+        consumer = self._consumer = RoundConsumer(maxsize=self.pipeline_depth)
+        try:
+            staged = reg.stage_round(occ, slots, self._base_entropy, 1)
+            self.client_states, self._async_pending = prologue(
+                self.server_state, self.client_states, self._to_device(staged["batches"]),
+                self._to_device(staged["val_batches"]),
+                self._to_device(staged["sample_counts"]))
+            for e in range(1, plan.n_events + 1):
+                consumer.raise_pending()
+                occ = self._run_async_registry_event(e, plan, occ, first)
+            consumer.flush()
+            # the end of the plan: the seats' live rows persist
+            host = HostPull({"client_states": self.client_states,
+                             "strategy_rows": self.strategy.state_rows(self.server_state)
+                             if reg.has_strategy_rows else None}).result()
+            reg.scatter(occ, slots, host["client_states"], host["strategy_rows"])
+        finally:
+            consumer.close()
+            self._consumer = None
+            self._async_pending = None
+
+    def _swap_seats(self, changed: np.ndarray, old_ids: np.ndarray,
+                    new_ids: np.ndarray) -> tuple[float, float]:
+        """Evict the ``changed`` seats' occupants (their client and strategy
+        rows pulled and stored under their old ids), then seat the new
+        occupants' rows there; the old are stored first, so a client that
+        left and comes back reads its fresh row. Returns the scatter and
+        gather ms."""
+        reg = self.registry
+        s0 = time.perf_counter()
+        ch = engine.host_to_device(changed.astype(np.int64), self.device)
+        take = lambda tree: ptu.tree_map(lambda t: t.index_select(0, ch), tree)  # noqa: E731
+        srows_live = (self.strategy.state_rows(self.server_state)
+                      if reg.has_strategy_rows else None)
+        out = HostPull({"client_states": take(self.client_states),
+                        "strategy_rows": take(srows_live) if srows_live is not None
+                        else None}).result()
+        reg.scatter(old_ids, len(changed), out["client_states"], out["strategy_rows"])
+        scatter_ms = (time.perf_counter() - s0) * 1e3
+        g0 = time.perf_counter()
+        put = lambda tree, rows: ptu.tree_map(  # noqa: E731
+            lambda t, n: t.index_copy(0, ch, n), tree, rows)
+        self.client_states = put(self.client_states, rows_to_device(
+            reg.gather_client_states(new_ids), reg.client_dtypes, self.device))
+        if srows_live is not None:
+            self.server_state = self.strategy.scatter_state_rows(
+                self.server_state, put(srows_live, rows_to_device(
+                    reg.gather_strategy_rows(new_ids), reg.strategy_dtypes, self.device)))
+        return scatter_ms, (time.perf_counter() - g0) * 1e3
+
+    def _run_async_registry_event(self, e: int, plan, occ_prev: np.ndarray,
+                                  first: int) -> np.ndarray:
+        """The producer's half of event ``e`` over the registry: swap the
+        seats whose occupant changes, stage data plan ``e+1`` for the new
+        occupancy (its val batches feed this event's eval, which runs on the
+        post-swap stack), dispatch, and hand the epilogue to the consumer
+        with the pre-swap occupancy (a consumed packet belongs to the
+        occupant that trained it). Returns the new occupancy."""
+        consumer = self._consumer
+        _, event = self._async_programs()
+        slots, reg = self.n_clients, self.registry
+        t0 = time.time()
+        occ_next = np.asarray(plan.slot_ids[e])
+        changed = np.nonzero(occ_prev != occ_next)[0]
+        scatter_ms = gather_ms = 0.0
+        if changed.size:
+            scatter_ms, gather_ms = self._swap_seats(changed, occ_prev[changed],
+                                                     occ_next[changed])
+        st0 = time.perf_counter()
+        staged = reg.stage_round(occ_next, slots, self._base_entropy, e + 1)
+        batches_next, val_batches, val_counts, wave_counts = (
+            self._to_device(staged[k]) for k in ("batches", "val_batches", "val_counts",
+                                                 "sample_counts"))
+        stage_ms = (time.perf_counter() - st0) * 1e3
+        arrivals = engine.host_to_device(plan.arrivals[e - 1], self.device)
+        (self.server_state, self.client_states, self._async_pending, out) = event(
+            self.server_state, self.client_states, self._async_pending, batches_next,
+            arrivals, engine.host_to_device(plan.staleness[e - 1], self.device), e,
+            val_batches, val_counts, self._staleness_exponent_input(),
+            None, None, wave_counts)  # no test split under a cohort
+        work = _RoundWork(
+            round=first + e - 1, pull=HostPull({"mask": arrivals, **out}),
+            fit_elapsed_s=time.time() - t0, eval_elapsed_s=0.0,
+            # failures are named by the pre-swap occupants' ids
+            cohort_meta={"idx": occ_prev},
+            cohort_info={"cohort_slots": slots, "cohort_valid": slots,
+                         "registry_size": self.registry_size,
+                         "registry_dirty_rows": reg.dirty_rows,
+                         "stage_ms": round(stage_ms, 3), "gather_ms": round(gather_ms, 3),
+                         "scatter_ms": round(scatter_ms, 3),
+                         "staged_bytes": staged["staged_bytes"], "swapped": int(changed.size),
+                         "rounds_per_dispatch": 1, "cohort_draw": "event_plan"},
+            async_info=self._async_event_info(plan, e - 1), event=e)
+        consumer.submit_round(work.round, functools.partial(self._finish_round, work))
+        if not self.failure_policy.accept_failures:
+            consumer.flush()
+        return occ_next

@@ -38,9 +38,13 @@ class FitResults:
 def replace_global_params(strategy: "Strategy", server_state: Any, params) -> Any:
     """``server_state`` with the innermost strategy's params replaced,
     through any nesting of wrappers (``CompressingStrategy``: ``.inner`` on
-    the strategy and on its state). Every path that installs params goes
+    the strategy and on its state; ``FedBuff``: ``.inner`` on the strategy
+    alone, ``state_passthrough``). Every path that installs params goes
     through this: ``dataclasses.replace(state, params=...)`` works on an
     unwrapped state only."""
+    if getattr(strategy, "state_passthrough", False):
+        # a wrapper whose state is its inner strategy's (FedBuff)
+        return replace_global_params(strategy.inner, server_state, params)
     if hasattr(strategy, "inner") and hasattr(server_state, "inner"):
         return dataclasses.replace(server_state, inner=replace_global_params(
             strategy.inner, server_state.inner, params))

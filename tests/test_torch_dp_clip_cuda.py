@@ -247,3 +247,35 @@ def test_fused_clip_under_vmap_launches_once_and_copies_nothing(cuda):
             torch.testing.assert_close(got[k][i].reshape(-1),
                                        dp.scaled_masked_sum_reference(m, scale),
                                        rtol=0, atol=1e-5)
+
+
+def test_a_full_width_async_wave_matches_plain(cuda):
+    """One local step of a buffered-async restart wave at the
+    ``async_dp_cifar_cnn`` path's width: 64 clients under torch.func.vmap,
+    32 examples each over the CifarNet tree in bf16, the per-example
+    gradients in the layout the client vmap leaves; the clients that did not
+    arrive train beside the arrived ones (their results are dropped after),
+    and a padded last batch masks examples. One K1 launch, one K2 launch a
+    leaf, no copy, and each client's clipped sums equal the plain clip's."""
+    c, b = 64, 32
+    row_scale = torch.linspace(0.5e-3, 2.5e-3, b, device=cuda)
+    # drawn on the card: the Dense_0 leaf alone is 2^30 values
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tree = {k: (torch.randn((b, c, *s), generator=gen, device=cuda)
+                * row_scale.view(b, 1, *[1] * len(s))).to(torch.bfloat16).transpose(0, 1)
+            for k, s in CIFAR_SHAPES.items()}
+    mask = torch.ones((c, b), device=cuda)
+    mask[1::2, -5:] = 0.0  # padded last batches on half the clients
+    dp.reset_launch_counts()
+    got = torch.func.vmap(lambda t, m: dp.fused_clipped_masked_sum(t, m, 1.0))(tree, mask)
+    torch.cuda.synchronize()
+    assert dp.LAUNCHES == {"dp_sq_norms": 1, "dp_scaled_sum": len(CIFAR_SHAPES)}
+    assert dp.COPIES == {"dp_per_example": 0}
+    for i in (0, 1, 31, 62, 63):
+        mats = {k: v[i].reshape(b, -1) for k, v in tree.items()}
+        norms = torch.sqrt(dp.per_example_tree_sq_norms_reference(list(mats.values())))
+        scale = torch.clamp(1.0 / torch.clamp(norms, min=1e-12), max=1.0) * mask[i]
+        for k, m in mats.items():
+            torch.testing.assert_close(got[k][i].reshape(-1),
+                                       dp.scaled_masked_sum_reference(m, scale),
+                                       rtol=0, atol=1e-5)

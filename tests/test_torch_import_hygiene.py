@@ -46,7 +46,8 @@ def test_sources_were_found():
             "exchanger.py", "peft.py", "policy.py", "convert.py", "unet.py", "plans.py",
             "data.py", "augment.py", "segmentation.py", "nnunet.py", "efficient.py",
             "aggregate.py", "registry.py", "registry_presets.py", "codecs.py",
-            "config.py", "strategy.py"} <= names
+            "config.py", "strategy.py", "async_schedule.py", "faults.py", "aggregators.py",
+            "fedbuff.py"} <= names
 
 
 def test_package_imports_without_jax():
