@@ -183,6 +183,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      to 0 before and read after (none of K1-K5), finite falling losses,
      voxels a second, peak memory, one round under the profiler (busy
      share), then rounds through the client vmap and the loop in turns.
+     Then ``nnunet_inference`` on that network and its global params:
+     sliding-window inference (a volume equal to the patch, uniform
+     weights, equal to the direct forward; a 256x256x192x1 volume at step
+     0.5 with the Gaussian map, 18 windows, equal to a float64 blend of the
+     card's own windows within 1e-5; a tiny 3-D U-Net on the card within
+     5e-4 of the CPU, TF32 off for the checks), ms a volume with TF32 off
+     and on, voxels/s, peak memory.
  25. ``tiny_cohort_parity``: a cohort run (6 clients of a ListDataSource
      registry, 3 slots, FixedFractionManager(6, 0.5), the chunked cohort
      route, f32 DP at noise 0, K1/K2 on the card) for 3 rounds on the card
@@ -226,6 +233,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and 200 K2; the seats change occupants; every evicted occupant's stored
      row equals its state when it left its seat; each event's swap, staging
      and scatter ms.
+ 32. The checkpoint slice, cuDNN deterministic in these phases only:
+     ``ckpt_dp_cifar_cnn`` (the DP path with a frame every round, saved
+     after round 2 of 4 and resumed by a fresh simulation on both routes
+     and across them: bit-equal to a straight run, 5 K1 and 40 K2 a round
+     run; frame bytes, ``write_s``, a restore, the trees' pull; warm rounds
+     with a frame every round against none, in turns), ``ckpt_drill`` (the
+     SIGKILL drill in child processes: straight, killed after round 2's
+     frame, killed 4 KiB into round 3's write; the torn run's newest
+     generation flipped; the resumed and the falling-back children's final
+     params' bytes and loss history equal the straight child's),
+     ``ckpt_cohort_dp_cifar_cnn`` (N 1,000, compression with error
+     feedback, the chunked cohort route: bit-equal with every dirty row),
+     ``ckpt_async_dp_cifar_cnn`` (resumed after event 3 of 6 on both async
+     routes, the frames and the history bit-equal; a changed seed refused
+     with JAX's message) and ``ckpt_card_to_cpu`` (a card frame resumed on
+     the CPU within 5e-4 of the CPU's straight run).
 ``fit`` takes its default route, ``execution_mode`` "auto": chunked unless
 something needs the host between rounds (a strict failure policy, a data
 provider), then pipelined. Neither waits for the device inside a round, so
@@ -243,6 +266,9 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
+import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -2780,6 +2806,7 @@ def nnunet_main_path(fa, dp) -> dict:
                "falling": falling,
                "client_axis_walls": axis, "client_axis_peak_gib": axis_peak}
         print(json.dumps(res))
+        res["sim"] = sim  # for nnunet_inference
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     if modes != {tsim.EXEC_CHUNKED}:
@@ -3342,6 +3369,503 @@ def async_cohort_dp_cifar_cnn(fa, dp, source) -> dict:
     return out
 
 
+# -- the checkpoint slice: crash-consistent state checkpointing and resume,
+# the SIGKILL drill, and nnU-Net's sliding-window inference -----------------
+CKPT_ROUNDS, CKPT_KILL = 4, 2  # dp_cifar_cnn saved after round 2 of 4
+CKPT_ASYNC_EVERY = 3  # async frames after events 3 and 6 (of 6)
+# drill children run three at a time: each is deterministic on the card
+# whatever else runs (a CPU run is not: its thread pools share the cores)
+DRILL_WORKERS = 3
+INFER_VOLUME, INFER_STEP = (256, 256, 192), 0.5  # 3 x 3 x 2 = 18 windows of 128^3
+
+
+def ckpt_dir(tag: str) -> str:
+    """A fresh checkpoint directory under the process's temp dir."""
+    import tempfile
+
+    return tempfile.mkdtemp(prefix=f"fl4h_{tag}_")
+
+
+def drop_dirs(*dirs: str) -> None:
+    import shutil
+
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def deterministic_flags() -> None:
+    """The backend flags every bit-equality phase (and drill child) runs
+    under: TF32 off, cuDNN deterministic."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+
+def ckpt_dp_sim(data, mode: str, directory: str | None, every: int = 1, **sim_kw):
+    """``dp_cifar_cnn`` (64 clients, batch 32, 5 DP-SGD steps, bf16) with a
+    ``SimulationStateCheckpointer(keep=2, checkpoint_every=every)`` on
+    ``directory`` (none for None)."""
+    from fl4health_tpu_torch.checkpointing import SimulationStateCheckpointer
+
+    if directory is not None:
+        sim_kw["state_checkpointer"] = SimulationStateCheckpointer(
+            directory, keep=2, checkpoint_every=every)
+    return build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0, execution_mode=mode,
+                        **sim_kw)
+
+
+def counted_fit(sim, n: int, dp) -> dict:
+    """``sim.fit(n)`` with the K1/K2 counts set to 0 before and read after."""
+    dp.reset_launch_counts()
+    sim.fit(n)
+    torch.cuda.synchronize()
+    return dict(dp.LAUNCHES)
+
+
+def dp_launches(rounds: int) -> dict:
+    return {"dp_sq_norms": rounds * LOCAL_STEPS,
+            "dp_scaled_sum": rounds * LOCAL_STEPS * len(CIFAR_LEAVES)}
+
+
+def save_stats(sim) -> list:
+    return [{k: m["checkpoint"][k] for k in ("round", "generation", "bytes", "write_s")}
+            for m in sim.round_metrics if "checkpoint" in m]
+
+
+def ckpt_dp_cifar_cnn(dp) -> dict:
+    """``ckpt_dp_cifar_cnn``, deterministic flags: on the chunked and the
+    pipelined route, ``fit(2)`` saving every round, then a fresh simulation
+    on the same directory ``fit(4)``: history, global params and client
+    states bit-equal to a straight ``fit(4)``, and exactly the K1/K2
+    launches of the rounds each arm ran (5 and 40 a round); a run saved
+    pipelined and resumed chunked too. The frames' bytes and ``write_s``,
+    a restore's ms, the state trees' pull as a second ``HostPull``, and the
+    warm round with a save every round against no checkpointer, in turns,
+    on both routes."""
+    from fl4health_tpu_torch.server.pipeline import HostPull
+
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    out = {"phase": "ckpt_dp_cifar_cnn", "clients": DP_CLIENTS, "rounds": CKPT_ROUNDS,
+           "resume_after": CKPT_KILL, "keep": 2, "checkpoint_every": 1}
+    dirs = []
+    straight = {}
+    for route in ("chunked", "pipelined"):
+        ref = ckpt_dp_sim(data, route, None)
+        launches = {"straight": counted_fit(ref, CKPT_ROUNDS, dp)}
+        straight[route] = ref
+        d = ckpt_dir(route)
+        dirs.append(d)
+        first = ckpt_dp_sim(data, route, d)
+        launches["saved"] = counted_fit(first, CKPT_KILL, dp)
+        resumed = ckpt_dp_sim(data, route, d)
+        launches["resumed"] = counted_fit(resumed, CKPT_ROUNDS, dp)
+        want = {"straight": dp_launches(CKPT_ROUNDS), "saved": dp_launches(CKPT_KILL),
+                "resumed": dp_launches(CKPT_ROUNDS - CKPT_KILL)}
+        if launches != want:
+            fail(f"ckpt_dp_cifar_cnn {route}: launches {launches}, expected {want}")
+        equal = history_equal(ref, resumed) and states_equal(ref, resumed)
+        if not equal or resumed._resume_info["next_round"] != CKPT_KILL + 1:
+            fail(f"ckpt_dp_cifar_cnn {route}: the resumed run differs from the straight one "
+                 f"(resume {resumed._resume_info})")
+        stats = save_stats(first) + save_stats(resumed)
+        # the state trees' pull as a pull of its own (on the routes it rides
+        # the round's or the chunk's one pull)
+        pulls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            pull = HostPull(resumed._snapshot_trees())
+            pull.result()
+            pulls.append({"wall_ms": (time.time() - t0) * 1e3, "device_ms": pull.device_ms,
+                          "bytes": pull.nbytes})
+        out[route] = {"bit_equal": equal, "launches": launches, "saves": stats,
+                      "restore_s": resumed._resume_info["restore_s"],
+                      "frame_bytes": stats[-1]["bytes"],
+                      "snapshot_pull": pulls,
+                      "fit_losses": [r.fit_losses["backward"] for r in resumed.history]}
+        del first, resumed
+    # saved pipelined, resumed chunked
+    d = ckpt_dir("cross")
+    dirs.append(d)
+    ckpt_dp_sim(data, "pipelined", d).fit(CKPT_KILL)
+    cross = ckpt_dp_sim(data, "chunked", d)
+    cross.fit(CKPT_ROUNDS)
+    torch.cuda.synchronize()
+    out["pipelined_to_chunked_bit_equal"] = (history_equal(straight["chunked"], cross)
+                                             and states_equal(straight["chunked"], cross))
+    if not out["pipelined_to_chunked_bit_equal"]:
+        fail("ckpt_dp_cifar_cnn: saved pipelined, resumed chunked differs from the straight run")
+    del cross
+    # warm rounds with a save every round against none, in turns
+    walls = {}
+    for route in ("chunked", "pipelined"):
+        sim = straight[route]
+        w = {"none_s": [], "every_round_s": []}
+        for arm in ("none", "every_round", "every_round", "none"):
+            if arm == "every_round":
+                # an empty directory: nothing to restore, a frame each round
+                from fl4health_tpu_torch.checkpointing import SimulationStateCheckpointer
+
+                dirs.append(ckpt_dir("walls"))
+                sim.state_checkpointer = SimulationStateCheckpointer(dirs[-1], keep=2)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            sim.fit(WARM_ROUNDS)
+            torch.cuda.synchronize()
+            w[f"{arm}_s"].append(time.time() - t0)
+            sim.state_checkpointer = None
+        walls[route] = {"rounds": WARM_ROUNDS, **w,
+                        "s_per_round_none": min(w["none_s"]) / WARM_ROUNDS,
+                        "s_per_round_every": min(w["every_round_s"]) / WARM_ROUNDS}
+    out["warm_walls"] = walls
+    drop_dirs(*dirs)
+    print(card_line())
+    print(json.dumps(out))
+    return out
+
+
+def drill_dp_cifar_cnn(ckpt_dir_: str | None, device: str = "cuda"):
+    """The drill children's simulation (the crash drill loads this file and
+    calls this factory): ``dp_cifar_cnn`` on the chunked route, a frame
+    every round, under the deterministic flags."""
+    deterministic_flags()
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    return ckpt_dp_sim(data, "chunked", ckpt_dir_)
+
+
+def ckpt_drill() -> dict:
+    """``ckpt_drill``: the subprocess crash drill on the card, dp_cifar_cnn
+    at 4 rounds on the chunked route (``drill_dp_cifar_cnn``), in two
+    waves of children run side by side: a straight child, a child
+    SIGKILLed right after round 2's frame publishes, and one SIGKILLed 4
+    KiB into round 3's frame write (its ring keeps rounds 1 and 2); then
+    that ring's newest generation flipped (``corrupt_newest_generation(
+    mode="flip")``), and the child resumed from round 2 beside the one
+    that falls back to round 1, ``fallback_skipped`` naming the damaged
+    file. Both resumed children's final params' bytes
+    and loss history equal the straight child's."""
+    from fl4health_tpu_torch.resilience.recovery import corrupt_newest_generation, run_child
+
+    root = ckpt_dir("drill")
+
+    def spec(tag, ckpt, kill=None):
+        return ({"factory_file": str(Path(__file__).resolve()),
+                 "factory_name": "drill_dp_cifar_cnn", "n_rounds": CKPT_ROUNDS,
+                 "ckpt_dir": os.path.join(root, ckpt), "out_dir": os.path.join(root, tag),
+                 "kill": kill, "device": "cuda"}, os.path.join(root, f"{tag}.json"))
+
+    def wave(*specs):
+        t0 = time.time()
+        with ThreadPoolExecutor(min(len(specs), DRILL_WORKERS)) as pool:
+            res = [f.result() for f in [pool.submit(run_child, s, p, 600.0) for s, p in specs]]
+        return res, time.time() - t0
+
+    post = {"round": CKPT_KILL, "phase": "post_save"}
+    torn = {"round": CKPT_KILL + 1, "phase": "mid_write", "byte_offset": 4096}
+    (straight, killed, torn_child), w1 = wave(spec("straight", "straight_ckpt"),
+                                              spec("killed", "drill_ckpt", post),
+                                              spec("torn", "torn_ckpt", torn))
+    damaged = corrupt_newest_generation(os.path.join(root, "torn_ckpt"), mode="flip")
+    (resumed, fallback), w2 = wave(spec("resumed", "drill_ckpt"),
+                                   spec("fallback", "torn_ckpt"))
+    for name, res, code in (("straight", straight, 0), ("killed", killed, -signal.SIGKILL),
+                            ("resumed", resumed, 0), ("torn", torn_child, -signal.SIGKILL),
+                            ("fallback", fallback, 0)):
+        if res.returncode != code:
+            fail(f"ckpt_drill {name} child exited {res.returncode}, expected {code}: "
+                 f"{res.stderr[-3000:]}")
+            raise SystemExit(1)
+    if killed.params_bytes is not None or torn_child.params_bytes is not None:
+        fail("ckpt_drill: a killed child finished")
+    out = {"phase": "ckpt_drill", "rounds": CKPT_ROUNDS, "route": "chunked",
+           "kill_round": CKPT_KILL, "wave_s": [w1, w2], "damaged": damaged,
+           "resumed_from": resumed.done["resume"], "fallback_from": fallback.done["resume"]}
+    for name, res in (("resumed", resumed), ("fallback", fallback)):
+        same = res.params_bytes == straight.params_bytes and res.history == straight.history
+        out[f"{name}_equal"] = same
+        if not same or [r["round"] for r in res.history] != list(range(1, CKPT_ROUNDS + 1)):
+            fail(f"ckpt_drill: the {name} child's params or history differ from the straight")
+    if out["fallback_from"]["fallback_skipped"] != [damaged]:
+        fail(f"ckpt_drill: fallback_skipped {out['fallback_from']['fallback_skipped']}, "
+             f"expected [{damaged}]")
+    if out["resumed_from"]["next_round"] != CKPT_KILL + 1:
+        fail(f"ckpt_drill: resumed from {out['resumed_from']}")
+    if out["fallback_from"]["next_round"] != CKPT_KILL:
+        fail(f"ckpt_drill: the fallback resumed from {out['fallback_from']}")
+    out["params_bytes"] = len(straight.params_bytes)
+    out["history"] = straight.history
+    drop_dirs(root)
+    print(json.dumps(out))
+    return out
+
+
+def ckpt_cohort_dp_cifar_cnn(dp, source) -> dict:
+    """``ckpt_cohort_dp_cifar_cnn``, deterministic flags: the N 1,000
+    registry of ``cohort_dp_cifar_cnn``, 64 slots, the compressed exchange
+    with error feedback, the chunked cohort route: ``fit(2)`` saving every
+    round, a fresh simulation ``fit(4)`` from its frame: history, slot
+    states and every dirty registry row (client and error-feedback)
+    bit-equal to a straight ``fit(4)``; 5 K1 and 40 K2 a round run; each
+    frame's bytes (the dirty rows grow a round) and ``write_s``."""
+    from fl4health_tpu_torch.checkpointing import SimulationStateCheckpointer
+    from fl4health_tpu_torch.compression.config import CompressionConfig
+    from fl4health_tpu_torch.server import simulation as tsim
+
+    n = COHORT_SIZES[0]
+
+    def build(directory=None):
+        kw = ({"state_checkpointer": SimulationStateCheckpointer(directory, keep=2)}
+              if directory else {})
+        return build_cohort_sim(source, n, compression=CompressionConfig(**COMPRESSION), **kw)
+
+    straight = build()
+    launches = {"straight": counted_fit(straight, CKPT_ROUNDS, dp)}
+    d = ckpt_dir("cohort")
+    first = build(d)
+    mode = first._select_execution_mode(CKPT_KILL)
+    if mode[0] != tsim.EXEC_CHUNKED:
+        fail(f"ckpt_cohort_dp_cifar_cnn: 'auto' took {mode}")
+    launches["saved"] = counted_fit(first, CKPT_KILL, dp)
+    resumed = build(d)
+    t0 = time.time()
+    launches["resumed"] = counted_fit(resumed, CKPT_ROUNDS, dp)
+    resumed_s = time.time() - t0
+    want = {"straight": dp_launches(CKPT_ROUNDS), "saved": dp_launches(CKPT_KILL),
+            "resumed": dp_launches(CKPT_ROUNDS - CKPT_KILL)}
+    if launches != want:
+        fail(f"ckpt_cohort_dp_cifar_cnn: launches {launches}, expected {want}")
+    equal = {"history": history_equal(straight, resumed),
+             "states": states_equal(straight, resumed),
+             "registry_rows": registry_rows_equal(straight.registry, resumed.registry)}
+    if not all(equal.values()):
+        fail(f"ckpt_cohort_dp_cifar_cnn: the resumed run differs: {equal}")
+    if resumed.registry._strategy_store.dirty == 0:
+        fail("ckpt_cohort_dp_cifar_cnn: no error-feedback rows were restored")
+    out = {"phase": "ckpt_cohort_dp_cifar_cnn", "registry_size": n, "slots": COHORT_SLOTS,
+           "compression": COMPRESSION, "mode": list(mode), "bit_equal": equal,
+           "launches": launches, "saves": save_stats(first) + save_stats(resumed),
+           "resumed_fit_s": resumed_s, "resume": resumed._resume_info,
+           "dirty_rows": [resumed.registry.dirty_rows, resumed.registry._strategy_store.dirty]}
+    drop_dirs(d)
+    print(card_line())
+    print(json.dumps(out))
+    return out
+
+
+def ckpt_async_dp_cifar_cnn(dp) -> dict:
+    """``ckpt_async_dp_cifar_cnn``, deterministic flags: ``async_dp_cifar_cnn``'s
+    recipe (buffer 32 of 64, clients 0 and 1 at 5x, 6 events), frames every
+    3 events, on both dense async routes: ``fit(3)``, then a fresh
+    simulation ``fit(6)`` resumed mid-plan after event 3 from the restored
+    ``pending``: history and states bit-equal to a straight ``fit(6)``, the
+    event-3 frame (server, clients, ``pending``) byte-equal to the straight
+    run's own, and K1/K2 exact (the resumed arm runs no prologue). A changed
+    ``AsyncConfig`` seed, bound to the frame's config hash, raises JAX's
+    fingerprint message."""
+    from fl4health_tpu_torch.checkpointing import SimulationStateCheckpointer, state
+    from fl4health_tpu_torch.server.async_schedule import AsyncConfig
+
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    cfg, faults = async_recipe()
+    k = CKPT_ASYNC_EVERY
+
+    def build(mode, directory, config=cfg, **sc_kw):
+        return ckpt_dp_sim(data, mode, None, async_config=config, fault_plan=faults,
+                           state_checkpointer=SimulationStateCheckpointer(
+                               directory, keep=2, checkpoint_every=k, **sc_kw))
+
+    def blob_at(directory, event):
+        for _g, path in state.StateCheckpointer(directory).candidate_paths():
+            _h, meta, blob = state.read_frame(path)
+            if meta["round"] == event:
+                return blob
+        fail(f"ckpt_async_dp_cifar_cnn: no frame of event {event} in {directory}")
+
+    out = {"phase": "ckpt_async_dp_cifar_cnn", "events": ASYNC_EVENTS, "resume_after": k,
+           "buffer_size": ASYNC_BUFFER, "checkpoint_every": k}
+    dirs = []
+    for route in ("chunked", "pipelined"):
+        ds, dr = ckpt_dir("async_s"), ckpt_dir("async_r")
+        dirs += [ds, dr]
+        straight = build(route, ds)
+        launches = {"straight": counted_fit(straight, ASYNC_EVENTS, dp)}
+        # the straight run's event-3 frame, before its event-6 save prunes
+        # nothing (keep 2): both stay
+        first = build(route, dr)
+        launches["saved"] = counted_fit(first, k, dp)
+        resumed = build(route, dr)
+        launches["resumed"] = counted_fit(resumed, ASYNC_EVENTS, dp)
+        want = {"straight": dp_launches(ASYNC_EVENTS + 1), "saved": dp_launches(k + 1),
+                "resumed": dp_launches(ASYNC_EVENTS - k)}
+        if launches != want:
+            fail(f"ckpt_async_dp_cifar_cnn {route}: launches {launches}, expected {want}")
+        pending_equal = blob_at(dr, k) == blob_at(ds, k)
+        equal = history_equal(straight, resumed) and states_equal(straight, resumed)
+        if not (equal and pending_equal):
+            fail(f"ckpt_async_dp_cifar_cnn {route}: resumed differs (states/history {equal}, "
+                 f"event-{k} frame {pending_equal})")
+        out[route] = {"bit_equal": equal, "frame_equal": pending_equal, "launches": launches,
+                      "saves": save_stats(first) + save_stats(resumed),
+                      "resume": resumed._resume_info}
+        if route == "chunked":
+            other = build(route, dr, AsyncConfig(buffer_size=ASYNC_BUFFER, compute_jitter=0.05,
+                                                 seed=cfg.seed + 1),
+                          config_hash=first.state_checkpointer.config_hash)
+            try:
+                other.fit(ASYNC_EVENTS)
+            except ValueError as e:
+                msg = str(e)
+            else:
+                fail("ckpt_async_dp_cifar_cnn: a changed AsyncConfig seed resumed")
+            want_msg = ("was written under a different async event plan (fingerprint "
+                        "mismatch over the first 6 events) — the AsyncConfig seed, FaultPlan, "
+                        "cohort and buffer_size must match the interrupted run for the "
+                        "buffered updates to resume bit-identically")
+            if want_msg not in msg:
+                fail(f"ckpt_async_dp_cifar_cnn: the seed change raised {msg!r}")
+            out["seed_change_refused"] = msg
+        del straight, first, resumed
+    drop_dirs(*dirs)
+    print(json.dumps(out))
+    return out
+
+
+def nnunet_inference(nnunet_sim) -> dict:
+    """``nnunet_inference``: sliding-window inference with config 5's
+    network (plans from ``generate_plans``' default at a 128^3 patch, 6
+    stages, 31,195,594 params) and ``nnunet_fullres``'s global params after
+    its rounds, TF32 off and cuDNN deterministic for the checks: a volume
+    equal to the patch, uniform weights, equals the direct forward (1e-5);
+    a 256x256x192x1
+    synthetic volume at step 0.5 with the Gaussian map (18 windows) equals
+    a float64 numpy blend of the card's own per-window outputs (1e-5); a
+    tiny 3-D U-Net's inference on the card within 5e-4 of the CPU's. Then
+    the ms a volume (TF32 off, and on as PyTorch's default has it),
+    voxels/s and the peak memory."""
+    import itertools
+
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.models.unet import PlainConvUNet
+    from fl4health_tpu_torch.nnunet.inference import (_window_starts, gaussian_importance_map,
+                                                      sliding_window_predict)
+
+    model, params = nnunet_sim.logic.model, nnunet_sim.global_params
+    n_params = sum(v.numel() for v in params.values())
+    patch = (NNU_SIZE,) * 3
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    out = {"phase": "nnunet_inference", "n_params": n_params, "patch": list(patch),
+           "volume": list(INFER_VOLUME), "step_fraction": INFER_STEP}
+    try:
+        deterministic_flags()
+        g = torch.Generator(device="cuda").manual_seed(7)
+        one = torch.randn((*patch, 1), generator=g, device="cuda")
+        direct = model.apply(params, one[None], train=False)[0]["prediction"][0].float()
+        # with uniform weights: the Gaussian map falls below the 1e-8 floor
+        # of JAX's division near a 128^3 patch's corners, where a lone
+        # window's logits come out scaled down (in JAX as here)
+        slid = sliding_window_predict(model.apply, params, None, one, patch, gaussian=False)
+        out["patch_equals_volume_err"] = check("inference patch == volume", slid, direct,
+                                               1e-5, 0)
+        out["gaussian_below_floor_voxels"] = int((gaussian_importance_map(patch)
+                                                  < 1e-8).sum())
+        vol = torch.randn((*INFER_VOLUME, 1), generator=g, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        got = sliding_window_predict(model.apply, params, None, vol, patch, INFER_STEP)
+        torch.cuda.synchronize()
+        out["first_call_ms"] = (time.time() - t0) * 1e3
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        starts = [_window_starts(s, p, INFER_STEP) for s, p in zip(INFER_VOLUME, patch)]
+        corners = list(itertools.product(*starts))
+        out["windows"] = len(corners)
+        weight = gaussian_importance_map(patch).astype(np.float64)[..., None]
+        logits = norm = None
+        with torch.inference_mode():
+            for c in corners:
+                w = tuple(slice(s, s + p) for s, p in zip(c, patch))
+                pred = model.apply(params, vol[w][None], train=False)[0]["prediction"][0]
+                pred = pred.float().cpu().numpy().astype(np.float64)
+                if logits is None:
+                    logits = np.zeros((*INFER_VOLUME, pred.shape[-1]))
+                    norm = np.zeros((*INFER_VOLUME, 1))
+                logits[w] += pred * weight
+                norm[w] += weight
+        want = torch.from_numpy(logits / np.maximum(norm, 1e-8))
+        out["blend_max_abs_err"] = check("inference 18-window blend vs float64", got.cpu().double(),
+                                         want, 1e-5, 0)
+        if out["windows"] != 18 or tuple(got.shape) != (*INFER_VOLUME, 2):
+            fail(f"nnunet_inference: {out['windows']} windows, output {tuple(got.shape)}")
+        if not bool(torch.isfinite(got).all()):
+            fail("nnunet_inference: non-finite logits")
+        del logits, norm, want
+        # a tiny 3-D U-Net, card against CPU
+        net = PlainConvUNet(1, (4, 8), ((1, 1, 1), (2, 2, 2)), ((3, 3, 3), (3, 3, 3)), 3,
+                            n_conv_per_stage=1, deep_supervision=False)
+        tiny = engine.from_module(net)
+        tp = net.init_params(torch.Generator().manual_seed(1))
+        x = torch.tensor(np.random.default_rng(2).standard_normal((20, 18, 16, 1)).astype(
+            np.float32))
+        tiny_card = sliding_window_predict(tiny.apply, {k: v.cuda() for k, v in tp.items()},
+                                           None, x.cuda(), (12, 12, 12))
+        tiny_cpu = sliding_window_predict(tiny.apply, tp, None, x, (12, 12, 12))
+        out["tiny_card_vs_cpu_err"] = check("tiny inference card vs CPU", tiny_card.cpu(),
+                                            tiny_cpu, 5e-4, 0)
+        # timing: 2 volumes at each TF32 setting
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cudnn.deterministic = False
+            ms = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                sliding_window_predict(model.apply, params, None, vol, patch, INFER_STEP)
+                torch.cuda.synchronize()
+                ms.append((time.time() - t0) * 1e3)
+            key = "tf32_on" if tf32 else "tf32_off"
+            out[f"ms_per_volume_{key}"] = ms
+            out[f"voxels_per_s_{key}"] = math.prod(INFER_VOLUME) / (min(ms) / 1e3)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    print(card_line())
+    print(json.dumps(out))
+    return out
+
+
+def ckpt_card_to_cpu() -> dict:
+    """A frame saved by a card run of the tiny Mlp recipe resumes in a CPU
+    simulation, which goes on within 5e-4 of the CPU's straight run from the
+    same params."""
+    from fl4health_tpu_torch.checkpointing import SimulationStateCheckpointer
+
+    d = ckpt_dir("card_to_cpu")
+    card = tiny_mlp_sim("cuda", state_checkpointer=SimulationStateCheckpointer(d))
+    init = {k: v.cpu() for k, v in card.global_params.items()}
+    card.fit(2)
+    cpu = tiny_mlp_sim("cpu", state_checkpointer=SimulationStateCheckpointer(d))
+    cpu.fit(4)
+    ref = tiny_mlp_sim("cpu")
+    ref.set_global_params(init)
+    ref.fit(4)
+    if cpu._resume_info is None or cpu._resume_info["next_round"] != 3:
+        fail(f"ckpt_card_to_cpu: the CPU run resumed from {cpu._resume_info}")
+    errs = []
+    for a, b in zip(cpu.history, ref.history, strict=True):
+        errs.append(check(f"card-to-CPU resume fit loss r{a.round}",
+                          torch.tensor(a.fit_losses["backward"]),
+                          torch.tensor(b.fit_losses["backward"]), 5e-4, 0))
+    err = max(check(f"card-to-CPU resume param {k}", cpu.global_params[k],
+                    ref.global_params[k], 5e-4, 0) for k in ref.global_params)
+    drop_dirs(d)
+    out = {"phase": "ckpt_card_to_cpu", "rounds": 4, "saved_on": "cuda", "resumed_on": "cpu",
+           "max_loss_abs_err": max(errs), "max_param_abs_err": err}
+    print(json.dumps(out))
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: needs an NVIDIA card; torch.cuda.is_available() is false",
@@ -3414,7 +3938,12 @@ def main() -> int:
     aggregate_64()
     tiny_nnunet_parity()
     chunked_vs_pipelined(dp)
-    nnunet_launches = nnunet_main_path(fa, dp)["launches"]
+    nnunet = nnunet_main_path(fa, dp)
+    nnunet_launches = nnunet["launches"]
+    # the checkpoint slice's inference phase, on the main path's network
+    nnunet_inference(nnunet.pop("sim"))
+    del nnunet
+    torch.cuda.empty_cache()
 
     # the cohort slice: cohort slots over a registry, the compressed exchange
     tiny_cohort_parity()
@@ -3429,6 +3958,20 @@ def main() -> int:
     async_launches = async_dp_cifar_cnn(fa, dp)["launches"]
     async_cohort_launches = async_cohort_dp_cifar_cnn(
         fa, dp, cohort["sources"][COHORT_SIZES[0]])["launches"]
+
+    # the checkpoint slice: checkpoint and resume on every route, the
+    # SIGKILL drill in subprocesses, a card frame resumed on the CPU;
+    # cuDNN deterministic in these phases only (TF32 is off throughout)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        ckpt = ckpt_dp_cifar_cnn(dp)
+        ckpt_drill()
+        ckpt_cohort = ckpt_cohort_dp_cifar_cnn(dp, cohort["sources"][COHORT_SIZES[0]])
+        ckpt_async = ckpt_async_dp_cifar_cnn(dp)
+        ckpt_card_to_cpu()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     del cohort
 
     replaces = {"flash_fwd": "fl4health_tpu/kernels/flash_attention.py:71",
@@ -3500,6 +4043,12 @@ def main() -> int:
             # 6 events (7 waves) of buffered async, and 4 over the registry
             "launches_async_dp_cifar_cnn": async_launches[name],
             "launches_async_cohort_dp_cifar_cnn": async_cohort_launches[name],
+            # the checkpoint slice's resumed arms: rounds 3-4 (chunked),
+            # cohort rounds 3-4, async events 4-6 (chunked, no prologue)
+            "launches_ckpt_dp_cifar_cnn": ckpt["chunked"]["launches"]["resumed"][name],
+            "launches_ckpt_cohort_dp_cifar_cnn": ckpt_cohort["launches"]["resumed"][name],
+            "launches_ckpt_async_dp_cifar_cnn":
+                ckpt_async["chunked"]["launches"]["resumed"][name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

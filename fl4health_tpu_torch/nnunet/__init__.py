@@ -3,13 +3,15 @@
 (``plans.py``), normalisation and patching (``data.py``) and on-device
 augmentation (``augment.py``); the model is ``models/unet.py``, the losses
 ``losses/segmentation.py``, the handshake ``clients/nnunet.py`` and
-``server/nnunet.py``. Sliding-window inference (the JAX package's
-``nnunet/inference.py``) is not ported yet.
+``server/nnunet.py``; a trained model predicts whole volumes through
+sliding-window inference (``inference.py``).
 """
 
 from fl4health_tpu_torch.nnunet.augment import augment_patch_batch
 from fl4health_tpu_torch.nnunet.data import (extract_patch_dataset, make_patch_resampler,
                                              normalize_volume)
+from fl4health_tpu_torch.nnunet.inference import (gaussian_importance_map,
+                                                  sliding_window_predict)
 from fl4health_tpu_torch.nnunet.plans import (default_configuration, extract_fingerprint,
                                               generate_plans, localize_plans,
                                               nnunet_optimizer, plans_from_bytes,
@@ -28,4 +30,6 @@ __all__ = [
     "extract_patch_dataset",
     "make_patch_resampler",
     "normalize_volume",
+    "gaussian_importance_map",
+    "sliding_window_predict",
 ]

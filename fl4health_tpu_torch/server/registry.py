@@ -27,9 +27,9 @@ Determinism, as in JAX: a client's batch plan draws from
 ``[*base_entropy, 1000 + round, registry_id]`` and its key starts at
 ``fold_in(init_rng, registry_id + 1)``, the dense path's streams, so
 ``slots == N`` under full participation reproduces the dense run bit for
-bit. Left out here: checkpoint rows (``export_rows``, ``row_templates``,
-``load_rows``), the abstract shapes (``abstract_round_args``,
-``abstract_chunk_args``) and ``reset_rows``.
+bit. A cohort checkpoint stores the rows (``export_rows``, read back by
+``row_templates`` and ``load_rows``). Left out here: the abstract shapes
+(``abstract_round_args``, ``abstract_chunk_args``) and ``reset_rows``.
 """
 
 from __future__ import annotations
@@ -247,6 +247,33 @@ class _SparseRowStore:
         for k in range(int(valid)):
             self._rows[int(ids[k])] = [np.array(leaf[k]) for leaf in leaves]
 
+    def export(self, proto_row: Any) -> tuple[np.ndarray, Any | None]:
+        """(sorted stored ids ``[D]``, their rows stacked ``[D, ...]`` in
+        ``proto_row``'s structure, or None when nothing is stored): the
+        registry's half of a cohort checkpoint."""
+        if not self._rows:
+            return np.zeros((0,), np.int64), None
+        ids = np.asarray(sorted(self._rows), np.int64)
+        stacked = [np.stack([self._rows[int(c)][j] for c in ids])
+                   for j in range(len(self._rows[int(ids[0])]))]
+        return ids, _unflatten(proto_row, stacked)
+
+    @staticmethod
+    def stacked_template(proto_row: Any, d: int) -> Any:
+        """Zero ``[d, ...]`` rows in ``proto_row``'s structure: what a
+        restored frame's rows are read into."""
+        return tree_map(lambda leaf: np.zeros((d, *np.shape(leaf)), np.asarray(leaf).dtype),
+                        proto_row)
+
+    def load(self, ids: np.ndarray, stacked: Any | None) -> None:
+        """Replace the stored rows with ``stacked``'s, under ``ids``."""
+        self._rows.clear()
+        if stacked is None or len(ids) == 0:
+            return
+        leaves = tree_leaves(stacked)
+        for k, cid in enumerate(np.asarray(ids)):
+            self._rows[int(cid)] = [np.array(leaf[k]) for leaf in leaves]
+
 
 # ---------------------------------------------------------------------------
 # the registry
@@ -356,6 +383,34 @@ class ClientRegistry:
         self._client_store.scatter(idx, client_rows, valid)
         if self._has_strategy_rows and strategy_rows is not None:
             self._strategy_store.scatter(idx, strategy_rows, valid)
+
+    # -- checkpointing ---------------------------------------------------
+    def export_rows(self) -> dict:
+        """The registry's durable half of a cohort checkpoint: the stored
+        ids and their stacked rows, for both stores (the ids go into the
+        frame's header, the rows into its trees)."""
+        c_ids, c_rows = self._client_store.export(self._client_proto)
+        s_ids, s_rows = (self._strategy_store.export(self._strategy_proto)
+                         if self._has_strategy_rows else (np.zeros((0,), np.int64), None))
+        return {"client_ids": c_ids, "client_rows": c_rows,
+                "strategy_ids": s_ids, "strategy_rows": s_rows}
+
+    def row_templates(self, n_client: int, n_strategy: int) -> dict:
+        """Read templates matching :meth:`export_rows` for the stored
+        counts."""
+        out = {}
+        if n_client:
+            out["client_rows"] = _SparseRowStore.stacked_template(self._client_proto, n_client)
+        if n_strategy and self._has_strategy_rows:
+            out["strategy_rows"] = _SparseRowStore.stacked_template(self._strategy_proto,
+                                                                    n_strategy)
+        return out
+
+    def load_rows(self, client_ids, client_rows, strategy_ids, strategy_rows) -> None:
+        """Replace the stored rows with a frame's."""
+        self._client_store.load(np.asarray(client_ids, np.int64), client_rows)
+        if self._has_strategy_rows:
+            self._strategy_store.load(np.asarray(strategy_ids, np.int64), strategy_rows)
 
     # -- per-round staging -----------------------------------------------
     def train_plan(self, idx: np.ndarray, base_entropy, round_idx: int):

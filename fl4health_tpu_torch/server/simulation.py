@@ -121,24 +121,41 @@ builds a fresh plan over its own events and a new prologue from event 1
 (the programs see JAX's event indices); its records are numbered after
 ``history``.
 
-Departures: ``fit(n)`` runs ``n`` more rounds, numbered after ``history``;
-a logic's ``telemetry_loss_keys`` are always averaged beside ``backward``;
-a round's facts (a cohort round's ``cohort_info``, an async event's plan
-facts, the fault plan's ``summarize_round`` under ``"fault"``) land in
-``round_metrics``, where the observability records would read them. Left
-out here: observability, the rest of resilience (quarantine, recovery),
-checkpointing (model and state, cohort rows and the async snapshot
-included), mesh placement, FLASH early stopping and the ``WandBReporter``;
-so of JAX's reasons for the pipelined route, only those of the features
-above apply.
+Checkpointing, as in JAX (``checkpointing/``): ``model_checkpointers``
+(``(CheckpointMode, ParamsCheckpointer)`` pairs) fire in each round's
+epilogue on the clients' post-fit params or the global params, and keep a
+run on the pipelined route; a ``state_checkpointer``
+(``SimulationStateCheckpointer``) writes a crash-consistent frame every
+``checkpoint_every`` rounds (and after the last), and ``fit`` resumes from
+the newest good one. The trees a save needs ride the round's one pull
+(``_round_snapshots``), or the chunk's on the chunked routes, whose chunks
+are then ``checkpoint_every`` rounds long; the frame is written on an
+``AsyncCheckpointWriter`` thread, and its stats land in
+``round_metrics[r]["checkpoint"]``. Dense frames, cohort frames (with the
+registry's rows) and async frames (with ``pending``, mid-plan) resume on
+either route, bit for bit.
+
+Departures: without a state checkpointer ``fit(n)`` runs ``n`` more
+rounds, numbered after ``history`` (under one, JAX's numbering: restore
+round ``c`` and run ``c+1..n``); a logic's ``telemetry_loss_keys`` are
+always averaged beside ``backward``; a round's facts (a cohort round's
+``cohort_info``, an async event's plan facts, the fault plan's
+``summarize_round`` under ``"fault"``, a save's stats under
+``"checkpoint"``) land in ``round_metrics``, where the observability
+records would read them. Left out here: observability, the rest of
+resilience (quarantine, the recovery supervisor), mesh placement, FLASH
+early stopping and the ``WandBReporter``; so of JAX's reasons for the
+pipelined route, only those of the features above apply.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import inspect
 import logging
+import sys
 import threading
 import time
 from typing import Any, Sequence
@@ -147,6 +164,9 @@ import numpy as np
 import torch
 
 from fl4health_tpu_torch import rng
+from fl4health_tpu_torch.checkpointing.async_writer import AsyncCheckpointWriter
+from fl4health_tpu_torch.checkpointing.checkpointer import CheckpointMode
+from fl4health_tpu_torch.checkpointing.serialization import leaves_like
 from fl4health_tpu_torch.clients import engine
 from fl4health_tpu_torch.clients.engine import Batch, ClientLogic, TrainState
 from fl4health_tpu_torch.compression.config import CompressionConfig
@@ -156,11 +176,13 @@ from fl4health_tpu_torch.device import resolve_device
 from fl4health_tpu_torch.exchange.exchanger import FixedLayerExchanger, FullExchanger
 from fl4health_tpu_torch.metrics.aggregation import aggregate_metrics
 from fl4health_tpu_torch.metrics.base import MetricManager
+from fl4health_tpu_torch.observability.manifest import config_hash
 from fl4health_tpu_torch.optim import GradientTransformation
 from fl4health_tpu_torch.precision.policy import PrecisionConfig
 from fl4health_tpu_torch.resilience.faults import FaultPlan
 from fl4health_tpu_torch.server.async_schedule import (AsyncConfig, build_event_plan,
-                                                       build_registry_event_plan)
+                                                       build_registry_event_plan,
+                                                       plan_prefix_fingerprints)
 from fl4health_tpu_torch.server.client_manager import (ClientManager,
                                                        FullParticipationManager)
 from fl4health_tpu_torch.server.pipeline import HostPull, RoundConsumer, RoundPrefetcher
@@ -218,6 +240,18 @@ def payload_params(payload):
     strategy sends more than params (a ``ClippingPayload``), else the
     payload itself."""
     return payload.params if hasattr(payload, "params") else payload
+
+
+def _dtypes(tree):
+    return ptu.tree_map(lambda t: t.dtype, tree)
+
+
+def host_snapshot(pulled, dtypes):
+    """A pulled tree with its bf16 leaves (widened to f32 by ``HostPull``,
+    exactly) narrowed back to bf16 CPU tensors, so a frame keeps every
+    dtype."""
+    return ptu.tree_map(lambda a, dt: torch.from_numpy(np.array(a)).to(dt)
+                        if dt == torch.bfloat16 else a, pulled, dtypes)
 
 
 EXEC_PIPELINED = "pipelined_per_round"
@@ -308,6 +342,10 @@ class _RoundWork:
     # an async event over the registry: its cohort facts, built by the
     # producer (no rows ride its pull)
     cohort_info: dict | None = None
+    # the dtypes of the checkpoint trees riding the pull (None: none ride)
+    snapshot_dtypes: dict | None = None
+    # an async snapshot's plan-prefix fingerprint and virtual clock
+    resume_meta: dict | None = None
     # async events only: the plan's facts (``_async_event_info``) and the
     # event index the round programs drew at (the record's round is
     # numbered after ``history``)
@@ -344,6 +382,8 @@ class FederatedSimulation:
         cohort: CohortConfig | None = None,
         fault_plan: FaultPlan | None = None,
         async_config: AsyncConfig | None = None,
+        model_checkpointers: Sequence[tuple[Any, Any]] = (),
+        state_checkpointer: Any = None,
         device: str | torch.device = "cuda",
     ):
         if (local_epochs is None) == (local_steps is None):
@@ -384,6 +424,16 @@ class FederatedSimulation:
         # how many rounds of host epilogue may be in flight behind the
         # producer (the RoundConsumer's bound)
         self.pipeline_depth = pipeline_depth
+        # (CheckpointMode, ParamsCheckpointer) pairs, fired in the round's
+        # epilogue; the state checkpointer snapshots the run for resume
+        self.model_checkpointers = list(model_checkpointers)
+        self.state_checkpointer = state_checkpointer
+        self._ckpt_writer: AsyncCheckpointWriter | None = None
+        # facts of the restore a fit() made; None on a fresh run
+        self._resume_info: dict | None = None
+        # per-event prefix digests of the async plan (event e's snapshot
+        # stores entry e-1), while async checkpointing is on
+        self._async_prefix_fps: list[str] | None = None
         self._consumer: RoundConsumer | None = None
         self._prefetcher: RoundPrefetcher | None = None
         self._fit_last_round = 0
@@ -512,6 +562,30 @@ class FederatedSimulation:
                     "async_config is not composable with "
                     "train_data_provider: the async event programs bake "
                     "their data at dispatch time")
+            if self.model_checkpointers:
+                raise ValueError(
+                    "async_config is not composable with per-round model "
+                    "checkpointing: there is no synchronous post-fit/"
+                    "pre-aggregation moment inside a fused buffer-fill "
+                    "event (state checkpointing — resume — composes; use "
+                    "state_checkpointer)")
+            if self._cohort_active and self.state_checkpointer is not None:
+                raise ValueError(
+                    "async_config + cohort=CohortConfig(...) does not yet "
+                    "compose with state checkpointing: a resume would need "
+                    "a frame persisting BOTH the pending update buffer and "
+                    "the registry's dirty rows + seating cursor, and no "
+                    "such combined frame format exists yet")
+            sc = self.state_checkpointer
+            if sc is not None and not (hasattr(sc, "save_async_snapshot")
+                                       and hasattr(sc, "load_async_simulation")):
+                raise ValueError(
+                    "async state checkpointing needs a checkpointer that "
+                    "can snapshot the pending update buffer and the event "
+                    "cursor (save_async_snapshot/load_async_simulation — "
+                    f"SimulationStateCheckpointer); {type(sc).__name__} "
+                    "cannot, so an interrupted async run could not resume "
+                    "mid-plan")
         if self._cohort_active:
             # bind again through a slot-count view, so a wrapper sizes its
             # per-client server rows [slots]; the checks above saw the real
@@ -531,6 +605,15 @@ class FederatedSimulation:
                     "cohort=CohortConfig(...) is not composable with "
                     "train_data_provider: per-round data lives in the "
                     "registry source — refresh it there")
+            sc = self.state_checkpointer
+            if sc is not None and not (hasattr(sc, "save_cohort_snapshot")
+                                       and hasattr(sc, "load_cohort_simulation")):
+                raise ValueError(
+                    "cohort state checkpointing needs a checkpointer that "
+                    "persists the registry's dirty rows (save_cohort_"
+                    "snapshot/load_cohort_simulation — "
+                    f"SimulationStateCheckpointer); {type(sc).__name__} "
+                    "cannot, so an interrupted cohort run could not resume")
         self.seed = seed
         self.rng = rng.PRNGKey(seed, self.device)
         self._host_rng_of = (self.rng, self.rng.cpu())
@@ -954,6 +1037,15 @@ class FederatedSimulation:
                     "the host every round")
         if self.train_data_provider is not None:
             return "train_data_provider needs a host data refresh every round"
+        if self.model_checkpointers:
+            return "per-round model checkpointing needs per-round host access"
+        # a snapshot-capable state checkpointer saves at chunk boundaries
+        # (chunks of checkpoint_every rounds); only the legacy API, which
+        # reads the live state every round, needs the per-round loop
+        if (self.state_checkpointer is not None
+                and not hasattr(self.state_checkpointer, "save_simulation_snapshot")):
+            return ("legacy state checkpointer (save_simulation reads live "
+                    "per-round state)")
         if not self.failure_policy.accept_failures:
             return "accept_failures=False must be able to terminate mid-run"
         if self._strategy_consumes_eval():
@@ -992,18 +1084,42 @@ class FederatedSimulation:
         ``history``) through the chunked or the pipelined route
         (``execution_mode``); under ``async_config`` each round is a
         buffer-fill event of a fresh plan. Returns the whole history.
-        ``fit(0)`` runs nothing."""
+        ``fit(0)`` runs nothing.
+
+        Under a ``state_checkpointer`` the numbering is JAX's: ``fit(n)``
+        restores the newest good generation (round ``c``) where one exists
+        and runs rounds ``c+1..n`` (``1..n`` on a fresh start), so a run
+        killed after round ``c`` and rebuilt on the same directory goes on
+        where it stopped."""
         mode, reason = self._select_execution_mode(n_rounds)
         logging.getLogger(__name__).info("fit: execution_mode=%s (%s)", mode, reason)
+        # the async plan comes first: a resume checks its consumed prefix
+        plan = None
+        if self._async_active and n_rounds >= 1:
+            if self._cohort_active:
+                plan = build_registry_event_plan(self.async_config, n_rounds, self.n_clients,
+                                                 self.registry_size, self._fault_plan)
+            else:
+                plan = build_event_plan(self.async_config, n_rounds, self.n_clients,
+                                        self._fault_plan)
+            self._async_plan = plan
+        start = self._maybe_resume(n_rounds, plan)
         for rep in self.reporters:
             rep.report({"host_type": "server", "fit_start": time.time(),
                         "num_rounds": n_rounds, "execution_mode": mode,
                         "execution_mode_reason": reason})
         if n_rounds >= 1:
-            first = len(self.history) + 1
-            last = first + n_rounds - 1
+            if self.state_checkpointer is not None:
+                first, last = start, n_rounds
+            else:
+                first = len(self.history) + 1
+                last = first + n_rounds - 1
+            self._fit_last_round = last
             if self._async_active:
-                self._fit_async(n_rounds, mode, first)
+                # event e's record is number first + e - 1: e itself under a
+                # checkpointer (JAX's numbering), else after ``history``
+                self._fit_async(plan, mode, 1 if self.state_checkpointer is not None
+                                else first, start)
             elif self._cohort_active:
                 (self._fit_cohort_chunked if mode == EXEC_CHUNKED
                  else self._fit_cohort)(first, last)
@@ -1016,24 +1132,214 @@ class FederatedSimulation:
             rep.shutdown()
         return self.history
 
+    # -- crash-consistent checkpoint and resume -------------------------
+    def _manifest_config(self, n_rounds: int) -> dict:
+        """The run's JSON-able config facts, as JAX's manifest lists them
+        (``telemetry`` is always off here)."""
+        config = {
+            "n_clients": self.n_clients,
+            "batch_size": self.batch_size,
+            "local_epochs": self.local_epochs,
+            "local_steps": self.local_steps,
+            "n_rounds": n_rounds,
+            "strategy": type(self.strategy).__name__,
+            "exchanger": type(self.exchanger).__name__,
+            "client_manager": type(self.client_manager).__name__,
+            "execution_mode": self.execution_mode,
+            "telemetry": False,
+            "compression": (self.compression.describe()
+                            if self.compression is not None and self.compression.enabled
+                            else None),
+            "precision": (self.precision.describe()
+                          if self.precision is not None and self.precision.active else None),
+        }
+        if self._cohort_active:
+            config["cohort"] = {"slots": self.cohort_config.slots,
+                                "registry_size": self.registry_size}
+        if self._async_active:
+            config["async"] = self.async_config.describe()
+        return config
+
+    def _resume_config_hash(self) -> str:
+        """The experiment identity a checkpoint binds to: the manifest
+        config without what may differ between a run and its resume
+        (``n_rounds``, ``execution_mode``: the routes are bit-equal,
+        ``telemetry``, ``mesh``). Equal to JAX's for the same recipe."""
+        return config_hash({k: v for k, v in self._manifest_config(0).items()
+                            if k not in ("n_rounds", "execution_mode", "telemetry", "mesh")})
+
+    def adopt_restored_state(self, server_state, client_states, pending=None) -> None:
+        """Install restored host trees as the live state, on the simulation's
+        device, in the live trees' dtypes (the frame keeps every dtype)."""
+        self.server_state = leaves_like(self.server_state, server_state, self.device)
+        self.client_states = leaves_like(self.client_states, client_states, self.device)
+        if pending is not None:
+            self._async_pending = ptu.tree_map(
+                lambda a: (a if isinstance(a, torch.Tensor)
+                           else torch.from_numpy(np.array(a))).to(self.device), pending)
+
+    def _ckpt_every(self) -> int | None:
+        """The snapshot checkpointer's cadence in rounds (None without a
+        snapshot-capable checkpointer)."""
+        sc = self.state_checkpointer
+        if sc is None or not hasattr(sc, "save_simulation_snapshot"):
+            return None
+        return max(int(getattr(sc, "checkpoint_every", 1) or 1), 1)
+
+    def _checkpoint_due(self, rnd: int) -> bool:
+        every = self._ckpt_every()
+        if every is None:
+            return False
+        return rnd % every == 0 or rnd >= self._fit_last_round
+
+    def _async_pending_template(self, val_batches):
+        """The ``pending`` buffer's structure, shapes and dtypes without a
+        dispatch on the card: the prologue run on the CPU over copies of the
+        state with one step of one example a client (``pending``'s shapes
+        depend on neither)."""
+        prologue, _ = self._async_programs()
+
+        def one_example(b: Batch) -> Batch:
+            cut = lambda t: t[:, :1, :1].cpu()  # noqa: E731
+            return Batch(x=ptu.tree_map(cut, b.x), y=ptu.tree_map(cut, b.y),
+                         example_mask=cut(b.example_mask), step_mask=b.step_mask[:, :1].cpu())
+
+        cpu = lambda tree: ptu.tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+        _, pending = prologue(cpu(self.server_state), cpu(self.client_states),
+                              one_example(self._round_batches(1)), one_example(val_batches))
+        return pending
+
+    def _maybe_resume(self, n_rounds: int, plan=None) -> int:
+        """Bind the checkpointer to this run (its config hash and the save
+        stats' hook) and restore the newest good generation where one
+        exists. Returns the first round (event) to run: 1 on a fresh start.
+        ``_resume_info`` keeps the restore's facts (JAX's manifest
+        ``resume`` descriptor, and the restore's host seconds)."""
+        self._resume_info = None
+        sc = self.state_checkpointer
+        if sc is None:
+            return 1
+        if getattr(sc, "config_hash", "absent") is None:
+            sc.config_hash = self._resume_config_hash()
+        if getattr(sc, "on_save", "absent") is None:
+            sc.on_save = self._note_checkpoint
+        if not (hasattr(sc, "exists") and sc.exists()):
+            return 1
+        t0 = time.perf_counter()
+        if self._async_active:
+            if n_rounds < 1:
+                return 1
+            template = self._async_pending_template(self._val_batches()[0])
+            start = sc.load_async_simulation(self, template, plan)
+        elif self._cohort_active:
+            start = sc.load_cohort_simulation(self)
+        elif hasattr(sc, "load_simulation"):
+            start = sc.load_simulation(self)
+        else:
+            return 1
+        info = getattr(sc, "last_restore_info", None)
+        self._resume_info = {"next_round": int(start),
+                             "kind": ("async" if self._async_active
+                                      else "cohort" if self._cohort_active else "sync"),
+                             # the read, the checks and the copies onto the
+                             # device, enqueued (not synchronised)
+                             "restore_s": time.perf_counter() - t0}
+        if info is not None:
+            self._resume_info.update(path=info.path, generation=info.generation,
+                                     bytes=info.nbytes,
+                                     fallback_skipped=list(info.fallback_skipped))
+        logging.getLogger(__name__).info("resumed from checkpoint: next %s %d",
+                                         "event" if self._async_active else "round", start)
+        return start
+
+    def _note_checkpoint(self, stats: dict) -> None:
+        """The state checkpointer's save stats (path, generation, bytes,
+        write_s, ...) into the saved round's ``round_metrics`` entry under
+        ``"checkpoint"``, where JAX's ``fl_ckpt_*`` metrics read them. Runs
+        on whichever thread wrote the frame."""
+        rnd = stats.get("round")
+        entry = next((m for m in reversed(self.round_metrics) if m.get("round") == rnd), None)
+        if entry is None:
+            self.round_metrics.append({"round": rnd, "checkpoint": dict(stats)})
+        else:
+            entry["checkpoint"] = dict(stats)
+
+    def _close_ckpt_writer(self, writer) -> None:
+        """Close the writer on every exit path and raise its stored failure,
+        without masking an exception already in flight: a halted run still
+        publishes its last completed round's checkpoint."""
+        writer.close()
+        in_flight = sys.exc_info()[1] is not None
+        try:
+            writer.raise_pending()
+        except BaseException:
+            if not in_flight:
+                raise
+            logging.getLogger(__name__).warning(
+                "checkpoint write failed during error shutdown (the "
+                "primary exception propagates)", exc_info=True)
+
+    @contextlib.contextmanager
+    def _ckpt_writer_scope(self, active: bool, attach_model_ckpts: bool = False):
+        """The async writer's lifetime, shared by every route: a fresh
+        ``AsyncCheckpointWriter`` (None when not ``active``), flushed on a
+        clean exit, closed on every exit (``_close_ckpt_writer``), the model
+        checkpointers attached for the run and detached after."""
+        if not active:
+            yield None
+            return
+        writer = self._ckpt_writer = AsyncCheckpointWriter()
+        attached = []
+        if attach_model_ckpts:
+            for _mode, ckpt in self.model_checkpointers:
+                if hasattr(ckpt, "async_writer"):
+                    ckpt.async_writer = writer
+                    attached.append(ckpt)
+        try:
+            yield writer
+            writer.flush()  # a clean exit: every submitted write is durable
+        finally:
+            try:
+                self._close_ckpt_writer(writer)
+            finally:
+                for ckpt in attached:
+                    ckpt.async_writer = None
+                self._ckpt_writer = None
+
+    def _snapshot_trees(self, with_pending: bool = False) -> dict:
+        """The state trees a snapshot pulls: the live trees themselves, since
+        no round writes into its inputs (every round returns new tensors),
+        so the next round cannot overwrite them before the pull, which rides
+        the round's (or the chunk's) one ``HostPull``."""
+        trees = {"server_state": self.server_state, "client_states": self.client_states}
+        if with_pending:
+            trees["pending"] = self._async_pending
+        return trees
+
     def _fit_pipelined(self, first: int, last: int) -> None:
         """Rounds ``first..last``: this thread dispatches each round and
         submits its host epilogue to a ``RoundConsumer``; a
         ``RoundPrefetcher`` stages the next round's batches meanwhile."""
         val_batches, val_counts = self._val_batches()
         self._fit_last_round = last
-        consumer = self._consumer = RoundConsumer(maxsize=self.pipeline_depth)
-        prefetcher = self._prefetcher = RoundPrefetcher(self)
-        try:
-            prefetcher.schedule(first)
-            for rnd in range(first, last + 1):
-                consumer.raise_pending()
-                self._run_round(rnd, val_batches, val_counts)
-            consumer.flush()  # barrier: every round's epilogue has run
-        finally:
-            consumer.close()
-            prefetcher.close()
-            self._consumer = self._prefetcher = None
+        # the writer scope flushes on a clean exit and, on an error, drains
+        # and raises write failures without masking the error
+        with self._ckpt_writer_scope(bool(self.model_checkpointers
+                                          or self.state_checkpointer is not None),
+                                     attach_model_ckpts=True):
+            consumer = self._consumer = RoundConsumer(maxsize=self.pipeline_depth)
+            prefetcher = self._prefetcher = RoundPrefetcher(self)
+            try:
+                if first <= last:
+                    prefetcher.schedule(first)
+                for rnd in range(first, last + 1):
+                    consumer.raise_pending()
+                    self._run_round(rnd, val_batches, val_counts)
+                consumer.flush()  # barrier: every round's epilogue has run
+            finally:
+                consumer.close()
+                prefetcher.close()
+                self._consumer = self._prefetcher = None
 
     def _run_round(self, rnd: int, val_batches, val_counts) -> None:
         """The producer's half of a round: sample, dispatch fit, eval (and
@@ -1054,6 +1360,9 @@ class FederatedSimulation:
         (self.server_state, self.client_states, fit_losses, fit_metrics,
          per_client_fit_losses) = self._fit_round(
             self.server_state, self.client_states, batches, mask, rnd, val_batches)
+        # the clients' trained params, before eval replaces them with the
+        # global model (a pre-aggregation checkpointer's tree)
+        post_fit_params = self.client_states.params
         t1 = time.time()
         (self.client_states, eval_losses, eval_metrics, per_client_eval_losses,
          per_client_eval_metrics) = self._eval_round(
@@ -1069,16 +1378,40 @@ class FederatedSimulation:
             # "test - "-prefixed beside the val keys
             self.client_states, results["test_losses"], results["test_metrics"] = (
                 self._eval_round(self.server_state, self.client_states, *test)[:3])
+        snap = self._round_snapshots(results, rnd, post_fit_params)
         work = _RoundWork(round=rnd, pull=HostPull(results), fit_elapsed_s=t1 - t0,
-                          eval_elapsed_s=time.time() - t1)
+                          eval_elapsed_s=time.time() - t1, snapshot_dtypes=snap)
         if consumer is None:  # no pipeline: the epilogue inline
             self._finish_round(work)
             return
         consumer.submit_round(rnd, functools.partial(self._finish_round, work))
-        if not self.failure_policy.accept_failures:
-            # the failure screen runs in the epilogue and must end the run
-            # before the next round dispatches
+        legacy_state_save = (self.state_checkpointer is not None
+                             and not hasattr(self.state_checkpointer,
+                                             "save_simulation_snapshot"))
+        if legacy_state_save or not self.failure_policy.accept_failures:
+            # the legacy checkpointer reads the live state, and the failure
+            # screen must end the run: both before the next round dispatches
             consumer.flush()
+
+    def _round_snapshots(self, results: dict, rnd: int, post_fit_params=None,
+                         with_pending: bool = False) -> dict | None:
+        """Add the round's checkpoint trees to its results, so they ride the
+        round's one pull: the clients' post-fit params for a pre-aggregation
+        checkpointer, the global params for a post-aggregation one, and the
+        state trees when a snapshot is due. Returns their dtypes (None when
+        nothing rides)."""
+        modes = {m for m, _ in self.model_checkpointers}
+        trees = {}
+        if CheckpointMode.PRE_AGGREGATION in modes and post_fit_params is not None:
+            trees["_pre_agg_params"] = post_fit_params
+        if CheckpointMode.POST_AGGREGATION in modes:
+            trees["_post_agg_params"] = self.global_params
+        if (self.state_checkpointer is not None
+                and hasattr(self.state_checkpointer, "save_simulation_snapshot")
+                and self._checkpoint_due(rnd)):
+            trees["_state_trees"] = self._snapshot_trees(with_pending)
+        results.update(trees)
+        return _dtypes(trees) if trees else None
 
     def _finish_round(self, work: _RoundWork) -> None:
         """The consumer's half of a round: the round's one device->host
@@ -1087,6 +1420,9 @@ class FederatedSimulation:
         also brought its updated rows: they go into the registry first,
         then the producer's next gather may run."""
         host = work.pull.result()
+        snaps = {k: host_snapshot(host.pop(k), work.snapshot_dtypes[k])
+                 for k in ("_pre_agg_params", "_post_agg_params", "_state_trees")
+                 if k in host}
         registry_rows = host.pop("_registry_rows", None)
         cohort_info = work.cohort_info
         if registry_rows is not None:
@@ -1117,15 +1453,53 @@ class FederatedSimulation:
                           eval_losses=eval_losses, eval_metrics=eval_metrics,
                           fit_elapsed_s=work.fit_elapsed_s,
                           eval_elapsed_s=work.eval_elapsed_s)
+        for mode, ckpt in self.model_checkpointers:
+            if mode == CheckpointMode.PRE_AGGREGATION:
+                ckpt.maybe_checkpoint(snaps.get("_pre_agg_params"),
+                                      rec.fit_losses.get("backward", float("nan")),
+                                      rec.fit_metrics)
+        for mode, ckpt in self.model_checkpointers:
+            if mode == CheckpointMode.POST_AGGREGATION:
+                ckpt.maybe_checkpoint(snaps.get("_post_agg_params"),
+                                      rec.eval_losses.get("checkpoint", float("nan")),
+                                      rec.eval_metrics)
         self.history.append(rec)
         self._record_round_metrics(work.round, cohort_info, work.async_info,
                                    work.event if work.event is not None else work.round)
+        self._save_round_state(work, snaps.get("_state_trees"))
         for rep in self.reporters:
             rep.report({"fit_losses": rec.fit_losses, "fit_metrics": rec.fit_metrics,
                         "eval_losses": rec.eval_losses, "eval_metrics": rec.eval_metrics,
                         "fit_elapsed_s": rec.fit_elapsed_s,
                         "eval_elapsed_s": rec.eval_elapsed_s,
                         "execution_mode": EXEC_PIPELINED}, round=work.round)
+
+    def _save_round_state(self, work: _RoundWork, trees: dict | None) -> None:
+        """The round's state checkpoint, after its record: the async frame
+        (with ``pending``, the plan-prefix fingerprint and the virtual
+        clock), the cohort frame (with the registry's rows, exported after
+        this round's scatter) or the sync one; the legacy API reads the live
+        state (the producer waited for this epilogue)."""
+        sc = self.state_checkpointer
+        if sc is None:
+            return
+        rnd = work.event if work.event is not None else work.round
+        history = list(self.history)
+        if trees is not None:
+            if work.resume_meta is not None:
+                sc.save_async_snapshot(trees, rnd, self.n_clients, history,
+                                       plan_fingerprint=work.resume_meta["plan_fingerprint"],
+                                       virtual_time_s=work.resume_meta["virtual_time_s"],
+                                       writer=self._ckpt_writer)
+            elif work.cohort_meta is not None:
+                sc.save_cohort_snapshot(trees, rnd, self.n_clients, self.registry_size,
+                                        self.registry.export_rows(), history,
+                                        writer=self._ckpt_writer)
+            else:
+                sc.save_simulation_snapshot(trees, rnd, self.n_clients, history,
+                                            writer=self._ckpt_writer)
+        elif not hasattr(sc, "save_simulation_snapshot"):
+            sc.save_simulation(self, rnd)
 
     def _record_round_metrics(self, rnd: int, cohort_info: dict | None = None,
                               async_info: dict | None = None,
@@ -1247,23 +1621,36 @@ class FederatedSimulation:
 
     def _rounds_per_dispatch(self, n_rounds: int, start_round: int = 1) -> int:
         """Rounds in the chunked route's next chunk: all that remain up to
-        round ``n_rounds`` (the port has no state checkpointer whose cadence
-        would cut it)."""
-        return max(n_rounds - start_round + 1, 1)
+        round ``n_rounds``, at most ``checkpoint_every`` when snapshots are
+        due at chunk boundaries."""
+        remaining = max(n_rounds - start_round + 1, 1)
+        every = self._ckpt_every()
+        return remaining if every is None else min(every, remaining)
 
     def _fit_chunked(self, first: int, last: int) -> None:
         """Rounds ``first..last`` through the chunked route: each chunk
         dispatches its rounds back to back, then one ``HostPull`` brings
-        every round's results over and ``_chunked_epilogue`` records them."""
-        s = first
-        while s <= last:
-            k = self._rounds_per_dispatch(last, s)
-            self._run_sync_chunk(s, k)
-            s += k
+        every round's results over and ``_chunked_epilogue`` records them.
+        Under a snapshot checkpointer a chunk is ``checkpoint_every`` rounds
+        and the state trees ride its pull into the boundary's frame; the
+        rounds' math does not depend on the chunk length, so the trajectory
+        is the one-chunk run's bit for bit."""
+        sc = self.state_checkpointer
+        chunk_ckpt = sc is not None and hasattr(sc, "save_simulation_snapshot")
+        with self._ckpt_writer_scope(chunk_ckpt) as writer:
+            s = first
+            while s <= last:
+                k = self._rounds_per_dispatch(last, s)
+                trees = self._run_sync_chunk(s, k, snapshot=chunk_ckpt)
+                if chunk_ckpt:
+                    sc.save_simulation_snapshot(trees, s + k - 1, self.n_clients,
+                                                list(self.history), writer=writer)
+                s += k
 
-    def _run_sync_chunk(self, start_round: int, k: int) -> None:
+    def _run_sync_chunk(self, start_round: int, k: int, snapshot: bool = False):
         """Dispatch rounds ``[start_round, start_round + k)`` as one chunk
-        and run their host epilogue."""
+        and run their host epilogue; with ``snapshot``, returns the state
+        trees that rode the chunk's pull."""
         t_start = time.time()
         val_batches, val_counts = self._val_batches()
         test = self._test_batches()
@@ -1271,21 +1658,27 @@ class FederatedSimulation:
         self.server_state, self.client_states, outs = self._make_chunked_fit_with_eval()(
             self.server_state, self.client_states, self._x_train_stack, self._y_train_stack,
             idx, em, sm, masks, start_round, val_batches, val_counts, *(test or ()))
-        stacked = HostPull({**outs, "mask": masks}).result()  # the chunk's one pull
+        tree = {**outs, "mask": masks}
+        if snapshot:
+            tree["_state_trees"] = self._snapshot_trees()
+            dtypes = _dtypes(tree["_state_trees"])
+        stacked = HostPull(tree).result()  # the chunk's one pull
+        trees = host_snapshot(stacked.pop("_state_trees"), dtypes) if snapshot else None
         per_round_s = (time.time() - t_start) / max(k, 1)
         self._chunked_epilogue(k, stacked, stacked.pop("mask"), per_round_s,
                                start_round=start_round)
+        return trees
 
     def _chunked_epilogue(self, n_rounds: int, stacked: dict, masks_np: np.ndarray,
                           per_round_s: float, start_round: int = 1,
                           cohort_infos: list[dict] | None = None,
-                          async_plan=None) -> None:
+                          async_plan=None, first_event: int = 1) -> None:
         """Each round of a chunk on the host, from the stacked pull: the
         failure screen (it logs; ``accept_failures`` is True on this
         route), the ``RoundRecord`` with ``fit_elapsed_s`` the chunk's wall
         amortised a round and ``eval_elapsed_s`` 0 (no separate eval wall),
         the cohort facts of each round (``cohort_infos``), an async chunk's
-        event facts (``async_plan``: the chunk is the plan's every event),
+        event facts (``async_plan``: the chunk's events from ``first_event``),
         and the reports."""
         for i in range(n_rounds):
             rnd = start_round + i
@@ -1303,7 +1696,7 @@ class FederatedSimulation:
                               eval_losses=eval_losses, eval_metrics=eval_metrics,
                               fit_elapsed_s=per_round_s, eval_elapsed_s=0.0)
             self.history.append(rec)
-            event = i + 1 if async_plan is not None else rnd
+            event = first_event + i if async_plan is not None else rnd
             self._record_round_metrics(
                 rnd, cohort_infos[i] if cohort_infos is not None else None,
                 self._async_event_info(async_plan, event - 1)
@@ -1395,19 +1788,23 @@ class FederatedSimulation:
         the consumer."""
         self._fit_last_round = last
         self._registry_scatter_event = None
-        consumer = self._consumer = RoundConsumer(maxsize=self.pipeline_depth)
-        prefetcher = self._prefetcher = RoundPrefetcher(self)
-        try:
-            prefetcher.schedule(first)
-            for rnd in range(first, last + 1):
-                consumer.raise_pending()
-                self._run_cohort_round(rnd)
-            consumer.flush()
-        finally:
-            consumer.close()
-            prefetcher.close()
-            self._consumer = self._prefetcher = None
-            self._registry_scatter_event = None
+        with self._ckpt_writer_scope(bool(self.model_checkpointers
+                                          or self.state_checkpointer is not None),
+                                     attach_model_ckpts=True):
+            consumer = self._consumer = RoundConsumer(maxsize=self.pipeline_depth)
+            prefetcher = self._prefetcher = RoundPrefetcher(self)
+            try:
+                if first <= last:
+                    prefetcher.schedule(first)
+                for rnd in range(first, last + 1):
+                    consumer.raise_pending()
+                    self._run_cohort_round(rnd)
+                consumer.flush()
+            finally:
+                consumer.close()
+                prefetcher.close()
+                self._consumer = self._prefetcher = None
+                self._registry_scatter_event = None
 
     def _run_cohort_round(self, rnd: int) -> None:
         """The producer's half of a cohort round: the staged slot data, the
@@ -1428,6 +1825,7 @@ class FederatedSimulation:
          per_client_fit_losses) = self._fit_round(
             self.server_state, self.client_states, staged["batches"], staged["mask"], rnd,
             staged["val_batches"], staged["sample_counts"])
+        post_fit_params = self.client_states.params
         t1 = time.time()
         self.client_states, eval_losses, eval_metrics, _, _ = self._eval_round(
             self.server_state, self.client_states, staged["val_batches"], staged["val_counts"])
@@ -1438,10 +1836,11 @@ class FederatedSimulation:
                    "_registry_rows": {"client_states": self.client_states,
                                       "strategy_rows": self.strategy.state_rows(
                                           self.server_state)}}
+        snap = self._round_snapshots(results, rnd, post_fit_params)
         scatter_event = self._registry_scatter_event = threading.Event()
         work = _RoundWork(
             round=rnd, pull=HostPull(results), fit_elapsed_s=t1 - t0,
-            eval_elapsed_s=time.time() - t1,
+            eval_elapsed_s=time.time() - t1, snapshot_dtypes=snap,
             cohort_meta={"idx": idx, "valid": valid, "stage_ms": staged["stage_ms"],
                          "gather_ms": gather_ms, "staged_bytes": staged["staged_bytes"],
                          "scatter_event": scatter_event, "rounds_per_dispatch": 1,
@@ -1532,25 +1931,38 @@ class FederatedSimulation:
 
     def _fit_cohort_chunked(self, first: int, last: int) -> None:
         """Rounds ``first..last`` of a cohort through the chunked route: a
-        chunk is every round that remains (no state checkpointer cuts it),
-        staged by the prefetcher; the next chunk's staging would overlap
-        this one's device work."""
+        chunk is every round that remains, or ``checkpoint_every`` rounds
+        under a state checkpointer, staged by the prefetcher while the
+        previous chunk runs. At a boundary the window's rows go back into
+        the registry first, then the cohort frame (slot states and the
+        registry's rows) is written as the pipelined consumer would."""
+        sc = self.state_checkpointer
+        chunk_ckpt = sc is not None
+        if first > last:
+            return
         prefetcher = self._prefetcher = RoundPrefetcher(self)
         try:
-            s = first
-            prefetcher.schedule_chunk(s, self._rounds_per_dispatch(last, s))
-            while s <= last:
-                k = self._rounds_per_dispatch(last, s)
-                staged = prefetcher.take_chunk(s, k)
-                if s + k <= last:
-                    prefetcher.schedule_chunk(s + k, self._rounds_per_dispatch(last, s + k))
-                self._run_cohort_chunk(s, k, staged)
-                s += k
+            with self._ckpt_writer_scope(chunk_ckpt) as writer:
+                s = first
+                prefetcher.schedule_chunk(s, self._rounds_per_dispatch(last, s))
+                while s <= last:
+                    k = self._rounds_per_dispatch(last, s)
+                    staged = prefetcher.take_chunk(s, k)
+                    if s + k <= last:
+                        prefetcher.schedule_chunk(s + k,
+                                                  self._rounds_per_dispatch(last, s + k))
+                    trees = self._run_cohort_chunk(s, k, staged, snapshot=chunk_ckpt)
+                    if chunk_ckpt:
+                        sc.save_cohort_snapshot(trees, s + k - 1, self.n_clients,
+                                                self.registry_size, self.registry.export_rows(),
+                                                list(self.history), writer=writer)
+                    s += k
         finally:
             prefetcher.close()
             self._prefetcher = None
 
-    def _run_cohort_chunk(self, start_round: int, k: int, staged: dict) -> None:
+    def _run_cohort_chunk(self, start_round: int, k: int, staged: dict,
+                          snapshot: bool = False):
         """One cohort chunk: the window's rows gathered (after the previous
         chunk's scatter: same thread), its rounds dispatched, one pull of
         the outputs and the window, the device draws checked against the
@@ -1569,8 +1981,13 @@ class FederatedSimulation:
             self.server_state, self.client_states, w_client, w_srows, self.rng,
             staged["window_ids_dev"], staged["batches"], staged["mask"],
             staged["sample_counts"], staged["val_batches"], staged["val_counts"], start_round)
-        pull = HostPull({"outs": outs, "client_rows": w_client, "strategy_rows": w_srows})
+        tree = {"outs": outs, "client_rows": w_client, "strategy_rows": w_srows}
+        if snapshot:
+            tree["_state_trees"] = self._snapshot_trees()
+            dtypes = _dtypes(tree["_state_trees"])
+        pull = HostPull(tree)
         host = pull.result()  # the chunk's one pull
+        trees = host_snapshot(host.pop("_state_trees"), dtypes) if snapshot else None
         stacked = host["outs"]
         # the window was built from the host draws: a device draw that
         # differs would gather and store the wrong rows
@@ -1597,6 +2014,7 @@ class FederatedSimulation:
                  for i in range(k)]
         self._chunked_epilogue(k, stacked, np.asarray(staged["mask_np"]), per_round_s,
                                start_round=start_round, cohort_infos=infos)
+        return trees
 
     # -- buffered-async routes (server/async_schedule.py) ----------------
     @staticmethod
@@ -1617,49 +2035,52 @@ class FederatedSimulation:
         return torch.tensor(float(getattr(self.strategy, "staleness_exponent", 0.0)),
                             dtype=torch.float32)
 
-    def _fit_async(self, n_events: int, mode: str, first: int) -> None:
-        """``fit``'s buffered-async route: a fresh static plan over this
-        call's ``n_events`` events (the async config's seed, the fault
-        plan's stragglers, the cohort), then its events from a new prologue,
-        numbered ``first..`` in ``history``."""
-        if self._cohort_active:
-            plan = build_registry_event_plan(self.async_config, n_events, self.n_clients,
-                                             self.registry_size, self._fault_plan)
-        else:
-            plan = build_event_plan(self.async_config, n_events, self.n_clients,
-                                    self._fault_plan)
-        self._async_plan = plan
+    def _fit_async(self, plan, mode: str, first: int, start_event: int = 1) -> None:
+        """``fit``'s buffered-async route over this call's static plan (the
+        async config's seed, the fault plan's stragglers, the cohort):
+        events ``start_event..`` (from a new prologue at 1, else from the
+        restored ``pending``), event ``e`` recorded as number
+        ``first + e - 1``."""
+        self._async_prefix_fps = None
+        if start_event > plan.n_events:
+            return  # the restored state covers every event asked for
+        if self._ckpt_every() is not None:
+            self._async_prefix_fps = plan_prefix_fingerprints(plan)
         if self._cohort_active:
             # seat swaps are host work between events: pipelined only
             self._fit_async_registry(plan, first)
         elif mode == EXEC_CHUNKED:
-            self._fit_async_chunked(plan, first)
+            self._fit_async_chunked(plan, first, start_event)
         else:
-            self._fit_async_pipelined(plan, first)
+            self._fit_async_pipelined(plan, first, start_event)
 
-    def _fit_async_pipelined(self, plan, first: int) -> None:
-        """Per-event route: the prologue fills ``pending``, then each event
-        dispatches consume, eval and restart while the ``RoundConsumer``
-        runs the previous event's epilogue and the ``RoundPrefetcher``
-        stages the next event's restart batches (data plan ``e+2``)."""
+    def _fit_async_pipelined(self, plan, first: int, start_event: int = 1) -> None:
+        """Per-event route: the prologue fills ``pending`` (a resumed run
+        has it restored instead), then each event dispatches consume, eval
+        and restart while the ``RoundConsumer`` runs the previous event's
+        epilogue and the ``RoundPrefetcher`` stages the next event's restart
+        batches (data plan ``e+2``)."""
         prologue, _ = self._async_programs()
         val_batches, val_counts = self._val_batches()
         self._fit_last_round = plan.n_events
-        consumer = self._consumer = RoundConsumer(maxsize=self.pipeline_depth)
-        prefetcher = self._prefetcher = RoundPrefetcher(self)
-        try:
-            self.client_states, self._async_pending = prologue(
-                self.server_state, self.client_states, self._round_batches(1), val_batches)
-            prefetcher.schedule(2)  # event e restarts on data plan e+1
-            for e in range(1, plan.n_events + 1):
-                consumer.raise_pending()
-                self._run_async_event(e, plan, first, val_batches, val_counts)
-            consumer.flush()
-        finally:
-            consumer.close()
-            prefetcher.close()
-            self._consumer = self._prefetcher = None
-            self._async_pending = None
+        with self._ckpt_writer_scope(self._ckpt_every() is not None):
+            consumer = self._consumer = RoundConsumer(maxsize=self.pipeline_depth)
+            prefetcher = self._prefetcher = RoundPrefetcher(self)
+            try:
+                if start_event == 1:
+                    self.client_states, self._async_pending = prologue(
+                        self.server_state, self.client_states, self._round_batches(1),
+                        val_batches)
+                prefetcher.schedule(start_event + 1)  # event e restarts on plan e+1
+                for e in range(start_event, plan.n_events + 1):
+                    consumer.raise_pending()
+                    self._run_async_event(e, plan, first, val_batches, val_counts)
+                consumer.flush()
+            finally:
+                consumer.close()
+                prefetcher.close()
+                self._consumer = self._prefetcher = None
+                self._async_pending = None
 
     def _run_async_event(self, e: int, plan, first: int, val_batches, val_counts) -> None:
         """The producer's half of event ``e``: its plan row and the staged
@@ -1679,10 +2100,19 @@ class FederatedSimulation:
             self.server_state, self.client_states, self._async_pending, batches_next,
             arrivals, staleness, e, val_batches, val_counts,
             self._staleness_exponent_input(), *(self._test_batches() or ()))
-        work = _RoundWork(round=first + e - 1, pull=HostPull({"mask": arrivals, **out}),
+        results = {"mask": arrivals, **out}
+        snap = self._round_snapshots(results, e, with_pending=True)
+        resume_meta = None
+        if snap is not None:
+            # the frame proves its plan: the consumed prefix's fingerprint
+            # and the virtual clock
+            resume_meta = {"plan_fingerprint": self._async_prefix_fps[e - 1],
+                           "virtual_time_s": float(plan.event_times[e - 1])}
+        work = _RoundWork(round=first + e - 1, pull=HostPull(results),
                           fit_elapsed_s=time.time() - t0,
                           eval_elapsed_s=0.0,  # eval is fused into the event
-                          async_info=self._async_event_info(plan, e - 1), event=e)
+                          async_info=self._async_event_info(plan, e - 1), event=e,
+                          snapshot_dtypes=snap, resume_meta=resume_meta)
         if consumer is None:  # no pipeline: the epilogue inline
             self._finish_round(work)
             return
@@ -1714,29 +2144,62 @@ class FederatedSimulation:
 
         return chunk
 
-    def _fit_async_chunked(self, plan, first: int) -> None:
-        """The chunked route over the whole plan: the prologue, one chunk
-        of every event (restart plans ``2..E+1``), one pull, and the shared
-        epilogue with each event's facts."""
-        t_start = time.time()
+    def _fit_async_chunked(self, plan, first: int, start_event: int = 1) -> None:
+        """The chunked route: the prologue (or the restored ``pending``),
+        then chunks of events (every event that remains, or
+        ``checkpoint_every`` under a state checkpointer, which saves server,
+        clients and ``pending`` at each boundary), each one pull and the
+        shared epilogue with each event's facts. Event ``e`` restarts on
+        data plan ``e+1``."""
+        sc = self.state_checkpointer
+        chunk_ckpt = self._ckpt_every() is not None
         prologue, _ = self._async_programs()
         val_batches, val_counts = self._val_batches()
-        k = plan.n_events
-        self.client_states, pending = prologue(
-            self.server_state, self.client_states, self._round_batches(1), val_batches)
-        plans = [self._round_plan(e + 1) for e in range(1, k + 1)]
-        idx, em, sm = (engine.host_to_device(np.stack([p[j] for p in plans]).astype(dtype),
-                                             self.device)
-                       for j, dtype in enumerate((np.int64, np.float32, np.float32)))
-        arrivals = engine.host_to_device(plan.arrivals, self.device)
-        staleness = engine.host_to_device(plan.staleness, self.device)
-        self.server_state, self.client_states, _, outs = self._make_async_chunked()(
-            self.server_state, self.client_states, pending, self._x_train_stack,
-            self._y_train_stack, idx, em, sm, arrivals, staleness, 1, val_batches,
-            val_counts, self._staleness_exponent_input(), *(self._test_batches() or ()))
-        stacked = HostPull(outs).result()  # the chunk's one pull
-        self._chunked_epilogue(k, stacked, plan.arrivals, (time.time() - t_start) / k,
-                               start_round=first, async_plan=plan)
+        n = plan.n_events
+        self._fit_last_round = n
+        if start_event == 1:
+            self.client_states, pending = prologue(
+                self.server_state, self.client_states, self._round_batches(1), val_batches)
+        else:
+            pending = self._async_pending  # restored mid-plan
+        self._async_pending = None
+        with self._ckpt_writer_scope(chunk_ckpt) as writer:
+            s = start_event
+            while s <= n:
+                k = self._rounds_per_dispatch(n, s)
+                t_start = time.time()
+                plans = [self._round_plan(e + 1) for e in range(s, s + k)]
+                idx, em, sm = (engine.host_to_device(
+                    np.stack([p[j] for p in plans]).astype(dtype), self.device)
+                    for j, dtype in enumerate((np.int64, np.float32, np.float32)))
+                arrivals = engine.host_to_device(plan.arrivals[s - 1:s - 1 + k], self.device)
+                staleness = engine.host_to_device(plan.staleness[s - 1:s - 1 + k],
+                                                  self.device)
+                self.server_state, self.client_states, pending, outs = (
+                    self._make_async_chunked()(
+                        self.server_state, self.client_states, pending,
+                        self._x_train_stack, self._y_train_stack, idx, em, sm, arrivals,
+                        staleness, s, val_batches, val_counts,
+                        self._staleness_exponent_input(), *(self._test_batches() or ())))
+                tree = {"outs": outs}
+                if chunk_ckpt:
+                    tree["_state_trees"] = {"server_state": self.server_state,
+                                            "client_states": self.client_states,
+                                            "pending": pending}
+                    dtypes = _dtypes(tree["_state_trees"])
+                host = HostPull(tree).result()  # the chunk's one pull
+                self._chunked_epilogue(k, host["outs"], plan.arrivals[s - 1:s - 1 + k],
+                                       (time.time() - t_start) / k,
+                                       start_round=first + s - 1, async_plan=plan,
+                                       first_event=s)
+                if chunk_ckpt:
+                    e_done = s + k - 1
+                    sc.save_async_snapshot(
+                        host_snapshot(host["_state_trees"], dtypes), e_done, self.n_clients,
+                        list(self.history),
+                        plan_fingerprint=self._async_prefix_fps[e_done - 1],
+                        virtual_time_s=float(plan.event_times[e_done - 1]), writer=writer)
+                s += k
 
     # -- buffered async over the registry (FedBuff x cohort slots) -------
     def _fit_async_registry(self, plan, first: int) -> None:

@@ -1,7 +1,9 @@
 """The port stands alone: no module of fl4health_tpu_torch, and none of
 chip_smoke.py and the port's tools (tools/torch_port_*.py) imports JAX,
-flax, optax or the JAX package, and the package imports with JAX made
-unimportable."""
+flax, optax, msgpack (the card's machine has none; the port writes flax's
+msgpack bytes itself) or the JAX package, the package imports with them
+made unimportable, and a crash-drill child (``python -m
+fl4health_tpu_torch.resilience.recovery``) loads none of them."""
 
 import ast
 import subprocess
@@ -11,7 +13,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "flax", "optax", "fl4health_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "fl4health_tpu")
 SOURCES = sorted((ROOT / "fl4health_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", *sorted((ROOT / "tools").glob("torch_port_*.py"))]
 
@@ -47,7 +49,9 @@ def test_sources_were_found():
             "data.py", "augment.py", "segmentation.py", "nnunet.py", "efficient.py",
             "aggregate.py", "registry.py", "registry_presets.py", "codecs.py",
             "config.py", "strategy.py", "async_schedule.py", "faults.py", "aggregators.py",
-            "fedbuff.py"} <= names
+            "fedbuff.py", "serialization.py", "state.py", "checkpointer.py",
+            "async_writer.py", "manifest.py", "recovery.py", "inference.py",
+            "medical.py"} <= names
 
 
 def test_package_imports_without_jax():
@@ -62,3 +66,17 @@ def test_package_imports_without_jax():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_drill_child_loads_no_jax(tmp_path):
+    import json
+
+    from fl4health_tpu_torch.resilience.recovery import run_child
+
+    spec = {"factory_file": str(ROOT / "tests" / "torch_recovery_factories.py"),
+            "factory_name": "probe_modules", "n_rounds": 2, "ckpt_dir": str(tmp_path / "ckpt"),
+            "out_dir": str(tmp_path / "out"), "kill": None, "device": "cpu"}
+    res = run_child(spec, str(tmp_path / "spec.json"))
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert json.loads((tmp_path / "ckpt" / "loaded_modules.json").read_text()) == []
+    assert [row["round"] for row in res.history] == [1, 2]
