@@ -249,6 +249,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      routes, the frames and the history bit-equal; a changed seed refused
      with JAX's message) and ``ckpt_card_to_cpu`` (a card frame resumed on
      the CPU within 5e-4 of the CPU's straight run).
+ 33. The observability slice, in the same deterministic block:
+     ``obs_dp_cifar_cnn`` (the DP path for 2 rounds on each route with
+     observability on: an output dir, the watchdog, the scrape endpoint;
+     the history and states bit-equal to the off run's, the routes'
+     telemetry bit-equal, 10 K1 and 80 K2 either way, ``fl_rounds_total
+     2`` and ``/healthz`` 200 scraped live at round 2; the JSONL event
+     names, the warm round's wall on and off in turns, the ring's and the
+     ledger's bytes), ``obs_halt_bundle`` (client 63's features NaN: the
+     watchdog halts naming round 1 and client 63 on both routes, one bundle
+     that ``load_bundle`` reads back with verdict ``training_health``,
+     ``/healthz`` 503 live), ``obs_cohort_dp_cifar_cnn`` (N 1,000 and
+     100,000, 64 slots, 2 chunked rounds: the ledger keyed by registry ids,
+     the ring's bytes equal at both N) and ``obs_sigterm_drill`` (the
+     checkpoint drill with a SIGTERM after round 2's frame: exit 143, a
+     ``sigterm`` bundle, a resume bit-equal to an unkilled child with the
+     frame's fleet ledger adopted). Phases 7, 8 and 16 run the telemetry
+     build (no fence, no recorder), for DP's clip fraction.
 ``fit`` takes its default route, ``execution_mode`` "auto": chunked unless
 something needs the host between rounds (a strict failure policy, a data
 provider), then pipelined. Neither waits for the device inside a round, so
@@ -1280,6 +1297,17 @@ def dp_batched_timings(dp) -> dict:
     return res
 
 
+def telemetry_build():
+    """An observability handle that switches on the telemetry build alone
+    (a private registry and tracer; no fence, recorder, ledger or output):
+    DP's clip fraction then rides the fit losses, as in JAX."""
+    from fl4health_tpu_torch.observability import MetricsRegistry, Observability, Tracer
+
+    return Observability(enabled=True, registry=MetricsRegistry(), tracer=Tracer(),
+                         sync_device=False, flight_recorder=False, fleet_ledger=False,
+                         introspection=False)
+
+
 def build_dp_sim(data, dtype, device, noise_multiplier, seed,
                  input_shape=(32, 32, 3), batch=BATCH, local_steps=LOCAL_STEPS, **sim_kw):
     from fl4health_tpu_torch import optim
@@ -1330,7 +1358,7 @@ def tiny_dp_parity(dp) -> None:
     runs = []
     for device in ("cuda", "cpu"):
         sim = build_dp_sim(data, torch.float32, device, 0.0, seed=3, batch=8,
-                           local_steps=2)
+                           local_steps=2, observability=telemetry_build())
         if runs:
             sim.set_global_params({k: v.cpu() for k, v in runs[0][2].items()})
         init = {k: v.clone() for k, v in sim.global_params.items()}
@@ -1359,7 +1387,9 @@ def dp_main_path(dp) -> dict:
     from fl4health_tpu_torch.server.servers import InstanceLevelDpServer
 
     data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
-    sim = build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0)
+    # the telemetry build, for the clip fraction (no fence, no recorder)
+    sim = build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                       observability=telemetry_build())
     server = InstanceLevelDpServer(sim, noise_multiplier=DP_SIGMA, batch_size=BATCH)
     init = {k: v.clone() for k, v in sim.global_params.items()}
     torch.cuda.synchronize()
@@ -2105,7 +2135,8 @@ def dp_scaffold_main_path(dp) -> dict:
     from fl4health_tpu_torch.server.servers import DpScaffoldServer
 
     data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
-    sim = build_alg_sim("dp_scaffold", data, "cuda", local_steps=LOCAL_STEPS)
+    sim = build_alg_sim("dp_scaffold", data, "cuda", local_steps=LOCAL_STEPS,
+                        observability=telemetry_build())
     server = DpScaffoldServer(sim, noise_multiplier=DP_SIGMA, batch_size=BATCH,
                               warm_start=True, delta=1 / (DP_CLIENTS * DP_TRAIN))
     init = {k: v.clone() for k, v in sim.global_params.items()}
@@ -3866,6 +3897,314 @@ def ckpt_card_to_cpu() -> dict:
 
 
 
+# -- the observability slice --------------------------------------------------
+
+OBS_ROUNDS = 2
+OBS_POISONED = DP_CLIENTS - 1  # the halt phase's NaN client
+
+
+def obs_handle(**kw):
+    """An enabled observability handle with a private registry and tracer
+    (the port has no compiled-program introspection: off)."""
+    from fl4health_tpu_torch.observability import MetricsRegistry, Observability, Tracer
+
+    return Observability(enabled=True, registry=MetricsRegistry(), tracer=Tracer(),
+                         introspection=False, **kw)
+
+
+def scrape(url: str) -> tuple[int, str]:
+    """One GET with a short timeout: (status, body)."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+class ScrapeAtRound:
+    """A reporter that scrapes the live endpoint when round ``rnd``'s report
+    arrives (its metrics are recorded before the reports)."""
+
+    def __init__(self, obs, rnd: int):
+        self.obs, self.rnd, self.seen = obs, rnd, {}
+
+    def report(self, payload, round=None):  # noqa: A002 (the reporters' API)
+        if round == self.rnd:
+            base = self.obs.scrape_url
+            self.seen = {"metrics": scrape(base + "/metrics"),
+                         "healthz": scrape(base + "/healthz")}
+
+    def shutdown(self):
+        pass
+
+
+def jsonl_events(directory: str) -> list:
+    with open(os.path.join(directory, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def trajectory_equal(a, b) -> bool:
+    """Two runs' losses, metrics and states bit for bit (the fit losses'
+    ``backward``: a telemetry build also averages DP's clip fraction)."""
+    return ([r.round for r in a.history] == [r.round for r in b.history]
+            and all(x.fit_losses["backward"] == y.fit_losses["backward"]
+                    and x.fit_metrics == y.fit_metrics and x.eval_losses == y.eval_losses
+                    and x.eval_metrics == y.eval_metrics
+                    for x, y in zip(a.history, b.history))
+            and states_equal(a, b))
+
+
+def obs_dp_cifar_cnn(dp) -> dict:
+    """``obs_dp_cifar_cnn``, deterministic flags: ``dp_cifar_cnn`` at full
+    width for 2 rounds on the chunked and on the pipelined route, with
+    observability on (an output dir, a ``HealthWatchdog(HealthPolicy())``,
+    the scrape endpoint on port 0) against the same-seed run with it off:
+    the histories and the states bit-equal, the two routes' telemetry
+    bit-equal, the clip fraction in [0, 1], the K1/K2 launches the off
+    run's; ``/metrics`` shows ``fl_rounds_total 2`` and ``/healthz`` 200 at
+    round 2's report. Readings: the JSONL event names, the warm round's wall
+    with observability on and off in turns, the ring's and the ledger's
+    bytes."""
+    from fl4health_tpu_torch.observability import HealthPolicy, HealthWatchdog
+
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    out = {"phase": "obs_dp_cifar_cnn", "clients": DP_CLIENTS, "rounds": OBS_ROUNDS}
+    telemetry, dirs = {}, []
+    for route in ("chunked", "pipelined"):
+        off = build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                           execution_mode=route)
+        launches = {"off": counted_fit(off, OBS_ROUNDS, dp)}
+        d = ckpt_dir(f"obs_{route}")
+        dirs.append(d)
+        obs = obs_handle(output_dir=d, watchdog=HealthWatchdog(HealthPolicy()), http_port=0)
+        probe = ScrapeAtRound(obs, OBS_ROUNDS)
+        on = build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                          execution_mode=route, observability=obs, reporters=[probe])
+        launches["on"] = counted_fit(on, OBS_ROUNDS, dp)
+        if launches["on"] != launches["off"] or launches["on"] != dp_launches(OBS_ROUNDS):
+            fail(f"obs_dp_cifar_cnn {route}: launches {launches}, expected "
+                 f"{dp_launches(OBS_ROUNDS)} on and off")
+        if not trajectory_equal(off, on):
+            fail(f"obs_dp_cifar_cnn {route}: observability on is not bit-equal to off")
+        events = jsonl_events(d)
+        tel = [{k: v for k, v in e.items() if k != "ts"} for e in events
+               if e["event"] == "telemetry"]
+        telemetry[route] = tel
+        clip = np.asarray([e["clip_fraction"] for e in tel], np.float64)
+        if len(tel) != OBS_ROUNDS or not np.all((clip >= 0) & (clip <= 1)):
+            fail(f"obs_dp_cifar_cnn {route}: telemetry {len(tel)} rounds, clip {clip}")
+        metrics, healthz = probe.seen.get("metrics"), probe.seen.get("healthz")
+        if (metrics is None or metrics[0] != 200
+                or "fl_rounds_total 2" not in metrics[1].splitlines()
+                or healthz != (200, "ok\n")):
+            fail(f"obs_dp_cifar_cnn {route}: live endpoint {metrics and metrics[0]}, "
+                 f"/healthz {healthz}")
+        # warm rounds, observability off and on in turns
+        w = {"off_s": [], "on_s": []}
+        for arm in ("off", "on", "on", "off"):
+            sim = on if arm == "on" else off
+            torch.cuda.synchronize()
+            t0 = time.time()
+            sim.fit(WARM_ROUNDS)
+            torch.cuda.synchronize()
+            w[f"{arm}_s"].append(time.time() - t0)
+        out[route] = {
+            "bit_equal": True, "launches": launches,
+            "event_names": sorted({e["event"] for e in events}),
+            "round_event_keys": sorted(next(e for e in events if e["event"] == "round")),
+            "clip_fraction_mean": [float(np.mean(e["clip_fraction"])) for e in tel],
+            "grad_norm_max": [float(np.max(e["grad_norm_max"])) for e in tel],
+            "warm_walls": {"rounds": WARM_ROUNDS, **w,
+                           "s_per_round_off": min(w["off_s"]) / WARM_ROUNDS,
+                           "s_per_round_on": min(w["on_s"]) / WARM_ROUNDS},
+            "ring_bytes": obs.flight_recorder.nbytes(),
+            "ledger_bytes": obs.fleet_ledger.nbytes(),
+            "metrics_healthz": [metrics[0], healthz[0]]}
+        del off, on
+    if telemetry["chunked"] != telemetry["pipelined"]:
+        fail("obs_dp_cifar_cnn: the chunked and pipelined routes' telemetry differ")
+    out["routes_telemetry_bit_equal"] = True
+    drop_dirs(*dirs)
+    print(card_line())
+    print(json.dumps(out))
+    return out
+
+
+def obs_halt_bundle(dp) -> dict:
+    """``obs_halt_bundle``: the same full-width run on both routes with
+    client 63's training features NaN and the watchdog halting on
+    non-finite values: ``fit`` raises ``TrainingHealthError`` naming round 1
+    and client 63, one bundle is published and ``load_bundle`` reads it back
+    (the ring frame's CRC intact) with verdict ``training_health``, and the
+    live ``/healthz`` answers 503 once the run is marked unhealthy."""
+    from fl4health_tpu_torch.observability import (HealthPolicy, HealthWatchdog,
+                                                   TrainingHealthError)
+    from fl4health_tpu_torch.observability.bundle import list_bundles, load_bundle
+    from fl4health_tpu_torch.server.simulation import ClientDataset
+
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    bad = data[OBS_POISONED]
+    data[OBS_POISONED] = ClientDataset(torch.full_like(bad.x_train, float("nan")),
+                                       bad.y_train, bad.x_val, bad.y_val)
+    out = {"phase": "obs_halt_bundle", "clients": DP_CLIENTS, "poisoned": OBS_POISONED}
+    for route in ("chunked", "pipelined"):
+        d = ckpt_dir(f"halt_{route}")
+        obs = obs_handle(output_dir=d, http_port=0,
+                         watchdog=HealthWatchdog(HealthPolicy(on_nonfinite="halt")))
+        probes = []
+        mark = obs.mark_unhealthy
+
+        def mark_and_probe(reason, obs=obs, mark=mark, probes=probes):
+            mark(reason)  # then the live endpoint, before fit() tears it down
+            probes.append(scrape(obs.scrape_url + "/healthz")[0])
+
+        obs.mark_unhealthy = mark_and_probe
+        sim = build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                           execution_mode=route, observability=obs)
+        dp.reset_launch_counts()
+        try:
+            sim.fit(OBS_ROUNDS)
+            fail(f"obs_halt_bundle {route}: fit did not halt")
+        except TrainingHealthError as e:
+            err = e
+        torch.cuda.synchronize()
+        if (err.round, err.clients, err.check) != (1, [OBS_POISONED], "nonfinite"):
+            fail(f"obs_halt_bundle {route}: halted at round {err.round}, clients "
+                 f"{err.clients}, check {err.check}")
+        bundles = list_bundles(d)
+        if len(bundles) != 1:
+            fail(f"obs_halt_bundle {route}: {len(bundles)} bundles published")
+        b = load_bundle(bundles[0])  # CRC-verifies the ring frame
+        v = b["verdict"]
+        if (v["kind"], v["round"], v["clients"]) != ("training_health", 1, [OBS_POISONED]):
+            fail(f"obs_halt_bundle {route}: verdict {v}")
+        if not probes or probes[0] != 503:
+            fail(f"obs_halt_bundle {route}: /healthz answered {probes}")
+        out[route] = {"verdict": {k: v[k] for k in ("kind", "round", "clients", "check")},
+                      "ring_rounds": b["ring_header"]["rounds"],
+                      "bundle_files": sorted(os.listdir(bundles[0])),
+                      "healthz": probes, "launches": dict(dp.LAUNCHES)}
+        drop_dirs(d)
+        del sim
+    print(json.dumps(out))
+    return out
+
+
+def obs_cohort_dp_cifar_cnn(dp, sources) -> dict:
+    """``obs_cohort_dp_cifar_cnn``: the cohort route at N 1,000 and N 100,000
+    (the registries of ``cohort_dp_cifar_cnn``), 64 slots, 2 rounds chunked,
+    observability on: the ledger's records keyed by registry ids, the ring's
+    bytes equal at both N, 5 K1 and 40 K2 launches a round."""
+    from fl4health_tpu_torch.server import simulation as tsim
+
+    out = {"phase": "obs_cohort_dp_cifar_cnn", "slots": COHORT_SLOTS, "rounds": OBS_ROUNDS}
+    for n in COHORT_SIZES:
+        obs = obs_handle()
+        sim = build_cohort_sim(sources[n], n, observability=obs)
+        mode = sim._select_execution_mode(OBS_ROUNDS)
+        if mode[0] != tsim.EXEC_CHUNKED:
+            fail(f"obs_cohort N={n}: 'auto' took {mode}")
+        launches = counted_fit(sim, OBS_ROUNDS, dp)
+        if launches != dp_launches(OBS_ROUNDS):
+            fail(f"obs_cohort N={n}: launches {launches}, expected {dp_launches(OBS_ROUNDS)}")
+        ledger = obs.fleet_ledger
+        ids = sorted(int(c["client_id"]) for c in ledger.snapshot()["clients"])
+        ring_ids = [np.asarray(e["registry_ids"]) for e in obs.flight_recorder.entries]
+        if (len(ids) > OBS_ROUNDS * COHORT_SLOTS or max(ids) >= n
+                or max(ids) < COHORT_SLOTS or not all(set(r.tolist()) <= set(ids)
+                                                      for r in ring_ids)):
+            fail(f"obs_cohort N={n}: ledger ids {ids[:8]}... (max {max(ids)})")
+        out[f"n_{n}"] = {"registry_size": n, "mode": list(mode), "launches": launches,
+                         "clients_seen": len(ledger), "max_id": max(ids),
+                         "ring_bytes": obs.flight_recorder.nbytes(),
+                         "ledger_bytes": ledger.nbytes()}
+        del sim
+        torch.cuda.empty_cache()
+    small, large = (out[f"n_{n}"] for n in COHORT_SIZES)
+    if small["ring_bytes"] != large["ring_bytes"]:
+        fail(f"obs_cohort: ring bytes {small['ring_bytes']} at N {COHORT_SIZES[0]}, "
+             f"{large['ring_bytes']} at N {COHORT_SIZES[-1]}")
+    print(json.dumps(out))
+    return out
+
+
+def drill_obs_dp_cifar_cnn(ckpt_dir_: str | None, device: str = "cuda"):
+    """The SIGTERM drill's children: ``drill_dp_cifar_cnn`` with
+    observability on (the flight recorder and the fleet ledger armed), its
+    artifacts and bundles beside the checkpoint directory (``<dir>_obs``)."""
+    deterministic_flags()
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    return ckpt_dp_sim(data, "chunked", ckpt_dir_,
+                       observability=obs_handle(output_dir=f"{ckpt_dir_}_obs"))
+
+
+def obs_sigterm_drill() -> dict:
+    """``obs_sigterm_drill``: ``ckpt_drill``'s drill with observability on and the
+    SIGTERM kill point right after round 2's frame: the killed child exits
+    143 with a ``sigterm`` bundle naming the round the signal arrived at
+    and round 2's generation to resume from; a fresh child resumes from
+    round 3, adopts the frame's fleet ledger (no client is new in rounds
+    3-4) and ends bit-equal (final params' bytes, loss history) to an
+    unkilled child."""
+    from fl4health_tpu_torch.observability.bundle import list_bundles, load_bundle
+    from fl4health_tpu_torch.resilience.recovery import run_child
+
+    root = ckpt_dir("sigterm")
+
+    def spec(tag, ckpt, kill=None):
+        return ({"factory_file": str(Path(__file__).resolve()),
+                 "factory_name": "drill_obs_dp_cifar_cnn", "n_rounds": CKPT_ROUNDS,
+                 "ckpt_dir": os.path.join(root, ckpt), "out_dir": os.path.join(root, tag),
+                 "kill": kill, "device": "cuda"}, os.path.join(root, f"{tag}.json"))
+
+    t0 = time.time()
+    with ThreadPoolExecutor(2) as pool:
+        straight, killed = [f.result() for f in [
+            pool.submit(run_child, *spec("straight", "straight_ckpt"), 600.0),
+            pool.submit(run_child, *spec("killed", "drill_ckpt",
+                                         {"round": CKPT_KILL, "signal_name": "SIGTERM"}),
+                        600.0)]]
+    w1 = time.time() - t0
+    if straight.returncode != 0 or killed.returncode != 143:
+        fail(f"obs_sigterm_drill: straight exited {straight.returncode}, killed "
+             f"{killed.returncode} (expected 143): {killed.stderr[-3000:]}")
+        raise SystemExit(1)
+    obs_dir = os.path.join(root, "drill_ckpt_obs")
+    bundles = list_bundles(obs_dir)
+    if len(bundles) != 1:
+        fail(f"obs_sigterm_drill: {len(bundles)} bundles")
+    v = load_bundle(bundles[0])["verdict"]
+    if (v["kind"] != "sigterm" or not CKPT_KILL <= v.get("round", 0) <= CKPT_ROUNDS
+            or v.get("resume", {}).get("round") != CKPT_KILL):
+        fail(f"obs_sigterm_drill: verdict {v}")
+    t0 = time.time()
+    resumed = run_child(*spec("resumed", "drill_ckpt"), 600.0)
+    w2 = time.time() - t0
+    if resumed.returncode != 0:
+        fail(f"obs_sigterm_drill: resumed child exited {resumed.returncode}: "
+             f"{resumed.stderr[-3000:]}")
+        raise SystemExit(1)
+    rounds = [e for e in jsonl_events(obs_dir) if e["event"] == "round"]
+    new = [(e["round"], e["participants_new"]) for e in rounds]
+    same = (resumed.params_bytes == straight.params_bytes
+            and resumed.history == straight.history)
+    if (not same or resumed.done["resume"]["next_round"] != CKPT_KILL + 1
+            or new != [(r, 0) for r in range(CKPT_KILL + 1, CKPT_ROUNDS + 1)]):
+        fail(f"obs_sigterm_drill: resumed equal={same}, resume {resumed.done['resume']}, "
+             f"new participants {new}")
+    out = {"phase": "obs_sigterm_drill", "rounds": CKPT_ROUNDS, "route": "chunked",
+           "kill_round": CKPT_KILL, "killed_exit": killed.returncode,
+           "verdict": {k: v.get(k) for k in ("kind", "round", "signal", "resume")},
+           "resumed_from": resumed.done["resume"], "resumed_equal": same,
+           "new_participants_after_resume": new, "wave_s": [w1, w2]}
+    drop_dirs(root)
+    print(json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: needs an NVIDIA card; torch.cuda.is_available() is false",
@@ -3970,6 +4309,12 @@ def main() -> int:
         ckpt_cohort = ckpt_cohort_dp_cifar_cnn(dp, cohort["sources"][COHORT_SIZES[0]])
         ckpt_async = ckpt_async_dp_cifar_cnn(dp)
         ckpt_card_to_cpu()
+        # the observability slice: on against off, the halt and its bundle,
+        # the cohort's ledger and ring, the SIGTERM drill
+        obs = obs_dp_cifar_cnn(dp)
+        obs_halt_bundle(dp)
+        obs_cohort_dp_cifar_cnn(dp, cohort["sources"])
+        obs_sigterm_drill()
     finally:
         torch.backends.cudnn.deterministic = deterministic
     del cohort
@@ -4049,6 +4394,9 @@ def main() -> int:
             "launches_ckpt_cohort_dp_cifar_cnn": ckpt_cohort["launches"]["resumed"][name],
             "launches_ckpt_async_dp_cifar_cnn":
                 ckpt_async["chunked"]["launches"]["resumed"][name],
+            # the observability slice: 2 rounds with observability on
+            # (chunked), equal to the off run's
+            "launches_obs_dp_cifar_cnn": obs["chunked"]["launches"]["on"][name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

@@ -29,8 +29,10 @@ load as format version 0. A frame written by either package reads in the
 other (``tests/test_torch_state_format.py``). A record class stored in a
 frame resolves only under ``fl4health_tpu_torch.*``: a frame written by JAX
 names JAX's ``RoundRecord``, which the port never imports, so its history
-restores through the port's template instead. The port's frames carry no
-fleet ledger (no ``"fleet"`` key), as JAX's do with the ledger off.
+restores through the port's template instead. With a fleet ledger armed
+(``observability``) a frame carries its snapshot under the host header's
+``"fleet"`` key, as JAX's do, and a restore hands it to
+``sim.adopt_fleet_snapshot`` (a frame without one clears the ledger).
 """
 
 from __future__ import annotations
@@ -553,19 +555,24 @@ class SimulationStateCheckpointer(StateCheckpointer):
 
     def save_simulation_snapshot(
         self, trees, current_round: int, n_clients: int, history,
-        writer=None,
+        writer=None, fleet=None,
     ) -> None:
         """Persist an explicit state snapshot, the round loops' entry point.
         ``trees`` must be copies the next round cannot overwrite (host numpy
         from the round's pull). With ``writer`` (an
         ``AsyncCheckpointWriter``) the serialize and write happen
-        off-thread; saves stay ordered because the writer is single-worker."""
+        off-thread; saves stay ordered because the writer is single-worker.
+        ``fleet``: the fleet ledger's JSON snapshot, taken at call time and
+        stored in the host header only when given, so ledger-off frames
+        keep their bytes."""
         host = {
             "kind": "sync",
             "current_round": current_round,
             "n_clients": n_clients,
             "history": list(history),
         }
+        if fleet is not None:
+            host["fleet"] = fleet
         kwargs = dict(
             trees=dict(trees),
             host=host,
@@ -580,11 +587,13 @@ class SimulationStateCheckpointer(StateCheckpointer):
     def save_async_snapshot(
         self, trees, event: int, n_clients: int, history,
         plan_fingerprint: str, virtual_time_s: float, writer=None,
+        fleet=None,
     ) -> None:
         """Persist a buffered-async snapshot: server state, client stack
         AND the in-flight ``pending`` update buffer, with the event cursor,
         virtual clock, and the fingerprint of the event plan's consumed
-        prefix (``server.async_schedule.plan_fingerprint``)."""
+        prefix (``server.async_schedule.plan_fingerprint``). ``fleet``: see
+        :meth:`save_simulation_snapshot`."""
         host = {
             "kind": "async",
             "current_event": event,
@@ -593,6 +602,8 @@ class SimulationStateCheckpointer(StateCheckpointer):
             "plan_fingerprint": plan_fingerprint,
             "virtual_time_s": float(virtual_time_s),
         }
+        if fleet is not None:
+            host["fleet"] = fleet
         kwargs = dict(
             trees=dict(trees),
             host=host,
@@ -606,7 +617,7 @@ class SimulationStateCheckpointer(StateCheckpointer):
 
     def save_cohort_snapshot(
         self, trees, current_round: int, slots: int, registry_size: int,
-        registry_rows: dict, history, writer=None,
+        registry_rows: dict, history, writer=None, fleet=None,
     ) -> None:
         """Persist a cohort-slot snapshot: the [slots]-shaped server/client
         state trees PLUS the registry's dirty rows (``ClientRegistry.
@@ -614,7 +625,8 @@ class SimulationStateCheckpointer(StateCheckpointer):
         ``TrainState`` and strategy rows, keyed by the registry ids stored
         in the frame header. ``n_clients`` in the header is the SLOT count
         (the restore template's shape); ``registry_size`` binds the frame
-        to its client population.
+        to its client population. ``fleet``: see
+        :meth:`save_simulation_snapshot`.
 
         Both cohort dispatch routes write this same frame: the pipelined
         path at its per-round cadence, the chunked path at chunk
@@ -645,6 +657,8 @@ class SimulationStateCheckpointer(StateCheckpointer):
             ],
             "history": list(history),
         }
+        if fleet is not None:
+            host["fleet"] = fleet
         kwargs = dict(
             trees=trees,
             host=host,
@@ -704,8 +718,17 @@ class SimulationStateCheckpointer(StateCheckpointer):
         sim.history = DataclassListSnapshotter().load(
             header.get("history"), self._history_template()
         )
+        self._adopt_fleet(sim, header)
         self.last_restore_info = info
         return int(header["current_round"]) + 1
+
+    @staticmethod
+    def _adopt_fleet(sim, header: dict) -> None:
+        """Hand the frame's fleet-ledger snapshot (None for a frame without
+        one, which clears the ledger) to the simulation: a resumed run
+        re-absorbs each replayed round exactly once."""
+        if hasattr(sim, "adopt_fleet_snapshot"):
+            sim.adopt_fleet_snapshot(header.get("fleet"))
 
     def _history_template(self):
         from fl4health_tpu_torch.server.simulation import RoundRecord
@@ -750,6 +773,7 @@ class SimulationStateCheckpointer(StateCheckpointer):
         sim.history = DataclassListSnapshotter().load(
             header.get("history"), self._history_template()
         )
+        self._adopt_fleet(sim, header)
         self.last_restore_info = info
         return int(header["current_round"]) + 1
 
@@ -802,6 +826,7 @@ class SimulationStateCheckpointer(StateCheckpointer):
         sim.history = DataclassListSnapshotter().load(
             header.get("history"), self._history_template()
         )
+        self._adopt_fleet(sim, header)
         self.last_restore_info = info
         return event + 1
 

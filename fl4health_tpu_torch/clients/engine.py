@@ -37,9 +37,14 @@ seeded with the scale through ``torch.func.vjp``, the gradients are
 unscaled in f32, a non-finite gradient skips the optimizer step (``keep *
 finite``) and the scaler state in ``TrainState.loss_scale`` advances on
 real steps only. A logic that computes its own gradients (DP) is refused
-under scaling. Left out here: ZeRO-2 microbatching and telemetry; and the
-algorithm hooks no ported logic overrides yet
-(``update_before_step``/``update_after_step``).
+under scaling. Left out here: ZeRO-2 microbatching; and the algorithm hooks
+no ported logic overrides yet (``update_before_step``/``update_after_step``).
+
+Telemetry (``collect_telemetry``, JAX's): each step also returns the global
+norm of the gradient the optimizer reads (``StepOutput.grad_norm``), and the
+train phases accumulate the executed steps' loss min/max and grad-norm
+sum/max (``telemetry_acc_*``) into a fifth output. The norm only reads the
+gradient, so a telemetry build trains bit for bit as the plain one.
 
 Data may be a tree: ``x`` (or ``y``) a dict of arrays that share axis 0
 (multi-input models, the reference's ``DictionaryDataset``); the stacking,
@@ -59,7 +64,7 @@ import torch.nn.functional as F
 from torch.func import functional_call
 
 from fl4health_tpu_torch import rng
-from fl4health_tpu_torch.core.pytree import tree_dataclass, tree_leaves, tree_map
+from fl4health_tpu_torch.core.pytree import global_norm, tree_dataclass, tree_leaves, tree_map
 from fl4health_tpu_torch.core.types import Params
 from fl4health_tpu_torch.losses.containers import LossMeter
 from fl4health_tpu_torch.metrics.base import MetricManager
@@ -104,6 +109,8 @@ class StepOutput:
     targets: torch.Tensor
     example_mask: torch.Tensor
     step_mask: torch.Tensor
+    # the optimizer's gradient's global norm, on a telemetry build only
+    grad_norm: Any = None
 
 
 # ---------------------------------------------------------------------------
@@ -258,10 +265,13 @@ def _mask_tree(new, old, keep: torch.Tensor):
 
 
 def make_train_step(logic: ClientLogic, tx: GradientTransformation,
-                    precision: Any = None):
+                    precision: Any = None, collect_telemetry: bool = False):
     """step(state, ctx, batch) -> (state, StepOutput). ``precision`` (a
     ``PrecisionConfig`` or None) is the mixed-precision policy; None or an
-    inactive config builds the step without it."""
+    inactive config builds the step without it. ``collect_telemetry`` fills
+    ``StepOutput.grad_norm`` with the global norm of the gradient after
+    ``transform_gradients`` (what the optimizer reads), in JAX's leaf
+    order; nothing reads it back."""
     precision = precision_policy.resolve(precision)
     if precision is not None and precision.casts_compute:
         logic = precision_policy.wrap_logic_compute(logic, precision.compute_torch_dtype)
@@ -320,6 +330,7 @@ def make_train_step(logic: ClientLogic, tx: GradientTransformation,
             targets=batch.y,
             example_mask=batch.example_mask * keep,
             step_mask=keep,
+            grad_norm=global_norm(grads) if collect_telemetry else None,
         )
         return new_state, out
 
@@ -330,27 +341,71 @@ def _step_slice(batches: Batch, s: int) -> Batch:
     return tree_map(lambda a: a[s], batches)
 
 
+# -- telemetry accumulation over the local steps (observability/telemetry.py) --
+
+def telemetry_acc_init(device: torch.device) -> dict:
+    """The accumulator of a client's loss min/max and grad-norm sum/max.
+    A NaN loss propagates through min/max: a poisoned step must show."""
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=device)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return {"loss_min": inf, "loss_max": -inf, "gn_sum": zero, "gn_max": zero}
+
+
+def telemetry_acc_update(acc: dict, out: StepOutput) -> dict:
+    loss = out.losses["backward"].to(torch.float32)
+    gn = out.grad_norm.to(torch.float32)
+    live = out.step_mask > 0  # padding steps must not move the stats
+    inf = torch.full_like(loss, float("inf"))
+    return {
+        "loss_min": torch.minimum(acc["loss_min"], torch.where(live, loss, inf)),
+        "loss_max": torch.maximum(acc["loss_max"], torch.where(live, loss, -inf)),
+        "gn_sum": acc["gn_sum"] + torch.where(live, gn, torch.zeros_like(gn)),
+        "gn_max": torch.maximum(acc["gn_max"], torch.where(live, gn, torch.zeros_like(gn))),
+    }
+
+
+def telemetry_acc_finalize(acc: dict, n_steps: torch.Tensor) -> dict:
+    """The engine's share of a ``RoundTelemetry`` row; a client that ran no
+    step reports NaN, not the init sentinels."""
+    ran = n_steps > 0
+    nan = torch.full_like(acc["loss_min"], float("nan"))
+    return {
+        "train_loss_min": torch.where(ran, acc["loss_min"], nan),
+        "train_loss_max": torch.where(ran, acc["loss_max"], nan),
+        "grad_norm_mean": torch.where(
+            ran, acc["gn_sum"] / torch.clamp(n_steps, min=1.0), nan),
+        "grad_norm_max": torch.where(ran, acc["gn_max"], nan),
+    }
+
+
 def make_local_train(logic: ClientLogic, tx: GradientTransformation,
                      metric_manager: MetricManager,
                      loss_keys: tuple[str, ...] = ("backward",),
-                     precision: Any = None):
+                     precision: Any = None, collect_telemetry: bool = False):
     """train(state, ctx, batches) -> (state, loss_dict, metric_dict, n_steps);
     ``batches`` carries a leading [steps] axis, walked by a Python loop.
-    ``precision`` reaches every step."""
-    step_fn = make_train_step(logic, tx, precision)
+    ``precision`` reaches every step. ``collect_telemetry`` appends a fifth
+    output, the engine's telemetry (``telemetry_acc_finalize``)."""
+    step_fn = make_train_step(logic, tx, precision, collect_telemetry)
 
     def train(state: TrainState, ctx: Any, batches: Batch):
         device = batches.step_mask.device
         meter = LossMeter.create(loss_keys, device)
         mstate = metric_manager.init(device)
+        acc = telemetry_acc_init(device) if collect_telemetry else None
         for s in range(batches.step_mask.shape[0]):
             state, out = step_fn(state, ctx, _step_slice(batches, s))
             meter = meter.update(out.losses, weight=out.step_mask)
             mstate = metric_manager.update(mstate, out.preds, out.targets,
                                            out.example_mask)
+            if collect_telemetry:
+                acc = telemetry_acc_update(acc, out)
         n_steps = batches.step_mask.sum()
         state = logic.finalize_round(state, ctx, n_steps)
-        return state, meter.compute(), metric_manager.compute(mstate), n_steps
+        outs = (state, meter.compute(), metric_manager.compute(mstate), n_steps)
+        if collect_telemetry:
+            return (*outs, telemetry_acc_finalize(acc, n_steps))
+        return outs
 
     return train
 
@@ -397,6 +452,7 @@ def make_local_train_with_early_stopping(
     config: EarlyStoppingConfig,
     loss_keys: tuple[str, ...] = ("backward",),
     precision: Any = None,
+    collect_telemetry: bool = False,
 ):
     """Early-stopped local training (the JAX engine's
     ``make_local_train_with_early_stopping``).
@@ -413,9 +469,10 @@ def make_local_train_with_early_stopping(
     a ``torch.where``.
 
     Returns train(state, ctx, batches, val_batches) with the outputs of
-    ``make_local_train``; ``n_steps`` counts the steps that ran unmasked.
-    ``precision`` reaches the train steps only."""
-    step_fn = make_train_step(logic, tx, precision)
+    ``make_local_train`` (the telemetry too, over the executed steps: a
+    stopped client's masked steps never touch it); ``n_steps`` counts the
+    steps that ran unmasked. ``precision`` reaches the train steps only."""
+    step_fn = make_train_step(logic, tx, precision, collect_telemetry)
     evaluate = make_local_eval(logic, metric_manager)
     interval, patience = config.interval_steps, config.patience
 
@@ -432,6 +489,7 @@ def make_local_train_with_early_stopping(
         bad = torch.zeros((), dtype=torch.int32, device=device)
         stopped = torch.zeros((), device=device)
         executed = torch.zeros((), device=device)
+        acc = telemetry_acc_init(device) if collect_telemetry else None
         for c in range(n_chunks):
             for s in range(c * interval, (c + 1) * interval):
                 batch = _step_slice(batches, s) if s < total else no_op
@@ -441,6 +499,8 @@ def make_local_train_with_early_stopping(
                 meter = meter.update(out.losses, weight=out.step_mask)
                 mstate = metric_manager.update(mstate, out.preds, out.targets,
                                                out.example_mask)
+                if collect_telemetry:
+                    acc = telemetry_acc_update(acc, out)
                 executed = executed + out.step_mask
             score = evaluate(state, ctx, val_batches)[0]["checkpoint"]
             live = stopped < 0.5
@@ -453,7 +513,10 @@ def make_local_train_with_early_stopping(
         # advanced key: randomness is never replayed
         state = dataclasses.replace(best_state, rng=state.rng)
         state = logic.finalize_round(state, ctx, executed)
-        return state, meter.compute(), metric_manager.compute(mstate), executed
+        outs = (state, meter.compute(), metric_manager.compute(mstate), executed)
+        if collect_telemetry:
+            return (*outs, telemetry_acc_finalize(acc, executed))
+        return outs
 
     return train
 

@@ -102,6 +102,9 @@ class CompressingStrategy(Strategy):
     def global_params(self, server_state: CompressedExchangeState):
         return self.inner.global_params(server_state.inner)
 
+    def divergence_reference(self, server_state: CompressedExchangeState):
+        return self.inner.divergence_reference(server_state.inner)
+
     def state_rows(self, server_state: CompressedExchangeState):
         """The residual rows (None without error feedback) and the inner
         strategy's rows: a client's residual follows it in and out of the

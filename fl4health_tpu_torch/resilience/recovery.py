@@ -20,9 +20,13 @@ the fall back to the previous generation.
 Child protocol: ``python -m fl4health_tpu_torch.resilience.recovery
 spec.json``, the spec naming a factory ``factory_file``/``factory_name``,
 ``factory(ckpt_dir)`` (or ``factory(ckpt_dir, device=...)`` where the spec
-has a ``"device"``) returning a ``FederatedSimulation``. Without the flight
-recorder, a ``SIGTERM`` kill point simply ends the child (JAX traps it and
-exits 143).
+has a ``"device"``) returning a ``FederatedSimulation``. A ``SIGTERM`` kill
+point (``signal_name="SIGTERM"``, ``post_save`` only) is the graceful
+preemption, as in JAX: with the simulation's flight recorder armed
+(``observability=Observability(...)``), ``fit`` traps the signal in the main
+thread as a ``SigtermShutdown``, publishes a postmortem bundle naming the
+round, and the child exits 143; without a recorder the signal ends the child
+(return code -15).
 """
 
 from __future__ import annotations
@@ -50,7 +54,9 @@ class KillPoint:
     previously published generation must survive), and
     ``phase="registry_scatter"`` at the ``round``-th registry scatter of a
     cohort run, before that round's rows and checkpoint persist.
-    ``signal_name`` is ``"SIGKILL"`` or ``"SIGTERM"`` (``post_save`` only)."""
+    ``signal_name`` is ``"SIGKILL"`` or ``"SIGTERM"`` (``post_save`` only:
+    the save may run on the writer thread; the trap raises in the main
+    thread)."""
 
     round: int
     phase: str = "post_save"

@@ -135,14 +135,33 @@ are then ``checkpoint_every`` rounds long; the frame is written on an
 registry's rows) and async frames (with ``pending``, mid-plan) resume on
 either route, bit for bit.
 
+Observability (``observability=Observability(...)``, JAX's facade;
+disabled by default): ``fit`` arms the handle, logs the ``execution_mode``
+event, builds the run manifest, traps SIGTERM while a flight recorder is
+armed, publishes a postmortem bundle on any abnormal end
+(``_dump_postmortem``) and shuts the handle down in its ``finally``. Each
+route opens JAX's spans and, with ``sync_device``, fences the device after
+its dispatches. With ``telemetry`` on, the round programs are their
+telemetry builds (``_fit_round_t``/``_eval_round_t``, the async programs'
+likewise): they also return the ``RoundTelemetry`` tree, which rides the
+round's (or the chunk's) one pull, and a logic's ``telemetry_loss_keys``
+(DP's ``clip_fraction``) enter the fit losses, as in JAX. Each round's
+epilogue absorbs the round into the fleet ledger (before the round's state
+frame, which then carries the ledger under ``"fleet"``), records JAX's
+``fl_*`` metrics, the ``round`` and ``telemetry`` JSONL events and the
+flight-recorder entry (``_record_round_metrics``), and lets the watchdog
+observe the telemetry last; the dense pipelined route samples the
+watchdog's quarantined clients out in ``configure_fit``.
+
 Departures: without a state checkpointer ``fit(n)`` runs ``n`` more
 rounds, numbered after ``history`` (under one, JAX's numbering: restore
-round ``c`` and run ``c+1..n``); a logic's ``telemetry_loss_keys`` are
-always averaged beside ``backward``; a round's facts (a cohort round's
-``cohort_info``, an async event's plan facts, the fault plan's
-``summarize_round`` under ``"fault"``, a save's stats under
-``"checkpoint"``) land in ``round_metrics``, where the observability
-records would read them. Left out here: observability, the rest of
+round ``c`` and run ``c+1..n``); a round's facts (a cohort round's
+``cohort_info`` with the pull's bytes and ms, an async event's plan facts,
+the fault plan's ``summarize_round`` under ``"fault"``, a save's stats
+under ``"checkpoint"``) also land in ``round_metrics``; ``profile_dir``
+and ``profile_round_idx`` write ``torch.profiler`` traces, not XProf; the
+compile counters count kernel-extension builds. Left out here: the
+compiled-program introspection, the operations plane, the rest of
 resilience (quarantine, the recovery supervisor), mesh placement, FLASH
 early stopping and the ``WandBReporter``; so of JAX's reasons for the
 pipelined route, only those of the features above apply.
@@ -176,7 +195,12 @@ from fl4health_tpu_torch.device import resolve_device
 from fl4health_tpu_torch.exchange.exchanger import FixedLayerExchanger, FullExchanger
 from fl4health_tpu_torch.metrics.aggregation import aggregate_metrics
 from fl4health_tpu_torch.metrics.base import MetricManager
-from fl4health_tpu_torch.observability.manifest import config_hash
+from fl4health_tpu_torch.observability import Observability, get_registry
+from fl4health_tpu_torch.observability import telemetry as telem
+from fl4health_tpu_torch.observability.cudamon import profile_round
+from fl4health_tpu_torch.observability.flightrec import trap_sigterm
+from fl4health_tpu_torch.observability.manifest import config_hash, run_manifest
+from fl4health_tpu_torch.observability.telemetry import RoundTelemetry
 from fl4health_tpu_torch.optim import GradientTransformation
 from fl4health_tpu_torch.precision.policy import PrecisionConfig
 from fl4health_tpu_torch.resilience.faults import FaultPlan
@@ -252,6 +276,23 @@ def host_snapshot(pulled, dtypes):
     dtype."""
     return ptu.tree_map(lambda a, dt: torch.from_numpy(np.array(a)).to(dt)
                         if dt == torch.bfloat16 else a, pulled, dtypes)
+
+
+def _account_wire(logical: int, wire: int, direction: str) -> None:
+    """``fl_wire_*`` accounting of the compressed exchange on the
+    process-wide registry, JAX's ``transport.codec.account_wire`` (the
+    transport is not ported): logical against wire bytes, and the ratio."""
+    reg = get_registry()
+    labels = {"direction": direction}
+    reg.counter("fl_wire_bytes_logical_total",
+                help="dense byte footprint of trees crossing the compressed codec",
+                labels=labels).inc(logical)
+    reg.counter("fl_wire_bytes_compressed_total",
+                help="actual wire bytes of compressed frames", labels=labels).inc(wire)
+    if wire > 0:
+        reg.gauge("fl_wire_compression_ratio",
+                  help="logical/wire byte ratio of the last compressed exchange",
+                  labels=labels).set(logical / wire)
 
 
 EXEC_PIPELINED = "pipelined_per_round"
@@ -351,6 +392,13 @@ class _RoundWork:
     # numbered after ``history``)
     async_info: dict | None = None
     event: int | None = None
+    # observability: the fenced device wait and the compile counters read
+    # by the producer around the round's dispatches
+    device_wait_s: float = 0.0
+    compiles_before: float = 0.0
+    compile_s_before: float = 0.0
+    compiles_after: float | None = None
+    compile_s_after: float | None = None
 
 
 class FederatedSimulation:
@@ -384,6 +432,8 @@ class FederatedSimulation:
         async_config: AsyncConfig | None = None,
         model_checkpointers: Sequence[tuple[Any, Any]] = (),
         state_checkpointer: Any = None,
+        profile_dir: str | None = None,
+        observability: Observability | None = None,
         device: str | torch.device = "cuda",
     ):
         if (local_epochs is None) == (local_steps is None):
@@ -412,7 +462,21 @@ class FederatedSimulation:
                 "precision must be a PrecisionConfig (or None); got "
                 f"{type(precision).__name__}: a duck-typed config would skip its checks")
         self.precision = precision
+        self._precision_active = bool(precision is not None and precision.active)
+        self._precision_scaling = bool(precision is not None and precision.scaling_active)
         self.device = resolve_device(device)
+        # fit() wraps its rounds in one torch.profiler capture written here
+        self.profile_dir = profile_dir
+        # a disabled handle's every hook is a no-op: no sync, no record
+        self.observability = observability or Observability(enabled=False)
+        self._telemetry_enabled = self.observability.telemetry_enabled
+        self._payload_bytes_cache: tuple[int, int] | None = None
+        self._wire_bytes_cache: int | None = None
+        self._active_execution_mode: str | None = None
+        # the newest round whose pipelined epilogue finished (the verdict's
+        # epilogues_through_round), and the round a SIGTERM arrived at
+        self._last_epilogue_round: int | None = None
+        self._sigterm_round: int | None = None
         self._extra_loss_keys = tuple(extra_loss_keys)
         self._eval_loss_keys = tuple(eval_loss_keys)
         self.reporters = list(reporters)
@@ -666,6 +730,12 @@ class FederatedSimulation:
         self._test_cache: tuple[Batch, torch.Tensor] | None = None
         self._init_states()
         self._fit_round, self._eval_round = self._build_round_fns()
+        # the telemetry builds (one more output each), dispatched by fit()
+        # when observability's telemetry is on
+        self._fit_round_t = self._eval_round_t = None
+        if self._telemetry_enabled:
+            self._fit_round_t, self._eval_round_t = self._build_round_fns(
+                collect_telemetry=True)
 
     # ------------------------------------------------------------------
     def _init_states(self) -> None:
@@ -733,28 +803,34 @@ class FederatedSimulation:
         self._x_train_stack, self._y_train_stack = new_x, new_y
 
     # ------------------------------------------------------------------
-    def _build_client_fns(self):
+    def _build_client_fns(self, collect_telemetry: bool = False):
         """(client_fit, client_eval) of one client: pull -> local train ->
-        push, and pull -> evaluate."""
+        push, and pull -> evaluate. The telemetry build's ``client_fit``
+        returns a fifth output, the client's telemetry row (the engine's
+        loss and grad-norm statistics, the update norm, the loss scaler's
+        skips), and trains bit for bit as the plain one."""
         logic, tx, exchanger = self.logic, self.tx, self.exchanger
         loss_keys = ("backward", *self._extra_keys())
-        # a logic's per-step statistics (DP's clip fraction) are averaged
-        # into the fit losses beside "backward"
-        loss_keys += tuple(k for k in getattr(logic, "telemetry_loss_keys", ())
-                           if k not in loss_keys)
+        if collect_telemetry:
+            # a logic's per-step statistics (DP's clip fraction) enter the
+            # loss meter on the telemetry build only, as in JAX
+            loss_keys += tuple(k for k in getattr(logic, "telemetry_loss_keys", ())
+                               if k not in loss_keys)
         if self.early_stopping is not None:
             train = engine.make_local_train_with_early_stopping(
                 logic, tx, self.metrics, self.early_stopping, loss_keys,
-                precision=self.precision)
+                precision=self.precision, collect_telemetry=collect_telemetry)
         else:
             plain_train = engine.make_local_train(logic, tx, self.metrics, loss_keys,
-                                                  precision=self.precision)
+                                                  precision=self.precision,
+                                                  collect_telemetry=collect_telemetry)
 
             def train(state, ctx, batches, val_batches):
                 return plain_train(state, ctx, batches)
         evaluate = engine.make_local_eval(logic, self.metrics,
                                           ("checkpoint", *self._eval_keys()))
         evaluate_after_fit = getattr(self.strategy, "evaluate_after_fit", False)
+        scaling_active = self._precision_scaling
 
         def client_fit(state: TrainState, payload, batches: Batch,
                        participate: torch.Tensor, val_batches: Batch):
@@ -762,17 +838,32 @@ class FederatedSimulation:
             pulled = exchanger.pull(payload_params(payload), state.params)
             state = dataclasses.replace(state, params=pulled)
             ctx = logic.init_round_context(state, payload)
-            new_state, losses, metrics, _ = train(state, ctx, batches, val_batches)
+            new_state, losses, metrics, _, *engine_telem = train(state, ctx, batches,
+                                                                 val_batches)
             if evaluate_after_fit:
                 # local validation before aggregation (FedDG-GA's
                 # evaluate_after_fit)
                 post_fit = evaluate(new_state, ctx, val_batches)[0]
                 losses = {**losses, "val_checkpoint_post_fit": post_fit["checkpoint"]}
+            client_telem = None
+            if collect_telemetry:
+                # the update norm of the TRAINED state against the pulled
+                # globals, before participation masking (the watchdog
+                # filters rows by the mask)
+                client_telem = {**engine_telem[0],
+                                "update_norm": telem.global_norm_diff(new_state.params,
+                                                                      pulled)}
             # non-participants neither pull nor train
             new_state = ptu.tree_map(
                 lambda n, o: torch.where(participate > 0, n, o), new_state, orig)
+            if collect_telemetry and scaling_active:
+                # the scaler's cumulative skipped steps, after masking
+                client_telem["loss_scale_skips"] = new_state.loss_scale["skipped"]
             pushed = exchanger.push(new_state.params, pulled)
-            return new_state, logic.pack(new_state, pushed, losses), losses, metrics
+            packet = logic.pack(new_state, pushed, losses)
+            if collect_telemetry:
+                return new_state, packet, losses, metrics, client_telem
+            return new_state, packet, losses, metrics
 
         def client_eval(state: TrainState, payload, batches: Batch):
             pulled = exchanger.pull(payload_params(payload), state.params)
@@ -783,11 +874,14 @@ class FederatedSimulation:
 
         return client_fit, client_eval
 
-    def _build_round_fns(self, client_axis=vmap_clients):
+    def _build_round_fns(self, client_axis=vmap_clients, collect_telemetry: bool = False):
         """(fit_round, eval_round), each running the clients through
         ``client_axis`` (``vmap_clients``; the tests pass
-        ``loop_clients``)."""
-        client_fit, client_eval = self._build_client_fns()
+        ``loop_clients``). With ``collect_telemetry`` each appends one
+        output: ``fit_round`` a ``RoundTelemetry``, ``eval_round`` the
+        per-client count of non-finite eval losses; the training math is
+        the plain build's."""
+        client_fit, client_eval = self._build_client_fns(collect_telemetry)
         fit_clients = client_axis(client_fit, (0, None, 0, 0, 0))
         eval_clients = client_axis(client_eval, (0, None, 0))
         strategy = self.strategy
@@ -807,7 +901,7 @@ class FederatedSimulation:
                 # a dropped client is an unsampled one: mask math only
                 mask = mask * fault_plan.participation_factor(round_idx, n_clients,
                                                               mask.device)
-            new_states, packets, losses, metrics = fit_clients(
+            new_states, packets, losses, metrics, *client_telem = fit_clients(
                 client_states, payload, batches, mask, val_batches)
             if inject_corruption:
                 # the wire update is corrupted, not the client's state:
@@ -822,7 +916,27 @@ class FederatedSimulation:
                                  mask=mask * finite.to(mask.dtype))
             new_server_state = strategy.aggregate(server_state, results, round_idx)
             agg_losses, agg_metrics = fit_summary(losses, metrics, results.mask, sample_counts)
-            return new_server_state, new_states, agg_losses, agg_metrics, losses
+            if not collect_telemetry:
+                return new_server_state, new_states, agg_losses, agg_metrics, losses
+            ct = client_telem[0]
+            train_loss = losses["backward"].to(torch.float32)
+            nan_row = torch.full_like(train_loss, float("nan"))
+            round_telemetry = RoundTelemetry(
+                train_loss=train_loss,
+                train_loss_min=ct["train_loss_min"],
+                train_loss_max=ct["train_loss_max"],
+                grad_norm_mean=ct["grad_norm_mean"],
+                grad_norm_max=ct["grad_norm_max"],
+                update_norm=ct["update_norm"],
+                clip_fraction=losses.get("clip_fraction", nan_row),
+                nonfinite_params=telem.per_client_nonfinite(new_states.params),
+                nonfinite_loss=telem.nonfinite_in_losses(losses),
+                divergence=telem.per_client_divergence(
+                    new_states.params, strategy.divergence_reference(new_server_state)),
+                nonfinite_eval_loss=torch.zeros_like(nan_row),
+                loss_scale_skips=ct.get("loss_scale_skips"))
+            return (new_server_state, new_states, agg_losses, agg_metrics, losses,
+                    round_telemetry)
 
         def eval_round(server_state, client_states, batches, eval_counts):
             gp = strategy.client_payload(server_state, 0)
@@ -830,12 +944,15 @@ class FederatedSimulation:
             agg_losses = {k: (v * eval_counts).sum() / torch.clamp(eval_counts.sum(), min=1.0)
                           for k, v in losses.items()}
             agg_metrics = aggregate_metrics(metrics, eval_counts)
+            if collect_telemetry:
+                return (new_states, agg_losses, agg_metrics, losses, metrics,
+                        telem.nonfinite_in_losses(losses))
             return new_states, agg_losses, agg_metrics, losses, metrics
 
         return fit_round, eval_round
 
     # -- buffered-async programs (server/async_schedule.py) -------------
-    def _build_async_fns(self):
+    def _build_async_fns(self, collect_telemetry: bool = False):
         """(async_prologue, async_event) of the buffered-async mode.
 
         One buffer-fill event takes the place of a synchronous round:
@@ -848,10 +965,13 @@ class FederatedSimulation:
         stay buffered). The prologue trains every client on plan 1 into
         ``pending``. The clients run ``client_fit`` (the synchronous
         rounds' client) and ``eval_round``, so with every arrival at
-        staleness 0 an event is a synchronous round bit for bit."""
-        client_fit, _ = self._build_client_fns()
+        staleness 0 an event is a synchronous round bit for bit. The
+        telemetry build carries each wave's client telemetry in ``pending``
+        (``"telem"``) and returns the CONSUMED updates' ``RoundTelemetry``
+        in the event's outputs, as JAX's does."""
+        client_fit, _ = self._build_client_fns(collect_telemetry)
         fit_clients = vmap_clients(client_fit, (0, None, 0, 0, 0))
-        eval_round = self._eval_round
+        eval_round = self._eval_round_t if collect_telemetry else self._eval_round
         strategy = self.strategy
         fault_plan, n_clients = self._fault_plan, self.n_clients
         inject_dropout = bool(fault_plan is not None and fault_plan.dropout_faults)
@@ -890,7 +1010,7 @@ class FederatedSimulation:
             corrupted with the synchronous round's draws. Returns the new
             client stack and the wave's pending pieces."""
             payload = strategy.client_payload(server_state, round_idx)
-            new_states, packets, losses, metrics = fit_clients(
+            new_states, packets, losses, metrics, *client_telem = fit_clients(
                 client_states, payload, batches, train_mask, val_batches)
             if inject_corruption:
                 packets = fault_plan.corrupt_packets(packets, payload_params(payload),
@@ -899,6 +1019,8 @@ class FederatedSimulation:
             if cohort_active:
                 pending["sample_counts"] = (sample_counts if wave_counts is None
                                             else wave_counts)
+            if collect_telemetry:
+                pending["telem"] = client_telem[0]
             return new_states, pending
 
         def merge_pending(old, new, arrivals):
@@ -939,12 +1061,37 @@ class FederatedSimulation:
             new_server = strategy.aggregate(server_state, results, event_idx)
             agg_losses, agg_metrics = fit_summary(pending["losses"], pending["metrics"],
                                                   results.mask, counts)
+            round_telemetry = None
+            if collect_telemetry:
+                # the CONSUMED updates' telemetry (like the loss record): the
+                # engine's statistics ride pending from train time; the
+                # divergence and non-finite counts read the live stack
+                # against the fresh aggregate
+                pt = pending["telem"]
+                train_loss = pending["losses"]["backward"].to(torch.float32)
+                nan_row = torch.full_like(train_loss, float("nan"))
+                round_telemetry = RoundTelemetry(
+                    train_loss=train_loss,
+                    train_loss_min=pt["train_loss_min"],
+                    train_loss_max=pt["train_loss_max"],
+                    grad_norm_mean=pt["grad_norm_mean"],
+                    grad_norm_max=pt["grad_norm_max"],
+                    update_norm=pt["update_norm"],
+                    clip_fraction=pending["losses"].get("clip_fraction", nan_row),
+                    nonfinite_params=telem.per_client_nonfinite(client_states.params),
+                    nonfinite_loss=telem.nonfinite_in_losses(pending["losses"]),
+                    divergence=telem.per_client_divergence(
+                        client_states.params, strategy.divergence_reference(new_server)),
+                    nonfinite_eval_loss=torch.zeros_like(nan_row),
+                    loss_scale_skips=pt.get("loss_scale_skips"))
             # -- eval: the fresh global, as a synchronous round -----------
-            client_states, ev_losses, ev_metrics, _, _ = eval_round(
+            client_states, ev_losses, ev_metrics, _, _, *ev_nonfinite = eval_round(
                 new_server, client_states, val_batches, val_counts)
             out = {"fit_losses": agg_losses, "fit_metrics": agg_metrics,
                    "per_client_fit_losses": pending["losses"],
                    "eval_losses": ev_losses, "eval_metrics": ev_metrics}
+            if round_telemetry is not None:
+                out["telemetry"] = round_telemetry.replace(nonfinite_eval_loss=ev_nonfinite[0])
             if test_batches is not None:
                 client_states, out["test_losses"], out["test_metrics"] = eval_round(
                     new_server, client_states, test_batches, test_counts)[:3]
@@ -959,9 +1106,10 @@ class FederatedSimulation:
         return async_prologue, async_event
 
     def _async_programs(self):
-        """The async programs, built once a simulation."""
+        """The async programs (their telemetry build when telemetry is on),
+        built once a simulation."""
         if self._async_fns is None:
-            self._async_fns = self._build_async_fns()
+            self._async_fns = self._build_async_fns(self._telemetry_enabled)
         return self._async_fns
 
     def _extra_keys(self) -> tuple[str, ...]:
@@ -1048,6 +1196,15 @@ class FederatedSimulation:
                     "per-round state)")
         if not self.failure_policy.accept_failures:
             return "accept_failures=False must be able to terminate mid-run"
+        obs = self.observability
+        if (obs.enabled and obs.profile_round_idx is not None
+                and obs.output_dir is not None):
+            # without an output_dir maybe_profile() captures nothing
+            return ("opt-in XProf capture (profile_round_idx) wraps one "
+                    "round's dispatch")
+        if obs.enabled and obs.per_round_spans:
+            return ("per-round span fencing requested "
+                    "(Observability(per_round_spans=True))")
         if self._strategy_consumes_eval():
             return ("strategy overrides update_after_eval (host-side "
                     "per-round eval consumption)")
@@ -1090,8 +1247,32 @@ class FederatedSimulation:
         restores the newest good generation (round ``c``) where one exists
         and runs rounds ``c+1..n`` (``1..n`` on a fresh start), so a run
         killed after round ``c`` and rebuilt on the same directory goes on
-        where it stopped."""
+        where it stopped. With ``profile_dir`` the whole call runs under
+        one ``torch.profiler`` capture written there."""
+        if self.profile_dir is not None:
+            with profile_round(self.profile_dir):
+                return self._fit_loop(n_rounds)
+        return self._fit_loop(n_rounds)
+
+    def _fit_loop(self, n_rounds: int) -> list[RoundRecord]:
+        """``fit``'s body, JAX's ``_fit_loop``: arm the observability handle
+        (an empty recorder and ledger), pick the route, resume, log the
+        ``execution_mode`` event and the manifest, trap SIGTERM while a
+        recorder is armed, run the route, publish a postmortem bundle on any
+        abnormal end, and shut the handle down whatever happens."""
+        obs = self.observability
+        obs.start()  # re-arm after a previous fit()'s shutdown
+        flight = obs.flight_recorder if obs.enabled else None
+        if flight is not None:
+            flight.clear()  # the black box records THIS run only
+        fleet = obs.fleet_ledger if obs.enabled else None
+        if fleet is not None:
+            # a resume below adopts the frame's ledger, so replayed rounds
+            # absorb exactly once
+            fleet.clear()
+        self._last_epilogue_round = None
         mode, reason = self._select_execution_mode(n_rounds)
+        self._active_execution_mode = mode
         logging.getLogger(__name__).info("fit: execution_mode=%s (%s)", mode, reason)
         # the async plan comes first: a resume checks its consumed prefix
         plan = None
@@ -1103,39 +1284,136 @@ class FederatedSimulation:
                 plan = build_event_plan(self.async_config, n_rounds, self.n_clients,
                                         self._fault_plan)
             self._async_plan = plan
-        start = self._maybe_resume(n_rounds, plan)
+        try:
+            start = self._maybe_resume(n_rounds, plan)
+        except BaseException as resume_exc:
+            # a failed restore is a postmortem too
+            self._dump_postmortem(resume_exc)
+            obs.shutdown()
+            raise
+        if obs.watchdog is not None and not self._telemetry_enabled:
+            logging.getLogger(__name__).warning(
+                "HealthWatchdog attached but in-graph telemetry is off "
+                "(Observability(enabled=%s, telemetry=%s)) — no health "
+                "checks will run.", obs.enabled, obs.telemetry)
+        if obs.enabled:
+            obs.log_event("execution_mode", mode=mode, reason=reason)
+            try:
+                extra = ({"resume": dict(self._resume_info)}
+                         if self._resume_info is not None else None)
+                obs.update_manifest(run_manifest(
+                    execution_mode=mode, execution_mode_reason=reason, device=self.device,
+                    config=self._manifest_config(n_rounds), extra=extra))
+            except Exception:
+                logging.getLogger(__name__).warning("run manifest construction failed",
+                                                    exc_info=True)
+            # the payload byte counts, on this thread: the epilogues read the
+            # cache
+            self._payload_nbytes()
+        if flight is not None:
+            facts: dict[str, Any] = {"execution_mode": mode, "execution_mode_reason": reason,
+                                     "n_rounds": n_rounds, "start_round": start,
+                                     "config_hash": obs.manifest.get("config_hash")}
+            if self._cohort_active:
+                facts["cohort_slots"] = self.n_clients
+                facts["registry_size"] = self.registry_size
+            if self._async_active:
+                facts["async"] = True
+            flight.set_run_facts(**facts)
         for rep in self.reporters:
             rep.report({"host_type": "server", "fit_start": time.time(),
                         "num_rounds": n_rounds, "execution_mode": mode,
                         "execution_mode_reason": reason})
-        if n_rounds >= 1:
-            if self.state_checkpointer is not None:
-                first, last = start, n_rounds
-            else:
-                first = len(self.history) + 1
-                last = first + n_rounds - 1
-            self._fit_last_round = last
-            if self._async_active:
-                # event e's record is number first + e - 1: e itself under a
-                # checkpointer (JAX's numbering), else after ``history``
-                self._fit_async(plan, mode, 1 if self.state_checkpointer is not None
-                                else first, start)
-            elif self._cohort_active:
-                (self._fit_cohort_chunked if mode == EXEC_CHUNKED
-                 else self._fit_cohort)(first, last)
-            elif mode == EXEC_CHUNKED:
-                self._fit_chunked(first, last)
-            else:
-                self._fit_pipelined(first, last)
+        self._sigterm_round = None
+
+        def _note_sigterm() -> None:
+            # inside the signal handler: the round the run was at, read
+            # without the recorder's lock (the handler may interrupt the
+            # thread that holds it)
+            if flight is not None:
+                self._sigterm_round = flight.last_round_hint
+
+        try:
+            # a SIGTERM becomes a SigtermShutdown raised in this thread, so
+            # every finally (the writer, the consumer) runs, the bundle is
+            # published below and the process exits 143
+            with (trap_sigterm(on_signal=_note_sigterm) if flight is not None
+                  else contextlib.nullcontext()):
+                self._run_route(n_rounds, mode, plan, start)
+        except BaseException as e:
+            self._dump_postmortem(e)
+            raise
+        finally:
+            # always: the failed run's trace and metrics are the ones most
+            # wanted on disk
+            artifacts = obs.shutdown()
         for rep in self.reporters:
+            if artifacts:
+                rep.report({"observability_artifacts": dict(artifacts)})
             rep.report({"fit_end": time.time()})
             rep.shutdown()
         return self.history
 
+    def _run_route(self, n_rounds: int, mode: str, plan, start: int) -> None:
+        """The rounds of one ``fit`` call through the selected route."""
+        if n_rounds < 1:
+            return
+        if self.state_checkpointer is not None:
+            first, last = start, n_rounds
+        else:
+            first = len(self.history) + 1
+            last = first + n_rounds - 1
+        self._fit_last_round = last
+        if self._async_active:
+            # event e's record is number first + e - 1: e itself under a
+            # checkpointer (JAX's numbering), else after ``history``
+            self._fit_async(plan, mode, 1 if self.state_checkpointer is not None
+                            else first, start)
+        elif self._cohort_active:
+            (self._fit_cohort_chunked if mode == EXEC_CHUNKED
+             else self._fit_cohort)(first, last)
+        elif mode == EXEC_CHUNKED:
+            self._fit_chunked(first, last)
+        else:
+            self._fit_pipelined(first, last)
+
+    def _dump_postmortem(self, exc: BaseException) -> None:
+        """Publish a postmortem bundle for an abnormal end of ``fit``
+        (``observability/bundle.py``): classify ``exc`` into a verdict,
+        publish ``postmortem_<ts>/`` under the output dir and flip
+        ``/healthz`` to 503. By the time ``exc`` reaches here the routes'
+        ``finally`` blocks have closed the consumer (draining its epilogues
+        into the ring) and drained the checkpoint writer, so the ring and
+        the newest good generation are as complete as the process can make
+        them. Never raises: the primary failure propagates untouched."""
+        obs = self.observability
+        if not obs.enabled or obs.output_dir is None:
+            return
+        try:
+            from fl4health_tpu_torch.observability.bundle import verdict_from_exception
+
+            verdict = verdict_from_exception(exc, recorder=obs.flight_recorder)
+            if verdict.get("kind") == "sigterm" and self._sigterm_round is not None:
+                # the handler's reading wins: drains during the unwind may
+                # have recorded later rounds
+                verdict["round"] = self._sigterm_round
+            if self._last_epilogue_round is not None:
+                verdict["epilogues_through_round"] = self._last_epilogue_round
+            path = obs.dump_bundle(verdict)
+            if path:
+                obs.log_event("postmortem", path=path, kind=verdict.get("kind"),
+                              round=verdict.get("round"))
+                logging.getLogger(__name__).warning(
+                    "abnormal end (%s) — postmortem bundle published at %s",
+                    verdict.get("kind"), path)
+        except Exception:
+            logging.getLogger(__name__).warning(
+                "postmortem bundle dump failed (the primary exception propagates)",
+                exc_info=True)
+
     # -- crash-consistent checkpoint and resume -------------------------
     def _manifest_config(self, n_rounds: int) -> dict:
-        """The run's JSON-able config facts, as JAX's manifest lists them
-        (``telemetry`` is always off here)."""
+        """The run's JSON-able config facts, as JAX's manifest lists them."""
         config = {
             "n_clients": self.n_clients,
             "batch_size": self.batch_size,
@@ -1146,7 +1424,7 @@ class FederatedSimulation:
             "exchanger": type(self.exchanger).__name__,
             "client_manager": type(self.client_manager).__name__,
             "execution_mode": self.execution_mode,
-            "telemetry": False,
+            "telemetry": self._telemetry_enabled,
             "compression": (self.compression.describe()
                             if self.compression is not None and self.compression.enabled
                             else None),
@@ -1248,6 +1526,17 @@ class FederatedSimulation:
             self._resume_info.update(path=info.path, generation=info.generation,
                                      bytes=info.nbytes,
                                      fallback_skipped=list(info.fallback_skipped))
+        obs = self.observability
+        if obs.enabled:
+            reg = obs.registry
+            reg.counter("fl_ckpt_restores_total",
+                        help="state-checkpoint restores (resumed runs)").inc()
+            if info is not None and info.fallback_skipped:
+                reg.counter("fl_ckpt_fallbacks_total",
+                            help="corrupt checkpoint generations skipped by the "
+                                 "retention-ring fallback at restore",
+                            ).inc(len(info.fallback_skipped))
+            obs.log_event("resume", **self._resume_info)
         logging.getLogger(__name__).info("resumed from checkpoint: next %s %d",
                                          "event" if self._async_active else "round", start)
         return start
@@ -1255,14 +1544,44 @@ class FederatedSimulation:
     def _note_checkpoint(self, stats: dict) -> None:
         """The state checkpointer's save stats (path, generation, bytes,
         write_s, ...) into the saved round's ``round_metrics`` entry under
-        ``"checkpoint"``, where JAX's ``fl_ckpt_*`` metrics read them. Runs
-        on whichever thread wrote the frame."""
+        ``"checkpoint"``, and JAX's ``fl_ckpt_*`` metrics, ``checkpoint``
+        event and recorder note (``_emit_checkpoint_stats``). Runs on
+        whichever thread wrote the frame."""
         rnd = stats.get("round")
         entry = next((m for m in reversed(self.round_metrics) if m.get("round") == rnd), None)
         if entry is None:
             self.round_metrics.append({"round": rnd, "checkpoint": dict(stats)})
         else:
             entry["checkpoint"] = dict(stats)
+        self._emit_checkpoint_stats(stats)
+
+    def _emit_checkpoint_stats(self, stats: dict) -> None:
+        """``fl_ckpt_*`` metrics and one ``checkpoint`` JSONL event a durable
+        save, and the flight recorder's "what to resume from" note."""
+        obs = self.observability
+        if not obs.enabled:
+            return
+        reg = obs.registry
+        write_s = float(stats.get("write_s", 0.0))
+        reg.counter("fl_ckpt_writes_total", help="durable state-checkpoint writes").inc()
+        reg.counter("fl_ckpt_bytes_written_total",
+                    help="bytes of durable state-checkpoint frames written",
+                    ).inc(int(stats.get("bytes", 0)))
+        reg.counter("fl_ckpt_write_seconds_total",
+                    help="wall seconds spent serializing+writing state checkpoints "
+                         "(off the round loop under the async writer)").inc(write_s)
+        reg.gauge("fl_ckpt_last_write_ms",
+                  help="wall milliseconds of the most recent checkpoint write",
+                  ).set(write_s * 1000.0)
+        reg.gauge("fl_ckpt_generation",
+                  help="newest durable checkpoint generation in the retention ring",
+                  ).set(float(stats.get("generation", 0)))
+        reg.log_event("checkpoint", round=stats.get("round"),
+                      generation=stats.get("generation"), bytes=stats.get("bytes"),
+                      write_ms=round(write_s * 1000.0, 3), path=stats.get("path"),
+                      kind=stats.get("kind", "sync"))
+        if obs.flight_recorder is not None:
+            obs.flight_recorder.note_checkpoint(stats)
 
     def _close_ckpt_writer(self, writer) -> None:
         """Close the writer on every exit path and raise its stored failure,
@@ -1320,7 +1639,9 @@ class FederatedSimulation:
         """Rounds ``first..last``: this thread dispatches each round and
         submits its host epilogue to a ``RoundConsumer``; a
         ``RoundPrefetcher`` stages the next round's batches meanwhile."""
-        val_batches, val_counts = self._val_batches()
+        obs = self.observability
+        with obs.span("setup", cat="fit"):
+            val_batches, val_counts = self._val_batches()
         self._fit_last_round = last
         # the writer scope flushes on a clean exit and, on an error, drains
         # and raises write failures without masking the error
@@ -1334,64 +1655,124 @@ class FederatedSimulation:
                     prefetcher.schedule(first)
                 for rnd in range(first, last + 1):
                     consumer.raise_pending()
-                    self._run_round(rnd, val_batches, val_counts)
+                    with obs.maybe_profile(rnd):
+                        self._run_round(rnd, val_batches, val_counts)
                 consumer.flush()  # barrier: every round's epilogue has run
             finally:
                 consumer.close()
                 prefetcher.close()
+                # for the verdict: the newest round whose epilogue finished
+                self._last_epilogue_round = consumer.last_completed_round
                 self._consumer = self._prefetcher = None
+
+    def _round_fns(self):
+        """(fit_round, eval_round, telemetry_on): the telemetry builds when
+        telemetry is on, else the plain ones (read at call time, so a test's
+        swap of ``_fit_round`` reaches the plain routes)."""
+        if self._telemetry_enabled:
+            return self._fit_round_t, self._eval_round_t, True
+        return self._fit_round, self._eval_round, False
+
+    def _compile_counts(self) -> tuple[float, float]:
+        """The compile counters (kernel-extension builds and their seconds)
+        where observability is on, else zeros."""
+        obs = self.observability
+        if not obs.enabled:
+            return 0.0, 0.0
+        return (obs.registry.counter("jax_backend_compiles_total").value,
+                obs.registry.counter("jax_backend_compiles_seconds_total").value)
+
+    def _snapshot_span(self, rnd: int, what: str):
+        """The ``state_snapshot`` span where the round sends trees to a
+        checkpointer, else no span."""
+        if self.model_checkpointers or self._checkpoint_due(rnd):
+            return self.observability.span("state_snapshot", round=rnd, what=what)
+        return contextlib.nullcontext()
 
     def _run_round(self, rnd: int, val_batches, val_counts) -> None:
         """The producer's half of a round: sample, dispatch fit, eval (and
         the test eval) and ``update_after_eval``, start the results' pull,
         and hand the round to the consumer. Nothing here waits for the
-        device."""
+        device, unless observability fences it (``sync_device``)."""
+        obs = self.observability
         consumer, prefetcher = self._consumer, self._prefetcher
+        fit_round, eval_round, telemetry_on = self._round_fns()
+        compiles_before, compile_s_before = self._compile_counts()
+        device_wait_s = 0.0
         t0 = time.time()
-        if self.train_data_provider is not None:
-            fresh = self.train_data_provider(rnd)
-            if fresh is not None:
-                self.set_train_data(*fresh)
-        mask = self.client_manager.sample(rng.fold_in(self.rng, 2000 + rnd), rnd)
-        batches = (prefetcher.take(rnd) if prefetcher is not None
-                   else self._round_batches(rnd))
-        if prefetcher is not None and rnd < self._fit_last_round:
-            prefetcher.schedule(rnd + 1)  # stage round r+1 while round r runs
-        (self.server_state, self.client_states, fit_losses, fit_metrics,
-         per_client_fit_losses) = self._fit_round(
-            self.server_state, self.client_states, batches, mask, rnd, val_batches)
-        # the clients' trained params, before eval replaces them with the
-        # global model (a pre-aggregation checkpointer's tree)
-        post_fit_params = self.client_states.params
-        t1 = time.time()
-        (self.client_states, eval_losses, eval_metrics, per_client_eval_losses,
-         per_client_eval_metrics) = self._eval_round(
-            self.server_state, self.client_states, val_batches, val_counts)
-        self.server_state = self.strategy.update_after_eval(
-            self.server_state, per_client_eval_losses, per_client_eval_metrics, mask)
-        results = {"mask": mask, "fit_losses": fit_losses, "fit_metrics": fit_metrics,
-                   "per_client_fit_losses": per_client_fit_losses,
-                   "eval_losses": eval_losses, "eval_metrics": eval_metrics}
-        test = self._test_batches()
-        if test is not None:
-            # the same aggregated model on the test split, its keys
-            # "test - "-prefixed beside the val keys
-            self.client_states, results["test_losses"], results["test_metrics"] = (
-                self._eval_round(self.server_state, self.client_states, *test)[:3])
-        snap = self._round_snapshots(results, rnd, post_fit_params)
-        work = _RoundWork(round=rnd, pull=HostPull(results), fit_elapsed_s=t1 - t0,
-                          eval_elapsed_s=time.time() - t1, snapshot_dtypes=snap)
-        if consumer is None:  # no pipeline: the epilogue inline
-            self._finish_round(work)
-            return
-        consumer.submit_round(rnd, functools.partial(self._finish_round, work))
-        legacy_state_save = (self.state_checkpointer is not None
-                             and not hasattr(self.state_checkpointer,
-                                             "save_simulation_snapshot"))
-        if legacy_state_save or not self.failure_policy.accept_failures:
-            # the legacy checkpointer reads the live state, and the failure
-            # screen must end the run: both before the next round dispatches
-            consumer.flush()
+        with obs.span("round", round=rnd):
+            with obs.span("configure_fit", round=rnd):
+                if self.train_data_provider is not None:
+                    fresh = self.train_data_provider(rnd)
+                    if fresh is not None:
+                        self.set_train_data(*fresh)
+                mask = self.client_manager.sample(rng.fold_in(self.rng, 2000 + rnd), rnd)
+                if obs.watchdog is not None:
+                    # the watchdog's quarantined clients are sampled out of
+                    # later rounds (None while nothing is quarantined)
+                    keep = obs.watchdog.quarantine_keep_mask(self.n_clients)
+                    if keep is not None:
+                        mask = mask * torch.as_tensor(np.asarray(keep, np.float32),
+                                                      device=mask.device)
+                batches = (prefetcher.take(rnd) if prefetcher is not None
+                           else self._round_batches(rnd))
+            if prefetcher is not None and rnd < self._fit_last_round:
+                prefetcher.schedule(rnd + 1)  # stage round r+1 while round r runs
+            with obs.span("fit_round", round=rnd) as fit_span:
+                (self.server_state, self.client_states, fit_losses, fit_metrics,
+                 per_client_fit_losses, *telemetry) = fit_round(
+                    self.server_state, self.client_states, batches, mask, rnd, val_batches)
+                _, wait = obs.fence((fit_losses, fit_metrics, per_client_fit_losses))
+                device_wait_s += wait
+                fit_span.set(device_wait_s=wait)
+            # the clients' trained params, before eval replaces them with the
+            # global model (a pre-aggregation checkpointer's tree)
+            post_fit_params = self.client_states.params
+            t1 = time.time()
+            with obs.span("eval_round", round=rnd) as eval_span:
+                (self.client_states, eval_losses, eval_metrics, per_client_eval_losses,
+                 per_client_eval_metrics, *ev_nonfinite) = eval_round(
+                    self.server_state, self.client_states, val_batches, val_counts)
+                self.server_state = self.strategy.update_after_eval(
+                    self.server_state, per_client_eval_losses, per_client_eval_metrics, mask)
+                _, eval_wait = obs.fence((eval_losses, eval_metrics))
+                results = {"mask": mask, "fit_losses": fit_losses, "fit_metrics": fit_metrics,
+                           "per_client_fit_losses": per_client_fit_losses,
+                           "eval_losses": eval_losses, "eval_metrics": eval_metrics}
+                if telemetry_on:
+                    # rides the round's one pull
+                    results["telemetry"] = telemetry[0].replace(
+                        nonfinite_eval_loss=ev_nonfinite[0])
+                test = self._test_batches()
+                if test is not None:
+                    # the same aggregated model on the test split, its keys
+                    # "test - "-prefixed beside the val keys
+                    self.client_states, results["test_losses"], results["test_metrics"] = (
+                        eval_round(self.server_state, self.client_states, *test)[:3])
+                    eval_wait += obs.fence((results["test_losses"],
+                                            results["test_metrics"]))[1]
+                device_wait_s += eval_wait
+                eval_span.set(device_wait_s=eval_wait)
+            with self._snapshot_span(rnd, "post_agg"):
+                snap = self._round_snapshots(results, rnd, post_fit_params)
+            compiles_after, compile_s_after = self._compile_counts()
+            work = _RoundWork(round=rnd, pull=HostPull(results), fit_elapsed_s=t1 - t0,
+                              eval_elapsed_s=time.time() - t1, snapshot_dtypes=snap,
+                              device_wait_s=device_wait_s, compiles_before=compiles_before,
+                              compile_s_before=compile_s_before,
+                              compiles_after=compiles_after, compile_s_after=compile_s_after)
+            if consumer is None:  # no pipeline: the epilogue inline
+                self._finish_round(work)
+                return
+            consumer.submit_round(rnd, functools.partial(self._finish_round, work))
+            legacy_state_save = (self.state_checkpointer is not None
+                                 and not hasattr(self.state_checkpointer,
+                                                 "save_simulation_snapshot"))
+            if legacy_state_save or not self.failure_policy.accept_failures:
+                # the legacy checkpointer reads the live state, and the
+                # failure screen must end the run: both before the next
+                # round dispatches
+                consumer.flush()
 
     def _round_snapshots(self, results: dict, rnd: int, post_fit_params=None,
                          with_pending: bool = False) -> dict | None:
@@ -1415,112 +1796,446 @@ class FederatedSimulation:
 
     def _finish_round(self, work: _RoundWork) -> None:
         """The consumer's half of a round: the round's one device->host
-        pull, the failure screen, the ``RoundRecord`` and the reports, in
-        round order. Launches nothing on the device. A cohort round's pull
-        also brought its updated rows: they go into the registry first,
-        then the producer's next gather may run."""
+        pull, the failure screen, the ``RoundRecord``, the fleet ledger, the
+        round's records (``_record_round_metrics``), the state frame, the
+        reports and last the watchdog, in round order. Launches nothing on
+        the device. A cohort round's pull also brought its updated rows:
+        they go into the registry first, then the producer's next gather
+        may run."""
+        obs = self.observability
+        rnd = work.round
         host = work.pull.result()
         snaps = {k: host_snapshot(host.pop(k), work.snapshot_dtypes[k])
                  for k in ("_pre_agg_params", "_post_agg_params", "_state_trees")
                  if k in host}
         registry_rows = host.pop("_registry_rows", None)
+        telemetry_obj = host.pop("telemetry", None)
+        telemetry_host = (telem.telemetry_from_dict(telemetry_obj)
+                          if telemetry_obj is not None else None)
         cohort_info = work.cohort_info
         if registry_rows is not None:
             meta = work.cohort_meta
-            s0 = time.perf_counter()
-            self.registry.scatter(meta["idx"], meta["valid"], registry_rows["client_states"],
-                                  registry_rows.get("strategy_rows"))
-            scatter_ms = (time.perf_counter() - s0) * 1e3
+            with obs.span("registry_scatter", round=rnd, valid=meta["valid"]) as sc_span:
+                s0 = time.perf_counter()
+                self.registry.scatter(meta["idx"], meta["valid"],
+                                      registry_rows["client_states"],
+                                      registry_rows.get("strategy_rows"))
+                scatter_ms = (time.perf_counter() - s0) * 1e3
+                sc_span.set(scatter_ms=scatter_ms)
             meta["scatter_event"].set()
             cohort_info = self._cohort_info(meta, scatter_ms, work.pull)
-        try:
-            self.failure_policy.check(host["per_client_fit_losses"], host["mask"])
-        except ClientFailuresError as cf:
-            cf.round = work.round
-            if work.cohort_meta is not None:
-                # a cohort round fails by slot: name the registry ids
-                ids = np.asarray(work.cohort_meta["idx"])
-                cf.registry_clients = [int(ids[c]) for c in cf.clients if 0 <= c < len(ids)]
-            raise
-        floats = lambda d, prefix="": {  # noqa: E731
-            f"{prefix}{k}": float(v) for k, v in d.items()}
-        eval_losses, eval_metrics = floats(host["eval_losses"]), floats(host["eval_metrics"])
-        if "test_losses" in host:
-            eval_losses.update(floats(host["test_losses"], "test - "))
-            eval_metrics.update(floats(host["test_metrics"], "test - "))
-        rec = RoundRecord(round=work.round, fit_losses=floats(host["fit_losses"]),
+        mask = np.asarray(host["mask"])
+        host_fit_losses = host["per_client_fit_losses"]
+        with obs.span("aggregate", round=rnd):
+            try:
+                failed = self.failure_policy.check(host_fit_losses, mask)
+            except ClientFailuresError as cf:
+                cf.round = rnd
+                if work.cohort_meta is not None:
+                    # a cohort round fails by slot: name the registry ids
+                    ids = np.asarray(work.cohort_meta["idx"])
+                    cf.registry_clients = [int(ids[c]) for c in cf.clients
+                                           if 0 <= c < len(ids)]
+                raise
+            floats = lambda d, prefix="": {  # noqa: E731
+                f"{prefix}{k}": float(v) for k, v in d.items()}
+            eval_losses = floats(host["eval_losses"])
+            eval_metrics = floats(host["eval_metrics"])
+            if "test_losses" in host:
+                eval_losses.update(floats(host["test_losses"], "test - "))
+                eval_metrics.update(floats(host["test_metrics"], "test - "))
+        rec = RoundRecord(round=rnd, fit_losses=floats(host["fit_losses"]),
                           fit_metrics=floats(host["fit_metrics"]),
                           eval_losses=eval_losses, eval_metrics=eval_metrics,
                           fit_elapsed_s=work.fit_elapsed_s,
                           eval_elapsed_s=work.eval_elapsed_s)
-        for mode, ckpt in self.model_checkpointers:
-            if mode == CheckpointMode.PRE_AGGREGATION:
-                ckpt.maybe_checkpoint(snaps.get("_pre_agg_params"),
-                                      rec.fit_losses.get("backward", float("nan")),
-                                      rec.fit_metrics)
-        for mode, ckpt in self.model_checkpointers:
-            if mode == CheckpointMode.POST_AGGREGATION:
-                ckpt.maybe_checkpoint(snaps.get("_post_agg_params"),
-                                      rec.eval_losses.get("checkpoint", float("nan")),
-                                      rec.eval_metrics)
+        with obs.span("checkpoint", round=rnd, mode="pre_aggregation"):
+            for mode, ckpt in self.model_checkpointers:
+                if mode == CheckpointMode.PRE_AGGREGATION:
+                    ckpt.maybe_checkpoint(snaps.get("_pre_agg_params"),
+                                          rec.fit_losses.get("backward", float("nan")),
+                                          rec.fit_metrics)
+        with obs.span("checkpoint", round=rnd, mode="post_aggregation"):
+            for mode, ckpt in self.model_checkpointers:
+                if mode == CheckpointMode.POST_AGGREGATION:
+                    ckpt.maybe_checkpoint(snaps.get("_post_agg_params"),
+                                          rec.eval_losses.get("checkpoint", float("nan")),
+                                          rec.eval_metrics)
         self.history.append(rec)
-        self._record_round_metrics(work.round, cohort_info, work.async_info,
-                                   work.event if work.event is not None else work.round)
-        self._save_round_state(work, snaps.get("_state_trees"))
-        for rep in self.reporters:
-            rep.report({"fit_losses": rec.fit_losses, "fit_metrics": rec.fit_metrics,
-                        "eval_losses": rec.eval_losses, "eval_metrics": rec.eval_metrics,
-                        "fit_elapsed_s": rec.fit_elapsed_s,
-                        "eval_elapsed_s": rec.eval_elapsed_s,
-                        "execution_mode": EXEC_PIPELINED}, round=work.round)
+        event = work.event if work.event is not None else rnd
+        registry_ids = (np.asarray(work.cohort_meta["idx"])
+                        if work.cohort_meta is not None else None)
+        # the ledger absorbs BEFORE the round's frame: the frame's ledger is
+        # as-of this round, so a resume absorbs each round once
+        fleet_info = self._fleet_absorb_round(
+            rnd, mask, host_fit_losses, telemetry_host, registry_ids=registry_ids,
+            failed=failed, async_info=work.async_info, fault_round=event)
+        summary = self._record_round_metrics(
+            rnd, rec, mask, host_fit_losses, failed, work.compiles_before,
+            work.compile_s_before, work.device_wait_s, compiles_after=work.compiles_after,
+            compile_s_after=work.compile_s_after, telemetry=telemetry_host,
+            async_info=work.async_info, cohort_info=cohort_info, fleet_info=fleet_info,
+            registry_ids=registry_ids, fault_round=event)
+        if self.state_checkpointer is not None:
+            with obs.span("checkpoint", round=rnd, mode="state"):
+                self._save_round_state(work, snaps.get("_state_trees"))
+        with obs.span("report", round=rnd):
+            for rep in self.reporters:
+                payload = {"fit_losses": rec.fit_losses, "fit_metrics": rec.fit_metrics,
+                           "eval_losses": rec.eval_losses, "eval_metrics": rec.eval_metrics,
+                           "fit_elapsed_s": rec.fit_elapsed_s,
+                           "eval_elapsed_s": rec.eval_elapsed_s,
+                           "execution_mode": EXEC_PIPELINED}
+                if summary is not None:
+                    payload["observability"] = dict(summary)
+                rep.report(payload, round=rnd)
+        # the watchdog LAST: the round's record, metrics and reports land
+        # before a halt (raised into the producer through the consumer)
+        if telemetry_host is not None and obs.watchdog is not None:
+            obs.watchdog.observe(rnd, telemetry_host, mask,
+                                 rec.fit_losses.get("backward", float("nan")),
+                                 obs=obs, reporters=self.reporters)
 
     def _save_round_state(self, work: _RoundWork, trees: dict | None) -> None:
         """The round's state checkpoint, after its record: the async frame
         (with ``pending``, the plan-prefix fingerprint and the virtual
         clock), the cohort frame (with the registry's rows, exported after
-        this round's scatter) or the sync one; the legacy API reads the live
-        state (the producer waited for this epilogue)."""
+        this round's scatter) or the sync one, each with the fleet ledger's
+        snapshot where one is armed; the legacy API reads the live state
+        (the producer waited for this epilogue)."""
         sc = self.state_checkpointer
         if sc is None:
             return
         rnd = work.event if work.event is not None else work.round
         history = list(self.history)
         if trees is not None:
+            fleet = self._fleet_snapshot_doc()
             if work.resume_meta is not None:
                 sc.save_async_snapshot(trees, rnd, self.n_clients, history,
                                        plan_fingerprint=work.resume_meta["plan_fingerprint"],
                                        virtual_time_s=work.resume_meta["virtual_time_s"],
-                                       writer=self._ckpt_writer)
+                                       writer=self._ckpt_writer, fleet=fleet)
             elif work.cohort_meta is not None:
                 sc.save_cohort_snapshot(trees, rnd, self.n_clients, self.registry_size,
                                         self.registry.export_rows(), history,
-                                        writer=self._ckpt_writer)
+                                        writer=self._ckpt_writer, fleet=fleet)
             else:
                 sc.save_simulation_snapshot(trees, rnd, self.n_clients, history,
-                                            writer=self._ckpt_writer)
+                                            writer=self._ckpt_writer, fleet=fleet)
         elif not hasattr(sc, "save_simulation_snapshot"):
             sc.save_simulation(self, rnd)
 
-    def _record_round_metrics(self, rnd: int, cohort_info: dict | None = None,
-                              async_info: dict | None = None,
-                              fault_round: int | None = None) -> None:
-        """A round's summary, kept in ``round_metrics`` where a cohort, an
-        async event or a fault plan with client faults has something to
-        say: the cohort facts (slots, valid, registry size and dirty rows,
-        the staging, gather and scatter walls, staged and pulled bytes, the
-        pull's device ms, rounds a dispatch, where the draw ran), the
-        event's plan facts (``AsyncEventPlan.summarize_event`` and the
-        arrived updates' ``_staleness_values``), and under ``"fault"`` the
-        plan's ``summarize_round`` at the index the programs drew at
-        (``fault_round``: an async event's own index)."""
-        faults = self._fault_plan is not None and self._fault_plan.has_client_faults
-        if cohort_info is None and async_info is None and not faults:
-            return
-        entry = {"round": rnd, **(cohort_info or {}), **(async_info or {})}
-        if faults:
-            entry["fault"] = self._fault_plan.summarize_round(
+    # -- observability records (observability/) --------------------------
+    def _payload_nbytes(self) -> tuple[int, int]:
+        """(broadcast, gather) logical payload bytes a participating client:
+        the payload's params and what the exchanger pushes, from shapes and
+        dtypes; computed once (``fit`` calls it on its own thread)."""
+        if self._payload_bytes_cache is not None:
+            return self._payload_bytes_cache
+        gp = self.global_params
+        try:
+            down_tree = payload_params(self.strategy.client_payload(self.server_state, 0))
+        except Exception:  # an exotic payload counts as the globals
+            down_tree = gp
+        try:
+            up_tree = self.exchanger.push(gp, gp)
+        except Exception:
+            up_tree = gp
+        self._payload_bytes_cache = (ptu.tree_nbytes(down_tree), ptu.tree_nbytes(up_tree))
+        return self._payload_bytes_cache
+
+    def _compressed_gather_nbytes(self) -> int | None:
+        """The estimated compressed client->server bytes a participating
+        client under the active ``CompressionConfig`` (None without)."""
+        if self.compression is None or not self.compression.enabled:
+            return None
+        if self._wire_bytes_cache is None:
+            from fl4health_tpu_torch.compression.codecs import estimate_wire_nbytes
+
+            gp = self.global_params
+            self._wire_bytes_cache = estimate_wire_nbytes(self.exchanger.push(gp, gp),
+                                                          self.compression)
+        return self._wire_bytes_cache
+
+    def _fleet_absorb_round(self, rnd: int, mask, host_fit_losses, telemetry, *,
+                            registry_ids=None, quarantine_mask=None, failed=(),
+                            async_info: dict | None = None,
+                            fault_round: int | None = None) -> dict | None:
+        """Fold one completed round into the fleet ledger: host arrays this
+        epilogue already holds, so a ledger-on run trains bit for bit as a
+        ledger-off one. Returns the round's fleet facts, or None without a
+        ledger."""
+        obs = self.observability
+        ledger = obs.fleet_ledger if obs.enabled else None
+        if ledger is None:
+            return None
+        mask_np = np.asarray(mask)
+        pos = np.nonzero(mask_np > 0)[0]
+        ids_arr = None
+        if registry_ids is not None:
+            # cohort rounds: slots -> the REGISTRY ids they served
+            ids_arr = np.asarray(registry_ids)
+            pos = pos[pos < len(ids_arr)]
+            part_ids = ids_arr[pos].astype(np.int64)
+        else:
+            part_ids = pos.astype(np.int64)
+
+        def _sel(row):
+            if row is None:
+                return None
+            arr = np.asarray(row)
+            if arr.ndim < 1 or (pos.size and pos.max() >= arr.shape[0]):
+                return None
+            return arr[pos]
+
+        def _map_ids(idxs):
+            if ids_arr is None:
+                return [int(c) for c in idxs]
+            return [int(ids_arr[int(c)]) for c in idxs if 0 <= int(c) < len(ids_arr)]
+
+        q_in = q_out = None
+        if quarantine_mask is not None:
+            q = np.asarray(quarantine_mask)
+            q_in = _map_ids(np.nonzero(q > 0)[0])
+            q_out = _map_ids(np.nonzero(q <= 0)[0])
+        fault_ids: list[int] = []
+        if self._fault_plan is not None:
+            fault = self._fault_plan.summarize_round(
                 rnd if fault_round is None else fault_round, self.n_clients)
-        self.round_metrics.append(entry)
+            if fault:
+                fault_ids = _map_ids(sorted(set(fault["dropped"]) | set(fault["corrupted"])))
+        down, up = self._payload_nbytes()
+        return ledger.absorb_round(
+            rnd, part_ids,
+            losses=_sel((host_fit_losses or {}).get("backward")),
+            update_norms=_sel((telemetry or {}).get("update_norm")),
+            nonfinite=_sel((telemetry or {}).get("nonfinite")),
+            staleness_pool=(async_info or {}).get("_staleness_values"),
+            failed_ids=_map_ids(failed or ()),
+            quarantined_ids=q_in,
+            unquarantined_ids=q_out,
+            fault_ids=fault_ids,
+            bytes_down_per_client=down,
+            bytes_up_per_client=up,
+            registry_size=(self.registry_size if self._cohort_active else self.n_clients))
+
+    def _fleet_snapshot_doc(self) -> dict | None:
+        """The ledger's JSON snapshot for a frame's header: None without a
+        ledger, so such frames carry no ``"fleet"`` key."""
+        obs = self.observability
+        if obs.enabled and obs.fleet_ledger is not None:
+            return obs.fleet_ledger.snapshot()
+        return None
+
+    def adopt_fleet_snapshot(self, doc: dict | None) -> None:
+        """The resume hook (``checkpointing/state.py`` loaders): adopt the
+        frame's ledger; a frame without one clears it."""
+        ledger = self.observability.fleet_ledger
+        if ledger is not None:
+            ledger.restore(doc)
+
+    def _record_round_metrics(self, rnd: int, rec: RoundRecord, mask, host_fit_losses,
+                              failed, compiles_before: float = 0.0,
+                              compile_s_before: float = 0.0, device_wait_s: float = 0.0, *,
+                              compiles_after: float | None = None,
+                              compile_s_after: float | None = None,
+                              telemetry: dict | None = None,
+                              async_info: dict | None = None,
+                              cohort_info: dict | None = None,
+                              fleet_info: dict | None = None,
+                              registry_ids: np.ndarray | None = None,
+                              fault_round: int | None = None) -> dict | None:
+        """A round's records, on the consumer thread (pipelined) or in the
+        chunked epilogue, the same on every route.
+
+        ``round_metrics`` gets an entry where a cohort, an async event or a
+        fault plan with client faults has something to say: the cohort facts
+        (slots, valid, registry size and dirty rows, the staging, gather and
+        scatter walls, staged and pulled bytes, the pull's device ms, rounds
+        a dispatch, where the draw ran), the event's plan facts
+        (``AsyncEventPlan.summarize_event`` and the arrived updates'
+        ``_staleness_values``), and under ``"fault"`` the plan's
+        ``summarize_round`` at the index the programs drew at
+        (``fault_round``: an async event's own index).
+
+        With observability on, JAX's: every ``fl_*`` gauge and counter, one
+        ``round`` JSONL event (its summary, which is returned and bridged to
+        the reporters), one ``telemetry`` event with the per-client vectors,
+        the ``fault`` event, and the flight recorder's entry with the ring's
+        bytes and window gauges. The compile counters ``*_after`` are the
+        producer's readings right after its dispatches."""
+        fault_idx = rnd if fault_round is None else fault_round
+        faults = self._fault_plan is not None and self._fault_plan.has_client_faults
+        if cohort_info is not None or async_info is not None or faults:
+            entry = {"round": rnd, **(cohort_info or {}), **(async_info or {})}
+            if faults:
+                entry["fault"] = self._fault_plan.summarize_round(fault_idx, self.n_clients)
+            self.round_metrics.append(entry)
+        obs = self.observability
+        if not obs.enabled:
+            return None
+        reg = obs.registry
+        mask_np = np.asarray(mask)
+        participants = int((mask_np > 0).sum())
+        down, up = self._payload_nbytes()
+        bcast, gather = down * participants, up * participants
+        reg.counter("fl_rounds_total", help="completed federated rounds").inc()
+        reg.counter("fl_client_failures_total",
+                    help="clients excluded by the failure policy (non-finite loss)",
+                    ).inc(len(failed))
+        reg.gauge("fl_participating_clients",
+                  help="clients sampled into the current round").set(participants)
+        row = np.asarray(host_fit_losses.get("backward", np.zeros_like(mask_np)))
+        sel = row[(mask_np > 0) & np.isfinite(row)]
+        loss_std = float(sel.std()) if sel.size else 0.0
+        loss_spread = float(sel.max() - sel.min()) if sel.size else 0.0
+        reg.gauge("fl_fit_loss_std",
+                  help="dispersion of participating clients' training loss").set(loss_std)
+        reg.gauge("fl_fit_loss_spread",
+                  help="straggler proxy: max-min participating client training loss",
+                  ).set(loss_spread)
+        reg.counter("fl_broadcast_bytes_total",
+                    help="logical server->client payload bytes (what a wire "
+                         "deployment would serialize per round)").inc(bcast)
+        reg.counter("fl_gather_bytes_total",
+                    help="logical client->server payload bytes").inc(gather)
+        gather_wire = None
+        wire_per_client = self._compressed_gather_nbytes()
+        if wire_per_client is not None:
+            gather_wire = wire_per_client * participants
+            _account_wire(gather, gather_wire, "gather")
+        if compiles_after is None:
+            compiles_after = reg.counter("jax_backend_compiles_total").value
+        if compile_s_after is None:
+            compile_s_after = reg.counter("jax_backend_compiles_seconds_total").value
+        summary = {
+            "round": rnd,
+            "execution_mode": self._active_execution_mode,
+            "compiles": compiles_after - compiles_before,
+            "compile_s": compile_s_after - compile_s_before,
+            "device_wait_s": device_wait_s,
+            "fit_s": rec.fit_elapsed_s,
+            "eval_s": rec.eval_elapsed_s,
+            "host_s": max(0.0, rec.fit_elapsed_s + rec.eval_elapsed_s - device_wait_s),
+            "broadcast_bytes": bcast,
+            "gather_bytes": gather,
+            "participants": participants,
+            "failures": len(failed),
+            "fit_loss_std": loss_std,
+            "fit_loss_spread": loss_spread,
+        }
+        if gather_wire is not None:
+            summary["gather_bytes_wire"] = gather_wire
+            summary["wire_compression_ratio"] = (gather / gather_wire if gather_wire > 0
+                                                 else None)
+        if async_info is not None:
+            info = {k: v for k, v in async_info.items() if k != "_staleness_values"}
+            summary.update(info)
+            reg.gauge("fl_async_buffer_occupancy",
+                      help="updates consumed by the current buffer-fill event",
+                      ).set(float(info.get("async_buffer", 0)))
+            reg.gauge("fl_async_round_cadence_vs",
+                      help="virtual seconds between consecutive aggregation "
+                           "events (arrival-driven round cadence)",
+                      ).set(float(info.get("async_cadence_vs", 0.0)))
+            hist = reg.histogram("fl_async_staleness",
+                                 help="staleness (server versions) of consumed updates",
+                                 buckets=(0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0))
+            for v in async_info.get("_staleness_values", []):
+                hist.observe(float(v))
+        if cohort_info is not None:
+            # JAX's cohort facts (the pull's bytes and ms and the swap count
+            # stay in round_metrics)
+            summary.update({k: v for k, v in cohort_info.items()
+                            if k not in ("pull_bytes", "pull_ms", "swapped")})
+            reg.gauge("fl_registry_clients",
+                      help="clients in the host-resident cohort registry",
+                      ).set(float(cohort_info["registry_size"]))
+            reg.gauge("fl_registry_dirty_rows",
+                      help="registry clients with materialized (participated) "
+                           "state rows — registry host memory is O(this), not "
+                           "O(registry)").set(float(cohort_info["registry_dirty_rows"]))
+            reg.gauge("fl_registry_cohort_valid",
+                      help="real (non-padded) slots in the current round's "
+                           "sampled cohort").set(float(cohort_info["cohort_valid"]))
+            reg.counter("fl_registry_staged_bytes_total",
+                        help="host bytes staged into slot tensors per round "
+                             "(train + val batches)").inc(int(cohort_info["staged_bytes"]))
+        if fleet_info is not None:
+            summary.update({k: v for k, v in fleet_info.items() if v is not None})
+            ledger = obs.fleet_ledger
+            reg.gauge("fl_fleet_clients_seen",
+                      help="clients with a fleet-ledger lifetime record (ledger "
+                           "host memory is O(this), not O(registry))").set(float(len(ledger)))
+            reg.counter("fl_fleet_new_clients_total",
+                        help="first-ever participations absorbed by the fleet ledger",
+                        ).inc(int(fleet_info.get("participants_new") or 0))
+            if fleet_info.get("participation_gini") is not None:
+                reg.gauge("fl_fleet_participation_gini",
+                          help="participation skew over seen clients (0 = even, "
+                               "->1 = a few clients do everything)",
+                          ).set(float(fleet_info["participation_gini"]))
+            if fleet_info.get("straggler_p99") is not None:
+                reg.gauge("fl_fleet_straggler_p99",
+                          help="p99 of the lifetime participation-gap "
+                               "distribution, in rounds (sketched)",
+                          ).set(float(fleet_info["straggler_p99"]))
+            reg.gauge("fl_fleet_ledger_bytes",
+                      help="approximate host bytes held by the fleet ledger + "
+                           "its sketches (registry-size-invariant)").set(float(ledger.nbytes()))
+        if self._precision_active:
+            summary["compute_dtype"] = self.precision.compute_dtype_name
+            if self._precision_scaling:
+                summary["loss_scale_mode"] = self.precision.resolved_loss_scale
+        if telemetry is not None:
+            t_summary = telem.summarize_host(telemetry, mask_np)
+            summary.update(t_summary)
+            reg.gauge("fl_fit_grad_norm_max",
+                      help="max per-client gradient norm this round "
+                           "(post transform_gradients)").set(t_summary["grad_norm_max"])
+            reg.gauge("fl_fit_update_norm_min",
+                      help="min participating client update norm (dead-client proxy)",
+                      ).set(t_summary["update_norm_min"])
+            reg.gauge("fl_fit_divergence_max",
+                      help="max client weight divergence from the aggregated global",
+                      ).set(t_summary["divergence_max"])
+            reg.gauge("fl_dp_clip_fraction",
+                      help="mean fraction of examples clipped by the DP path "
+                           "(NaN without DP)").set(t_summary["clip_fraction"])
+            reg.gauge("fl_nonfinite_values",
+                      help="non-finite entries across participating clients' "
+                           "params/losses this round").set(t_summary["nonfinite"])
+            reg.log_event("telemetry", round=rnd,
+                          **{k: np.asarray(v, np.float64).tolist()
+                             for k, v in telemetry.items()})
+        fault = None
+        if self._fault_plan is not None:
+            fault = self._fault_plan.summarize_round(fault_idx, self.n_clients)
+            if fault:
+                reg.counter("fl_resilience_faults_injected_total",
+                            help="client faults injected by the active FaultPlan "
+                                 "(dropouts + corruptions)",
+                            ).inc(len(fault["dropped"]) + len(fault["corrupted"]))
+                reg.log_event("fault", **fault)
+                summary["faults_injected"] = len(fault["dropped"]) + len(fault["corrupted"])
+        reg.log_event("round", **summary)
+        flight = obs.flight_recorder
+        if flight is not None:
+            # host data this epilogue already holds: no device work, and the
+            # ring stays O(window x cohort slots)
+            flight.record_round(rnd, summary, fit_loss=rec.fit_losses.get("backward"),
+                                eval_loss=rec.eval_losses.get("checkpoint"), mask=mask_np,
+                                telemetry=telemetry, registry_ids=registry_ids,
+                                fault=fault or None)
+            reg.counter("fl_flightrec_rounds_total",
+                        help="rounds captured into the flight-recorder ring").inc()
+            reg.gauge("fl_flightrec_ring_bytes",
+                      help="host bytes of the flight-recorder ring's array payload "
+                           "(bounded: O(window x cohort slots))").set(float(flight.nbytes()))
+            reg.gauge("fl_flightrec_window",
+                      help="flight-recorder ring capacity in rounds").set(float(flight.window))
+        obs.tracer.counter("fl_round_time_s", fit=rec.fit_elapsed_s, eval=rec.eval_elapsed_s)
+        return summary
 
     # -- the chunked route ---------------------------------------------
     def _chunk_plans(self, start_round: int, k: int, mask=None):
@@ -1593,27 +2308,31 @@ class FederatedSimulation:
 
     def _make_chunked_fit_with_eval(self):
         """``fit``'s chunk: each round runs what a pipelined round dispatches
-        (``_fit_round``, the val ``_eval_round`` and, where every client has
-        one, the test split's), and its outputs stack ``[k]`` on the
+        (the fit round, the val eval round and, where every client has one,
+        the test split's; their telemetry builds when telemetry is on), and
+        its outputs, the ``RoundTelemetry`` among them, stack ``[k]`` on the
         device for the chunk's one pull."""
+        fit_round, eval_round, telemetry_on = self._round_fns()
 
         def chunk(server_state, client_states, x_stack, y_stack, idx, em, sm, masks,
                   start_round, val_batches, val_counts, test_batches=None, test_counts=None):
             outs = []
             for i in range(idx.shape[0]):
                 batches = engine.gather_batches(x_stack, y_stack, idx[i], em[i], sm[i])
-                server_state, client_states, fit_losses, fit_metrics, per_fit = (
-                    self._fit_round(server_state, client_states, batches, masks[i],
-                                    start_round + i, val_batches))
-                client_states, eval_losses, eval_metrics, _, _ = self._eval_round(
+                server_state, client_states, fit_losses, fit_metrics, per_fit, *telemetry = (
+                    fit_round(server_state, client_states, batches, masks[i],
+                              start_round + i, val_batches))
+                client_states, eval_losses, eval_metrics, _, _, *ev_nonfinite = eval_round(
                     server_state, client_states, val_batches, val_counts)
                 out = {"fit_losses": fit_losses, "fit_metrics": fit_metrics,
                        "per_client_fit_losses": per_fit,
                        "eval_losses": eval_losses, "eval_metrics": eval_metrics}
+                if telemetry_on:
+                    out["telemetry"] = telemetry[0].replace(nonfinite_eval_loss=ev_nonfinite[0])
                 if test_batches is not None:
                     client_states, out["test_losses"], out["test_metrics"] = (
-                        self._eval_round(server_state, client_states, test_batches,
-                                         test_counts)[:3])
+                        eval_round(server_state, client_states, test_batches,
+                                   test_counts)[:3])
                 outs.append(out)
             return server_state, client_states, ptu.stack_clients(outs)
 
@@ -1632,9 +2351,10 @@ class FederatedSimulation:
         dispatches its rounds back to back, then one ``HostPull`` brings
         every round's results over and ``_chunked_epilogue`` records them.
         Under a snapshot checkpointer a chunk is ``checkpoint_every`` rounds
-        and the state trees ride its pull into the boundary's frame; the
-        rounds' math does not depend on the chunk length, so the trajectory
-        is the one-chunk run's bit for bit."""
+        and the state trees ride its pull into the boundary's frame (with
+        the fleet ledger as of the chunk's last round); the rounds' math
+        does not depend on the chunk length, so the trajectory is the
+        one-chunk run's bit for bit."""
         sc = self.state_checkpointer
         chunk_ckpt = sc is not None and hasattr(sc, "save_simulation_snapshot")
         with self._ckpt_writer_scope(chunk_ckpt) as writer:
@@ -1644,46 +2364,70 @@ class FederatedSimulation:
                 trees = self._run_sync_chunk(s, k, snapshot=chunk_ckpt)
                 if chunk_ckpt:
                     sc.save_simulation_snapshot(trees, s + k - 1, self.n_clients,
-                                                list(self.history), writer=writer)
+                                                list(self.history), writer=writer,
+                                                fleet=self._fleet_snapshot_doc())
                 s += k
 
     def _run_sync_chunk(self, start_round: int, k: int, snapshot: bool = False):
         """Dispatch rounds ``[start_round, start_round + k)`` as one chunk
         and run their host epilogue; with ``snapshot``, returns the state
         trees that rode the chunk's pull."""
+        obs = self.observability
+        compiles_before, compile_s_before = self._compile_counts()
         t_start = time.time()
         val_batches, val_counts = self._val_batches()
         test = self._test_batches()
         idx, em, sm, masks = self._chunk_plans(start_round, k)
-        self.server_state, self.client_states, outs = self._make_chunked_fit_with_eval()(
-            self.server_state, self.client_states, self._x_train_stack, self._y_train_stack,
-            idx, em, sm, masks, start_round, val_batches, val_counts, *(test or ()))
-        tree = {**outs, "mask": masks}
-        if snapshot:
-            tree["_state_trees"] = self._snapshot_trees()
-            dtypes = _dtypes(tree["_state_trees"])
-        stacked = HostPull(tree).result()  # the chunk's one pull
+        with obs.span("fit_chunk", cat="fit", rounds=k, start_round=start_round) as span:
+            self.server_state, self.client_states, outs = self._make_chunked_fit_with_eval()(
+                self.server_state, self.client_states, self._x_train_stack,
+                self._y_train_stack, idx, em, sm, masks, start_round, val_batches,
+                val_counts, *(test or ()))
+            device_wait = obs.fence(outs)[1]
+            tree = {**outs, "mask": masks}
+            if snapshot:
+                tree["_state_trees"] = self._snapshot_trees()
+                dtypes = _dtypes(tree["_state_trees"])
+            stacked = HostPull(tree).result()  # the chunk's one pull
+            span.set(device_wait_s=device_wait)
+        compiles_after, compile_s_after = self._compile_counts()
         trees = host_snapshot(stacked.pop("_state_trees"), dtypes) if snapshot else None
         per_round_s = (time.time() - t_start) / max(k, 1)
         self._chunked_epilogue(k, stacked, stacked.pop("mask"), per_round_s,
-                               start_round=start_round)
+                               start_round=start_round,
+                               compiles=(compiles_before, compile_s_before, compiles_after,
+                                         compile_s_after),
+                               device_wait_round=device_wait / max(k, 1))
         return trees
 
     def _chunked_epilogue(self, n_rounds: int, stacked: dict, masks_np: np.ndarray,
                           per_round_s: float, start_round: int = 1,
                           cohort_infos: list[dict] | None = None,
-                          async_plan=None, first_event: int = 1) -> None:
+                          async_plan=None, first_event: int = 1,
+                          registry_ids: np.ndarray | None = None,
+                          compiles: tuple = (0.0, 0.0, None, None),
+                          device_wait_round: float = 0.0) -> None:
         """Each round of a chunk on the host, from the stacked pull: the
         failure screen (it logs; ``accept_failures`` is True on this
         route), the ``RoundRecord`` with ``fit_elapsed_s`` the chunk's wall
         amortised a round and ``eval_elapsed_s`` 0 (no separate eval wall),
-        the cohort facts of each round (``cohort_infos``), an async chunk's
-        event facts (``async_plan``: the chunk's events from ``first_event``),
-        and the reports."""
+        the fleet ledger, the round's records with the cohort facts of each
+        round (``cohort_infos``; ``registry_ids`` ``[k, K]`` names the
+        slots' registry ids) or an async chunk's event facts
+        (``async_plan``: the chunk's events from ``first_event``), the
+        reports, and last the watchdog: a halt raises naming the first
+        offending round. The chunk's compiles (``compiles``: before and
+        after) count against its first round; its fenced device wait is
+        amortised (``device_wait_round``)."""
+        obs = self.observability
+        telemetry_stack = stacked.get("telemetry")
+        if telemetry_stack is not None:
+            telemetry_stack = telem.telemetry_from_dict(telemetry_stack)
+        compiles_before, compile_s_before, compiles_after, compile_s_after = compiles
         for i in range(n_rounds):
             rnd = start_round + i
-            self.failure_policy.check(
-                {k: v[i] for k, v in stacked["per_client_fit_losses"].items()}, masks_np[i])
+            per_fit_i = {k: v[i] for k, v in stacked["per_client_fit_losses"].items()}
+            failed = self.failure_policy.check(per_fit_i, masks_np[i])
             floats = lambda d, prefix="": {  # noqa: E731
                 f"{prefix}{k}": float(v[i]) for k, v in d.items()}
             eval_losses, eval_metrics = (floats(stacked["eval_losses"]),
@@ -1697,16 +2441,36 @@ class FederatedSimulation:
                               fit_elapsed_s=per_round_s, eval_elapsed_s=0.0)
             self.history.append(rec)
             event = first_event + i if async_plan is not None else rnd
-            self._record_round_metrics(
-                rnd, cohort_infos[i] if cohort_infos is not None else None,
-                self._async_event_info(async_plan, event - 1)
-                if async_plan is not None else None, event)
+            async_info = (self._async_event_info(async_plan, event - 1)
+                          if async_plan is not None else None)
+            telemetry_i = ({k: np.asarray(v[i]) for k, v in telemetry_stack.items()}
+                           if telemetry_stack is not None else None)
+            ids_i = np.asarray(registry_ids[i]) if registry_ids is not None else None
+            # the ledger absorbs before the chunk boundary's frame
+            fleet_info = self._fleet_absorb_round(
+                rnd, masks_np[i], per_fit_i, telemetry_i, registry_ids=ids_i,
+                failed=failed, async_info=async_info, fault_round=event)
+            summary = self._record_round_metrics(
+                rnd, rec, masks_np[i], per_fit_i, failed, compiles_before, compile_s_before,
+                device_wait_round,
+                compiles_after=compiles_after if i == 0 else compiles_before,
+                compile_s_after=compile_s_after if i == 0 else compile_s_before,
+                telemetry=telemetry_i, async_info=async_info,
+                cohort_info=cohort_infos[i] if cohort_infos is not None else None,
+                fleet_info=fleet_info, registry_ids=ids_i, fault_round=event)
             for rep in self.reporters:
-                rep.report({"fit_losses": rec.fit_losses, "fit_metrics": rec.fit_metrics,
-                            "eval_losses": rec.eval_losses, "eval_metrics": rec.eval_metrics,
-                            "fit_elapsed_s": rec.fit_elapsed_s,
-                            "eval_elapsed_s": rec.eval_elapsed_s,
-                            "execution_mode": EXEC_CHUNKED}, round=rnd)
+                payload = {"fit_losses": rec.fit_losses, "fit_metrics": rec.fit_metrics,
+                           "eval_losses": rec.eval_losses, "eval_metrics": rec.eval_metrics,
+                           "fit_elapsed_s": rec.fit_elapsed_s,
+                           "eval_elapsed_s": rec.eval_elapsed_s,
+                           "execution_mode": EXEC_CHUNKED}
+                if summary is not None:
+                    payload["observability"] = dict(summary)
+                rep.report(payload, round=rnd)
+            if telemetry_i is not None and obs.watchdog is not None:
+                obs.watchdog.observe(rnd, telemetry_i, masks_np[i],
+                                     rec.fit_losses.get("backward", float("nan")),
+                                     obs=obs, reporters=self.reporters)
 
     # -- the cohort-slot routes (server/registry.py) ---------------------
     def _to_device(self, tree):
@@ -1786,6 +2550,7 @@ class FederatedSimulation:
         round gathers its clients' rows once round r-1's are stored, and
         its epilogue (the pull, the registry scatter, the record) runs on
         the consumer."""
+        obs = self.observability
         self._fit_last_round = last
         self._registry_scatter_event = None
         with self._ckpt_writer_scope(bool(self.model_checkpointers
@@ -1798,53 +2563,92 @@ class FederatedSimulation:
                     prefetcher.schedule(first)
                 for rnd in range(first, last + 1):
                     consumer.raise_pending()
-                    self._run_cohort_round(rnd)
+                    with obs.maybe_profile(rnd):
+                        self._run_cohort_round(rnd)
                 consumer.flush()
             finally:
                 consumer.close()
                 prefetcher.close()
+                self._last_epilogue_round = consumer.last_completed_round
                 self._consumer = self._prefetcher = None
                 self._registry_scatter_event = None
+
+    def _count_cohort_roundtrip(self) -> None:
+        """One host round-trip against the registry (a draw, a row gather
+        and scatter, a dispatch): one a round pipelined, one a chunk
+        chunked, one an event over the registry."""
+        obs = self.observability
+        if obs.enabled:
+            obs.registry.counter(
+                "fl_cohort_host_roundtrips_total",
+                help="host round-trips paid against the client registry "
+                     "(one per dispatch: cohort draw + gather/scatter)").inc()
 
     def _run_cohort_round(self, rnd: int) -> None:
         """The producer's half of a cohort round: the staged slot data, the
         rows gathered after the previous scatter, fit and eval dispatched,
         and the epilogue (its pull carries the updated rows) handed to the
         consumer."""
+        obs = self.observability
         consumer, prefetcher = self._consumer, self._prefetcher
+        fit_round, eval_round, telemetry_on = self._round_fns()
+        compiles_before, compile_s_before = self._compile_counts()
         t0 = time.time()
-        staged = prefetcher.take(rnd) if prefetcher is not None else self._stage_cohort_round(rnd)
-        if prefetcher is not None and rnd < self._fit_last_round:
-            # round r+1's data has no state dependency; only the row
-            # gather below waits for round r's scatter
-            prefetcher.schedule(rnd + 1)
-        self._await_registry_scatter()
-        idx, valid = staged["idx"], staged["valid"]
-        gather_ms = self._gather_cohort_rows(idx)
-        (self.server_state, self.client_states, fit_losses, fit_metrics,
-         per_client_fit_losses) = self._fit_round(
-            self.server_state, self.client_states, staged["batches"], staged["mask"], rnd,
-            staged["val_batches"], staged["sample_counts"])
-        post_fit_params = self.client_states.params
-        t1 = time.time()
-        self.client_states, eval_losses, eval_metrics, _, _ = self._eval_round(
-            self.server_state, self.client_states, staged["val_batches"], staged["val_counts"])
-        results = {"mask": staged["mask"], "fit_losses": fit_losses, "fit_metrics": fit_metrics,
-                   "per_client_fit_losses": per_client_fit_losses,
-                   "eval_losses": eval_losses, "eval_metrics": eval_metrics,
-                   # the updated rows ride the round's one pull
-                   "_registry_rows": {"client_states": self.client_states,
-                                      "strategy_rows": self.strategy.state_rows(
-                                          self.server_state)}}
-        snap = self._round_snapshots(results, rnd, post_fit_params)
-        scatter_event = self._registry_scatter_event = threading.Event()
-        work = _RoundWork(
-            round=rnd, pull=HostPull(results), fit_elapsed_s=t1 - t0,
-            eval_elapsed_s=time.time() - t1, snapshot_dtypes=snap,
-            cohort_meta={"idx": idx, "valid": valid, "stage_ms": staged["stage_ms"],
-                         "gather_ms": gather_ms, "staged_bytes": staged["staged_bytes"],
-                         "scatter_event": scatter_event, "rounds_per_dispatch": 1,
-                         "cohort_draw": "host"})
+        with obs.span("round", round=rnd, kind="cohort"):
+            with obs.span("configure_fit", round=rnd):
+                staged = (prefetcher.take(rnd) if prefetcher is not None
+                          else self._stage_cohort_round(rnd))
+            if prefetcher is not None and rnd < self._fit_last_round:
+                # round r+1's data has no state dependency; only the row
+                # gather below waits for round r's scatter
+                prefetcher.schedule(rnd + 1)
+            self._await_registry_scatter()
+            idx, valid = staged["idx"], staged["valid"]
+            with obs.span("cohort_gather", round=rnd, valid=valid) as gather_span:
+                gather_ms = self._gather_cohort_rows(idx)
+                gather_span.set(gather_ms=gather_ms)
+            with obs.span("fit_round", round=rnd) as fit_span:
+                (self.server_state, self.client_states, fit_losses, fit_metrics,
+                 per_client_fit_losses, *telemetry) = fit_round(
+                    self.server_state, self.client_states, staged["batches"], staged["mask"],
+                    rnd, staged["val_batches"], staged["sample_counts"])
+                device_wait_s = obs.fence((fit_losses, fit_metrics, per_client_fit_losses))[1]
+                fit_span.set(device_wait_s=device_wait_s)
+            post_fit_params = self.client_states.params
+            t1 = time.time()
+            with obs.span("eval_round", round=rnd) as eval_span:
+                self.client_states, eval_losses, eval_metrics, _, _, *ev_nonfinite = (
+                    eval_round(self.server_state, self.client_states, staged["val_batches"],
+                               staged["val_counts"]))
+                eval_wait = obs.fence((eval_losses, eval_metrics))[1]
+                device_wait_s += eval_wait
+                eval_span.set(device_wait_s=eval_wait)
+            results = {"mask": staged["mask"], "fit_losses": fit_losses,
+                       "fit_metrics": fit_metrics,
+                       "per_client_fit_losses": per_client_fit_losses,
+                       "eval_losses": eval_losses, "eval_metrics": eval_metrics,
+                       # the updated rows ride the round's one pull
+                       "_registry_rows": {"client_states": self.client_states,
+                                          "strategy_rows": self.strategy.state_rows(
+                                              self.server_state)}}
+            if telemetry_on:
+                results["telemetry"] = telemetry[0].replace(
+                    nonfinite_eval_loss=ev_nonfinite[0])
+            with self._snapshot_span(rnd, "post_agg"):
+                snap = self._round_snapshots(results, rnd, post_fit_params)
+            compiles_after, compile_s_after = self._compile_counts()
+            scatter_event = self._registry_scatter_event = threading.Event()
+            work = _RoundWork(
+                round=rnd, pull=HostPull(results), fit_elapsed_s=t1 - t0,
+                eval_elapsed_s=time.time() - t1, snapshot_dtypes=snap,
+                cohort_meta={"idx": idx, "valid": valid, "stage_ms": staged["stage_ms"],
+                             "gather_ms": gather_ms, "staged_bytes": staged["staged_bytes"],
+                             "scatter_event": scatter_event, "rounds_per_dispatch": 1,
+                             "cohort_draw": "host"},
+                device_wait_s=device_wait_s, compiles_before=compiles_before,
+                compile_s_before=compile_s_before, compiles_after=compiles_after,
+                compile_s_after=compile_s_after)
+            self._count_cohort_roundtrip()
         if consumer is None:  # no pipeline: the epilogue inline
             self._finish_round(work)
             return
@@ -1862,7 +2666,9 @@ class FederatedSimulation:
         writing the post-eval rows (client states and strategy rows) back
         into the window, pad slots into a scratch row that is dropped. The
         outputs carry each round's drawn ids and count for the check at the
-        pull. JAX's ``lax.scan`` body, without the scan."""
+        pull, and their ``RoundTelemetry`` when telemetry is on. JAX's
+        ``lax.scan`` body, without the scan."""
+        fit_round, eval_round, telemetry_on = self._round_fns()
         draw = self.client_manager.draw_cohort
         slots = self.n_clients
         has_srows = self.registry.has_strategy_rows
@@ -1886,15 +2692,18 @@ class FederatedSimulation:
                     server_state = strategy.scatter_state_rows(
                         server_state, ptu.tree_map(lambda t: t[pos], w_srows))
                 at = lambda tree: ptu.tree_map(lambda t: t[i], tree)  # noqa: E731
-                server_state, client_states, fit_losses, fit_metrics, per_fit = (
-                    self._fit_round(server_state, client_states, at(batches), masks[i], r,
-                                    at(val_batches), sample_counts[i]))
-                client_states, eval_losses, eval_metrics, _, _ = self._eval_round(
+                server_state, client_states, fit_losses, fit_metrics, per_fit, *telemetry = (
+                    fit_round(server_state, client_states, at(batches), masks[i], r,
+                              at(val_batches), sample_counts[i]))
+                client_states, eval_losses, eval_metrics, _, _, *ev_nonfinite = eval_round(
                     server_state, client_states, at(val_batches), val_counts[i])
-                outs.append({"fit_losses": fit_losses, "fit_metrics": fit_metrics,
-                             "per_client_fit_losses": per_fit,
-                             "eval_losses": eval_losses, "eval_metrics": eval_metrics,
-                             "cohort_ids": ids, "cohort_valid": valid})
+                out = {"fit_losses": fit_losses, "fit_metrics": fit_metrics,
+                       "per_client_fit_losses": per_fit,
+                       "eval_losses": eval_losses, "eval_metrics": eval_metrics,
+                       "cohort_ids": ids, "cohort_valid": valid}
+                if telemetry_on:
+                    out["telemetry"] = telemetry[0].replace(nonfinite_eval_loss=ev_nonfinite[0])
+                outs.append(out)
                 dest = torch.where(slot_ids < valid, pos, w)
                 w_client = ptu.tree_map(lambda wt, c: wt.index_copy(0, dest, c),
                                         w_client, client_states)
@@ -1935,7 +2744,9 @@ class FederatedSimulation:
         under a state checkpointer, staged by the prefetcher while the
         previous chunk runs. At a boundary the window's rows go back into
         the registry first, then the cohort frame (slot states and the
-        registry's rows) is written as the pipelined consumer would."""
+        registry's rows and the fleet ledger) is written as the pipelined
+        consumer would."""
+        obs = self.observability
         sc = self.state_checkpointer
         chunk_ckpt = sc is not None
         if first > last:
@@ -1951,11 +2762,13 @@ class FederatedSimulation:
                     if s + k <= last:
                         prefetcher.schedule_chunk(s + k,
                                                   self._rounds_per_dispatch(last, s + k))
-                    trees = self._run_cohort_chunk(s, k, staged, snapshot=chunk_ckpt)
+                    with obs.span("cohort_chunk", start_round=s, rounds=k):
+                        trees = self._run_cohort_chunk(s, k, staged, snapshot=chunk_ckpt)
                     if chunk_ckpt:
                         sc.save_cohort_snapshot(trees, s + k - 1, self.n_clients,
                                                 self.registry_size, self.registry.export_rows(),
-                                                list(self.history), writer=writer)
+                                                list(self.history), writer=writer,
+                                                fleet=self._fleet_snapshot_doc())
                     s += k
         finally:
             prefetcher.close()
@@ -1967,26 +2780,37 @@ class FederatedSimulation:
         chunk's scatter: same thread), its rounds dispatched, one pull of
         the outputs and the window, the device draws checked against the
         host's, the window's rows stored in the registry, and the shared
-        chunked epilogue with each round's cohort facts."""
+        chunked epilogue with each round's cohort facts and registry ids."""
+        obs = self.observability
+        compiles_before, compile_s_before = self._compile_counts()
         t_start = time.time()
         chunk = self._make_cohort_chunk()
         reg = self.registry
-        g0 = time.perf_counter()
-        w_client_h, w_srows_h = reg.gather_window(staged["window_ids"])
-        w_client = rows_to_device(w_client_h, reg.client_dtypes, self.device)
-        w_srows = (rows_to_device(w_srows_h, reg.strategy_dtypes, self.device)
-                   if w_srows_h is not None else None)
-        gather_ms = (time.perf_counter() - g0) * 1e3
-        self.server_state, self.client_states, w_client, w_srows, outs = chunk(
-            self.server_state, self.client_states, w_client, w_srows, self.rng,
-            staged["window_ids_dev"], staged["batches"], staged["mask"],
-            staged["sample_counts"], staged["val_batches"], staged["val_counts"], start_round)
-        tree = {"outs": outs, "client_rows": w_client, "strategy_rows": w_srows}
-        if snapshot:
-            tree["_state_trees"] = self._snapshot_trees()
-            dtypes = _dtypes(tree["_state_trees"])
-        pull = HostPull(tree)
-        host = pull.result()  # the chunk's one pull
+        with obs.span("cohort_gather", start_round=start_round,
+                      window=int(staged["w_real"])) as gather_span:
+            g0 = time.perf_counter()
+            w_client_h, w_srows_h = reg.gather_window(staged["window_ids"])
+            w_client = rows_to_device(w_client_h, reg.client_dtypes, self.device)
+            w_srows = (rows_to_device(w_srows_h, reg.strategy_dtypes, self.device)
+                       if w_srows_h is not None else None)
+            gather_ms = (time.perf_counter() - g0) * 1e3
+            gather_span.set(gather_ms=gather_ms)
+        with obs.span("fit_cohort_chunk", cat="fit", rounds=k,
+                      start_round=start_round) as chunk_span:
+            self.server_state, self.client_states, w_client, w_srows, outs = chunk(
+                self.server_state, self.client_states, w_client, w_srows, self.rng,
+                staged["window_ids_dev"], staged["batches"], staged["mask"],
+                staged["sample_counts"], staged["val_batches"], staged["val_counts"],
+                start_round)
+            device_wait = obs.fence((outs["fit_losses"], outs["eval_losses"]))[1]
+            tree = {"outs": outs, "client_rows": w_client, "strategy_rows": w_srows}
+            if snapshot:
+                tree["_state_trees"] = self._snapshot_trees()
+                dtypes = _dtypes(tree["_state_trees"])
+            pull = HostPull(tree)
+            host = pull.result()  # the chunk's one pull
+            chunk_span.set(device_wait_s=device_wait)
+        self._count_cohort_roundtrip()
         trees = host_snapshot(host.pop("_state_trees"), dtypes) if snapshot else None
         stacked = host["outs"]
         # the window was built from the host draws: a device draw that
@@ -2002,10 +2826,14 @@ class FederatedSimulation:
                 f"{type(self.client_manager).__name__}.draw_cohort "
                 "contract (bit-identical to sample_indices) is broken — "
                 "the chunk's window exchange cannot be trusted")
-        s0 = time.perf_counter()
-        reg.scatter(staged["window_ids"], int(staged["w_real"]), host["client_rows"],
-                    host["strategy_rows"] if w_srows_h is not None else None)
-        scatter_ms = (time.perf_counter() - s0) * 1e3
+        with obs.span("registry_scatter", start_round=start_round,
+                      valid=int(staged["w_real"])) as sc_span:
+            s0 = time.perf_counter()
+            reg.scatter(staged["window_ids"], int(staged["w_real"]), host["client_rows"],
+                        host["strategy_rows"] if w_srows_h is not None else None)
+            scatter_ms = (time.perf_counter() - s0) * 1e3
+            sc_span.set(scatter_ms=scatter_ms)
+        compiles_after, compile_s_after = self._compile_counts()
         per_round_s = (time.time() - t_start) / max(k, 1)
         meta = {"stage_ms": staged["stage_ms"], "gather_ms": gather_ms,
                 "staged_bytes": staged["staged_bytes"], "rounds_per_dispatch": k,
@@ -2013,7 +2841,11 @@ class FederatedSimulation:
         infos = [self._cohort_info({**meta, "valid": int(valid_host[i])}, scatter_ms, pull)
                  for i in range(k)]
         self._chunked_epilogue(k, stacked, np.asarray(staged["mask_np"]), per_round_s,
-                               start_round=start_round, cohort_infos=infos)
+                               start_round=start_round, cohort_infos=infos,
+                               registry_ids=ids_host,
+                               compiles=(compiles_before, compile_s_before, compiles_after,
+                                         compile_s_after),
+                               device_wait_round=device_wait / max(k, 1))
         return trees
 
     # -- buffered-async routes (server/async_schedule.py) ----------------
@@ -2041,6 +2873,15 @@ class FederatedSimulation:
         events ``start_event..`` (from a new prologue at 1, else from the
         restored ``pending``), event ``e`` recorded as number
         ``first + e - 1``."""
+        obs = self.observability
+        if obs.enabled:
+            obs.log_event(
+                "async_plan", events=plan.n_events,
+                buffer_size=self.async_config.buffer_size,
+                staleness_mean=float(plan.staleness[plan.arrivals > 0].mean())
+                if plan.n_events else 0.0,
+                virtual_wall_s=float(plan.event_times[-1]),
+                mean_cadence_vs=float(plan.cadences().mean()))
         self._async_prefix_fps = None
         if start_event > plan.n_events:
             return  # the restored state covers every event asked for
@@ -2060,25 +2901,30 @@ class FederatedSimulation:
         and restart while the ``RoundConsumer`` runs the previous event's
         epilogue and the ``RoundPrefetcher`` stages the next event's restart
         batches (data plan ``e+2``)."""
+        obs = self.observability
         prologue, _ = self._async_programs()
-        val_batches, val_counts = self._val_batches()
+        with obs.span("setup", cat="fit"):
+            val_batches, val_counts = self._val_batches()
         self._fit_last_round = plan.n_events
         with self._ckpt_writer_scope(self._ckpt_every() is not None):
             consumer = self._consumer = RoundConsumer(maxsize=self.pipeline_depth)
             prefetcher = self._prefetcher = RoundPrefetcher(self)
             try:
                 if start_event == 1:
-                    self.client_states, self._async_pending = prologue(
-                        self.server_state, self.client_states, self._round_batches(1),
-                        val_batches)
+                    with obs.span("async_prologue", cat="fit"):
+                        self.client_states, self._async_pending = prologue(
+                            self.server_state, self.client_states, self._round_batches(1),
+                            val_batches)
                 prefetcher.schedule(start_event + 1)  # event e restarts on plan e+1
                 for e in range(start_event, plan.n_events + 1):
                     consumer.raise_pending()
-                    self._run_async_event(e, plan, first, val_batches, val_counts)
+                    with obs.maybe_profile(e):
+                        self._run_async_event(e, plan, first, val_batches, val_counts)
                 consumer.flush()
             finally:
                 consumer.close()
                 prefetcher.close()
+                self._last_epilogue_round = consumer.last_completed_round
                 self._consumer = self._prefetcher = None
                 self._async_pending = None
 
@@ -2086,33 +2932,44 @@ class FederatedSimulation:
         """The producer's half of event ``e``: its plan row and the staged
         restart batches in, one dispatch of consume, eval and restart, the
         pull started and the epilogue handed to the consumer. Nothing here
-        waits for the device."""
+        waits for the device, unless observability fences it."""
+        obs = self.observability
         consumer, prefetcher = self._consumer, self._prefetcher
         _, event = self._async_programs()
+        compiles_before, compile_s_before = self._compile_counts()
         t0 = time.time()
-        arrivals = engine.host_to_device(plan.arrivals[e - 1], self.device)
-        staleness = engine.host_to_device(plan.staleness[e - 1], self.device)
-        batches_next = (prefetcher.take(e + 1) if prefetcher is not None
-                        else self._round_batches(e + 1))
-        if prefetcher is not None and e < self._fit_last_round:
-            prefetcher.schedule(e + 2)
-        (self.server_state, self.client_states, self._async_pending, out) = event(
-            self.server_state, self.client_states, self._async_pending, batches_next,
-            arrivals, staleness, e, val_batches, val_counts,
-            self._staleness_exponent_input(), *(self._test_batches() or ()))
-        results = {"mask": arrivals, **out}
-        snap = self._round_snapshots(results, e, with_pending=True)
-        resume_meta = None
-        if snap is not None:
-            # the frame proves its plan: the consumed prefix's fingerprint
-            # and the virtual clock
-            resume_meta = {"plan_fingerprint": self._async_prefix_fps[e - 1],
-                           "virtual_time_s": float(plan.event_times[e - 1])}
-        work = _RoundWork(round=first + e - 1, pull=HostPull(results),
-                          fit_elapsed_s=time.time() - t0,
-                          eval_elapsed_s=0.0,  # eval is fused into the event
-                          async_info=self._async_event_info(plan, e - 1), event=e,
-                          snapshot_dtypes=snap, resume_meta=resume_meta)
+        with obs.span("round", round=e, kind="async_event"):
+            arrivals = engine.host_to_device(plan.arrivals[e - 1], self.device)
+            staleness = engine.host_to_device(plan.staleness[e - 1], self.device)
+            batches_next = (prefetcher.take(e + 1) if prefetcher is not None
+                            else self._round_batches(e + 1))
+            if prefetcher is not None and e < self._fit_last_round:
+                prefetcher.schedule(e + 2)
+            with obs.span("async_event", round=e) as ev_span:
+                (self.server_state, self.client_states, self._async_pending, out) = event(
+                    self.server_state, self.client_states, self._async_pending,
+                    batches_next, arrivals, staleness, e, val_batches, val_counts,
+                    self._staleness_exponent_input(), *(self._test_batches() or ()))
+                device_wait_s = obs.fence((out["fit_losses"], out["eval_losses"]))[1]
+                ev_span.set(device_wait_s=device_wait_s)
+            compiles_after, compile_s_after = self._compile_counts()
+            results = {"mask": arrivals, **out}
+            with self._snapshot_span(e, "async"):
+                snap = self._round_snapshots(results, e, with_pending=True)
+            resume_meta = None
+            if snap is not None:
+                # the frame proves its plan: the consumed prefix's
+                # fingerprint and the virtual clock
+                resume_meta = {"plan_fingerprint": self._async_prefix_fps[e - 1],
+                               "virtual_time_s": float(plan.event_times[e - 1])}
+            work = _RoundWork(round=first + e - 1, pull=HostPull(results),
+                              fit_elapsed_s=time.time() - t0,
+                              eval_elapsed_s=0.0,  # eval is fused into the event
+                              async_info=self._async_event_info(plan, e - 1), event=e,
+                              snapshot_dtypes=snap, resume_meta=resume_meta,
+                              device_wait_s=device_wait_s, compiles_before=compiles_before,
+                              compile_s_before=compile_s_before,
+                              compiles_after=compiles_after, compile_s_after=compile_s_after)
         if consumer is None:  # no pipeline: the epilogue inline
             self._finish_round(work)
             return
@@ -2151,6 +3008,7 @@ class FederatedSimulation:
         clients and ``pending`` at each boundary), each one pull and the
         shared epilogue with each event's facts. Event ``e`` restarts on
         data plan ``e+1``."""
+        obs = self.observability
         sc = self.state_checkpointer
         chunk_ckpt = self._ckpt_every() is not None
         prologue, _ = self._async_programs()
@@ -2158,8 +3016,10 @@ class FederatedSimulation:
         n = plan.n_events
         self._fit_last_round = n
         if start_event == 1:
-            self.client_states, pending = prologue(
-                self.server_state, self.client_states, self._round_batches(1), val_batches)
+            with obs.span("async_prologue", cat="fit"):
+                self.client_states, pending = prologue(
+                    self.server_state, self.client_states, self._round_batches(1),
+                    val_batches)
         else:
             pending = self._async_pending  # restored mid-plan
         self._async_pending = None
@@ -2167,6 +3027,7 @@ class FederatedSimulation:
             s = start_event
             while s <= n:
                 k = self._rounds_per_dispatch(n, s)
+                compiles_before, compile_s_before = self._compile_counts()
                 t_start = time.time()
                 plans = [self._round_plan(e + 1) for e in range(s, s + k)]
                 idx, em, sm = (engine.host_to_device(
@@ -2175,30 +3036,39 @@ class FederatedSimulation:
                 arrivals = engine.host_to_device(plan.arrivals[s - 1:s - 1 + k], self.device)
                 staleness = engine.host_to_device(plan.staleness[s - 1:s - 1 + k],
                                                   self.device)
-                self.server_state, self.client_states, pending, outs = (
-                    self._make_async_chunked()(
-                        self.server_state, self.client_states, pending,
-                        self._x_train_stack, self._y_train_stack, idx, em, sm, arrivals,
-                        staleness, s, val_batches, val_counts,
-                        self._staleness_exponent_input(), *(self._test_batches() or ())))
-                tree = {"outs": outs}
-                if chunk_ckpt:
-                    tree["_state_trees"] = {"server_state": self.server_state,
-                                            "client_states": self.client_states,
-                                            "pending": pending}
-                    dtypes = _dtypes(tree["_state_trees"])
-                host = HostPull(tree).result()  # the chunk's one pull
+                with obs.span("fit_async_chunk", cat="fit", rounds=k,
+                              start_event=s) as chunk_span:
+                    self.server_state, self.client_states, pending, outs = (
+                        self._make_async_chunked()(
+                            self.server_state, self.client_states, pending,
+                            self._x_train_stack, self._y_train_stack, idx, em, sm, arrivals,
+                            staleness, s, val_batches, val_counts,
+                            self._staleness_exponent_input(), *(self._test_batches() or ())))
+                    device_wait = obs.fence(outs)[1]
+                    tree = {"outs": outs}
+                    if chunk_ckpt:
+                        tree["_state_trees"] = {"server_state": self.server_state,
+                                                "client_states": self.client_states,
+                                                "pending": pending}
+                        dtypes = _dtypes(tree["_state_trees"])
+                    host = HostPull(tree).result()  # the chunk's one pull
+                    chunk_span.set(device_wait_s=device_wait)
+                compiles_after, compile_s_after = self._compile_counts()
                 self._chunked_epilogue(k, host["outs"], plan.arrivals[s - 1:s - 1 + k],
                                        (time.time() - t_start) / k,
                                        start_round=first + s - 1, async_plan=plan,
-                                       first_event=s)
+                                       first_event=s,
+                                       compiles=(compiles_before, compile_s_before,
+                                                 compiles_after, compile_s_after),
+                                       device_wait_round=device_wait / k)
                 if chunk_ckpt:
                     e_done = s + k - 1
                     sc.save_async_snapshot(
                         host_snapshot(host["_state_trees"], dtypes), e_done, self.n_clients,
                         list(self.history),
                         plan_fingerprint=self._async_prefix_fps[e_done - 1],
-                        virtual_time_s=float(plan.event_times[e_done - 1]), writer=writer)
+                        virtual_time_s=float(plan.event_times[e_done - 1]), writer=writer,
+                        fleet=self._fleet_snapshot_doc())
                 s += k
 
     # -- buffered async over the registry (FedBuff x cohort slots) -------
@@ -2211,20 +3081,26 @@ class FederatedSimulation:
         row goes back into the registry. The occupants' sample counts ride
         ``pending`` with their packets, so a packet is weighted by the
         counts it trained under."""
+        obs = self.observability
         prologue, _ = self._async_programs()
         slots, reg = self.n_clients, self.registry
         occ = np.asarray(plan.slot_ids[0])
-        self._gather_cohort_rows(occ)
+        with obs.span("cohort_gather", round=0, valid=slots):
+            self._gather_cohort_rows(occ)
         consumer = self._consumer = RoundConsumer(maxsize=self.pipeline_depth)
         try:
-            staged = reg.stage_round(occ, slots, self._base_entropy, 1)
-            self.client_states, self._async_pending = prologue(
-                self.server_state, self.client_states, self._to_device(staged["batches"]),
-                self._to_device(staged["val_batches"]),
-                self._to_device(staged["sample_counts"]))
+            with obs.span("async_prologue", cat="fit"):
+                staged = reg.stage_round(occ, slots, self._base_entropy, 1)
+                self.client_states, self._async_pending = prologue(
+                    self.server_state, self.client_states,
+                    self._to_device(staged["batches"]),
+                    self._to_device(staged["val_batches"]),
+                    self._to_device(staged["sample_counts"]))
+            self._count_cohort_roundtrip()
             for e in range(1, plan.n_events + 1):
                 consumer.raise_pending()
-                occ = self._run_async_registry_event(e, plan, occ, first)
+                with obs.maybe_profile(e):
+                    occ = self._run_async_registry_event(e, plan, occ, first)
             consumer.flush()
             # the end of the plan: the seats' live rows persist
             host = HostPull({"client_states": self.client_states,
@@ -2233,6 +3109,7 @@ class FederatedSimulation:
             reg.scatter(occ, slots, host["client_states"], host["strategy_rows"])
         finally:
             consumer.close()
+            self._last_epilogue_round = consumer.last_completed_round
             self._consumer = None
             self._async_pending = None
 
@@ -2273,28 +3150,39 @@ class FederatedSimulation:
         post-swap stack), dispatch, and hand the epilogue to the consumer
         with the pre-swap occupancy (a consumed packet belongs to the
         occupant that trained it). Returns the new occupancy."""
+        obs = self.observability
         consumer = self._consumer
         _, event = self._async_programs()
         slots, reg = self.n_clients, self.registry
+        compiles_before, compile_s_before = self._compile_counts()
         t0 = time.time()
-        occ_next = np.asarray(plan.slot_ids[e])
-        changed = np.nonzero(occ_prev != occ_next)[0]
-        scatter_ms = gather_ms = 0.0
-        if changed.size:
-            scatter_ms, gather_ms = self._swap_seats(changed, occ_prev[changed],
-                                                     occ_next[changed])
-        st0 = time.perf_counter()
-        staged = reg.stage_round(occ_next, slots, self._base_entropy, e + 1)
-        batches_next, val_batches, val_counts, wave_counts = (
-            self._to_device(staged[k]) for k in ("batches", "val_batches", "val_counts",
-                                                 "sample_counts"))
-        stage_ms = (time.perf_counter() - st0) * 1e3
-        arrivals = engine.host_to_device(plan.arrivals[e - 1], self.device)
-        (self.server_state, self.client_states, self._async_pending, out) = event(
-            self.server_state, self.client_states, self._async_pending, batches_next,
-            arrivals, engine.host_to_device(plan.staleness[e - 1], self.device), e,
-            val_batches, val_counts, self._staleness_exponent_input(),
-            None, None, wave_counts)  # no test split under a cohort
+        with obs.span("round", round=e, kind="async_event"):
+            occ_next = np.asarray(plan.slot_ids[e])
+            changed = np.nonzero(occ_prev != occ_next)[0]
+            scatter_ms = gather_ms = 0.0
+            if changed.size:
+                with obs.span("registry_swap", round=e,
+                              swapped=int(changed.size)) as swap_span:
+                    scatter_ms, gather_ms = self._swap_seats(changed, occ_prev[changed],
+                                                             occ_next[changed])
+                    swap_span.set(scatter_ms=scatter_ms, gather_ms=gather_ms)
+            st0 = time.perf_counter()
+            staged = reg.stage_round(occ_next, slots, self._base_entropy, e + 1)
+            batches_next, val_batches, val_counts, wave_counts = (
+                self._to_device(staged[k]) for k in ("batches", "val_batches", "val_counts",
+                                                     "sample_counts"))
+            stage_ms = (time.perf_counter() - st0) * 1e3
+            arrivals = engine.host_to_device(plan.arrivals[e - 1], self.device)
+            with obs.span("async_event", round=e) as ev_span:
+                (self.server_state, self.client_states, self._async_pending, out) = event(
+                    self.server_state, self.client_states, self._async_pending, batches_next,
+                    arrivals, engine.host_to_device(plan.staleness[e - 1], self.device), e,
+                    val_batches, val_counts, self._staleness_exponent_input(),
+                    None, None, wave_counts)  # no test split under a cohort
+                device_wait_s = obs.fence((out["fit_losses"], out["eval_losses"]))[1]
+                ev_span.set(device_wait_s=device_wait_s)
+            self._count_cohort_roundtrip()
+            compiles_after, compile_s_after = self._compile_counts()
         work = _RoundWork(
             round=first + e - 1, pull=HostPull({"mask": arrivals, **out}),
             fit_elapsed_s=time.time() - t0, eval_elapsed_s=0.0,
@@ -2307,7 +3195,10 @@ class FederatedSimulation:
                          "scatter_ms": round(scatter_ms, 3),
                          "staged_bytes": staged["staged_bytes"], "swapped": int(changed.size),
                          "rounds_per_dispatch": 1, "cohort_draw": "event_plan"},
-            async_info=self._async_event_info(plan, e - 1), event=e)
+            async_info=self._async_event_info(plan, e - 1), event=e,
+            device_wait_s=device_wait_s, compiles_before=compiles_before,
+            compile_s_before=compile_s_before, compiles_after=compiles_after,
+            compile_s_after=compile_s_after)
         consumer.submit_round(work.round, functools.partial(self._finish_round, work))
         if not self.failure_policy.accept_failures:
             consumer.flush()

@@ -84,6 +84,12 @@ class Strategy:
     def global_params(self, server_state: Any) -> Params:
         return server_state.params
 
+    def divergence_reference(self, server_state: Any) -> Params:
+        """The point the round telemetry's weight divergence is measured
+        from after aggregation (``observability/telemetry.py``): the global
+        model by default; a wrapper answers for its inner strategy."""
+        return self.global_params(server_state)
+
     def client_payload(self, server_state: Any, round_idx: int) -> Any:
         return server_state.params
 

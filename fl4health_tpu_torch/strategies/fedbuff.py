@@ -96,6 +96,9 @@ class FedBuff(Strategy):
     def global_params(self, server_state: Any):
         return self.inner.global_params(server_state)
 
+    def divergence_reference(self, server_state: Any):
+        return self.inner.divergence_reference(server_state)
+
     def state_rows(self, server_state: Any):
         # FedBuff's state is the inner state, so its rows are the inner rows
         return self.inner.state_rows(server_state)

@@ -33,6 +33,7 @@ from fl4health_tpu_torch.metrics import efficient as tefficient
 from fl4health_tpu_torch.metrics.base import MetricManager as TMetricManager
 from fl4health_tpu_torch.models import cnn as tcnn
 from fl4health_tpu_torch.models import convert
+from fl4health_tpu_torch.observability import MetricsRegistry, Observability, Tracer
 from fl4health_tpu_torch.privacy import accountants as tacc
 from fl4health_tpu_torch.server import servers as tservers
 from fl4health_tpu_torch.server import simulation as tsim
@@ -78,7 +79,10 @@ def test_dp_scaffold_run_matches_jax(warm_start):
         tx=optim.sgd(lr), strategy=TScaffold(1.0),
         datasets=[tsim.ClientDataset(*d) for d in data], batch_size=8,
         metrics=TMetricManager((tefficient.accuracy(),)), local_steps=3, seed=5,
-        device="cpu")
+        device="cpu",
+        # the telemetry build averages DP's clip fraction into the fit losses
+        observability=Observability(enabled=True, registry=MetricsRegistry(),
+                                    tracer=Tracer(), introspection=False))
     init = convert.flax_to_torch(jax.tree_util.tree_map(np.asarray, js.global_params))
     ts.set_global_params(init)
     jhist, jeps = jservers.DpScaffoldServer(js, sigma, 8, warm_start=warm_start,

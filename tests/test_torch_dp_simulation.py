@@ -38,6 +38,7 @@ from fl4health_tpu_torch.metrics import efficient as tefficient
 from fl4health_tpu_torch.metrics.base import MetricManager as TMetricManager
 from fl4health_tpu_torch.models import cnn as tcnn
 from fl4health_tpu_torch.models import convert
+from fl4health_tpu_torch.observability import MetricsRegistry, Observability, Tracer
 from fl4health_tpu_torch.server import servers as tservers
 from fl4health_tpu_torch.server import simulation as tsim
 from fl4health_tpu_torch.strategies.fedavg import FedAvg as TFedAvg
@@ -59,7 +60,7 @@ def _dp_data():
     return out
 
 
-def _port_dp_sim(data, noise_multiplier, seed=5):
+def _port_dp_sim(data, noise_multiplier, seed=5, observability=None):
     logic = TDpLogic(tengine.from_module(tcnn.CifarNet(input_shape=(8, 8, 3))),
                      tengine.masked_cross_entropy, clipping_bound=1.0,
                      noise_multiplier=noise_multiplier)
@@ -67,7 +68,14 @@ def _port_dp_sim(data, noise_multiplier, seed=5):
         logic=logic, tx=optim.sgd(0.05), strategy=TFedAvg(),
         datasets=[tsim.ClientDataset(*d) for d in data], batch_size=8,
         metrics=TMetricManager((tefficient.accuracy(),)), local_steps=3, seed=seed,
-        device="cpu")
+        device="cpu", observability=observability)
+
+
+def _telemetry_on():
+    """A private observability handle: its telemetry build averages DP's
+    clip fraction into the fit losses, as JAX's does."""
+    return Observability(enabled=True, registry=MetricsRegistry(), tracer=Tracer(),
+                         introspection=False)
 
 
 def _assert_history_close(thist, jhist, tol, metric_atol):
@@ -101,7 +109,7 @@ def test_dp_fedavg_run_matches_jax(sigma):
         datasets=[jsim.ClientDataset(*d) for d in data], batch_size=8,
         metrics=JMetricManager((jefficient.accuracy(),)), local_steps=3, seed=5,
         execution_mode="pipelined")
-    ts = _port_dp_sim(data, noise_multiplier=sigma)
+    ts = _port_dp_sim(data, noise_multiplier=sigma, observability=_telemetry_on())
     init = convert.flax_to_torch(jax.tree_util.tree_map(np.asarray, js.global_params))
     ts.set_global_params(init)
     # the servers account with sigma 1 (the clients' noise may be 0)
@@ -109,7 +117,7 @@ def test_dp_fedavg_run_matches_jax(sigma):
     thist, teps = tservers.InstanceLevelDpServer(ts, 1.0, 8).fit(2)
     assert abs(teps - jeps) <= 1e-9 and 0.0 < teps < np.inf
     _assert_history_close(thist, jhist, TOL, 1e-6)
-    for r in thist:  # the clip fraction rides beside the loss
+    for r in thist:  # the clip fraction rides beside the loss (telemetry on)
         assert 0.0 <= r.fit_losses["clip_fraction"] <= 1.0
     _assert_params_close(ts.global_params, js.global_params, TOL)
     moved = max(float((ts.global_params[k] - init[k]).abs().max()) for k in init)

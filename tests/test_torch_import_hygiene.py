@@ -51,7 +51,14 @@ def test_sources_were_found():
             "config.py", "strategy.py", "async_schedule.py", "faults.py", "aggregators.py",
             "fedbuff.py", "serialization.py", "state.py", "checkpointer.py",
             "async_writer.py", "manifest.py", "recovery.py", "inference.py",
-            "medical.py"} <= names
+            "medical.py", "telemetry.py", "health.py", "flightrec.py", "bundle.py",
+            "cudamon.py", "device_specs.py", "exposition.py", "fleet.py", "sketches.py",
+            "spans.py"} <= names
+    # every observability module is on the list the tests above walk
+    obs = {p.name for p in SOURCES if p.parent.name == "observability"}
+    assert {"__init__.py", "registry.py", "manifest.py", "telemetry.py", "health.py",
+            "flightrec.py", "bundle.py", "cudamon.py", "device_specs.py", "exposition.py",
+            "fleet.py", "sketches.py", "spans.py"} == obs
 
 
 def test_package_imports_without_jax():

@@ -89,6 +89,18 @@ def cohort_sampled(ckpt_dir, device="cpu"):
                  client_manager=FixedFractionManager(6, 0.5))
 
 
+def sync_chunked_observed(ckpt_dir, device="cpu"):
+    """``sync_chunked_every1`` with observability on (the flight recorder
+    and the fleet ledger armed), its artifacts and postmortem bundles in
+    ``obs`` beside the checkpoint directory: the SIGTERM drill's child."""
+    from fl4health_tpu_torch.observability import Observability
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(str(ckpt_dir))), "obs")
+    return _base(ckpt_dir, checkpoint_every=1, execution_mode="chunked", device=device,
+                 observability=Observability(enabled=True, output_dir=out_dir,
+                                             introspection=False))
+
+
 def probe_modules(ckpt_dir, device="cpu"):
     """``sync_chunked_every1`` whose ``fit`` also writes the names of the
     JAX-side modules loaded in the child (``loaded_modules.json``)."""
