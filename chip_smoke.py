@@ -266,6 +266,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``sigterm`` bundle, a resume bit-equal to an unkilled child with the
      frame's fleet ledger adopted). Phases 7, 8 and 16 run the telemetry
      build (no fence, no recorder), for DP's clip fraction.
+ 34. The recovery slice, in the same deterministic block:
+     ``tiny_recovery_parity`` (the CPU tests' tiny supervised drill on the
+     card and on the CPU: the same verdicts, suspects, rungs, rollbacks,
+     roster and ledger, losses and params within 5e-4),
+     ``recovery_dp_cifar_cnn`` (the DP path at full width under
+     ``InstanceLevelDpServer``, a frame every round, 6 rounds on each route,
+     four arms: fault-free; an armed, idle ``RecoveryPolicy`` bit-equal to
+     it; a probability-1 scale fault (-15) on 16 named clients from round
+     2 unsupervised, halted by the watchdog with one bundle; the same
+     supervised, all 6 rounds, the 16 clients on its roster; K1/K2 5 and 40
+     a dispatched round as the simulation counts them; the rungs, the
+     rollbacks, the epsilon and the wall split into restore, bundle,
+     engagement and replayed rounds), ``recovery_cohort`` (the pipelined
+     cohort route at N 1,000 with 64 slots: a NaN registry client's failure
+     quarantined by registry id, the route's reason, the launches) and
+     ``hoisting_server_lr`` (``fed_adam``'s server lr set by
+     ``apply_state_scalars``: bit-equal to a run built with it).
 ``fit`` takes its default route, ``execution_mode`` "auto": chunked unless
 something needs the host between rounds (a strict failure policy, a data
 provider), then pipelined. Neither waits for the device inside a round, so
@@ -1309,7 +1326,8 @@ def telemetry_build():
 
 
 def build_dp_sim(data, dtype, device, noise_multiplier, seed,
-                 input_shape=(32, 32, 3), batch=BATCH, local_steps=LOCAL_STEPS, **sim_kw):
+                 input_shape=(32, 32, 3), batch=BATCH, local_steps=LOCAL_STEPS, strategy=None,
+                 **sim_kw):
     from fl4health_tpu_torch import optim
     from fl4health_tpu_torch.clients import engine
     from fl4health_tpu_torch.clients.instance_level_dp import InstanceLevelDpClientLogic
@@ -1324,7 +1342,7 @@ def build_dp_sim(data, dtype, device, noise_multiplier, seed,
         engine.masked_cross_entropy, clipping_bound=DP_CLIP,
         noise_multiplier=noise_multiplier)
     return FederatedSimulation(
-        logic=logic, tx=optim.sgd(0.05), strategy=FedAvg(), datasets=data,
+        logic=logic, tx=optim.sgd(0.05), strategy=strategy or FedAvg(), datasets=data,
         batch_size=batch, metrics=MetricManager((efficient.accuracy(),)),
         local_steps=local_steps, seed=seed, device=device, **sim_kw)
 
@@ -4205,6 +4223,410 @@ def obs_sigterm_drill() -> dict:
     return out
 
 
+# -- the recovery slice ---------------------------------------------------------
+
+RECOVERY_ROUNDS = 6
+# the clients of the scale fault (-15, probability 1, from round 2): every
+# fourth of the 64. On 4 clients the fault cannot diverge: their weights
+# (4 x -15) cancel the 60 honest ones in the weighted mean, so it stalls
+# the run (on the card, 8 rounds: fit loss 2.33 to 2.35, never 1.01x its
+# best; 16 clients: 3.93 at round 4, 1.69x)
+RECOVERY_FAULTED = tuple(range(0, 64, 4))
+# the reference drill's watchdog: a loss divergence over a window of 1 round
+# at factor 1.4 (raised in steps of 0.2 if the fault-free arm trips it)
+RECOVERY_FACTOR = 1.4
+TINY_RECOVERY_ROUNDS = 10  # the reference drill's
+
+
+def recovery_obs(directory: str, factor: float = RECOVERY_FACTOR, watchdog: bool = True):
+    """An enabled handle with its output dir and the drill's watchdog (halt
+    on a loss divergence over 1 round at ``factor``, or on non-finite
+    values)."""
+    from fl4health_tpu_torch.observability import HealthPolicy, HealthWatchdog
+
+    return obs_handle(output_dir=directory, sync_device=False, watchdog=HealthWatchdog(
+        HealthPolicy(loss_divergence_window=1, loss_divergence_factor=factor,
+                     on_loss_divergence="halt", on_nonfinite="halt")) if watchdog else None)
+
+
+def scale_fault_plan(clients: tuple):
+    from fl4health_tpu_torch.resilience import ClientFault, FaultPlan
+
+    return FaultPlan(seed=3, client_faults=(ClientFault(
+        clients=clients, kind="scale", scale=-15.0, probability=1.0, start_round=2),))
+
+
+def recovery_trail(obs_dir: str) -> tuple[list, list]:
+    """(the bundles' verdicts, the recovery and quarantine events): each
+    attempt's bundle keeps its event tail, the last run's JSONL the rest."""
+    from fl4health_tpu_torch.observability.bundle import list_bundles, load_bundle
+
+    verdicts, events = [], []
+    for path in list_bundles(obs_dir):
+        b = load_bundle(path)
+        verdicts.append({k: b["verdict"].get(k) for k in ("kind", "round", "check", "clients")})
+        events.extend(b["events"])
+    if os.path.exists(os.path.join(obs_dir, "metrics.jsonl")):
+        events.extend(jsonl_events(obs_dir))
+    keep = [{k: v for k, v in e.items() if k != "ts"} for e in events
+            if e.get("event") in ("recovery", "quarantine")]
+    return verdicts, keep
+
+
+def ledger_doc(sup) -> dict:
+    doc = sup._ledger_doc()
+    if doc.get("last_verdict"):
+        doc["last_verdict"] = {k: v for k, v in doc["last_verdict"].items() if k != "ts"}
+    return doc
+
+
+def tiny_recovery_drill(device: str, root: str) -> dict:
+    """The reference drill (tests/resilience/test_supervisor.py, the recipe
+    of tests/torch_resilience_sims.py) on ``device``: an Mlp of 6 features, 8
+    hidden units and 3 classes over 6 clients (``synthetic_classification``
+    at keys 20..25, 24 train and 8 val rows), SGD 0.05, batch 8, 2 local
+    steps, seed 9, FedAvg, the scale fault on clients 1 and 2 from round 2,
+    the watchdog, a frame every round, ``RecoveryPolicy(probation_rounds=3,
+    quarantine_rounds=0)``, 10 rounds on the chunked route."""
+    from fl4health_tpu_torch import optim, rng
+    from fl4health_tpu_torch.checkpointing import SimulationStateCheckpointer
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.models.cnn import Mlp
+    from fl4health_tpu_torch.resilience import RecoveryPolicy
+    from fl4health_tpu_torch.server.simulation import ClientDataset, FederatedSimulation
+    from fl4health_tpu_torch.strategies.fedavg import FedAvg
+
+    data = []
+    for i in range(6):
+        x, y = synthetic_classification(rng.PRNGKey(20 + i, "cpu"), 32, (6,), 3)
+        data.append(ClientDataset(x[:24], y[:24], x[24:], y[24:]))
+    obs_dir = os.path.join(root, f"{device}_obs")
+    sim = FederatedSimulation(
+        logic=engine.ClientLogic(engine.from_module(Mlp(6, (8,), 3)),
+                                 engine.masked_cross_entropy),
+        tx=optim.sgd(0.05), strategy=FedAvg(), datasets=data, batch_size=8,
+        metrics=MetricManager((efficient.accuracy(),)), local_steps=2, seed=9,
+        execution_mode="chunked", observability=recovery_obs(obs_dir),
+        fault_plan=scale_fault_plan((1, 2)),
+        state_checkpointer=SimulationStateCheckpointer(os.path.join(root, f"{device}_ck"),
+                                                       checkpoint_every=1, keep=8),
+        recovery=RecoveryPolicy(probation_rounds=3, quarantine_rounds=0), device=device)
+    hist = sim.fit(TINY_RECOVERY_ROUNDS)
+    verdicts, events = recovery_trail(obs_dir)
+    engages = [e for e in events if e.get("phase") == "engage"]
+    sup = sim._recovery_supervisor
+    return {"rounds": [r.round for r in hist], "verdicts": verdicts,
+            "rungs": [e["rung"] for e in engages],
+            "suspects": [e["suspects"] for e in engages],
+            "rollback": [e["rollback"] for e in engages],
+            "resume_rounds": [e["resume_round"] for e in engages],
+            "roster": sorted(sup._quarantine), "ledger": ledger_doc(sup),
+            "fit_losses": [r.fit_losses["backward"] for r in hist],
+            "params": {k: v.detach().cpu() for k, v in sim.global_params.items()}}
+
+
+def tiny_recovery_parity() -> dict:
+    """``tiny_recovery_parity``: the CPU tests' tiny supervised drill once on
+    the card and once on the CPU: the same verdicts, suspects, rungs,
+    rollbacks, roster and ledger document, the losses and final params
+    within 5e-4."""
+    root = ckpt_dir("tiny_recovery")
+    runs = {dev: tiny_recovery_drill(dev, root) for dev in ("cuda", "cpu")}
+    card, cpu = runs["cuda"], runs["cpu"]
+    for key in ("rounds", "verdicts", "rungs", "suspects", "rollback", "resume_rounds",
+                "roster", "ledger"):
+        if card[key] != cpu[key]:
+            fail(f"tiny_recovery_parity: {key} card {card[key]} vs cpu {cpu[key]}")
+    loss_err = max(abs(a - b) for a, b in zip(card["fit_losses"], cpu["fit_losses"]))
+    param_err = max(float((card["params"][k] - cpu["params"][k]).abs().max())
+                    for k in cpu["params"])
+    if not (loss_err <= 5e-4 and param_err <= 5e-4) or card["rounds"] != list(
+            range(1, TINY_RECOVERY_ROUNDS + 1)):
+        fail(f"tiny_recovery_parity: loss err {loss_err}, param err {param_err}, "
+             f"rounds {card['rounds']}")
+    drop_dirs(root)
+    out = {"phase": "tiny_recovery_parity", "rungs": card["rungs"],
+           "suspects": card["suspects"], "roster": card["roster"],
+           "verdicts": card["verdicts"], "resume_rounds": card["resume_rounds"],
+           "max_abs_loss_err": loss_err, "max_abs_param_err": param_err}
+    print(json.dumps(out))
+    return out
+
+
+class _Timed:
+    """Sums the wall of every call of one bound method of an object (a
+    measurement wrapper on the instance; the method itself is unchanged)."""
+
+    def __init__(self, obj, name: str):
+        self.total, self.calls, inner = 0.0, 0, getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            t0 = time.time()
+            try:
+                return inner(*args, **kwargs)
+            finally:
+                self.total += time.time() - t0
+                self.calls += 1
+
+        setattr(obj, name, timed)
+
+
+def recovery_dp_arm(data, route: str, root: str, tag: str, dp, *, factor: float,
+                    fault: bool, recovery) -> dict:
+    """One arm of ``recovery_dp_cifar_cnn``: the DP path under
+    ``InstanceLevelDpServer`` with a frame every round and observability on
+    (the drill's watchdog at ``factor``); ``fault`` adds the scale fault
+    on ``RECOVERY_FAULTED`` from round 2, ``recovery`` a
+    ``RecoveryPolicy``. A halt is returned, not raised: the caller says
+    which arms must halt."""
+    from fl4health_tpu_torch.observability import TrainingHealthError
+    from fl4health_tpu_torch.resilience import RecoverySupervisor
+    from fl4health_tpu_torch.server.servers import InstanceLevelDpServer
+
+    from fl4health_tpu_torch.checkpointing import SimulationStateCheckpointer
+
+    obs_dir = os.path.join(root, f"{tag}_obs")
+    # the reference drill's ring of 8 generations, a frame every round
+    sim = build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0, execution_mode=route,
+                       state_checkpointer=SimulationStateCheckpointer(
+                           os.path.join(root, f"{tag}_ck"), keep=8, checkpoint_every=1),
+                       observability=recovery_obs(obs_dir, factor),
+                       fault_plan=scale_fault_plan(RECOVERY_FAULTED) if fault else None,
+                       recovery=recovery)
+    timers = {"restore": _Timed(sim, "_maybe_resume"), "bundle": _Timed(sim, "_dump_postmortem")}
+    if recovery is not None:
+        sim._recovery_supervisor = RecoverySupervisor(sim, recovery)
+        timers["engage"] = _Timed(sim._recovery_supervisor, "_engage")
+    server = InstanceLevelDpServer(sim, DP_SIGMA, BATCH)
+    dp.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    halt, epsilon = None, None
+    try:
+        _, epsilon = server.fit(RECOVERY_ROUNDS)
+    except TrainingHealthError as e:
+        halt = {"round": e.round, "check": e.check, "clients": list(e.clients)}
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    from fl4health_tpu_torch.observability.bundle import list_bundles
+
+    out = {"sim": sim, "halt": halt, "epsilon": epsilon, "wall_s": wall,
+           "launches": dict(dp.LAUNCHES), "dispatched": sim.rounds_dispatched,
+           "bundles": len(list_bundles(obs_dir)), "obs_dir": obs_dir,
+           "fit_losses": [r.fit_losses["backward"] for r in sim.history],
+           **{f"{k}_s": t.total for k, t in timers.items()},
+           **{f"{k}_calls": t.calls for k, t in timers.items()}}
+    if out["launches"] != dp_launches(sim.rounds_dispatched):
+        fail(f"recovery_dp_cifar_cnn {route} {tag}: launches {out['launches']} for "
+             f"{sim.rounds_dispatched} dispatched rounds, expected "
+             f"{dp_launches(sim.rounds_dispatched)}")
+    return out
+
+
+def recovery_dp_cifar_cnn(dp) -> dict:
+    """``recovery_dp_cifar_cnn``, deterministic flags: the DP path at full
+    width (64 clients of 160 rows, batch 32, 5 DP-SGD steps, C 1, sigma 1,
+    bf16 compute on f32 params) under ``InstanceLevelDpServer``, a frame
+    every round, 6 rounds, on the chunked and the pipelined route, in four
+    arms: fault-free; a ``RecoveryPolicy`` armed with no fault (bit-equal to
+    the fault-free arm: history, global params, server state); the scale
+    fault (-15 on the 16 clients of ``RECOVERY_FAULTED`` from round 2)
+    unsupervised (the watchdog halts it on a loss divergence, one bundle);
+    and the fault supervised (all 6 rounds, the roster holds the 16
+    clients; ``max_suspects`` leaves room for 4 more, printed). K1 and K2
+    launch 5 and
+    40 times each round the simulation dispatched (``rounds_dispatched``).
+    Printed: the rungs, the rollbacks, the roster, the bundles, the reported
+    epsilon, and the supervised wall against the fault-free one split into
+    restore, bundle, engagement and replayed rounds."""
+    from fl4health_tpu_torch.resilience import RecoveryPolicy
+
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    out = {"phase": "recovery_dp_cifar_cnn", "clients": DP_CLIENTS, "rounds": RECOVERY_ROUNDS,
+           "faulted": list(RECOVERY_FAULTED), "fault": "scale -15, probability 1, round >= 2"}
+    policy = RecoveryPolicy(quarantine_rounds=0, max_suspects=len(RECOVERY_FAULTED) + 4)
+    out["policy"] = {"rungs": list(policy.rungs), "max_suspects": policy.max_suspects,
+                     "quarantine_rounds": policy.quarantine_rounds}
+    for route in ("chunked", "pipelined"):
+        root = ckpt_dir(f"recovery_{route}")
+        factor = RECOVERY_FACTOR
+        while True:
+            free = recovery_dp_arm(data, route, root, f"free_{factor}", dp, factor=factor,
+                                   fault=False, recovery=None)
+            if free["halt"] is None:
+                break
+            factor = round(factor + 0.2, 2)
+            if factor > 3.0:
+                fail(f"recovery_dp_cifar_cnn {route}: the fault-free arm halts "
+                     f"({free['halt']}) at every factor up to 3.0")
+        armed = recovery_dp_arm(data, route, root, "armed", dp, factor=factor, fault=False,
+                                recovery=policy)
+        if (armed["halt"] is not None or not history_equal(free["sim"], armed["sim"])
+                or not states_equal(free["sim"], armed["sim"])
+                or armed["sim"]._recovery_supervisor._total_attempts):
+            fail(f"recovery_dp_cifar_cnn {route}: the armed idle policy is not bit-equal "
+                 "to the fault-free run")
+        bad = recovery_dp_arm(data, route, root, "unsupervised", dp, factor=factor,
+                              fault=True, recovery=None)
+        if (bad["halt"] is None or bad["halt"]["check"] != "loss_divergence"
+                or bad["bundles"] != 1):
+            fail(f"recovery_dp_cifar_cnn {route}: the faulted unsupervised arm ended with "
+                 f"{bad['halt']} and {bad['bundles']} bundles (losses {bad['fit_losses']})")
+        sup = recovery_dp_arm(data, route, root, "supervised", dp, factor=factor, fault=True,
+                              recovery=policy)
+        roster = sorted(sup["sim"]._recovery_supervisor._quarantine)
+        if (sup["halt"] is not None or [r.round for r in sup["sim"].history]
+                != list(range(1, RECOVERY_ROUNDS + 1))
+                or not set(RECOVERY_FAULTED) <= set(roster)):
+            fail(f"recovery_dp_cifar_cnn {route}: the supervised arm ended with "
+                 f"{sup['halt']}, rounds {[r.round for r in sup['sim'].history]}, "
+                 f"roster {roster}")
+        verdicts, events = recovery_trail(sup["obs_dir"])
+        engages = [e for e in events if e.get("phase") == "engage"]
+        replayed = sup["dispatched"] - RECOVERY_ROUNDS
+        # the fault-free wall: the faster of the two fault-free arms (the
+        # first run of a route pays its first-use costs)
+        free_wall = min(free["wall_s"], armed["wall_s"])
+        extra = sup["wall_s"] - free_wall
+        out[route] = {
+            "watchdog_factor": factor,
+            "fault_free": {"fit_losses": free["fit_losses"], "epsilon": free["epsilon"],
+                           "wall_s": free["wall_s"], "launches": free["launches"],
+                           "dispatched": free["dispatched"]},
+            "armed_idle_bit_equal": True, "armed_wall_s": armed["wall_s"],
+            "unsupervised": {"halt": bad["halt"], "bundles": bad["bundles"],
+                             "fit_losses": bad["fit_losses"], "dispatched": bad["dispatched"],
+                             "launches": bad["launches"]},
+            "supervised": {
+                "rungs": [e["rung"] for e in engages],
+                "verdict_rounds": [e["round"] for e in engages],
+                "suspects": [e["suspects"] for e in engages],
+                "rolled_back": [{"from_round": e["round"], "resume_round": e["resume_round"],
+                                 **e["rollback"]} for e in engages],
+                "roster": roster, "beyond_faulted": sorted(set(roster) - set(RECOVERY_FAULTED)),
+                "bundles": sup["bundles"], "verdicts": verdicts, "epsilon": sup["epsilon"],
+                "epsilon_charged_rounds": RECOVERY_ROUNDS,
+                "dispatched": sup["dispatched"], "launches": sup["launches"],
+                "fit_losses": sup["fit_losses"],
+                "wall_s": sup["wall_s"], "fault_free_wall_s": free_wall,
+                "restore_s": sup["restore_s"], "restores": sup["restore_calls"],
+                "bundle_s": sup["bundle_s"], "engage_s": sup["engage_s"],
+                "replayed_rounds": replayed,
+                "replayed_s": extra - sup["restore_s"] - sup["bundle_s"] - sup["engage_s"]}}
+        for arm in (free, armed, bad, sup):
+            del arm["sim"]
+        drop_dirs(root)
+        torch.cuda.empty_cache()
+    print(card_line())
+    print(json.dumps(out))
+    return out
+
+
+def poisoned_source(source, poisoned: int):
+    """``source`` with client ``poisoned``'s training features NaN; every
+    other client reads through."""
+    from fl4health_tpu_torch.server.registry import RegistryDataSource
+
+    class Poisoned(RegistryDataSource):
+        n_clients = source.n_clients
+
+        def train_sizes(self):
+            return source.train_sizes()
+
+        def val_sizes(self):
+            return source.val_sizes()
+
+        def client_train(self, i):
+            x, y = source.client_train(i)
+            return (np.full_like(np.asarray(x), np.nan) if i == poisoned else x), y
+
+        def client_val(self, i):
+            return source.client_val(i)
+
+    return Poisoned()
+
+
+def recovery_cohort(dp, source) -> dict:
+    """``recovery_cohort``: the pipelined cohort route at N 1,000 with 64
+    slots (``cohort_dp_cifar_cnn``'s registry), a strict failure policy and
+    one registry client, drawn in round 1, whose training features are NaN:
+    the supervised run quarantines that registry id and runs its 3 rounds
+    after the restart; the route's reason, the roster, the rounds
+    dispatched and the K1/K2 launches (5 and 40 a dispatched round)."""
+    from fl4health_tpu_torch import rng
+    from fl4health_tpu_torch.resilience import RecoveryPolicy
+    from fl4health_tpu_torch.server.client_manager import FixedFractionManager
+    from fl4health_tpu_torch.server.simulation import EXEC_PIPELINED, FailurePolicy
+
+    n = COHORT_SIZES[0]
+    first = FixedFractionManager(n, COHORT_SLOTS / n).sample_indices(
+        rng.fold_in(rng.PRNGKey(0, "cpu"), 2001), 1, COHORT_SLOTS)[0]
+    poisoned = int(first[7])
+    sim = build_cohort_sim(poisoned_source(source, poisoned), n,
+                           failure_policy=FailurePolicy(accept_failures=False),
+                           recovery=RecoveryPolicy(rungs=("quarantine",), quarantine_rounds=0))
+    mode = sim._select_execution_mode(COHORT_ROUNDS)
+    dp.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hist = sim.fit(COHORT_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    sup = sim._recovery_supervisor
+    launches = dict(dp.LAUNCHES)
+    if (sup.quarantined_ids(1) != [poisoned] or [r.round for r in hist]
+            != list(range(1, COHORT_ROUNDS + 1)) or launches != dp_launches(sim.rounds_dispatched)
+            or mode[0] != EXEC_PIPELINED or not all(np.isfinite(r.fit_losses["backward"])
+                                                 for r in hist)):
+        fail(f"recovery_cohort: roster {sup.quarantined_ids(1)} (poisoned {poisoned}), mode "
+             f"{mode}, rounds {[r.round for r in hist]}, launches {launches} for "
+             f"{sim.rounds_dispatched} dispatched")
+    out = {"phase": "recovery_cohort", "registry_size": n, "slots": COHORT_SLOTS,
+           "mode": list(mode), "poisoned_registry_id": poisoned,
+           "roster": sup.quarantined_ids(1), "attempts": sup._total_attempts,
+           "last_verdict": ledger_doc(sup)["last_verdict"],
+           "dispatched": sim.rounds_dispatched, "launches": launches, "wall_s": wall,
+           "fit_losses": [r.fit_losses["backward"] for r in hist]}
+    del sim
+    torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return out
+
+
+def hoisting_server_lr() -> dict:
+    """``hoisting_server_lr``, deterministic flags: the DP path at full width
+    under ``fed_adam``; ``apply_state_scalars`` sets a fresh run's
+    ``server_lr`` from 0.01 to 0.05, and its 2 rounds are bit-equal
+    (history, params, server state) to a run built with 0.05."""
+    from fl4health_tpu_torch.strategies.fedopt import fed_adam
+    from fl4health_tpu_torch.sweep.hoisting import apply_state_scalars
+
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    built = build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                         strategy=fed_adam(lr=0.05))
+    rebound = build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                           strategy=fed_adam(lr=0.01))
+    rebound.server_state = apply_state_scalars(rebound.strategy, rebound.server_state,
+                                               {"server_lr": 0.05})
+    built.fit(2)
+    rebound.fit(2)
+    torch.cuda.synchronize()
+    lr = rebound.server_state.opt_state.hyperparams["learning_rate"]
+    equal = history_equal(built, rebound) and states_equal(built, rebound)
+    if not equal or float(lr) != float(np.float32(0.05)):
+        fail(f"hoisting_server_lr: rebound run equal={equal}, lr {float(lr)}")
+    out = {"phase": "hoisting_server_lr", "strategy": "fed_adam", "from": 0.01, "to": 0.05,
+           "rounds": 2, "bit_equal": equal, "lr_leaf": [str(lr.dtype), float(lr)],
+           "fit_losses": [r.fit_losses["backward"] for r in rebound.history]}
+    del built, rebound
+    torch.cuda.empty_cache()
+    print(json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: needs an NVIDIA card; torch.cuda.is_available() is false",
@@ -4315,6 +4737,13 @@ def main() -> int:
         obs_halt_bundle(dp)
         obs_cohort_dp_cifar_cnn(dp, cohort["sources"])
         obs_sigterm_drill()
+        # the recovery slice: the tiny drill card against CPU, the four DP
+        # arms on both routes, the cohort's quarantine by registry id, the
+        # server-lr rebind
+        tiny_recovery_parity()
+        recovery = recovery_dp_cifar_cnn(dp)
+        recovery_cohort(dp, cohort["sources"][COHORT_SIZES[0]])
+        hoisting_server_lr()
     finally:
         torch.backends.cudnn.deterministic = deterministic
     del cohort
@@ -4397,6 +4826,10 @@ def main() -> int:
             # the observability slice: 2 rounds with observability on
             # (chunked), equal to the off run's
             "launches_obs_dp_cifar_cnn": obs["chunked"]["launches"]["on"][name],
+            # the recovery slice: the supervised faulted arm (chunked), every
+            # round it dispatched, replays included
+            "launches_recovery_dp_cifar_cnn":
+                recovery["chunked"]["supervised"]["launches"][name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

@@ -174,7 +174,8 @@ class ClientLogic:
         clips the round's update here)."""
         return state
 
-    def predict(self, params: Params, batch: Batch, train: bool, ctx=None, rng=None):
+    def predict(self, params: Params, batch: Batch, rng=None, train: bool = False,
+                ctx=None):
         del ctx
         kwargs = {"rng": rng} if self.model.takes_rng else {}
         return self.model.apply(params, batch.x, train=train, **kwargs)
@@ -265,7 +266,7 @@ def _mask_tree(new, old, keep: torch.Tensor):
 
 
 def make_train_step(logic: ClientLogic, tx: GradientTransformation,
-                    precision: Any = None, collect_telemetry: bool = False):
+                    collect_telemetry: bool = False, precision: Any = None):
     """step(state, ctx, batch) -> (state, StepOutput). ``precision`` (a
     ``PrecisionConfig`` or None) is the mixed-precision policy; None or an
     inactive config builds the step without it. ``collect_telemetry`` fills
@@ -381,12 +382,12 @@ def telemetry_acc_finalize(acc: dict, n_steps: torch.Tensor) -> dict:
 def make_local_train(logic: ClientLogic, tx: GradientTransformation,
                      metric_manager: MetricManager,
                      loss_keys: tuple[str, ...] = ("backward",),
-                     precision: Any = None, collect_telemetry: bool = False):
+                     collect_telemetry: bool = False, precision: Any = None):
     """train(state, ctx, batches) -> (state, loss_dict, metric_dict, n_steps);
     ``batches`` carries a leading [steps] axis, walked by a Python loop.
     ``precision`` reaches every step. ``collect_telemetry`` appends a fifth
     output, the engine's telemetry (``telemetry_acc_finalize``)."""
-    step_fn = make_train_step(logic, tx, precision, collect_telemetry)
+    step_fn = make_train_step(logic, tx, collect_telemetry, precision)
 
     def train(state: TrainState, ctx: Any, batches: Batch):
         device = batches.step_mask.device
@@ -451,8 +452,8 @@ def make_local_train_with_early_stopping(
     metric_manager: MetricManager,
     config: EarlyStoppingConfig,
     loss_keys: tuple[str, ...] = ("backward",),
-    precision: Any = None,
     collect_telemetry: bool = False,
+    precision: Any = None,
 ):
     """Early-stopped local training (the JAX engine's
     ``make_local_train_with_early_stopping``).
@@ -472,7 +473,7 @@ def make_local_train_with_early_stopping(
     ``make_local_train`` (the telemetry too, over the executed steps: a
     stopped client's masked steps never touch it); ``n_steps`` counts the
     steps that ran unmasked. ``precision`` reaches the train steps only."""
-    step_fn = make_train_step(logic, tx, precision, collect_telemetry)
+    step_fn = make_train_step(logic, tx, collect_telemetry, precision)
     evaluate = make_local_eval(logic, metric_manager)
     interval, patience = config.interval_steps, config.patience
 
@@ -633,14 +634,18 @@ def data_rows(tree) -> int:
 
 
 def leaves_with_paths(tree, path: str = "") -> list[tuple[str, Any]]:
-    """(path, leaf) pairs in JAX's flatten order (dict keys sorted), the
-    paths written as ``jax.tree_util.keystr`` writes them (``"['a']"``)."""
+    """(path, leaf) pairs in JAX's flatten order (dict keys sorted, a
+    dataclass's fields in order), the paths written as
+    ``jax.tree_util.keystr`` writes them (``"['a']"``, ``".field"``)."""
     if isinstance(tree, dict):
         return [pair for k in sorted(tree) for pair in
                 leaves_with_paths(tree[k], f"{path}[{k!r}]")]
     if isinstance(tree, (list, tuple)):
         return [pair for i, t in enumerate(tree) for pair in
                 leaves_with_paths(t, f"{path}[{i}]")]
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return [pair for f in dataclasses.fields(tree) for pair in
+                leaves_with_paths(getattr(tree, f.name), f"{path}.{f.name}")]
     return [(path, tree)]
 
 

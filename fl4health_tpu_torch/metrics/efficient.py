@@ -43,9 +43,13 @@ def _one_hot(labels: torch.Tensor, n_classes: int) -> torch.Tensor:
     return (labels[..., None] == torch.arange(n_classes, device=labels.device)).float()
 
 
-def binary_soft_dice(epsilon: float = 1e-7, name: str = "dice") -> Metric:
+def binary_soft_dice(epsilon: float = 1e-7, spatial_dims: tuple[int, ...] | None = None,
+                     name: str = "dice") -> Metric:
     """Soft Dice with probability intersections, accumulated as (2 *
-    intersection, denominator): the dataset's Dice, not a mean of images'."""
+    intersection, denominator): the dataset's Dice, not a mean of images'.
+    ``spatial_dims`` is accepted and ignored, as in JAX (the sums run over
+    every axis)."""
+    del spatial_dims
 
     def init(device):
         return torch.zeros((2,), dtype=torch.float32, device=device)

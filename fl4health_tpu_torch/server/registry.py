@@ -28,8 +28,10 @@ Determinism, as in JAX: a client's batch plan draws from
 ``fold_in(init_rng, registry_id + 1)``, the dense path's streams, so
 ``slots == N`` under full participation reproduces the dense run bit for
 bit. A cohort checkpoint stores the rows (``export_rows``, read back by
-``row_templates`` and ``load_rows``). Left out here: the abstract shapes
-(``abstract_round_args``, ``abstract_chunk_args``) and ``reset_rows``.
+``row_templates`` and ``load_rows``); ``reset_rows`` drops every stored
+row, the registry's half of a rollback to the initial state. Left out
+here: the abstract shapes (``abstract_round_args``, ``abstract_chunk_args``,
+ROADMAP.md A10).
 """
 
 from __future__ import annotations
@@ -317,6 +319,14 @@ class ClientRegistry:
     @property
     def dirty_rows(self) -> int:
         return self._client_store.dirty
+
+    def reset_rows(self) -> None:
+        """Drop every stored per-client row (client states and strategy
+        rows): every client resolves to the bound prototypes again, the
+        registry's half of a rollback to the initial state
+        (``FederatedSimulation._reset_to_initial``)."""
+        self._client_store._rows.clear()
+        self._strategy_store._rows.clear()
 
     # -- state rows ------------------------------------------------------
     def bind_client_states(self, proto: Any, init_rng: torch.Tensor) -> None:

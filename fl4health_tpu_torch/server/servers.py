@@ -107,7 +107,10 @@ class InstanceLevelDpServer:
         self.delta = delta
         self.accountant: FlInstanceLevelAccountant | None = None
 
-    def setup_accountant(self) -> FlInstanceLevelAccountant:
+    def setup_accountant(self, n_rounds: int | None = None) -> FlInstanceLevelAccountant:
+        """The run's accountant; ``n_rounds`` is accepted and ignored, as in
+        JAX (``get_epsilon`` takes the rounds)."""
+        del n_rounds
         counts = poll_sample_counts(self.sim)
         # client sampling ratio: the expected fraction of clients per round
         q_client = getattr(self.sim.client_manager, "fraction", 1.0)
@@ -128,7 +131,7 @@ class InstanceLevelDpServer:
         privacy budget in which every client touched its data, composed
         without the client-sampling amplification (DP-SCAFFOLD's warm
         start)."""
-        accountant = self.setup_accountant()
+        accountant = self.setup_accountant(n_rounds)
         delta = self.delta if self.delta is not None else 1.0 / sum(
             poll_sample_counts(self.sim))
         epsilon = accountant.get_epsilon(

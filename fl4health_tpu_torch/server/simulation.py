@@ -160,11 +160,21 @@ round ``c`` and run ``c+1..n``); a round's facts (a cohort round's
 the fault plan's ``summarize_round`` under ``"fault"``, a save's stats
 under ``"checkpoint"``) also land in ``round_metrics``; ``profile_dir``
 and ``profile_round_idx`` write ``torch.profiler`` traces, not XProf; the
-compile counters count kernel-extension builds. Left out here: the
-compiled-program introspection, the operations plane, the rest of
-resilience (quarantine, the recovery supervisor), mesh placement, FLASH
-early stopping and the ``WandBReporter``; so of JAX's reasons for the
-pipelined route, only those of the features above apply.
+compile counters count kernel-extension builds.
+
+Resilience, as in JAX: a strategy with ``quarantine_mask`` (a
+``QuarantiningStrategy``) has its in-graph mask brought to the host every
+round (riding the round's pull, or stacked in the chunk's) for the
+``fl_quarantine_*`` records, the fleet ledger and the flight recorder; and
+``recovery=RecoveryPolicy(...)`` runs ``fit`` under a
+``RecoverySupervisor`` (``resilience/supervisor.py``), whose quarantine
+roster masks the sampling on every route (by registry id under a cohort)
+and whose probation every route's epilogue feeds. Left out here: the
+compiled-program introspection, the operations plane, mesh placement
+(``mesh``) and FLASH early stopping (``flash_early_stopping``), which
+raise ``NotImplementedError`` when set, and the ``WandBReporter``; so of
+JAX's reasons for the pipelined route, only those of the features above
+apply.
 """
 
 from __future__ import annotations
@@ -420,22 +430,33 @@ class FederatedSimulation:
         extra_loss_keys: tuple[str, ...] = (),
         eval_loss_keys: tuple[str, ...] = (),
         reporters: Sequence[Any] = (),
-        early_stopping: engine.EarlyStoppingConfig | None = None,
-        failure_policy: FailurePolicy | None = None,
-        train_data_provider: Any = None,
-        pipeline_depth: int = 2,
-        precision: PrecisionConfig | None = None,
-        execution_mode: str = "auto",
-        compression: CompressionConfig | None = None,
-        cohort: CohortConfig | None = None,
-        fault_plan: FaultPlan | None = None,
-        async_config: AsyncConfig | None = None,
         model_checkpointers: Sequence[tuple[Any, Any]] = (),
         state_checkpointer: Any = None,
+        early_stopping: engine.EarlyStoppingConfig | None = None,
+        flash_early_stopping: Any = None,
+        failure_policy: FailurePolicy | None = None,
         profile_dir: str | None = None,
+        train_data_provider: Any = None,
         observability: Observability | None = None,
+        execution_mode: str = "auto",
+        pipeline_depth: int = 2,
+        fault_plan: FaultPlan | None = None,
+        compression: CompressionConfig | None = None,
+        mesh: Any = None,
+        precision: PrecisionConfig | None = None,
+        async_config: AsyncConfig | None = None,
+        cohort: CohortConfig | None = None,
+        recovery: Any = None,
         device: str | torch.device = "cuda",
     ):
+        # JAX's parameters in JAX's order (a positional call binds alike);
+        # the two whose modules are not ported yet refuse a value
+        for name, value, item in (("flash_early_stopping", flash_early_stopping, "A12"),
+                                  ("mesh", mesh, "A11")):
+            if value is not None:
+                raise NotImplementedError(
+                    f"FederatedSimulation({name}=...) is not ported yet "
+                    f"(ROADMAP.md {item})")
         if (local_epochs is None) == (local_steps is None):
             raise ValueError("specify exactly one of local_epochs / local_steps")
         if execution_mode not in ("auto", "pipelined", "chunked"):
@@ -572,6 +593,32 @@ class FederatedSimulation:
                     self.strategy, staleness_exponent=async_config.staleness_exponent,
                     max_staleness=async_config.max_staleness)
         self._async_active = async_config is not None
+        # self-healing recovery (resilience/supervisor.py): recovery=
+        # RecoveryPolicy(...) routes fit() through a RecoverySupervisor that
+        # turns the structured abnormal ends (watchdog halt, client
+        # failures, quorum loss, corrupt checkpoints) into rollback,
+        # mitigation and resume; None keeps fit() the unsupervised loop,
+        # and an armed policy that never engages changes nothing either
+        self.recovery_policy = recovery
+        if recovery is not None:
+            from fl4health_tpu_torch.resilience.supervisor import RecoveryPolicy
+
+            if not isinstance(recovery, RecoveryPolicy):
+                raise TypeError(
+                    "recovery must be a RecoveryPolicy (or None); got "
+                    f"{type(recovery).__name__} — pass "
+                    "resilience.supervisor.RecoveryPolicy")
+        self._recovery_supervisor = None
+        # the host copy of the in-graph quarantine mask, for the transition
+        # accounting of the quarantine records; under a cohort, the
+        # registry-wide view (both per fit)
+        self._last_quarantine: list[int] | None = None
+        self._cohort_quarantine: set | None = None
+        # the current fit call's n_rounds (the supervisor's seeding reads it)
+        self._fit_n_rounds = 0
+        # synchronous rounds sent to the device by fit, on any route; a round
+        # a rollback replays counts each time it runs
+        self.rounds_dispatched = 0
         # the last fit's event plan; the async programs, built at first use
         self._async_plan = None
         self._async_fns = None
@@ -973,6 +1020,8 @@ class FederatedSimulation:
         fit_clients = vmap_clients(client_fit, (0, None, 0, 0, 0))
         eval_round = self._eval_round_t if collect_telemetry else self._eval_round
         strategy = self.strategy
+        quarantine_fn = (getattr(strategy, "quarantine_mask", None)
+                         if self.observability.enabled else None)
         fault_plan, n_clients = self._fault_plan, self.n_clients
         inject_dropout = bool(fault_plan is not None and fault_plan.dropout_faults)
         inject_corruption = bool(fault_plan is not None and fault_plan.corruption_faults)
@@ -1092,6 +1141,8 @@ class FederatedSimulation:
                    "eval_losses": ev_losses, "eval_metrics": ev_metrics}
             if round_telemetry is not None:
                 out["telemetry"] = round_telemetry.replace(nonfinite_eval_loss=ev_nonfinite[0])
+            if quarantine_fn is not None:
+                out["quarantine"] = quarantine_fn(new_server)
             if test_batches is not None:
                 client_states, out["test_losses"], out["test_metrics"] = eval_round(
                     new_server, client_states, test_batches, test_counts)[:3]
@@ -1183,6 +1234,9 @@ class FederatedSimulation:
             return (f"{type(self.client_manager).__name__} provides no "
                     "in-graph draw_cohort; the cohort draw must run on "
                     "the host every round")
+        if self._cohort_active and self.recovery_policy is not None:
+            return ("recovery supervision refreshes the quarantine "
+                    "keep-mask against the live registry every round")
         if self.train_data_provider is not None:
             return "train_data_provider needs a host data refresh every round"
         if self.model_checkpointers:
@@ -1248,11 +1302,77 @@ class FederatedSimulation:
         and runs rounds ``c+1..n`` (``1..n`` on a fresh start), so a run
         killed after round ``c`` and rebuilt on the same directory goes on
         where it stopped. With ``profile_dir`` the whole call runs under
-        one ``torch.profiler`` capture written there."""
+        one ``torch.profiler`` capture written there.
+
+        Under ``recovery`` a ``RecoverySupervisor`` runs the call: after
+        each recoverable abnormal end it rolls back (through the checkpoint
+        ring, or to the initial state), applies its ladder's rung and
+        enters ``_fit_unsupervised`` again."""
+        if self.recovery_policy is not None:
+            if self._recovery_supervisor is None:
+                from fl4health_tpu_torch.resilience.supervisor import RecoverySupervisor
+
+                self._recovery_supervisor = RecoverySupervisor(self, self.recovery_policy)
+            return self._recovery_supervisor.run(n_rounds)
+        return self._fit_unsupervised(n_rounds)
+
+    def _fit_unsupervised(self, n_rounds: int) -> list[RoundRecord]:
+        """One ``fit`` attempt without the recovery wrapper (the
+        supervisor's entry point for each attempt)."""
         if self.profile_dir is not None:
             with profile_round(self.profile_dir):
                 return self._fit_loop(n_rounds)
         return self._fit_loop(n_rounds)
+
+    def _reset_to_initial(self) -> None:
+        """Roll the live training state back to the constructor's init: the
+        recovery supervisor's rollback when no checkpoint generation
+        predates a failure. ``fit`` never changes ``self.rng`` or the
+        init's generator seed, so ``_init_states`` rebuilds the fresh
+        states bit for bit (a ``set_global_params`` made after construction
+        is not kept, as in JAX). The cohort's stored rows, the history, the
+        async buffer and the fleet ledger's records of the abandoned rounds
+        go too."""
+        if self._cohort_active:
+            self.registry.reset_rows()
+        self._init_states()
+        self.history = []
+        self._async_pending = None
+        ledger = self.observability.fleet_ledger
+        if ledger is not None:
+            ledger.clear()
+
+    def _build_compiled(self) -> None:
+        """Rebuild the round functions from the current ``strategy`` (the
+        supervisor's robustify rung swaps it); the chunked and cohort
+        chunks are built from them at each dispatch, the async programs at
+        their next use."""
+        self._fit_round, self._eval_round = self._build_round_fns()
+        if self._telemetry_enabled:
+            self._fit_round_t, self._eval_round_t = self._build_round_fns(
+                collect_telemetry=True)
+        self._async_fns = None
+
+    def _apply_recovery_keep(self, mask, rnd: int):
+        """A round's sampling mask times the recovery supervisor's
+        quarantine keep-mask; the input object itself while no supervisor
+        is attached or nothing is quarantined, so an armed, idle policy
+        changes no bit."""
+        sup = self._recovery_supervisor
+        if sup is None:
+            return mask
+        keep = sup.keep_mask(rnd, self.n_clients)
+        if keep is None:
+            return mask
+        return mask * torch.as_tensor(keep, dtype=torch.float32, device=mask.device)
+
+    def _note_recovery_round(self, rnd: int) -> None:
+        """The round epilogue's last hook on every route, after the
+        watchdog passed: the supervisor's probation and quarantine-release
+        accounting. Nothing without a supervisor."""
+        sup = self._recovery_supervisor
+        if sup is not None:
+            sup.note_round(rnd)
 
     def _fit_loop(self, n_rounds: int) -> list[RoundRecord]:
         """``fit``'s body, JAX's ``_fit_loop``: arm the observability handle
@@ -1271,8 +1391,11 @@ class FederatedSimulation:
             # absorb exactly once
             fleet.clear()
         self._last_epilogue_round = None
+        self._fit_n_rounds = n_rounds
         mode, reason = self._select_execution_mode(n_rounds)
         self._active_execution_mode = mode
+        self._last_quarantine = None  # the transition accounting is per run
+        self._cohort_quarantine = None
         logging.getLogger(__name__).info("fit: execution_mode=%s (%s)", mode, reason)
         # the async plan comes first: a resume checks its consumed prefix
         plan = None
@@ -1291,6 +1414,12 @@ class FederatedSimulation:
             self._dump_postmortem(resume_exc)
             obs.shutdown()
             raise
+        if self._recovery_supervisor is not None:
+            # after the restore: the supervisor applies its pending
+            # mitigations (in-graph quarantine seeding, the server-lr
+            # override) to the restored state and keeps /healthz at 503
+            # while a recovery is on probation
+            self._recovery_supervisor.on_resume(start)
         if obs.watchdog is not None and not self._telemetry_enabled:
             logging.getLogger(__name__).warning(
                 "HealthWatchdog attached but in-graph telemetry is off "
@@ -1714,6 +1843,9 @@ class FederatedSimulation:
                     if keep is not None:
                         mask = mask * torch.as_tensor(np.asarray(keep, np.float32),
                                                       device=mask.device)
+                # the recovery supervisor's quarantine: the suspects an
+                # engagement named stay sampled out until their release
+                mask = self._apply_recovery_keep(mask, rnd)
                 batches = (prefetcher.take(rnd) if prefetcher is not None
                            else self._round_batches(rnd))
             if prefetcher is not None and rnd < self._fit_last_round:
@@ -1722,6 +1854,7 @@ class FederatedSimulation:
                 (self.server_state, self.client_states, fit_losses, fit_metrics,
                  per_client_fit_losses, *telemetry) = fit_round(
                     self.server_state, self.client_states, batches, mask, rnd, val_batches)
+                self.rounds_dispatched += 1
                 _, wait = obs.fence((fit_losses, fit_metrics, per_client_fit_losses))
                 device_wait_s += wait
                 fit_span.set(device_wait_s=wait)
@@ -1743,6 +1876,7 @@ class FederatedSimulation:
                     # rides the round's one pull
                     results["telemetry"] = telemetry[0].replace(
                         nonfinite_eval_loss=ev_nonfinite[0])
+                self._ship_quarantine_mask(results)
                 test = self._test_batches()
                 if test is not None:
                     # the same aggregated model on the test split, its keys
@@ -1809,6 +1943,7 @@ class FederatedSimulation:
                  for k in ("_pre_agg_params", "_post_agg_params", "_state_trees")
                  if k in host}
         registry_rows = host.pop("_registry_rows", None)
+        quarantine_mask = host.pop("_quarantine", None)
         telemetry_obj = host.pop("telemetry", None)
         telemetry_host = (telem.telemetry_from_dict(telemetry_obj)
                           if telemetry_obj is not None else None)
@@ -1869,13 +2004,17 @@ class FederatedSimulation:
         # as-of this round, so a resume absorbs each round once
         fleet_info = self._fleet_absorb_round(
             rnd, mask, host_fit_losses, telemetry_host, registry_ids=registry_ids,
-            failed=failed, async_info=work.async_info, fault_round=event)
+            quarantine_mask=quarantine_mask, failed=failed, async_info=work.async_info,
+            fault_round=event)
         summary = self._record_round_metrics(
             rnd, rec, mask, host_fit_losses, failed, work.compiles_before,
             work.compile_s_before, work.device_wait_s, compiles_after=work.compiles_after,
             compile_s_after=work.compile_s_after, telemetry=telemetry_host,
             async_info=work.async_info, cohort_info=cohort_info, fleet_info=fleet_info,
             registry_ids=registry_ids, fault_round=event)
+        if quarantine_mask is not None:
+            # a cohort round names its quarantined clients by registry id
+            self._emit_quarantine_metrics(rnd, np.asarray(quarantine_mask), ids=registry_ids)
         if self.state_checkpointer is not None:
             with obs.span("checkpoint", round=rnd, mode="state"):
                 self._save_round_state(work, snaps.get("_state_trees"))
@@ -1895,6 +2034,9 @@ class FederatedSimulation:
             obs.watchdog.observe(rnd, telemetry_host, mask,
                                  rec.fit_losses.get("backward", float("nan")),
                                  obs=obs, reporters=self.reporters)
+        # recovery probation: a round counts healthy once the watchdog
+        # passed it (a halt above skips this)
+        self._note_recovery_round(rnd)
 
     def _save_round_state(self, work: _RoundWork, trees: dict | None) -> None:
         """The round's state checkpoint, after its record: the async frame
@@ -2018,6 +2160,66 @@ class FederatedSimulation:
             bytes_down_per_client=down,
             bytes_up_per_client=up,
             registry_size=(self.registry_size if self._cohort_active else self.n_clients))
+
+    def _ship_quarantine_mask(self, results: dict) -> None:
+        """Add the strategy's in-graph quarantine mask to a round's results
+        (under ``"_quarantine"``, riding the round's one pull) where the
+        strategy has one and observability is on; the quarantine itself
+        lives in the strategy and needs no observability."""
+        q_fn = getattr(self.strategy, "quarantine_mask", None)
+        if q_fn is not None and self.observability.enabled:
+            results["_quarantine"] = q_fn(self.server_state)
+
+    def _emit_quarantine_metrics(self, rnd: int, q_np: np.ndarray,
+                                 ids: np.ndarray | None = None) -> None:
+        """JAX's ``fl_quarantine_*`` gauges and counters and one
+        ``quarantine`` JSONL event from a host copy of the in-graph
+        quarantine mask, the same on every route. Entered and released
+        clients diff against the previous round's mask; ``ids`` (cohort
+        rounds) maps slots to registry ids, so the event names real
+        clients. The round's flight-recorder entry gets the mask and the
+        active ids."""
+        obs = self.observability
+        if not obs.enabled:
+            return
+        reg = obs.registry
+        nz = np.nonzero(np.asarray(q_np) > 0)[0]
+        if ids is not None:
+            # a cohort round sees only the sampled clients' rows: refresh
+            # those ids in the registry-wide view, so an unsampled
+            # quarantined client does not read as released
+            ids = np.asarray(ids)
+            cur = self._cohort_quarantine or set()
+            for i in ids:
+                cur.discard(int(i))
+            cur |= {int(i) for i in ids[nz]}
+            self._cohort_quarantine = cur
+            active = sorted(cur)
+        else:
+            active = [int(c) for c in nz]
+        prev = self._last_quarantine or []
+        entered = sorted(set(active) - set(prev))
+        released = sorted(set(prev) - set(active))
+        self._last_quarantine = active
+        reg.gauge("fl_quarantine_active_clients",
+                  help="clients currently masked out of aggregation by quarantine",
+                  ).set(float(len(active)))
+        if entered:
+            reg.counter("fl_quarantine_entries_total",
+                        help="clients entering quarantine").inc(len(entered))
+        if released:
+            reg.counter("fl_quarantine_releases_total",
+                        help="clients released from quarantine (probation served)",
+                        ).inc(len(released))
+        if active or entered or released:
+            reg.log_event("quarantine", round=rnd, source="strategy", active=active,
+                          entered=entered, released=released)
+        flight = obs.flight_recorder
+        if flight is not None:
+            # late-attached to the round's entry (this runs right after
+            # _record_round_metrics on every route); registry ids under a
+            # cohort
+            flight.attach(rnd, quarantine=np.asarray(q_np), quarantine_active=list(active))
 
     def _fleet_snapshot_doc(self) -> dict | None:
         """The ledger's JSON snapshot for a frame's header: None without a
@@ -2248,8 +2450,12 @@ class FederatedSimulation:
                                              self.device)
                        for j, dtype in enumerate((np.int64, np.float32, np.float32)))
         if mask is None:
+            # the supervisor's keep-mask is a function of (roster, round), so
+            # a chunk's masks drawn ahead of its dispatch are the ones the
+            # pipelined route would draw
             masks = torch.stack([
-                self.client_manager.sample(rng.fold_in(self.rng, 2000 + r), r)
+                self._apply_recovery_keep(
+                    self.client_manager.sample(rng.fold_in(self.rng, 2000 + r), r), r)
                 for r in range(start_round, start_round + k)])
         else:
             mask = torch.as_tensor(mask, dtype=torch.float32, device=self.device)
@@ -2313,6 +2519,8 @@ class FederatedSimulation:
         its outputs, the ``RoundTelemetry`` among them, stack ``[k]`` on the
         device for the chunk's one pull."""
         fit_round, eval_round, telemetry_on = self._round_fns()
+        quarantine_fn = (getattr(self.strategy, "quarantine_mask", None)
+                         if self.observability.enabled else None)
 
         def chunk(server_state, client_states, x_stack, y_stack, idx, em, sm, masks,
                   start_round, val_batches, val_counts, test_batches=None, test_counts=None):
@@ -2329,6 +2537,10 @@ class FederatedSimulation:
                        "eval_losses": eval_losses, "eval_metrics": eval_metrics}
                 if telemetry_on:
                     out["telemetry"] = telemetry[0].replace(nonfinite_eval_loss=ev_nonfinite[0])
+                if quarantine_fn is not None:
+                    # each round's in-graph quarantine mask stacks with the
+                    # outputs: the chunk's one pull, a round at a time
+                    out["quarantine"] = quarantine_fn(server_state)
                 if test_batches is not None:
                     client_states, out["test_losses"], out["test_metrics"] = (
                         eval_round(server_state, client_states, test_batches,
@@ -2383,6 +2595,7 @@ class FederatedSimulation:
                 self.server_state, self.client_states, self._x_train_stack,
                 self._y_train_stack, idx, em, sm, masks, start_round, val_batches,
                 val_counts, *(test or ()))
+            self.rounds_dispatched += k
             device_wait = obs.fence(outs)[1]
             tree = {**outs, "mask": masks}
             if snapshot:
@@ -2423,6 +2636,7 @@ class FederatedSimulation:
         telemetry_stack = stacked.get("telemetry")
         if telemetry_stack is not None:
             telemetry_stack = telem.telemetry_from_dict(telemetry_stack)
+        quarantine_stack = stacked.get("quarantine")
         compiles_before, compile_s_before, compiles_after, compile_s_after = compiles
         for i in range(n_rounds):
             rnd = start_round + i
@@ -2447,9 +2661,11 @@ class FederatedSimulation:
                            if telemetry_stack is not None else None)
             ids_i = np.asarray(registry_ids[i]) if registry_ids is not None else None
             # the ledger absorbs before the chunk boundary's frame
+            q_i = np.asarray(quarantine_stack[i]) if quarantine_stack is not None else None
             fleet_info = self._fleet_absorb_round(
                 rnd, masks_np[i], per_fit_i, telemetry_i, registry_ids=ids_i,
-                failed=failed, async_info=async_info, fault_round=event)
+                quarantine_mask=q_i, failed=failed, async_info=async_info,
+                fault_round=event)
             summary = self._record_round_metrics(
                 rnd, rec, masks_np[i], per_fit_i, failed, compiles_before, compile_s_before,
                 device_wait_round,
@@ -2458,6 +2674,8 @@ class FederatedSimulation:
                 telemetry=telemetry_i, async_info=async_info,
                 cohort_info=cohort_infos[i] if cohort_infos is not None else None,
                 fleet_info=fleet_info, registry_ids=ids_i, fault_round=event)
+            if q_i is not None:
+                self._emit_quarantine_metrics(rnd, q_i, ids=ids_i)
             for rep in self.reporters:
                 payload = {"fit_losses": rec.fit_losses, "fit_metrics": rec.fit_metrics,
                            "eval_losses": rec.eval_losses, "eval_metrics": rec.eval_metrics,
@@ -2471,6 +2689,8 @@ class FederatedSimulation:
                 obs.watchdog.observe(rnd, telemetry_i, masks_np[i],
                                      rec.fit_losses.get("backward", float("nan")),
                                      obs=obs, reporters=self.reporters)
+            # recovery probation (see _finish_round): healthy rounds only
+            self._note_recovery_round(rnd)
 
     # -- the cohort-slot routes (server/registry.py) ---------------------
     def _to_device(self, tree):
@@ -2604,6 +2824,17 @@ class FederatedSimulation:
                 prefetcher.schedule(rnd + 1)
             self._await_registry_scatter()
             idx, valid = staged["idx"], staged["valid"]
+            sup = self._recovery_supervisor
+            if sup is not None:
+                # the supervisor's quarantine by registry id: a sampled slot
+                # whose id is on the roster is masked out (its row still
+                # gathers and scatters, zero-weight like an unsampled
+                # client); nothing while idle
+                drop = sup.quarantined_ids(rnd)
+                if drop:
+                    keep = (~np.isin(np.asarray(idx), np.asarray(drop))).astype(np.float32)
+                    staged["mask"] = staged["mask"] * torch.as_tensor(
+                        keep, device=staged["mask"].device)
             with obs.span("cohort_gather", round=rnd, valid=valid) as gather_span:
                 gather_ms = self._gather_cohort_rows(idx)
                 gather_span.set(gather_ms=gather_ms)
@@ -2612,6 +2843,7 @@ class FederatedSimulation:
                  per_client_fit_losses, *telemetry) = fit_round(
                     self.server_state, self.client_states, staged["batches"], staged["mask"],
                     rnd, staged["val_batches"], staged["sample_counts"])
+                self.rounds_dispatched += 1
                 device_wait_s = obs.fence((fit_losses, fit_metrics, per_client_fit_losses))[1]
                 fit_span.set(device_wait_s=device_wait_s)
             post_fit_params = self.client_states.params
@@ -2634,6 +2866,7 @@ class FederatedSimulation:
             if telemetry_on:
                 results["telemetry"] = telemetry[0].replace(
                     nonfinite_eval_loss=ev_nonfinite[0])
+            self._ship_quarantine_mask(results)
             with self._snapshot_span(rnd, "post_agg"):
                 snap = self._round_snapshots(results, rnd, post_fit_params)
             compiles_after, compile_s_after = self._compile_counts()
@@ -2669,6 +2902,8 @@ class FederatedSimulation:
         pull, and their ``RoundTelemetry`` when telemetry is on. JAX's
         ``lax.scan`` body, without the scan."""
         fit_round, eval_round, telemetry_on = self._round_fns()
+        quarantine_fn = (getattr(self.strategy, "quarantine_mask", None)
+                         if self.observability.enabled else None)
         draw = self.client_manager.draw_cohort
         slots = self.n_clients
         has_srows = self.registry.has_strategy_rows
@@ -2703,6 +2938,8 @@ class FederatedSimulation:
                        "cohort_ids": ids, "cohort_valid": valid}
                 if telemetry_on:
                     out["telemetry"] = telemetry[0].replace(nonfinite_eval_loss=ev_nonfinite[0])
+                if quarantine_fn is not None:
+                    out["quarantine"] = quarantine_fn(server_state)
                 outs.append(out)
                 dest = torch.where(slot_ids < valid, pos, w)
                 w_client = ptu.tree_map(lambda wt, c: wt.index_copy(0, dest, c),
@@ -2802,6 +3039,7 @@ class FederatedSimulation:
                 staged["window_ids_dev"], staged["batches"], staged["mask"],
                 staged["sample_counts"], staged["val_batches"], staged["val_counts"],
                 start_round)
+            self.rounds_dispatched += k
             device_wait = obs.fence((outs["fit_losses"], outs["eval_losses"]))[1]
             tree = {"outs": outs, "client_rows": w_client, "strategy_rows": w_srows}
             if snapshot:
@@ -2954,6 +3192,8 @@ class FederatedSimulation:
                 ev_span.set(device_wait_s=device_wait_s)
             compiles_after, compile_s_after = self._compile_counts()
             results = {"mask": arrivals, **out}
+            if "quarantine" in results:  # the consumer's key for the mask
+                results["_quarantine"] = results.pop("quarantine")
             with self._snapshot_span(e, "async"):
                 snap = self._round_snapshots(results, e, with_pending=True)
             resume_meta = None
@@ -3183,8 +3423,11 @@ class FederatedSimulation:
                 ev_span.set(device_wait_s=device_wait_s)
             self._count_cohort_roundtrip()
             compiles_after, compile_s_after = self._compile_counts()
+        results = {"mask": arrivals, **out}
+        if "quarantine" in results:  # the consumer's key for the mask
+            results["_quarantine"] = results.pop("quarantine")
         work = _RoundWork(
-            round=first + e - 1, pull=HostPull({"mask": arrivals, **out}),
+            round=first + e - 1, pull=HostPull(results),
             fit_elapsed_s=time.time() - t0, eval_elapsed_s=0.0,
             # failures are named by the pre-swap occupants' ids
             cohort_meta={"idx": occ_prev},

@@ -59,6 +59,13 @@ def test_sources_were_found():
     assert {"__init__.py", "registry.py", "manifest.py", "telemetry.py", "health.py",
             "flightrec.py", "bundle.py", "cudamon.py", "device_specs.py", "exposition.py",
             "fleet.py", "sketches.py", "spans.py"} == obs
+    # and every resilience and sweep module: the supervisor, its suspect
+    # ranking, the in-graph quarantine, retry, and the scalar hoisting
+    resilience = {p.name for p in SOURCES if p.parent.name == "resilience"}
+    assert {"__init__.py", "aggregators.py", "faults.py", "recovery.py", "quarantine.py",
+            "retry.py", "supervisor.py", "suspects.py"} == resilience
+    sweep = {p.name for p in SOURCES if p.parent.name == "sweep"}
+    assert {"__init__.py", "hoisting.py"} == sweep
 
 
 def test_package_imports_without_jax():

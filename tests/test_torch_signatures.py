@@ -1,0 +1,159 @@
+"""A call written in JAX's positional order binds the same in the port.
+
+Both packages are parsed with ``ast`` (nothing is imported). For every
+public function, method and class ``__init__`` that the two share by module
+path and name:
+
+- the parameters they share come in the same order;
+- a shared parameter sits at JAX's position whenever every JAX parameter
+  before it exists in the port too (so a positional call binds alike as
+  far as the port has JAX's parameters);
+- every JAX parameter the port lacks is in ``MISSING``, which names the
+  ROADMAP.md item (or departure) that says why, and an entry that no longer
+  describes a lacking parameter fails the test (it went stale)."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+ROADMAP = (ROOT / "ROADMAP.md").read_text()
+
+RENAMED = "Renamed parameters"  # a ROADMAP.md departure: same slot, the port's name
+PALLAS = "Pallas tiling parameters"  # a ROADMAP.md departure
+INIT = "**Init** draws from a `torch.Generator`"  # a ROADMAP.md departure
+_KEY = {"rng": RENAMED}
+
+# (module, qualified name) -> {JAX parameter the port lacks: ROADMAP anchor}
+MISSING = {
+    ("clients.engine", "ClientLogic.augment"): _KEY,
+    ("clients.engine", "ClientLogic.predict"): {"model_state": "A12", "extra": "A12"},
+    ("clients.engine", "create_train_state"): {"rng": INIT, "sample_x": INIT},
+    ("clients.engine", "epoch_batches"): _KEY,
+    ("clients.nnunet", "NnunetClientLogic.augment"): _KEY,
+    ("core.pytree", "global_norm"): {"tree": RENAMED},
+    ("core.pytree", "leaf_paths"): {"tree": RENAMED},
+    ("core.pytree", "select_by_path"): {"tree": RENAMED},
+    ("datasets.synthetic", "synthetic_classification"): _KEY,
+    ("datasets.synthetic", "synthetic_text_classification"): _KEY,
+    ("kernels.dp_clip", "fused_clipped_masked_sum"): {"tile": PALLAS, "interpret": PALLAS},
+    ("kernels.dp_clip", "per_example_sq_norms"): {"tile": PALLAS, "interpret": PALLAS},
+    ("kernels.dp_clip", "scaled_masked_sum"): {"tile": PALLAS, "interpret": PALLAS},
+    ("kernels.flash_attention", "flash_attention"): {
+        "block_q": PALLAS, "block_k": PALLAS, "interpret": PALLAS},
+    ("kernels.flash_attention", "flash_attention_lse"): {
+        "block_q": PALLAS, "block_k": PALLAS, "interpret": PALLAS},
+    ("losses.containers", "LossMeter.create"): {"meter_type": "A12"},
+    ("losses.contrastive", "cosine_similarity"): {"axis": RENAMED},
+    ("nnunet.augment", "augment_patch_batch"): _KEY,
+    ("observability.exposition", "ScrapeServer.__init__"): {
+        "slo_provider": "A10", "admin_plane": "A10"},
+    ("observability.manifest", "run_manifest"): {"donation": "Buffer donation",
+                                                 "mesh": "A11"},
+    ("privacy.dpsgd", "gaussian_noise_like"): _KEY,
+    ("privacy.dpsgd", "noisy_clipped_mean_grads"): _KEY,
+    ("privacy.dpsgd", "validate_dp_safe_model_state"): {"model_state": "The BatchNorm check"},
+    **{("server.client_manager", f"{cls}.{fn}"): _KEY
+       for cls, fns in (("ClientManager", ("sample", "sample_indices")),
+                        ("FixedFractionManager", ("draw_cohort", "sample", "sample_indices")),
+                        ("FixedSamplingManager", ("sample",)),
+                        ("FullParticipationManager", ("draw_cohort", "sample",
+                                                      "sample_indices")),
+                        ("PoissonSamplingManager", ("draw_cohort", "sample",
+                                                    "sample_indices")))
+       for fn in fns},
+    ("server.simulation", "FederatedSimulation.set_global_params"): {
+        "broadcast_to_clients": "A12"},
+}
+
+
+def _signatures(package: str) -> dict:
+    """(module, qualified name) -> ast.arguments of every public module
+    function, and every public method and ``__init__`` of a public class."""
+    out = {}
+    base = ROOT / package
+    for path in sorted(base.rglob("*.py")):
+        module = ".".join(path.relative_to(base).with_suffix("").parts)
+        for node in ast.parse(path.read_text(), filename=str(path)).body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                if not node.name.startswith("_"):
+                    out[(module, node.name)] = node.args
+            elif isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+                for sub in node.body:
+                    if (isinstance(sub, (ast.FunctionDef, ast.AsyncFunctionDef))
+                            and (sub.name == "__init__" or not sub.name.startswith("_"))):
+                        out[(module, f"{node.name}.{sub.name}")] = sub.args
+    return out
+
+
+def _positional(args: ast.arguments) -> list[str]:
+    return [a.arg for a in args.posonlyargs + args.args]
+
+
+def _every(args: ast.arguments) -> list[str]:
+    return (_positional(args) + ([args.vararg.arg] if args.vararg else [])
+            + [a.arg for a in args.kwonlyargs])
+
+
+JAX, PORT = _signatures("fl4health_tpu"), _signatures("fl4health_tpu_torch")
+SHARED = sorted(set(JAX) & set(PORT))
+
+
+def test_the_packages_share_their_public_callables():
+    # a parse that found nothing would pass every check below
+    assert len(SHARED) > 500
+    assert ("server.simulation", "FederatedSimulation.__init__") in SHARED
+    assert ("resilience.supervisor", "RecoverySupervisor.__init__") in SHARED
+    assert ("sweep.hoisting", "apply_state_scalars") in SHARED
+
+
+def test_shared_parameters_come_in_jax_order():
+    bad = {}
+    for key in SHARED:
+        j, t = _positional(JAX[key]), _positional(PORT[key])
+        if [n for n in j if n in t] != [n for n in t if n in j]:
+            bad[key] = (j, t)
+    assert not bad, bad
+
+
+def test_positional_calls_bind_as_in_jax():
+    """A shared parameter stands at JAX's index wherever the port has every
+    JAX parameter before it (a renamed one counts as present: same slot)."""
+    bad = {}
+    for key in SHARED:
+        j, t = _positional(JAX[key]), _positional(PORT[key])
+        renamed = {n for n, why in MISSING.get(key, {}).items() if why == RENAMED}
+        for i, name in enumerate(j):
+            if not all(p in t or p in renamed for p in j[:i]):
+                break
+            if name in t and t.index(name) != i:
+                bad[key] = (name, i, t.index(name))
+                break
+            if name in renamed and (i >= len(t) or t[i] in j):
+                bad[key] = (name, "renamed slot", t)
+                break
+    assert not bad, bad
+
+
+def test_missing_parameters_are_exactly_the_allow_list():
+    missing = {}
+    for key in SHARED:
+        lacking = [n for n in _every(JAX[key]) if n not in _every(PORT[key])]
+        if lacking:
+            missing[key] = lacking
+    assert {k: sorted(v) for k, v in missing.items()} == {
+        k: sorted(v) for k, v in MISSING.items()}
+
+
+@pytest.mark.parametrize("anchor", sorted({a for v in MISSING.values() for a in v.values()}))
+def test_every_allow_list_reason_is_in_the_roadmap(anchor):
+    assert anchor in ROADMAP, anchor
+
+
+def test_the_simulation_takes_jax_arguments_in_jax_slots():
+    j = _positional(JAX[("server.simulation", "FederatedSimulation.__init__")])
+    t = _positional(PORT[("server.simulation", "FederatedSimulation.__init__")])
+    # every JAX argument (mesh and flash_early_stopping refuse a value) and
+    # the port's device last
+    assert t == j + ["device"]
