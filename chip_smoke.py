@@ -283,6 +283,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      quarantined by registry id, the route's reason, the launches) and
      ``hoisting_server_lr`` (``fed_adam``'s server lr set by
      ``apply_state_scalars``: bit-equal to a run built with it).
+ 35. The introspection and operations slice, ``ops_dp_cifar_cnn`` (cuDNN
+     deterministic): the DP path for 2 pipelined rounds through
+     ``InstanceLevelDpServer`` with round-program introspection, an SLO
+     policy the run breaches, an admin token and the scrape endpoint, against
+     the same run with observability off: bit-equal, 10 K1 / 80 K2 launches
+     both, the introspection moving no device byte and no launch count,
+     ``/healthz`` ``degraded: eval_loss``; ``fit_round_t``'s counted dot and
+     convolution flops equal to the reference FlopCounterMode's over one real
+     round, 45 custom calls in its ``dp_clip`` row, conservation; a round's
+     ``mfu_pct`` and ``tflops_measured``, the introspected footprint beside
+     ``max_memory_allocated``, the HBM headroom. Then the live retune drill
+     (``fed_adam``, 4 rounds, ``POST /admin/scalars`` at round 2, journaled,
+     no extension build after round 1, replayed bit for bit through
+     ``schedule()``) and one introspected round of ``transformer_long`` at
+     depth 1: K3-K5 reported as custom calls, none launched.
 ``fit`` takes its default route, ``execution_mode`` "auto": chunked unless
 something needs the host between rounds (a strict failure policy, a data
 provider), then pipelined. Neither waits for the device inside a round, so
@@ -875,7 +890,7 @@ def vmapped_kernel_checks(fa, seed: int, n: int = N_CLIENTS, batch: int = B, t: 
     return {"max_abs_err": err, "bound_used": share}
 
 
-def build_sim(modules, datasets, dtype, device, seed, attention_fn=None):
+def build_sim(modules, datasets, dtype, device, seed, attention_fn=None, **sim_kw):
     from fl4health_tpu_torch import optim
     from fl4health_tpu_torch.clients import engine
     from fl4health_tpu_torch.kernels.flash_attention import flash_attention
@@ -892,7 +907,7 @@ def build_sim(modules, datasets, dtype, device, seed, attention_fn=None):
         logic=engine.ClientLogic(engine.from_module(module), engine.masked_cross_entropy),
         tx=optim.sgd(0.05), strategy=FedAvg(), datasets=datasets, batch_size=BATCH,
         metrics=MetricManager((efficient.accuracy(),)), local_steps=LOCAL_STEPS,
-        seed=seed, device=device)
+        seed=seed, device=device, **sim_kw)
 
 
 def text_datasets(vocab: int, seq: int, n_rows: int, n_train: int):
@@ -3923,7 +3938,7 @@ OBS_POISONED = DP_CLIENTS - 1  # the halt phase's NaN client
 
 def obs_handle(**kw):
     """An enabled observability handle with a private registry and tracer
-    (the port has no compiled-program introspection: off)."""
+    (introspection off: phase 35 drives it)."""
     from fl4health_tpu_torch.observability import MetricsRegistry, Observability, Tracer
 
     return Observability(enabled=True, registry=MetricsRegistry(), tracer=Tracer(),
@@ -4627,6 +4642,241 @@ def hoisting_server_lr() -> dict:
     return out
 
 
+OPS_ROUNDS = 2
+OPS_DRILL_ROUNDS = 4
+OPS_TOKEN = "ops-token"
+
+
+class DeltaAround:
+    """Wraps a callable: the device bytes allocated and the K1-K5 launch
+    counts moved by each call, read around it after a synchronize."""
+
+    def __init__(self, fn, kernels):
+        self.fn, self.kernels, self.deltas = fn, kernels, []
+
+    def __call__(self, *args, **kw):
+        torch.cuda.synchronize()
+        m0, l0 = torch.cuda.memory_allocated(), self._launches()
+        out = self.fn(*args, **kw)
+        torch.cuda.synchronize()
+        l1 = self._launches()
+        self.deltas.append({"bytes": torch.cuda.memory_allocated() - m0,
+                            "launches": {k: l1[k] - l0[k] for k in l0}})
+        return out
+
+    def _launches(self) -> dict:
+        return {k: v for m in self.kernels for k, v in m.LAUNCHES.items()}
+
+
+def post_json(url: str, body: dict, token: str) -> tuple[int, dict]:
+    """One POST of a JSON body with the admin header: (status, JSON body)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(), method="POST",
+                                 headers={"Content-Type": "application/json",
+                                          "X-Admin-Token": token})
+    try:
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def ops_dp_cifar_cnn(fa, dp) -> dict:
+    """``ops_dp_cifar_cnn``, deterministic flags: the introspection and
+    operations plane on ``dp_cifar_cnn`` at full width.
+
+    - ``InstanceLevelDpServer`` for 2 pipelined rounds with introspection
+      on, an SLO policy the run breaches (``max_eval_loss``), an admin token
+      and the scrape endpoint, against the same run with observability off:
+      params and history bit-equal, K1/K2 launches equal (10/80); the
+      introspection run moves no device byte and no K1-K5 count;
+      ``/healthz`` reads ``degraded: eval_loss`` at round 2's report.
+    - ``fit_round_t``'s dot and convolution flops equal the reference
+      FlopCounterMode's (``hloscan.reference_flop_counter``) over one real
+      round on the same arguments; its ``dp_clip`` row holds 45 custom calls
+      (5 steps x (1 K1 + 8 K2)); conservation holds. Printed a round:
+      ``mfu_pct``, ``tflops_measured``; the introspected peak against
+      ``max_memory_allocated`` above the run's start; ``fl_hbm_headroom_bytes``.
+    - the live drill: ``fed_adam`` on the DP path for 4 rounds, a ``POST
+      /admin/scalars`` of ``server_lr`` from round 2's data provider (the
+      producer thread) applying at round 2's boundary; no extension build
+      after round 1; a replay through ``schedule()`` bit-equal.
+    - the flash kernels' fake branch: one introspected round of
+      ``transformer_long`` at depth 1 reports K3-K5 as custom calls, with 0
+      launches."""
+    from fl4health_tpu_torch.observability import (MetricsRegistry, Observability, SLOPolicy,
+                                                   Tracer, hloscan)
+    from fl4health_tpu_torch.server.servers import InstanceLevelDpServer
+    from fl4health_tpu_torch.server.simulation import EXEC_PIPELINED
+    from fl4health_tpu_torch.strategies.fedopt import fed_adam
+
+    t_phase = time.time()
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    out = {"phase": "ops_dp_cifar_cnn", "clients": DP_CLIENTS, "rounds": OPS_ROUNDS}
+
+    def armed(**kw):
+        return Observability(enabled=True, registry=MetricsRegistry(), tracer=Tracer(), **kw)
+
+    off = build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                       execution_mode="pipelined")
+    dp.reset_launch_counts()
+    InstanceLevelDpServer(off, noise_multiplier=DP_SIGMA, batch_size=BATCH).fit(OPS_ROUNDS)
+    torch.cuda.synchronize()
+    launches = {"off": dict(dp.LAUNCHES)}
+    obs = armed(slo=SLOPolicy(max_eval_loss=1e-3, short_window=1, long_window=1),
+                admin_token=OPS_TOKEN, http_port=0)
+    probe = ScrapeAtRound(obs, OPS_ROUNDS)
+    on = build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                      execution_mode="pipelined", observability=obs, reporters=[probe])
+    on._val_batches()  # the route's cached val split, made before the delta is read
+    around = on._introspect_programs = DeltaAround(on._introspect_programs, (fa, dp))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_bytes = torch.cuda.memory_allocated()  # earlier phases' and the off run's
+    dp.reset_launch_counts()
+    InstanceLevelDpServer(on, noise_multiplier=DP_SIGMA, batch_size=BATCH).fit(OPS_ROUNDS)
+    torch.cuda.synchronize()
+    launches["on"] = dict(dp.LAUNCHES)
+    peak_run = torch.cuda.max_memory_allocated() - start_bytes
+    if launches["on"] != launches["off"] or launches["on"] != dp_launches(OPS_ROUNDS):
+        fail(f"ops_dp_cifar_cnn: launches {launches}, expected {dp_launches(OPS_ROUNDS)}")
+    if not trajectory_equal(off, on):
+        fail("ops_dp_cifar_cnn: the armed run is not bit-equal to the off run")
+    zero = {k: 0 for k in (*fa.LAUNCHES, *dp.LAUNCHES)}
+    if around.deltas != [{"bytes": 0, "launches": zero}]:
+        fail(f"ops_dp_cifar_cnn: introspection moved the device: {around.deltas}")
+    if probe.seen.get("healthz") != (200, "degraded: eval_loss\n"):
+        fail(f"ops_dp_cifar_cnn: /healthz at round {OPS_ROUNDS}: {probe.seen.get('healthz')}")
+    intro = obs.introspector
+    if sorted(intro.reports) != ["eval_round_t", "fit_round_t"]:
+        fail(f"ops_dp_cifar_cnn: introspected {sorted(intro.reports)}")
+    fit_rep = intro.reports["fit_round_t"]
+    rows = {r["stage"]: r for r in fit_rep.stages}
+    cons = hloscan.conservation(fit_rep.stages, fit_rep.flops, fit_rep.bytes_accessed)
+    if rows.get("dp_clip", {}).get("custom_calls") != LOCAL_STEPS * (1 + len(CIFAR_LEAVES)):
+        fail(f"ops_dp_cifar_cnn: dp_clip row {rows.get('dp_clip')}")
+    if not cons["ok"]:
+        fail(f"ops_dp_cifar_cnn: conservation {cons}")
+    # one real round on the same arguments under the reference counter
+    from fl4health_tpu_torch import rng as trng
+
+    ref = hloscan.reference_flop_counter()
+    val_batches = on._val_batches()[0]
+    mask = on.client_manager.sample(trng.fold_in(on.rng, 2000 + 1), 1)
+    with ref:
+        on._fit_round_t(on.server_state, on.client_states, on._round_batches(1), mask, 1,
+                        val_batches)
+    torch.cuda.synchronize()
+    counted = intro.counters["fit_round_t"].dot_flops
+    if counted != ref.get_total_flops() or counted <= 0:
+        fail(f"ops_dp_cifar_cnn: counted dot+conv flops {counted}, reference "
+             f"FlopCounterMode {ref.get_total_flops()}")
+    rounds = [e for e in obs.registry.events if e["event"] == "round"]
+    snap = obs.registry.snapshot()
+    for e in rounds:
+        # beside the rate over the round's wall, the rate over the fence's
+        # wait alone (the tail after the last dispatch), which JAX divides by
+        wait = e["device_wait_s"]
+        print(json.dumps({"ops_round": e["round"], "mfu_pct": e.get("mfu_pct"),
+                          "tflops_measured": e.get("tflops_measured"),
+                          "program_flops_round": e.get("program_flops_round"),
+                          "program_exec_s": e.get("program_exec_s"),
+                          "device_wait_s": wait,
+                          "tflops_over_wait": (e["program_flops_round"] / wait / 1e12
+                                               if wait > 0 and "program_flops_round" in e
+                                               else None)}))
+    if any(e.get("mfu_pct") is None for e in rounds):
+        fail("ops_dp_cifar_cnn: a round record without mfu_pct on the card")
+    out["introspection"] = {
+        "bit_equal": True, "launches": launches, "introspect_deltas": around.deltas,
+        "programs": {n: {k: r.as_dict()[k] for k in
+                         ("flops", "bytes_accessed", "transcendentals", "argument_bytes",
+                          "output_bytes", "temp_bytes", "peak_hbm_bytes",
+                          "compile_seconds")} for n, r in intro.reports.items()},
+        "fit_round_t_stages": {s: {k: r[k] for k in ("flops", "bytes_accessed", "ops",
+                                                     "custom_calls", "fusion_headroom_bytes")}
+                               for s, r in rows.items()},
+        "kernel_calls": intro.counters["fit_round_t"].kernel_calls,
+        "dot_conv_flops": counted, "reference_flop_counter": ref.get_total_flops(),
+        "conservation": cons,
+        "peak_introspected_bytes": intro.max_program_footprint(),
+        "max_memory_allocated_above_start_bytes": peak_run,
+        "hbm_headroom_bytes": snap.get("fl_hbm_headroom_bytes"),
+        "healthz": list(probe.seen["healthz"])}
+    del off, on
+    torch.cuda.empty_cache()
+
+    # the live drill, and its replay through schedule()
+    posted = {}
+
+    def poster(obs_):
+        def provider(rnd):
+            if rnd == 2 and "resp" not in posted:
+                posted["resp"] = post_json(obs_.scrape_url + "/admin/scalars",
+                                           {"server_lr": 0.02}, OPS_TOKEN)
+            return None
+        return provider
+
+    live_obs = armed(admin_token=OPS_TOKEN, http_port=0, introspection=False)
+    live = build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                        strategy=fed_adam(lr=0.05), observability=live_obs,
+                        train_data_provider=poster(live_obs))
+    live.fit(OPS_DRILL_ROUNDS)
+    replay_obs = armed(admin_token=OPS_TOKEN, introspection=False)
+    replay_obs.admin.schedule(2, {"server_lr": 0.02})
+    replay = build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                          strategy=fed_adam(lr=0.05), observability=replay_obs,
+                          train_data_provider=lambda rnd: None)
+    replay.fit(OPS_DRILL_ROUNDS)
+    torch.cuda.synchronize()
+    journal = live_obs.admin.journal()
+    compiles = [e["compiles"] for e in live_obs.registry.events if e["event"] == "round"]
+    lr = float(live.server_state.opt_state.hyperparams["learning_rate"])
+    if (posted.get("resp", (None,))[0] != 200
+            or [(j["round"], j["scalars"]) for j in journal] != [(2, {"server_lr": 0.02})]
+            or lr != float(np.float32(0.02))):
+        fail(f"ops live drill: POST {posted.get('resp')}, journal {journal}, lr {lr}")
+    if any(compiles[1:]):
+        fail(f"ops live drill: extension builds after round 1: {compiles}")
+    if not trajectory_equal(live, replay):
+        fail("ops live drill: the schedule() replay is not bit-equal to the live run")
+    out["live_drill"] = {"rounds": OPS_DRILL_ROUNDS, "post": posted["resp"][0],
+                         "journal": journal, "server_lr_leaf": lr, "compiles": compiles,
+                         "replay_bit_equal": True,
+                         "fit_losses": [r.fit_losses["backward"] for r in live.history]}
+    del live, replay
+    torch.cuda.empty_cache()
+
+    # the flash kernels' fake branch at transformer_long's width, depth 1
+    cfg = dict(vocab_size=8192, n_classes=4, d_model=512, n_heads=8, n_layers=1,
+               d_ff=2048, max_len=T)
+    val_rows = 16
+    tdata = text_datasets(8192, T, BATCH * LOCAL_STEPS + val_rows, BATCH * LOCAL_STEPS)
+    tobs = armed()
+    tsim = build_sim(cfg, tdata, torch.bfloat16, "cuda", seed=0, observability=tobs)
+    fa.reset_launch_counts()
+    tsim._introspect_programs(EXEC_PIPELINED, 1)
+    torch.cuda.synchronize()
+    calls = {n: c.kernel_calls for n, c in tobs.introspector.counters.items()}
+    # a step: the forward and remat's recompute, dQ, dK/dV; an eval step: a forward
+    want = {"fit_round_t": {"flash_fwd": 2 * LOCAL_STEPS, "flash_bwd_dq": LOCAL_STEPS,
+                            "flash_bwd_dkv": LOCAL_STEPS},
+            "eval_round_t": {"flash_fwd": -(-val_rows // BATCH)}}
+    if calls != want or any(fa.LAUNCHES.values()):
+        fail(f"ops transformer fake branch: calls {calls} (want {want}), "
+             f"launches {dict(fa.LAUNCHES)}")
+    out["flash_fake_branch"] = {"calls": calls, "launches": dict(fa.LAUNCHES),
+                                "flops": {n: r.flops for n, r in tobs.introspector.reports.items()}}
+    del tsim
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.time() - t_phase
+    print(card_line())
+    print(json.dumps(out))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: needs an NVIDIA card; torch.cuda.is_available() is false",
@@ -4744,6 +4994,9 @@ def main() -> int:
         recovery = recovery_dp_cifar_cnn(dp)
         recovery_cohort(dp, cohort["sources"][COHORT_SIZES[0]])
         hoisting_server_lr()
+        # the introspection and operations plane: on against off, the
+        # counted flops against FlopCounterMode, the live retune drill
+        ops = ops_dp_cifar_cnn(fa, dp)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     del cohort
@@ -4830,6 +5083,9 @@ def main() -> int:
             # round it dispatched, replays included
             "launches_recovery_dp_cifar_cnn":
                 recovery["chunked"]["supervised"]["launches"][name],
+            # the introspection and operations slice: 2 rounds with
+            # introspection and the plane armed (pipelined), equal to off
+            "launches_ops_dp_cifar_cnn": ops["introspection"]["launches"]["on"][name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

@@ -68,6 +68,7 @@ from fl4health_tpu_torch.core.pytree import global_norm, tree_dataclass, tree_le
 from fl4health_tpu_torch.core.types import Params
 from fl4health_tpu_torch.losses.containers import LossMeter
 from fl4health_tpu_torch.metrics.base import MetricManager
+from fl4health_tpu_torch.observability import stages as stage_attr
 from fl4health_tpu_torch.optim import GradientTransformation, apply_updates
 from fl4health_tpu_torch.precision import policy as precision_policy
 
@@ -386,10 +387,11 @@ def make_local_train(logic: ClientLogic, tx: GradientTransformation,
     """train(state, ctx, batches) -> (state, loss_dict, metric_dict, n_steps);
     ``batches`` carries a leading [steps] axis, walked by a Python loop.
     ``precision`` reaches every step. ``collect_telemetry`` appends a fifth
-    output, the engine's telemetry (``telemetry_acc_finalize``)."""
+    output, the engine's telemetry (``telemetry_acc_finalize``). Runs as
+    spine stage ``local_train`` (``observability/stages.py``)."""
     step_fn = make_train_step(logic, tx, collect_telemetry, precision)
 
-    def train(state: TrainState, ctx: Any, batches: Batch):
+    def _train(state: TrainState, ctx: Any, batches: Batch):
         device = batches.step_mask.device
         meter = LossMeter.create(loss_keys, device)
         mstate = metric_manager.init(device)
@@ -407,6 +409,10 @@ def make_local_train(logic: ClientLogic, tx: GradientTransformation,
         if collect_telemetry:
             return (*outs, telemetry_acc_finalize(acc, n_steps))
         return outs
+
+    def train(state: TrainState, ctx: Any, batches: Batch):
+        with stage_attr.stage("local_train"):
+            return _train(state, ctx, batches)
 
     return train
 

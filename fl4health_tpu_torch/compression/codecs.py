@@ -36,6 +36,7 @@ import torch
 from fl4health_tpu_torch import rng
 from fl4health_tpu_torch.compression.config import QUANT_LEVELS, CompressionConfig
 from fl4health_tpu_torch.core import pytree as ptu
+from fl4health_tpu_torch.observability import stages as stage_attr
 
 
 # ---------------------------------------------------------------------------
@@ -173,37 +174,41 @@ def compress_update(update: dict, residual: dict | None, key: torch.Tensor,
     # 2. rotation (per leaf, fixed seeded signs, orthonormal FWHT)
     signs = None
     if config.rotation:
-        device = flats[0].device
-        signs = [_rotation_signs(config.seed, i, _next_pow2(sizes[i]), device)
-                 for i in range(len(flats))]
-        flats = [rotate_leaf(v, s) for v, s in zip(flats, signs)]
+        with stage_attr.stage("rotation"):
+            device = flats[0].device
+            signs = [_rotation_signs(config.seed, i, _next_pow2(sizes[i]), device)
+                     for i in range(len(flats))]
+            flats = [rotate_leaf(v, s) for v, s in zip(flats, signs)]
 
     # 3. global magnitude top-k over the concatenated update
     if config.topk_fraction is not None:
-        n_sel = sum(v.shape[0] for v in flats)  # padded under rotation
-        k = topk_count(n_total, config.topk_fraction)
-        k_eff = None
-        if topk_fraction_eff is not None:
-            # JAX's in-graph count: round half to even in f32, clamped
-            k_eff = int(np.clip(np.round(np.float32(topk_fraction_eff) * np.float32(n_total)),
-                                1, min(k, n_sel)))
-        mask = topk_mask(torch.cat(flats), min(k, n_sel), k_eff)
-        out, off = [], 0
-        for v in flats:
-            out.append(v * mask[off: off + v.shape[0]])
-            off += v.shape[0]
-        flats = out
+        with stage_attr.stage("topk"):
+            n_sel = sum(v.shape[0] for v in flats)  # padded under rotation
+            k = topk_count(n_total, config.topk_fraction)
+            k_eff = None
+            if topk_fraction_eff is not None:
+                # JAX's in-graph count: round half to even in f32, clamped
+                k_eff = int(np.clip(np.round(np.float32(topk_fraction_eff)
+                                             * np.float32(n_total)), 1, min(k, n_sel)))
+            mask = topk_mask(torch.cat(flats), min(k, n_sel), k_eff)
+            out, off = [], 0
+            for v in flats:
+                out.append(v * mask[off: off + v.shape[0]])
+                off += v.shape[0]
+            flats = out
 
     # 4. stochastic quantization, one scale a leaf
     quantized = None
     if config.quant_bits is not None:
-        quantized = [stochastic_quantize_leaf(v, config.quant_bits, rng.fold_in(key, i))
-                     for i, v in enumerate(flats)]
-        flats = [dequantize_leaf(q, scale) for q, scale in quantized]
+        with stage_attr.stage("quantize"):
+            quantized = [stochastic_quantize_leaf(v, config.quant_bits, rng.fold_in(key, i))
+                         for i, v in enumerate(flats)]
+            flats = [dequantize_leaf(q, scale) for q, scale in quantized]
 
     # 5. back to the original domain
     if config.rotation:
-        flats = [unrotate_leaf(v, s, n) for v, s, n in zip(flats, signs, sizes)]
+        with stage_attr.stage("rotation"):
+            flats = [unrotate_leaf(v, s, n) for v, s, n in zip(flats, signs, sizes)]
 
     # integer leaves round (half to even, as jnp.rint); the residual below
     # accounts the rounding too

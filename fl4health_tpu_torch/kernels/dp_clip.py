@@ -32,7 +32,10 @@ so they compose with ``torch.func.grad``.
 
 Dispatch is on the tensors' device: CUDA tensors launch the kernel (or
 raise), CPU tensors run the plain version beside it, through the same
-Functions and rules. Nothing swaps one for the other on failure.
+Functions and rules. Nothing swaps one for the other on failure. Fake
+tensors (round-program introspection, ``kernels/fake.py``) take each
+wrapper's fake branch on either device: outputs of the right shape, the
+call reported to the op counter, no launch and no count in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -44,8 +47,10 @@ import torch
 
 from fl4health_tpu_torch.core.pytree import tree_leaves, tree_map
 from fl4health_tpu_torch.core.types import Params
+from fl4health_tpu_torch.kernels import fake
 from fl4health_tpu_torch.kernels.build import load_extension
 from fl4health_tpu_torch.kernels.fold import fold_vmapped
+from fl4health_tpu_torch.observability import stages as stage_attr
 
 # Kernel launches since the last reset: one per launch, counted by the wrapper
 # right after the launch succeeded (the plain versions never count).
@@ -276,6 +281,11 @@ def sq_norms_tree_kernel(mats: list[torch.Tensor]) -> torch.Tensor:
     the same launch, read through the client and row strides); f32 or bf16,
     each leaf may differ; one launch per ``K1_MAX_LEAVES`` leaves."""
     lead, device = _tree_batch(mats)
+    if fake.is_fake(mats[0]):
+        out = torch.empty(lead, dtype=torch.float32, device=device)
+        for first in range(0, len(mats), K1_MAX_LEAVES):  # one report a launch
+            fake.report("dp_sq_norms", mats[first:first + K1_MAX_LEAVES], out)
+        return out
     stacks = [_as_stack(m) for m in mats]
     for g in stacks:
         _check_stack(g)
@@ -303,6 +313,10 @@ def scaled_sum_kernel(flat_grads: torch.Tensor, scale: torch.Tensor) -> torch.Te
     """K2 on the card: [B, W], [B] f32 -> [W] f32, or the client-batched
     entry [N, B, W], [N, B] -> [N, W] (one launch, a grid row of CTAs a
     client, the stack read through its client and row strides)."""
+    if fake.is_fake(flat_grads):
+        out = torch.empty((*flat_grads.shape[:-2], flat_grads.shape[-1]),
+                          dtype=torch.float32, device=flat_grads.device)
+        return fake.report("dp_scaled_sum", (flat_grads, scale), out)
     g = _as_stack(flat_grads)
     _check_stack(g)
     n, b, w = g.shape
@@ -330,7 +344,7 @@ def _unit_column_stride(g: torch.Tensor) -> torch.Tensor:
     # per-example gradients are; a strided one is copied once, and counted
     if g.stride(-1) == 1 or g.shape[-1] == 1:
         return g
-    if g.device.type == "cuda":
+    if g.device.type == "cuda" and not fake.is_fake(g):
         COPIES["dp_per_example"] += 1
     return g.contiguous()
 
@@ -340,7 +354,7 @@ def _fold_clients(x: torch.Tensor, bdim: int | None, size: int) -> torch.Tensor:
     ...]``: a view whenever the two axes step evenly, as every layout of the
     simulation's does; else a copy, counted on the card."""
     folded, copied = fold_vmapped(x, bdim, size)
-    if copied and x.device.type == "cuda":
+    if copied and x.device.type == "cuda" and not fake.is_fake(x):
         COPIES["dp_per_example"] += 1
     return folded
 
@@ -350,7 +364,7 @@ class _TreeSqNorms(torch.autograd.Function):
 
     @staticmethod
     def forward(*stacks):
-        if stacks[0].device.type == "cuda":
+        if stacks[0].device.type == "cuda" or fake.is_fake(stacks[0]):
             return sq_norms_tree_kernel([_unit_column_stride(g) for g in stacks])
         if stacks[0].device.type == "cpu":
             return per_example_tree_sq_norms_reference(list(stacks))
@@ -379,7 +393,7 @@ class _ScaledSum(torch.autograd.Function):
 
     @staticmethod
     def forward(stack, scale):
-        if stack.device.type == "cuda":
+        if stack.device.type == "cuda" or fake.is_fake(stack):
             return scaled_sum_kernel(_unit_column_stride(stack),
                                      scale.float().contiguous())
         if stack.device.type == "cpu":
@@ -439,14 +453,16 @@ def fused_clipped_masked_sum(
     across leaves; then K2 runs per leaf with the clip factor times the mask
     as the scale. Leaf sums come back f32 whatever the input dtype.
     ``return_norms=True`` also returns the pre-clip per-example norms [B].
+    Runs as spine stage ``dp_clip`` (``observability/stages.py``).
     """
-    mats = tree_map(lambda g: g.reshape(g.shape[0], -1), per_example_grads)
-    sq = per_example_tree_sq_norms(tree_leaves(mats))
-    norms = torch.sqrt(torch.clamp(sq, min=0.0))
-    factor = torch.clamp(clipping_bound / torch.clamp(norms, min=1e-12), max=1.0)
-    scale = factor * example_mask.to(torch.float32)
-    out = tree_map(lambda g, m: scaled_masked_sum(m, scale).reshape(g.shape[1:]),
-                   per_example_grads, mats)
+    with stage_attr.stage("dp_clip"):
+        mats = tree_map(lambda g: g.reshape(g.shape[0], -1), per_example_grads)
+        sq = per_example_tree_sq_norms(tree_leaves(mats))
+        norms = torch.sqrt(torch.clamp(sq, min=0.0))
+        factor = torch.clamp(clipping_bound / torch.clamp(norms, min=1e-12), max=1.0)
+        scale = factor * example_mask.to(torch.float32)
+        out = tree_map(lambda g, m: scaled_masked_sum(m, scale).reshape(g.shape[1:]),
+                       per_example_grads, mats)
     if return_norms:
         return out, norms
     return out

@@ -32,7 +32,10 @@ Dispatch is on the tensor's device, inside both Functions: a CUDA tensor
 launches the kernels (or raises), a CPU tensor runs
 ``flash_attention_reference`` and the plain backward versions beside it,
 with the same ``(out, lse)`` contract, through the same rules. Nothing
-swaps one for the other on failure.
+swaps one for the other on failure. Fake tensors (round-program
+introspection, ``kernels/fake.py``) take each kernel wrapper's fake branch
+on either device: outputs of the right shape, the call reported to the op
+counter, no launch and no count in ``LAUNCHES``.
 
 Contract (same as the JAX function): q, k, v are ``[B, T, H, D]``;
 ``pad_mask`` ``[B, T]`` marks real keys with 1 and is not differentiable;
@@ -48,6 +51,7 @@ import functools
 
 import torch
 
+from fl4health_tpu_torch.kernels import fake
 from fl4health_tpu_torch.kernels.build import load_extension
 from fl4health_tpu_torch.kernels.fold import fold_vmapped
 
@@ -255,6 +259,11 @@ def _stream(x: torch.Tensor) -> int:
 def flash_fwd(q, k, v, mask) -> tuple[torch.Tensor, torch.Tensor]:
     """Forward kernel: ``(out [B,T,H,D] in q.dtype, lse [B,H,T] f32)``;
     ``mask`` is ``[B, T]`` or an ``[N, B / N, T]`` stack."""
+    if fake.is_fake(q):
+        b, t, h, _ = q.shape
+        outs = (torch.empty_like(q),
+                torch.empty((b, h, t), dtype=torch.float32, device=q.device))
+        return fake.report("flash_fwd", (q, k, v, mask), outs)
     mask = _mask_stack(mask)
     _check_inputs(q, k, v, mask)
     b, t, h, d = q.shape
@@ -275,6 +284,9 @@ def flash_fwd(q, k, v, mask) -> tuple[torch.Tensor, torch.Tensor]:
 
 def flash_bwd_dq(q, k, v, mask, dout, lse, delta) -> torch.Tensor:
     """dQ kernel; ``delta = rowsum(dO * O) - dlse`` as [B,H,T] f32."""
+    if fake.is_fake(q):
+        return fake.report("flash_bwd_dq", (q, k, v, mask, dout, lse, delta),
+                           torch.empty_like(q))
     mask = _mask_stack(mask)
     _check_inputs(q, k, v, mask)
     _check_backward_inputs(q, dout, lse, delta)
@@ -297,6 +309,9 @@ def flash_bwd_dq(q, k, v, mask, dout, lse, delta) -> torch.Tensor:
 def flash_bwd_dkv(q, k, v, mask, dout, lse, delta
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """dK/dV kernel."""
+    if fake.is_fake(q):
+        return fake.report("flash_bwd_dkv", (q, k, v, mask, dout, lse, delta),
+                           (torch.empty_like(k), torch.empty_like(v)))
     mask = _mask_stack(mask)
     _check_inputs(q, k, v, mask)
     _check_backward_inputs(q, dout, lse, delta)
@@ -343,7 +358,7 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, mask):
-        if q.device.type == "cuda":
+        if q.device.type == "cuda" or fake.is_fake(q):
             return flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), mask)
         return flash_attention_reference(q, k, v, _plain_mask(mask))
 
@@ -375,7 +390,7 @@ class _FlashAttentionGrads(torch.autograd.Function):
     @staticmethod
     def forward(q, k, v, mask, out, lse, dout, dlse):
         delta = backward_delta(dout, out, dlse)
-        if q.device.type == "cuda":
+        if q.device.type == "cuda" or fake.is_fake(q):
             q, k, v, dout = (x.contiguous() for x in (q, k, v, dout))
             return (flash_bwd_dq(q, k, v, mask, dout, lse, delta),
                     *flash_bwd_dkv(q, k, v, mask, dout, lse, delta))

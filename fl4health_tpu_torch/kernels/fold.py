@@ -17,5 +17,5 @@ def fold_vmapped(x: torch.Tensor, bdim: int | None, size: int
     shape = (size * x.shape[1], *x.shape[2:])
     try:
         return x.view(shape), False
-    except RuntimeError:
+    except (RuntimeError, ValueError):  # a fake tensor's refusal is a ValueError
         return x.reshape(shape), True

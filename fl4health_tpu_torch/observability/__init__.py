@@ -22,28 +22,38 @@ recorder, the fleet ledger and postmortem bundles.
   :mod:`~fl4health_tpu_torch.observability.fleet` — the black box of the
   last rounds, the postmortem bundle it publishes on an abnormal end, and
   per-client lifetime records;
+- :mod:`~fl4health_tpu_torch.observability.introspect`,
+  :mod:`~fl4health_tpu_torch.observability.hloscan`,
+  :mod:`~fl4health_tpu_torch.observability.stages` — round-program
+  introspection: each round function run once on fake tensors under an op
+  counter (flops, bytes, footprint, per-stage rows), feeding measured MFU
+  and the HBM-headroom gauge;
+- :mod:`~fl4health_tpu_torch.observability.timeseries`,
+  :mod:`~fl4health_tpu_torch.observability.slo`,
+  :mod:`~fl4health_tpu_torch.observability.adminplane` — the operations
+  plane: serving KPIs over a bounded window, declarative SLOs with
+  burn-rate standing, and live retunes of the hoisted scalars;
 - :mod:`~fl4health_tpu_torch.observability.exposition` /
   :mod:`~fl4health_tpu_torch.observability.manifest` — the HTTP pull
   endpoint (``/metrics``, ``/manifest``, ``/healthz``, ``/fleet``,
-  ``/clients/<id>``) and the run manifest;
+  ``/clients/<id>``, and ``/admin/slo``, ``/admin/scalars`` while the
+  operations plane is armed) and the run manifest;
 - :mod:`~fl4health_tpu_torch.observability.device_specs` — published
   device peaks.
 
 :class:`Observability` is the facade ``FederatedSimulation`` accepts, with
 JAX's constructor. Disabled, every hook is a shared no-op: no device sync,
-no allocation on the round's path. Not ported yet (``ROADMAP.md`` A10): the
-compiled-program introspection (``introspection`` is accepted and inert)
-and the operations plane (``slo`` and ``admin_token`` raise).
+no allocation on the round's path.
 """
 
 from __future__ import annotations
 
 import json
-import logging
 import os
 from typing import Any
 
 from fl4health_tpu_torch.core.io import atomic_write
+from fl4health_tpu_torch.observability.adminplane import AdminPlane, AdminRejection
 from fl4health_tpu_torch.observability.cudamon import CompileMonitor, profile_round, synced
 from fl4health_tpu_torch.observability.exposition import ScrapeServer
 from fl4health_tpu_torch.observability.fleet import FleetLedger
@@ -51,15 +61,23 @@ from fl4health_tpu_torch.observability.flightrec import (DEFAULT_WINDOW, FlightR
                                                          SigtermShutdown, trap_sigterm)
 from fl4health_tpu_torch.observability.health import (HealthPolicy, HealthWatchdog,
                                                       TrainingHealthError)
+from fl4health_tpu_torch.observability.introspect import ProgramIntrospector, ProgramReport
 from fl4health_tpu_torch.observability.manifest import config_hash, run_manifest
 from fl4health_tpu_torch.observability.registry import (Counter, Gauge, Histogram,
                                                         MetricsRegistry, get_registry,
                                                         set_registry)
+from fl4health_tpu_torch.observability.slo import SLOEngine, SLOPolicy
 from fl4health_tpu_torch.observability.spans import (_NULL_SPAN, Span, Tracer, get_tracer,
                                                      set_tracer)
+from fl4health_tpu_torch.observability.timeseries import RoundTimeSeries
 
 __all__ = [
     "Observability",
+    "AdminPlane",
+    "AdminRejection",
+    "SLOPolicy",
+    "SLOEngine",
+    "RoundTimeSeries",
     "FleetLedger",
     "FlightRecorder",
     "SigtermShutdown",
@@ -74,6 +92,8 @@ __all__ = [
     "HealthPolicy",
     "HealthWatchdog",
     "TrainingHealthError",
+    "ProgramIntrospector",
+    "ProgramReport",
     "ScrapeServer",
     "run_manifest",
     "config_hash",
@@ -84,18 +104,6 @@ __all__ = [
     "profile_round",
     "synced",
 ]
-
-_warned_introspection = False
-
-
-def _warn_introspection_once() -> None:
-    global _warned_introspection
-    if not _warned_introspection:
-        _warned_introspection = True
-        logging.getLogger(__name__).warning(
-            "Observability(introspection=True): compiled-program introspection "
-            "is not ported yet (ROADMAP.md A10); no program reports are taken")
-
 
 class Observability:
     """One handle bundling tracer + registry + CUDA hooks for a run (JAX's
@@ -114,9 +122,18 @@ class Observability:
     armed lifetime (``0``: an OS-assigned port, read from ``scrape_url``).
     ``flight_recorder`` and ``fleet_ledger`` (default on) keep the ring of
     the last ``flightrec_window`` rounds and the per-client lifetime
-    records. ``introspection`` is inert (logged once a process); ``slo``
-    and ``admin_token`` raise ``NotImplementedError``; ``ops_window`` only
-    sizes the operations plane, so it does nothing here.
+    records. ``introspection`` (default on) runs each round program once on
+    fake tensors when ``fit()`` starts (``ProgramIntrospector``): the
+    ``program`` and ``stage`` records, measured MFU on every round record
+    and the HBM-headroom gauge, with no device work.
+
+    The operations plane (both OFF by default): ``slo`` takes an
+    ``SLOPolicy`` evaluated each round in the epilogue (``fl_slo_*``
+    gauges, ``slo`` events, the ``degraded`` healthz state);
+    ``admin_token`` arms the ``AdminPlane`` behind ``POST /admin/scalars``
+    (shared-secret header) for live, journaled retunes of the hoisted
+    scalars. Either one also arms the ``RoundTimeSeries`` of the last
+    ``ops_window`` rounds that computes the serving KPIs.
     """
 
     def __init__(
@@ -140,11 +157,6 @@ class Observability:
         admin_token: str | None = None,
         ops_window: int = 256,
     ):
-        for name, value in (("slo", slo), ("admin_token", admin_token)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"Observability({name}=...): the operations plane (SLO engine, "
-                    "admin plane) is not ported yet (ROADMAP.md A10)")
         self.enabled = enabled
         self.output_dir = output_dir
         self.tracer = tracer if tracer is not None else get_tracer()
@@ -170,16 +182,23 @@ class Observability:
             self.fleet_ledger = FleetLedger()
         else:
             self.fleet_ledger = None
+        # the operations plane: host-side only, fed from epilogue summaries
+        # the run already pulled, so arming it adds no device sync
+        self.slo: SLOEngine | None = SLOEngine(slo, self.registry) if slo is not None else None
+        self.admin: AdminPlane | None = (AdminPlane(admin_token, self.registry)
+                                         if admin_token is not None else None)
+        self.timeseries: RoundTimeSeries | None = (
+            RoundTimeSeries(window=ops_window)
+            if (self.slo is not None or self.admin is not None) else None)
         self._unhealthy: str | None = None
         self._degraded: str | None = None
+        self.introspector = ProgramIntrospector(self.registry)
         self._manifest: dict[str, Any] = {}
         self._scrape_server: ScrapeServer | None = None
         self.compile_monitor = CompileMonitor(self.registry)
         # only the handle that flipped the tracer on flips it off (and
         # clears its events) at shutdown
         self._owns_tracer_enable = False
-        if enabled and introspection:
-            _warn_introspection_once()
         if enabled:
             self.start()
 
@@ -190,8 +209,8 @@ class Observability:
 
     @property
     def introspection_enabled(self) -> bool:
-        """Always False: the introspection modules are not ported yet."""
-        return False
+        """True when ``fit()`` should introspect its round programs."""
+        return self.enabled and self.introspection
 
     @property
     def scrape_url(self) -> str | None:
@@ -240,6 +259,9 @@ class Observability:
                     client_provider=((lambda cid: ledger.get(cid)) if ledger is not None
                                      else None),
                     degraded_provider=lambda: self._degraded,
+                    slo_provider=((lambda: self.slo.standing()) if self.slo is not None
+                                  else None),
+                    admin_plane=self.admin,
                 )
         return self
 
@@ -260,10 +282,11 @@ class Observability:
 
     @property
     def degraded_slo(self) -> str | None:
+        """Name of the SLO objective standing in breach, else None."""
         return self._degraded
 
     def mark_degraded(self, slo_name: str) -> None:
-        """Flip ``/healthz`` to 200 ``degraded: <reason>``; a 503 verdict
+        """Flip ``/healthz`` to 200 ``degraded: <slo>``; a 503 verdict
         always wins over this channel."""
         self._degraded = str(slo_name)
 
@@ -317,10 +340,35 @@ class Observability:
     def log_event(self, event: str, **fields: Any) -> dict | None:
         if not self.enabled:
             return None
-        return self.registry.log_event(event, **fields)
+        rec = self.registry.log_event(event, **fields)
+        if event == "recovery" and self.timeseries is not None:
+            # the supervisor's ladder: engage/probation_passed/halt feed
+            # the MTTR KPI
+            self.timeseries.note_recovery(fields.get("phase"), ts=rec.get("ts"))
+        return rec
 
     def snapshot(self) -> dict:
         return self.registry.snapshot()
+
+    # -- operations plane ------------------------------------------------
+    def observe_round_kpis(self, rnd: int, summary: "dict[str, Any]", *,
+                           fit_loss: float | None = None,
+                           eval_loss: float | None = None):
+        """Feed one epilogue round summary to the operations plane: refresh
+        the KPI time-series, evaluate the SLO policy, and drive the
+        degraded healthz channel. None when the plane is unarmed."""
+        ts = self.timeseries
+        if not self.enabled or ts is None:
+            return None
+        kpis = ts.observe_round(summary, fit_loss=fit_loss, eval_loss=eval_loss)
+        if self.slo is None:
+            return kpis
+        verdict = self.slo.evaluate(rnd, kpis)
+        if verdict["degraded_slo"] is not None:
+            self.mark_degraded(verdict["degraded_slo"])
+        else:
+            self.clear_degraded()
+        return verdict
 
     # -- CUDA hooks ------------------------------------------------------
     def fence(self, tree: Any) -> tuple[Any, float]:

@@ -13,15 +13,20 @@ scraped mid-run:
   ``Observability.mark_unhealthy``);
 - ``GET /fleet``    — fleet-ledger summary JSON (``observability/fleet.py``);
 - ``GET /clients/<id>`` — one client's lifetime record by REGISTRY id,
-  404 for a client the ledger has never seen.
+  404 for a client the ledger has never seen;
+- ``GET /admin/slo`` — the SLO standing (policy, per-objective burn rates,
+  KPIs) while an SLO engine is armed;
+- ``POST /admin/scalars`` — the admin plane (``observability/
+  adminplane.py``): live retunes of the hoisted scalars, armed only by
+  ``Observability(admin_token=...)`` and guarded by that shared secret in
+  the ``X-Admin-Token`` header; the handler thread only validates and
+  enqueues, the round loop applies at the next boundary. Rejections
+  answer JAX's status and JSON body (401, 400, 409).
 
-JAX's operations-plane routes (``GET /admin/slo``, ``POST /admin/scalars``)
-are not served: the port has no SLO engine or admin plane yet, so every
-POST answers 405 on a known route and 404 elsewhere, as JAX's unarmed
-server does.
-
-Every GET route answers ``HEAD`` too; other methods on known routes answer
-405 with an ``Allow`` header; disconnecting scrapers are swallowed. A
+Both admin routes are absent (404) while the plane is unarmed. Every GET
+route answers ``HEAD`` too; other methods on known routes answer 405 with
+an ``Allow`` header (``POST`` on ``/admin/scalars``); disconnecting
+scrapers are swallowed. A
 scrape reads host-side floats under the registry lock and never touches
 the device. ``port=0`` binds an OS-assigned port; the server runs on daemon
 threads and ``close()`` shuts it down and joins it.
@@ -63,11 +68,14 @@ class ScrapeServer:
     ``health_provider`` is called per ``/healthz`` request and returns
     None while healthy, or a verdict-summary string once the run halted —
     the endpoint then answers 503 with that summary as the body.
-    ``degraded_provider`` returns the degraded reason (or None); it only
-    matters while ``health_provider`` says alive — dead beats limping.
-    ``fleet_provider``/``client_provider`` back ``/fleet`` and
+    ``degraded_provider`` returns the name of a breaching SLO (or None);
+    it only matters while ``health_provider`` says alive — dead beats
+    limping. ``fleet_provider``/``client_provider`` back ``/fleet`` and
     ``/clients/<id>``; without them those routes answer 404 like any
     unknown path (a server without a ledger has no fleet to serve).
+    ``slo_provider`` backs ``GET /admin/slo``; ``admin_plane`` (an
+    ``adminplane.AdminPlane``) backs ``POST /admin/scalars`` — both 404
+    when unarmed, so the default surface is exactly the read-only one.
     """
 
     def __init__(
@@ -80,6 +88,8 @@ class ScrapeServer:
         fleet_provider: Callable[[], dict[str, Any]] | None = None,
         client_provider: "Callable[[int], dict[str, Any] | None] | None" = None,
         degraded_provider: Callable[[], str | None] | None = None,
+        slo_provider: Callable[[], dict[str, Any]] | None = None,
+        admin_plane=None,
     ):
         registry_ref = registry
         provider = manifest_provider
@@ -87,6 +97,8 @@ class ScrapeServer:
         degraded = degraded_provider
         fleet = fleet_provider
         client_lookup = client_provider
+        slo = slo_provider
+        admin = admin_plane
 
         class Handler(BaseHTTPRequestHandler):
             def _send(self, code: int, body: bytes, ctype: str,
@@ -103,6 +115,11 @@ class ScrapeServer:
                         self.wfile.write(body)
                 except _DISCONNECTS:
                     pass  # scraper hung up mid-response; nothing to salvage
+
+            def _send_json(self, code: int, doc: Any,
+                           include_body: bool = True) -> None:
+                self._send(code, json.dumps(doc, default=str).encode(),
+                           "application/json", include_body)
 
             # -------------------------------------------------- GET routing
             def _get_response(self, path: str):
@@ -140,10 +157,14 @@ class ScrapeServer:
                                 "text/plain; charset=utf-8")
                     return (200, json.dumps(doc, default=str).encode(),
                             "application/json")
+                if path == "/admin/slo" and slo is not None:
+                    return (200, json.dumps(slo(), default=str).encode(),
+                            "application/json")
                 return None
 
             def _is_known(self, path: str) -> bool:
-                return self._get_response(path) is not None
+                return (self._get_response(path) is not None
+                        or (path == "/admin/scalars" and admin is not None))
 
             def do_GET(self):  # noqa: N802 (http.server API)
                 self._answer_read(include_body=True)
@@ -157,22 +178,47 @@ class ScrapeServer:
                 if resp is not None:
                     code, body, ctype = resp
                     self._send(code, body, ctype, include_body)
+                elif path == "/admin/scalars" and admin is not None:
+                    self._send(405, b"method not allowed\n",
+                               "text/plain; charset=utf-8", include_body,
+                               {"Allow": "POST"})
                 else:
                     self._send(404, b"not found\n",
                                "text/plain; charset=utf-8", include_body)
+
+            # ------------------------------------------------------- admin
+            def do_POST(self):  # noqa: N802
+                path = self.path.split("?", 1)[0]
+                if path != "/admin/scalars" or admin is None:
+                    self._reject_method()
+                    return
+                from fl4health_tpu_torch.observability.adminplane import AdminRejection
+
+                try:
+                    admin.authorize(self.headers.get(admin.AUTH_HEADER))
+                    length = int(self.headers.get("Content-Length") or 0)
+                    raw = self.rfile.read(length) if length > 0 else b""
+                    try:
+                        scalars = json.loads(raw.decode("utf-8") or "null")
+                    except (ValueError, UnicodeDecodeError):
+                        raise AdminRejection(
+                            400, "bad_request", "body must be valid JSON") from None
+                    self._send_json(200, admin.submit(scalars))
+                except AdminRejection as rej:
+                    self._send_json(rej.status, rej.doc())
 
             # ------------------------------------------- other verbs -> 405
             def _reject_method(self):
                 path = self.path.split("?", 1)[0]
                 if self._is_known(path):
+                    allow = "POST" if path == "/admin/scalars" else "GET, HEAD"
                     self._send(405, b"method not allowed\n",
                                "text/plain; charset=utf-8",
-                               extra_headers={"Allow": "GET, HEAD"})
+                               extra_headers={"Allow": allow})
                 else:
                     self._send(404, b"not found\n",
                                "text/plain; charset=utf-8")
 
-            do_POST = _reject_method  # noqa: N815
             do_PUT = _reject_method    # noqa: N815
             do_DELETE = _reject_method  # noqa: N815
             do_PATCH = _reject_method  # noqa: N815

@@ -31,6 +31,7 @@ import torch
 from fl4health_tpu_torch.core.aggregate import effective_weights, expand_clients, weighted_mean
 from fl4health_tpu_torch.core.pytree import tree_leaves, tree_map
 from fl4health_tpu_torch.core.types import Params, PyTree, StackedParams
+from fl4health_tpu_torch.observability import stages as stage_attr
 from fl4health_tpu_torch.strategies.base import FitResults, Strategy
 from fl4health_tpu_torch.strategies.fedavg import FedAvgState
 
@@ -201,19 +202,21 @@ class RobustFedAvg(Strategy):
 
     def aggregate(self, server_state: FedAvgState, results: FitResults,
                   round_idx: int) -> FedAvgState:
-        stacked, mask = results.packets, results.mask
-        if self.method == "median":
-            new, ok = coordinate_median(stacked, mask), mask.sum() > 0
-        elif self.method == "trimmed_mean":
-            new, ok = trimmed_mean(stacked, mask, self.trim_fraction), mask.sum() > 0
-        elif self.method == "norm_bounded":
-            new = norm_bounded_mean(stacked, server_state.params, results.sample_counts,
-                                    mask, self.max_update_norm, self.weighted_aggregation)
-            ok = mask.sum() > 0
-        else:  # krum / multi_krum
-            m = 1 if self.method == "krum" else self.multi_krum_m
-            w = krum_weights(stacked, mask, self.num_byzantine, m)
-            new, ok = weighted_mean(stacked, w), w.sum() > 0
-        params = tree_map(lambda n, o: torch.where(ok, n.to(o.dtype), o),
-                          new, server_state.params)
-        return dataclasses.replace(server_state, params=params)
+        with stage_attr.stage("robust_aggregate"):
+            stacked, mask = results.packets, results.mask
+            if self.method == "median":
+                new, ok = coordinate_median(stacked, mask), mask.sum() > 0
+            elif self.method == "trimmed_mean":
+                new, ok = trimmed_mean(stacked, mask, self.trim_fraction), mask.sum() > 0
+            elif self.method == "norm_bounded":
+                new = norm_bounded_mean(stacked, server_state.params,
+                                        results.sample_counts, mask, self.max_update_norm,
+                                        self.weighted_aggregation)
+                ok = mask.sum() > 0
+            else:  # krum / multi_krum
+                m = 1 if self.method == "krum" else self.multi_krum_m
+                w = krum_weights(stacked, mask, self.num_byzantine, m)
+                new, ok = weighted_mean(stacked, w), w.sum() > 0
+            params = tree_map(lambda n, o: torch.where(ok, n.to(o.dtype), o),
+                              new, server_state.params)
+            return dataclasses.replace(server_state, params=params)

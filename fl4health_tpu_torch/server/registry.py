@@ -180,6 +180,18 @@ class IndexedPoolSource(RegistryDataSource):
         return self._take(self._val_pool[0], ix), self._take(self._val_pool[1], ix)
 
 
+class _Example:
+    """Shape and torch dtype of one example of a ``[n, ...]`` data leaf (a
+    tree leaf, unlike a tuple)."""
+
+    __slots__ = ("shape", "dtype")
+
+    def __init__(self, a):
+        a = np.asarray(a)
+        self.shape = tuple(a.shape[1:])
+        self.dtype = torch.from_numpy(np.empty((0,), a.dtype)).dtype
+
+
 def as_registry_source(datasets: Any) -> RegistryDataSource:
     """``FederatedSimulation``'s ``datasets`` under a cohort: a
     ``RegistryDataSource`` as it is, anything else as a ``ListDataSource``."""
@@ -315,6 +327,11 @@ class ClientRegistry:
         self.strategy_dtypes: Any = None
         self._init_rng: torch.Tensor | None = None
         self._has_strategy_rows = False
+        # example prototypes (shape and dtype of one example) for the
+        # abstract slot arguments of introspection
+        x0, y0 = source.client_train(0)
+        self._x_example = tree_map(_Example, x0)
+        self._y_example = tree_map(_Example, y0)
 
     @property
     def dirty_rows(self) -> int:
@@ -471,6 +488,41 @@ class ClientRegistry:
                 "sample_counts": sample_counts, "batches": batches,
                 "val_batches": val_batches, "val_counts": val_counts,
                 "staged_bytes": staged_bytes}
+
+    # -- abstract shapes (introspection: no staging, no device work) -----
+    def _abstract_batch(self, steps: int, k: int) -> Batch:
+        b = self.batch_size
+        meta = lambda ex: tree_map(  # noqa: E731
+            lambda e: torch.empty((k, steps, b, *e.shape), dtype=e.dtype, device="meta"), ex)
+        return Batch(x=meta(self._x_example), y=meta(self._y_example),
+                     example_mask=torch.empty((k, steps, b), device="meta"),
+                     step_mask=torch.empty((k, steps), device="meta"))
+
+    def abstract_round_args(self, slots: int) -> dict:
+        """Meta tensors shaped as one round's slot inputs — what the
+        introspector runs the slot programs on. By construction these
+        shapes mention only (K, step budgets, batch, example shape), never
+        the registry size: the O(K) footprint the introspection tests pin."""
+        f32 = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+        return {"batches": self._abstract_batch(self.train_steps, slots),
+                "val_batches": self._abstract_batch(self.val_steps, slots),
+                "mask": f32(slots), "sample_counts": f32(slots),
+                "val_counts": f32(slots)}
+
+    def abstract_chunk_args(self, slots: int, n_rounds: int) -> dict:
+        """Stacked ``[R, ...]`` meta tensors of one chunk's per-round inputs
+        plus the window ids' — what the introspector runs the cohort chunk
+        on. Nothing mentions the registry size beyond the ``min(N, R * K)``
+        window cap."""
+        aa = self.abstract_round_args(slots)
+        k = int(n_rounds)
+        stack = lambda tree: tree_map(  # noqa: E731
+            lambda t: torch.empty((k, *t.shape), dtype=t.dtype, device="meta"), tree)
+        w = min(self.n_clients, k * int(slots))
+        out = {name: stack(aa[name]) for name in
+               ("batches", "val_batches", "mask", "sample_counts", "val_counts")}
+        out["window_ids"] = torch.empty((w,), dtype=torch.int64, device="meta")
+        return out
 
     # -- chunked staging (R rounds a dispatch) ---------------------------
     def chunk_window(self, idx_list: Sequence[np.ndarray], valid_list: Sequence[int],

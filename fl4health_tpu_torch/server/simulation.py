@@ -151,7 +151,17 @@ frame, which then carries the ledger under ``"fleet"``), records JAX's
 ``fl_*`` metrics, the ``round`` and ``telemetry`` JSONL events and the
 flight-recorder entry (``_record_round_metrics``), and lets the watchdog
 observe the telemetry last; the dense pipelined route samples the
-watchdog's quarantined clients out in ``configure_fit``.
+watchdog's quarantined clients out in ``configure_fit``. With
+``introspection`` on (JAX's default) ``fit`` runs each round program it
+will dispatch once on fake tensors (``_introspect_programs``, JAX's
+program names; not on the async routes, as in JAX), and every round record
+carries ``program_flops_round``, ``tflops_measured`` and, on a card the
+device table knows, ``mfu_pct``. The operations plane (``slo=``,
+``admin_token=``) reads each round's summary in the epilogue
+(``observe_round_kpis``), and an armed admin plane's retunes apply at every
+pipelined route's round (or event) boundary on the producer thread
+(``_apply_admin_retunes``); it steers ``"auto"`` to the pipelined route
+with JAX's reason.
 
 Departures: without a state checkpointer ``fit(n)`` runs ``n`` more
 rounds, numbered after ``history`` (under one, JAX's numbering: restore
@@ -160,7 +170,9 @@ round ``c`` and run ``c+1..n``); a round's facts (a cohort round's
 the fault plan's ``summarize_round`` under ``"fault"``, a save's stats
 under ``"checkpoint"``) also land in ``round_metrics``; ``profile_dir``
 and ``profile_round_idx`` write ``torch.profiler`` traces, not XProf; the
-compile counters count kernel-extension builds.
+compile counters count kernel-extension builds; measured MFU divides a
+round's counted flops by its wall less its builds, not by the fence's
+wait.
 
 Resilience, as in JAX: a strategy with ``quarantine_mask`` (a
 ``QuarantiningStrategy``) has its in-graph mask brought to the host every
@@ -169,10 +181,9 @@ round (riding the round's pull, or stacked in the chunk's) for the
 ``recovery=RecoveryPolicy(...)`` runs ``fit`` under a
 ``RecoverySupervisor`` (``resilience/supervisor.py``), whose quarantine
 roster masks the sampling on every route (by registry id under a cohort)
-and whose probation every route's epilogue feeds. Left out here: the
-compiled-program introspection, the operations plane, mesh placement
-(``mesh``) and FLASH early stopping (``flash_early_stopping``), which
-raise ``NotImplementedError`` when set, and the ``WandBReporter``; so of
+and whose probation every route's epilogue feeds. Left out here: mesh
+placement (``mesh``) and FLASH early stopping (``flash_early_stopping``),
+which raise ``NotImplementedError`` when set, and the ``WandBReporter``; so of
 JAX's reasons for the pipelined route, only those of the features above
 apply.
 """
@@ -205,10 +216,12 @@ from fl4health_tpu_torch.device import resolve_device
 from fl4health_tpu_torch.exchange.exchanger import FixedLayerExchanger, FullExchanger
 from fl4health_tpu_torch.metrics.aggregation import aggregate_metrics
 from fl4health_tpu_torch.metrics.base import MetricManager
-from fl4health_tpu_torch.observability import Observability, get_registry
+from fl4health_tpu_torch.observability import Observability, device_specs, get_registry
+from fl4health_tpu_torch.observability import stages as stage_attr
 from fl4health_tpu_torch.observability import telemetry as telem
 from fl4health_tpu_torch.observability.cudamon import profile_round
 from fl4health_tpu_torch.observability.flightrec import trap_sigterm
+from fl4health_tpu_torch.observability.introspect import device_identity
 from fl4health_tpu_torch.observability.manifest import config_hash, run_manifest
 from fl4health_tpu_torch.observability.telemetry import RoundTelemetry
 from fl4health_tpu_torch.optim import GradientTransformation
@@ -486,6 +499,10 @@ class FederatedSimulation:
         self._precision_active = bool(precision is not None and precision.active)
         self._precision_scaling = bool(precision is not None and precision.scaling_active)
         self.device = resolve_device(device)
+        # the device name the peaks of device_specs are keyed by (measured MFU)
+        self._device_kind = device_identity(self.device)[1]
+        # per-round flops of the round programs, set by introspection
+        self._round_program_flops: float | None = None
         # fit() wraps its rounds in one torch.profiler capture written here
         self.profile_dir = profile_dir
         # a disabled handle's every hook is a no-op: no sync, no record
@@ -961,7 +978,8 @@ class FederatedSimulation:
                                  sample_counts=sample_counts,
                                  train_losses=losses, train_metrics=metrics,
                                  mask=mask * finite.to(mask.dtype))
-            new_server_state = strategy.aggregate(server_state, results, round_idx)
+            with stage_attr.stage("server_update"):
+                new_server_state = strategy.aggregate(server_state, results, round_idx)
             agg_losses, agg_metrics = fit_summary(losses, metrics, results.mask, sample_counts)
             if not collect_telemetry:
                 return new_server_state, new_states, agg_losses, agg_metrics, losses
@@ -1288,6 +1306,13 @@ class FederatedSimulation:
             return EXEC_CHUNKED, "forced by execution_mode='chunked'"
         if why:
             return EXEC_PIPELINED, why
+        if self.observability.enabled and self.observability.admin is not None:
+            # live retunes apply at per-round host boundaries, which a chunk
+            # has none of; only the auto route demotes (a forced chunked
+            # run answers submits with mid_chunk)
+            return EXEC_PIPELINED, (
+                "admin retune endpoint armed (live scalar rebinds apply "
+                "at per-round boundaries)")
         return EXEC_CHUNKED, "auto: no per-round host dependencies"
 
     def fit(self, n_rounds: int) -> list[RoundRecord]:
@@ -1374,6 +1399,44 @@ class FederatedSimulation:
         if sup is not None:
             sup.note_round(rnd)
 
+    def _apply_admin_retunes(self, rnd: int) -> None:
+        """Round-boundary hook of every pipelined route, on the producer
+        thread before the round reads ``server_state``: drain the admin
+        plane's pending and scheduled retunes and rebind them on the live
+        run — state-kind scalars through the sweep's
+        ``apply_state_scalars`` (a server-state leaf swap: no extension
+        build), the async staleness exponent by ``setattr`` (the next
+        dispatch reads it). Nothing without an armed plane."""
+        obs = self.observability
+        admin = obs.admin if obs.enabled else None
+        if admin is None:
+            return
+        values = admin.drain(rnd)
+        if not values:
+            return
+        from fl4health_tpu_torch.sweep import hoisting
+
+        try:
+            state_vals = {n: v for n, v in values.items()
+                          if hoisting.binding(n).kind == "state"}
+            if state_vals:
+                self.server_state = hoisting.apply_state_scalars(
+                    self.strategy, self.server_state, state_vals)
+            for name, value in values.items():
+                if name not in state_vals:
+                    b = hoisting.binding(name)
+                    setattr(b.find(self.strategy), b.attr, float(value))
+        except Exception:
+            # submit() validated against this strategy chain, so this is a
+            # race (the strategy swapped between submit and drain): a bad
+            # retune must not end the run
+            logging.getLogger(__name__).warning(
+                "admin retune %r failed to apply at round %d", values, rnd,
+                exc_info=True)
+            return
+        admin.note_applied(rnd, values)
+        obs.update_manifest({"admin": admin.descriptor()})
+
     def _fit_loop(self, n_rounds: int) -> list[RoundRecord]:
         """``fit``'s body, JAX's ``_fit_loop``: arm the observability handle
         (an empty recorder and ledger), pick the route, resume, log the
@@ -1425,6 +1488,12 @@ class FederatedSimulation:
                 "HealthWatchdog attached but in-graph telemetry is off "
                 "(Observability(enabled=%s, telemetry=%s)) — no health "
                 "checks will run.", obs.enabled, obs.telemetry)
+        if obs.enabled and obs.admin is not None:
+            # validation needs the live strategy chain and mode (a chunked
+            # run refuses submits with mid_chunk); the manifest discloses
+            # the plane from round 0
+            obs.admin.bind_run(self.strategy, mode, async_active=self._async_active)
+            obs.update_manifest({"admin": obs.admin.descriptor()})
         if obs.enabled:
             obs.log_event("execution_mode", mode=mode, reason=reason)
             try:
@@ -1439,6 +1508,13 @@ class FederatedSimulation:
             # the payload byte counts, on this thread: the epilogues read the
             # cache
             self._payload_nbytes()
+            if obs.introspection and n_rounds >= 1 and not self._async_active:
+                # each round program once on fake tensors: no device work,
+                # measured MFU for every round record (async runs skip it,
+                # as in JAX: an event's work varies with the buffer)
+                with obs.span("introspect", cat="fit"):
+                    self._introspect_programs(
+                        mode, self._rounds_per_dispatch(n_rounds, start))
         if flight is not None:
             facts: dict[str, Any] = {"execution_mode": mode, "execution_mode_reason": reason,
                                      "n_rounds": n_rounds, "start_round": start,
@@ -1764,6 +1840,104 @@ class FederatedSimulation:
             trees["pending"] = self._async_pending
         return trees
 
+    def _introspect_programs(self, mode: str, n_rounds: int) -> None:
+        """The ``program`` and ``stage`` records of the round programs this
+        ``fit`` will dispatch (``observability/introspect.py``), with JAX's
+        names: ``fit_round[_t]``, ``eval_round[_t]`` (and
+        ``eval_round[_t]_test``) on the pipelined route, ``fit_chunk_eval``
+        on the dense chunked route, the slot programs and
+        ``fit_cohort_chunk`` (``cohort_draw="in_graph"``) under a cohort.
+
+        Each program runs once on fake tensors: arguments the route builds
+        per round (batches, masks, plans, the cohort's slot tensors and
+        window) are meta placeholders of their shapes, so no device work
+        runs and the trajectory cannot change. A chunk is traced for one
+        round and scaled by its ``n_rounds`` (its rounds are one function
+        run back to back), so the cost does not grow with the run. Sets the
+        per-round flops that measured MFU reads. Failures degrade to a
+        warning: introspection must not take down a run."""
+        intro = self.observability.introspector
+        prec = self.precision.describe() if self._precision_active else None
+        dev = self.device
+        meta = lambda shape, dtype=torch.float32: torch.empty(  # noqa: E731
+            shape, dtype=dtype, device="meta")
+        fit_fn, eval_fn, telemetry_on = self._round_fns()
+        fit_name, eval_name = (("fit_round_t", "eval_round_t") if telemetry_on
+                               else ("fit_round", "eval_round"))
+        try:
+            if self._cohort_active:
+                # slot shapes only: a function of (slots, step budgets,
+                # batch, example shape), never of the registry size
+                aa = self.registry.abstract_round_args(self.n_clients)
+                intro.introspect_fn(
+                    fit_name, fit_fn,
+                    (self.server_state, self.client_states, aa["batches"], aa["mask"], 1,
+                     aa["val_batches"], aa["sample_counts"]), device=dev, precision=prec)
+                intro.introspect_fn(
+                    eval_name, eval_fn,
+                    (self.server_state, self.client_states, aa["val_batches"],
+                     aa["val_counts"]), device=dev, precision=prec)
+                self._round_program_flops = intro.round_flops((fit_name, eval_name))
+                if mode == EXEC_CHUNKED:
+                    ca = self.registry.abstract_chunk_args(self.n_clients, n_rounds)
+                    first = lambda tree: ptu.tree_map(lambda a: a[:1], tree)  # noqa: E731
+                    w = ca["window_ids"].shape[0]
+                    window = lambda tree: ptu.tree_map(  # noqa: E731
+                        lambda a: meta((w, *a.shape[1:]), a.dtype), tree)
+                    w_srows = (window(self.strategy.state_rows(self.server_state))
+                               if self.registry.has_strategy_rows else None)
+                    intro.introspect_fn(
+                        "fit_cohort_chunk", self._make_cohort_chunk(),
+                        (self.server_state, self.client_states, window(self.client_states),
+                         w_srows, self.rng, ca["window_ids"], first(ca["batches"]),
+                         first(ca["mask"]), first(ca["sample_counts"]),
+                         first(ca["val_batches"]), first(ca["val_counts"]), 1),
+                        device=dev, rounds_per_dispatch=n_rounds, cohort_draw="in_graph",
+                        precision=prec)
+                intro.hbm_headroom_bytes(dev.index or 0)
+                return
+            val_batches, val_counts = self._val_batches()
+            test = self._test_batches()
+            idx, em, sm = self._round_plan(1)
+            if mode == EXEC_CHUNKED:
+                args = [self.server_state, self.client_states, self._x_train_stack,
+                        self._y_train_stack, meta((1, *idx.shape), torch.int64),
+                        meta((1, *em.shape)), meta((1, *sm.shape)),
+                        meta((1, self.n_clients)), 1, val_batches, val_counts, *(test or ())]
+                intro.introspect_fn("fit_chunk_eval", self._make_chunked_fit_with_eval(),
+                                    tuple(args), device=dev, rounds_per_dispatch=n_rounds,
+                                    precision=prec)
+                names: tuple[str, ...] = ("fit_chunk_eval",)
+            else:
+                c, steps, b = idx.shape
+                gathered = lambda tree: ptu.tree_map(  # noqa: E731
+                    lambda x: meta((c, steps, b, *x.shape[2:]), x.dtype), tree)
+                batches = Batch(x=gathered(self._x_train_stack),
+                                y=gathered(self._y_train_stack),
+                                example_mask=meta(em.shape), step_mask=meta(sm.shape))
+                intro.introspect_fn(
+                    fit_name, fit_fn,
+                    (self.server_state, self.client_states, batches, meta((self.n_clients,)),
+                     1, val_batches), device=dev, precision=prec)
+                intro.introspect_fn(
+                    eval_name, eval_fn,
+                    (self.server_state, self.client_states, val_batches, val_counts),
+                    device=dev, precision=prec)
+                names = (fit_name, eval_name)
+                if test is not None:
+                    # the same eval function on the test split's shapes
+                    intro.introspect_fn(
+                        eval_name + "_test", eval_fn,
+                        (self.server_state, self.client_states, *test),
+                        device=dev, precision=prec)
+                    names += (eval_name + "_test",)
+            self._round_program_flops = intro.round_flops(names)
+            intro.hbm_headroom_bytes(dev.index or 0)
+        except Exception:
+            logging.getLogger(__name__).warning(
+                "round-program introspection failed (continuing without measured "
+                "MFU)", exc_info=True)
+
     def _fit_pipelined(self, first: int, last: int) -> None:
         """Rounds ``first..last``: this thread dispatches each round and
         submits its host epilogue to a ``RoundConsumer``; a
@@ -1835,6 +2009,10 @@ class FederatedSimulation:
                     fresh = self.train_data_provider(rnd)
                     if fresh is not None:
                         self.set_train_data(*fresh)
+                # admin retunes land here: before anything reads
+                # server_state, after the provider (a submit made from it
+                # applies this round)
+                self._apply_admin_retunes(rnd)
                 mask = self.client_manager.sample(rng.fold_in(self.rng, 2000 + rnd), rnd)
                 if obs.watchdog is not None:
                     # the watchdog's quarantined clients are sampled out of
@@ -2410,6 +2588,30 @@ class FederatedSimulation:
             reg.log_event("telemetry", round=rnd,
                           **{k: np.asarray(v, np.float64).tolist()
                              for k, v in telemetry.items()})
+        # the measured rate's denominator: the round's wall less its
+        # extension builds. JAX divides by its fence's wait, which is the
+        # device's execution time when the host dispatches a compiled round
+        # at once; eager rounds are dispatched op by op while the device
+        # runs, so the port's fence waits only for the tail (device_wait_s)
+        # and a rate over it would overstate the work done a second
+        wall = rec.fit_elapsed_s + rec.eval_elapsed_s
+        exec_s = wall - summary["compile_s"]
+        if self._round_program_flops and exec_s > 0:
+            # counted flops (introspection) over the round's time; mfu_pct
+            # only where the device's peak is known, never a made-up share
+            achieved = self._round_program_flops / exec_s
+            summary["program_flops_round"] = self._round_program_flops
+            summary["program_exec_s"] = exec_s
+            summary["tflops_measured"] = achieved / 1e12
+            reg.gauge("fl_round_tflops_measured",
+                      help="measured TFLOP/s this round (counted FLOPs / "
+                           "device-execution time)").set(achieved / 1e12)
+            mfu = device_specs.mfu_pct(achieved, self._device_kind)
+            if mfu is not None:
+                summary["mfu_pct"] = mfu
+                reg.gauge("fl_round_mfu_pct",
+                          help="measured model FLOPs utilization vs the device's "
+                               "bf16 peak").set(mfu)
         fault = None
         if self._fault_plan is not None:
             fault = self._fault_plan.summarize_round(fault_idx, self.n_clients)
@@ -2437,6 +2639,10 @@ class FederatedSimulation:
             reg.gauge("fl_flightrec_window",
                       help="flight-recorder ring capacity in rounds").set(float(flight.window))
         obs.tracer.counter("fl_round_time_s", fit=rec.fit_elapsed_s, eval=rec.eval_elapsed_s)
+        # the operations plane: the same host floats into the KPI window and
+        # the SLO verdict (nothing while unarmed)
+        obs.observe_round_kpis(rnd, summary, fit_loss=rec.fit_losses.get("backward"),
+                               eval_loss=rec.eval_losses.get("checkpoint"))
         return summary
 
     # -- the chunked route ---------------------------------------------
@@ -2814,6 +3020,9 @@ class FederatedSimulation:
         fit_round, eval_round, telemetry_on = self._round_fns()
         compiles_before, compile_s_before = self._compile_counts()
         t0 = time.time()
+        # the round boundary: retunes rebind server_state before this
+        # round's functions read it
+        self._apply_admin_retunes(rnd)
         with obs.span("round", round=rnd, kind="cohort"):
             with obs.span("configure_fit", round=rnd):
                 staged = (prefetcher.take(rnd) if prefetcher is not None
@@ -2921,11 +3130,12 @@ class FederatedSimulation:
             for i in range(masks.shape[0]):
                 r = start_round + i
                 ids, valid = draw(rng.fold_in(base_rng, 2000 + r), r, slots)
-                pos = torch.searchsorted(window_ids, ids.to(window_ids.dtype))
-                client_states = ptu.tree_map(lambda t: t[pos], w_client)
-                if has_srows:
-                    server_state = strategy.scatter_state_rows(
-                        server_state, ptu.tree_map(lambda t: t[pos], w_srows))
+                with stage_attr.stage("cohort_exchange"):
+                    pos = torch.searchsorted(window_ids, ids.to(window_ids.dtype))
+                    client_states = ptu.tree_map(lambda t: t[pos], w_client)
+                    if has_srows:
+                        server_state = strategy.scatter_state_rows(
+                            server_state, ptu.tree_map(lambda t: t[pos], w_srows))
                 at = lambda tree: ptu.tree_map(lambda t: t[i], tree)  # noqa: E731
                 server_state, client_states, fit_losses, fit_metrics, per_fit, *telemetry = (
                     fit_round(server_state, client_states, at(batches), masks[i], r,
@@ -2941,12 +3151,13 @@ class FederatedSimulation:
                 if quarantine_fn is not None:
                     out["quarantine"] = quarantine_fn(server_state)
                 outs.append(out)
-                dest = torch.where(slot_ids < valid, pos, w)
-                w_client = ptu.tree_map(lambda wt, c: wt.index_copy(0, dest, c),
-                                        w_client, client_states)
-                if has_srows:
-                    w_srows = ptu.tree_map(lambda wt, c: wt.index_copy(0, dest, c),
-                                           w_srows, strategy.state_rows(server_state))
+                with stage_attr.stage("cohort_exchange"):
+                    dest = torch.where(slot_ids < valid, pos, w)
+                    w_client = ptu.tree_map(lambda wt, c: wt.index_copy(0, dest, c),
+                                            w_client, client_states)
+                    if has_srows:
+                        w_srows = ptu.tree_map(lambda wt, c: wt.index_copy(0, dest, c),
+                                               w_srows, strategy.state_rows(server_state))
             cut = lambda t: t[:w]  # noqa: E731
             return (server_state, client_states, ptu.tree_map(cut, w_client),
                     ptu.tree_map(cut, w_srows) if has_srows else None,
@@ -3176,6 +3387,9 @@ class FederatedSimulation:
         _, event = self._async_programs()
         compiles_before, compile_s_before = self._compile_counts()
         t0 = time.time()
+        # the event boundary: state-kind retunes rebind server_state; a
+        # staleness_exponent setattr reaches this very event's dispatch input
+        self._apply_admin_retunes(e)
         with obs.span("round", round=e, kind="async_event"):
             arrivals = engine.host_to_device(plan.arrivals[e - 1], self.device)
             staleness = engine.host_to_device(plan.staleness[e - 1], self.device)
@@ -3396,6 +3610,7 @@ class FederatedSimulation:
         slots, reg = self.n_clients, self.registry
         compiles_before, compile_s_before = self._compile_counts()
         t0 = time.time()
+        self._apply_admin_retunes(e)  # the dense async route's boundary
         with obs.span("round", round=e, kind="async_event"):
             occ_next = np.asarray(plan.slot_ids[e])
             changed = np.nonzero(occ_prev != occ_next)[0]

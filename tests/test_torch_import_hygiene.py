@@ -53,12 +53,13 @@ def test_sources_were_found():
             "async_writer.py", "manifest.py", "recovery.py", "inference.py",
             "medical.py", "telemetry.py", "health.py", "flightrec.py", "bundle.py",
             "cudamon.py", "device_specs.py", "exposition.py", "fleet.py", "sketches.py",
-            "spans.py"} <= names
+            "spans.py", "tpu_probe.py", "fake.py"} <= names
     # every observability module is on the list the tests above walk
     obs = {p.name for p in SOURCES if p.parent.name == "observability"}
     assert {"__init__.py", "registry.py", "manifest.py", "telemetry.py", "health.py",
             "flightrec.py", "bundle.py", "cudamon.py", "device_specs.py", "exposition.py",
-            "fleet.py", "sketches.py", "spans.py"} == obs
+            "fleet.py", "sketches.py", "spans.py", "flops.py", "stages.py", "hloscan.py",
+            "introspect.py", "timeseries.py", "slo.py", "adminplane.py"} == obs
     # and every resilience and sweep module: the supervisor, its suspect
     # ranking, the in-graph quarantine, retry, and the scalar hoisting
     resilience = {p.name for p in SOURCES if p.parent.name == "resilience"}

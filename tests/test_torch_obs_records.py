@@ -2,21 +2,23 @@
 tiny DP recipe of ``tests/torch_obs_sims.py``:
 
 - the same JSONL event names, the same ``round`` event keys (values at
-  5e-4, counts exact; timestamps, walls and compile counts excluded), the
-  same ``execution_mode`` event and manifest config hash;
-- the same Prometheus metric names, less JAX's compiled-program
-  introspection gauges (``fl_program_*``) and the compile events the port
-  has no counterpart of (it counts extension builds under
-  ``jax_backend_compiles_*``);
+  5e-4, counts exact; timestamps, walls and compile counts excluded, and
+  the counted ``program_flops_round``/``tflops_measured`` compared by key:
+  the port counts every local step, XLA one scan body, ROADMAP.md C R9),
+  the same ``execution_mode`` event and manifest config hash, and the same
+  ``program`` and ``stage`` event keys with introspection on in both;
+- the same Prometheus metric names, ``fl_program_*`` and ``fl_stage_*``
+  included, less the compile events the port has no counterpart of (it
+  counts extension builds under ``jax_backend_compiles_*``);
 - ``tools/perf_report.py`` renders the port's ``metrics.jsonl``;
 - the route reasons for ``profile_round_idx`` and ``per_round_spans``
   equal JAX's word for word;
-- a disabled handle adds no device sync and writes no artifact, and the
-  operations plane's arguments raise rather than being ignored."""
+- a disabled handle adds no device sync and writes no artifact; an
+  enabled one arms the operations plane from its arguments and runs the
+  introspection."""
 
 import importlib.util
 import json
-import logging
 import os
 from pathlib import Path
 
@@ -30,17 +32,20 @@ from fl4health_tpu_torch.server import simulation as tsim
 from torch_obs_sims import TOL, data_of, jax_init, obs_of, sim_of
 
 ROOT = Path(__file__).resolve().parent.parent
-# JAX's compile events without a port counterpart, and its introspection
+# JAX's compile events without a port counterpart
 JAX_ONLY = ("jax_jaxpr_traces", "jax_mlir_lowerings", "jax_persistent_cache",
-            "jax_cache_compile_requests", "fl_program_")
+            "jax_cache_compile_requests")
 # host walls and compile counts: measured, not computed
-UNTIMED = {"ts", "compiles", "compile_s", "device_wait_s", "fit_s", "eval_s", "host_s"}
+UNTIMED = {"ts", "compiles", "compile_s", "device_wait_s", "fit_s", "eval_s", "host_s",
+           "program_exec_s"}
+# counted work: XLA counts a scan body once, the port every step (R9)
+BY_KEY = {"program_flops_round", "tflops_measured"}
 
 
 def _runs(tmp_path, mode="chunked"):
     out = {}
     for pkg in ("jax", "torch"):
-        obs = obs_of(pkg, output_dir=str(tmp_path / pkg))
+        obs = obs_of(pkg, output_dir=str(tmp_path / pkg), introspection=True)
         sim = sim_of(pkg, data_of(4), mode=mode, obs=obs)
         if pkg == "jax":
             init = jax_init(sim)
@@ -67,8 +72,8 @@ def test_records_equal_jax(tmp_path, mode):
     trounds, jrounds = ([e for e in evs if e["event"] == "round"] for evs in (tev, jev))
     assert len(trounds) == len(jrounds) == 2
     for t, j in zip(trounds, jrounds):
-        assert t.keys() == j.keys()
-        for k in t.keys() - UNTIMED:
+        assert t.keys() == j.keys() and BY_KEY <= t.keys()
+        for k in t.keys() - UNTIMED - BY_KEY:
             if isinstance(j[k], float):
                 np.testing.assert_allclose(t[k], j[k], rtol=TOL, atol=1e-6, err_msg=k)
             else:
@@ -76,6 +81,11 @@ def test_records_equal_jax(tmp_path, mode):
     pick = lambda evs: [{k: e[k] for k in ("mode", "reason")}  # noqa: E731
                         for e in evs if e["event"] == "execution_mode"]
     assert pick(tev) == pick(jev)
+    programs = lambda evs: {e["name"]: set(e) for e in evs  # noqa: E731
+                            if e["event"] == "program"}
+    assert programs(tev) == programs(jev)
+    stage_keys = lambda evs: {frozenset(e) for e in evs if e["event"] == "stage"}  # noqa: E731
+    assert stage_keys(tev) == stage_keys(jev)
     assert tman["config_hash"] == jman["config_hash"]
     assert tman["config"] == jman["config"]
     tnames, jnames = _metric_names(tprom), _metric_names(jprom)
@@ -140,17 +150,22 @@ def test_disabled_handle_adds_no_sync_and_writes_nothing(tmp_path, monkeypatch):
     assert cudamon.synced({"x": torch.ones(2)}, enabled=True)[1] == 0.0
 
 
-def test_operations_plane_arguments_raise_and_introspection_is_inert(caplog, monkeypatch):
-    for kw in (dict(slo=object()), dict(admin_token="secret")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A10"):
-            tobservability.Observability(enabled=False, **kw)
-    monkeypatch.setattr(tobservability, "_warned_introspection", False)
-    with caplog.at_level(logging.WARNING):
-        for _ in range(2):
-            tobservability.Observability(enabled=True, tracer=tobservability.Tracer(),
-                                         registry=tobservability.MetricsRegistry()).shutdown()
-    assert sum("introspection" in r.getMessage() for r in caplog.records) == 1
-    assert not tobservability.Observability(enabled=False).introspection_enabled
+def test_operations_plane_arms_and_introspection_runs():
+    obs = tobservability.Observability(
+        enabled=True, tracer=tobservability.Tracer(),
+        registry=tobservability.MetricsRegistry(),
+        slo=tobservability.SLOPolicy(max_eval_loss=1e9), admin_token="secret")
+    assert obs.slo is not None and obs.admin is not None and obs.timeseries is not None
+    assert obs.introspection_enabled
+    sim = sim_of("torch", data_of(2), mode="chunked", obs=obs)
+    sim.fit(1)
+    assert set(obs.introspector.reports) == {"fit_chunk_eval"}
+    assert "fl_slo_burn_rate" in obs.registry.to_prometheus()
+    assert "program_flops_round" in [e for e in obs.registry.events
+                                     if e["event"] == "round"][0]
+    off = tobservability.Observability(enabled=False, slo=tobservability.SLOPolicy(),
+                                       admin_token="secret")
+    assert not off.introspection_enabled and off.observe_round_kpis(1, {}) is None
 
 
 def test_compile_monitor_counts_extension_builds():

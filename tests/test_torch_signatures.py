@@ -47,8 +47,6 @@ MISSING = {
     ("losses.containers", "LossMeter.create"): {"meter_type": "A12"},
     ("losses.contrastive", "cosine_similarity"): {"axis": RENAMED},
     ("nnunet.augment", "augment_patch_batch"): _KEY,
-    ("observability.exposition", "ScrapeServer.__init__"): {
-        "slo_provider": "A10", "admin_plane": "A10"},
     ("observability.manifest", "run_manifest"): {"donation": "Buffer donation",
                                                  "mesh": "A11"},
     ("privacy.dpsgd", "gaussian_noise_like"): _KEY,

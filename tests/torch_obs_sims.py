@@ -7,7 +7,7 @@ instance-level DP clients (C 0.5, sigma 0.5: clipping fires and the noise is
 the same in both packages), 2 local steps of batch 8, built in both packages
 from the same numpy data; the port's run installs the JAX run's converted
 init. Each package gets a private ``Observability`` (its own registry and
-tracer, introspection off: the port has none)."""
+tracer, introspection off unless a test turns it on)."""
 
 import jax
 import numpy as np
@@ -45,12 +45,12 @@ COUNT_FIELDS = ("nonfinite_params", "nonfinite_loss", "nonfinite_eval_loss")
 
 
 def obs_of(pkg: str, **kw):
-    """A private, enabled handle of ``pkg`` ("jax" or "torch")."""
+    """A private, enabled handle of ``pkg`` ("jax" or "torch"); introspection
+    off unless ``introspection=True`` is passed."""
+    kw.setdefault("introspection", False)
     if pkg == "jax":
-        return JObservability(enabled=True, tracer=JTracer(), registry=JRegistry(),
-                              introspection=False, **kw)
-    return TObservability(enabled=True, tracer=TTracer(), registry=TRegistry(),
-                          introspection=False, **kw)
+        return JObservability(enabled=True, tracer=JTracer(), registry=JRegistry(), **kw)
+    return TObservability(enabled=True, tracer=TTracer(), registry=TRegistry(), **kw)
 
 
 def data_of(n: int = 4, poison: int | None = None) -> list:
