@@ -298,6 +298,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      no extension build after round 1, replayed bit for bit through
      ``schedule()``) and one introspected round of ``transformer_long`` at
      depth 1: K3-K5 reported as custom calls, none launched.
+ 36. The sweep slice, ``sweep_dp_cifar_cnn`` (cuDNN deterministic): a
+     24-cell grid of the DP path in f32 through ``run_sweep`` with a
+     completion ledger ({FedAvg, FedAdam at server lr 0.01 and 0.03} x
+     {DP-SGD, DP over MR-MTL} x {even, uneven partitions} x cohorts {48,
+     64} in one bucket of 64, packs of 8, 2 rounds a cell): 4 groups, no
+     run-time compile, finite cells, K1/K2 240/1920; four unpadded cells (one
+     a group) bit-equal to their standalone chunked ``fit`` (10/80 each) and
+     the padded 48-client one within 5e-4 of its own (R11); one group with
+     ``pack=False`` bit-equal to its packed run (40/320); the ledger's rerun
+     restoring all 24 cells with no launch; the CPU tests' tiny grid on the
+     card within 5e-4 of the CPU. Then ``ditto_cifar_cnn`` and
+     ``mrmtl_cifar_cnn`` over the 64 clients, 2 rounds each: finite losses,
+     Ditto's global copies equal and personal copies apart, MR-MTL's params
+     off the aggregate, no kernel launched; the warm round and the peak.
 ``fit`` takes its default route, ``execution_mode`` "auto": chunked unless
 something needs the host between rounds (a strict failure policy, a data
 provider), then pipelined. Neither waits for the device inside a round, so
@@ -1342,7 +1356,7 @@ def telemetry_build():
 
 def build_dp_sim(data, dtype, device, noise_multiplier, seed,
                  input_shape=(32, 32, 3), batch=BATCH, local_steps=LOCAL_STEPS, strategy=None,
-                 **sim_kw):
+                 logic=None, **sim_kw):
     from fl4health_tpu_torch import optim
     from fl4health_tpu_torch.clients import engine
     from fl4health_tpu_torch.clients.instance_level_dp import InstanceLevelDpClientLogic
@@ -1352,7 +1366,7 @@ def build_dp_sim(data, dtype, device, noise_multiplier, seed,
     from fl4health_tpu_torch.server.simulation import FederatedSimulation
     from fl4health_tpu_torch.strategies.fedavg import FedAvg
 
-    logic = InstanceLevelDpClientLogic(
+    logic = logic or InstanceLevelDpClientLogic(
         engine.from_module(CifarNet(dtype=dtype, input_shape=input_shape)),
         engine.masked_cross_entropy, clipping_bound=DP_CLIP,
         noise_multiplier=noise_multiplier)
@@ -4877,7 +4891,404 @@ def ops_dp_cifar_cnn(fa, dp) -> dict:
     return out
 
 
+SWEEP_ROUNDS = 2
+SWEEP_COHORTS = (48, 64)  # 48 pads to the one bucket, 64
+SWEEP_LRS = (0.01, 0.03)  # fed_adam's server_lr axis
+SWEEP_SEED = 5
+SWEEP_SALT = 20_000  # the uneven partitioner's keys: PRNGKey(SWEEP_SALT + i)
+SWEEP_LAM = 0.5  # MR-MTL's drift weight
+_SWEEP_DATA: dict = {}
+
+
+def uneven_datasets(n_clients: int) -> list:
+    """``dp_cifar_cnn``'s generator salted: client i's rows from
+    ``PRNGKey(SWEEP_SALT + i)``, 160 - 4 (1 + i mod 8) train rows (128-156,
+    so a group's 160-row budget pads them) and 64 val rows."""
+    from fl4health_tpu_torch import rng
+    from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
+    from fl4health_tpu_torch.server.simulation import ClientDataset
+
+    out = []
+    for i in range(n_clients):
+        x, y = (a.cpu() for a in synthetic_classification(
+            rng.PRNGKey(SWEEP_SALT + i, "cuda"), DP_TRAIN + DP_VAL, (32, 32, 3), 10))
+        n = DP_TRAIN - 4 * (1 + i % 8)
+        out.append(ClientDataset(x[:n], y[:n], x[DP_TRAIN:], y[DP_TRAIN:]))
+    return out
+
+
+def sweep_partition(name: str, cohort: int) -> list:
+    """The sweep's partitioners: the first ``cohort`` clients of 64, drawn
+    once on the card (``even``: ``dp_cifar_cnn``'s own clients)."""
+    if name not in _SWEEP_DATA:
+        _SWEEP_DATA[name] = (image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+                             if name == "even" else uneven_datasets(DP_CLIENTS))
+    return _SWEEP_DATA[name][:cohort]
+
+
+def sweep_clients() -> dict:
+    """The grid's client algorithms: DP-SGD, and DP over MR-MTL, both on
+    CifarNet in f32 (C 1, sigma 1)."""
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.clients.ditto import MrMtlClientLogic
+    from fl4health_tpu_torch.clients.instance_level_dp import (InstanceLevelDpClientLogic,
+                                                               InstanceLevelDpMixin)
+    from fl4health_tpu_torch.models.cnn import CifarNet
+
+    class DpMrMtlClientLogic(InstanceLevelDpMixin, MrMtlClientLogic):
+        pass
+
+    def model():
+        return engine.from_module(CifarNet(dtype=torch.float32))
+
+    dp = dict(clipping_bound=DP_CLIP, noise_multiplier=DP_SIGMA)
+    return {"dp": lambda: InstanceLevelDpClientLogic(model(), engine.masked_cross_entropy,
+                                                     **dp),
+            "dp_mrmtl": lambda: DpMrMtlClientLogic(model(), engine.masked_cross_entropy,
+                                                   lam=SWEEP_LAM, **dp)}
+
+
+def sweep_spec(**overrides):
+    """The 24-cell grid: {fedavg, fedadam x server_lr 0.01/0.03} x {dp,
+    dp_mrmtl} x {even, uneven} x cohorts {48, 64} in one bucket of 64, seed
+    5, packs of 8: 4 groups."""
+    from fl4health_tpu_torch import optim
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.strategies.fedavg import FedAvg
+    from fl4health_tpu_torch.strategies.fedopt import fed_adam
+    from fl4health_tpu_torch.sweep import SweepSpec
+
+    kw = dict(strategies={"fedavg": FedAvg, "fedadam": lambda: fed_adam(lr=SWEEP_LRS[0])},
+              clients=sweep_clients(),
+              partitioners={name: (lambda c, name=name: sweep_partition(name, c))
+                            for name in ("even", "uneven")},
+              rounds=SWEEP_ROUNDS, batch_size=BATCH, local_steps=LOCAL_STEPS,
+              tx=lambda: optim.sgd(0.05),
+              metrics=lambda: MetricManager((efficient.accuracy(),)),
+              seeds=(SWEEP_SEED,), cohort_sizes=SWEEP_COHORTS,
+              scalars={"server_lr": SWEEP_LRS}, cohort_buckets=(DP_CLIENTS,),
+              pack=True, max_pack=8)
+    kw.update(overrides)
+    return SweepSpec(**kw)
+
+
+def sweep_standalone(spec, cell, dp) -> dict:
+    """The cell's configuration as an ordinary chunked ``fit`` on the card
+    (``build_dp_sim`` with the cell's logic, strategy and seed, f32): its
+    trajectory, wall and launches."""
+    from fl4health_tpu_torch.strategies.fedopt import fed_adam
+
+    strategy = (fed_adam(lr=cell.scalar_dict["server_lr"]) if cell.strategy == "fedadam"
+                else spec.strategies[cell.strategy]())
+    sim = build_dp_sim(sweep_partition(cell.partitioner, cell.cohort), torch.float32, "cuda",
+                       DP_SIGMA, seed=cell.seed, batch=spec.batch_size,
+                       local_steps=spec.local_steps, strategy=strategy,
+                       logic=spec.clients[cell.client](), execution_mode="chunked")
+    dp.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hist = sim.fit(spec.rounds)
+    torch.cuda.synchronize()
+    return {"fit": [r.fit_losses["backward"] for r in hist],
+            "eval": [r.eval_losses["checkpoint"] for r in hist],
+            "wall_s": time.time() - t0, "launches": dict(dp.LAUNCHES)}
+
+
+def tiny_sweep_spec(device: str):
+    """The CPU tests' grid (tests/test_torch_sweep.py): an Mlp(12) on 6
+    features, 3 clients of 24-32 train and 8 val rows, {fedavg, fedadam(0.1)}
+    x {sgd, mrmtl(0.5)} x seeds {5, 7}, 2 rounds, batch 8, 2 local steps."""
+    from fl4health_tpu_torch import optim, rng
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.clients.ditto import MrMtlClientLogic
+    from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
+    from fl4health_tpu_torch.models.cnn import Mlp
+    from fl4health_tpu_torch.server.simulation import ClientDataset
+    from fl4health_tpu_torch.strategies.fedavg import FedAvg
+    from fl4health_tpu_torch.strategies.fedopt import fed_adam
+    from fl4health_tpu_torch.sweep import SweepSpec
+
+    def partition(cohort):
+        out = []
+        for i in range(cohort):
+            x, y = synthetic_classification(rng.PRNGKey(i, "cpu"), 40, (6,), 3)
+            n = 24 + 4 * (i % 3)
+            out.append(ClientDataset(x[:n], y[:n], x[32:], y[32:]))
+        return out
+
+    def model():
+        return engine.from_module(Mlp(6, (12,), 3))
+
+    return SweepSpec(
+        strategies={"fedavg": FedAvg, "fedadam": lambda: fed_adam(0.1)},
+        clients={"sgd": lambda: engine.ClientLogic(model(), engine.masked_cross_entropy),
+                 "mrmtl": lambda: MrMtlClientLogic(model(), engine.masked_cross_entropy,
+                                                   lam=SWEEP_LAM)},
+        partitioners={"p0": partition}, rounds=2, batch_size=8, local_steps=2,
+        tx=lambda: optim.sgd(0.05), seeds=(5, 7), cohort_sizes=(3,))
+
+
+def tiny_sweep_parity() -> dict:
+    """The CPU tests' grid on the card and on the CPU: every cell within
+    5e-4 (no kernel on this path)."""
+    from fl4health_tpu_torch.sweep import run_sweep
+
+    card, cpu = (run_sweep(tiny_sweep_spec(d), device=d) for d in ("cuda", "cpu"))
+    err = 0.0
+    for a, b in zip(card.cells, cpu.cells):
+        if a.cell.label() != b.cell.label():
+            fail(f"tiny sweep: cell {a.cell.label()} against {b.cell.label()}")
+        err = max(err, float(np.max(np.abs(np.subtract(a.fit_losses + a.eval_losses,
+                                                        b.fit_losses + b.eval_losses)))))
+    if len(card.cells) != 8 or not err <= 5e-4:
+        fail(f"tiny sweep: {len(card.cells)} cells, card-vs-CPU max abs err {err}")
+    return {"cells": len(card.cells), "max_abs_err": err}
+
+
+def twin_check(sim, kind: str) -> dict:
+    """After the last round: Ditto's global subtrees equal over the clients
+    and its personal ones not; MR-MTL's params off the aggregate."""
+    params = sim.client_states.params
+    flat = lambda keys: torch.cat([params[k].reshape(params[k].shape[0], -1)  # noqa: E731
+                                   for k in keys], 1)
+    if kind == "ditto":
+        glob = flat([k for k in params if k.startswith("global_model/")])
+        pers = flat([k for k in params if k.startswith("personal_model/")])
+        globals_equal = bool((glob == glob[:1]).all())
+        personal_spread = float((pers - pers[:1]).abs().max())
+        if not globals_equal or not personal_spread > 1e-6:
+            fail(f"ditto_cifar_cnn: globals equal {globals_equal}, "
+                 f"personal spread {personal_spread}")
+        return {"globals_equal": globals_equal, "personal_spread": personal_spread}
+    agg = torch.cat([v.reshape(-1) for v in sim.global_params.values()])
+    off = float((flat(list(params)) - agg[None]).abs().max())
+    if not off > 1e-6:
+        fail(f"mrmtl_cifar_cnn: clients' params {off} off the aggregate")
+    return {"max_off_aggregate": off}
+
+
+def personalized_cifar_cnn(kind: str, dp) -> dict:
+    """``ditto_cifar_cnn`` (TwinModel(CifarNet, CifarNet), adaptive Ditto,
+    the global copy exchanged, ``DittoServer``) or ``mrmtl_cifar_cnn``
+    (MR-MTL with ``KeepLocalExchanger``, ``MrMtlServer``): the 64
+    ``dp_cifar_cnn`` clients, batch 32, 5 SGD(0.05) steps, f32,
+    ``FedAvgWithAdaptiveConstraint``; a cold round, then a warm one timed."""
+    from fl4health_tpu_torch import optim
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.clients.ditto import (DittoClientLogic, KeepLocalExchanger,
+                                                   MrMtlClientLogic)
+    from fl4health_tpu_torch.exchange.exchanger import FixedLayerExchanger
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.models.bases import TwinModel
+    from fl4health_tpu_torch.models.cnn import CifarNet
+    from fl4health_tpu_torch.server.servers import DittoServer, MrMtlServer
+    from fl4health_tpu_torch.server.simulation import FederatedSimulation
+    from fl4health_tpu_torch.strategies.fedprox import FedAvgWithAdaptiveConstraint
+
+    if kind == "ditto":
+        logic = DittoClientLogic(engine.from_module(TwinModel(CifarNet(dtype=torch.float32),
+                                                              CifarNet(dtype=torch.float32))),
+                                 engine.masked_cross_entropy, adaptive=True)
+        exchanger, server_cls = FixedLayerExchanger(TwinModel.exchange_global_model), DittoServer
+    else:
+        logic = MrMtlClientLogic(engine.from_module(CifarNet(dtype=torch.float32)),
+                                 engine.masked_cross_entropy, lam=SWEEP_LAM, adaptive=True)
+        exchanger, server_cls = KeepLocalExchanger(), MrMtlServer
+    sim = FederatedSimulation(
+        logic=logic, tx=optim.sgd(0.05), strategy=FedAvgWithAdaptiveConstraint(),
+        datasets=sweep_partition("even", DP_CLIENTS), batch_size=BATCH,
+        metrics=MetricManager((efficient.accuracy(),)), local_steps=LOCAL_STEPS,
+        exchanger=exchanger, seed=0, device="cuda")
+    server = server_cls(sim)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dp.reset_launch_counts()
+    server.fit(1)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    hist = server.fit(1)
+    torch.cuda.synchronize()
+    warm = time.time() - t0
+    for r in hist:
+        values = [*r.fit_losses.values(), *r.eval_losses.values()]
+        if not all(np.isfinite(v) for v in values):
+            fail(f"{kind}_cifar_cnn round {r.round}: non-finite losses {r.fit_losses}")
+    out = {"phase": f"{kind}_cifar_cnn", "clients": DP_CLIENTS, "rounds": len(hist),
+           "fit_losses": [r.fit_losses for r in hist],
+           "eval_losses": [r.eval_losses["checkpoint"] for r in hist],
+           "drift_penalty_weight": float(sim.server_state.drift_penalty_weight),
+           "warm_round_s": warm,
+           "peak_gib_above_start": (torch.cuda.max_memory_allocated() - base) / 2**30,
+           "launches": dict(dp.LAUNCHES), **twin_check(sim, kind)}
+    if any(out["launches"].values()):
+        fail(f"{kind}_cifar_cnn launched DP kernels: {out['launches']}")
+    del sim, server
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def launches_per_cell(dp):
+    """Within the block, every sweep cell's dispatch records the K1/K2
+    launches it made, in dispatch order, into the yielded list (the
+    runner's cell program wrapped; the launches are counted on the host as
+    they are made, so a pack's back-to-back dispatches part exactly)."""
+    from fl4health_tpu_torch.sweep.runner import SweepRunner
+
+    per_cell, build = [], SweepRunner._build_cell_program
+
+    def counted(self, sim, hoisted):
+        cell_fn = build(self, sim, hoisted)
+
+        def cell(inputs):
+            before = dict(dp.LAUNCHES)
+            out = cell_fn(inputs)
+            per_cell.append({k: dp.LAUNCHES[k] - before[k] for k in before})
+            return out
+
+        return cell
+
+    SweepRunner._build_cell_program = counted
+    try:
+        yield per_cell
+    finally:
+        SweepRunner._build_cell_program = build
+
+
+def check_cell_launches(per_cell: list, n_cells: int, what: str) -> None:
+    """5 K1 and 40 K2 launches a round in every one of ``n_cells`` cells."""
+    want = dp_launches(SWEEP_ROUNDS)
+    if len(per_cell) != n_cells or any(c != want for c in per_cell):
+        fail(f"{what}: per-cell launches {per_cell}, expected {n_cells} x {want}")
+
+
+def sweep_dp_cifar_cnn(dp) -> dict:
+    """Phase 36, deterministic flags: the 24-cell DP grid (``sweep_spec``)
+    through ``run_sweep`` with a completion ledger, its checks (finite
+    cells, JAX's groups and buckets, no run-time compile, 5 K1 and 40 K2 a
+    round, counted around each cell's dispatch), four unpadded cells (one a group, an uneven one
+    among them) bit-equal to their standalone chunked ``fit`` and a padded
+    48-client cell within 5e-4 of its own (R11: above 32 clients the
+    aggregate's windows regroup), one group with ``pack=False`` bit-equal to
+    its packed run, the ledger's rerun restoring every cell with no launch,
+    the CPU tests' tiny grid on the card against the CPU, then Ditto and
+    MR-MTL at full width."""
+    from fl4health_tpu_torch.sweep import run_sweep
+
+    t_phase = time.time()
+    card = card_line()
+    ledger = os.path.join(ckpt_dir("sweep"), "ledger.jsonl")
+    spec = sweep_spec()
+    for name in ("even", "uneven"):  # the draws belong to set-up, not to the grid
+        sweep_partition(name, DP_CLIENTS)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dp.reset_launch_counts()
+    t0 = time.time()
+    with launches_per_cell(dp) as per_cell:
+        res = run_sweep(spec, ledger_path=ledger)
+    torch.cuda.synchronize()
+    grid_wall = time.time() - t0
+    launches = dict(dp.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    cells = {r.cell.label(): r for r in res.cells}
+    bad = [k for k, r in cells.items()
+           if not all(np.isfinite(v) for v in r.fit_losses + r.eval_losses)]
+    if bad:
+        fail(f"sweep: non-finite cells {bad}")
+    shape = (len(res.plan.groups), len(res.cells), res.plan.buckets, res.programs_compiled)
+    if shape != (4, 24, [DP_CLIENTS], 0):
+        fail(f"sweep: (groups, cells, buckets, programs_compiled) {shape}")
+    if launches != dp_launches(SWEEP_ROUNDS * len(res.cells)):
+        fail(f"sweep: launches {launches} over 24 cells, expected "
+             f"{dp_launches(SWEEP_ROUNDS * len(res.cells))}")
+    check_cell_launches(per_cell, len(res.cells), "sweep")
+    # one unpadded cell a group (two even, two uneven), bit for bit; and a
+    # padded one
+    by = lambda s, c, p, n, lr=None: next(  # noqa: E731
+        r.cell for r in res.cells if (r.cell.strategy, r.cell.client, r.cell.partitioner,
+                                      r.cell.cohort) == (s, c, p, n)
+        and (lr is None or r.cell.scalar_dict.get("server_lr") == lr))
+    full, part = SWEEP_COHORTS[1], SWEEP_COHORTS[0]
+    exact = [by("fedavg", "dp", "even", full), by("fedavg", "dp_mrmtl", "uneven", full),
+             by("fedadam", "dp", "uneven", full, SWEEP_LRS[1]),
+             by("fedadam", "dp_mrmtl", "even", full, SWEEP_LRS[0])]
+    padded = by("fedadam", "dp", "uneven", part, SWEEP_LRS[0])
+    arms = {}
+    for cell in [*exact, padded]:
+        ref = sweep_standalone(spec, cell, dp)
+        got = cells[cell.label()]
+        diff = float(np.max(np.abs(np.subtract(got.fit_losses + got.eval_losses,
+                                               ref["fit"] + ref["eval"]))))
+        equal = got.fit_losses == ref["fit"] and got.eval_losses == ref["eval"]
+        arms[cell.label()] = {"bit_equal": equal, "max_abs_diff": diff,
+                              "wall_s": ref["wall_s"], "launches": ref["launches"]}
+        if ref["launches"] != dp_launches(SWEEP_ROUNDS):
+            fail(f"sweep standalone {cell.label()}: launches {ref['launches']}")
+        if cell is padded:
+            if not diff <= 5e-4:
+                fail(f"sweep padded cell {cell.label()}: {diff} from its standalone run")
+        elif not equal:
+            fail(f"sweep cell {cell.label()} differs from its standalone chunked fit: "
+                 f"{got.fit_losses} {got.eval_losses} against {ref}")
+    # one group sequentially (pack=False) against its packed run
+    group = dict(strategies={"fedavg": spec.strategies["fedavg"]},
+                 clients={"dp_mrmtl": spec.clients["dp_mrmtl"]})
+    dp.reset_launch_counts()
+    t0 = time.time()
+    with launches_per_cell(dp) as seq_per_cell:
+        seq = run_sweep(sweep_spec(pack=False, **group))
+    torch.cuda.synchronize()
+    seq_wall, seq_launches = time.time() - t0, dict(dp.LAUNCHES)
+    check_cell_launches(seq_per_cell, len(seq.cells), "sweep pack=False")
+    for r in seq.cells:
+        p = cells[r.cell.label()]
+        if (r.fit_losses, r.eval_losses) != (p.fit_losses, p.eval_losses):
+            fail(f"sweep: {r.cell.label()} sequential {r.eval_losses} packed {p.eval_losses}")
+    if seq_launches != dp_launches(SWEEP_ROUNDS * len(seq.cells)):
+        fail(f"sweep pack=False: launches {seq_launches} over {len(seq.cells)} cells")
+    # the ledger's rerun restores every cell and launches nothing
+    dp.reset_launch_counts()
+    again = run_sweep(spec, ledger_path=ledger)
+    torch.cuda.synchronize()
+    rerun = (again.resumed_cells, dict(dp.LAUNCHES))
+    if rerun != (24, {"dp_sq_norms": 0, "dp_scaled_sum": 0}) or [
+            (r.fit_losses, r.eval_losses) for r in again.cells] != [
+            (r.fit_losses, r.eval_losses) for r in res.cells]:
+        fail(f"sweep ledger rerun: resumed {rerun[0]}, launches {rerun[1]}")
+    drop_dirs(os.path.dirname(ledger))
+    tiny = tiny_sweep_parity()
+    ditto = personalized_cifar_cnn("ditto", dp)
+    mrmtl = personalized_cifar_cnn("mrmtl", dp)
+    out = {"phase": "sweep_dp_cifar_cnn", "card": card, **res.bench_block(),
+           "grid_wall_s": grid_wall, "rounds": SWEEP_ROUNDS,
+           "peak_gib_above_start": peak, "launches": launches,
+           "launches_per_cell": per_cell[0],
+           "cells_detail": [{"label": r.cell.label(), "group": r.group, "wall_s": r.wall_s,
+                             "steps_per_s": r.steps_per_s,
+                             "final_eval_loss": r.final_eval_loss} for r in res.cells],
+           "standalone_arms": arms,
+           "pack_false": {"cells": len(seq.cells), "wall_s": seq_wall,
+                          "launches": seq_launches, "bit_equal": True},
+           "ledger_rerun": {"resumed_cells": rerun[0], "launches": rerun[1]},
+           "tiny_card_vs_cpu": tiny, "ditto_cifar_cnn": ditto, "mrmtl_cifar_cnn": mrmtl,
+           "phase_s": time.time() - t_phase}
+    print(json.dumps(out))
+    return out
+
+
+def elapsed(t_start: float, after: str) -> None:
+    """The script's wall so far, after a slice's phases (where its 1200 s
+    go)."""
+    print(json.dumps({"elapsed_s": time.time() - t_start, "after": after}))
+
+
 def main() -> int:
+    t_start = time.time()
     if not torch.cuda.is_available():
         print("chip_smoke: needs an NVIDIA card; torch.cuda.is_available() is false",
               file=sys.stderr)
@@ -4911,6 +5322,7 @@ def main() -> int:
     tiny_parity()
     bf16_model_check(fa)
     launches = main_path(fa)
+    elapsed(t_start, "flash phases (1-5)")
 
     dp_errs = {dtype: dp_kernel_checks(dp, dtype)
                for dtype in (torch.float32, torch.bfloat16)}
@@ -4920,18 +5332,21 @@ def main() -> int:
     batched_timings = dp_batched_timings(dp)
     tiny_dp_parity(dp)
     dp_launches = dp_main_path(dp)
+    elapsed(t_start, "DP phases (6-8)")
 
     rng_card_check()
     tiny_client_dp_parity()
     vmap_vs_loop(fa, dp)
     client_dp_main_path(fa, dp)
     pipelined_launches = pipelined_dp_path(dp)["launches"]
+    elapsed(t_start, "rng, client DP, client axis, pipeline (9-12)")
 
     tiny_algorithm_parity(dp)
     config2 = dirichlet_cifar_datasets()
     alg_main_path("scaffold", fa, dp, config2)
     alg_main_path("fedprox", fa, dp, config2)
     dp_scaffold_launches = dp_scaffold_main_path(dp)
+    elapsed(t_start, "config 2 (13-16)")
 
     # config 3: K3-K5 at its shape (4 clients folded, T 128, 12 heads), the
     # tiny card-vs-CPU runs, the main path, and the precision policy's arms
@@ -4943,6 +5358,7 @@ def main() -> int:
     dropout_parity()
     bert_launches = bert_main_path(fa)
     precision_main_path(fa, dp)
+    elapsed(t_start, "config 3, precision (17-20)")
 
     # config 5 and the chunked route: the aggregate above 32 clients, the
     # tiny card-vs-CPU nnU-Net runs, chunked against pipelined, the main path
@@ -4955,6 +5371,7 @@ def main() -> int:
     nnunet_inference(nnunet.pop("sim"))
     del nnunet
     torch.cuda.empty_cache()
+    elapsed(t_start, "config 5 (21-24)")
 
     # the cohort slice: cohort slots over a registry, the compressed exchange
     tiny_cohort_parity()
@@ -4962,6 +5379,7 @@ def main() -> int:
     cohort_launches = cohort[f"n_{COHORT_SIZES[-1]}"]["launches"]
     cohort_chunked_vs_pipelined(cohort["sources"][COHORT_SIZES[0]])
     compressed_dp_cifar_cnn()
+    elapsed(t_start, "cohort, compression (25-28)")
 
     # the async slice: buffered async (FedBuff) with the fault plan and
     # the robust aggregators, dense and over the registry
@@ -4969,6 +5387,7 @@ def main() -> int:
     async_launches = async_dp_cifar_cnn(fa, dp)["launches"]
     async_cohort_launches = async_cohort_dp_cifar_cnn(
         fa, dp, cohort["sources"][COHORT_SIZES[0]])["launches"]
+    elapsed(t_start, "async (29-31)")
 
     # the checkpoint slice: checkpoint and resume on every route, the
     # SIGKILL drill in subprocesses, a card frame resumed on the CPU;
@@ -4981,12 +5400,14 @@ def main() -> int:
         ckpt_cohort = ckpt_cohort_dp_cifar_cnn(dp, cohort["sources"][COHORT_SIZES[0]])
         ckpt_async = ckpt_async_dp_cifar_cnn(dp)
         ckpt_card_to_cpu()
+        elapsed(t_start, "checkpoints (32)")
         # the observability slice: on against off, the halt and its bundle,
         # the cohort's ledger and ring, the SIGTERM drill
         obs = obs_dp_cifar_cnn(dp)
         obs_halt_bundle(dp)
         obs_cohort_dp_cifar_cnn(dp, cohort["sources"])
         obs_sigterm_drill()
+        elapsed(t_start, "observability (33)")
         # the recovery slice: the tiny drill card against CPU, the four DP
         # arms on both routes, the cohort's quarantine by registry id, the
         # server-lr rebind
@@ -4994,9 +5415,14 @@ def main() -> int:
         recovery = recovery_dp_cifar_cnn(dp)
         recovery_cohort(dp, cohort["sources"][COHORT_SIZES[0]])
         hoisting_server_lr()
+        elapsed(t_start, "recovery (34)")
         # the introspection and operations plane: on against off, the
         # counted flops against FlopCounterMode, the live retune drill
         ops = ops_dp_cifar_cnn(fa, dp)
+        elapsed(t_start, "introspection, operations (35)")
+        # the sweep slice: the 24-cell DP grid, Ditto and MR-MTL
+        sweep = sweep_dp_cifar_cnn(dp)
+        elapsed(t_start, "sweep, Ditto, MR-MTL (36)")
     finally:
         torch.backends.cudnn.deterministic = deterministic
     del cohort
@@ -5086,6 +5512,8 @@ def main() -> int:
             # the introspection and operations slice: 2 rounds with
             # introspection and the plane armed (pipelined), equal to off
             "launches_ops_dp_cifar_cnn": ops["introspection"]["launches"]["on"][name],
+            # the sweep slice: the 24-cell grid, 2 rounds a cell (packed)
+            "launches_sweep_dp_cifar_cnn": sweep["launches"][name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

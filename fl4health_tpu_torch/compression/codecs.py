@@ -149,7 +149,8 @@ def compress_update(update: dict, residual: dict | None, key: torch.Tensor,
     """The lossy channel's round trip for ONE client's update (a ``Params``
     dict): ``(decoded_update, new_residual)``, the residual None when none
     came in; the identity with no lossy stage. ``topk_fraction_eff`` is the
-    round's kept fraction under ``config.topk_schedule`` (an f32 value):
+    round's kept fraction under ``config.topk_schedule`` (an f32 value, or
+    a 0-d f32 tensor):
     its count is clamped into ``[1, k]`` and kept from the static top-k
     selection. Runs under ``torch.func.vmap`` over the clients."""
     if not config.enabled:
@@ -186,7 +187,11 @@ def compress_update(update: dict, residual: dict | None, key: torch.Tensor,
             n_sel = sum(v.shape[0] for v in flats)  # padded under rotation
             k = topk_count(n_total, config.topk_fraction)
             k_eff = None
-            if topk_fraction_eff is not None:
+            if isinstance(topk_fraction_eff, torch.Tensor):
+                # a 0-d tensor, counted on its device: not read on the host
+                k_eff = torch.clamp(torch.round(topk_fraction_eff * float(np.float32(n_total))),
+                                    1, min(k, n_sel)).to(torch.int64)
+            elif topk_fraction_eff is not None:
                 # JAX's in-graph count: round half to even in f32, clamped
                 k_eff = int(np.clip(np.round(np.float32(topk_fraction_eff)
                                              * np.float32(n_total)), 1, min(k, n_sel)))

@@ -125,13 +125,16 @@ class CompressingStrategy(Strategy):
     def _round_key(self, round_idx: int, device) -> torch.Tensor:
         return rng.fold_in(rng.PRNGKey(self.config.seed, device), int(round_idx))
 
-    def effective_topk_fraction(self, round_idx: int) -> np.float32 | None:
+    def effective_topk_fraction(self, round_idx: int):
         """The round's kept fraction under ``config.topk_schedule``:
         ``f_start -> f_end`` linearly over the first ``over_rounds`` rounds
         (from round 1; ``f_end`` after), clamped into ``(0,
         topk_fraction]``, in f32 as XLA compiles JAX's: the division by the
         constant a multiply by its f32 reciprocal, the interpolation one
-        fused multiply-add; None without a schedule."""
+        fused multiply-add; None without a schedule. Where an endpoint is a
+        0-d tensor (a sweep cell's hoisted scalar) the fraction is a 0-d f32
+        tensor on its device, computed there as JAX's traced path computes
+        it; else an ``np.float32``."""
         if self.topk_f_start is None:
             return None
         if self.topk_over_rounds <= 1:
@@ -140,6 +143,14 @@ class CompressingStrategy(Strategy):
             inv = np.float32(1.0) / np.float32(self.topk_over_rounds - 1.0)
             t = np.clip((np.float32(round_idx) - np.float32(1.0)) * inv,
                         np.float32(0.0), np.float32(1.0))
+        ends = (self.topk_f_start, self.topk_f_end)
+        tensors = [e for e in ends if isinstance(e, torch.Tensor)]
+        if tensors:
+            f0, f1 = (torch.as_tensor(e, dtype=torch.float32, device=tensors[0].device)
+                      for e in ends)
+            f = rng._fma(f1 - f0, float(t), f0)
+            return torch.clamp(f, float(np.float32(1e-9)),
+                               float(np.float32(self.config.topk_fraction)))
         delta = np.float32(self.topk_f_end - self.topk_f_start)
         # one rounding of the f64 multiply-add (the f32 product is exact)
         f = np.float32(float(delta) * float(t) + float(np.float32(self.topk_f_start)))

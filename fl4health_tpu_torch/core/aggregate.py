@@ -58,6 +58,30 @@ def _windowed_sum(products: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# a client-axis sum's block: blocks of this many clients, each summed in
+# order, then the blocks in order (``client_sum``)
+CLIENT_SUM_BLOCK = 8
+
+
+def client_sum(values: torch.Tensor) -> torch.Tensor:
+    """The f32 sum of a ``[clients]`` vector in an order that zero rows
+    appended at its end do not change: blocks of ``CLIENT_SUM_BLOCK``
+    clients each summed left to right (the vector zero-padded to whole
+    blocks), then the blocks' sums in order. A sweep cell's phantom clients
+    are such rows, so a padded cohort's loss and metric summaries equal the
+    unpadded run's; ``torch.sum`` picks its order by the length."""
+    n = values.shape[0]
+    blocks = torch.nn.functional.pad(values, (0, -n % CLIENT_SUM_BLOCK)).reshape(
+        -1, CLIENT_SUM_BLOCK)
+    acc = blocks[:, 0]
+    for j in range(1, CLIENT_SUM_BLOCK):
+        acc = acc + blocks[:, j]
+    out = acc[0]
+    for i in range(1, acc.shape[0]):
+        out = out + acc[i]
+    return out
+
+
 def weighted_mean(stacked: StackedParams, weights: torch.Tensor) -> PyTree:
     """``sum_i w_i * leaf_i`` over the clients axis, accumulated in f32, with
     weight-0 rows hard-zeroed so a NaN in an unsampled row cannot leak in.
@@ -106,4 +130,4 @@ def aggregate_losses(
     weighted: bool = True,
 ) -> torch.Tensor:
     w = effective_weights(sample_counts, mask, weighted)
-    return (torch.as_tensor(losses, dtype=torch.float32) * w).sum()
+    return client_sum(torch.as_tensor(losses, dtype=torch.float32) * w)

@@ -1,14 +1,16 @@
 """Model bases for the algorithm clients (counterpart of the parts of
-``fl4health_tpu/models/bases.py`` the port's slices use): ``MoonModel`` and
-the small dense blocks ``DenseFeatures`` and ``DenseHead``; the other bases
-wait for the personalisation slice.
+``fl4health_tpu/models/bases.py`` the port's slices use): ``MoonModel``,
+Ditto's ``TwinModel`` and the small dense blocks ``DenseFeatures`` and
+``DenseHead``; the other bases wait for the personalisation slice.
 
 Parameters keep the flax tree: a ``MoonModel``'s submodules are named
 ``base_module``, ``head_module`` and ``projection_module`` as flax names the
 module attributes, each block's layers ``Dense_0``, ``Dense_1``, ..., so a
 flax init converts with ``models/convert.py`` (e.g.
 ``base_module/Dense_0/kernel``). flax infers a Dense's input width at
-init; here each block takes it at construction.
+init; here each block takes it at construction. A ``TwinModel``'s two
+copies are ``global_model/...`` and ``personal_model/...``, as flax names
+them.
 """
 
 from __future__ import annotations
@@ -73,3 +75,44 @@ class MoonModel(nn.Module):
         if self.projection_module is not None:
             features = self.projection_module(features)
         return {"prediction": self.head_module(features)}, {"features": features}
+
+
+def _prediction_of(out):
+    """The logits of a submodel's output: ``(preds, features)``, a preds
+    dict or a bare tensor."""
+    if isinstance(out, tuple):
+        out = out[0]
+    if isinstance(out, dict):
+        return out["prediction"]
+    return out
+
+
+class TwinModel(nn.Module):
+    """Two full copies of an architecture, Ditto's layout: an exchanged
+    ``global_model`` and a private ``personal_model``. Returns ``{"global",
+    "personal", "prediction"}`` (the prediction is the personal model's)
+    and each copy's features prefixed ``global_`` / ``personal_``. The
+    copies are called on the input alone (the port's CNNs and MLPs take no
+    ``train`` or ``rng``)."""
+
+    def __init__(self, global_model: nn.Module, personal_model: nn.Module):
+        super().__init__()
+        self.global_model = global_model
+        self.personal_model = personal_model
+
+    def init_params(self, generator: torch.Generator) -> Params:
+        return _init_params(self, generator)
+
+    def forward(self, x: torch.Tensor):
+        g_out, p_out = self.global_model(x), self.personal_model(x)
+        features = {}
+        for prefix, out in (("global", g_out), ("personal", p_out)):
+            if isinstance(out, tuple) and len(out) == 2 and isinstance(out[1], dict):
+                for k, v in out[1].items():
+                    features[f"{prefix}_{k}"] = v
+        g, p = _prediction_of(g_out), _prediction_of(p_out)
+        return {"global": g, "personal": p, "prediction": p}, features
+
+    @staticmethod
+    def exchange_global_model(path: str) -> bool:
+        return path.startswith("global_model")

@@ -69,17 +69,24 @@ def trimmed_mean(stacked: StackedParams, mask: torch.Tensor,
     values from each end of the sorted participants (clamped so at least
     the median survives) and average the middle. Non-finite submissions
     sort to the top and are removed whenever the trim budget covers the
-    attackers."""
-    trim_fraction = float(trim_fraction)
-    if not 0.0 <= trim_fraction < 0.5:
-        raise ValueError(
-            f"trim_fraction must be in [0, 0.5); got {trim_fraction} "
-            "(trimming half or more from each end leaves nothing)")
+    attackers.
+
+    ``trim_fraction`` may be a float or a 0-d tensor (a sweep cell's hoisted
+    scalar): a tensor is not read on the host; JAX's traced path clamps it
+    into [0, 0.4999] in f32 where a float is checked."""
+    if isinstance(trim_fraction, torch.Tensor):
+        fraction = torch.clamp(trim_fraction.to(torch.float32), 0.0, 0.4999)
+    else:
+        trim_fraction = float(trim_fraction)
+        if not 0.0 <= trim_fraction < 0.5:
+            raise ValueError(
+                f"trim_fraction must be in [0, 0.5); got {trim_fraction} "
+                "(trimming half or more from each end leaves nothing)")
+        fraction = float(np.float32(trim_fraction))
     n = mask.shape[0]
     k = (mask > 0).sum()
     # floor of the f32 product, as JAX computes it, on the device
-    t = torch.floor(float(np.float32(trim_fraction))
-                    * k.to(torch.float32)).to(torch.int64)
+    t = torch.floor(fraction * k.to(torch.float32)).to(torch.int64)
     t = torch.minimum(torch.clamp(t, min=0),
                       torch.clamp(torch.div(k - 1, 2, rounding_mode="floor"), min=0))
     pos = torch.arange(n, device=mask.device)
@@ -115,7 +122,9 @@ def norm_bounded_mean(stacked: StackedParams, reference: Params,
                       max_norm: float, weighted: bool = True) -> PyTree:
     """Weighted mean after clipping each client's update norm ``||packet -
     reference||`` to ``max_norm``; non-finite coordinates count as a zero
-    delta, so a NaN-poisoned client degrades to re-sending the reference."""
+    delta, so a NaN-poisoned client degrades to re-sending the reference.
+    ``max_norm`` may be a 0-d tensor (a sweep cell's hoisted scalar), read
+    on the device: the f32 division JAX's traced path makes."""
     n2 = None
     for leaf, ref in zip(tree_leaves(stacked), tree_leaves(reference)):
         d = leaf.float() - ref.float()[None]

@@ -1,7 +1,8 @@
 """Servers around the simulation (counterpart of the parts of
 ``fl4health_tpu/server/servers.py`` the port's slices use): the polling
-protocol (``poll_clients``); per-client sample-count polling; SCAFFOLD's warm start and ``ScaffoldServer``;
-``FedProxServer``; and the instance-level, DP-SCAFFOLD and client-level DP
+protocol (``poll_clients``); per-client sample-count polling; SCAFFOLD's
+warm start and ``ScaffoldServer``; ``FedProxServer``, ``DittoServer`` and
+``MrMtlServer``; and the instance-level, DP-SCAFFOLD and client-level DP
 servers, which configure the matching accountant and return the run's
 epsilon with its history.
 """
@@ -89,6 +90,14 @@ class FedProxServer:
 
     def fit(self, n_rounds: int):
         return self.sim.fit(n_rounds)
+
+
+class DittoServer(FedProxServer):
+    """Ditto's server: the same adaptive-constraint pairing."""
+
+
+class MrMtlServer(FedProxServer):
+    """MR-MTL's server: the same adaptive-constraint pairing."""
 
 
 class InstanceLevelDpServer:

@@ -212,6 +212,7 @@ from fl4health_tpu_torch.clients.engine import Batch, ClientLogic, TrainState
 from fl4health_tpu_torch.compression.config import CompressionConfig
 from fl4health_tpu_torch.compression.strategy import CompressingStrategy
 from fl4health_tpu_torch.core import pytree as ptu
+from fl4health_tpu_torch.core.aggregate import client_sum
 from fl4health_tpu_torch.device import resolve_device
 from fl4health_tpu_torch.exchange.exchanger import FixedLayerExchanger, FullExchanger
 from fl4health_tpu_torch.metrics.aggregation import aggregate_metrics
@@ -266,12 +267,12 @@ def loop_clients(fn, in_dims):
 def fit_summary(losses: dict, metrics: dict, mask: torch.Tensor,
                 counts: torch.Tensor) -> tuple[dict, dict]:
     """A round's (or an event's) training losses and metrics, weighted by
-    ``mask * counts`` over the clients."""
+    ``mask * counts`` over the clients (summed by ``client_sum``)."""
     w = mask * counts
+    total = torch.clamp(client_sum(w), min=1.0)
     agg_losses = {
         # where() not multiply: an excluded client's NaN must not leak
-        k: (torch.where(mask > 0, v, torch.zeros_like(v)) * w).sum()
-        / torch.clamp(w.sum(), min=1.0)
+        k: client_sum(torch.where(mask > 0, v, torch.zeros_like(v)) * w) / total
         for k, v in losses.items()
     }
     return agg_losses, aggregate_metrics(metrics, counts, mask)
@@ -1006,8 +1007,8 @@ class FederatedSimulation:
         def eval_round(server_state, client_states, batches, eval_counts):
             gp = strategy.client_payload(server_state, 0)
             new_states, losses, metrics = eval_clients(client_states, gp, batches)
-            agg_losses = {k: (v * eval_counts).sum() / torch.clamp(eval_counts.sum(), min=1.0)
-                          for k, v in losses.items()}
+            total = torch.clamp(client_sum(eval_counts), min=1.0)
+            agg_losses = {k: client_sum(v * eval_counts) / total for k, v in losses.items()}
             agg_metrics = aggregate_metrics(metrics, eval_counts)
             if collect_telemetry:
                 return (new_states, agg_losses, agg_metrics, losses, metrics,
@@ -2723,19 +2724,22 @@ class FederatedSimulation:
         (the fit round, the val eval round and, where every client has one,
         the test split's; their telemetry builds when telemetry is on), and
         its outputs, the ``RoundTelemetry`` among them, stack ``[k]`` on the
-        device for the chunk's one pull."""
+        device for the chunk's one pull. ``sample_counts`` replaces the
+        simulation's own aggregation weights (a sweep cell's, whose phantom
+        clients weigh 0)."""
         fit_round, eval_round, telemetry_on = self._round_fns()
         quarantine_fn = (getattr(self.strategy, "quarantine_mask", None)
                          if self.observability.enabled else None)
 
         def chunk(server_state, client_states, x_stack, y_stack, idx, em, sm, masks,
-                  start_round, val_batches, val_counts, test_batches=None, test_counts=None):
+                  start_round, val_batches, val_counts, test_batches=None, test_counts=None,
+                  sample_counts=None):
             outs = []
             for i in range(idx.shape[0]):
                 batches = engine.gather_batches(x_stack, y_stack, idx[i], em[i], sm[i])
                 server_state, client_states, fit_losses, fit_metrics, per_fit, *telemetry = (
                     fit_round(server_state, client_states, batches, masks[i],
-                              start_round + i, val_batches))
+                              start_round + i, val_batches, sample_counts))
                 client_states, eval_losses, eval_metrics, _, _, *ev_nonfinite = eval_round(
                     server_state, client_states, val_batches, val_counts)
                 out = {"fit_losses": fit_losses, "fit_metrics": fit_metrics,
@@ -3312,9 +3316,13 @@ class FederatedSimulation:
         (outermost) strategy at every dispatch, so a rebind of
         ``strategy.staleness_exponent`` reaches the next event; 0.0 for a
         strategy without it (a 2-argument mask hook never receives it). A
-        0-d CPU tensor: torch reads it as a scalar on the card, no copy."""
-        return torch.tensor(float(getattr(self.strategy, "staleness_exponent", 0.0)),
-                            dtype=torch.float32)
+        0-d CPU tensor: torch reads it as a scalar on the card, no copy. A
+        bound 0-d tensor (a sweep cell's hoisted scalar) is passed as it is,
+        never read on the host."""
+        value = getattr(self.strategy, "staleness_exponent", 0.0)
+        if isinstance(value, torch.Tensor):
+            return value.to(torch.float32)
+        return torch.tensor(float(value), dtype=torch.float32)
 
     def _fit_async(self, plan, mode: str, first: int, start_event: int = 1) -> None:
         """``fit``'s buffered-async route over this call's static plan (the

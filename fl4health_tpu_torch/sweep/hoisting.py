@@ -16,8 +16,9 @@ them.
   endpoints). :func:`bind_traced_scalars` sets the attributes for the
   duration of a ``with`` block and restores them on exit. Under eager
   torch a round reads the attribute when it runs, so the values may be
-  plain floats or 0-d tensors; the sweep-cell program that feeds them as
-  one input vector comes with the sweep runner (ROADMAP.md A11).
+  plain floats or 0-d tensors; a sweep cell (``sweep/runner.py``) binds
+  the entries of its ``hvec``, one f32 tensor on the device, and the
+  readers take them as 0-d tensors without reading them on the host.
 
 Shape-affecting knobs stay static and are not registered here:
 ``CompressionConfig.topk_fraction``, ``quant_bits``,

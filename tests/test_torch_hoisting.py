@@ -184,3 +184,158 @@ def test_server_lr_rebind_trains_as_jax():
     np.testing.assert_array_equal(
         ts.server_state.opt_state.hyperparams["learning_rate"].numpy(),
         np.asarray(js.server_state.opt_state.hyperparams["learning_rate"]))
+
+
+# -- the attr-kind scalars as 0-d tensors (a sweep cell's hvec entries) ------
+
+def _stacked(n: int = 5, seed: int = 0):
+    r = np.random.default_rng(seed)
+    stacked = {"w": r.standard_normal((n, 3, 4)).astype(np.float32),
+               "b": r.standard_normal((n, 4)).astype(np.float32)}
+    stacked["w"][1] *= 40.0  # an outlier the trim and the norm bound act on
+    reference = {k: r.standard_normal(v.shape[1:]).astype(np.float32)
+                 for k, v in stacked.items()}
+    mask = np.asarray([1, 1, 0, 1, 1][:n], np.float32)
+    return stacked, reference, mask
+
+
+def _meta(tree):
+    return {k: torch.empty(v.shape, dtype=torch.float32, device="meta") for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("fraction", [0.0, 0.2, 0.34, 0.4999, 0.7, -0.3])
+def test_trim_fraction_as_a_tensor_is_jax_traced_path(fraction):
+    """JAX's traced trimmed mean clamps the fraction into [0, 0.4999] in f32
+    where a float is checked; a 0-d tensor computes that, on its device."""
+    import jax
+    import jax.numpy as jnp
+
+    from fl4health_tpu.resilience import aggregators as jagg
+    from fl4health_tpu_torch.resilience import aggregators as tagg
+
+    stacked, _, mask = _stacked()
+    want = jax.jit(lambda tf: jagg.trimmed_mean(stacked, jnp.asarray(mask), tf))(
+        jnp.float32(fraction))
+    got = tagg.trimmed_mean({k: torch.tensor(v) for k, v in stacked.items()},
+                            torch.tensor(mask), torch.tensor(fraction))
+    for k in stacked:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-6, atol=1e-6)
+    # never read on the host: the same call on meta tensors (no values) runs
+    tagg.trimmed_mean(_meta(stacked), torch.empty((5,), device="meta"),
+                      torch.empty((), device="meta"))
+    if 0.0 <= fraction < 0.5:  # a float still computes the same, in range
+        as_float = tagg.trimmed_mean({k: torch.tensor(v) for k, v in stacked.items()},
+                                     torch.tensor(mask), fraction)
+        for k in stacked:
+            assert torch.equal(as_float[k], got[k]), k
+
+
+@pytest.mark.parametrize("bound", [0.5, 4.0, 1000.0])
+def test_max_update_norm_as_a_tensor_is_jax_traced_path(bound):
+    import jax
+    import jax.numpy as jnp
+
+    from fl4health_tpu.resilience import aggregators as jagg
+    from fl4health_tpu_torch.resilience import aggregators as tagg
+
+    stacked, reference, mask = _stacked()
+    counts = np.asarray([3, 1, 2, 5, 4], np.float32)
+    want = jax.jit(lambda m: jagg.norm_bounded_mean(
+        stacked, reference, jnp.asarray(counts), jnp.asarray(mask), m))(jnp.float32(bound))
+    got = tagg.norm_bounded_mean(
+        {k: torch.tensor(v) for k, v in stacked.items()},
+        {k: torch.tensor(v) for k, v in reference.items()}, torch.tensor(counts),
+        torch.tensor(mask), torch.tensor(bound))
+    for k in stacked:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-6, atol=1e-6)
+    tagg.norm_bounded_mean(_meta(stacked), _meta(reference), torch.empty((5,), device="meta"),
+                           torch.empty((5,), device="meta"), torch.empty((), device="meta"))
+
+
+@pytest.mark.parametrize("exponent", [0.0, 0.3, 0.5, 1.7])
+def test_staleness_exponent_as_a_tensor_is_jax_traced_path(exponent):
+    import jax
+    import jax.numpy as jnp
+
+    staleness = np.asarray([0, 1, 2, 5, 30], np.float32)
+    arrivals = np.asarray([1, 1, 0, 1, 1], np.float32)
+    t, j = _chains(False)["fedbuff"], _chains(True)["fedbuff"]
+
+    def jmask(e):
+        with jh.bind_traced_scalars(j, {"staleness_exponent": e}):
+            return j.async_aggregation_mask(jnp.asarray(arrivals), jnp.asarray(staleness))
+
+    want = jax.jit(jmask)(jnp.float32(exponent))
+    with th.bind_traced_scalars(t, {"staleness_exponent": torch.tensor(exponent)}):
+        got = t.async_aggregation_mask(torch.tensor(arrivals), torch.tensor(staleness))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_the_async_routes_pass_a_bound_exponent_tensor_as_it_is():
+    sim = drill_sim("torch", "chunked")
+    sim.strategy = _chains(False)["fedbuff"]
+    value = torch.empty((), device="meta")  # a read on the host would raise
+    with th.bind_traced_scalars(sim.strategy, {"staleness_exponent": value}):
+        assert sim._staleness_exponent_input() is value
+    assert float(sim._staleness_exponent_input()) == np.float32(0.7)
+
+
+@pytest.mark.parametrize("ends", [(0.4, 0.2), (0.05, 0.37), (0.3333, 0.1111), (0.49, 0.01)])
+def test_topk_schedule_endpoints_as_tensors_are_jax_traced_path(ends):
+    """The effective fraction, fed 0-d tensor endpoints, equals JAX's jitted
+    traced path bit for bit (the traced endpoints are f32, so it may part
+    from the float path's f64 difference by an ulp), and the count it keeps
+    on its device is the float path's count of the same fraction."""
+    import jax
+    import jax.numpy as jnp
+
+    from fl4health_tpu_torch.compression import codecs as tcodecs
+
+    t, j = _chains(False)["compressed_schedule"], _chains(True)["compressed_schedule"]
+
+    def jfraction(f0, f1, r):
+        with jh.bind_traced_scalars(j, {"topk_f_start": f0, "topk_f_end": f1}):
+            return j.effective_topk_fraction(r)
+
+    compiled = jax.jit(jfraction)
+    cfg = TCompression(topk_fraction=0.5, topk_schedule=("linear", *ends, 3))
+    update = {"w": torch.linspace(-1.0, 1.0, 37).reshape(37)}
+    for r in range(1, 6):
+        want = np.float32(compiled(jnp.float32(ends[0]), jnp.float32(ends[1]), jnp.int32(r)))
+        with th.bind_traced_scalars(t, {"topk_f_start": torch.tensor(ends[0]),
+                                        "topk_f_end": torch.tensor(ends[1])}):
+            got = t.effective_topk_fraction(r)
+        assert got.dtype == torch.float32 and got.ndim == 0
+        assert np.float32(got.item()) == want, r
+        by_tensor, _ = tcodecs.compress_update(update, None, None, cfg, got)
+        by_float, _ = tcodecs.compress_update(update, None, None, cfg, np.float32(got.item()))
+        assert torch.equal(by_tensor["w"], by_float["w"]), r
+    with th.bind_traced_scalars(t, {"topk_f_start": torch.empty((), device="meta"),
+                                    "topk_f_end": torch.empty((), device="meta")}):
+        assert t.effective_topk_fraction(2).device.type == "meta"
+
+
+def test_a_trim_fraction_sweep_over_robust_fedavg_equals_jax():
+    """The sweep feeds trim_fraction in the cell's hvec (a 0-d tensor): each
+    cell equals the port's standalone run built with that fraction bit for
+    bit, and JAX's cell (its traced fraction) at 5e-4."""
+    from fl4health_tpu.sweep import run_sweep as jrun
+    from fl4health_tpu_torch.sweep import run_sweep as trun
+    from torch_sweep_sims import partitioner, spec_pair, standalone
+
+    pairs = {"strategies": ({"robust": lambda: JRobust(method="trimmed_mean")},
+                            {"robust": lambda: TRobust(method="trimmed_mean")})}
+    jspec, tspec = spec_pair(("fedavg",), ("sgd",), seeds=(5,), cohort_sizes=(5,),
+                             scalars={"trim_fraction": (0.0, 0.2, 0.45)}, pairs=pairs)
+    tcells, jcells = trun(tspec, device="cpu").cells, jrun(jspec).cells
+    assert [c.cell.label() for c in tcells] == [c.cell.label() for c in jcells] == [
+        f"robust/sgd/p0/c5/s5/trim_fraction={v:g}" for v in (0.0, 0.2, 0.45)]
+    for r, j in zip(tcells, jcells):
+        fraction = r.cell.scalar_dict["trim_fraction"]
+        tspec.strategies = {"robust": lambda: TRobust(method="trimmed_mean",
+                                                      trim_fraction=fraction)}
+        fit_ref, eval_ref = standalone(r.cell, tspec, partitioner(0, False)(5), False)
+        assert r.fit_losses == fit_ref and r.eval_losses == eval_ref, r.cell.label()
+        np.testing.assert_allclose(r.eval_losses, j.eval_losses, rtol=0, atol=TOL)
+        np.testing.assert_allclose(r.fit_losses, j.fit_losses, rtol=0, atol=TOL)
+    assert tcells[0].eval_losses != tcells[2].eval_losses

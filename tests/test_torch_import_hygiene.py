@@ -53,7 +53,8 @@ def test_sources_were_found():
             "async_writer.py", "manifest.py", "recovery.py", "inference.py",
             "medical.py", "telemetry.py", "health.py", "flightrec.py", "bundle.py",
             "cudamon.py", "device_specs.py", "exposition.py", "fleet.py", "sketches.py",
-            "spans.py", "tpu_probe.py", "fake.py"} <= names
+            "spans.py", "tpu_probe.py", "fake.py", "ditto.py", "spec.py", "bucketing.py",
+            "runner.py"} <= names
     # every observability module is on the list the tests above walk
     obs = {p.name for p in SOURCES if p.parent.name == "observability"}
     assert {"__init__.py", "registry.py", "manifest.py", "telemetry.py", "health.py",
@@ -61,12 +62,13 @@ def test_sources_were_found():
             "fleet.py", "sketches.py", "spans.py", "flops.py", "stages.py", "hloscan.py",
             "introspect.py", "timeseries.py", "slo.py", "adminplane.py"} == obs
     # and every resilience and sweep module: the supervisor, its suspect
-    # ranking, the in-graph quarantine, retry, and the scalar hoisting
+    # ranking, the in-graph quarantine, retry; the scalar hoisting, the grid
+    # spec, the bucketing and the runner
     resilience = {p.name for p in SOURCES if p.parent.name == "resilience"}
     assert {"__init__.py", "aggregators.py", "faults.py", "recovery.py", "quarantine.py",
             "retry.py", "supervisor.py", "suspects.py"} == resilience
     sweep = {p.name for p in SOURCES if p.parent.name == "sweep"}
-    assert {"__init__.py", "hoisting.py"} == sweep
+    assert {"__init__.py", "hoisting.py", "spec.py", "bucketing.py", "runner.py"} == sweep
 
 
 def test_package_imports_without_jax():

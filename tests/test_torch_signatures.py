@@ -106,6 +106,36 @@ def test_the_packages_share_their_public_callables():
     assert ("sweep.hoisting", "apply_state_scalars") in SHARED
 
 
+# the sweep runner's and Ditto's public callables, each held by the checks
+# below (a key missing from SHARED would escape them)
+SWEEP_AND_DITTO = [
+    ("sweep.spec", "SweepCell.label"), ("sweep.spec", "SweepSpec.bucket_for"),
+    ("sweep.spec", "SweepSpec.applicable_scalar_axes"), ("sweep.spec", "SweepSpec.expand_cells"),
+    ("sweep.bucketing", "GroupKey.label"), ("sweep.bucketing", "SweepPlan.describe"),
+    ("sweep.bucketing", "plan_groups"), ("sweep.bucketing", "pad_datasets"),
+    ("sweep.bucketing", "pad_stack_rows"), ("sweep.bucketing", "padded_mask"),
+    ("sweep.runner", "CellResult.row"), ("sweep.runner", "SweepResult.leaderboard"),
+    ("sweep.runner", "SweepResult.bench_block"), ("sweep.runner", "SweepLedger.__init__"),
+    ("sweep.runner", "SweepLedger.load_completed"), ("sweep.runner", "SweepLedger.append"),
+    ("sweep.runner", "SweepRunner.__init__"), ("sweep.runner", "SweepRunner.run"),
+    ("sweep.runner", "run_sweep"),
+    ("clients.ditto", "DittoClientLogic.__init__"),
+    ("clients.ditto", "DittoClientLogic.init_round_context"),
+    ("clients.ditto", "DittoClientLogic.training_loss"),
+    ("clients.ditto", "DittoClientLogic.eval_loss"), ("clients.ditto", "DittoClientLogic.pack"),
+    ("clients.ditto", "KeepLocalExchanger.push"), ("clients.ditto", "KeepLocalExchanger.pull"),
+    ("clients.ditto", "MrMtlClientLogic.__init__"),
+    ("clients.ditto", "MrMtlClientLogic.init_round_context"),
+    ("clients.ditto", "MrMtlClientLogic.training_loss"), ("clients.ditto", "MrMtlClientLogic.pack"),
+    ("models.bases", "TwinModel.exchange_global_model"),
+]
+
+
+@pytest.mark.parametrize("key", SWEEP_AND_DITTO, ids=lambda k: f"{k[0]}:{k[1]}")
+def test_the_sweep_and_ditto_callables_are_shared(key):
+    assert key in SHARED, key
+
+
 def test_shared_parameters_come_in_jax_order():
     bad = {}
     for key in SHARED:
