@@ -3451,9 +3451,6 @@ def async_cohort_dp_cifar_cnn(fa, dp, source) -> dict:
 # the SIGKILL drill, and nnU-Net's sliding-window inference -----------------
 CKPT_ROUNDS, CKPT_KILL = 4, 2  # dp_cifar_cnn saved after round 2 of 4
 CKPT_ASYNC_EVERY = 3  # async frames after events 3 and 6 (of 6)
-# drill children run three at a time: each is deterministic on the card
-# whatever else runs (a CPU run is not: its thread pools share the cores)
-DRILL_WORKERS = 3
 INFER_VOLUME, INFER_STEP = (256, 256, 192), 0.5  # 3 x 3 x 2 = 18 windows of 128^3
 
 
@@ -3611,57 +3608,67 @@ def drill_dp_cifar_cnn(ckpt_dir_: str | None, device: str = "cuda"):
     return ckpt_dp_sim(data, "chunked", ckpt_dir_)
 
 
-def ckpt_drill() -> dict:
-    """``ckpt_drill``: the subprocess crash drill on the card, dp_cifar_cnn
-    at 4 rounds on the chunked route (``drill_dp_cifar_cnn``), in two
-    waves of children run side by side: a straight child, a child
-    SIGKILLed right after round 2's frame publishes, and one SIGKILLed 4
-    KiB into round 3's frame write (its ring keeps rounds 1 and 2); then
-    that ring's newest generation flipped (``corrupt_newest_generation(
-    mode="flip")``), and the child resumed from round 2 beside the one
-    that falls back to round 1, ``fallback_skipped`` naming the damaged
-    file. Both resumed children's final params' bytes
-    and loss history equal the straight child's."""
-    from fl4health_tpu_torch.resilience.recovery import corrupt_newest_generation, run_child
+def drill_spec(root: str, factory: str, tag: str, ckpt: str, kill=None) -> tuple:
+    """One drill child's spec (a ``factory`` of this file at ``CKPT_ROUNDS``
+    rounds, its ring in ``root/ckpt``) and the spec file's path."""
+    return ({"factory_file": str(Path(__file__).resolve()), "factory_name": factory,
+             "n_rounds": CKPT_ROUNDS, "ckpt_dir": os.path.join(root, ckpt),
+             "out_dir": os.path.join(root, tag), "kill": kill, "device": "cuda"},
+            os.path.join(root, f"{tag}.json"))
 
-    root = ckpt_dir("drill")
 
-    def spec(tag, ckpt, kill=None):
-        return ({"factory_file": str(Path(__file__).resolve()),
-                 "factory_name": "drill_dp_cifar_cnn", "n_rounds": CKPT_ROUNDS,
-                 "ckpt_dir": os.path.join(root, ckpt), "out_dir": os.path.join(root, tag),
-                 "kill": kill, "device": "cuda"}, os.path.join(root, f"{tag}.json"))
+def drill_wave(specs: dict) -> tuple[dict, float]:
+    """The children of ``specs`` side by side, one process each; their
+    results by name and the wave's wall."""
+    from fl4health_tpu_torch.resilience.recovery import run_child
 
-    def wave(*specs):
-        t0 = time.time()
-        with ThreadPoolExecutor(min(len(specs), DRILL_WORKERS)) as pool:
-            res = [f.result() for f in [pool.submit(run_child, s, p, 600.0) for s, p in specs]]
-        return res, time.time() - t0
+    t0 = time.time()
+    with ThreadPoolExecutor(len(specs)) as pool:
+        futures = {name: pool.submit(run_child, *spec, 600.0) for name, spec in specs.items()}
+        results = {name: f.result() for name, f in futures.items()}
+    return results, time.time() - t0
+
+
+def ckpt_drill_specs(root: str) -> tuple[dict, dict]:
+    """``ckpt_drill``'s two waves: a straight child, a child SIGKILLed right
+    after round 2's frame publishes and one SIGKILLed 4 KiB into round 3's
+    frame write (its ring keeps rounds 1 and 2); then the killed child's
+    resume and the torn ring's (whose newest generation is flipped between
+    the waves)."""
+    def spec(*a, **k):
+        return drill_spec(root, "drill_dp_cifar_cnn", *a, **k)
 
     post = {"round": CKPT_KILL, "phase": "post_save"}
     torn = {"round": CKPT_KILL + 1, "phase": "mid_write", "byte_offset": 4096}
-    (straight, killed, torn_child), w1 = wave(spec("straight", "straight_ckpt"),
-                                              spec("killed", "drill_ckpt", post),
-                                              spec("torn", "torn_ckpt", torn))
-    damaged = corrupt_newest_generation(os.path.join(root, "torn_ckpt"), mode="flip")
-    (resumed, fallback), w2 = wave(spec("resumed", "drill_ckpt"),
-                                   spec("fallback", "torn_ckpt"))
-    for name, res, code in (("straight", straight, 0), ("killed", killed, -signal.SIGKILL),
-                            ("resumed", resumed, 0), ("torn", torn_child, -signal.SIGKILL),
-                            ("fallback", fallback, 0)):
-        if res.returncode != code:
-            fail(f"ckpt_drill {name} child exited {res.returncode}, expected {code}: "
-                 f"{res.stderr[-3000:]}")
-            raise SystemExit(1)
-    if killed.params_bytes is not None or torn_child.params_bytes is not None:
+    return ({"straight": spec("straight", "straight_ckpt"),
+             "killed": spec("killed", "drill_ckpt", post),
+             "torn": spec("torn", "torn_ckpt", torn)},
+            {"resumed": spec("resumed", "drill_ckpt"),
+             "fallback": spec("fallback", "torn_ckpt")})
+
+
+def ckpt_drill_check(res: dict, damaged: str, walls: list) -> dict:
+    """``ckpt_drill``: dp_cifar_cnn at 4 rounds on the chunked route
+    (``drill_dp_cifar_cnn``). The torn ring's newest generation was flipped
+    (``corrupt_newest_generation(mode="flip")``), so its child resumes from
+    round 1, ``fallback_skipped`` naming the damaged file, beside the
+    killed child's resume from round 2. Both resumed children's final
+    params' bytes and loss history equal the straight child's."""
+    for name, code in (("straight", 0), ("killed", -signal.SIGKILL), ("resumed", 0),
+                       ("torn", -signal.SIGKILL), ("fallback", 0)):
+        if res[name].returncode != code:
+            fail(f"ckpt_drill {name} child exited {res[name].returncode}, expected {code}: "
+                 f"{res[name].stderr[-3000:]}")
+    straight, resumed, fallback = res["straight"], res["resumed"], res["fallback"]
+    if res["killed"].params_bytes is not None or res["torn"].params_bytes is not None:
         fail("ckpt_drill: a killed child finished")
     out = {"phase": "ckpt_drill", "rounds": CKPT_ROUNDS, "route": "chunked",
-           "kill_round": CKPT_KILL, "wave_s": [w1, w2], "damaged": damaged,
+           "kill_round": CKPT_KILL, "wave_s": walls, "damaged": damaged,
            "resumed_from": resumed.done["resume"], "fallback_from": fallback.done["resume"]}
-    for name, res in (("resumed", resumed), ("fallback", fallback)):
-        same = res.params_bytes == straight.params_bytes and res.history == straight.history
+    for name, r in (("resumed", resumed), ("fallback", fallback)):
+        same = r.params_bytes == straight.params_bytes and r.history == straight.history
         out[f"{name}_equal"] = same
-        if not same or [r["round"] for r in res.history] != list(range(1, CKPT_ROUNDS + 1)):
+        if not same or [h["round"] for h in r.history] != list(range(1, CKPT_ROUNDS + 1)):
             fail(f"ckpt_drill: the {name} child's params or history differ from the straight")
     if out["fallback_from"]["fallback_skipped"] != [damaged]:
         fail(f"ckpt_drill: fallback_skipped {out['fallback_from']['fallback_skipped']}, "
@@ -3672,8 +3679,37 @@ def ckpt_drill() -> dict:
         fail(f"ckpt_drill: the fallback resumed from {out['fallback_from']}")
     out["params_bytes"] = len(straight.params_bytes)
     out["history"] = straight.history
-    drop_dirs(root)
     print(json.dumps(out))
+    return out
+
+
+def drills() -> dict:
+    """``ckpt_drill`` and ``obs_sigterm_drill``, their children in two
+    waves side by side (each child is deterministic on the card whatever
+    else runs): the first wave the five children that start fresh (3 + 2),
+    the second the three resumes (2 + 1). Between the waves the torn ring
+    is flipped and the SIGTERM bundle read. Each drill's checks are its
+    own; ``wave_s`` is both drills' walls."""
+    from fl4health_tpu_torch.resilience.recovery import corrupt_newest_generation
+
+    roots = {"ckpt": ckpt_dir("drill"), "obs": ckpt_dir("sigterm")}
+    ckpt_first, ckpt_second = ckpt_drill_specs(roots["ckpt"])
+    obs_first, obs_second = obs_sigterm_specs(roots["obs"])
+    first, w1 = drill_wave({**{("ckpt", k): v for k, v in ckpt_first.items()},
+                            **{("obs", k): v for k, v in obs_first.items()}})
+    ckpt_res = {k: v for (d, k), v in first.items() if d == "ckpt"}
+    obs_res = {k: v for (d, k), v in first.items() if d == "obs"}
+    damaged = corrupt_newest_generation(os.path.join(roots["ckpt"], "torn_ckpt"), mode="flip")
+    verdict = obs_sigterm_bundle(obs_res, roots["obs"])
+    second, w2 = drill_wave({**{("ckpt", k): v for k, v in ckpt_second.items()},
+                             **{("obs", k): v for k, v in obs_second.items()}})
+    ckpt_res.update({k: v for (d, k), v in second.items() if d == "ckpt"})
+    obs_res.update({k: v for (d, k), v in second.items() if d == "obs"})
+    walls = [w1, w2]
+    out = {"ckpt_drill": ckpt_drill_check(ckpt_res, damaged, walls),
+           "obs_sigterm_drill": obs_sigterm_check(obs_res, verdict, roots["obs"], walls),
+           "wave_s": walls, "children": [len(first), len(second)]}
+    drop_dirs(*roots.values())
     return out
 
 
@@ -4188,53 +4224,49 @@ def drill_obs_dp_cifar_cnn(ckpt_dir_: str | None, device: str = "cuda"):
                        observability=obs_handle(output_dir=f"{ckpt_dir_}_obs"))
 
 
-def obs_sigterm_drill() -> dict:
-    """``obs_sigterm_drill``: ``ckpt_drill``'s drill with observability on and the
-    SIGTERM kill point right after round 2's frame: the killed child exits
-    143 with a ``sigterm`` bundle naming the round the signal arrived at
-    and round 2's generation to resume from; a fresh child resumes from
-    round 3, adopts the frame's fleet ledger (no client is new in rounds
-    3-4) and ends bit-equal (final params' bytes, loss history) to an
-    unkilled child."""
+def obs_sigterm_specs(root: str) -> tuple[dict, dict]:
+    """``obs_sigterm_drill``'s two waves: an unkilled child and one sent
+    SIGTERM right after round 2's frame; then the killed child's resume."""
+    def spec(*a, **k):
+        return drill_spec(root, "drill_obs_dp_cifar_cnn", *a, **k)
+
+    return ({"straight": spec("straight", "straight_ckpt"),
+             "killed": spec("killed", "drill_ckpt",
+                            {"round": CKPT_KILL, "signal_name": "SIGTERM"})},
+            {"resumed": spec("resumed", "drill_ckpt")})
+
+
+def obs_sigterm_bundle(res: dict, root: str) -> dict:
+    """After the first wave: the killed child exited 143 with one
+    ``sigterm`` bundle naming the round the signal arrived at and round 2's
+    generation to resume from."""
     from fl4health_tpu_torch.observability.bundle import list_bundles, load_bundle
-    from fl4health_tpu_torch.resilience.recovery import run_child
 
-    root = ckpt_dir("sigterm")
-
-    def spec(tag, ckpt, kill=None):
-        return ({"factory_file": str(Path(__file__).resolve()),
-                 "factory_name": "drill_obs_dp_cifar_cnn", "n_rounds": CKPT_ROUNDS,
-                 "ckpt_dir": os.path.join(root, ckpt), "out_dir": os.path.join(root, tag),
-                 "kill": kill, "device": "cuda"}, os.path.join(root, f"{tag}.json"))
-
-    t0 = time.time()
-    with ThreadPoolExecutor(2) as pool:
-        straight, killed = [f.result() for f in [
-            pool.submit(run_child, *spec("straight", "straight_ckpt"), 600.0),
-            pool.submit(run_child, *spec("killed", "drill_ckpt",
-                                         {"round": CKPT_KILL, "signal_name": "SIGTERM"}),
-                        600.0)]]
-    w1 = time.time() - t0
+    straight, killed = res["straight"], res["killed"]
     if straight.returncode != 0 or killed.returncode != 143:
         fail(f"obs_sigterm_drill: straight exited {straight.returncode}, killed "
              f"{killed.returncode} (expected 143): {killed.stderr[-3000:]}")
-        raise SystemExit(1)
-    obs_dir = os.path.join(root, "drill_ckpt_obs")
-    bundles = list_bundles(obs_dir)
+    bundles = list_bundles(os.path.join(root, "drill_ckpt_obs"))
     if len(bundles) != 1:
         fail(f"obs_sigterm_drill: {len(bundles)} bundles")
     v = load_bundle(bundles[0])["verdict"]
     if (v["kind"] != "sigterm" or not CKPT_KILL <= v.get("round", 0) <= CKPT_ROUNDS
             or v.get("resume", {}).get("round") != CKPT_KILL):
         fail(f"obs_sigterm_drill: verdict {v}")
-    t0 = time.time()
-    resumed = run_child(*spec("resumed", "drill_ckpt"), 600.0)
-    w2 = time.time() - t0
+    return v
+
+
+def obs_sigterm_check(res: dict, v: dict, root: str, walls: list) -> dict:
+    """``obs_sigterm_drill``: ``ckpt_drill``'s drill with observability on
+    and the SIGTERM kill point; the resumed child starts at round 3, adopts
+    the frame's fleet ledger (no client is new in rounds 3-4) and ends
+    bit-equal (final params' bytes, loss history) to the unkilled child."""
+    straight, killed, resumed = res["straight"], res["killed"], res["resumed"]
     if resumed.returncode != 0:
         fail(f"obs_sigterm_drill: resumed child exited {resumed.returncode}: "
              f"{resumed.stderr[-3000:]}")
-        raise SystemExit(1)
-    rounds = [e for e in jsonl_events(obs_dir) if e["event"] == "round"]
+    rounds = [e for e in jsonl_events(os.path.join(root, "drill_ckpt_obs"))
+              if e["event"] == "round"]
     new = [(e["round"], e["participants_new"]) for e in rounds]
     same = (resumed.params_bytes == straight.params_bytes
             and resumed.history == straight.history)
@@ -4246,8 +4278,7 @@ def obs_sigterm_drill() -> dict:
            "kill_round": CKPT_KILL, "killed_exit": killed.returncode,
            "verdict": {k: v.get(k) for k in ("kind", "round", "signal", "resume")},
            "resumed_from": resumed.done["resume"], "resumed_equal": same,
-           "new_participants_after_resume": new, "wave_s": [w1, w2]}
-    drop_dirs(root)
+           "new_participants_after_resume": new, "wave_s": walls}
     print(json.dumps(out))
     return out
 
@@ -5050,19 +5081,16 @@ def twin_check(sim, kind: str) -> dict:
     """After the last round: Ditto's global subtrees equal over the clients
     and its personal ones not; MR-MTL's params off the aggregate."""
     params = sim.client_states.params
-    flat = lambda keys: torch.cat([params[k].reshape(params[k].shape[0], -1)  # noqa: E731
-                                   for k in keys], 1)
     if kind == "ditto":
-        glob = flat([k for k in params if k.startswith("global_model/")])
-        pers = flat([k for k in params if k.startswith("personal_model/")])
-        globals_equal = bool((glob == glob[:1]).all())
-        personal_spread = float((pers - pers[:1]).abs().max())
+        globals_equal = client_spread(params, "global_model/") == 0.0
+        personal_spread = client_spread(params, "personal_model/")
         if not globals_equal or not personal_spread > 1e-6:
             fail(f"ditto_cifar_cnn: globals equal {globals_equal}, "
                  f"personal spread {personal_spread}")
         return {"globals_equal": globals_equal, "personal_spread": personal_spread}
     agg = torch.cat([v.reshape(-1) for v in sim.global_params.values()])
-    off = float((flat(list(params)) - agg[None]).abs().max())
+    mine = torch.cat([v.reshape(v.shape[0], -1) for v in params.values()], 1)
+    off = float((mine - agg[None]).abs().max())
     if not off > 1e-6:
         fail(f"mrmtl_cifar_cnn: clients' params {off} off the aggregate")
     return {"max_off_aggregate": off}
@@ -5281,6 +5309,287 @@ def sweep_dp_cifar_cnn(dp) -> dict:
     return out
 
 
+# -- the split-model personalisation slice ---------------------------------------
+PFL_KINDS = ("apfl", "fenda", "constrained_fenda", "perfcl", "fenda_ditto", "fedrep",
+             "fedper", "gpfl", "ensemble", "simclr", "ditto_moon")
+PFL_TINY_ROUNDS = 3  # the CPU tests' fixture (tests/torch_pfl_sims.py)
+PFL_TINY_TOL = 5e-4
+
+
+def pfl_blocks(tiny: bool) -> dict:
+    """The arms' blocks: the CPU tests' (8 features, 3 classes: ``Mlp(16)``,
+    ``DenseFeatures(12)``, projections of 8), or the DP path's width
+    (``CifarNet`` in f32, ``ConvFeatures((32, 64))`` on 32x32x3: 4096
+    features, 10 classes, projections of 128, GPFL's feature_dim 64)."""
+    from fl4health_tpu_torch.models import bases
+    from fl4health_tpu_torch.models.cnn import CifarNet, Mlp
+
+    if tiny:
+        return dict(net=lambda: Mlp(8, (16,), 3), feats=lambda: bases.DenseFeatures(8, (12,)),
+                    width=12, classes=3, proj=8, gpfl_dim=12)
+    return dict(net=lambda: CifarNet(dtype=torch.float32),
+                feats=lambda: bases.ConvFeatures((32, 64), (32, 32, 3)),
+                width=4096, classes=10, proj=128, gpfl_dim=64)
+
+
+def pfl_arm(kind: str, tiny: bool) -> tuple:
+    """-> (logic, exchanger, ssl) of one arm: APFL (alpha 0.5, adaptive),
+    FENDA, Constrained FENDA (cos 0.5, contrastive 0.5), PerFCL (0.5/0.5),
+    FENDA+Ditto (lam 1), FedRep (2 head steps a round), FedPer, GPFL (lam
+    and mu 0.01), a 2-member ensemble, FedSimCLR, and make_it_personal(MOON,
+    DITTO)."""
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.clients.apfl import ApflClientLogic, apfl_model_def
+    from fl4health_tpu_torch.clients.ensemble import EnsembleClientLogic
+    from fl4health_tpu_torch.clients.fedrep import FedPerClientLogic, FedRepClientLogic
+    from fl4health_tpu_torch.clients.fedsimclr import FedSimClrClientLogic
+    from fl4health_tpu_torch.clients.fenda import (ConstrainedFendaClientLogic,
+                                                   FendaClientLogic, FendaDittoClientLogic,
+                                                   PerFclClientLogic)
+    from fl4health_tpu_torch.clients.gpfl import GpflClientLogic, gpfl_model_def
+    from fl4health_tpu_torch.clients.moon import MoonClientLogic
+    from fl4health_tpu_torch.clients.personalized import (PersonalizedMode,
+                                                          exchange_global_subtree,
+                                                          make_it_personal)
+    from fl4health_tpu_torch.exchange.exchanger import FixedLayerExchanger
+    from fl4health_tpu_torch.models import bases
+
+    b = pfl_blocks(tiny)
+    ce, wired = engine.masked_cross_entropy, engine.from_module
+
+    def fenda():
+        return bases.FendaModel(b["feats"](), b["feats"](), bases.HeadModule(
+            bases.DenseHead(2 * b["width"], b["classes"])))
+
+    def split():
+        return wired(bases.FedRepModel(b["feats"](), bases.DenseHead(b["width"], b["classes"])))
+
+    fenda_wire = FixedLayerExchanger(bases.ParallelSplitModel.exchange_global_extractor)
+    split_wire = FixedLayerExchanger(bases.SequentiallySplitModel.exchange_features_only)
+    if kind == "apfl":
+        return (ApflClientLogic(apfl_model_def(bases.ApflModule(b["net"](), b["net"]())), ce,
+                                alpha=0.5, adaptive_alpha=True),
+                FixedLayerExchanger(bases.ApflModule.exchange_global_model), False)
+    if kind == "fenda":
+        return FendaClientLogic(wired(fenda()), ce), fenda_wire, False
+    if kind == "constrained_fenda":
+        return (ConstrainedFendaClientLogic(wired(fenda()), ce, cos_sim_loss_weight=0.5,
+                                            contrastive_loss_weight=0.5), fenda_wire, False)
+    if kind == "perfcl":
+        return (PerFclClientLogic(wired(fenda()), ce, global_feature_loss_weight=0.5,
+                                  local_feature_loss_weight=0.5), fenda_wire, False)
+    if kind == "fenda_ditto":
+        return (FendaDittoClientLogic(wired(bases.TwinModel(fenda(), fenda())), ce, lam=1.0),
+                FixedLayerExchanger(bases.TwinModel.exchange_global_model), False)
+    if kind == "fedrep":
+        return FedRepClientLogic(split(), ce, head_steps=2), split_wire, False
+    if kind == "fedper":
+        return FedPerClientLogic(split(), ce), split_wire, False
+    if kind == "gpfl":
+        return (GpflClientLogic(gpfl_model_def(bases.GpflModel(b["feats"](), b["classes"],
+                                                               b["gpfl_dim"])), ce,
+                                n_classes=b["classes"], lam=0.01, mu=0.01),
+                FixedLayerExchanger(bases.GpflModel.exchange_shared), False)
+    if kind == "ensemble":
+        return (EnsembleClientLogic(wired(bases.EnsembleModel([b["net"](), b["net"]()])), ce,
+                                    n_members=2), None, False)
+    if kind == "simclr":
+        return (FedSimClrClientLogic(wired(bases.FedSimClrModel(
+                    b["feats"](), bases.DenseHead(b["width"], b["proj"]))), temperature=0.5),
+                None, True)
+    if kind == "ditto_moon":
+        moon = MoonClientLogic(wired(bases.MoonModel(b["feats"](), bases.DenseHead(
+            b["width"], b["classes"]))), ce, contrastive_weight=1.0, buffer_len=1)
+        return (make_it_personal(moon, PersonalizedMode.DITTO),
+                FixedLayerExchanger(exchange_global_subtree), False)
+    raise ValueError(kind)
+
+
+def pfl_datasets(tiny: bool, ssl: bool, device: str) -> list:
+    """The tiny fixture's 3 clients (``synthetic_classification(PRNGKey(i),
+    48, (8,), 3)``, 32 train and 16 val rows; FedSimCLR's second view the
+    first plus 0.05 of ``normal(PRNGKey(100 + i))``) drawn on ``device``, or
+    the 64 ``dp_cifar_cnn`` clients (``sweep_partition("even", 64)``;
+    FedSimCLR's second view the horizontal flip of the first)."""
+    from fl4health_tpu_torch import rng
+    from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
+    from fl4health_tpu_torch.server.simulation import ClientDataset
+
+    if not tiny:
+        data = sweep_partition("even", DP_CLIENTS)
+        if not ssl:
+            return data
+        flip = lambda a: torch.as_tensor(a).flip(2)  # noqa: E731  NHWC: the width axis
+        return [ClientDataset(d.x_train, flip(d.x_train), d.x_val, flip(d.x_val))
+                for d in data]
+    out = []
+    for i in range(3):
+        x, y = synthetic_classification(rng.PRNGKey(i, device), 48, (8,), 3)
+        if ssl:
+            y = x + 0.05 * rng.normal(rng.PRNGKey(100 + i, device), tuple(x.shape))
+        x, y = x.cpu(), y.cpu()
+        out.append(ClientDataset(x[:32], y[:32], x[32:], y[32:]))
+    return out
+
+
+def pfl_sim(kind: str, tiny: bool, device: str, mode: str = "pipelined"):
+    """An arm's simulation: FedAvg, SGD(0.05), f32; the tiny fixture's batch
+    8, one local epoch, seed 3, or the DP path's batch 32, 5 local steps,
+    seed 0."""
+    from fl4health_tpu_torch import optim
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.server.simulation import FederatedSimulation
+    from fl4health_tpu_torch.strategies.fedavg import FedAvg
+
+    logic, exchanger, ssl = pfl_arm(kind, tiny)
+    steps = dict(local_epochs=1) if tiny else dict(local_steps=LOCAL_STEPS)
+    return FederatedSimulation(
+        logic=logic, tx=optim.sgd(0.05), strategy=FedAvg(),
+        datasets=pfl_datasets(tiny, ssl, device), batch_size=8 if tiny else BATCH,
+        metrics=MetricManager(() if ssl else (efficient.accuracy(),)), exchanger=exchanger,
+        seed=3 if tiny else 0, execution_mode=mode, device=device, **steps)
+
+
+def tiny_pfl_parity() -> dict:
+    """Every arm's tiny fixture (the CPU tests') on the card and on the CPU,
+    3 rounds: each round's fit and eval losses (every key) within 5e-4."""
+    err = {}
+    for kind in PFL_KINDS:
+        card, cpu = (pfl_sim(kind, True, d).fit(PFL_TINY_ROUNDS) for d in ("cuda", "cpu"))
+        worst = 0.0
+        for a, b in zip(card, cpu, strict=True):
+            for field in ("fit_losses", "eval_losses"):
+                x, y = getattr(a, field), getattr(b, field)
+                if set(x) != set(y) or not all(np.isfinite(v) for v in x.values()):
+                    fail(f"tiny {kind} round {a.round}: {field} card {x}, CPU {y}")
+                worst = max(worst, *(abs(x[k] - y[k]) for k in x))
+        err[kind] = worst
+        if not worst <= PFL_TINY_TOL:
+            fail(f"tiny {kind}: card-vs-CPU max abs err {worst} > {PFL_TINY_TOL}")
+    out = {"phase": "tiny_pfl_parity", "rounds": PFL_TINY_ROUNDS, "max_abs_err": err}
+    print(json.dumps(out))
+    return out
+
+
+def client_spread(params: dict, prefix: str) -> float:
+    """The largest difference over the clients of the leaves under
+    ``prefix`` (0: every client holds the same)."""
+    keys = [k for k in params if k.startswith(prefix)]
+    if not keys:
+        fail(f"no params under {prefix}")
+    rows = torch.cat([params[k].reshape(params[k].shape[0], -1) for k in keys], 1)
+    return float((rows - rows[:1]).abs().max())
+
+
+def pfl_checks(kind: str, sim) -> dict:
+    """After the warm round (the clients' states after eval: the pulled
+    globals beside the kept private leaves): each arm's own check."""
+    hist, params = sim.history, sim.client_states.params
+    fit = [r.fit_losses for r in hist]
+    ev = [r.eval_losses["checkpoint"] for r in hist]
+    shared, private = {
+        "apfl": ("global_model/", "local_model/"),
+        "fenda": ("second_feature_extractor/", "first_feature_extractor/"),
+        "constrained_fenda": ("second_feature_extractor/", "first_feature_extractor/"),
+        "perfcl": ("second_feature_extractor/", "first_feature_extractor/"),
+        "fenda_ditto": ("global_model/", "personal_model/"),
+        "fedrep": ("features_module/", "head_module/"),
+        "fedper": ("features_module/", "head_module/"),
+        "gpfl": ("gce/embedding", "head/"),
+        "ensemble": (None, None), "simclr": (None, None),
+        "ditto_moon": ("global_model/", "personal_model/"),
+    }[kind]
+    out = {}
+    if shared is not None:
+        out = {"shared_spread": client_spread(params, shared),
+               "private_spread": client_spread(params, private)}
+        if out["shared_spread"] != 0.0 or not out["private_spread"] > 0.0:
+            fail(f"{kind}_cifar_cnn: {shared} spread {out['shared_spread']} (want 0), "
+                 f"{private} spread {out['private_spread']} (want > 0)")
+    if kind == "apfl":
+        alpha = sim.client_states.extra.alpha
+        out["alpha"] = [float(alpha.min()), float(alpha.max())]
+        if not (bool((alpha != 0.5).all()) and float(alpha.max() - alpha.min()) > 0.0):
+            fail(f"apfl_cifar_cnn: alphas {out['alpha']} did not all leave 0.5 and part")
+    term = {"constrained_fenda": "contrastive", "perfcl": "global_contrastive",
+            "ditto_moon": "personal_contrastive"}.get(kind)
+    if term is not None:
+        out[term] = [f[term] for f in fit]
+        if fit[0][term] != 0.0 or fit[1][term] == 0.0:
+            fail(f"{kind}_cifar_cnn: {term} {out[term]} (want 0, then non-zero)")
+    if kind == "simclr":
+        # the NT-Xent the clients minimise falls round on round; the
+        # held-out pairs' moves by noise over two rounds at 64 clients
+        # (the card's and the CPU's alike) and falls later
+        out["train_ntxent"] = [f["backward"] for f in fit]
+        if not fit[1]["backward"] < fit[0]["backward"]:
+            fail(f"simclr_cifar_cnn: the training NT-Xent {out['train_ntxent']} did not fall")
+    return out
+
+
+def pfl_cifar_cnn(fa, dp) -> dict:
+    """Phase 37: the tiny fixture card against CPU, then every arm at the DP
+    path's width (the 64 ``dp_cifar_cnn`` clients, batch 32, 5 SGD(0.05)
+    steps, f32, FedAvg), pipelined: a cold round, then a warm one timed,
+    the peak above the arm's start; ``perfcl`` also chunked, bit for bit
+    the pipelined run (cuDNN deterministic). K1-K5 launch 0 times over
+    the phase, as in JAX."""
+    counters = lambda: [dict(c) for c in (fa.LAUNCHES, fa.WGMMA_LAUNCHES, dp.LAUNCHES)]  # noqa: E731
+    fa.reset_launch_counts()
+    dp.reset_launch_counts()
+    t_phase = time.time()
+    tiny = tiny_pfl_parity()
+    arms = {}
+    for kind in PFL_KINDS:
+        sim = pfl_sim(kind, False, "cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        sim.fit(1)
+        torch.cuda.synchronize()
+        cold = time.time() - t0
+        t0 = time.time()
+        sim.fit(1)
+        torch.cuda.synchronize()
+        warm = time.time() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        for r in sim.history:
+            values = [*r.fit_losses.values(), *r.eval_losses.values()]
+            if not all(np.isfinite(v) for v in values):
+                fail(f"{kind}_cifar_cnn round {r.round}: non-finite losses {r.fit_losses} "
+                     f"{r.eval_losses}")
+        arm = {"phase": f"{kind}_cifar_cnn", "clients": DP_CLIENTS, "cold_round_s": cold,
+               "warm_round_s": warm, "peak_gb_above_start": peak,
+               "fit_losses": [r.fit_losses for r in sim.history],
+               "eval_losses": [r.eval_losses["checkpoint"] for r in sim.history],
+               **pfl_checks(kind, sim)}
+        if kind == "perfcl":
+            chunked = pfl_sim(kind, False, "cuda", mode="chunked")
+            chunked.fit(1)
+            chunked.fit(1)
+            arm["chunked_equal"] = history_equal(sim, chunked) and states_equal(sim, chunked)
+            if not arm["chunked_equal"]:
+                fail("perfcl_cifar_cnn: the chunked route parts from the pipelined route")
+            del chunked
+        print(json.dumps(arm))
+        arms[kind] = arm
+        del sim
+        torch.cuda.empty_cache()
+    launches = counters()
+    if any(v for c in launches for v in c.values()):
+        fail(f"phase 37 launched K1-K5: {launches}")
+    out = {"phase": "pfl_cifar_cnn", "arms": len(arms), "wall_s": time.time() - t_phase,
+           "tiny_max_abs_err": max(tiny["max_abs_err"].values()),
+           "warm_round_s": {k: a["warm_round_s"] for k, a in arms.items()},
+           "peak_gb_above_start": {k: a["peak_gb_above_start"] for k, a in arms.items()},
+           "launches": launches}
+    print(card_line())
+    print(json.dumps(out))
+    return out
+
+
 def elapsed(t_start: float, after: str) -> None:
     """The script's wall so far, after a slice's phases (where its 1200 s
     go)."""
@@ -5389,25 +5698,25 @@ def main() -> int:
         fa, dp, cohort["sources"][COHORT_SIZES[0]])["launches"]
     elapsed(t_start, "async (29-31)")
 
-    # the checkpoint slice: checkpoint and resume on every route, the
-    # SIGKILL drill in subprocesses, a card frame resumed on the CPU;
-    # cuDNN deterministic in these phases only (TF32 is off throughout)
+    # the checkpoint slice: checkpoint and resume on every route, a card
+    # frame resumed on the CPU; cuDNN deterministic in these phases only
+    # (TF32 is off throughout)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
         ckpt = ckpt_dp_cifar_cnn(dp)
-        ckpt_drill()
         ckpt_cohort = ckpt_cohort_dp_cifar_cnn(dp, cohort["sources"][COHORT_SIZES[0]])
         ckpt_async = ckpt_async_dp_cifar_cnn(dp)
         ckpt_card_to_cpu()
         elapsed(t_start, "checkpoints (32)")
         # the observability slice: on against off, the halt and its bundle,
-        # the cohort's ledger and ring, the SIGTERM drill
+        # the cohort's ledger and ring; then the checkpoint slice's SIGKILL
+        # drill and this slice's SIGTERM drill, their children side by side
         obs = obs_dp_cifar_cnn(dp)
         obs_halt_bundle(dp)
         obs_cohort_dp_cifar_cnn(dp, cohort["sources"])
-        obs_sigterm_drill()
-        elapsed(t_start, "observability (33)")
+        drills()
+        elapsed(t_start, "observability, the two drills (33)")
         # the recovery slice: the tiny drill card against CPU, the four DP
         # arms on both routes, the cohort's quarantine by registry id, the
         # server-lr rebind
@@ -5423,6 +5732,10 @@ def main() -> int:
         # the sweep slice: the 24-cell DP grid, Ditto and MR-MTL
         sweep = sweep_dp_cifar_cnn(dp)
         elapsed(t_start, "sweep, Ditto, MR-MTL (36)")
+        # the split-model personalisation family: eleven arms at the DP
+        # path's width, its tiny fixture card against CPU, PerFCL chunked
+        pfl_cifar_cnn(fa, dp)
+        elapsed(t_start, "split-model personalisation (37)")
     finally:
         torch.backends.cudnn.deterministic = deterministic
     del cohort

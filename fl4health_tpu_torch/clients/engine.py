@@ -37,8 +37,16 @@ seeded with the scale through ``torch.func.vjp``, the gradients are
 unscaled in f32, a non-finite gradient skips the optimizer step (``keep *
 finite``) and the scaler state in ``TrainState.loss_scale`` advances on
 real steps only. A logic that computes its own gradients (DP) is refused
-under scaling. Left out here: ZeRO-2 microbatching; and the algorithm hooks
-no ported logic overrides yet (``update_before_step``/``update_after_step``).
+under scaling. Left out here: ZeRO-2 microbatching.
+
+The algorithm step hooks run in JAX's order: ``update_before_step`` first,
+its changes selected back on a padding step (``step_mask`` 0), then the key
+split, the gradient and the optimizer, then ``update_after_step`` on the
+new state with the step's predictions, unmasked (a hook that must not move
+on padding steps masks itself, as APFL's alpha does). A leaf a hook hands
+back unchanged (the same tensor) is not selected, so the default hooks add
+no operation to a step. ``predict`` gets the logic's persistent state
+(``extra``, APFL's alpha) on train and eval calls alike.
 
 Telemetry (``collect_telemetry``, JAX's): each step also returns the global
 norm of the gradient the optimizer reads (``StepOutput.grad_norm``), and the
@@ -142,9 +150,12 @@ def from_module(module: torch.nn.Module) -> ModelDef:
     def init(generator: torch.Generator) -> Params:
         return module.init_params(generator)
 
-    def apply(params: Params, x: torch.Tensor, train: bool = True, rng=None):
+    def apply(params: Params, x: torch.Tensor, train: bool = True, rng=None, **kwargs):
+        # extra keyword arguments (APFL's alpha, GPFL's conditional inputs)
+        # reach the module's forward, as JAX's from_flax forwards them
         named = {k.replace("/", "."): v for k, v in params.items()}
-        kwargs = {"train": train, "rng": rng} if stochastic else {}
+        if stochastic:
+            kwargs = {"train": train, "rng": rng, **kwargs}
         return functional_call(module, named, (x,), kwargs)
 
     return ModelDef(init=init, apply=apply, module=module, takes_rng=stochastic)
@@ -176,8 +187,11 @@ class ClientLogic:
         return state
 
     def predict(self, params: Params, batch: Batch, rng=None, train: bool = False,
-                ctx=None):
-        del ctx
+                extra=None, ctx=None):
+        """``extra`` is the persistent algorithm state (APFL's alpha),
+        ``ctx`` the round's context (GPFL's conditional inputs), for logics
+        whose forward reads them."""
+        del extra, ctx
         kwargs = {"rng": rng} if self.model.takes_rng else {}
         return self.model.apply(params, batch.x, train=train, **kwargs)
 
@@ -196,8 +210,8 @@ class ClientLogic:
         scaling. ``step_rng`` is the model's dropout key."""
 
         def loss(params):
-            preds, features = self.predict(params, batch, train=True, ctx=ctx,
-                                           rng=step_rng)
+            preds, features = self.predict(params, batch, step_rng, train=True,
+                                           extra=state.extra, ctx=ctx)
             backward, additional = self.training_loss(preds, features, batch,
                                                       params, state, ctx)
             return backward, (preds, additional)
@@ -222,6 +236,17 @@ class ClientLogic:
         ``fold_in(step_rng, 0xA6)``; the default leaves it as it is."""
         del rng_key, ctx
         return batch
+
+    def update_before_step(self, state: TrainState, ctx: Any, batch: Batch) -> TrainState:
+        """Runs before the step's key split and gradient; the engine selects
+        its changes back on padding steps."""
+        return state
+
+    def update_after_step(self, state: TrainState, ctx: Any, batch: Batch,
+                          preds: dict | None = None) -> TrainState:
+        """Runs on the stepped state with the step's predictions (APFL's
+        alpha step), on padding steps too: unmasked by the engine."""
+        return state
 
     def pack(self, state: TrainState, pushed_params: Params, train_losses: dict) -> Any:
         return pushed_params
@@ -266,6 +291,12 @@ def _mask_tree(new, old, keep: torch.Tensor):
     return tree_map(lambda n, o: torch.where(keep > 0, n, o), new, old)
 
 
+def _mask_changed(new, old, keep: torch.Tensor):
+    """``_mask_tree`` over the leaves a hook replaced; a leaf handed back
+    as it was (the same tensor) is kept without a select."""
+    return tree_map(lambda n, o: n if n is o else torch.where(keep > 0, n, o), new, old)
+
+
 def make_train_step(logic: ClientLogic, tx: GradientTransformation,
                     collect_telemetry: bool = False, precision: Any = None):
     """step(state, ctx, batch) -> (state, StepOutput). ``precision`` (a
@@ -288,6 +319,8 @@ def make_train_step(logic: ClientLogic, tx: GradientTransformation,
             "use compute_dtype='bfloat16' with loss_scale='none'")
 
     def step(state: TrainState, ctx: Any, batch: Batch):
+        state = _mask_changed(logic.update_before_step(state, ctx, batch), state,
+                              batch.step_mask)
         next_key, step_key = rng.split(state.rng)
         batch = logic.augment(batch, rng.fold_in(step_key, 0xA6), ctx)
         finite = None
@@ -326,6 +359,7 @@ def make_train_step(logic: ClientLogic, tx: GradientTransformation,
             new_ls = precision_policy.loss_scale_step(state.loss_scale, finite, precision)
             new_state = dataclasses.replace(
                 new_state, loss_scale=_mask_tree(new_ls, state.loss_scale, keep))
+        new_state = logic.update_after_step(new_state, ctx, batch, preds=preds)
         out = StepOutput(
             losses={"backward": backward, **additional},
             preds=preds["prediction"],
@@ -419,16 +453,26 @@ def make_local_train(logic: ClientLogic, tx: GradientTransformation,
 
 def make_local_eval(logic: ClientLogic, metric_manager: MetricManager,
                     loss_keys: tuple[str, ...] = ("checkpoint",)):
-    """evaluate(state, ctx, batches) -> (loss_dict, metric_dict)."""
+    """evaluate(state, ctx, batches) -> (loss_dict, metric_dict). ``predict``
+    reads the state's ``extra`` and the round's context, as in JAX. JAX's
+    evaluate splits a step key off the state's key each step; a model that
+    takes ``rng`` gets it here too, and other models (which draw nothing
+    at apply time) get None, so the split's integer ops are not paid for a
+    key nothing reads."""
+    keyed = logic.model.takes_rng
 
     @torch.no_grad()
     def evaluate(state: TrainState, ctx: Any, batches: Batch):
         device = batches.step_mask.device
         meter = LossMeter.create(loss_keys, device)
         mstate = metric_manager.init(device)
+        key, step_key = state.rng, None
         for s in range(batches.step_mask.shape[0]):
             batch = _step_slice(batches, s)
-            preds, features = logic.predict(state.params, batch, train=False, ctx=ctx)
+            if keyed:
+                key, step_key = rng.split(key)
+            preds, features = logic.predict(state.params, batch, step_key, train=False,
+                                            extra=state.extra, ctx=ctx)
             loss, additional = logic.eval_loss(preds, features, batch,
                                                state.params, state, ctx)
             meter = meter.update(

@@ -58,7 +58,8 @@ class InstanceLevelDpMixin:
                        example_mask=torch.ones((1,), dtype=torch.float32,
                                                device=batch.step_mask.device),
                        step_mask=batch.step_mask)
-            preds, features = self.predict(params, b1, train=True, ctx=ctx)
+            preds, features = self.predict(params, b1, train=True, extra=state.extra,
+                                           ctx=ctx)
             loss, additional = self.training_loss(preds, features, b1, params,
                                                   state, ctx)
             return loss, (preds, additional)

@@ -1,6 +1,7 @@
-"""Contrastive losses (counterpart of ``fl4health_tpu/losses/contrastive.py``:
-``cosine_similarity`` and MOON's ``moon_contrastive_loss``; NT-Xent and
-PerFCL's losses wait for the personalisation slice)."""
+"""Contrastive losses (counterpart of ``fl4health_tpu/losses/contrastive.py``):
+``cosine_similarity``, MOON's ``moon_contrastive_loss``, SimCLR's
+``ntxent_loss``, ``cosine_similarity_loss`` and PerFCL's ``perfcl_loss``;
+each takes an optional ``[B]`` example mask, as JAX's do."""
 
 from __future__ import annotations
 
@@ -46,3 +47,62 @@ def moon_contrastive_loss(
         m = mask.float()
         return (per_example * m).sum() / torch.clamp(m.sum(), min=1.0)
     return per_example.mean()
+
+
+def _masked_mean(per: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    if mask is None:
+        return per.mean()
+    m = mask.float()
+    return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def ntxent_loss(
+    features: torch.Tensor,
+    transformed_features: torch.Tensor,
+    temperature: float = 0.5,
+    mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """NT-Xent (SimCLR) over ``[B, D]`` paired views: for each of the 2B
+    anchors the positive is its pair, the negatives every other valid row.
+    Self-similarity and padded columns are set to the dtype's lowest
+    value; the mean runs over the valid anchors of both views."""
+    b = features.shape[0]
+    z = torch.cat([features, transformed_features], dim=0)  # [2B, D]
+    sim = cosine_similarity(z[:, None, :], z[None, :, :]) / temperature  # [2B, 2B]
+    valid = (torch.ones((b,), dtype=torch.float32, device=z.device) if mask is None
+             else mask.float())
+    valid2 = torch.cat([valid, valid])
+    diag = torch.eye(2 * b, dtype=torch.bool, device=z.device)
+    sim = torch.where(diag | (valid2[None, :] < 0.5),
+                      torch.full_like(sim, torch.finfo(sim.dtype).min), sim)
+    rows = torch.arange(2 * b, device=z.device)
+    pos_idx = torch.cat([rows[:b] + b, rows[:b]])
+    per_anchor = -F.log_softmax(sim, dim=-1)[rows, pos_idx]
+    return (per_anchor * valid2).sum() / torch.clamp(valid2.sum(), min=1.0)
+
+
+def cosine_similarity_loss(features: torch.Tensor, reference_features: torch.Tensor,
+                           mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The mean |cos| of each row against its reference row, minimised to
+    push the two apart."""
+    return _masked_mean(cosine_similarity(features, reference_features).abs(), mask)
+
+
+def perfcl_loss(
+    local_features: torch.Tensor,
+    old_local_features: torch.Tensor,
+    global_features: torch.Tensor,
+    old_global_features: torch.Tensor,
+    initial_global_features: torch.Tensor,
+    temperature: float = 0.5,
+    mask: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """PerFCL's two contrastive terms, (global, local): the global stream
+    pulled toward the received (aggregated) model's global features and
+    away from last round's; the local stream pulled toward last round's
+    local features and away from the received global features."""
+    g = moon_contrastive_loss(global_features, initial_global_features[None],
+                              old_global_features[None], temperature, mask)
+    loc = moon_contrastive_loss(local_features, old_local_features[None],
+                                initial_global_features[None], temperature, mask)
+    return g, loc

@@ -24,11 +24,18 @@ RENAMED = "Renamed parameters"  # a ROADMAP.md departure: same slot, the port's 
 PALLAS = "Pallas tiling parameters"  # a ROADMAP.md departure
 INIT = "**Init** draws from a `torch.Generator`"  # a ROADMAP.md departure
 _KEY = {"rng": RENAMED}
+MODEL_STATE = {"model_state": "`TrainState.model_state`"}  # ROADMAP.md A12's first item
 
 # (module, qualified name) -> {JAX parameter the port lacks: ROADMAP anchor}
 MISSING = {
     ("clients.engine", "ClientLogic.augment"): _KEY,
-    ("clients.engine", "ClientLogic.predict"): {"model_state": "A12", "extra": "A12"},
+    ("clients.engine", "ClientLogic.predict"): MODEL_STATE,
+    ("clients.apfl", "ApflClientLogic.predict"): MODEL_STATE,
+    ("clients.fedsimclr", "FedSimClrClientLogic.predict"): MODEL_STATE,
+    ("clients.gpfl", "GpflClientLogic.predict"): MODEL_STATE,
+    ("clients.personalized", "MrMtlPersonalizedLogic.predict"): MODEL_STATE,
+    ("clients.personalized", "DittoPersonalizedLogic.augment"): _KEY,
+    ("clients.personalized", "MrMtlPersonalizedLogic.augment"): _KEY,
     ("clients.engine", "create_train_state"): {"rng": INIT, "sample_x": INIT},
     ("clients.engine", "epoch_batches"): _KEY,
     ("clients.nnunet", "NnunetClientLogic.augment"): _KEY,
@@ -133,6 +140,56 @@ SWEEP_AND_DITTO = [
 
 @pytest.mark.parametrize("key", SWEEP_AND_DITTO, ids=lambda k: f"{k[0]}:{k[1]}")
 def test_the_sweep_and_ditto_callables_are_shared(key):
+    assert key in SHARED, key
+
+
+def _methods(module: str, cls: str, *names: str) -> list:
+    return [(module, f"{cls}.{n}") for n in names]
+
+
+# the split-model personalisation family's public callables and the
+# engine's step hooks, each held by the checks below
+PERSONALIZATION = [
+    *_methods("clients.engine", "ClientLogic", "predict", "update_before_step",
+              "update_after_step"),
+    *_methods("clients.apfl", "ApflClientLogic", "__init__", "init_extra", "predict",
+              "training_loss", "update_after_step", "eval_loss"),
+    ("clients.apfl", "apfl_model_def"),
+    *_methods("clients.fenda", "PerFclClientLogic", "__init__", "init_extra",
+              "init_round_context", "training_loss", "finalize_round"),
+    *_methods("clients.fenda", "ConstrainedFendaClientLogic", "__init__", "init_extra",
+              "training_loss", "finalize_round"),
+    *_methods("clients.fenda", "FendaDittoClientLogic", "__init__", "init_round_context",
+              "training_loss", "eval_loss"),
+    *_methods("clients.fedrep", "FedRepClientLogic", "__init__", "init_round_context",
+              "transform_gradients"),
+    *_methods("clients.gpfl", "GpflClientLogic", "__init__", "init_round_context", "predict",
+              "training_loss"),
+    ("clients.gpfl", "gpfl_model_def"),
+    *_methods("clients.ensemble", "EnsembleClientLogic", "__init__", "training_loss"),
+    *_methods("clients.fedsimclr", "FedSimClrClientLogic", "__init__", "predict",
+              "training_loss", "eval_loss"),
+    *_methods("clients.personalized", "DittoPersonalizedLogic", "__init__", "init_extra",
+              "augment", "init_round_context", "training_loss", "eval_loss",
+              "transform_gradients", "update_before_step", "update_after_step",
+              "finalize_round", "pack"),
+    *_methods("clients.personalized", "MrMtlPersonalizedLogic", "__init__", "init_extra",
+              "augment", "init_round_context", "predict", "training_loss", "eval_loss",
+              "transform_gradients", "update_before_step", "update_after_step",
+              "finalize_round", "pack"),
+    ("clients.personalized", "twin_model_def"), ("clients.personalized", "make_it_personal"),
+    ("clients.personalized", "exchange_global_subtree"),
+    ("losses.contrastive", "ntxent_loss"), ("losses.contrastive", "cosine_similarity_loss"),
+    ("losses.contrastive", "perfcl_loss"),
+    ("models.bases", "SequentiallySplitModel.exchange_features_only"),
+    ("models.bases", "ParallelSplitModel.exchange_global_extractor"),
+    ("models.bases", "ApflModule.exchange_global_model"),
+    ("models.bases", "GpflModel.exchange_shared"),
+]
+
+
+@pytest.mark.parametrize("key", PERSONALIZATION, ids=lambda k: f"{k[0]}:{k[1]}")
+def test_the_personalization_callables_are_shared(key):
     assert key in SHARED, key
 
 

@@ -221,8 +221,8 @@ def trainable_only_grads(sim) -> None:
     def value_and_grads(state, ctx, batch, step_rng):
         def loss(trainable):
             params = {**state.params, **trainable}
-            preds, features = logic.predict(params, batch, train=True, ctx=ctx,
-                                            rng=step_rng)
+            preds, features = logic.predict(params, batch, step_rng, train=True,
+                                            extra=state.extra, ctx=ctx)
             backward, additional = logic.training_loss(preds, features, batch, params,
                                                        state, ctx)
             return backward, (preds, additional)
