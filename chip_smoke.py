@@ -312,6 +312,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``mrmtl_cifar_cnn`` over the 64 clients, 2 rounds each: finite losses,
      Ditto's global copies equal and personal copies apart, MR-MTL's params
      off the aggregate, no kernel launched; the warm round and the peak.
+ 38. The mesh slice (``parallel/``), a one-rank NCCL world from a FileStore:
+     ``mesh_dp_cifar_cnn`` (the DP path with ``MeshConfig()`` on the
+     pipelined and the chunked route, K1/K2 10/80 a run),
+     ``mesh_zero1_bert_lora_fedopt`` (config 3 with ``MeshConfig(zero1=True)``,
+     K3/K4/K5 144/120/120) and ``ring_transformer_long`` (the main path with
+     ``ring_flash_attention`` over a one-rank seq axis, 88/40/40), each 2
+     rounds bit for bit against its unsharded run in the same call; each
+     arm's warm round, peak and launches.
 ``fit`` takes its default route, ``execution_mode`` "auto": chunked unless
 something needs the host between rounds (a strict failure policy, a data
 provider), then pipelined. Neither waits for the device inside a round, so
@@ -5590,6 +5598,155 @@ def pfl_cifar_cnn(fa, dp) -> dict:
     return out
 
 
+# -- the mesh slice: device meshes on torch.distributed -----------------------
+#
+# The card's machine has one H100, and two NCCL ranks cannot share a device,
+# so the mesh runs as a one-rank NCCL world: every collective of the sharded
+# programs is called through NCCL (all-reduce of the aggregate, the
+# gathers of the per-client records, the ZeRO-1 update's all-gather, the
+# ring's scatter and gather) and must leave every bit as the unsharded run
+# leaves it.
+
+def nccl_world():
+    """A one-rank NCCL world from a FileStore in a temporary directory (no
+    network); returns the directory to remove."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(root, "store"), 1),
+                            rank=0, world_size=1, device_id=torch.device("cuda", 0))
+    return root
+
+
+def timed_fit(sim, rounds: int, counters) -> dict:
+    """``sim.fit(rounds)`` from zeroed launch counts and peak: the synchronised
+    wall, the peak device memory above what was allocated at its start (the
+    arm's other runs and earlier phases' tensors stay out) and the launches."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    for c in counters:
+        c.reset_launch_counts()
+    t0 = time.time()
+    sim.fit(rounds)
+    torch.cuda.synchronize()
+    return {"wall_s": time.time() - t0,
+            "peak_gib_above_start": (torch.cuda.max_memory_allocated() - start) / 2**30,
+            "launches": {k: v for c in counters for k, v in c.LAUNCHES.items()}}
+
+
+def mesh_arm(name: str, build, counters, expected: dict, modes=("pipelined",)) -> dict:
+    """One arm: the unsharded run and the sharded one (per route) of the same
+    recipe, 2 rounds each from the same init, bit for bit; then warm rounds
+    of each in turns, synchronised, and each run's peak device memory.
+    Launches are counted over each 2-round run."""
+    out = {"arm": name}
+    ref = build(None, modes[0])
+    init = {k: v.clone() for k, v in ref.global_params.items()}
+    runs = {"unsharded": (ref, timed_fit(ref, 2, counters))}
+    for mode in modes:
+        sim = build("mesh", mode)
+        if not all(torch.equal(sim.global_params[k], v) for k, v in init.items()):
+            fail(f"{name}: the sharded run's init differs from the unsharded one's")
+        runs[f"mesh_{mode}"] = (sim, timed_fit(sim, 2, counters))
+    for key, (sim, stats) in runs.items():
+        hist = [(r.fit_losses, r.eval_losses, r.eval_metrics) for r in sim.history]
+        if not all(np.isfinite(v) for h in hist for d in h for v in d.values()):
+            fail(f"{name} {key}: non-finite records {hist}")
+        if stats["launches"] != expected:
+            fail(f"{name} {key}: launches {stats['launches']}, expected {expected}")
+        if key != "unsharded":
+            if not history_equal(sim, ref):
+                fail(f"{name} {key}: records differ from the unsharded run's")
+            if not all(torch.equal(sim.global_params[k], v)
+                       for k, v in ref.global_params.items()):
+                fail(f"{name} {key}: global params differ from the unsharded run's")
+    for key, (sim, stats) in runs.items():
+        out[key] = {**stats, "warm_round_s": [],
+                    "fit_losses": [r.fit_losses["backward"] for r in sim.history]}
+    # then warm rounds in turns (unsharded, sharded..., sharded..., unsharded)
+    for key in [*runs, *reversed(runs)]:
+        torch.cuda.synchronize()
+        t0 = time.time()
+        runs[key][0].fit(1)
+        torch.cuda.synchronize()
+        out[key]["warm_round_s"].append(time.time() - t0)
+    for key in runs:
+        print(json.dumps({"mesh_arm": name, "run": key, **out[key]}))
+    runs.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_slice(fa, dp) -> dict:
+    """Phase 38: ``mesh_dp_cifar_cnn`` (MeshConfig() on both routes),
+    ``mesh_zero1_bert_lora_fedopt`` (MeshConfig(zero1=True)) and
+    ``ring_transformer_long`` (the flash ring over a one-rank seq axis),
+    each against its unsharded run in the same call."""
+    import functools
+
+    import torch.distributed as dist
+
+    from fl4health_tpu_torch.kernels.flash_attention import flash_attention
+    from fl4health_tpu_torch.parallel.mesh import make_mesh
+    from fl4health_tpu_torch.parallel.program import MeshConfig
+    from fl4health_tpu_torch.parallel.ring_attention import ring_flash_attention
+    from fl4health_tpu_torch.parallel.zero import ZeroShardedOptimizer
+
+    root = nccl_world()
+    try:
+        dp_data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+
+        def dp_build(mesh, mode):
+            return build_dp_sim(dp_data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                                execution_mode=mode,
+                                mesh=MeshConfig() if mesh else None)
+
+        steps = DP_ROUNDS * LOCAL_STEPS
+        dp_arm = mesh_arm("mesh_dp_cifar_cnn", dp_build, [dp],
+                          {"dp_sq_norms": steps, "dp_scaled_sum": steps * len(CIFAR_LEAVES)},
+                          modes=("pipelined", "chunked"))
+
+        bert_data = bert_datasets(BERT_CFG, BERT_CLIENTS, BERT_TRAIN + BERT_VAL, BERT_TRAIN)
+
+        def bert_build(mesh, mode):
+            sim = build_bert_sim(BERT_CFG, bert_data, torch.bfloat16, "cuda", 0,
+                                 flash_attention, False, BERT_LR, BATCH, LOCAL_STEPS,
+                                 execution_mode=mode,
+                                 mesh=MeshConfig(zero1=True) if mesh else None)
+            if mesh and not isinstance(sim.strategy.tx, ZeroShardedOptimizer):
+                fail("mesh_zero1_bert_lora_fedopt: the server optimizer is not ZeRO-1")
+            return sim
+
+        layers = BERT_CFG["n_layers"]
+        bert_arm = mesh_arm("mesh_zero1_bert_lora_fedopt", bert_build, [fa],
+                            {"flash_fwd": 2 * layers * (LOCAL_STEPS + 1),
+                             "flash_bwd_dq": 2 * layers * LOCAL_STEPS,
+                             "flash_bwd_dkv": 2 * layers * LOCAL_STEPS})
+
+        cfg = dict(vocab_size=8192, n_classes=4, d_model=512, n_heads=8, n_layers=4,
+                   d_ff=2048, max_len=T)
+        text = text_datasets(8192, T, BATCH * LOCAL_STEPS + 16, BATCH * LOCAL_STEPS)
+        ring = functools.partial(ring_flash_attention, mesh=make_mesh((1,), ("seq",)))
+
+        def ring_build(mesh, mode):
+            return build_sim(cfg, text, torch.bfloat16, "cuda", seed=0,
+                             attention_fn=ring if mesh else flash_attention,
+                             execution_mode=mode)
+
+        ring_arm = mesh_arm("ring_transformer_long", ring_build, [fa],
+                            {"flash_fwd": 2 * (LOCAL_STEPS * 4 * 2 + 4),
+                             "flash_bwd_dq": 2 * LOCAL_STEPS * 4,
+                             "flash_bwd_dkv": 2 * LOCAL_STEPS * 4})
+    finally:
+        dist.destroy_process_group()
+        drop_dirs(root)
+    return {"dp": dp_arm, "bert": bert_arm, "ring": ring_arm}
+
+
 def elapsed(t_start: float, after: str) -> None:
     """The script's wall so far, after a slice's phases (where its 1200 s
     go)."""
@@ -5736,6 +5893,10 @@ def main() -> int:
         # path's width, its tiny fixture card against CPU, PerFCL chunked
         pfl_cifar_cnn(fa, dp)
         elapsed(t_start, "split-model personalisation (37)")
+        # the mesh slice: a one-rank NCCL world, three arms bit for bit
+        # against their unsharded runs
+        mesh = mesh_slice(fa, dp)
+        elapsed(t_start, "mesh (38)")
     finally:
         torch.backends.cudnn.deterministic = deterministic
     del cohort
@@ -5774,6 +5935,11 @@ def main() -> int:
             # config 3 (bert_lora_fedopt_base): its launches, and the kernel at
             # its shape, 4 clients folded at T 128, 12 heads, bf16
             "launches_bert_lora_fedopt_base": bert_launches[name],
+            # the mesh slice (phase 38): ZeRO-1 config 3 and the flash ring
+            # over a one-rank NCCL world, 2 rounds each
+            "launches_mesh_zero1_bert_lora_fedopt":
+                mesh["bert"]["mesh_pipelined"]["launches"][name],
+            "launches_ring_transformer_long": mesh["ring"]["mesh_pipelined"]["launches"][name],
             "launches_nnunet_fullres": nnunet_launches[name],
             "launches_cohort_dp_cifar_cnn": cohort_launches[name],
             "launches_async_dp_cifar_cnn": async_launches[name],
@@ -5827,6 +5993,11 @@ def main() -> int:
             "launches_ops_dp_cifar_cnn": ops["introspection"]["launches"]["on"][name],
             # the sweep slice: the 24-cell grid, 2 rounds a cell (packed)
             "launches_sweep_dp_cifar_cnn": sweep["launches"][name],
+            # the mesh slice (phase 38): MeshConfig() over a one-rank NCCL
+            # world, 2 rounds a route
+            "launches_mesh_dp_cifar_cnn": mesh["dp"]["mesh_pipelined"]["launches"][name],
+            "launches_mesh_dp_cifar_cnn_chunked":
+                mesh["dp"]["mesh_chunked"]["launches"][name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

@@ -697,10 +697,8 @@ class SimulationStateCheckpointer(StateCheckpointer):
         self._check_config(info, sim)
         c_ids = header.get("registry_client_ids") or []
         s_ids = header.get("registry_strategy_ids") or []
-        templates = {
-            "server_state": sim.server_state,
-            "client_states": sim.client_states,
-        }
+        # the global trees' structure (under a mesh, gathered from the ranks)
+        templates = dict(sim._snapshot_trees())
         row_templates = sim.registry.row_templates(len(c_ids), len(s_ids))
         if "client_rows" in row_templates:
             templates["registry_client_rows"] = row_templates["client_rows"]
@@ -763,11 +761,8 @@ class SimulationStateCheckpointer(StateCheckpointer):
                 f"{sim.n_clients}"
             )
         self._check_config(info, sim)
-        trees = serialization.from_bytes(
-            {"server_state": sim.server_state,
-             "client_states": sim.client_states},
-            blob,
-        )
+        # the global trees' structure (under a mesh, gathered from the ranks)
+        trees = serialization.from_bytes(sim._snapshot_trees(), blob)
         sim.adopt_restored_state(trees["server_state"],
                                  trees["client_states"])
         sim.history = DataclassListSnapshotter().load(

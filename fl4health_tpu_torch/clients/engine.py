@@ -297,6 +297,54 @@ def _mask_changed(new, old, keep: torch.Tensor):
     return tree_map(lambda n, o: n if n is o else torch.where(keep > 0, n, o), new, old)
 
 
+def _microbatched_value_and_grads(logic: ClientLogic, tx: Any, state: TrainState,
+                                  ctx: Any, batch: Batch, step_key: torch.Tensor):
+    """The ZeRO-2 gradient path (JAX's): the batch split into
+    ``tx.n_shards`` microbatches, each one's gradient (after
+    ``transform_gradients``) computed on its own key ``fold_in(step_key,
+    k)``, and the UNREDUCED ``[n_shards]``-leading stack handed to
+    ``tx.update``, whose ``psum_scatter`` reduces it
+    (``parallel/zero.py``). Microbatch ``k``'s gradient is pre-scaled by
+    ``n M_k / M_total`` (``M_k`` its valid examples), so the optimizer's
+    uniform mean is the full batch's masked-mean gradient; the loss and
+    the additional losses recombine with the weights ``M_k / M_total``.
+    Exact for masked example-mean losses and affine gradient transforms,
+    as in JAX; batch-coupled losses change under microbatching."""
+    n = tx.n_shards
+    b = batch.example_mask.shape[0]
+    if b % n != 0:
+        raise ValueError(
+            f"ZeRO-2 engine path needs batch size divisible by n_shards: "
+            f"batch={b}, n_shards={n}")
+    m = b // n
+
+    def micro(k: int) -> Batch:
+        cut = lambda a: a[k * m:(k + 1) * m]  # noqa: E731
+        return Batch(x=tree_map(cut, batch.x), y=tree_map(cut, batch.y),
+                     example_mask=cut(batch.example_mask), step_mask=batch.step_mask)
+
+    outs = []
+    for k in range(n):
+        mb = micro(k)
+        (bw, (preds, additional)), g = logic.value_and_grads(
+            state, ctx, mb, rng.fold_in(step_key, k))
+        outs.append((bw, preds, additional, logic.transform_gradients(g, state, ctx),
+                     mb.example_mask.to(torch.float32).sum()))
+    m_k = torch.stack([o[4] for o in outs])
+    m_tot = torch.clamp(m_k.sum(), min=1.0)
+    w = n * m_k / m_tot  # the uniform mean of w_k g_k is the masked-mean grad
+    grads = {key: torch.stack([o[3][key] for o in outs])
+             * w.reshape((n,) + (1,) * outs[0][3][key].ndim) for key in outs[0][3]}
+
+    def recombine(values):  # sum_k (M_k / M_tot) v_k
+        return ((w / n) * torch.stack(values)).sum()
+
+    backward = recombine([o[0] for o in outs])
+    additional = {key: recombine([o[2][key] for o in outs]) for key in outs[0][2]}
+    preds = tree_map(lambda *ps: torch.cat(ps, dim=0), *[o[1] for o in outs])
+    return backward, preds, additional, grads
+
+
 def make_train_step(logic: ClientLogic, tx: GradientTransformation,
                     collect_telemetry: bool = False, precision: Any = None):
     """step(state, ctx, batch) -> (state, StepOutput). ``precision`` (a
@@ -309,6 +357,26 @@ def make_train_step(logic: ClientLogic, tx: GradientTransformation,
     if precision is not None and precision.casts_compute:
         logic = precision_policy.wrap_logic_compute(logic, precision.compute_torch_dtype)
     scaling = precision is not None and precision.scaling_active
+    unreduced = getattr(tx, "expects_unreduced_grads", False)
+    if scaling and unreduced:
+        raise ValueError(
+            "loss scaling cannot compose with the ZeRO-2 microbatched "
+            "gradient path (expects_unreduced_grads): the per-microbatch "
+            "finite screen would skip shards independently and the "
+            "pre-scaled recombination no longer holds — use bf16 (no "
+            "scaling) with ZeRO-2")
+    if unreduced:
+        # the microbatch weighting is calibrated for a uniform mean
+        if getattr(tx, "reduce", "mean") != "mean":
+            raise ValueError(
+                "expects_unreduced_grads optimizers must use reduce='mean' "
+                f"through the engine (got {tx.reduce!r}) — the microbatch "
+                "weighting is calibrated for a uniform mean")
+        if type(logic).value_and_grads is not ClientLogic.value_and_grads:
+            raise TypeError(
+                f"ZeRO-2 microbatching cannot wrap {type(logic).__name__}: "
+                "it overrides value_and_grads (e.g. DP per-example "
+                "gradients), whose semantics change under microbatching")
     if scaling and type(logic).value_and_grads is not ClientLogic.value_and_grads:
         # the logic's own mechanism (DP's clip and noise) would see scaled
         # gradients: its bound and noise would be mis-calibrated
@@ -324,7 +392,10 @@ def make_train_step(logic: ClientLogic, tx: GradientTransformation,
         next_key, step_key = rng.split(state.rng)
         batch = logic.augment(batch, rng.fold_in(step_key, 0xA6), ctx)
         finite = None
-        if scaling:
+        if unreduced:
+            backward, preds, additional, grads = _microbatched_value_and_grads(
+                logic, tx, state, ctx, batch, step_key)
+        elif scaling:
             ls = state.loss_scale
             if ls is None:
                 raise ValueError("loss scaling needs the carried scaler state: build the "
@@ -341,7 +412,8 @@ def make_train_step(logic: ClientLogic, tx: GradientTransformation,
         else:
             (backward, (preds, additional)), grads = logic.value_and_grads(
                 state, ctx, batch, step_key)
-        grads = logic.transform_gradients(grads, state, ctx)
+        if not unreduced:  # the microbatched path transformed each microbatch's
+            grads = logic.transform_gradients(grads, state, ctx)
         updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
         new_params = apply_updates(state.params, updates)
         keep = batch.step_mask  # padding steps must not move anything

@@ -30,6 +30,7 @@ from fl4health_tpu_torch.compression.codecs import compress_update
 from fl4health_tpu_torch.compression.config import CompressionConfig
 from fl4health_tpu_torch.core import pytree as ptu
 from fl4health_tpu_torch.core.pytree import tree_dataclass
+from fl4health_tpu_torch.parallel.compat import client_offset
 from fl4health_tpu_torch.strategies.base import FitResults, Strategy
 
 
@@ -99,6 +100,18 @@ class CompressingStrategy(Strategy):
                         for k, p in params.items()}
         return CompressedExchangeState(inner=self.inner.init(params), residual=residual)
 
+    def state_sharding_spec(self, server_state: CompressedExchangeState,
+                            clients_axis: str):
+        """On a client mesh the per-client ``[C, ...]`` EF residual stack
+        shards over the clients axis; the inner strategy's state follows
+        its own spec."""
+        from fl4health_tpu_torch.parallel.mesh import P
+        from fl4health_tpu_torch.strategies.base import inner_state_sharding_spec
+
+        return CompressedExchangeState(
+            inner=inner_state_sharding_spec(self.inner, server_state.inner, clients_axis),
+            residual=P(clients_axis) if server_state.residual is not None else None)
+
     def global_params(self, server_state: CompressedExchangeState):
         return self.inner.global_params(server_state.inner)
 
@@ -163,7 +176,9 @@ class CompressingStrategy(Strategy):
         ``torch.func.vmap``; ``reference`` is what every client pulled.
         Residual rows change only where ``mask`` participates."""
         n = ptu.tree_leaves(stacked)[0].shape[0]
-        keys = rng.fold_in_many(round_key, torch.arange(n, device=round_key.device))
+        # client i's key by its global index (under a mesh, this rank's block)
+        keys = rng.fold_in_many(round_key, torch.arange(n, device=round_key.device)
+                                + client_offset())
         config = self.config
 
         def cast_back(r, d):

@@ -1,6 +1,12 @@
 """Aggregation over the clients axis (counterpart of
 ``fl4health_tpu/core/aggregate.py``): a masked weighted mean along axis 0 of
 client-stacked params, with the same empty-cohort and NaN-row guarantees.
+
+Under a mesh (``parallel/compat.py`` ``client_axis``) a rank holds a block
+of the clients: each sum over clients is the rank's partial sum in the
+single-process order, all-reduced over the clients axis (XLA's sharded
+sum; its summation order is the partials', so a sharded run agrees with an
+unsharded one to rounding, and a one-rank world bit for bit).
 """
 
 from __future__ import annotations
@@ -9,6 +15,10 @@ import torch
 
 from fl4health_tpu_torch.core.pytree import tree_leaves, tree_map
 from fl4health_tpu_torch.core.types import PyTree, StackedParams
+from fl4health_tpu_torch.parallel.compat import (client_all, client_block,  # noqa: F401
+                                                 client_count, client_max,
+                                                 client_offset, client_psum,
+                                                 client_total)
 
 
 def expand_clients(w: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
@@ -27,7 +37,7 @@ def effective_weights(
     m = (torch.ones_like(counts) if mask is None
          else torch.as_tensor(mask, dtype=torch.float32, device=counts.device))
     raw = counts * m if weighted else m
-    total = raw.sum()
+    total = client_total(raw)
     return torch.where(total > 0, raw / torch.clamp(total, min=1e-12),
                        torch.zeros_like(raw))
 
@@ -79,7 +89,7 @@ def client_sum(values: torch.Tensor) -> torch.Tensor:
     out = acc[0]
     for i in range(1, acc.shape[0]):
         out = out + acc[i]
-    return out
+    return client_psum(out)
 
 
 def weighted_mean(stacked: StackedParams, weights: torch.Tensor) -> PyTree:
@@ -110,6 +120,7 @@ def weighted_mean(stacked: StackedParams, weights: torch.Tensor) -> PyTree:
             row = torch.where(w[i] > 0, flat[i], zero).double()
             acc = torch.addcmul(acc, row, w[i].double()).float().double()
         out = acc.float()
+    out = client_psum(out)
     pieces = iter(torch.split(out, [x[0].numel() for x in leaves]))
     return tree_map(lambda x: next(pieces).view(x.shape[1:]).to(x.dtype), stacked)
 

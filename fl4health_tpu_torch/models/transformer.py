@@ -63,7 +63,17 @@ class LoraDense(nn.Module):
     """Dense with an additive low-rank adapter: ``y = xW + s (x A) B``;
     ``lora_b`` starts at zero so the adapted model starts at the base model.
     ``dtype`` is the compute dtype; None computes in the promoted dtype of
-    the input, kernel and bias (flax ``nn.Dense(dtype=None)``)."""
+    the input, kernel and bias (flax ``nn.Dense(dtype=None)``).
+
+    Under tensor parallelism (``parallel/tp.py`` ``enable_tensor_parallel``
+    sets ``tp_role`` and ``tp_axis``) the params are this rank's Megatron
+    shards: a ``"column"`` layer takes ``f`` on its input (all-reduce of
+    the input's gradient) and on ``x A``, a ``"row"`` layer's partial
+    ``x W`` and ``x A`` take ``g`` (all-reduce) before the replicated bias
+    and ``B``."""
+
+    tp_role: str | None = None
+    tp_axis = None
 
     def __init__(self, in_features: int, features: int, rank: int = 0,
                  alpha: float = 16.0, dtype: torch.dtype | None = torch.float32):
@@ -89,11 +99,29 @@ class LoraDense(nn.Module):
         dtype = (self.dtype if self.dtype is not None
                  else conv_compute_dtype(x.dtype, self.kernel.dtype, self.bias.dtype))
         xd = x.to(dtype)
+        if self.tp_role is not None:
+            return self._forward_tp(xd, dtype)
         y = xd @ self.kernel.to(dtype) + self.bias.to(dtype)
         if self.rank > 0:
             scale = self.alpha / self.rank
             y = y + scale * ((xd @ self.lora_a.to(dtype)) @ self.lora_b.to(dtype))
         return y
+
+    def _forward_tp(self, xd: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        from fl4health_tpu_torch.parallel.compat import copy_to_axis, reduce_from_axis
+
+        axis, scale = self.tp_axis, self.alpha / max(self.rank, 1)
+        if self.tp_role == "column":
+            y = copy_to_axis(xd, axis) @ self.kernel.to(dtype) + self.bias.to(dtype)
+            if self.rank > 0:
+                xa = copy_to_axis(xd @ self.lora_a.to(dtype), axis)
+                y = y + scale * (xa @ self.lora_b.to(dtype))
+            return y
+        y = reduce_from_axis(xd @ self.kernel.to(dtype), axis)
+        if self.rank > 0:
+            xa = reduce_from_axis(xd @ self.lora_a.to(dtype), axis)
+            y = y + scale * (xa @ self.lora_b.to(dtype))
+        return y + self.bias.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +342,9 @@ class MultiHeadSelfAttention(nn.Module):
         head_dim = self.d_model // self.n_heads
 
         def split(t):
-            return t.reshape(*t.shape[:-1], self.n_heads, head_dim)
+            # the heads this rank holds: all of them, or its tensor-parallel
+            # shard's n_heads / model
+            return t.reshape(*t.shape[:-1], t.shape[-1] // head_dim, head_dim)
 
         q, k, v = split(self.q_proj(x)), split(self.k_proj(x)), split(self.v_proj(x))
         if self.attention_fn is not None:
@@ -329,7 +359,7 @@ class MultiHeadSelfAttention(nn.Module):
             if drop_key is not None:
                 attn = dropout(attn, self.dropout_rate, drop_key)
             out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
-        out = out.reshape(*out.shape[:-2], self.d_model)
+        out = out.reshape(*out.shape[:-2], out.shape[-2] * head_dim)
         return self.o_proj(out)
 
 

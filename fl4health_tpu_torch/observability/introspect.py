@@ -77,7 +77,8 @@ class ProgramReport:
     # cohort-draw site of a registry program ("in_graph" for the cohort
     # chunk); None on dense programs (omitted from as_dict/events)
     cohort_draw: str | None = None
-    # mesh descriptor: the port places no mesh, so always None (omitted)
+    # the mesh descriptor (RoundProgramBuilder.descriptor()) of a program
+    # built for a mesh; None without one (omitted from as_dict/events)
     mesh: dict | None = None
     # precision-policy descriptor under an active mixed-precision policy;
     # None on f32 builds (omitted from as_dict/events)
@@ -152,7 +153,8 @@ class ProgramIntrospector:
     # -- capture ---------------------------------------------------------
     def introspect_fn(self, name: str, fn: Any, args: tuple, device="cpu",
                       rounds_per_dispatch: int = 1, precision: dict | None = None,
-                      cohort_draw: str | None = None) -> ProgramReport | None:
+                      cohort_draw: str | None = None,
+                      mesh: dict | None = None) -> ProgramReport | None:
         """Run ``fn(*args)`` once on fake tensors (``hloscan.count_program``)
         and record the report. A chunk's ``args`` hold one round's inputs
         (its rounds are one function run back to back): its counts are
@@ -174,7 +176,7 @@ class ProgramIntrospector:
                 argument_bytes=counter.argument_bytes, output_bytes=counter.output_bytes,
                 temp_bytes=counter.temp_bytes, generated_code_bytes=None,
                 compile_seconds=seconds, rounds_per_dispatch=rounds_per_dispatch,
-                cohort_draw=cohort_draw, precision=precision,
+                cohort_draw=cohort_draw, precision=precision, mesh=mesh,
                 stages=rows if stage_attr.enabled() else None)
         except Exception:
             logger.warning("program introspection failed for %r", name, exc_info=True)

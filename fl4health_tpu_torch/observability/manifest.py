@@ -51,11 +51,13 @@ def run_manifest(
     execution_mode: str | None = None,
     execution_mode_reason: str | None = None,
     device: Any = None,
+    mesh: Mapping[str, Any] | None = None,
     config: Mapping[str, Any] | None = None,
     extra: Mapping[str, Any] | None = None,
 ) -> dict[str, Any]:
     """Assemble the run manifest dict. ``config``: the JSON-able run config,
-    stored inline and hashed (``config_hash``)."""
+    stored inline and hashed (``config_hash``). ``mesh``: the round
+    programs' mesh descriptor (``RoundProgramBuilder.descriptor()``)."""
     import torch
 
     mani: dict[str, Any] = {
@@ -68,6 +70,8 @@ def run_manifest(
         mani["execution_mode"] = execution_mode
     if execution_mode_reason is not None:
         mani["execution_mode_reason"] = execution_mode_reason
+    if mesh is not None:
+        mani["mesh"] = dict(mesh)
     if config is not None:
         mani["config"] = dict(config)
         mani["config_hash"] = config_hash(config)

@@ -28,10 +28,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from fl4health_tpu_torch.core.aggregate import effective_weights, expand_clients, weighted_mean
+from fl4health_tpu_torch.core.aggregate import (client_all, effective_weights, expand_clients,
+                                                 weighted_mean)
 from fl4health_tpu_torch.core.pytree import tree_leaves, tree_map
 from fl4health_tpu_torch.core.types import Params, PyTree, StackedParams
 from fl4health_tpu_torch.observability import stages as stage_attr
+from fl4health_tpu_torch.parallel.compat import client_axis
 from fl4health_tpu_torch.strategies.base import FitResults, Strategy
 from fl4health_tpu_torch.strategies.fedavg import FedAvgState
 
@@ -212,20 +214,29 @@ class RobustFedAvg(Strategy):
     def aggregate(self, server_state: FedAvgState, results: FitResults,
                   round_idx: int) -> FedAvgState:
         with stage_attr.stage("robust_aggregate"):
-            stacked, mask = results.packets, results.mask
-            if self.method == "median":
-                new, ok = coordinate_median(stacked, mask), mask.sum() > 0
-            elif self.method == "trimmed_mean":
-                new, ok = trimmed_mean(stacked, mask, self.trim_fraction), mask.sum() > 0
-            elif self.method == "norm_bounded":
-                new = norm_bounded_mean(stacked, server_state.params,
-                                        results.sample_counts, mask, self.max_update_norm,
-                                        self.weighted_aggregation)
-                ok = mask.sum() > 0
-            else:  # krum / multi_krum
-                m = 1 if self.method == "krum" else self.multi_krum_m
-                w = krum_weights(stacked, mask, self.num_byzantine, m)
-                new, ok = weighted_mean(stacked, w), w.sum() > 0
-            params = tree_map(lambda n, o: torch.where(ok, n.to(o.dtype), o),
-                              new, server_state.params)
-            return dataclasses.replace(server_state, params=params)
+            # order statistics read every client's row: under a mesh the
+            # stacks are gathered (as XLA gathers a sharded sort's operand)
+            # and the rule runs on them whole, the clients axis left
+            stacked, mask = tree_map(client_all, results.packets), client_all(results.mask)
+            counts = client_all(results.sample_counts)
+            with client_axis(None):
+                return self._aggregate_whole(server_state, stacked, mask, counts)
+
+    def _aggregate_whole(self, server_state: FedAvgState, stacked, mask,
+                         sample_counts) -> FedAvgState:
+        if self.method == "median":
+            new, ok = coordinate_median(stacked, mask), mask.sum() > 0
+        elif self.method == "trimmed_mean":
+            new, ok = trimmed_mean(stacked, mask, self.trim_fraction), mask.sum() > 0
+        elif self.method == "norm_bounded":
+            new = norm_bounded_mean(stacked, server_state.params,
+                                    sample_counts, mask, self.max_update_norm,
+                                    self.weighted_aggregation)
+            ok = mask.sum() > 0
+        else:  # krum / multi_krum
+            m = 1 if self.method == "krum" else self.multi_krum_m
+            w = krum_weights(stacked, mask, self.num_byzantine, m)
+            new, ok = weighted_mean(stacked, w), w.sum() > 0
+        params = tree_map(lambda n, o: torch.where(ok, n.to(o.dtype), o),
+                          new, server_state.params)
+        return dataclasses.replace(server_state, params=params)

@@ -41,6 +41,7 @@ import torch.utils._pytree as torch_pytree
 
 from fl4health_tpu_torch import rng
 from fl4health_tpu_torch.core.pytree import tree_map
+from fl4health_tpu_torch.parallel.compat import client_block
 
 CLIENT_FAULT_KINDS = ("dropout", "nan", "scale", "sign_flip", "slow")
 
@@ -185,7 +186,8 @@ class FaultPlan:
             return packets
         device = next(x for x in torch_pytree.tree_leaves(packets)
                       if isinstance(x, torch.Tensor)).device
-        factors = self.corruption_factors(round_idx, n_clients, device)
+        # under a mesh, this rank's block of the [C] draws
+        factors = client_block(self.corruption_factors(round_idx, n_clients, device))
 
         def expand(leaf):
             return factors.reshape((-1,) + (1,) * (leaf.ndim - 1))

@@ -36,6 +36,7 @@ import torch
 
 from fl4health_tpu_torch.core.pytree import tree_dataclass
 from fl4health_tpu_torch.observability import telemetry as telem
+from fl4health_tpu_torch.parallel.compat import client_all
 from fl4health_tpu_torch.strategies.base import FitResults, Strategy
 
 
@@ -126,11 +127,13 @@ def quarantine_step(
         offense = offense | (part & (nonfinite > 0))
     if policy.norm_outlier_ratio > 0:
         healthy = part & finite_norm
-        med = _masked_median(update_norm, healthy)
+        # the median over every client (under a mesh, the gathered [C] rows)
+        all_healthy = client_all(healthy)
+        med = _masked_median(client_all(update_norm), all_healthy)
         outlier = (part & finite_norm
                    & (update_norm > policy.norm_outlier_ratio * torch.clamp(med, min=1e-12)))
         # a median needs a cohort: with < 3 healthy norms "outlier" is noise
-        offense = offense | (outlier & (healthy.sum() >= 3) & torch.isfinite(med))
+        offense = offense | (outlier & (all_healthy.sum() >= 3) & torch.isfinite(med))
 
     zero = torch.zeros_like(q.strikes)
     dead_streak = q.dead_streak
@@ -241,6 +244,18 @@ class QuarantiningStrategy(Strategy):
         device = next(iter(params.values())).device if params else None
         return QuarantineServerState(inner=self.inner.init(params),
                                      quarantine=init_quarantine(self._n_clients, device))
+
+    def state_sharding_spec(self, server_state: QuarantineServerState,
+                            clients_axis: str):
+        """The quarantine bookkeeping is all ``[clients]``-shaped: it shards
+        over the clients mesh axis; the inner strategy's state follows its
+        own spec."""
+        from fl4health_tpu_torch.parallel.mesh import P
+        from fl4health_tpu_torch.strategies.base import inner_state_sharding_spec
+
+        return QuarantineServerState(
+            inner=inner_state_sharding_spec(self.inner, server_state.inner, clients_axis),
+            quarantine=P(clients_axis))
 
     def global_params(self, server_state: QuarantineServerState):
         return self.inner.global_params(server_state.inner)

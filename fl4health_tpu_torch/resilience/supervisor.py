@@ -307,7 +307,8 @@ class RecoverySupervisor:
         }
 
     def _persist_ledger(self) -> None:
-        if self.ledger_path is None:
+        # under a mesh the ledger is written by rank 0 alone
+        if self.ledger_path is None or not getattr(self.sim, "_is_leader", True):
             return
         from fl4health_tpu_torch.core.io import atomic_write
 
@@ -824,8 +825,12 @@ class RecoverySupervisor:
         try:
             state = sim.server_state
             q = state.quarantine
-            idx = torch.as_tensor([int(c) for c in suspects], dtype=torch.long,
-                                  device=q.quarantined.device)
+            # the rows this process holds: under a mesh its block of the
+            # clients, [lo, hi)
+            lo = getattr(sim, "_client_lo", 0)
+            hi = getattr(sim, "_client_hi", lo + q.quarantined.shape[0])
+            idx = torch.as_tensor([int(c) - lo for c in suspects if lo <= int(c) < hi],
+                                  dtype=torch.long, device=q.quarantined.device)
             rounds = float(self.policy.quarantine_rounds
                            or sim._fit_n_rounds or 10_000)
             new_q = dataclasses.replace(

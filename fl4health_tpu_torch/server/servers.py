@@ -54,7 +54,9 @@ def scaffold_warm_start(sim: FederatedSimulation) -> None:
     ``_keep_warmed_variates`` also rolls back wrapper strategies'
     bookkeeping; the port has no wrapper strategies, so the server keeps
     its warmed state with the original params.)"""
-    pre_params = sim.global_params
+    # the server's own params (under a mesh with tensor parallelism, this
+    # rank's shards); the [C] mask, which a sharded round slices
+    pre_params = sim.strategy.global_params(sim.server_state)
     mask = torch.ones((sim.n_clients,), dtype=torch.float32, device=sim.device)
     server_state, client_states, _, _, _ = sim._fit_round(
         sim.server_state, sim.client_states, sim._round_batches(0), mask, 0,

@@ -181,11 +181,27 @@ round (riding the round's pull, or stacked in the chunk's) for the
 ``recovery=RecoveryPolicy(...)`` runs ``fit`` under a
 ``RecoverySupervisor`` (``resilience/supervisor.py``), whose quarantine
 roster masks the sampling on every route (by registry id under a cohort)
-and whose probation every route's epilogue feeds. Left out here: mesh
-placement (``mesh``) and FLASH early stopping (``flash_early_stopping``),
-which raise ``NotImplementedError`` when set, and the ``WandBReporter``; so of
-JAX's reasons for the pipelined route, only those of the features above
-apply.
+and whose probation every route's epilogue feeds.
+
+Device meshes (``mesh=MeshConfig(...)``, ``parallel/``): one process a
+device, every rank building the same simulation from the same seed. Rank
+``r`` holds the block ``[lo, hi)`` of every ``[C, ...]`` client stack that
+JAX's ``P("clients")`` gives device ``r`` (its data banks, index-plan rows,
+sample counts and client states; a cohort round's slots), and the server
+state as the strategy's ``state_sharding_spec`` says (ZeRO-1 vectors and
+wrappers' per-client rows by block, the rest whole; the Megatron shards
+under ``tp_rules``). The round programs run with the mesh's clients axis
+active (``RoundProgramBuilder.jit``): they take the round's whole ``[C]``
+mask and keep their block, every reduction over clients all-reduces the
+rank's partial, and the per-client records come back gathered, so the host
+code sees what it sees without a mesh and every rank takes the same
+decisions. Checkpoint frames hold the gathered global trees, written by
+rank 0 (as reporters and observability exports are) and restored by every
+rank onto its block. A mesh with a cohort takes the pipelined route; with
+``async_config`` or an armed admin plane it is not ported. Left out here:
+FLASH early stopping (``flash_early_stopping``), which raises
+``NotImplementedError`` when set, and the ``WandBReporter``; so of JAX's
+reasons for the pipelined route, only those of the features above apply.
 """
 
 from __future__ import annotations
@@ -212,7 +228,7 @@ from fl4health_tpu_torch.clients.engine import Batch, ClientLogic, TrainState
 from fl4health_tpu_torch.compression.config import CompressionConfig
 from fl4health_tpu_torch.compression.strategy import CompressingStrategy
 from fl4health_tpu_torch.core import pytree as ptu
-from fl4health_tpu_torch.core.aggregate import client_sum
+from fl4health_tpu_torch.core.aggregate import client_all, client_block, client_sum
 from fl4health_tpu_torch.device import resolve_device
 from fl4health_tpu_torch.exchange.exchanger import FixedLayerExchanger, FullExchanger
 from fl4health_tpu_torch.metrics.aggregation import aggregate_metrics
@@ -226,6 +242,7 @@ from fl4health_tpu_torch.observability.introspect import device_identity
 from fl4health_tpu_torch.observability.manifest import config_hash, run_manifest
 from fl4health_tpu_torch.observability.telemetry import RoundTelemetry
 from fl4health_tpu_torch.optim import GradientTransformation
+from fl4health_tpu_torch.parallel.program import CLIENTS_AXIS, MeshConfig, RoundProgramBuilder
 from fl4health_tpu_torch.precision.policy import PrecisionConfig
 from fl4health_tpu_torch.resilience.faults import FaultPlan
 from fl4health_tpu_torch.server.async_schedule import (AsyncConfig, build_event_plan,
@@ -464,13 +481,16 @@ class FederatedSimulation:
         device: str | torch.device = "cuda",
     ):
         # JAX's parameters in JAX's order (a positional call binds alike);
-        # the two whose modules are not ported yet refuse a value
-        for name, value, item in (("flash_early_stopping", flash_early_stopping, "A12"),
-                                  ("mesh", mesh, "A11")):
-            if value is not None:
-                raise NotImplementedError(
-                    f"FederatedSimulation({name}=...) is not ported yet "
-                    f"(ROADMAP.md {item})")
+        # the one whose module is not ported yet refuses a value
+        if flash_early_stopping is not None:
+            raise NotImplementedError(
+                "FederatedSimulation(flash_early_stopping=...) is not ported yet "
+                "(ROADMAP.md A12)")
+        if mesh is not None and not isinstance(mesh, MeshConfig):
+            raise TypeError(
+                "mesh must be a MeshConfig (or None); got "
+                f"{type(mesh).__name__} — pass parallel.program.MeshConfig")
+        self.mesh_config = mesh
         if (local_epochs is None) == (local_steps is None):
             raise ValueError("specify exactly one of local_epochs / local_steps")
         if execution_mode not in ("auto", "pipelined", "chunked"):
@@ -698,6 +718,13 @@ class FederatedSimulation:
                     "pre-aggregation moment inside a fused buffer-fill "
                     "event (state checkpointing — resume — composes; use "
                     "state_checkpointer)")
+            if self._cohort_active and self.mesh_config is not None:
+                raise ValueError(
+                    "async_config + cohort=CohortConfig(...) does not yet "
+                    "compose with mesh: the per-event occupancy swap "
+                    "restages seated rows host-side, which would fight the "
+                    "mesh's sharded staging; run the composition unsharded "
+                    "or drop one of the two")
             if self._cohort_active and self.state_checkpointer is not None:
                 raise ValueError(
                     "async_config + cohort=CohortConfig(...) does not yet "
@@ -743,6 +770,42 @@ class FederatedSimulation:
                     "snapshot/load_cohort_simulation — "
                     f"SimulationStateCheckpointer); {type(sc).__name__} "
                     "cannot, so an interrupted cohort run could not resume")
+        # device-mesh placement (parallel/program.py): None keeps every
+        # program the single-device one; a MeshConfig makes this process one
+        # rank of the mesh, holding its block [lo, hi) of every [C, ...]
+        # client stack, the reductions over clients all-reduced
+        self._program_builder = RoundProgramBuilder(mesh, n_clients=self.n_clients)
+        self._client_lo, self._client_hi = self._program_builder.client_block(
+            self.n_clients)
+        self._n_local = self._client_hi - self._client_lo
+        if mesh is not None:
+            if self._async_active:
+                raise NotImplementedError(
+                    "mesh with buffered-async (async_config) is not ported yet "
+                    "(ROADMAP.md A11)")
+            if self.observability.enabled and self.observability.admin is not None:
+                raise NotImplementedError(
+                    "mesh with an armed admin plane is not ported yet: a retune "
+                    "received by one rank would break the ranks' lockstep")
+            if self._n_local != self.n_clients:
+                # per-client server rows (wrappers' bookkeeping) are this
+                # rank's block; the checks above saw the real manager
+                self.strategy.bind_client_manager(
+                    _SlotManagerView(self.client_manager, self._n_local))
+            if not self._program_builder.mesh.is_leader:
+                # effects that leave the program happen on rank 0 only
+                self.reporters = []
+                self.observability.output_dir = None
+                self.observability.http_port = None
+            if self._program_builder.config.tp_rules:
+                module = getattr(getattr(logic, "model", None), "module", None)
+                if module is None:
+                    raise ValueError(
+                        "MeshConfig(tp_rules=True) needs a logic whose model wraps "
+                        "a module (engine.from_module)")
+                from fl4health_tpu_torch.parallel.tp import enable_tensor_parallel
+
+                enable_tensor_parallel(module, self._program_builder.model_axis)
         self.seed = seed
         self.rng = rng.PRNGKey(seed, self.device)
         self._host_rng_of = (self.rng, self.rng.cpu())
@@ -781,19 +844,18 @@ class FederatedSimulation:
             self._x_train_stack = self._y_train_stack = None
             self._x_val_stack = self._y_val_stack = None
         else:
+            # this rank's block of the clients (all of them without a mesh)
+            local = self._local_datasets()
             self.sample_counts = torch.tensor(
-                [d.n_train for d in self.datasets], dtype=torch.float32,
-                device=self.device)
+                [d.n_train for d in local], dtype=torch.float32, device=self.device)
             stack = engine.pad_and_stack_data
-            self._x_train_stack = stack([d.x_train for d in self.datasets], "x_train",
-                                        self.device)
-            self._y_train_stack = stack([d.y_train for d in self.datasets], "y_train",
-                                        self.device)
-            self._x_val_stack = stack([d.x_val for d in self.datasets], "x_val", self.device)
-            self._y_val_stack = stack([d.y_val for d in self.datasets], "y_val", self.device)
+            self._x_train_stack = stack([d.x_train for d in local], "x_train", self.device)
+            self._y_train_stack = stack([d.y_train for d in local], "y_train", self.device)
+            self._x_val_stack = stack([d.x_val for d in local], "x_val", self.device)
+            self._y_val_stack = stack([d.y_val for d in local], "y_val", self.device)
         self._val_cache: tuple[Batch, torch.Tensor] | None = None
         self._test_cache: tuple[Batch, torch.Tensor] | None = None
-        self._init_states()
+        self._init_states(wire_zero1=True)
         self._fit_round, self._eval_round = self._build_round_fns()
         # the telemetry builds (one more output each), dispatched by fit()
         # when observability's telemetry is on
@@ -803,15 +865,35 @@ class FederatedSimulation:
                 collect_telemetry=True)
 
     # ------------------------------------------------------------------
-    def _init_states(self) -> None:
+    def _local_datasets(self) -> list:
+        """This rank's block of the clients' datasets."""
+        return self.datasets[self._client_lo:self._client_hi]
+
+    def _init_states(self, wire_zero1: bool = False) -> None:
+        """The client stack and the server state from ``self.rng``; under a
+        mesh this rank's block of the clients and its shards of the
+        tensor-parallel params. ``wire_zero1``: the constructor's one-time
+        ZeRO-1 wiring of the server optimizer."""
         init_rng = rng.fold_in(self.rng, 0)
         proto = engine.create_train_state(
             self.logic, self.tx, init_rng, torch.Generator().manual_seed(self.seed),
             self.device, precision=self.precision)
+        b = self._program_builder
+        if b.mesh is not None and b.config.tp_rules:
+            from fl4health_tpu_torch.parallel.tp import shard_like_params
+
+            # the Megatron shards of the params and of the params-shaped
+            # optimizer state
+            proto = dataclasses.replace(
+                proto, params=shard_like_params(proto.params, proto.params, b.mesh),
+                opt_state=shard_like_params(proto.opt_state, proto.params, b.mesh))
+        if wire_zero1 and b.mesh is not None and b.config.zero1:
+            self._wire_zero1_server_optimizer(proto.params)
         # every client starts from the same params; only the key differs
-        keys = torch.stack([rng.fold_in(init_rng, i + 1) for i in range(self.n_clients)])
+        keys = torch.stack([rng.fold_in(init_rng, i + 1)
+                            for i in range(self._client_lo, self._client_hi)])
         self.client_states: TrainState = dataclasses.replace(
-            ptu.stack_clients([proto] * self.n_clients), rng=keys)
+            ptu.stack_clients([proto] * self._n_local), rng=keys)
         self.server_state = self.strategy.init(proto.params)
         if self._cohort_active:
             # client i's row derives from (proto, fold_in(init_rng, i + 1)),
@@ -820,9 +902,101 @@ class FederatedSimulation:
             self.registry.bind_client_states(proto, init_rng)
             self.registry.bind_strategy_rows(self.strategy.state_rows(self.server_state))
 
+    def _wire_zero1_server_optimizer(self, params_template) -> None:
+        """``MeshConfig(zero1=True)``: wrap the innermost FedOpt-family
+        strategy's server transform in ``parallel/zero.py``'s ZeRO-1 over
+        the clients (replica) axis of THIS mesh, whose parity probe then
+        validates the deployed sharding. The caller's strategy objects are
+        never mutated: the wrapper chain is rebuilt around shallow copies."""
+        import copy
+
+        from fl4health_tpu_torch.parallel.zero import (Zero2ShardedOptimizer,
+                                                        ZeroShardedOptimizer,
+                                                        _validate_elementwise,
+                                                        zero_sharded_optimizer)
+        from fl4health_tpu_torch.strategies.fedopt import FedOpt
+
+        chain = [self.strategy]
+        while hasattr(chain[-1], "inner"):
+            chain.append(chain[-1].inner)
+        inner = chain[-1]
+        if not isinstance(inner, FedOpt):
+            raise ValueError(
+                "MeshConfig(zero1=True) shards a SERVER optimizer: the "
+                "(innermost) strategy must be FedOpt-family (fed_adam/"
+                "fed_yogi/fed_adagrad/fed_avg_m/FedOpt); got "
+                f"{type(inner).__name__}, which has no server optax "
+                "transform to shard")
+        mesh = self._program_builder.mesh
+        if isinstance(inner.tx, (ZeroShardedOptimizer, Zero2ShardedOptimizer)):
+            # sharded by the caller: it must be THIS mesh's clients axis
+            if inner.tx.mesh is not mesh or inner.tx.axis_name != CLIENTS_AXIS:
+                raise ValueError(
+                    "the server optimizer was ZeRO-sharded against a "
+                    f"different mesh/axis ({inner.tx.axis_name!r} on "
+                    f"{dict(inner.tx.mesh.shape)}) than the round programs "
+                    f"dispatch on ({CLIENTS_AXIS!r} on {dict(mesh.shape)}); "
+                    "let MeshConfig(zero1=True) do the wiring (pass the "
+                    "plain optax transform) so validation reflects the "
+                    "deployed sharding")
+            if self.mesh_config.validate_zero1:
+                n_local = (inner.tx.n_shards
+                           if isinstance(inner.tx, Zero2ShardedOptimizer) else None)
+                _validate_elementwise(inner.tx, inner.tx.tx, params_template,
+                                      n_local=n_local)
+            return
+        new_inner = copy.copy(inner)
+        new_inner.tx = zero_sharded_optimizer(
+            inner.tx, mesh, params_template, axis_name=CLIENTS_AXIS,
+            validate=self.mesh_config.validate_zero1)
+        rebuilt = new_inner
+        for wrapper in reversed(chain[:-1]):
+            wrapper = copy.copy(wrapper)
+            wrapper.inner = rebuilt
+            rebuilt = wrapper
+        self.strategy = rebuilt
+
+    # -- placement under a mesh (identities without one) ------------------
+    def _client_placement(self):
+        """The client stack's sharding tree (None without a mesh)."""
+        return self._program_builder.client_state_shardings(self.client_states)
+
+    def _server_placement(self):
+        """How a rank holds the server state: the strategy's specs
+        (``server_state_shardings``) and, under ``tp_rules``, the Megatron
+        shards of its params-shaped leaves, which the port keeps sharded
+        like the clients' (JAX replicates them and lets GSPMD reshard)."""
+        b = self._program_builder
+        sh = b.server_state_shardings(self.strategy, self.server_state)
+        if sh is None or not b.config.tp_rules:
+            return sh
+        from fl4health_tpu_torch.parallel import tp as tplib
+        from fl4health_tpu_torch.parallel.mesh import P
+        from fl4health_tpu_torch.parallel.program import _map_placed, _specs_to_named
+
+        tp = tplib.spec_like_params(self.server_state,
+                                    self.strategy.global_params(self.server_state))
+        base = _map_placed(lambda leaf, spec: P() if spec is None else spec,
+                           self.server_state, sh)
+        merged = [t if any(a is not None for a in t) else f for (_, t), (_, f) in
+                  zip(tplib.leaves_with_paths(tp), tplib.leaves_with_paths(base))]
+        return _specs_to_named(tplib._rebuild(self.server_state, iter(merged)), b)
+
+    def _tp_specs_named(self):
+        """The Megatron shardings of a params dict."""
+        from fl4health_tpu_torch.parallel.program import _specs_to_named
+        from fl4health_tpu_torch.parallel.tp import spec_like_params
+
+        local = self.strategy.global_params(self.server_state)
+        return _specs_to_named(spec_like_params(local, local), self._program_builder)
+
     @property
     def global_params(self):
-        return self.strategy.global_params(self.server_state)
+        params = self.strategy.global_params(self.server_state)
+        b = self._program_builder
+        if b.mesh is not None and b.config.tp_rules:
+            params = b.gather(params, self._tp_specs_named())
+        return params
 
     def set_global_params(self, params) -> None:
         """Install weights (same keys and shapes as the model's) as the
@@ -837,10 +1011,13 @@ class FederatedSimulation:
                                  f"{tuple(v.shape)}, model expects {tuple(ref[k].shape)}")
         params = {k: torch.as_tensor(params[k]).to(device=self.device, dtype=r.dtype)
                   for k, r in ref.items()}
+        b = self._program_builder
+        if b.mesh is not None and b.config.tp_rules:
+            params = b.put(params, self._tp_specs_named())
         # through any wrapper (CompressingStrategy keeps the params inside)
         self.server_state = replace_global_params(self.strategy, self.server_state, params)
         self.client_states = dataclasses.replace(
-            self.client_states, params=ptu.stack_clients([params] * self.n_clients))
+            self.client_states, params=ptu.stack_clients([params] * self._n_local))
 
     def set_train_data(self, xs: Sequence[Any], ys: Sequence[Any]) -> None:
         """Swap every client's training arrays (per-round data refresh).
@@ -961,11 +1138,13 @@ class FederatedSimulation:
             # a cohort round passes its slots' counts; others the baked ones
             if sample_counts is None:
                 sample_counts = self.sample_counts
+            # the [C] mask of the round; under a mesh this rank's block
+            mask = client_block(mask)
             payload = strategy.client_payload(server_state, round_idx)
             if inject_dropout:
                 # a dropped client is an unsampled one: mask math only
-                mask = mask * fault_plan.participation_factor(round_idx, n_clients,
-                                                              mask.device)
+                mask = mask * client_block(fault_plan.participation_factor(
+                    round_idx, n_clients, mask.device))
             new_states, packets, losses, metrics, *client_telem = fit_clients(
                 client_states, payload, batches, mask, val_batches)
             if inject_corruption:
@@ -983,7 +1162,8 @@ class FederatedSimulation:
                 new_server_state = strategy.aggregate(server_state, results, round_idx)
             agg_losses, agg_metrics = fit_summary(losses, metrics, results.mask, sample_counts)
             if not collect_telemetry:
-                return new_server_state, new_states, agg_losses, agg_metrics, losses
+                return (new_server_state, new_states, agg_losses, agg_metrics,
+                        ptu.tree_map(client_all, losses))
             ct = client_telem[0]
             train_loss = losses["backward"].to(torch.float32)
             nan_row = torch.full_like(train_loss, float("nan"))
@@ -1001,8 +1181,9 @@ class FederatedSimulation:
                     new_states.params, strategy.divergence_reference(new_server_state)),
                 nonfinite_eval_loss=torch.zeros_like(nan_row),
                 loss_scale_skips=ct.get("loss_scale_skips"))
-            return (new_server_state, new_states, agg_losses, agg_metrics, losses,
-                    round_telemetry)
+            # the host reads every client's row: under a mesh, gathered
+            return (new_server_state, new_states, agg_losses, agg_metrics,
+                    ptu.tree_map(client_all, losses), ptu.tree_map(client_all, round_telemetry))
 
         def eval_round(server_state, client_states, batches, eval_counts):
             gp = strategy.client_payload(server_state, 0)
@@ -1010,12 +1191,15 @@ class FederatedSimulation:
             total = torch.clamp(client_sum(eval_counts), min=1.0)
             agg_losses = {k: client_sum(v * eval_counts) / total for k, v in losses.items()}
             agg_metrics = aggregate_metrics(metrics, eval_counts)
+            per_losses, per_metrics = (ptu.tree_map(client_all, losses),
+                                       ptu.tree_map(client_all, metrics))
             if collect_telemetry:
-                return (new_states, agg_losses, agg_metrics, losses, metrics,
-                        telem.nonfinite_in_losses(losses))
-            return new_states, agg_losses, agg_metrics, losses, metrics
+                return (new_states, agg_losses, agg_metrics, per_losses, per_metrics,
+                        client_all(telem.nonfinite_in_losses(losses)))
+            return new_states, agg_losses, agg_metrics, per_losses, per_metrics
 
-        return fit_round, eval_round
+        b = self._program_builder
+        return b.jit(fit_round), b.jit(eval_round)
 
     # -- buffered-async programs (server/async_schedule.py) -------------
     def _build_async_fns(self, collect_telemetry: bool = False):
@@ -1203,9 +1387,17 @@ class FederatedSimulation:
         """Host-side index plan (numpy idx/example_mask/step_mask) for one round."""
         entropies = [self._client_entropy(round_idx, i)
                      for i in range(self.n_clients)]
-        return engine.multi_client_index_plans(
+        plans = engine.multi_client_index_plans(
             entropies, [d.n_train for d in self.datasets], self.batch_size,
             n_steps=self.local_steps, local_epochs=self.local_epochs)
+        return self._local_rows(plans)
+
+    def _local_rows(self, arrays):
+        """This rank's client rows of global host ``[C, ...]`` arrays (the
+        arrays themselves without a mesh)."""
+        if self._n_local == self.n_clients:
+            return arrays
+        return tuple(a[self._client_lo:self._client_hi] for a in arrays)
 
     def _round_batches(self, round_idx: int) -> Batch:
         return engine.gather_batches(self._x_train_stack, self._y_train_stack,
@@ -1214,10 +1406,11 @@ class FederatedSimulation:
     def _eval_split_batches(self, x_stack, y_stack, ns) -> tuple[Batch, torch.Tensor]:
         """The val and test splits' batching: one fixed-order pass, and the
         per-client row counts."""
-        idx, em, sm = engine.multi_client_index_plans(
-            [[0]] * self.n_clients, ns, self.batch_size, shuffle=False)
+        idx, em, sm = self._local_rows(engine.multi_client_index_plans(
+            [[0]] * self.n_clients, ns, self.batch_size, shuffle=False))
+        lo, hi = self._client_lo, self._client_hi
         return (engine.gather_batches(x_stack, y_stack, idx, em, sm),
-                torch.tensor(ns, dtype=torch.float32, device=self.device))
+                torch.tensor(ns[lo:hi], dtype=torch.float32, device=self.device))
 
     def _val_batches(self) -> tuple[Batch, torch.Tensor]:
         if self._val_cache is None:
@@ -1233,9 +1426,10 @@ class FederatedSimulation:
             return None
         if self._test_cache is None:
             stack = engine.pad_and_stack_data
+            local = self._local_datasets()
             self._test_cache = self._eval_split_batches(
-                stack([d.x_test for d in self.datasets], "x_test", self.device),
-                stack([d.y_test for d in self.datasets], "y_test", self.device),
+                stack([d.x_test for d in local], "x_test", self.device),
+                stack([d.y_test for d in local], "y_test", self.device),
                 [engine.data_rows(d.x_test) for d in self.datasets])
         return self._test_cache
 
@@ -1256,6 +1450,10 @@ class FederatedSimulation:
         if self._cohort_active and self.recovery_policy is not None:
             return ("recovery supervision refreshes the quarantine "
                     "keep-mask against the live registry every round")
+        if self._cohort_active and self.mesh_config is not None:
+            return ("mesh + cohort stages each round's slot tensors "
+                    "with sharded per-round device_put; the chunk's "
+                    "window exchange is unsharded")
         if self.train_data_provider is not None:
             return "train_data_provider needs a host data refresh every round"
         if self.model_checkpointers:
@@ -1495,6 +1693,18 @@ class FederatedSimulation:
             # the plane from round 0
             obs.admin.bind_run(self.strategy, mode, async_active=self._async_active)
             obs.update_manifest({"admin": obs.admin.descriptor()})
+        if obs.enabled and self._program_builder.mesh is not None:
+            # one-time mesh gauges: a scraped page can divide by them
+            b = self._program_builder
+            obs.registry.gauge("fl_mesh_devices",
+                               help="devices backing the round-program mesh",
+                               ).set(float(b.n_devices))
+            obs.registry.gauge("fl_mesh_client_axis",
+                               help="size of the 'clients' (data-parallel) mesh axis",
+                               ).set(float(b.client_axis_size))
+            obs.registry.gauge("fl_mesh_model_axis",
+                               help="size of the 'model' (tensor-parallel) mesh axis",
+                               ).set(float(b.mesh.shape.get("model", 1)))
         if obs.enabled:
             obs.log_event("execution_mode", mode=mode, reason=reason)
             try:
@@ -1502,7 +1712,8 @@ class FederatedSimulation:
                          if self._resume_info is not None else None)
                 obs.update_manifest(run_manifest(
                     execution_mode=mode, execution_mode_reason=reason, device=self.device,
-                    config=self._manifest_config(n_rounds), extra=extra))
+                    config=self._manifest_config(n_rounds), extra=extra,
+                    mesh=self._program_builder.descriptor()))
             except Exception:
                 logging.getLogger(__name__).warning("run manifest construction failed",
                                                     exc_info=True)
@@ -1582,6 +1793,10 @@ class FederatedSimulation:
             self._fit_chunked(first, last)
         else:
             self._fit_pipelined(first, last)
+        if self._program_builder.mesh is not None:
+            # the leader's frames are durable before any rank goes on (a
+            # later fit on another rank may restore from them)
+            self._program_builder.mesh.barrier()
 
     def _dump_postmortem(self, exc: BaseException) -> None:
         """Publish a postmortem bundle for an abnormal end of ``fit``
@@ -1642,6 +1857,10 @@ class FederatedSimulation:
                                 "registry_size": self.registry_size}
         if self._async_active:
             config["async"] = self.async_config.describe()
+        if self._program_builder.mesh is not None:
+            # a sharded and an unsharded run of one recipe are different
+            # experiments (the resume hash leaves it out: placement only)
+            config["mesh"] = self._program_builder.descriptor()
         return config
 
     def _resume_config_hash(self) -> str:
@@ -1655,6 +1874,11 @@ class FederatedSimulation:
     def adopt_restored_state(self, server_state, client_states, pending=None) -> None:
         """Install restored host trees as the live state, on the simulation's
         device, in the live trees' dtypes (the frame keeps every dtype)."""
+        b = self._program_builder
+        if b.mesh is not None:
+            # a frame holds the global trees: keep this rank's block
+            server_state = b.put(server_state, self._server_placement())
+            client_states = b.put(client_states, self._client_placement())
         self.server_state = leaves_like(self.server_state, server_state, self.device)
         self.client_states = leaves_like(self.client_states, client_states, self.device)
         if pending is not None:
@@ -1837,9 +2061,23 @@ class FederatedSimulation:
         so the next round cannot overwrite them before the pull, which rides
         the round's (or the chunk's) one ``HostPull``."""
         trees = {"server_state": self.server_state, "client_states": self.client_states}
+        b = self._program_builder
+        if b.mesh is not None:
+            # a frame holds the global trees: every rank's block gathered
+            trees = {"server_state": b.gather(self.server_state, self._server_placement()),
+                     "client_states": b.gather(self.client_states, self._client_placement())}
         if with_pending:
             trees["pending"] = self._async_pending
         return trees
+
+    def _gather_client_params(self, params):
+        """Every client's params from this rank's block (itself without a
+        mesh)."""
+        b = self._program_builder
+        place = self._client_placement()
+        if place is None:
+            return params
+        return b.gather(params, place.params if isinstance(place, TrainState) else place)
 
     def _introspect_programs(self, mode: str, n_rounds: int) -> None:
         """The ``program`` and ``stage`` records of the round programs this
@@ -1858,6 +2096,7 @@ class FederatedSimulation:
         per-round flops that measured MFU reads. Failures degrade to a
         warning: introspection must not take down a run."""
         intro = self.observability.introspector
+        mesh_desc = self._program_builder.descriptor()
         prec = self.precision.describe() if self._precision_active else None
         dev = self.device
         meta = lambda shape, dtype=torch.float32: torch.empty(  # noqa: E731
@@ -1869,15 +2108,17 @@ class FederatedSimulation:
             if self._cohort_active:
                 # slot shapes only: a function of (slots, step budgets,
                 # batch, example shape), never of the registry size
-                aa = self.registry.abstract_round_args(self.n_clients)
+                aa = self.registry.abstract_round_args(self._n_local)
+                aa["mask"] = meta((self.n_clients,))  # the whole mask: a round takes its block
                 intro.introspect_fn(
                     fit_name, fit_fn,
                     (self.server_state, self.client_states, aa["batches"], aa["mask"], 1,
-                     aa["val_batches"], aa["sample_counts"]), device=dev, precision=prec)
+                     aa["val_batches"], aa["sample_counts"]), device=dev, precision=prec,
+                    mesh=mesh_desc)
                 intro.introspect_fn(
                     eval_name, eval_fn,
                     (self.server_state, self.client_states, aa["val_batches"],
-                     aa["val_counts"]), device=dev, precision=prec)
+                     aa["val_counts"]), device=dev, precision=prec, mesh=mesh_desc)
                 self._round_program_flops = intro.round_flops((fit_name, eval_name))
                 if mode == EXEC_CHUNKED:
                     ca = self.registry.abstract_chunk_args(self.n_clients, n_rounds)
@@ -1894,7 +2135,7 @@ class FederatedSimulation:
                          first(ca["mask"]), first(ca["sample_counts"]),
                          first(ca["val_batches"]), first(ca["val_counts"]), 1),
                         device=dev, rounds_per_dispatch=n_rounds, cohort_draw="in_graph",
-                        precision=prec)
+                        precision=prec, mesh=mesh_desc)
                 intro.hbm_headroom_bytes(dev.index or 0)
                 return
             val_batches, val_counts = self._val_batches()
@@ -1907,7 +2148,7 @@ class FederatedSimulation:
                         meta((1, self.n_clients)), 1, val_batches, val_counts, *(test or ())]
                 intro.introspect_fn("fit_chunk_eval", self._make_chunked_fit_with_eval(),
                                     tuple(args), device=dev, rounds_per_dispatch=n_rounds,
-                                    precision=prec)
+                                    precision=prec, mesh=mesh_desc)
                 names: tuple[str, ...] = ("fit_chunk_eval",)
             else:
                 c, steps, b = idx.shape
@@ -1919,18 +2160,18 @@ class FederatedSimulation:
                 intro.introspect_fn(
                     fit_name, fit_fn,
                     (self.server_state, self.client_states, batches, meta((self.n_clients,)),
-                     1, val_batches), device=dev, precision=prec)
+                     1, val_batches), device=dev, precision=prec, mesh=mesh_desc)
                 intro.introspect_fn(
                     eval_name, eval_fn,
                     (self.server_state, self.client_states, val_batches, val_counts),
-                    device=dev, precision=prec)
+                    device=dev, precision=prec, mesh=mesh_desc)
                 names = (fit_name, eval_name)
                 if test is not None:
                     # the same eval function on the test split's shapes
                     intro.introspect_fn(
                         eval_name + "_test", eval_fn,
                         (self.server_state, self.client_states, *test),
-                        device=dev, precision=prec)
+                        device=dev, precision=prec, mesh=mesh_desc)
                     names += (eval_name + "_test",)
             self._round_program_flops = intro.round_flops(names)
             intro.hbm_headroom_bytes(dev.index or 0)
@@ -2097,7 +2338,7 @@ class FederatedSimulation:
         modes = {m for m, _ in self.model_checkpointers}
         trees = {}
         if CheckpointMode.PRE_AGGREGATION in modes and post_fit_params is not None:
-            trees["_pre_agg_params"] = post_fit_params
+            trees["_pre_agg_params"] = self._gather_client_params(post_fit_params)
         if CheckpointMode.POST_AGGREGATION in modes:
             trees["_post_agg_params"] = self.global_params
         if (self.state_checkpointer is not None
@@ -2163,14 +2404,15 @@ class FederatedSimulation:
                           eval_losses=eval_losses, eval_metrics=eval_metrics,
                           fit_elapsed_s=work.fit_elapsed_s,
                           eval_elapsed_s=work.eval_elapsed_s)
+        leader_ckpts = self.model_checkpointers if self._is_leader else []
         with obs.span("checkpoint", round=rnd, mode="pre_aggregation"):
-            for mode, ckpt in self.model_checkpointers:
+            for mode, ckpt in leader_ckpts:
                 if mode == CheckpointMode.PRE_AGGREGATION:
                     ckpt.maybe_checkpoint(snaps.get("_pre_agg_params"),
                                           rec.fit_losses.get("backward", float("nan")),
                                           rec.fit_metrics)
         with obs.span("checkpoint", round=rnd, mode="post_aggregation"):
-            for mode, ckpt in self.model_checkpointers:
+            for mode, ckpt in leader_ckpts:
                 if mode == CheckpointMode.POST_AGGREGATION:
                     ckpt.maybe_checkpoint(snaps.get("_post_agg_params"),
                                           rec.eval_losses.get("checkpoint", float("nan")),
@@ -2225,7 +2467,7 @@ class FederatedSimulation:
         snapshot where one is armed; the legacy API reads the live state
         (the producer waited for this epilogue)."""
         sc = self.state_checkpointer
-        if sc is None:
+        if sc is None or not self._is_leader:
             return
         rnd = work.event if work.event is not None else work.round
         history = list(self.history)
@@ -2247,6 +2489,28 @@ class FederatedSimulation:
             sc.save_simulation(self, rnd)
 
     # -- observability records (observability/) --------------------------
+    @property
+    def _is_leader(self) -> bool:
+        """Whether this process publishes the run's effects (rank 0 of a
+        mesh; the only process without one)."""
+        mesh = self._program_builder.mesh
+        return mesh is None or mesh.is_leader
+
+    def _steps_per_client(self) -> np.ndarray:
+        """[C] local steps a client trains a round (its plan's real steps)."""
+        cache = getattr(self, "_steps_per_client_cache", None)
+        if cache is None and self._cohort_active:
+            # every valid slot runs the registry-wide step budget
+            cache = self._steps_per_client_cache = np.full(
+                (self.n_clients,), float(self.registry.train_steps))
+        if cache is None:
+            plans = engine.multi_client_index_plans(
+                [self._client_entropy(1, i) for i in range(self.n_clients)],
+                [d.n_train for d in self.datasets], self.batch_size,
+                n_steps=self.local_steps, local_epochs=self.local_epochs)
+            cache = self._steps_per_client_cache = np.asarray(plans[2]).sum(axis=1)
+        return cache
+
     def _payload_nbytes(self) -> tuple[int, int]:
         """(broadcast, gather) logical payload bytes a participating client:
         the payload's params and what the exchanger pushes, from shapes and
@@ -2347,7 +2611,8 @@ class FederatedSimulation:
         lives in the strategy and needs no observability."""
         q_fn = getattr(self.strategy, "quarantine_mask", None)
         if q_fn is not None and self.observability.enabled:
-            results["_quarantine"] = q_fn(self.server_state)
+            b = self._program_builder
+            results["_quarantine"] = b.gather(q_fn(self.server_state), b.client_sharding())
 
     def _emit_quarantine_metrics(self, rnd: int, q_np: np.ndarray,
                                  ids: np.ndarray | None = None) -> None:
@@ -2597,6 +2862,18 @@ class FederatedSimulation:
         # and a rate over it would overstate the work done a second
         wall = rec.fit_elapsed_s + rec.eval_elapsed_s
         exec_s = wall - summary["compile_s"]
+        b = self._program_builder
+        if b.mesh is not None:
+            # mesh-run extras (absent from single-device records): the mesh
+            # facts and the participants' local steps a second a device
+            summary["mesh_devices"] = b.n_devices
+            summary["mesh_client_axis"] = b.client_axis_size
+            steps = float((self._steps_per_client() * (np.asarray(mask) > 0)).sum())
+            if steps > 0 and exec_s > 0:
+                summary["steps_per_s_per_chip"] = steps / exec_s / b.n_devices
+                reg.gauge("fl_round_steps_per_s_per_chip",
+                          help="participating clients' local steps per second "
+                               "per mesh device").set(summary["steps_per_s_per_chip"])
         if self._round_program_flops and exec_s > 0:
             # counted flops (introspection) over the round's time; mfu_pct
             # only where the device's peak is known, never a made-up share
@@ -2607,6 +2884,12 @@ class FederatedSimulation:
             reg.gauge("fl_round_tflops_measured",
                       help="measured TFLOP/s this round (counted FLOPs / "
                            "device-execution time)").set(achieved / 1e12)
+            if b.mesh is not None:
+                # the counted program is this rank's: its rate is a device's
+                summary["tflops_per_chip"] = achieved / 1e12
+                reg.gauge("fl_round_tflops_per_chip",
+                          help="measured TFLOP/s per mesh device this round",
+                          ).set(summary["tflops_per_chip"])
             mfu = device_specs.mfu_pct(achieved, self._device_kind)
             if mfu is not None:
                 summary["mfu_pct"] = mfu
@@ -2698,7 +2981,7 @@ class FederatedSimulation:
             return (server_state, client_states, ptu.stack_clients(losses),
                     ptu.stack_clients(metrics))
 
-        return chunk
+        return self._program_builder.jit(chunk)
 
     def fit_chunk(self, start_round: int, k: int, mask=None):
         """Run rounds ``[start_round, start_round + k)`` as one chunk; returns
@@ -2750,7 +3033,7 @@ class FederatedSimulation:
                 if quarantine_fn is not None:
                     # each round's in-graph quarantine mask stacks with the
                     # outputs: the chunk's one pull, a round at a time
-                    out["quarantine"] = quarantine_fn(server_state)
+                    out["quarantine"] = client_all(quarantine_fn(server_state))
                 if test_batches is not None:
                     client_states, out["test_losses"], out["test_metrics"] = (
                         eval_round(server_state, client_states, test_batches,
@@ -2758,7 +3041,7 @@ class FederatedSimulation:
                 outs.append(out)
             return server_state, client_states, ptu.stack_clients(outs)
 
-        return chunk
+        return self._program_builder.jit(chunk)
 
     def _rounds_per_dispatch(self, n_rounds: int, start_round: int = 1) -> int:
         """Rounds in the chunked route's next chunk: all that remain up to
@@ -2784,7 +3067,7 @@ class FederatedSimulation:
             while s <= last:
                 k = self._rounds_per_dispatch(last, s)
                 trees = self._run_sync_chunk(s, k, snapshot=chunk_ckpt)
-                if chunk_ckpt:
+                if chunk_ckpt and self._is_leader:
                     sc.save_simulation_snapshot(trees, s + k - 1, self.n_clients,
                                                 list(self.history), writer=writer,
                                                 fleet=self._fleet_snapshot_doc())
@@ -2944,8 +3227,13 @@ class FederatedSimulation:
             rng.fold_in(self._host_rng, 2000 + rnd), rnd, self.n_clients)
         t0 = time.perf_counter()
         staged = self.registry.stage_round(idx, valid, self._base_entropy, rnd)
+        lo, hi = self._client_lo, self._client_hi
         for name in ("batches", "val_batches", "mask", "sample_counts", "val_counts"):
-            staged[name] = self._to_device(staged[name])
+            # under a mesh this rank's block of the slots (the mask stays
+            # whole: the round program takes its block)
+            rows = (staged[name] if name == "mask" or self._n_local == self.n_clients
+                    else ptu.tree_map(lambda a: a[lo:hi], staged[name]))
+            staged[name] = self._to_device(rows)
         staged["stage_ms"] = (time.perf_counter() - t0) * 1e3
         return staged
 
@@ -2966,6 +3254,7 @@ class FederatedSimulation:
         strategy rows in ``server_state``; returns the host ms it took."""
         g0 = time.perf_counter()
         reg = self.registry
+        idx = np.asarray(idx)[self._client_lo:self._client_hi]  # this rank's slots
         self.client_states = rows_to_device(reg.gather_client_states(idx),
                                             reg.client_dtypes, self.device)
         srows = reg.gather_strategy_rows(idx)
@@ -3072,10 +3361,14 @@ class FederatedSimulation:
                        "fit_metrics": fit_metrics,
                        "per_client_fit_losses": per_client_fit_losses,
                        "eval_losses": eval_losses, "eval_metrics": eval_metrics,
-                       # the updated rows ride the round's one pull
-                       "_registry_rows": {"client_states": self.client_states,
-                                          "strategy_rows": self.strategy.state_rows(
-                                              self.server_state)}}
+                       # the updated rows ride the round's one pull (under
+                       # a mesh, every rank's slots: each keeps the registry)
+                       "_registry_rows": {
+                           "client_states": self._program_builder.gather(
+                               self.client_states, self._client_placement()),
+                           "strategy_rows": self._program_builder.gather(
+                               self.strategy.state_rows(self.server_state),
+                               self._program_builder.client_sharding())}}
             if telemetry_on:
                 results["telemetry"] = telemetry[0].replace(
                     nonfinite_eval_loss=ev_nonfinite[0])

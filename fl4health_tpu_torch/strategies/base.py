@@ -51,6 +51,17 @@ def replace_global_params(strategy: "Strategy", server_state: Any, params) -> An
     return dataclasses.replace(server_state, params=params)
 
 
+def inner_state_sharding_spec(inner: "Strategy", server_state: Any, clients_axis: str):
+    """A wrapped strategy's ``state_sharding_spec`` for use inside a
+    wrapper's own spec tree: the inner strategy's "no preference" (no hook,
+    or None) becomes an explicit replicate-everything ``P()``."""
+    from fl4health_tpu_torch.parallel.mesh import P
+
+    hook = getattr(inner, "state_sharding_spec", None)
+    spec = hook(server_state, clients_axis) if hook else None
+    return P() if spec is None else spec
+
+
 class Strategy:
     def bind_client_manager(self, client_manager: Any) -> None:
         """Setup-time hook: the simulation calls it once with its client
@@ -59,6 +70,12 @@ class Strategy:
 
     def init(self, params: Params) -> Any:
         raise NotImplementedError
+
+    def state_sharding_spec(self, server_state: Any, clients_axis: str):
+        """Optional per-leaf ``PartitionSpec`` tree (or prefix) for the
+        server state on a client mesh (``parallel/mesh.py``); None: fully
+        replicated."""
+        return None
 
     def state_rows(self, server_state: Any) -> Any:
         """The server state's per-client rows, a tree whose every leaf has a

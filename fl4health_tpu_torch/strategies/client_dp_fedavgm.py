@@ -41,7 +41,7 @@ import torch
 
 from fl4health_tpu_torch import rng
 from fl4health_tpu_torch.core import pytree as ptu
-from fl4health_tpu_torch.core.aggregate import expand_clients
+from fl4health_tpu_torch.core.aggregate import client_max, client_total, expand_clients
 from fl4health_tpu_torch.core.pytree import tree_dataclass
 from fl4health_tpu_torch.core.types import Params
 from fl4health_tpu_torch.exchange.packer import ClippingBitPacket
@@ -161,7 +161,7 @@ class ClientLevelDPFedAvgM(Strategy):
                   round_idx) -> ClientDpFedAvgMState:
         packets: ClippingBitPacket = results.packets
         mask = results.mask
-        n_sampled = torch.clamp(mask.sum(), min=1.0)
+        n_sampled = torch.clamp(client_total(mask), min=1.0)
         next_key, k_delta, k_bit = rng.split(server_state.rng, 3)
         z_eff = self.effective_noise_multiplier()
 
@@ -169,21 +169,21 @@ class ClientLevelDPFedAvgM(Strategy):
             # coefficients from capped sample counts over the whole
             # federation; noise scaled by the largest sampled coefficient
             counts = results.sample_counts.to(torch.float32)
-            cap = (counts.sum() if self.example_cap is None
+            cap = (client_total(counts) if self.example_cap is None
                    else torch.tensor(self.example_cap, dtype=torch.float32,
                                      device=counts.device))
             w = torch.clamp(counts / torch.clamp(cap, min=1.0), max=1.0)
-            total_w = torch.clamp(w.sum(), min=1e-12)
+            total_w = torch.clamp(client_total(w), min=1e-12)
             coef = w / (self._q * total_w)
             cm = coef * mask
-            delta_bar = {k: (v * expand_clients(cm, v)).sum(dim=0) / n_sampled
+            delta_bar = {k: client_total(v * expand_clients(cm, v)) / n_sampled
                          for k, v in packets.params.items()}
-            max_w = torch.where(mask > 0, w, torch.zeros_like(w)).max()
+            max_w = client_max(torch.where(mask > 0, w, torch.zeros_like(w)))
             # sensitivity of the coefficient-scaled sum is C max(w) / q; the
             # final 1/|S| applies to the noise too
             sigma = z_eff * server_state.clipping_bound * max_w / self._q / n_sampled
         else:
-            delta_bar = {k: (v * expand_clients(mask, v)).sum(dim=0) / n_sampled
+            delta_bar = {k: client_total(v * expand_clients(mask, v)) / n_sampled
                          for k, v in packets.params.items()}
             # Gaussian mechanism: sensitivity C / |S|
             sigma = z_eff * server_state.clipping_bound / n_sampled
@@ -193,10 +193,10 @@ class ClientLevelDPFedAvgM(Strategy):
         new_momentum = ptu.tree_axpy(self.beta, server_state.momentum, delta_bar)
         new_params = ptu.tree_add(server_state.params, new_momentum)
 
-        any_client = mask.sum() > 0
+        any_client = client_total(mask) > 0
         bound = server_state.clipping_bound
         if self.adaptive:
-            bit_sum = (packets.clipping_bit * mask).sum()
+            bit_sum = client_total(packets.clipping_bit * mask)
             b_bar = (bit_sum + self.z_bit * rng.normal(k_bit, ())) / n_sampled
             # an empty cohort's b_bar is pure noise: hold the bound
             bound = torch.where(

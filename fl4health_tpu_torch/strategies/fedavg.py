@@ -32,7 +32,7 @@ class FedAvg(Strategy):
                                    mask=results.mask,
                                    weighted=self.weighted_aggregation)
         # an empty cohort (all-zero mask) keeps the previous params
-        any_client = results.mask.sum() > 0
+        any_client = agg.client_total(results.mask) > 0
         new_params = {k: torch.where(any_client, v, server_state.params[k])
                       for k, v in new_params.items()}
         return dataclasses.replace(server_state, params=new_params)

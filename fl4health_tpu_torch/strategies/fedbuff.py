@@ -25,7 +25,8 @@ from typing import Any
 import torch
 
 from fl4health_tpu_torch.server.async_schedule import staleness_discount
-from fl4health_tpu_torch.strategies.base import FitResults, Strategy
+from fl4health_tpu_torch.strategies.base import (FitResults, Strategy,
+                                                 inner_state_sharding_spec)
 
 
 class FedBuff(Strategy):
@@ -95,6 +96,9 @@ class FedBuff(Strategy):
 
     def global_params(self, server_state: Any):
         return self.inner.global_params(server_state)
+
+    def state_sharding_spec(self, server_state: Any, clients_axis: str):
+        return inner_state_sharding_spec(self.inner, server_state, clients_axis)
 
     def divergence_reference(self, server_state: Any):
         return self.inner.divergence_reference(server_state)

@@ -6,9 +6,9 @@ the pseudo-gradient ``params - avg``, which a server optimizer (any
 The factories build their optimizer through ``optim.inject_hyperparams``,
 as JAX does: the server learning rate is a 0-d tensor in
 ``opt_state.hyperparams["learning_rate"]``, while betas, eps and momentum
-stay Python floats (a traced ``1 - b1`` rounds differently). JAX's
-``state_sharding_spec`` (a ZeRO-sharded server optimizer) has no
-counterpart here.
+stay Python floats (a traced ``1 - b1`` rounds differently).
+``state_sharding_spec`` names a ZeRO-sharded server optimizer's vector
+leaves (``parallel/zero.py``, wired by ``MeshConfig(zero1=True)``).
 """
 
 from __future__ import annotations
@@ -43,6 +43,22 @@ class FedOpt(Strategy):
     def init(self, params: Params) -> FedOptState:
         return FedOptState(params=params, opt_state=self.tx.init(params))
 
+    def state_sharding_spec(self, server_state: FedOptState, clients_axis: str):
+        """With a ZeRO-1/2 sharded server optimizer the optimizer's
+        flat-vector state leaves split over its axis (each replica keeps
+        1/N of the momenta); params and scalar counts replicate. Without
+        one the whole state replicates (None)."""
+        from fl4health_tpu_torch.parallel.mesh import P
+        from fl4health_tpu_torch.parallel.zero import (Zero2ShardedOptimizer,
+                                                        ZeroShardedOptimizer)
+
+        if not isinstance(self.tx, (ZeroShardedOptimizer, Zero2ShardedOptimizer)):
+            return None
+        opt_spec = ptu.tree_map(
+            lambda leaf: P(self.tx.axis_name) if getattr(leaf, "ndim", 0) >= 1 else P(),
+            server_state.opt_state)
+        return FedOptState(params=P(), opt_state=opt_spec)
+
     def aggregate(self, server_state: FedOptState, results: FitResults,
                   round_idx: int) -> FedOptState:
         avg = agg.aggregate(results.packets, results.sample_counts, results.mask,
@@ -53,7 +69,7 @@ class FedOpt(Strategy):
                                           server_state.params)
         new_params = optim.apply_updates(server_state.params, updates)
         # a round in which no client took part keeps the old state
-        any_client = results.mask.sum() > 0
+        any_client = agg.client_total(results.mask) > 0
         new_params, new_opt = ptu.tree_map(
             lambda n, o: torch.where(any_client, n, o),
             (new_params, new_opt), (server_state.params, server_state.opt_state))

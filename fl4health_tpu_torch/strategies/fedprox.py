@@ -93,7 +93,7 @@ class FedAvgWithAdaptiveConstraint(Strategy):
         mu, streak = adapt_drift_penalty(
             server_state.drift_penalty_weight, server_state.loss_drop_streak, train_loss,
             server_state.previous_loss, self.patience, self.delta, self.adapt)
-        any_client = results.mask.sum() > 0
+        any_client = agg.client_total(results.mask) > 0
         return AdaptiveConstraintState(
             params={k: torch.where(any_client, v, server_state.params[k])
                     for k, v in new_params.items()},

@@ -50,11 +50,12 @@ class Scaffold(Strategy):
                               weighted=False)
         delta_c_bar = agg.aggregate(packets.control_variates, results.sample_counts,
                                     results.mask, weighted=False)
-        n_sampled = results.mask.float().sum()  # |S|, f32 as N below
+        n_sampled = agg.client_total(results.mask.float())  # |S|, f32 as N below
         any_client = n_sampled > 0
         x, c = server_state.params, server_state.control_variates
         new_params = ptu.tree_axpy(self.server_lr, ptu.tree_sub(y_bar, x), x)
-        new_c = ptu.tree_axpy(n_sampled / results.mask.shape[0], delta_c_bar, c)
+        new_c = ptu.tree_axpy(n_sampled / agg.client_count(results.mask.shape[0]),
+                              delta_c_bar, c)
         keep = lambda n, o: torch.where(any_client, n, o)  # noqa: E731
         return ScaffoldState(params=ptu.tree_map(keep, new_params, x),
                              control_variates=ptu.tree_map(keep, new_c, c))

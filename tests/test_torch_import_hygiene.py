@@ -69,6 +69,11 @@ def test_sources_were_found():
             "retry.py", "supervisor.py", "suspects.py"} == resilience
     sweep = {p.name for p in SOURCES if p.parent.name == "sweep"}
     assert {"__init__.py", "hoisting.py", "spec.py", "bucketing.py", "runner.py"} == sweep
+    # and every parallel module: the collectives, the mesh, the builder,
+    # ZeRO, tensor parallelism and the rings
+    parallel = {p.name for p in SOURCES if p.parent.name == "parallel"}
+    assert {"__init__.py", "compat.py", "mesh.py", "program.py", "zero.py", "tp.py",
+            "ring_attention.py"} == parallel
 
 
 def test_package_imports_without_jax():

@@ -25,6 +25,7 @@ PALLAS = "Pallas tiling parameters"  # a ROADMAP.md departure
 INIT = "**Init** draws from a `torch.Generator`"  # a ROADMAP.md departure
 _KEY = {"rng": RENAMED}
 MODEL_STATE = {"model_state": "`TrainState.model_state`"}  # ROADMAP.md A12's first item
+PER_DEVICE = "One process per device"  # a ROADMAP.md departure (A11)
 
 # (module, qualified name) -> {JAX parameter the port lacks: ROADMAP anchor}
 MISSING = {
@@ -54,8 +55,11 @@ MISSING = {
     ("losses.containers", "LossMeter.create"): {"meter_type": "A12"},
     ("losses.contrastive", "cosine_similarity"): {"axis": RENAMED},
     ("nnunet.augment", "augment_patch_batch"): _KEY,
-    ("observability.manifest", "run_manifest"): {"donation": "Buffer donation",
-                                                 "mesh": "A11"},
+    ("observability.manifest", "run_manifest"): {"donation": "Buffer donation"},
+    ("parallel.compat", "axis_size"): {"axis_name": RENAMED},
+    **{("parallel.mesh", fn): {"devices": PER_DEVICE}
+       for fn in ("client_mesh", "hybrid_mesh", "client_data_mesh")},
+    ("parallel.ring_attention", "ring_flash_attention"): {"interpret": PALLAS},
     ("privacy.dpsgd", "gaussian_noise_like"): _KEY,
     ("privacy.dpsgd", "noisy_clipped_mean_grads"): _KEY,
     ("privacy.dpsgd", "validate_dp_safe_model_state"): {"model_state": "The BatchNorm check"},
@@ -239,6 +243,6 @@ def test_every_allow_list_reason_is_in_the_roadmap(anchor):
 def test_the_simulation_takes_jax_arguments_in_jax_slots():
     j = _positional(JAX[("server.simulation", "FederatedSimulation.__init__")])
     t = _positional(PORT[("server.simulation", "FederatedSimulation.__init__")])
-    # every JAX argument (mesh and flash_early_stopping refuse a value) and
+    # every JAX argument (flash_early_stopping refuses a value) and
     # the port's device last
     assert t == j + ["device"]
