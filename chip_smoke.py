@@ -209,7 +209,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      only: N 1,000 with the compressed exchange (top-k 0.1, 8 bits, error
      feedback, seed 3) through both cohort routes, 3 rounds: histories,
      states and the registry's client and error-feedback rows equal bit for
-     bit; both routes' warm walls in turns.
+     bit; both routes' warm walls in turns, 2 rounds each.
  28. ``compressed_dp_cifar_cnn``: the dense DP path without and with that
      compression, warm walls in turns; ``logical_nbytes`` and
      ``estimate_wire_nbytes`` of the update; ``compress_update`` over the
@@ -271,11 +271,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      card and on the CPU: the same verdicts, suspects, rungs, rollbacks,
      roster and ledger, losses and params within 5e-4),
      ``recovery_dp_cifar_cnn`` (the DP path at full width under
-     ``InstanceLevelDpServer``, a frame every round, 6 rounds on each route,
+     ``InstanceLevelDpServer``, a frame every round, 5 rounds on each route,
      four arms: fault-free; an armed, idle ``RecoveryPolicy`` bit-equal to
      it; a probability-1 scale fault (-15) on 16 named clients from round
      2 unsupervised, halted by the watchdog with one bundle; the same
-     supervised, all 6 rounds, the 16 clients on its roster; K1/K2 5 and 40
+     supervised, all 5 rounds, the 16 clients on its roster; K1/K2 5 and 40
      a dispatched round as the simulation counts them; the rungs, the
      rollbacks, the epsilon and the wall split into restore, bundle,
      engagement and replayed rounds), ``recovery_cohort`` (the pipelined
@@ -3037,7 +3037,7 @@ def cohort_chunked_vs_pipelined(source) -> dict:
     feedback) through the chunked cohort route ("auto") and the pipelined
     one, 3 rounds each: histories, server and client states, and the
     registry's client and error-feedback rows equal bit for bit; then both
-    routes' warm walls in turns."""
+    routes' warm walls in turns, ``WARM_ROUNDS`` rounds each."""
     from fl4health_tpu_torch.compression.config import CompressionConfig
     from fl4health_tpu_torch.server import simulation as tsim
 
@@ -3070,7 +3070,7 @@ def cohort_chunked_vs_pipelined(source) -> dict:
                "round_facts": {m: {k: s.round_metrics[-1][k] for k in (
                    "stage_ms", "gather_ms", "scatter_ms", "pull_bytes", "pull_ms")}
                    for m, s in sims.items()},
-               "warm_walls": mode_walls(auto, COHORT_ROUNDS)}
+               "warm_walls": mode_walls(auto)}
     finally:
         torch.backends.cudnn.deterministic = deterministic
     print(json.dumps(out))
@@ -3882,7 +3882,7 @@ def nnunet_inference(nnunet_sim) -> dict:
         deterministic_flags()
         g = torch.Generator(device="cuda").manual_seed(7)
         one = torch.randn((*patch, 1), generator=g, device="cuda")
-        direct = model.apply(params, one[None], train=False)[0]["prediction"][0].float()
+        direct = model.apply(params, {}, one[None], train=False)[0][0]["prediction"][0].float()
         # with uniform weights: the Gaussian map falls below the 1e-8 floor
         # of JAX's division near a 128^3 patch's corners, where a lone
         # window's logits come out scaled down (in JAX as here)
@@ -3907,7 +3907,7 @@ def nnunet_inference(nnunet_sim) -> dict:
         with torch.inference_mode():
             for c in corners:
                 w = tuple(slice(s, s + p) for s, p in zip(c, patch))
-                pred = model.apply(params, vol[w][None], train=False)[0]["prediction"][0]
+                pred = model.apply(params, {}, vol[w][None], train=False)[0][0]["prediction"][0]
                 pred = pred.float().cpu().numpy().astype(np.float64)
                 if logits is None:
                     logits = np.zeros((*INFER_VOLUME, pred.shape[-1]))
@@ -4293,7 +4293,9 @@ def obs_sigterm_check(res: dict, v: dict, root: str, walls: list) -> dict:
 
 # -- the recovery slice ---------------------------------------------------------
 
-RECOVERY_ROUNDS = 6
+# the unsupervised arm halts at round 4 and the supervised one replays from
+# round 3, so 5 rounds run one round past the recovery
+RECOVERY_ROUNDS = 5
 # the clients of the scale fault (-15, probability 1, from round 2): every
 # fourth of the 64. On 4 clients the fault cannot diverge: their weights
 # (4 x -15) cancel the 60 honest ones in the weighted mean, so it stalls
@@ -4498,12 +4500,12 @@ def recovery_dp_cifar_cnn(dp) -> dict:
     """``recovery_dp_cifar_cnn``, deterministic flags: the DP path at full
     width (64 clients of 160 rows, batch 32, 5 DP-SGD steps, C 1, sigma 1,
     bf16 compute on f32 params) under ``InstanceLevelDpServer``, a frame
-    every round, 6 rounds, on the chunked and the pipelined route, in four
+    every round, 5 rounds, on the chunked and the pipelined route, in four
     arms: fault-free; a ``RecoveryPolicy`` armed with no fault (bit-equal to
     the fault-free arm: history, global params, server state); the scale
     fault (-15 on the 16 clients of ``RECOVERY_FAULTED`` from round 2)
     unsupervised (the watchdog halts it on a loss divergence, one bundle);
-    and the fault supervised (all 6 rounds, the roster holds the 16
+    and the fault supervised (all 5 rounds, the roster holds the 16
     clients; ``max_suspects`` leaves room for 4 more, printed). K1 and K2
     launch 5 and
     40 times each round the simulation dispatched (``rounds_dispatched``).
@@ -5638,20 +5640,21 @@ def timed_fit(sim, rounds: int, counters) -> dict:
             "launches": {k: v for c in counters for k, v in c.LAUNCHES.items()}}
 
 
-def mesh_arm(name: str, build, counters, expected: dict, modes=("pipelined",)) -> dict:
+def mesh_arm(name: str, build, counters, expected: dict, modes=("pipelined",),
+             rounds: int = 2, warm: bool = True) -> dict:
     """One arm: the unsharded run and the sharded one (per route) of the same
-    recipe, 2 rounds each from the same init, bit for bit; then warm rounds
-    of each in turns, synchronised, and each run's peak device memory.
-    Launches are counted over each 2-round run."""
-    out = {"arm": name}
+    recipe, ``rounds`` rounds (or async events) each from the same init, bit
+    for bit; then (``warm``) warm rounds of each in turns, synchronised, and
+    each run's peak device memory. Launches are counted over each run."""
+    out = {"arm": name, "rounds": rounds}
     ref = build(None, modes[0])
     init = {k: v.clone() for k, v in ref.global_params.items()}
-    runs = {"unsharded": (ref, timed_fit(ref, 2, counters))}
+    runs = {"unsharded": (ref, timed_fit(ref, rounds, counters))}
     for mode in modes:
         sim = build("mesh", mode)
         if not all(torch.equal(sim.global_params[k], v) for k, v in init.items()):
             fail(f"{name}: the sharded run's init differs from the unsharded one's")
-        runs[f"mesh_{mode}"] = (sim, timed_fit(sim, 2, counters))
+        runs[f"mesh_{mode}"] = (sim, timed_fit(sim, rounds, counters))
     for key, (sim, stats) in runs.items():
         hist = [(r.fit_losses, r.eval_losses, r.eval_metrics) for r in sim.history]
         if not all(np.isfinite(v) for h in hist for d in h for v in d.values()):
@@ -5668,7 +5671,7 @@ def mesh_arm(name: str, build, counters, expected: dict, modes=("pipelined",)) -
         out[key] = {**stats, "warm_round_s": [],
                     "fit_losses": [r.fit_losses["backward"] for r in sim.history]}
     # then warm rounds in turns (unsharded, sharded..., sharded..., unsharded)
-    for key in [*runs, *reversed(runs)]:
+    for key in ([*runs, *reversed(runs)] if warm else []):
         torch.cuda.synchronize()
         t0 = time.time()
         runs[key][0].fit(1)
@@ -5745,6 +5748,354 @@ def mesh_slice(fa, dp) -> dict:
         dist.destroy_process_group()
         drop_dirs(root)
     return {"dp": dp_arm, "bert": bert_arm, "ring": ring_arm}
+
+
+# -- the model-state slice: buffered async and the admin plane under a mesh,
+# TrainState.model_state with FedPM's masked models and FedBN's statistics ----
+
+FEDPM_ROUNDS, FEDBN_ROUNDS = 3, 2
+FEDPM_TINY_TOL = 5e-4
+
+
+def mesh_async_dp_cifar_cnn(dp) -> dict:
+    """``mesh_async_dp_cifar_cnn``: ``async_dp_cifar_cnn``'s recipe (6
+    events, buffer 32, clients 0 and 1 at 5x) unsharded and under a
+    one-rank NCCL ``MeshConfig()`` on both async routes: bit for bit, 35 K1
+    and 280 K2 launches each (7 waves of 5 steps)."""
+    from fl4health_tpu_torch.parallel.program import MeshConfig
+
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    cfg, faults = async_recipe()
+
+    def build(mesh, mode):
+        return build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                            execution_mode=mode, async_config=cfg, fault_plan=faults,
+                            mesh=MeshConfig() if mesh else None)
+
+    steps = (ASYNC_EVENTS + 1) * LOCAL_STEPS
+    return mesh_arm("mesh_async_dp_cifar_cnn", build, [dp],
+                    {"dp_sq_norms": steps, "dp_scaled_sum": steps * len(CIFAR_LEAVES)},
+                    modes=("pipelined", "chunked"), rounds=ASYNC_EVENTS, warm=False)
+
+
+def mesh_ops_dp_cifar_cnn(dp) -> dict:
+    """``mesh_ops_dp_cifar_cnn``: the DP path under ``fed_adam(0.05)`` with
+    an armed admin plane, 2 pipelined rounds; round 2's data provider POSTs
+    ``server_lr`` 0.02 to rank 0's endpoint before round 2's boundary. The
+    one-rank mesh's run (the retune broadcast over NCCL) against the
+    unsharded run with the same POST: bit for bit, 10 K1 and 80 K2 launches
+    each, both journals at round 2."""
+    from fl4health_tpu_torch.observability import MetricsRegistry, Observability, Tracer
+    from fl4health_tpu_torch.parallel.program import MeshConfig
+    from fl4health_tpu_torch.strategies.fedopt import fed_adam
+
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (32, 32, 3))
+    retune = {"server_lr": 0.02}
+    out, sims = {"arm": "mesh_ops_dp_cifar_cnn", "rounds": OPS_ROUNDS, "retune": retune}, {}
+    for name, mesh in (("unsharded", None), ("mesh", MeshConfig())):
+        obs = Observability(enabled=True, registry=MetricsRegistry(), tracer=Tracer(),
+                            admin_token=OPS_TOKEN, http_port=0, introspection=False)
+        posted = {}
+
+        def provider(rnd, obs=obs, posted=posted):
+            if rnd == 2 and "resp" not in posted:
+                posted["resp"] = post_json(obs.scrape_url + "/admin/scalars", retune,
+                                           OPS_TOKEN)
+            return None
+
+        sim = build_dp_sim(data, torch.bfloat16, "cuda", DP_SIGMA, seed=0,
+                           strategy=fed_adam(lr=0.05), observability=obs,
+                           train_data_provider=provider, execution_mode="pipelined",
+                           mesh=mesh)
+        stats = timed_fit(sim, OPS_ROUNDS, [dp])
+        journal = [(j["round"], j["scalars"]) for j in obs.admin.journal()]
+        lr = float(sim.server_state.opt_state.hyperparams["learning_rate"])
+        if (posted.get("resp", (None,))[0] != 200 or journal != [(2, retune)]
+                or lr != float(np.float32(retune["server_lr"]))):
+            fail(f"mesh_ops_dp_cifar_cnn {name}: POST {posted.get('resp')}, journal "
+                 f"{journal}, lr {lr}")
+        if stats["launches"] != dp_launches(OPS_ROUNDS):
+            fail(f"mesh_ops_dp_cifar_cnn {name}: launches {stats['launches']}, expected "
+                 f"{dp_launches(OPS_ROUNDS)}")
+        sims[name] = sim
+        out[name] = {**stats, "journal": journal, "server_lr_leaf": lr,
+                     "fit_losses": [r.fit_losses["backward"] for r in sim.history]}
+    if not trajectory_equal(sims["unsharded"], sims["mesh"]):
+        fail("mesh_ops_dp_cifar_cnn: the mesh run differs from the unsharded run")
+    out["bit_equal"] = True
+    print(json.dumps(out))
+    del sims
+    torch.cuda.empty_cache()
+    return out
+
+
+def fedpm_sim(data, device: str, mode: str, in_features: int, hidden: tuple,
+              n_out: int, batch: int, seed: int, local_steps=None, local_epochs=None,
+              init=None):
+    """FedPM over ``MaskedMlp(hidden, n_out)``: Adam(0.01) on the scores,
+    ``FedPm(reset_frequency=2)``; ``init`` (params, frozen state) installed
+    where given."""
+    import dataclasses
+
+    from fl4health_tpu_torch import optim
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.clients.fedpm import FedPmClientLogic
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.models.masked import MaskedMlp
+    from fl4health_tpu_torch.server.simulation import FederatedSimulation
+    from fl4health_tpu_torch.strategies.fedpm import FedPm
+
+    logic = FedPmClientLogic(engine.from_module(MaskedMlp(in_features, hidden, n_out)),
+                             engine.masked_cross_entropy)
+    if init is not None:
+        params, state = init
+        logic.model = dataclasses.replace(
+            logic.model, init=lambda g: {k: v.clone() for k, v in params.items()},
+            init_state=lambda g: state)
+    return FederatedSimulation(
+        logic=logic, tx=optim.adam(0.01), strategy=FedPm(reset_frequency=2), datasets=data,
+        batch_size=batch, metrics=MetricManager((efficient.accuracy(),)),
+        local_steps=local_steps, local_epochs=local_epochs, seed=seed,
+        execution_mode=mode, device=device)
+
+
+class PacketRecorder:
+    """Wraps a strategy's ``aggregate``: per round, whether every packet
+    entry is 0 or 1, and the round's participating clients (the mask's
+    sum), kept as device tensors and read after the run."""
+
+    def __init__(self, sim):
+        self.binary, self.participants = [], []
+        inner = sim.strategy.aggregate
+
+        def aggregate(server_state, results, round_idx):
+            self.binary.append(torch.stack([((p == 0) | (p == 1)).all()
+                                            for p in results.packets.values()]).all())
+            self.participants.append(results.mask.sum())
+            return inner(server_state, results, round_idx)
+
+        sim.strategy.aggregate = aggregate
+
+
+def tiny_fedpm_arrays() -> list:
+    """tests/clients/test_fedpm_simclr.py's fixture: 2 clients of 24 train
+    and 16 val rows of ``synthetic_classification(PRNGKey(i), 40, (8,), 3)``."""
+    from fl4health_tpu_torch import rng
+    from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
+    from fl4health_tpu_torch.server.simulation import ClientDataset
+
+    out = []
+    for i in range(2):
+        x, y = synthetic_classification(rng.PRNGKey(i), 40, (8,), 3)
+        out.append(ClientDataset(x[:24].numpy(), y[:24].numpy(), x[24:].numpy(),
+                                 y[24:].numpy()))
+    return out
+
+
+def fedpm_mnist(fa, dp) -> dict:
+    """``fedpm_mnist``: ``examples/fedpm_example``'s model, ``MaskedMlp(
+    features=(64,), n_outputs=10)`` on 28x28x1 synthetic data, 64 clients,
+    batch 32, 5 local steps, ``FedPm(reset_frequency=2)``, 3 rounds, the
+    pipelined and chunked routes bit for bit; every packet binary, theta in
+    [0, 1], ``alpha + beta - 2`` the participants summed since the last
+    reset, element by element; no kernel launched; the warm round and the
+    peak above start. Then the CPU test's tiny recipe card against CPU
+    within 5e-4."""
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (28, 28, 1))
+    out = {"phase": "fedpm_mnist", "clients": DP_CLIENTS, "rounds": FEDPM_ROUNDS}
+    sims, recorders = {}, {}
+    for mode in ("pipelined", "chunked"):
+        sim = fedpm_sim(data, "cuda", mode, 28 * 28, (64,), 10, BATCH, seed=0,
+                        local_steps=LOCAL_STEPS)
+        recorders[mode] = PacketRecorder(sim)
+        out[mode] = timed_fit(sim, FEDPM_ROUNDS, [fa, dp])
+        sims[mode] = sim
+        if any(out[mode]["launches"].values()):
+            fail(f"fedpm_mnist {mode}: kernels launched {out[mode]['launches']}")
+    if not (history_equal(*sims.values()) and states_equal(*sims.values())):
+        fail("fedpm_mnist: the chunked route differs from the pipelined")
+    sim, rec = sims["pipelined"], recorders["pipelined"]
+    if not bool(torch.stack(rec.binary).all()):
+        fail("fedpm_mnist: a packet entry is neither 0 nor 1")
+    st = sim.server_state
+    theta = torch.cat([v.reshape(-1) for v in st.params.values()])
+    if float(theta.min()) < 0.0 or float(theta.max()) > 1.0:
+        fail(f"fedpm_mnist: theta in [{float(theta.min())}, {float(theta.max())}]")
+    since = int(st.rounds_since_reset)
+    counted = sum(float(p) for p in rec.participants[len(rec.participants) - since:])
+    for k, a in st.alpha.items():
+        if not torch.equal(a + st.beta[k] - 2.0, torch.full_like(a, counted)):
+            fail(f"fedpm_mnist: alpha + beta - 2 of {k} is not {counted} everywhere")
+    for r in sim.history:
+        if not all(np.isfinite(v) for v in (*r.fit_losses.values(), *r.eval_losses.values())):
+            fail(f"fedpm_mnist round {r.round}: non-finite {r.fit_losses}")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sim.fit(1)
+    torch.cuda.synchronize()
+    out.update({"routes_bit_equal": True, "rounds_since_reset": since,
+                "alpha_beta_count": counted, "warm_round_s": time.time() - t0,
+                "theta_range": [float(theta.min()), float(theta.max())],
+                "fit_losses": [r.fit_losses["backward"] for r in sim.history],
+                "eval_losses": [r.eval_losses["checkpoint"] for r in sim.history]})
+    del sims, sim
+    torch.cuda.empty_cache()
+    # the tiny recipe, card against CPU from the same init
+    tiny = tiny_fedpm_arrays()
+    cpu = fedpm_sim(tiny, "cpu", "pipelined", 8, (16,), 3, 8, seed=5, local_epochs=1)
+    init = ({k: v.clone() for k, v in cpu.global_params.items()},
+            {c: {m: {k: v[0].clone() for k, v in leaves.items()}
+                 for m, leaves in mods.items()}
+             for c, mods in cpu.client_states.model_state.items()})
+    cpu.fit(FEDPM_ROUNDS)
+    card = fedpm_sim(tiny, "cuda", "pipelined", 8, (16,), 3, 8, seed=5, local_epochs=1,
+                     init=init)
+    card.fit(FEDPM_ROUNDS)
+    for gr, cr in zip(card.history, cpu.history, strict=True):
+        check(f"tiny fedpm eval loss r{gr.round}", torch.tensor(gr.eval_losses["checkpoint"]),
+              torch.tensor(cr.eval_losses["checkpoint"]), FEDPM_TINY_TOL, 0)
+    err = max(check(f"tiny fedpm theta {k}", card.server_state.params[k].cpu(),
+                    cpu.server_state.params[k], FEDPM_TINY_TOL, 0)
+              for k in cpu.server_state.params)
+    out["tiny_max_theta_abs_err"] = err
+    print(json.dumps(out))
+    return out
+
+
+class BnMlp(torch.nn.Module):
+    """tests/clients/test_personalization.py's ``BnMlp``: Dense 16, flax's
+    BatchNorm (its statistics the model state), relu, Dense."""
+
+    def __init__(self, in_features: int, n_classes: int):
+        from fl4health_tpu_torch.models.norm import BatchNorm
+        from fl4health_tpu_torch.models.transformer import LoraDense
+
+        super().__init__()
+        self.Dense_0 = LoraDense(in_features, 16, dtype=None)
+        self.BatchNorm_0 = BatchNorm(16)
+        self.Dense_1 = LoraDense(16, n_classes, dtype=None)
+
+    def init_params(self, generator):
+        from fl4health_tpu_torch.models.cnn import _init_params
+
+        return _init_params(self, generator)
+
+    def init_state(self, generator):
+        return {"batch_stats": {"BatchNorm_0": self.BatchNorm_0.init_stats()}}
+
+    def forward(self, x, train=True, state=None):
+        h, stats = self.BatchNorm_0(self.Dense_0(x), state["batch_stats"]["BatchNorm_0"],
+                                    not train)
+        return (({"prediction": self.Dense_1(torch.relu(h))}, {}),
+                {"batch_stats": {"BatchNorm_0": stats}})
+
+
+def fedbn_datasets(n_clients: int) -> list:
+    """Client i's 32 train and 16 val rows of
+    ``synthetic_classification(PRNGKey(i), 48, (8,), 3)`` (the CPU tests')."""
+    from fl4health_tpu_torch import rng
+    from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
+    from fl4health_tpu_torch.server.simulation import ClientDataset
+
+    out = []
+    for i in range(n_clients):
+        x, y = synthetic_classification(rng.PRNGKey(i), 48, (8,), 3)
+        out.append(ClientDataset(x[:32].numpy(), y[:32].numpy(), x[32:].numpy(),
+                                 y[32:].numpy()))
+    return out
+
+
+def fedbn_sim(data, device: str, **sim_kw):
+    from fl4health_tpu_torch import optim
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.clients.fedrep import FedBnClientLogic
+    from fl4health_tpu_torch.exchange.exchanger import norm_exclusion_exchanger
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.server.simulation import FederatedSimulation
+    from fl4health_tpu_torch.strategies.fedavg import FedAvg
+
+    return FederatedSimulation(
+        logic=FedBnClientLogic(engine.from_module(BnMlp(8, 3)), engine.masked_cross_entropy),
+        tx=optim.sgd(0.05), strategy=FedAvg(), datasets=data, batch_size=8,
+        metrics=MetricManager((efficient.accuracy(),)), local_epochs=1,
+        exchanger=norm_exclusion_exchanger(), seed=3, device=device,
+        **{"execution_mode": "pipelined", **sim_kw})
+
+
+def fedbn_bn_mlp(fa, dp) -> dict:
+    """``fedbn_bn_mlp``: FedBN (``norm_exclusion_exchanger``) on the
+    ``BnMlp`` over 64 clients, 2 rounds: the batch statistics and the BN
+    scale and bias differ across clients, the Dense layers are equal after
+    the pull, no kernel launched; a run saved after round 1 and resumed
+    equals the straight run bit for bit; the CPU tests' 3-client fixture
+    card against CPU within 5e-4 (losses, params and statistics)."""
+    from fl4health_tpu_torch.checkpointing.state import SimulationStateCheckpointer
+
+    data = fedbn_datasets(DP_CLIENTS)
+    out = {"phase": "fedbn_bn_mlp", "clients": DP_CLIENTS, "rounds": FEDBN_ROUNDS}
+    sim = fedbn_sim(data, "cuda")
+    out["run"] = timed_fit(sim, FEDBN_ROUNDS, [fa, dp])
+    if any(out["run"]["launches"].values()):
+        fail(f"fedbn_bn_mlp: kernels launched {out['run']['launches']}")
+    cs = sim.client_states
+    stats = {"batch_stats/BatchNorm_0/" + k: v
+             for k, v in cs.model_state["batch_stats"]["BatchNorm_0"].items()}
+    spread = {"batch_stats": client_spread(stats, "batch_stats"),
+              "bn_affine": client_spread(cs.params, "BatchNorm_0"),
+              "dense": max(client_spread(cs.params, p) for p in ("Dense_0", "Dense_1"))}
+    if spread["batch_stats"] <= 1e-7 or spread["bn_affine"] <= 1e-7 or spread["dense"] > 0:
+        fail(f"fedbn_bn_mlp: client spreads {spread}")
+    root = ckpt_dir("fedbn")
+    try:
+        first = fedbn_sim(data, "cuda", state_checkpointer=SimulationStateCheckpointer(root))
+        first.fit(1)
+        again = fedbn_sim(data, "cuda", state_checkpointer=SimulationStateCheckpointer(root))
+        again.fit(FEDBN_ROUNDS)
+        if not (again._resume_info["next_round"] == 2 and history_equal(again, sim)
+                and states_equal(again, sim)):
+            fail("fedbn_bn_mlp: the resumed run differs from the straight run")
+    finally:
+        drop_dirs(root)
+    tiny = fedbn_datasets(3)
+    runs = {d: fedbn_sim(tiny, d) for d in ("cpu", "cuda")}
+    runs["cuda"].set_global_params(runs["cpu"].global_params)
+    for r in runs.values():
+        r.fit(3)
+    for gr, cr in zip(runs["cuda"].history, runs["cpu"].history, strict=True):
+        check(f"tiny fedbn eval loss r{gr.round}", torch.tensor(gr.eval_losses["checkpoint"]),
+              torch.tensor(cr.eval_losses["checkpoint"]), 5e-4, 0)
+    from fl4health_tpu_torch.core.pytree import tree_leaves
+
+    err = max(check("tiny fedbn client state", g.cpu(), c, 5e-4, 0)
+              for g, c in zip(tree_leaves((runs["cuda"].client_states.params,
+                                           runs["cuda"].client_states.model_state)),
+                              tree_leaves((runs["cpu"].client_states.params,
+                                           runs["cpu"].client_states.model_state))))
+    out.update({"spread": spread, "resume_bit_equal": True, "tiny_max_abs_err": err,
+                "fit_losses": [r.fit_losses["backward"] for r in sim.history]})
+    print(json.dumps(out))
+    del sim, first, again, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def model_state_slice(fa, dp) -> dict:
+    """Phase 39: buffered async and the armed admin plane under a one-rank
+    NCCL mesh against their unsharded runs, then FedPM over masked models
+    and FedBN's local batch statistics."""
+    import torch.distributed as dist
+
+    root = nccl_world()
+    try:
+        mesh_async = mesh_async_dp_cifar_cnn(dp)
+        mesh_ops = mesh_ops_dp_cifar_cnn(dp)
+    finally:
+        dist.destroy_process_group()
+        drop_dirs(root)
+    return {"mesh_async": mesh_async, "mesh_ops": mesh_ops, "fedpm": fedpm_mnist(fa, dp),
+            "fedbn": fedbn_bn_mlp(fa, dp)}
 
 
 def elapsed(t_start: float, after: str) -> None:
@@ -5897,6 +6248,10 @@ def main() -> int:
         # against their unsharded runs
         mesh = mesh_slice(fa, dp)
         elapsed(t_start, "mesh (38)")
+        # the model-state slice: buffered async and the admin plane under
+        # a one-rank NCCL mesh, FedPM's masked models, FedBN's statistics
+        model_state = model_state_slice(fa, dp)
+        elapsed(t_start, "model state, FedPM, FedBN, mesh async and admin (39)")
     finally:
         torch.backends.cudnn.deterministic = deterministic
     del cohort
@@ -5998,6 +6353,13 @@ def main() -> int:
             "launches_mesh_dp_cifar_cnn": mesh["dp"]["mesh_pipelined"]["launches"][name],
             "launches_mesh_dp_cifar_cnn_chunked":
                 mesh["dp"]["mesh_chunked"]["launches"][name],
+            # the model-state slice (phase 39): buffered async (6 events) and
+            # the armed admin plane (2 rounds) over a one-rank NCCL world
+            "launches_mesh_async_dp_cifar_cnn":
+                model_state["mesh_async"]["mesh_pipelined"]["launches"][name],
+            "launches_mesh_async_dp_cifar_cnn_chunked":
+                model_state["mesh_async"]["mesh_chunked"]["launches"][name],
+            "launches_mesh_ops_dp_cifar_cnn": model_state["mesh_ops"]["mesh"]["launches"][name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

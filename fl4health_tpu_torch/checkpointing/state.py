@@ -50,6 +50,7 @@ from typing import Any, Callable, Mapping
 
 from fl4health_tpu_torch.checkpointing import serialization
 from fl4health_tpu_torch.core.io import atomic_write
+from fl4health_tpu_torch.core.pytree import tree_leaves
 
 logger = logging.getLogger(__name__)
 
@@ -92,6 +93,31 @@ class CheckpointConfigMismatchError(ValueError):
 
 
 # -- frame primitives --------------------------------------------------------
+
+def _with_model_state(template: Any, stored: Any) -> Any:
+    """``stored`` with ``model_state`` added where a client-state template
+    keeps no model state and the stored state lacks the field: a frame
+    written before ``TrainState`` had ``model_state`` reads as one of a
+    model that keeps none. A template with model state finds no default
+    (such a frame cannot hold it) and fails ``from_state_dict``'s check."""
+    if isinstance(template, Mapping) and isinstance(stored, dict):
+        return {k: (_with_model_state(template[k], v) if k in template else v)
+                for k, v in stored.items()}
+    if (dataclasses.is_dataclass(template) and hasattr(template, "model_state")
+            and isinstance(stored, dict) and "model_state" not in stored
+            and not tree_leaves(template.model_state)):
+        return {**stored, "model_state": serialization.to_state_dict(template.model_state)}
+    return stored
+
+
+def read_trees(templates: Mapping[str, Any], blob: bytes) -> dict:
+    """A frame's bag of trees in ``templates``' structure (flax's
+    ``from_bytes``), a frame without ``model_state`` read as
+    ``_with_model_state`` says."""
+    templates = dict(templates)
+    return serialization.from_state_dict(
+        templates, _with_model_state(templates, serialization.msgpack_restore(blob)))
+
 
 def write_frame(path: str, trees: Mapping[str, Any],
                 host_header: Mapping[str, Any] | None = None,
@@ -508,7 +534,7 @@ class StateCheckpointer:
             raise CheckpointConfigMismatchError(
                 info.path, stored, expected_config_hash
             )
-        trees = serialization.from_bytes(dict(tree_templates), blob)
+        trees = read_trees(tree_templates, blob)
         host = {}
         for k, template in (host_templates or {}).items():
             snap = snapshotters.get(k, SerializableSnapshotter())
@@ -706,7 +732,7 @@ class SimulationStateCheckpointer(StateCheckpointer):
             templates["registry_strategy_rows"] = (
                 row_templates["strategy_rows"]
             )
-        trees = serialization.from_bytes(templates, blob)
+        trees = read_trees(templates, blob)
         sim.adopt_restored_state(trees["server_state"],
                                  trees["client_states"])
         sim.registry.load_rows(
@@ -762,7 +788,7 @@ class SimulationStateCheckpointer(StateCheckpointer):
             )
         self._check_config(info, sim)
         # the global trees' structure (under a mesh, gathered from the ranks)
-        trees = serialization.from_bytes(sim._snapshot_trees(), blob)
+        trees = read_trees(sim._snapshot_trees(), blob)
         sim.adopt_restored_state(trees["server_state"],
                                  trees["client_states"])
         sim.history = DataclassListSnapshotter().load(
@@ -808,7 +834,7 @@ class SimulationStateCheckpointer(StateCheckpointer):
                 "and buffer_size must match the interrupted run for the "
                 "buffered updates to resume bit-identically"
             )
-        trees = serialization.from_bytes(
+        trees = read_trees(
             {"server_state": sim.server_state,
              "client_states": sim.client_states,
              "pending": pending_template},

@@ -50,11 +50,12 @@ class ApflClientLogic(ClientLogic):
         device = next(iter(params.values())).device
         return ApflExtra(alpha=torch.tensor(self.alpha0, dtype=torch.float32, device=device))
 
-    def predict(self, params, batch: Batch, rng=None, train: bool = False,
+    def predict(self, params, model_state, batch: Batch, rng=None, train: bool = False,
                 extra=None, ctx=None):
         alpha = extra.alpha if extra is not None else self.alpha0
         kwargs = {"rng": rng} if self.model.takes_rng else {}
-        return self.model.apply(params, batch.x, train=train, alpha=alpha, **kwargs)
+        return self.model.apply(params, model_state, batch.x, train=train,
+                                alpha=alpha, **kwargs)
 
     def training_loss(self, preds, features, batch: Batch, params, state, ctx):
         # the global model learns from its own logits, the local one from

@@ -102,6 +102,10 @@ class Batch:
 class TrainState:
     params: Params
     opt_state: Any
+    # the model's non-param collections (flax's ``batch_stats``, the masked
+    # layers' ``frozen``), nested as flax nests them; ``{}`` for a model
+    # that keeps none
+    model_state: Any
     rng: torch.Tensor  # [2] int64 threefry key, split once a step
     step: torch.Tensor
     extra: Any = None  # a logic's persistent state (``init_extra``); None: empty
@@ -126,39 +130,64 @@ class StepOutput:
 # Model definition
 # ---------------------------------------------------------------------------
 
+def _no_state(generator: torch.Generator | None = None) -> dict:
+    return {}
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelDef:
-    """init(generator) -> params; apply(params, x, train) -> (preds,
-    features). ``preds`` holds at least ``"prediction"``; ``module`` is the
-    wrapped module, for checks of its structure (DP's BatchNorm check).
-    Where ``takes_rng``, apply also takes ``rng=``, the step's key (flax's
-    ``rngs["dropout"]``)."""
+    """init(generator) -> params; init_state(generator) -> model_state;
+    apply(params, model_state, x, train, rng) -> ((preds, features),
+    model_state), JAX's ``apply``. ``preds`` holds at least
+    ``"prediction"``; ``module`` is the wrapped module, for checks of its
+    structure (DP's BatchNorm check). Where ``takes_rng``, apply also takes
+    ``rng=``, the step's key (flax's ``rngs["dropout"]``).
+
+    ``model_state`` holds the non-param collections (BatchNorm's
+    ``batch_stats``, the masked layers' ``frozen``), ``{}`` for a model
+    that keeps none. The new state is computed (never written in place) on
+    train calls with a non-empty state; every other call hands the given
+    state back."""
 
     init: Callable[[torch.Generator], Params]
-    apply: Callable[..., tuple[dict, dict]]
+    apply: Callable[..., tuple[tuple[dict, dict], Any]]
     module: torch.nn.Module | None = None
     takes_rng: bool = False
+    init_state: Callable[[torch.Generator], dict] = _no_state
 
 
 def from_module(module: torch.nn.Module) -> ModelDef:
     """Wrap a module with ``init_params(generator)`` whose forward returns
     ``(preds_dict, features_dict)``; params are applied functionally, keyed
-    by flax path. A forward that takes ``train`` and ``rng`` gets them."""
+    by flax path. A forward that takes ``train`` and ``rng`` gets them.
+
+    A module with ``init_state(generator)`` keeps model state: its forward
+    takes ``train`` and ``state=`` (the nested collections) and returns
+    ``((preds, features), new_state)``. As JAX's ``from_flax`` takes
+    ``mutable=`` only on train calls with a non-empty state, the new state
+    is kept only then."""
     takes = inspect.signature(module.forward).parameters
     stochastic = "train" in takes and "rng" in takes
+    stateful = callable(getattr(module, "init_state", None))
 
     def init(generator: torch.Generator) -> Params:
         return module.init_params(generator)
 
-    def apply(params: Params, x: torch.Tensor, train: bool = True, rng=None, **kwargs):
+    def apply(params: Params, model_state, x, train: bool = True, rng=None, **kwargs):
         # extra keyword arguments (APFL's alpha, GPFL's conditional inputs)
         # reach the module's forward, as JAX's from_flax forwards them
         named = {k.replace("/", "."): v for k, v in params.items()}
         if stochastic:
             kwargs = {"train": train, "rng": rng, **kwargs}
-        return functional_call(module, named, (x,), kwargs)
+        elif stateful:
+            kwargs = {"train": train, **kwargs}
+        if not stateful:
+            return functional_call(module, named, (x,), kwargs), model_state
+        out, new_state = functional_call(module, named, (x,), {"state": model_state, **kwargs})
+        return out, (new_state if train and model_state else model_state)
 
-    return ModelDef(init=init, apply=apply, module=module, takes_rng=stochastic)
+    return ModelDef(init=init, apply=apply, module=module, takes_rng=stochastic,
+                    init_state=module.init_state if stateful else _no_state)
 
 
 # ---------------------------------------------------------------------------
@@ -186,14 +215,15 @@ class ClientLogic:
         clips the round's update here)."""
         return state
 
-    def predict(self, params: Params, batch: Batch, rng=None, train: bool = False,
-                extra=None, ctx=None):
-        """``extra`` is the persistent algorithm state (APFL's alpha),
-        ``ctx`` the round's context (GPFL's conditional inputs), for logics
-        whose forward reads them."""
+    def predict(self, params: Params, model_state, batch: Batch, rng=None,
+                train: bool = False, extra=None, ctx=None):
+        """-> ((preds, features), new_model_state). ``extra`` is the
+        persistent algorithm state (APFL's alpha), ``ctx`` the round's
+        context (GPFL's conditional inputs), for logics whose forward reads
+        them."""
         del extra, ctx
         kwargs = {"rng": rng} if self.model.takes_rng else {}
-        return self.model.apply(params, batch.x, train=train, **kwargs)
+        return self.model.apply(params, model_state, batch.x, train=train, **kwargs)
 
     def training_loss(self, preds: dict, features: dict, batch: Batch,
                       params: Params, state: TrainState, ctx: Any):
@@ -206,22 +236,23 @@ class ClientLogic:
     def _loss_fn(self, state: TrainState, ctx: Any, batch: Batch,
                  step_rng: torch.Tensor):
         """The differentiated closure params -> (backward, (preds,
-        additional)), shared by ``value_and_grads`` and the engine's loss
-        scaling. ``step_rng`` is the model's dropout key."""
+        additional, new_model_state)), shared by ``value_and_grads`` and the
+        engine's loss scaling. ``step_rng`` is the model's dropout key."""
 
         def loss(params):
-            preds, features = self.predict(params, batch, step_rng, train=True,
-                                           extra=state.extra, ctx=ctx)
+            (preds, features), new_model_state = self.predict(
+                params, state.model_state, batch, step_rng, train=True,
+                extra=state.extra, ctx=ctx)
             backward, additional = self.training_loss(preds, features, batch,
                                                       params, state, ctx)
-            return backward, (preds, additional)
+            return backward, (preds, additional, new_model_state)
 
         return loss
 
     def value_and_grads(self, state: TrainState, ctx: Any, batch: Batch,
                         step_rng: torch.Tensor):
-        """-> ((backward, (preds, additional)), grads) by whole-batch
-        ``torch.func.grad_and_value``."""
+        """-> ((backward, (preds, additional, new_model_state)), grads) by
+        whole-batch ``torch.func.grad_and_value``."""
         grads, (backward, aux) = torch.func.grad_and_value(
             self._loss_fn(state, ctx, batch, step_rng), has_aux=True)(state.params)
         return (backward, aux), grads
@@ -274,13 +305,15 @@ def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
 def create_train_state(logic: ClientLogic, tx: GradientTransformation,
                        key: torch.Tensor, generator: torch.Generator,
                        device: torch.device, precision: Any = None) -> TrainState:
-    """A fresh state on ``device`` whose random stream is ``key``; the params
-    are the model's init drawn from ``generator`` (not flax's init: tests
-    install converted flax params). The params and the optimizer state are
+    """A fresh state on ``device`` whose random stream is ``key``; the params,
+    then the model state, are the model's init drawn from ``generator`` (not
+    flax's init: tests install converted flax variables). The params and the optimizer state are
     f32 masters whatever ``precision`` says; a scaling policy adds the
     loss-scale state."""
     params = {k: v.to(device) for k, v in logic.model.init(generator).items()}
-    return TrainState(params=params, opt_state=tx.init(params), rng=key.to(device),
+    model_state = tree_map(lambda v: v.to(device), logic.model.init_state(generator))
+    return TrainState(params=params, opt_state=tx.init(params), model_state=model_state,
+                      rng=key.to(device),
                       step=torch.zeros((), dtype=torch.int32, device=device),
                       extra=logic.init_extra(params),
                       loss_scale=precision_policy.loss_scale_init(precision, device))
@@ -309,7 +342,8 @@ def _microbatched_value_and_grads(logic: ClientLogic, tx: Any, state: TrainState
     uniform mean is the full batch's masked-mean gradient; the loss and
     the additional losses recombine with the weights ``M_k / M_total``.
     Exact for masked example-mean losses and affine gradient transforms,
-    as in JAX; batch-coupled losses change under microbatching."""
+    as in JAX; batch-coupled losses change under microbatching, and the
+    model state (batch statistics) is the LAST microbatch's, as in JAX."""
     n = tx.n_shards
     b = batch.example_mask.shape[0]
     if b % n != 0:
@@ -326,7 +360,7 @@ def _microbatched_value_and_grads(logic: ClientLogic, tx: Any, state: TrainState
     outs = []
     for k in range(n):
         mb = micro(k)
-        (bw, (preds, additional)), g = logic.value_and_grads(
+        (bw, (preds, additional, new_model_state)), g = logic.value_and_grads(
             state, ctx, mb, rng.fold_in(step_key, k))
         outs.append((bw, preds, additional, logic.transform_gradients(g, state, ctx),
                      mb.example_mask.to(torch.float32).sum()))
@@ -342,7 +376,7 @@ def _microbatched_value_and_grads(logic: ClientLogic, tx: Any, state: TrainState
     backward = recombine([o[0] for o in outs])
     additional = {key: recombine([o[2][key] for o in outs]) for key in outs[0][2]}
     preds = tree_map(lambda *ps: torch.cat(ps, dim=0), *[o[1] for o in outs])
-    return backward, preds, additional, grads
+    return backward, preds, additional, new_model_state, grads
 
 
 def make_train_step(logic: ClientLogic, tx: GradientTransformation,
@@ -393,8 +427,8 @@ def make_train_step(logic: ClientLogic, tx: GradientTransformation,
         batch = logic.augment(batch, rng.fold_in(step_key, 0xA6), ctx)
         finite = None
         if unreduced:
-            backward, preds, additional, grads = _microbatched_value_and_grads(
-                logic, tx, state, ctx, batch, step_key)
+            backward, preds, additional, new_model_state, grads = (
+                _microbatched_value_and_grads(logic, tx, state, ctx, batch, step_key))
         elif scaling:
             ls = state.loss_scale
             if ls is None:
@@ -402,7 +436,7 @@ def make_train_step(logic: ClientLogic, tx: GradientTransformation,
                                  "TrainState with create_train_state(..., precision=...)")
             # the backward seeded with the scale as the loss's cotangent; the
             # primal loss stays unscaled
-            backward, vjp_fn, (preds, additional) = torch.func.vjp(
+            backward, vjp_fn, (preds, additional, new_model_state) = torch.func.vjp(
                 logic._loss_fn(state, ctx, batch, step_key), state.params, has_aux=True)
             grads = vjp_fn(ls["scale"].to(backward.dtype))[0]
             # unscaled in f32; the finite screen reads the unscaled gradient
@@ -410,19 +444,21 @@ def make_train_step(logic: ClientLogic, tx: GradientTransformation,
             grads = {k: g * inv for k, g in grads.items()}
             finite = precision_policy.tree_all_finite(grads)
         else:
-            (backward, (preds, additional)), grads = logic.value_and_grads(
-                state, ctx, batch, step_key)
+            (backward, (preds, additional, new_model_state)), grads = (
+                logic.value_and_grads(state, ctx, batch, step_key))
         if not unreduced:  # the microbatched path transformed each microbatch's
             grads = logic.transform_gradients(grads, state, ctx)
         updates, new_opt_state = tx.update(grads, state.opt_state, state.params)
         new_params = apply_updates(state.params, updates)
         keep = batch.step_mask  # padding steps must not move anything
-        # a non-finite scaled gradient also skips the optimizer step
+        # a non-finite scaled gradient also skips the optimizer step (and
+        # keeps the batch statistics)
         keep_update = keep if finite is None else keep * finite
         new_state = dataclasses.replace(
             state,
             params=_mask_tree(new_params, state.params, keep_update),
             opt_state=_mask_tree(new_opt_state, state.opt_state, keep_update),
+            model_state=_mask_changed(new_model_state, state.model_state, keep_update),
             rng=next_key,  # every step splits, padding steps too, as in JAX
             step=state.step + keep_update.to(torch.int32),
         )
@@ -543,8 +579,9 @@ def make_local_eval(logic: ClientLogic, metric_manager: MetricManager,
             batch = _step_slice(batches, s)
             if keyed:
                 key, step_key = rng.split(key)
-            preds, features = logic.predict(state.params, batch, step_key, train=False,
-                                            extra=state.extra, ctx=ctx)
+            (preds, features), _ = logic.predict(state.params, state.model_state, batch,
+                                                 step_key, train=False,
+                                                 extra=state.extra, ctx=ctx)
             loss, additional = logic.eval_loss(preds, features, batch,
                                                state.params, state, ctx)
             meter = meter.update(
@@ -632,8 +669,8 @@ def make_local_train_with_early_stopping(
             best_score = torch.where(improved, score, best_score)
             bad = torch.where(live, torch.where(improved, 0, bad + 1), bad)
             stopped = torch.maximum(stopped, (bad >= patience).to(stopped.dtype))
-        # the FULL best snapshot (params, optimizer state, extra) with the
-        # advanced key: randomness is never replayed
+        # the FULL best snapshot (params, optimizer state, model state,
+        # extra) with the advanced key: randomness is never replayed
         state = dataclasses.replace(best_state, rng=state.rng)
         state = logic.finalize_round(state, ctx, executed)
         outs = (state, meter.compute(), metric_manager.compute(mstate), executed)

@@ -4,8 +4,8 @@ exchange boundary (counterpart of ``fl4health_tpu/clients/fedrep.py``).
 - FedPer: a shared feature extractor and a private head, a plain logic
   over ``FixedLayerExchanger(SequentiallySplitModel.exchange_features_only)``.
 - FedBN: every layer but the normalisation layers exchanged, a plain logic
-  over ``exchange.norm_exclusion_exchanger()``; the port's models carry
-  no BatchNorm state yet, so the alias is a name only.
+  over ``exchange.norm_exclusion_exchanger()``; the batch statistics stay
+  local because ``TrainState.model_state`` is never exchanged.
 - FedRep: FedPer's split, but each round first trains the head alone for
   ``head_steps`` local steps, then the representation alone. The freezing
   is a gradient mask keyed on the step within the round

@@ -23,18 +23,20 @@ class FedSimClrClientLogic(ClientLogic):
         super().__init__(model, criterion=None)
         self.temperature = temperature
 
-    def predict(self, params, batch: Batch, rng=None, train: bool = False,
+    def predict(self, params, model_state, batch: Batch, rng=None, train: bool = False,
                 extra=None, ctx=None):
         keyed = self.model.takes_rng
-        preds, features = self.model.apply(params, batch.x, train=train,
-                                           **({"rng": rng} if keyed else {}))
-        # the second view through the same model, its noise decorrelated
-        # from the first's (a model that draws at apply time)
+        (preds, features), new_state = self.model.apply(
+            params, model_state, batch.x, train=train, **({"rng": rng} if keyed else {}))
+        # the second view through the same model (on the first's new state,
+        # as in JAX), its noise decorrelated from the first's (a model that
+        # draws at apply time)
         view = {}
         if keyed:
             view["rng"] = None if rng is None else rng_mod.fold_in(rng, 1)
-        t_preds, _ = self.model.apply(params, batch.y, train=train, **view)
-        return {**preds, "transformed": t_preds["prediction"]}, features
+        (t_preds, _), new_state = self.model.apply(params, new_state, batch.y,
+                                                   train=train, **view)
+        return ({**preds, "transformed": t_preds["prediction"]}, features), new_state
 
     def _ntxent(self, preds, batch: Batch):
         return ntxent_loss(preds["prediction"], preds["transformed"],

@@ -40,10 +40,11 @@ from fl4health_tpu_torch.losses.drift import weight_drift_loss
 FendaClientLogic = ClientLogic
 
 
-def _features(model, params: Params, x) -> dict:
-    """A frozen feature pass: the model's features at ``train=False``,
-    detached."""
-    return {k: v.detach() for k, v in model.apply(params, x, train=False)[1].items()}
+def _features(model, params: Params, model_state, x) -> dict:
+    """A frozen feature pass: the model's features at ``train=False`` on the
+    client's model state, detached."""
+    (_, features), _ = model.apply(params, model_state, x, train=False)
+    return {k: v.detach() for k, v in features.items()}
 
 
 @tree_dataclass
@@ -89,8 +90,8 @@ class PerFclClientLogic(ClientLogic):
     def training_loss(self, preds, features, batch: Batch, params, state,
                       ctx: PerFclContext):
         vanilla = self.criterion(preds["prediction"], batch.y, batch.example_mask)
-        old_f = _features(self.model, state.extra.old_params, batch.x)
-        init_f = _features(self.model, ctx.initial_params, batch.x)
+        old_f = _features(self.model, state.extra.old_params, state.model_state, batch.x)
+        init_f = _features(self.model, ctx.initial_params, state.model_state, batch.x)
         z_p, z_s = features["local_features"], features["global_features"]
         # the two halves of perfcl_loss, each at its own temperature
         g_term = moon_contrastive_loss(z_s, init_f["global_features"][None],
@@ -152,7 +153,7 @@ class ConstrainedFendaClientLogic(ClientLogic):
         contrastive = torch.zeros((), device=vanilla.device)
         if self.con_w > 0.0:
             old_local = _features(self.model, state.extra.old_local_params,
-                                  batch.x)["local_features"]
+                                  state.model_state, batch.x)["local_features"]
             contrastive = moon_contrastive_loss(
                 z_p, z_s.detach()[None], old_local[None], self.temperature,
                 batch.example_mask) * state.extra.have_old

@@ -58,10 +58,10 @@ class GpflClientLogic(ClientLogic):
                            p_cond=(emb.T @ props) / self.n_classes,
                            g_cond=emb.sum(dim=0) / self.n_classes)
 
-    def predict(self, params, batch: Batch, rng=None, train: bool = False,
+    def predict(self, params, model_state, batch: Batch, rng=None, train: bool = False,
                 extra=None, ctx=None):
         kwargs = {"rng": rng} if self.model.takes_rng else {}
-        return self.model.apply(params, batch.x, train=train,
+        return self.model.apply(params, model_state, batch.x, train=train,
                                 p_cond=None if ctx is None else ctx.p_cond,
                                 g_cond=None if ctx is None else ctx.g_cond, **kwargs)
 

@@ -58,8 +58,8 @@ class InstanceLevelDpMixin:
                        example_mask=torch.ones((1,), dtype=torch.float32,
                                                device=batch.step_mask.device),
                        step_mask=batch.step_mask)
-            preds, features = self.predict(params, b1, train=True, extra=state.extra,
-                                           ctx=ctx)
+            (preds, features), _ = self.predict(params, state.model_state, b1, train=True,
+                                                extra=state.extra, ctx=ctx)
             loss, additional = self.training_loss(preds, features, b1, params,
                                                   state, ctx)
             return loss, (preds, additional)
@@ -85,7 +85,8 @@ class InstanceLevelDpMixin:
         additional = {**additional, "clip_fraction": clip_fraction}
         # per-example predict ran on singleton batches: squeeze back to [B,...]
         preds = tree_map(lambda p: p[:, 0], per_preds)
-        return (backward, (preds, additional)), grads
+        # no batch statistics (refused above): the model state stays
+        return (backward, (preds, additional, state.model_state)), grads
 
 
 class InstanceLevelDpClientLogic(InstanceLevelDpMixin, ClientLogic):

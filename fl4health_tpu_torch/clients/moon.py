@@ -60,15 +60,16 @@ class MoonClientLogic(ClientLogic):
     def init_round_context(self, state: TrainState, payload) -> MoonContext:
         return MoonContext(global_params=getattr(payload, "params", payload))
 
-    def _features_of(self, params: Params, x: torch.Tensor) -> torch.Tensor:
-        return self.model.apply(params, x, train=False)[1]["features"]
+    def _features_of(self, params: Params, model_state, x: torch.Tensor) -> torch.Tensor:
+        (_, features), _ = self.model.apply(params, model_state, x, train=False)
+        return features["features"]
 
     def training_loss(self, preds, features, batch: Batch, params, state,
                       ctx: MoonContext):
         vanilla = self.criterion(preds["prediction"], batch.y, batch.example_mask)
         z = features["features"]  # [B, D]
-        z_glob = self._features_of(ctx.global_params, batch.x).detach()
-        z_old = torch.func.vmap(lambda p: self._features_of(p, batch.x))(
+        z_glob = self._features_of(ctx.global_params, state.model_state, batch.x).detach()
+        z_old = torch.func.vmap(lambda p: self._features_of(p, state.model_state, batch.x))(
             state.extra.old_params).detach()  # [L, B, D]
         # the last n_valid slots hold real models
         slots = torch.arange(self.buffer_len, device=z.device)

@@ -48,8 +48,9 @@ def _prefixed(params: Params, name: str) -> Params:
 def twin_model_def(base: ModelDef) -> ModelDef:
     """Two independent copies of ``base`` under ``global_model/`` and
     ``personal_model/`` (``TwinModel``'s layout at the ``ModelDef``
-    level). Predictions: ``global``, ``personal``, ``prediction`` (the
-    personal copy's) and each copy's whole dict (``_global_preds``,
+    level); the model state ``{"global_model": ..., "personal_model":
+    ...}``, as JAX's. Predictions: ``global``, ``personal``, ``prediction``
+    (the personal copy's) and each copy's whole dict (``_global_preds``,
     ``_personal_preds``); features ``{"global": ..., "personal": ...}``.
     A base that takes a key gets one split off the step's for each copy."""
 
@@ -57,22 +58,28 @@ def twin_model_def(base: ModelDef) -> ModelDef:
         return {**_prefixed(base.init(generator), GLOBAL),
                 **_prefixed(base.init(generator), PERSONAL)}
 
-    def apply(params, x, train=True, rng=None, **kwargs):
+    def init_state(generator):
+        return {GLOBAL: base.init_state(generator), PERSONAL: base.init_state(generator)}
+
+    def apply(params, model_state, x, train=True, rng=None, **kwargs):
         keys = {GLOBAL: {}, PERSONAL: {}}
         if base.takes_rng and rng is not None:
             rng_g, rng_p = rng_mod.split(rng)
             keys = {GLOBAL: {"rng": rng_g}, PERSONAL: {"rng": rng_p}}
-        g_preds, g_feats = base.apply(_subtree(params, GLOBAL), x, train=train,
-                                      **keys[GLOBAL], **kwargs)
-        p_preds, p_feats = base.apply(_subtree(params, PERSONAL), x, train=train,
-                                      **keys[PERSONAL], **kwargs)
+        (g_preds, g_feats), g_ms = base.apply(_subtree(params, GLOBAL), model_state[GLOBAL],
+                                              x, train=train, **keys[GLOBAL], **kwargs)
+        (p_preds, p_feats), p_ms = base.apply(_subtree(params, PERSONAL),
+                                              model_state[PERSONAL], x, train=train,
+                                              **keys[PERSONAL], **kwargs)
         preds = {"global": g_preds["prediction"], "personal": p_preds["prediction"],
                  # validation and metrics run on the personal copy
                  "prediction": p_preds["prediction"],
                  "_global_preds": g_preds, "_personal_preds": p_preds}
-        return preds, {"global": g_feats, "personal": p_feats}
+        return (preds, {"global": g_feats, "personal": p_feats}), {GLOBAL: g_ms,
+                                                                   PERSONAL: p_ms}
 
-    return ModelDef(init=init, apply=apply, module=base.module, takes_rng=base.takes_rng)
+    return ModelDef(init=init, apply=apply, module=base.module, takes_rng=base.takes_rng,
+                    init_state=init_state)
 
 
 def exchange_global_subtree(path: str) -> bool:
@@ -107,9 +114,11 @@ class DittoPersonalizedLogic(ClientLogic):
             f"personal_{k}" for k in getattr(base, "eval_loss_keys", ()))
 
     def _view(self, state: TrainState, params: Params | None = None) -> TrainState:
-        """The state as the base logic sees it: the personal copy's params."""
+        """The state as the base logic sees it: the personal copy's params
+        and model state."""
         p = params if params is not None else state.params
-        return dataclasses.replace(state, params=_subtree(p, PERSONAL))
+        return dataclasses.replace(state, params=_subtree(p, PERSONAL),
+                                   model_state=state.model_state[PERSONAL])
 
     def init_extra(self, params: Params):
         return self.base.init_extra(_subtree(params, PERSONAL))
@@ -135,7 +144,8 @@ class DittoPersonalizedLogic(ClientLogic):
             global_params = _subtree(params, GLOBAL)
             global_loss, _ = self.base.training_loss(
                 preds["_global_preds"], features["global"], batch, global_params,
-                dataclasses.replace(state, params=global_params), ctx.base_ctx)
+                dataclasses.replace(state, params=global_params,
+                                    model_state=state.model_state[GLOBAL]), ctx.base_ctx)
         personal_params = _subtree(params, PERSONAL)
         personal_loss, personal_extra = self.base.training_loss(
             preds["_personal_preds"], features["personal"], batch, personal_params,
@@ -220,8 +230,9 @@ class MrMtlPersonalizedLogic(ClientLogic):
                              initial_params=params,
                              drift_penalty_weight=_drift_weight(payload, self.lam, params))
 
-    def predict(self, params, batch, rng=None, train=False, extra=None, ctx=None):
-        return self.base.predict(params, batch, rng, train, extra=extra,
+    def predict(self, params, model_state, batch, rng=None, train=False, extra=None,
+                ctx=None):
+        return self.base.predict(params, model_state, batch, rng, train, extra=extra,
                                  ctx=_base_ctx(ctx, _MrMtlWrapCtx))
 
     def training_loss(self, preds, features, batch: Batch, params, state,

@@ -4,7 +4,8 @@ The port keeps flax names and layouts (Dense kernels ``[in, out]``, embedding
 ``[vocab, d]``, convolution and transposed-convolution kernels ``[*k, in,
 out]`` in 1-D, 2-D and 3-D, ``InstanceNorm``'s ``scale`` and ``bias``), so
 conversion is flattening the nested flax dict into ``"a/b/c"`` keys and
-back; no transposes. Nested modules flatten the same way: a ``MoonModel``'s
+back; no transposes. The non-param collections (the model state) keep
+flax's nesting (``flax_state_to_torch``, ``torch_state_to_flax``). Nested modules flatten the same way: a ``MoonModel``'s
 tree ``{"base_module": {"Dense_0": {...}}, "head_module": {...}}`` becomes
 ``base_module/Dense_0/kernel``, ... A model turns a kernel into torch's
 layout where it applies it: ``conv_weight`` and ``conv_transpose_weight``.
@@ -67,6 +68,23 @@ def torch_to_flax(params: Params) -> dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = val.detach().cpu().numpy()
     return out
+
+
+def flax_state_to_torch(model_state: Mapping[str, Any],
+                        device: str | torch.device = "cpu") -> dict[str, Any]:
+    """flax's non-param collections (``batch_stats``, ``frozen``) -> the
+    port's ``TrainState.model_state``: the same nesting (collection, module
+    path, leaf), each level's keys sorted, the leaves tensors."""
+    return {str(k): (flax_state_to_torch(v, device) if isinstance(v, Mapping)
+                     else torch.tensor(np.asarray(v), device=device))
+            for k, v in sorted(model_state.items())}
+
+
+def torch_state_to_flax(model_state: Mapping[str, Any]) -> dict[str, Any]:
+    """The port's model state -> flax's nested collections of numpy arrays."""
+    return {k: (torch_state_to_flax(v) if isinstance(v, Mapping)
+                else v.detach().cpu().numpy())
+            for k, v in model_state.items()}
 
 
 def _flat_moments(tree: Any, device) -> dict[str, torch.Tensor]:

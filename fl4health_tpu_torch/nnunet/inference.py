@@ -69,12 +69,11 @@ def sliding_window_predict(
     """Full-volume logits ``[*spatial, n_classes]`` (f32) from patch-wise
     forwards.
 
-    ``apply_fn`` is a ``ModelDef.apply`` (``(params, x[B, *patch, C], train,
-    rng) -> (preds, features)``); ``volume`` is ``[*spatial, C]`` on the
-    device the model runs on. ``model_state`` is JAX's model state argument,
-    kept so a call reads as JAX's; the port's models keep none, and it is
-    not used. A spatial axis smaller than the patch is zero-padded at its
-    end and cropped back."""
+    ``apply_fn`` is a ``ModelDef.apply`` (``(params, model_state,
+    x[B, *patch, C], train, rng) -> ((preds, features), model_state)``);
+    ``volume`` is ``[*spatial, C]`` on the device the model runs on. A
+    spatial axis smaller than the patch is zero-padded at its end and
+    cropped back."""
     patch_size = tuple(int(p) for p in patch_size)
     spatial = tuple(volume.shape[:-1])
     assert len(spatial) == len(patch_size), (
@@ -93,7 +92,8 @@ def sliding_window_predict(
     with torch.inference_mode():
         for corner in itertools.product(*starts):
             window = tuple(slice(c, c + p) for c, p in zip(corner, patch_size))
-            preds, _ = apply_fn(params, padded[window][None], train=False, rng=rng)
+            (preds, _), _ = apply_fn(params, model_state, padded[window][None],
+                                     train=False, rng=rng)
             contrib = preds["prediction"][0].float() * weight[..., None]
             if logits is None:  # the canvas's classes are known after a forward
                 logits = torch.zeros(pspatial + (contrib.shape[-1],), dtype=torch.float32,

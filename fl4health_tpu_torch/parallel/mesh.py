@@ -92,6 +92,15 @@ class Mesh:
         if self.device_mesh is not None:
             dist.barrier()
 
+    def broadcast_object(self, obj: Any) -> Any:
+        """Rank 0's ``obj`` (a small picklable value) on every rank of the
+        world; ``obj`` itself without a group."""
+        if self.device_mesh is None:
+            return obj
+        box = [obj]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
     @property
     def is_leader(self) -> bool:
         """Rank 0 of the world: the one that publishes effects leaving the

@@ -227,6 +227,7 @@ class RoundProgramBuilder:
             template,
             params=place(params_t),
             opt_state=place(template.opt_state),
+            model_state=cs if ptu.tree_leaves(template.model_state) else {},
             rng=cs,
             step=cs,
             extra=cs if ptu.tree_leaves(template.extra) else None,

@@ -160,11 +160,11 @@ def cast_model_def(model_def: Any, compute_dtype: torch.dtype) -> Any:
     master untouched."""
     inner_apply = model_def.apply
 
-    def apply(params, x, train=True, **kwargs):
+    def apply(params, model_state, x, train=True, **kwargs):
         if train:
             params = cast_floats(params, compute_dtype)
             x = cast_floats(x, compute_dtype)
-        return inner_apply(params, x, train=train, **kwargs)
+        return inner_apply(params, model_state, x, train=train, **kwargs)
 
     return dataclasses.replace(model_def, apply=apply)
 

@@ -92,13 +92,15 @@ def make_per_example_grads(single_example_loss: Callable[[Params, Any], torch.Te
 
 def validate_dp_safe_model_state(module: torch.nn.Module | None) -> None:
     """Per-example gradients need per-example independence: batch statistics
-    mix examples, so a module holding BatchNorm is rejected (the JAX function
-    rejects a ``batch_stats`` collection). Build DP models with
-    GroupNorm/LayerNorm."""
+    mix examples, so a module holding BatchNorm (torch's, or a layer that
+    keeps ``batch_stats`` in the model state: ``models/norm.py``,
+    ``models/masked.py``) is rejected, as the JAX function rejects a
+    ``batch_stats`` collection. Build DP models with GroupNorm/LayerNorm."""
     if module is None:
         return
     bad = [name or type(module).__name__ for name, sub in module.named_modules()
-           if isinstance(sub, torch.nn.modules.batchnorm._BatchNorm)]
+           if isinstance(sub, torch.nn.modules.batchnorm._BatchNorm)
+           or getattr(sub, "keeps_batch_stats", False)]
     if bad:
         raise ValueError(
             "DP-SGD with per-example gradients is incompatible with "

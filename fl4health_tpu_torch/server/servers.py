@@ -1,8 +1,8 @@
 """Servers around the simulation (counterpart of the parts of
 ``fl4health_tpu/server/servers.py`` the port's slices use): the polling
 protocol (``poll_clients``); per-client sample-count polling; SCAFFOLD's
-warm start and ``ScaffoldServer``; ``FedProxServer``, ``DittoServer`` and
-``MrMtlServer``; and the instance-level, DP-SCAFFOLD and client-level DP
+warm start and ``ScaffoldServer``; ``FedPmServer``, ``FedProxServer``,
+``DittoServer`` and ``MrMtlServer``; and the instance-level, DP-SCAFFOLD and client-level DP
 servers, which configure the matching accountant and return the run's
 epsilon with its history.
 """
@@ -79,6 +79,21 @@ class ScaffoldServer:
     def fit(self, n_rounds: int):
         if self.warm_start:
             scaffold_warm_start(self.sim)
+        return self.sim.fit(n_rounds)
+
+
+class FedPmServer:
+    """FedPM's orchestration: the periodic Beta reset lives in
+    ``strategies.fedpm.FedPm(reset_frequency=...)``; this wrapper asserts
+    the pairing, then runs."""
+
+    def __init__(self, sim: FederatedSimulation):
+        from fl4health_tpu_torch.strategies.fedpm import FedPm
+
+        assert isinstance(sim.strategy, FedPm), "FedPmServer requires the FedPm strategy"
+        self.sim = sim
+
+    def fit(self, n_rounds: int):
         return self.sim.fit(n_rounds)
 
 

@@ -197,8 +197,12 @@ rank's partial, and the per-client records come back gathered, so the host
 code sees what it sees without a mesh and every rank takes the same
 decisions. Checkpoint frames hold the gathered global trees, written by
 rank 0 (as reporters and observability exports are) and restored by every
-rank onto its block. A mesh with a cohort takes the pipelined route; with
-``async_config`` or an armed admin plane it is not ported. Left out here:
+rank onto its block. A mesh with a cohort takes the pipelined route. The
+dense buffered-async routes run under a mesh as the synchronous ones do
+(each rank its block of ``pending`` too; async with a cohort and a mesh is
+refused, as in JAX), and an armed admin plane's retunes, received by rank
+0's endpoint, are broadcast at each pipelined boundary so every rank
+applies them at the same round. Left out here:
 FLASH early stopping (``flash_early_stopping``), which raises
 ``NotImplementedError`` when set, and the ``WandBReporter``; so of JAX's
 reasons for the pipelined route, only those of the features above apply.
@@ -779,14 +783,6 @@ class FederatedSimulation:
             self.n_clients)
         self._n_local = self._client_hi - self._client_lo
         if mesh is not None:
-            if self._async_active:
-                raise NotImplementedError(
-                    "mesh with buffered-async (async_config) is not ported yet "
-                    "(ROADMAP.md A11)")
-            if self.observability.enabled and self.observability.admin is not None:
-                raise NotImplementedError(
-                    "mesh with an armed admin plane is not ported yet: a retune "
-                    "received by one rank would break the ranks' lockstep")
             if self._n_local != self.n_clients:
                 # per-client server rows (wrappers' bookkeeping) are this
                 # rank's block; the checks above saw the real manager
@@ -1218,7 +1214,15 @@ class FederatedSimulation:
         staleness 0 an event is a synchronous round bit for bit. The
         telemetry build carries each wave's client telemetry in ``pending``
         (``"telem"``) and returns the CONSUMED updates' ``RoundTelemetry``
-        in the event's outputs, as JAX's does."""
+        in the event's outputs, as JAX's does.
+
+        Under a mesh both are round programs of the mesh: a rank holds its
+        block of the client stack and of ``pending``, takes its block of
+        the event's global ``[C]`` arrivals, staleness and fault draws (the
+        draws keep their global client indices), sums over clients through
+        ``client_total`` and hands back every client's per-client rows
+        (all-gathered), so the host's decisions are the same on every
+        rank."""
         client_fit, _ = self._build_client_fns(collect_telemetry)
         fit_clients = vmap_clients(client_fit, (0, None, 0, 0, 0))
         eval_round = self._eval_round_t if collect_telemetry else self._eval_round
@@ -1286,8 +1290,8 @@ class FederatedSimulation:
 
         def async_prologue(server_state, client_states, batches, val_batches,
                            wave_counts=None):
-            ones = torch.ones((n_clients,), dtype=torch.float32,
-                              device=ptu.tree_leaves(client_states)[0].device)
+            ones = client_block(torch.ones((n_clients,), dtype=torch.float32,
+                                           device=ptu.tree_leaves(client_states)[0].device))
             return train_wave(server_state, client_states, batches, ones, 1, val_batches,
                               wave_counts)
 
@@ -1295,12 +1299,14 @@ class FederatedSimulation:
                         staleness, event_idx, val_batches, val_counts, staleness_exponent,
                         test_batches=None, test_counts=None, wave_counts=None):
             # -- consume: the buffer under the discounted mask -------------
+            # the plan's [C] rows; under a mesh this rank's block
+            arrivals, staleness = client_block(arrivals), client_block(staleness)
             arr = arrivals
             if inject_dropout:
                 # a dropped update is lost on the wire: it fills its slot
                 # but aggregates with weight 0 (its client restarts)
-                arr = arr * fault_plan.participation_factor(event_idx, n_clients,
-                                                            arr.device)
+                arr = arr * client_block(fault_plan.participation_factor(
+                    event_idx, n_clients, arr.device))
             disc_mask = (async_mask(arr, staleness, staleness_exponent)
                          if async_mask is not None else arr)
             # the finite screen reads the buffered losses, not the packets
@@ -1322,7 +1328,7 @@ class FederatedSimulation:
                 pt = pending["telem"]
                 train_loss = pending["losses"]["backward"].to(torch.float32)
                 nan_row = torch.full_like(train_loss, float("nan"))
-                round_telemetry = RoundTelemetry(
+                round_telemetry = ptu.tree_map(client_all, RoundTelemetry(
                     train_loss=train_loss,
                     train_loss_min=pt["train_loss_min"],
                     train_loss_max=pt["train_loss_max"],
@@ -1335,17 +1341,17 @@ class FederatedSimulation:
                     divergence=telem.per_client_divergence(
                         client_states.params, strategy.divergence_reference(new_server)),
                     nonfinite_eval_loss=torch.zeros_like(nan_row),
-                    loss_scale_skips=pt.get("loss_scale_skips"))
+                    loss_scale_skips=pt.get("loss_scale_skips")))
             # -- eval: the fresh global, as a synchronous round -----------
             client_states, ev_losses, ev_metrics, _, _, *ev_nonfinite = eval_round(
                 new_server, client_states, val_batches, val_counts)
             out = {"fit_losses": agg_losses, "fit_metrics": agg_metrics,
-                   "per_client_fit_losses": pending["losses"],
+                   "per_client_fit_losses": ptu.tree_map(client_all, pending["losses"]),
                    "eval_losses": ev_losses, "eval_metrics": ev_metrics}
             if round_telemetry is not None:
                 out["telemetry"] = round_telemetry.replace(nonfinite_eval_loss=ev_nonfinite[0])
             if quarantine_fn is not None:
-                out["quarantine"] = quarantine_fn(new_server)
+                out["quarantine"] = client_all(quarantine_fn(new_server))
             if test_batches is not None:
                 client_states, out["test_losses"], out["test_metrics"] = eval_round(
                     new_server, client_states, test_batches, test_counts)[:3]
@@ -1357,7 +1363,8 @@ class FederatedSimulation:
                                               wave_counts)
             return new_server, client_states, merge_pending(pending, fresh, arrivals), out
 
-        return async_prologue, async_event
+        b = self._program_builder
+        return b.jit(async_prologue), b.jit(async_event)
 
     def _async_programs(self):
         """The async programs (their telemetry build when telemetry is on),
@@ -1605,12 +1612,20 @@ class FederatedSimulation:
         run — state-kind scalars through the sweep's
         ``apply_state_scalars`` (a server-state leaf swap: no extension
         build), the async staleness exponent by ``setattr`` (the next
-        dispatch reads it). Nothing without an armed plane."""
+        dispatch reads it). Nothing without an armed plane.
+
+        Under a mesh only rank 0 serves the endpoint, so rank 0's drain
+        (its live submits and its schedule) is broadcast and every rank
+        applies the same values at this same boundary, keeping the ranks
+        in lockstep; only rank 0 journals them."""
         obs = self.observability
         admin = obs.admin if obs.enabled else None
         if admin is None:
             return
         values = admin.drain(rnd)
+        mesh = self._program_builder.mesh
+        if mesh is not None:
+            values = mesh.broadcast_object(values)
         if not values:
             return
         from fl4health_tpu_torch.sweep import hoisting
@@ -1633,8 +1648,9 @@ class FederatedSimulation:
                 "admin retune %r failed to apply at round %d", values, rnd,
                 exc_info=True)
             return
-        admin.note_applied(rnd, values)
-        obs.update_manifest({"admin": admin.descriptor()})
+        if mesh is None or mesh.is_leader:
+            admin.note_applied(rnd, values)
+            obs.update_manifest({"admin": admin.descriptor()})
 
     def _fit_loop(self, n_rounds: int) -> list[RoundRecord]:
         """``fit``'s body, JAX's ``_fit_loop``: arm the observability handle
@@ -1875,16 +1891,20 @@ class FederatedSimulation:
         """Install restored host trees as the live state, on the simulation's
         device, in the live trees' dtypes (the frame keeps every dtype)."""
         b = self._program_builder
+        if pending is not None:
+            pending = ptu.tree_map(
+                lambda a: (a if isinstance(a, torch.Tensor)
+                           else torch.from_numpy(np.array(a))).to(self.device), pending)
         if b.mesh is not None:
             # a frame holds the global trees: keep this rank's block
             server_state = b.put(server_state, self._server_placement())
             client_states = b.put(client_states, self._client_placement())
+            if pending is not None:
+                pending = b.put(pending, b.client_sharding())
         self.server_state = leaves_like(self.server_state, server_state, self.device)
         self.client_states = leaves_like(self.client_states, client_states, self.device)
         if pending is not None:
-            self._async_pending = ptu.tree_map(
-                lambda a: (a if isinstance(a, torch.Tensor)
-                           else torch.from_numpy(np.array(a))).to(self.device), pending)
+            self._async_pending = pending
 
     def _ckpt_every(self) -> int | None:
         """The snapshot checkpointer's cadence in rounds (None without a
@@ -2055,19 +2075,20 @@ class FederatedSimulation:
                     ckpt.async_writer = None
                 self._ckpt_writer = None
 
-    def _snapshot_trees(self, with_pending: bool = False) -> dict:
+    def _snapshot_trees(self, pending=None) -> dict:
         """The state trees a snapshot pulls: the live trees themselves, since
         no round writes into its inputs (every round returns new tensors),
         so the next round cannot overwrite them before the pull, which rides
-        the round's (or the chunk's) one ``HostPull``."""
+        the round's (or the chunk's) one ``HostPull``; with an async run's
+        ``pending`` buffer where given."""
         trees = {"server_state": self.server_state, "client_states": self.client_states}
         b = self._program_builder
         if b.mesh is not None:
             # a frame holds the global trees: every rank's block gathered
             trees = {"server_state": b.gather(self.server_state, self._server_placement()),
                      "client_states": b.gather(self.client_states, self._client_placement())}
-        if with_pending:
-            trees["pending"] = self._async_pending
+        if pending is not None:
+            trees["pending"] = b.gather(pending, b.client_sharding())
         return trees
 
     def _gather_client_params(self, params):
@@ -2344,7 +2365,8 @@ class FederatedSimulation:
         if (self.state_checkpointer is not None
                 and hasattr(self.state_checkpointer, "save_simulation_snapshot")
                 and self._checkpoint_due(rnd)):
-            trees["_state_trees"] = self._snapshot_trees(with_pending)
+            trees["_state_trees"] = self._snapshot_trees(
+                self._async_pending if with_pending else None)
         results.update(trees)
         return _dtypes(trees) if trees else None
 
@@ -3802,9 +3824,8 @@ class FederatedSimulation:
                     device_wait = obs.fence(outs)[1]
                     tree = {"outs": outs}
                     if chunk_ckpt:
-                        tree["_state_trees"] = {"server_state": self.server_state,
-                                                "client_states": self.client_states,
-                                                "pending": pending}
+                        # (under a mesh, every rank's blocks gathered)
+                        tree["_state_trees"] = self._snapshot_trees(pending)
                         dtypes = _dtypes(tree["_state_trees"])
                     host = HostPull(tree).result()  # the chunk's one pull
                     chunk_span.set(device_wait_s=device_wait)
@@ -3816,7 +3837,7 @@ class FederatedSimulation:
                                        compiles=(compiles_before, compile_s_before,
                                                  compiles_after, compile_s_after),
                                        device_wait_round=device_wait / k)
-                if chunk_ckpt:
+                if chunk_ckpt and self._is_leader:
                     e_done = s + k - 1
                     sc.save_async_snapshot(
                         host_snapshot(host["_state_trees"], dtypes), e_done, self.n_clients,

@@ -6,6 +6,7 @@ weight 0 included, and a 2-round FedOpt(adam) run of 40 clients within
 an lr-sized step, so a sum in another order leaves JAX's trajectory in
 round 1)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,7 @@ the port's features allow):
 - the FedBuff mask rule and cap, the wrapper's delegation, the arity shim
   for a 2-argument mask hook, and JAX's composition errors word for word."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import functools
 
 import numpy as np

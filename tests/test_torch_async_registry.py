@@ -13,6 +13,7 @@ the CPU, against itself and against the JAX package
 - a failure is named by the pre-swap occupant's registry id, as in JAX;
 - the chunked route is refused with JAX's reason."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ word for word; and the staleness discount against ``jax.jit`` of JAX's
 ``(1+s)**(-exponent)``: bit for bit on staleness 0..64 at exponents 0, 0.3,
 0.5 and 1, within 1 ulp on a wider grid (``torch.pow`` in f32 is not)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import itertools
 
 import jax

@@ -10,6 +10,7 @@ engine's client vmap against the loop; and the ``nnunet_augmented`` smoke
 config (augmentation on, patches resampled every round, so pipelined in
 both packages), against JAX and its golden."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import sys
 from pathlib import Path
 

@@ -10,6 +10,7 @@ packages.
 Tolerances: 5e-4 for runs against JAX (f32, the reference's), 1e-6 for the
 frozen leaves' one-round move."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import functools
 import importlib
 import sys

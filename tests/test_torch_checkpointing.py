@@ -17,6 +17,7 @@ wired into ``server/simulation.py``) on the CPU, against itself and JAX:
 - the async writer's ordering and error contracts (JAX's
   ``tests/checkpointing/test_async_writer.py``)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import numpy as np
 import pytest
 import torch

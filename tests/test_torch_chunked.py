@@ -6,6 +6,7 @@ route's bit for bit (FedAvg, SCAFFOLD, partial participation, a test split,
 as JAX's for each configuration the port has; and ``fit_chunk``'s mask
 shapes and provider error."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import numpy as np
 import optax

@@ -8,6 +8,7 @@ params writes JAX's ``save_params`` bytes for the same params (as JAX's round
 programs hold them: a tree-mapped dict, keys sorted), and each package loads
 the other's file."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import collections
 
 import flax.serialization as fser

@@ -14,6 +14,7 @@ Tolerances:
 - random draws under vmap against the per-key loop: bit for bit.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import dataclasses
 
 import numpy as np
@@ -179,7 +180,7 @@ def test_the_main_path_runs_the_vmap(monkeypatch):
 def test_train_state_is_a_torch_pytree():
     import torch.utils._pytree as torch_pytree
 
-    state = engine.TrainState(params={"w": torch.ones(2)}, opt_state={},
+    state = engine.TrainState(params={"w": torch.ones(2)}, opt_state={}, model_state={},
                               rng=rng.PRNGKey(1), step=torch.zeros((), dtype=torch.int32))
     leaves, spec = torch_pytree.tree_flatten(state)
     assert [x.shape for x in leaves] == [(2,), (2,), ()]

@@ -7,6 +7,7 @@ clients and with an empty cohort, within 5e-6 (the same noise through
 and ``bind_client_manager``'s errors; and the client-level accounting
 (without-replacement RDP, trajectory composition, both accountants) at 1e-9."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -95,7 +96,8 @@ def test_finalize_round_matches_jax(where, adaptive):
     jout = jlogic.finalize_round(
         jstate, JClipContext(_nested(init), jnp.asarray(bound, jnp.float32)), 1)
     tparams = {k: torch.tensor(v) for k, v in trained.items()}
-    tstate = tengine.TrainState(params=tparams, opt_state={}, rng=rng.PRNGKey(0),
+    tstate = tengine.TrainState(params=tparams, opt_state={}, model_state={},
+                                rng=rng.PRNGKey(0),
                                 step=torch.zeros((), dtype=torch.int32),
                                 extra=tlogic.init_extra(tparams))
     tout = tlogic.finalize_round(

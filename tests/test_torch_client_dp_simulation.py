@@ -8,6 +8,7 @@ and the same numpy data, per round within 5e-4 of the JAX run over
 clipping bound within 5e-4 and the same epsilon within 1e-9. The server
 noise and the masks come from ``rng.py``, JAX's own stream."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import sys
 from pathlib import Path
 

@@ -5,6 +5,7 @@ with ``min_clients`` and a round that samples nobody, ``FixedSamplingManager``'s
 cached draw and ``reset_sample``, the four managers' ``fraction``, and the
 simulation's keyed sampling."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import numpy as np
 import pytest

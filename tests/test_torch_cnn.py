@@ -4,6 +4,7 @@ numpy inputs: f32 logits and grads within 1e-4; CifarNet in bf16 compute
 against flax in bf16 at a stated bf16 bound. Plus the synthetic image
 generator's distribution."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -62,7 +63,7 @@ def _jax_loss_and_grads(jm, params, x, y, mask):
 def _torch_loss_and_grads(tm, params, x, y, mask):
     model = tengine.from_module(tm)
     leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
-    preds, _ = model.apply(leaves, torch.tensor(x))
+    (preds, _), _ = model.apply(leaves, {}, torch.tensor(x))
     value = tengine.masked_cross_entropy(preds["prediction"], torch.tensor(y),
                                          torch.tensor(mask))
     grads = torch.autograd.grad(value, list(leaves.values()))

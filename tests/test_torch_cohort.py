@@ -15,6 +15,7 @@ in the port on the CPU, against itself and against the JAX package:
   instance-level DP server divides by zero on a cohort run, and the
   client-level DP server accounts over the slots, not the registry."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import dataclasses
 
 import jax

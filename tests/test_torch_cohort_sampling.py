@@ -6,6 +6,7 @@ to JAX's and to ``sample_indices``; ``CohortOverflowError`` with JAX's
 message; and ``rng.bernoulli``, ``rng.rademacher`` and ``rng.fold_in_many``
 bit for bit against ``jax.random``."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import numpy as np
 import pytest

@@ -12,6 +12,7 @@ and ``Compressing(Scaffold)`` over a sampled cohort; ``replace_global_params``
 through the wrapper, ``set_global_params`` on a compressed simulation, and
 the ``FixedLayerExchanger`` rejection."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import dataclasses
 
 import jax

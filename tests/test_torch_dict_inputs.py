@@ -6,6 +6,7 @@ gathered dict batches equal to the concatenated single-array pipeline's and
 to JAX's; ``epoch_batches`` over a dict; and the three row and structure
 errors."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp

@@ -21,6 +21,7 @@ converted init in both:
 
 Tolerance: 5e-4 for runs (f32, the reference's), 1e-6 for one forward."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import numpy as np
 import optax
@@ -210,7 +211,7 @@ def test_a_flax_twin_model_converts():
         k: tuple(v.shape) for k, v in own.items()}
     assert {k.split("/")[0] for k in params} == {"global_model", "personal_model"}
     jpreds, _ = jmodel.apply({"params": jparams}, x)
-    tpreds, tfeatures = tengine.from_module(tmodel).apply(params, torch.tensor(x))
+    (tpreds, tfeatures), _ = tengine.from_module(tmodel).apply(params, {}, torch.tensor(x))
     assert set(tpreds) == {"global", "personal", "prediction"}
     assert set(tfeatures) == {"global_features", "personal_features"}
     for k in tpreds:

@@ -10,6 +10,7 @@ interpret mode. The routes are compared at ``noise_multiplier=0``; the noise
 itself is JAX's stream (``gaussian_noise_like`` against JAX's at 1e-6, the
 2 ulp of ``rng.normal``) and is checked by its statistics too."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import chip_smoke
 import jax
 import jax.numpy as jnp

@@ -12,6 +12,7 @@ kernel and the plain version widen the same bf16 values to f32 and sum the
 same f32 products, in another order.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import numpy as np
 import pytest
 import torch

@@ -9,6 +9,7 @@ The JAX client takes its XLA clip route, the port the fused kernel route
 runs its plain versions on the CPU. Tolerances: 5e-4 for the run (f32, the
 reference's), 1e-9 for the accountant."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import chip_smoke
 import jax
 import numpy as np

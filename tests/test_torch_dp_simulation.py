@@ -9,6 +9,7 @@ under the harness's tolerances. The port runs its plain versions on the CPU;
 the JAX client takes its XLA clip route, the port the fused kernel route
 (the same function, held together by tests/test_torch_dp_clip.py)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import sys
 from pathlib import Path
 
@@ -140,7 +141,7 @@ def test_dp_noise_is_reproducible_and_moves_the_run():
 def test_dp_client_rejects_batchnorm():
     module = torch.nn.Sequential(torch.nn.Flatten(), torch.nn.Linear(4, 3),
                                  torch.nn.BatchNorm1d(3))
-    model = tengine.ModelDef(init=lambda g: {}, apply=lambda p, x, train=True: None,
+    model = tengine.ModelDef(init=lambda g: {}, apply=lambda p, ms, x, train=True: None,
                              module=module)
     with pytest.raises(ValueError, match="BatchNorm"):
         TDpLogic(model, tengine.masked_cross_entropy, clipping_bound=1.0,

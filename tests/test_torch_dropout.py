@@ -5,6 +5,7 @@ with remat and without; a 2-round federated run with ``dropout_rate`` 0.1
 agrees with JAX within 5e-4 (f32, the reference's tolerance); evaluation
 draws no mask."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,7 @@ package's on the CPU (``tests/resilience/test_faults.py``'s cases):
   under amplified sign-flipping clients FedAvg diverges while the median
   keeps converging, the median run within 5e-4 of JAX's."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

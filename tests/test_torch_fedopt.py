@@ -7,6 +7,7 @@ configuration (MnistNet, 4 Dirichlet clients, SGD 0.1 clients, FedOpt(adam
 against JAX, f32) for 4 rounds, and within JAX's own one-ulp sensitivity
 for the fifth."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -6,6 +6,7 @@ penalty, the server's mu adaptation over a crafted loss sequence (from the
 Tolerances: 1e-6 for single functions, 5e-4 for runs (f32, the
 reference's)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import sys
 from pathlib import Path
 

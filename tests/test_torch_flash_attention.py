@@ -4,6 +4,7 @@ inputs through both, forward and gradients, at the JAX kernel tests' bounds
 (tests/kernels/test_flash_attention.py: fwd atol 2e-5 / rtol 1e-4, grads
 atol 5e-4)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import importlib
 
 import jax

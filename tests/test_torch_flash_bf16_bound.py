@@ -12,6 +12,7 @@ the bounds are the f32 bounds. The JAX kernels in bf16 (Pallas interpret
 mode) stay within them too.
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import importlib
 
 import jax

@@ -9,6 +9,7 @@
 - a killed-and-resumed run adopts the frame's ledger and absorbs each round
   exactly once, equal to a straight run's."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import numpy as np
 import pytest
 

@@ -18,6 +18,7 @@ bundles (``observability/bundle.py``) against the JAX package:
   with a ``sigterm`` bundle, and a fresh child resumes bit for bit with the
   frame's fleet ledger adopted."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import contextlib
 import importlib.util
 import io

@@ -5,6 +5,7 @@ alike (summaries, halts, quarantine keep-masks, the ``health`` and
 naming the same round, client and check in both packages, on both routes of
 the port."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import numpy as np
 import pytest
 

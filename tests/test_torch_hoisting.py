@@ -10,6 +10,7 @@
   trains as a run built with that learning rate from the start (bit for
   bit), and trains as JAX's same rebind (5e-4)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,7 @@ msgpack bytes itself) or the JAX package, the package imports with them
 made unimportable, and a crash-drill child (``python -m
 fl4health_tpu_torch.resilience.recovery``) loads none of them."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import ast
 import subprocess
 import sys
@@ -54,7 +55,13 @@ def test_sources_were_found():
             "medical.py", "telemetry.py", "health.py", "flightrec.py", "bundle.py",
             "cudamon.py", "device_specs.py", "exposition.py", "fleet.py", "sketches.py",
             "spans.py", "tpu_probe.py", "fake.py", "ditto.py", "spec.py", "bucketing.py",
-            "runner.py"} <= names
+            "runner.py", "masked.py", "norm.py", "fedpm.py"} <= names
+    # the model-state slice: the masked layers, flax's BatchNorm, FedPM's
+    # client and strategy
+    paths = {str(p.relative_to(ROOT)) for p in SOURCES}
+    assert {"fl4health_tpu_torch/models/masked.py", "fl4health_tpu_torch/models/norm.py",
+            "fl4health_tpu_torch/clients/fedpm.py",
+            "fl4health_tpu_torch/strategies/fedpm.py"} <= paths
     # every observability module is on the list the tests above walk
     obs = {p.name for p in SOURCES if p.parent.name == "observability"}
     assert {"__init__.py", "registry.py", "manifest.py", "telemetry.py", "health.py",

@@ -5,6 +5,7 @@ and ``sliding_window_predict`` within 5e-4 on ``tests/nnunet/test_inference.py``
 2-D U-Net (patch equal to the volume, overlapping windows, a volume smaller
 than the patch) and on a small 3-D U-Net with and without the Gaussian."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -76,7 +77,7 @@ def test_sliding_window_predict_matches_jax(kind, vol, patch, step, gaussian):
 def test_patch_equal_to_volume_is_the_direct_forward():
     _, _, tmodel, tp = _models("2d")
     x = torch.tensor(np.random.default_rng(3).standard_normal((16, 16, 1)).astype(np.float32))
-    direct = tmodel.apply(tp, x[None], train=False)[0]["prediction"][0]
+    direct = tmodel.apply(tp, {}, x[None], train=False)[0][0]["prediction"][0]
     got = tinf.sliding_window_predict(tmodel.apply, tp, None, x, (16, 16))
     np.testing.assert_allclose(got.numpy(), direct.detach().numpy(), atol=1e-5, rtol=0)
 
@@ -97,7 +98,7 @@ def test_r6_logits_below_the_weight_floor_are_scaled_down():
     w = tinf.gaussian_importance_map(patch)
     below = w < 1e-8
     assert below.sum() == 304 and below[0, 0, 0] and not below[16, 16, 16]
-    direct = tengine.from_module(tnet).apply(tp, torch.tensor(x)[None], train=False)[0][
+    direct = tengine.from_module(tnet).apply(tp, {}, torch.tensor(x)[None], train=False)[0][0][
         "prediction"][0].detach().numpy()
     got = tinf.sliding_window_predict(tengine.from_module(tnet).apply, tp, None,
                                       torch.tensor(x), patch).numpy()

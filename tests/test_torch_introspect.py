@@ -21,6 +21,7 @@
   and nothing counted in ``LAUNCHES``, on the DP kernels and a transformer's
   flash kernels; a failing introspection degrades to a warning."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import logging
 
 import jax

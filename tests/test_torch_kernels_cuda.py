@@ -9,6 +9,7 @@ CUDA is absent. Run on the card with
 port's machine does not need.)
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import numpy as np
 import pytest
 import torch

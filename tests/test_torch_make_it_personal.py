@@ -16,6 +16,7 @@ on the CPU, on JAX's fixture (``tests/torch_pfl_sims.py``):
 
 Tolerance: 5e-4 for runs (f32, the reference's), 1e-6 for one step."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import dataclasses
 
 import jax

@@ -3,6 +3,7 @@ against JAX's on ``tests/datasets/test_medical.py``'s fixtures, written in
 the real on-disk formats: every returned array and fact equal, and the
 same errors."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import csv
 import json
 

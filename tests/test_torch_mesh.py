@@ -8,8 +8,11 @@ mesh shape (within 5e-4, the f32 CPU tolerance): the collectives and their
 ``vmap`` rules, the builder's placements against JAX's ``PartitionSpec``s,
 sharded ``fit`` on both routes, ZeRO-1 and its refusals, ZeRO-2's
 microbatched step and run, the Megatron hybrid run, a restore onto the
-mesh, the manifest's descriptor and the wrapper strategies' rows."""
+mesh, the manifest's descriptor, the wrapper strategies' rows, buffered
+async on both dense routes and its resume, and an admin-plane retune
+received by rank 0 alone."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import numpy as np
 import optax
@@ -39,7 +42,8 @@ TOL = 5e-4
 WORLD = 4
 
 
-def _jax_mlp_sim(data, *, mesh=None, strategy=None, tx=None, rounds_mode="pipelined"):
+def _jax_mlp_sim(data, *, mesh=None, strategy=None, tx=None, rounds_mode="pipelined",
+                 **kw):
     return jsim.FederatedSimulation(
         logic=jengine.ClientLogic(jengine.from_flax(JMlp(features=(R.HIDDEN,),
                                                          n_outputs=R.N_CLASSES)),
@@ -47,7 +51,7 @@ def _jax_mlp_sim(data, *, mesh=None, strategy=None, tx=None, rounds_mode="pipeli
         tx=tx or optax.sgd(0.05), strategy=strategy or JFedAvg(),
         datasets=[jsim.ClientDataset(*d) for d in data], batch_size=8,
         metrics=JMetricManager((jefficient.accuracy(),)), local_steps=3, seed=11,
-        execution_mode=rounds_mode, mesh=mesh)
+        execution_mode=rounds_mode, mesh=mesh, **kw)
 
 
 def _jax_history(js) -> dict:
@@ -482,3 +486,69 @@ def test_wrapper_rows_shard_and_run_matches_unsharded(world):
     for g in _scenario(world, "wrappers"):
         _close(g["run"], R.history(s), TRAJ_ATOL, rtol=1e-4)
         assert g["residual_rows"] == g["quarantine_rows"] == R.N_CLIENTS // WORLD
+
+
+class TestAsyncUnderMesh:
+    """test_mesh_fit.py's TestAsyncUnderMesh: buffered async (a buffer of 4,
+    5% jitter, client 0 slow at 5x, 3 events) with each rank holding its
+    block of the client stack and of ``pending``."""
+
+    @pytest.fixture(scope="class")
+    def references(self, world):
+        from fl4health_tpu.resilience.faults import ClientFault as JFault
+        from fl4health_tpu.resilience.faults import FaultPlan as JPlan
+        from fl4health_tpu.server.async_schedule import AsyncConfig as JAsync
+
+        payload, _ = world
+        port = {}
+        for mode in ("pipelined", "chunked"):
+            s = R.mlp_sim(payload["mlp_data"], payload["mlp_init"], **R.async_kw(mode))
+            s.fit(3)
+            port[mode] = R.history(s)
+        js = _jax_mlp_sim(payload["mlp_data"], mesh=JMeshConfig(clients=4),
+                          rounds_mode="chunked",
+                          async_config=JAsync(buffer_size=4, compute_jitter=0.05),
+                          fault_plan=JPlan(client_faults=(
+                              JFault(clients=(0,), kind="slow", scale=5.0),)))
+        js.fit(3)
+        return port, _jax_history(js)
+
+    @pytest.mark.parametrize("mode", ["pipelined", "chunked"])
+    def test_matches_unsharded_and_jax(self, world, references, mode, eight_devices):
+        port, jax_run = references
+        for g in _scenario(world, "async"):
+            assert g[mode + "_local_rows"] == R.N_CLIENTS // WORLD
+            _close(g[mode], port[mode], TRAJ_ATOL)
+            _close(g[mode], jax_run, TOL)
+
+    def test_resume_under_the_mesh(self, world, references):
+        """A chunked async run checkpointed at event 2 (rank 0 writes the
+        gathered stack and ``pending``) resumes pipelined on every rank at
+        event 3 and equals the uninterrupted unsharded run."""
+        port, _ = references
+        for g in _scenario(world, "async"):
+            assert g["resumed_at"] == 3
+            _close(g["resumed"], port["pipelined"], TRAJ_ATOL)
+
+
+def test_admin_retune_received_by_rank_0_reaches_every_rank(world):
+    """A ``server_lr`` retune submitted on rank 0 alone before round 2's
+    boundary applies on every rank at round 2: each rank's run equals the
+    single-process run that schedules it at round 2 (and differs from the
+    run without it); rank 0 alone journals it."""
+    from fl4health_tpu_torch.observability import MetricsRegistry, Observability, Tracer
+
+    payload, _ = world
+    runs = {}
+    for retuned in (True, False):
+        obs = Observability(enabled=True, tracer=Tracer(), registry=MetricsRegistry(),
+                            introspection=False, admin_token="t")
+        s = R.admin_sim(payload["mlp_data"], payload["mlp_init"], obs)
+        if retuned:
+            obs.admin.schedule(2, R.RETUNE)
+        s.fit(3)
+        runs[retuned] = R.history(s)
+    assert abs(runs[True]["fit"][-1] - runs[False]["fit"][-1]) > 1e-6
+    for r, g in enumerate(_scenario(world, "admin")):
+        _close(g["run"], runs[True], TRAJ_ATOL)
+        assert g["journal"] == ([(2, R.RETUNE)] if r == 0 else [])

@@ -8,6 +8,7 @@ inside ``vmap(grad)``) against the loop.
 Tolerances: 1e-6 for single functions, 5e-4 for runs (f32, the
 reference's), 1e-5 for the vmapped clients against the loop."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import sys
 from pathlib import Path
 
@@ -88,7 +89,7 @@ def test_moon_model_converts_from_its_flax_init(projection):
     assert {k: tuple(v.shape) for k, v in params.items()} == {
         k: tuple(v.shape) for k, v in own.items()}
     assert "base_module/Dense_0/kernel" in params and "head_module/Dense_0/bias" in params
-    preds, feats = tengine.from_module(tmodel).apply(params, torch.tensor(x))
+    (preds, feats), _ = tengine.from_module(tmodel).apply(params, {}, torch.tensor(x))
     np.testing.assert_allclose(preds["prediction"].detach().numpy(),
                                np.asarray(jpreds["prediction"]), atol=FN_TOL, rtol=0)
     np.testing.assert_allclose(feats["features"].detach().numpy(),

@@ -7,6 +7,7 @@ plans handshake (``clients/nnunet.py``, ``server/nnunet.py``,
 (``tests/smoke/harness.py``) through ``NnunetServer``: within 5e-4 of JAX
 on the losses, and within the harness's tolerances of its golden."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import copy
 import sys
 from pathlib import Path

@@ -17,6 +17,7 @@ tiny DP recipe of ``tests/torch_obs_sims.py``:
   enabled one arms the operations plane from its arguments and runs the
   introspection."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import importlib.util
 import json
 import os

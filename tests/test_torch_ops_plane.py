@@ -19,6 +19,7 @@ against the JAX package:
   run (5e-4); an SLO breach reads ``degraded: eval_loss`` on ``/healthz``;
   the supervisor's recovery events feed the MTTR KPI."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import json
 import urllib.error
 import urllib.request

@@ -4,6 +4,7 @@ on a mixed tree (f32 leaves of several shapes), updates, params and the
 final state within rtol/atol 1e-6; ``multi_transform``'s frozen label;
 ``inject_hyperparams``' state; and the optax-state converter."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,7 @@ partitioner, the label-based samplers, the train/val split,
 ``federated_client_datasets`` and the on-disk loaders give arrays equal to
 JAX's from the same inputs and hash keys."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import gzip
 import pickle
 import struct

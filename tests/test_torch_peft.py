@@ -5,6 +5,7 @@ tree (the JAX tree by ``eval_shape``, the port's on the meta device, so no
 weights are made), the segment rules, and ``push``/``pull`` under the
 client vmap, exactly."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -22,6 +22,7 @@ seed 3, 3 rounds), the port from JAX's converted init:
 
 Tolerance: 5e-4 (f32, the reference's)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import dataclasses
 
 import jax

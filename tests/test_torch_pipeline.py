@@ -8,6 +8,7 @@ path (bit for bit: the consumer computes nothing on the device), and a
 converted flax init and the same data, within 5e-4 (the f32 CPU tolerance of
 tests/conftest.py)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import threading
 import time
 

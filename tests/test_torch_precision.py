@@ -7,6 +7,7 @@ by ``tests/precision/test_precision_sim.py`` for bf16 against f32); f32
 masters; and the reference's defect that the policy does not reach a model
 that pins ``dtype=float32``, pinned in both packages."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import json
 
 import jax
@@ -168,8 +169,8 @@ def test_wrapped_model_casts_train_only():
     params = wrapped.model.init(torch.Generator().manual_seed(0))
     assert all(v.dtype == torch.float32 for v in params.values())
     x = torch.ones(2, 4)
-    assert wrapped.model.apply(params, x, train=True)[0]["prediction"].dtype == torch.bfloat16
-    assert wrapped.model.apply(params, x, train=False)[0]["prediction"].dtype == torch.float32
+    assert wrapped.model.apply(params, {}, x, train=True)[0][0]["prediction"].dtype == torch.bfloat16
+    assert wrapped.model.apply(params, {}, x, train=False)[0][0]["prediction"].dtype == torch.float32
 
 
 def test_grads_return_f32_at_master_boundary():
@@ -431,7 +432,7 @@ def _port_op_dtypes(module, x) -> set:
     model = tpx.cast_model_def(tengine.from_module(module), torch.bfloat16)
     params = module.init_params(torch.Generator().manual_seed(0))
     with _OpDtypes() as mode:
-        model.apply(params, x, train=True)
+        model.apply(params, {}, x, train=True)
     return mode.dtypes
 
 

@@ -14,6 +14,7 @@
   scaled update), the strategy's rows ride the registry and the events name
   registry ids, as JAX's do."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ an uninterrupted child's. Marked as JAX marks them: the post-save drill on
 both sync routes and the ``KillPoint`` checks are ``crash``; the mid-write,
 corrupt-generation, async and registry-scatter drills also ``slow``."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import os
 import signal
 

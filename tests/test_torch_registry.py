@@ -6,6 +6,7 @@ row bit for bit (stored rows overwrite the prototype, pad slots never
 persist); the client-symmetric check of the strategy rows raises; and a
 cohort simulation refuses ``set_train_data``."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import numpy as np
 import pytest
@@ -138,7 +139,7 @@ def _registry_with_proto(seed=9):
     proto = tengine.TrainState(
         params={"w": torch.arange(6, dtype=torch.float32).reshape(2, 3),
                 "h": torch.ones(3, dtype=torch.bfloat16)},
-        opt_state={"m": torch.zeros(4)}, rng=key,
+        opt_state={"m": torch.zeros(4)}, model_state={}, rng=key,
         step=torch.zeros((), dtype=torch.int32))
     reg.bind_client_states(proto, key)
     return reg, key

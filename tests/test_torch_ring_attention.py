@@ -10,6 +10,7 @@ same numpy inputs. The flash ring's local block is the port's
 and a transformer run whose attention is the flash ring trains through it
 under the client vmap and grad."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import functools
 
 import jax

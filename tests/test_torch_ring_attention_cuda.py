@@ -11,6 +11,7 @@ CUDA is absent. Run on the card with
     python -m pytest --noconftest -m cuda tests/test_torch_ring_attention_cuda.py
 """
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import os
 
 import pytest

@@ -4,6 +4,7 @@
 ``normal`` within rtol/atol 1e-6 over a million draws (XLA's ``log1p`` rounds
 a few draws an ulp away) and ``gumbel`` within 5e-7 (two ``log``s)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import numpy as np
 import pytest

@@ -7,6 +7,7 @@ fractions and NaN/Inf/scaled attackers; ``RobustFedAvg`` per method,
 its empty-cohort rule and its errors word for word; and a robust run
 whose pipelined and chunked routes equal each other bit for bit."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,7 @@ tests/test_torch_client_axis.py), and the ``JsonReporter`` file. Runs start
 from the converted flax init and the same numpy data; 5e-4 is the f32 CPU
 tolerance of tests/conftest.py."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import json
 
 import jax
@@ -285,7 +286,8 @@ def _linear_pair():
         jengine.ModelDef(init=lambda r, x: ({"w": jnp.zeros(())}, {}), apply=japply), jmse)
     tlogic = tengine.ClientLogic(tengine.ModelDef(
         init=lambda g: {"w": torch.zeros(())},
-        apply=lambda params, x, train=True: ({"prediction": params["w"] * x}, {})), tmse)
+        apply=lambda params, ms, x, train=True: (({"prediction": params["w"] * x}, {}), ms)),
+        tmse)
     jstate = jengine.create_train_state(jlogic, optax.sgd(0.1), jax.random.PRNGKey(0),
                                         jnp.ones((1,)))
     tstate = tengine.create_train_state(tlogic, optim.sgd(0.1), rng.PRNGKey(0),

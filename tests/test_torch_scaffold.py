@@ -9,6 +9,7 @@ Tolerances: 5e-4 for runs against JAX (f32, the reference's), 1e-6 for
 single functions, 1e-5 for the vmapped clients against the loop (batched
 and per-client reductions sum in another order)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import sys
 from pathlib import Path
 

@@ -12,6 +12,7 @@ path and name:
   ROADMAP.md item (or departure) that says why, and an entry that no longer
   describes a lacking parameter fails the test (it went stale)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import ast
 from pathlib import Path
 
@@ -24,20 +25,15 @@ RENAMED = "Renamed parameters"  # a ROADMAP.md departure: same slot, the port's 
 PALLAS = "Pallas tiling parameters"  # a ROADMAP.md departure
 INIT = "**Init** draws from a `torch.Generator`"  # a ROADMAP.md departure
 _KEY = {"rng": RENAMED}
-MODEL_STATE = {"model_state": "`TrainState.model_state`"}  # ROADMAP.md A12's first item
 PER_DEVICE = "One process per device"  # a ROADMAP.md departure (A11)
 
 # (module, qualified name) -> {JAX parameter the port lacks: ROADMAP anchor}
 MISSING = {
     ("clients.engine", "ClientLogic.augment"): _KEY,
-    ("clients.engine", "ClientLogic.predict"): MODEL_STATE,
-    ("clients.apfl", "ApflClientLogic.predict"): MODEL_STATE,
-    ("clients.fedsimclr", "FedSimClrClientLogic.predict"): MODEL_STATE,
-    ("clients.gpfl", "GpflClientLogic.predict"): MODEL_STATE,
-    ("clients.personalized", "MrMtlPersonalizedLogic.predict"): MODEL_STATE,
     ("clients.personalized", "DittoPersonalizedLogic.augment"): _KEY,
     ("clients.personalized", "MrMtlPersonalizedLogic.augment"): _KEY,
     ("clients.engine", "create_train_state"): {"rng": INIT, "sample_x": INIT},
+    ("clients.fedpm", "sample_masks"): _KEY,
     ("clients.engine", "epoch_batches"): _KEY,
     ("clients.nnunet", "NnunetClientLogic.augment"): _KEY,
     ("core.pytree", "global_norm"): {"tree": RENAMED},
@@ -54,6 +50,7 @@ MISSING = {
         "block_q": PALLAS, "block_k": PALLAS, "interpret": PALLAS},
     ("losses.containers", "LossMeter.create"): {"meter_type": "A12"},
     ("losses.contrastive", "cosine_similarity"): {"axis": RENAMED},
+    ("models.masked", "bernoulli_ste"): _KEY,
     ("nnunet.augment", "augment_patch_batch"): _KEY,
     ("observability.manifest", "run_manifest"): {"donation": "Buffer donation"},
     ("parallel.compat", "axis_size"): {"axis_name": RENAMED},

@@ -5,6 +5,7 @@ global params within 5e-4 (the f32 CPU tolerance of tests/conftest.py);
 plus the pieces under it (seeds, index plans, aggregation, FedAvg, SGD, the
 data generator, device selection)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import dataclasses
 import functools
 import importlib

@@ -16,6 +16,7 @@ on the CPU:
 Tolerances: 5e-4 for a module's forward (f32, the reference's), 1e-5 for
 the losses."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -158,7 +159,7 @@ def test_module_matches_its_flax_counterpart(name):
         assert set(params) == KEYS[name]
     want = _flat_outputs(jmod.apply({"params": jparams}, x, **jkw))
     tkw = {k: torch.tensor(v) for k, v in kwargs.items()}
-    got = _flat_outputs(tengine.from_module(tmod).apply(params, torch.tensor(x), **tkw))
+    got = _flat_outputs(tengine.from_module(tmod).apply(params, {}, torch.tensor(x), **tkw)[0])
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=TOL, atol=TOL, err_msg=k)

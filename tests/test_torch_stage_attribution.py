@@ -16,6 +16,7 @@ port, on the tiny DP recipe of ``tests/torch_obs_sims.py``:
   ``torch.profiler`` trace shows; attribution off keeps the records' shape (no ``stages`` key, no
   ``stage`` events), as in JAX."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,7 @@ between the packages: JAX's ``read_frame`` reads the port's frames and the
 port's reads JAX's, headers and meta equal (the bytes too, at one clock),
 and each package's ``StateCheckpointer`` loads the other's ring."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import json
 import os
 import zlib

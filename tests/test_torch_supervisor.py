@@ -20,6 +20,7 @@
 - R7: ``InstanceLevelDpServer`` reports the epsilon of ``n_rounds`` in both
   packages though a rollback made the run dispatch more rounds."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import json
 
 import numpy as np

@@ -12,6 +12,7 @@
   breaker's state sequence under a fake clock, ``classify_failure`` and
   ``call_with_retry``'s attempts, sleeps and deadline error equal JAX's."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import math
 import random
 

@@ -16,6 +16,7 @@ rounds, batch 8, 2 local steps), the same numpy data and flax init in both:
 - packed equals sequential bit for bit, with a remainder pack;
 - the events and the ``fl_sweep_*`` metrics carry JAX's names and help."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import numpy as np
 import pytest
 

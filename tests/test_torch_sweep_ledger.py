@@ -4,6 +4,7 @@ cell in the other with nothing run, and JAX's resume tests
 (``tests/sweep/test_resume.py``) hold on the port: full and partial
 reruns, a torn tail, a foreign grid and header-less rows."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import json
 
 import pytest

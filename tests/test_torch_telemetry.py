@@ -13,6 +13,7 @@ build) against the JAX package on the tiny DP recipe of
 - a DP round's ``fit_losses`` keys equal JAX's with telemetry off and on
   (DP's ``clip_fraction`` enters only the telemetry build)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import functools
 
 import numpy as np

@@ -3,6 +3,7 @@ line parsed from the child, a crash reported as ``error: ...``, a hang as
 ``down``, the classification and the JSON-line helper equal to JAX's, and
 one real child (torch, no JAX) naming this process's platform."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import pytest
 import torch
 

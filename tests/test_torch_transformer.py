@@ -3,6 +3,7 @@ converted params and the same numpy tokens: logits atol 1e-4, grads atol
 2e-3 / rtol 1e-3 (the bounds of tests/kernels/test_flash_attention.py's
 transformer test)."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import functools
 import importlib
 

@@ -7,6 +7,7 @@ orientation, the instance norm (its fast variance, on inputs far from
 zero), the 3-D and 2-D networks with deep supervision, and the network's
 client vmap against the loop over clients at 1e-5."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import flax.linen as fnn
 import jax
 import jax.numpy as jnp
@@ -30,7 +31,7 @@ def _params(module, x):
 
 
 def _apply(tmodule, tparams, x):
-    return tengine.from_module(tmodule).apply(tparams, torch.tensor(x))
+    return tengine.from_module(tmodule).apply(tparams, {}, torch.tensor(x))[0]
 
 
 @pytest.mark.parametrize("extent", [(11, 12, 9), (12, 12, 12), (7, 5, 6)])
@@ -149,7 +150,7 @@ def test_client_vmap_matches_the_loop():
         np.float32))
 
     def loss(p, xb):
-        preds = model.apply(p, xb)[0]
+        preds = model.apply(p, {}, xb)[0][0]
         return sum((v * v).mean() for v in preds.values())
 
     fn = torch.func.grad_and_value(loss)

@@ -6,6 +6,7 @@ final params within 5e-4. The JAX side uses its dense attention core (Pallas
 interpret mode at this size would take hours), the port its flash path,
 whose CPU version is the plain dense one. Slow: run with -m slow."""
 
+import torch_threads  # noqa: F401  (first: one torch thread a test process)
 import jax
 import numpy as np
 import optax

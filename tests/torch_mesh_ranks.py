@@ -200,7 +200,7 @@ def _specs(payload, rank, tmp_dir):
                                        for m, d in v.items()} if k == "attn"
                                    else {n: torch.zeros_like(t) for n, t in v.items()}
                                    for k, v in params.items()},),
-        rng=torch.zeros(4, 2), step=torch.zeros(4))
+        model_state={}, rng=torch.zeros(4, 2), step=torch.zeros(4))
     tb = RoundProgramBuilder(MeshConfig(clients=2, model=2, tp_rules=True), n_clients=4)
     sh = tb.client_state_shardings(template)
     out["tp_q"] = spec(sh.params["attn"]["q_proj"]["kernel"])
@@ -282,7 +282,7 @@ def _zero2(payload, rank, tmp_dir):
     for n, mesh in ((2, make_mesh((2, 2), ("x", "model"))), (4, make_mesh((4,), ("model",)))):
         z2 = zero2_sharded_optimizer(optim.adam(1e-2), mesh, state0.params, axis_name="model")
         st = engine.TrainState(params=state0.params, opt_state=z2.init(state0.params),
-                               rng=state0.rng, step=state0.step)
+                               model_state={}, rng=state0.rng, step=state0.step)
         s_z, o_z = engine.make_train_step(logic, z2)(st, None, batch)
         out[f"step_{n}"] = max(float((s_plain.params[k] - s_z.params[k]).abs().max())
                                for k in s_plain.params)
@@ -295,7 +295,7 @@ def _zero2(payload, rank, tmp_dir):
                            step_mask=batch.step_mask)
         engine.make_train_step(logic, z2)(
             engine.TrainState(params=state0.params, opt_state=z2.init(state0.params),
-                              rng=state0.rng, step=state0.step), None, cut)
+                              model_state={}, rng=state0.rng, step=state0.step), None, cut)
     except ValueError as e:
         out["indivisible"] = str(e)
     data, init = payload["mlp_data"], payload["mlp_init"]
@@ -571,11 +571,82 @@ def _refusals(payload, rank, tmp_dir):
     return out
 
 
+def async_kw(mode: str) -> dict:
+    """test_mesh_fit.py's TestAsyncUnderMesh recipe: a buffer of 4 with
+    5% compute jitter, client 0 a straggler at 5x."""
+    from fl4health_tpu_torch.resilience.faults import ClientFault, FaultPlan
+    from fl4health_tpu_torch.server.async_schedule import AsyncConfig
+
+    return dict(mode=mode, async_config=AsyncConfig(buffer_size=4, compute_jitter=0.05),
+                fault_plan=FaultPlan(client_faults=(
+                    ClientFault(clients=(0,), kind="slow", scale=5.0),)))
+
+
+def _async(payload, rank, tmp_dir):
+    """Buffered async on both dense routes under the mesh, each rank its
+    block of the stack and of ``pending``; and a chunked run checkpointed
+    at event 2 (gathered frames by rank 0) resumed pipelined to event 3."""
+    from fl4health_tpu_torch.checkpointing.state import SimulationStateCheckpointer
+    from fl4health_tpu_torch.parallel.program import MeshConfig
+
+    data, init = payload["mlp_data"], payload["mlp_init"]
+    out = {}
+    for mode in ("pipelined", "chunked"):
+        s = mlp_sim(data, init, mesh=MeshConfig(), **async_kw(mode))
+        s.fit(3)
+        out[mode] = history(s)
+        out[mode + "_local_rows"] = int(s.client_states.params["Dense_0/kernel"].shape[0])
+    ckpt_dir = os.path.join(tmp_dir, "async_ckpt")
+    first = mlp_sim(data, init, mesh=MeshConfig(), **async_kw("chunked"),
+                    state_checkpointer=SimulationStateCheckpointer(ckpt_dir))
+    first.fit(2)
+    again = mlp_sim(data, init, mesh=MeshConfig(), **async_kw("pipelined"),
+                    state_checkpointer=SimulationStateCheckpointer(ckpt_dir))
+    again.fit(3)
+    out["resumed"] = history(again)
+    out["resumed_at"] = again._resume_info["next_round"]
+    return out
+
+
+RETUNE = {"server_lr": 0.03}
+
+
+def admin_sim(data, init, obs, mesh=None):
+    """FedAdam (server lr 0.1) on the pipelined route with an armed admin
+    plane."""
+    from fl4health_tpu_torch.strategies.fedopt import fed_adam
+
+    return mlp_sim(data, init, mesh=mesh, strategy=fed_adam(0.1), observability=obs)
+
+
+def _admin(payload, rank, tmp_dir):
+    """A retune submitted on rank 0 alone, just before round 2's boundary
+    (rank 0 serves the endpoint); every rank applies it at round 2."""
+    from fl4health_tpu_torch.observability import MetricsRegistry, Observability, Tracer
+    from fl4health_tpu_torch.parallel.program import MeshConfig
+
+    obs = Observability(enabled=True, tracer=Tracer(), registry=MetricsRegistry(),
+                        introspection=False, admin_token="t")
+    s = admin_sim(payload["mlp_data"], payload["mlp_init"], obs, mesh=MeshConfig())
+    boundary = s._apply_admin_retunes
+
+    def submit_on_rank_0(rnd):
+        if rank == 0 and rnd == 2:
+            obs.admin.submit(RETUNE)
+        return boundary(rnd)
+
+    s._apply_admin_retunes = submit_on_rank_0
+    s.fit(3)
+    return {"run": history(s),
+            "journal": [(e["round"], e["scalars"]) for e in obs.admin.journal()]}
+
+
 PROGRAMS = {
     "ring": [("ops", _ring_ops), ("transformer", _ring_transformer)],
     "mesh": [("collectives", _collectives), ("specs", _specs), ("fit", _fit_routes),
              ("zero1", _zero1), ("zero2", _zero2), ("tp", _tp), ("restore", _restore),
              ("observability", _observability), ("wrappers", _wrappers),
              ("scaffold_warm", _scaffold_warm), ("refusals", _refusals),
-             ("cohort", _cohort), ("strategies", _strategies)],
+             ("cohort", _cohort), ("strategies", _strategies), ("async", _async),
+             ("admin", _admin)],
 }

@@ -221,11 +221,12 @@ def trainable_only_grads(sim) -> None:
     def value_and_grads(state, ctx, batch, step_rng):
         def loss(trainable):
             params = {**state.params, **trainable}
-            preds, features = logic.predict(params, batch, step_rng, train=True,
-                                            extra=state.extra, ctx=ctx)
+            (preds, features), new_model_state = logic.predict(
+                params, state.model_state, batch, step_rng, train=True,
+                extra=state.extra, ctx=ctx)
             backward, additional = logic.training_loss(preds, features, batch, params,
                                                        state, ctx)
-            return backward, (preds, additional)
+            return backward, (preds, additional, new_model_state)
 
         grads, (backward, aux) = torch.func.grad_and_value(loss, has_aux=True)(
             {k: v for k, v in state.params.items() if mask[k]})
