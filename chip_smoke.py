@@ -320,6 +320,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      ``ring_flash_attention`` over a one-rank seq axis, 88/40/40), each 2
      rounds bit for bit against its unsharded run in the same call; each
      arm's warm round, peak and launches.
+ 39. The model-state slice: buffered async and an armed admin plane under
+     the one-rank NCCL mesh against ``mesh=None``, ``fedpm_mnist`` and
+     ``fedbn_bn_mlp``.
+ 40. The algorithm-breadth slice: every arm's tiny fixture on the card
+     against the CPU (1e-5; the deep-kernel arms within twice the CPU
+     run's own move on a one-ulp input change), then Ditto and MR-MTL with
+     MK-MMD and with deep MMD, Flash, FedDG-GA, dynamic-layer and sparse
+     exchange and model merge at 64 clients, 2 rounds, the chunked route
+     bit for bit the pipelined one (FedDG-GA: refused, its inline rounds
+     instead), the MK-MMD QP's host time; ``fedpca_mnist`` against the
+     CPU's SVDs after signs; no K1-K5 launch.
 ``fit`` takes its default route, ``execution_mode`` "auto": chunked unless
 something needs the host between rounds (a strict failure policy, a data
 provider), then pipelined. Neither waits for the device inside a round, so
@@ -336,6 +347,7 @@ every kernel, the card line again, and the result line.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import os
@@ -6098,6 +6110,446 @@ def model_state_slice(fa, dp) -> dict:
             "fedbn": fedbn_bn_mlp(fa, dp)}
 
 
+# -- the algorithm-breadth slice ------------------------------------------------
+BREADTH_KINDS = ("ditto_mkmmd", "mrmtl_mkmmd", "ditto_deep_mmd", "mrmtl_deep_mmd", "flash",
+                 "feddg_ga", "dynamic_layer", "sparse", "model_merge")
+BREADTH_ROUNDS = 2
+BREADTH_TINY_ROUNDS = 2
+BREADTH_TINY_TOL = 1e-5
+FLASH_GAMMA, FLASH_EPOCHS = 0.01, 2  # 2 epochs of 160 rows at batch 32: 10 steps
+PCA_COMPONENTS = 8
+PCA_TOL = 5e-4
+
+
+def breadth_arm(kind: str, tiny: bool, train_kernel: bool = True) -> dict:
+    """An arm's simulation pieces: ``logic``, ``strategy`` (a factory),
+    ``exchanger``, extra simulation arguments. At full width the DP path's
+    model, ``CifarNet`` in f32, whose 128-wide Dense is the MMD feature
+    ``features``; tiny, the CPU tests' ``Mlp(8 -> 12 -> 3)``. MK-MMD and
+    deep MMD at JAX's defaults (interval 20, normalised features, weight
+    10); the tiny Ditto MK-MMD at interval 0 with the feature-l2 term, the
+    tiny MR-MTL MK-MMD at interval -1 (the QP before every step), the tiny
+    deep kernels trained at -1 and 2, or fixed (interval 0) without
+    ``train_kernel``."""
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.clients import mmd
+    from fl4health_tpu_torch.clients.ditto import KeepLocalExchanger
+    from fl4health_tpu_torch.exchange import exchanger as ex
+    from fl4health_tpu_torch.models.bases import TwinModel
+    from fl4health_tpu_torch.models.cnn import CifarNet, Mlp
+    from fl4health_tpu_torch.strategies.dynamic_layer import FedAvgDynamicLayer, FedAvgSparse
+    from fl4health_tpu_torch.strategies.fedavg import FedAvg
+    from fl4health_tpu_torch.strategies.feddg_ga import FedDgGa
+    from fl4health_tpu_torch.strategies.flash import Flash
+    from fl4health_tpu_torch.strategies.model_merge import ModelMergeStrategy
+
+    net = (lambda: Mlp(8, (12,), 3)) if tiny else (lambda: CifarNet(dtype=torch.float32))
+    width = 12 if tiny else 128
+    ce, wired = engine.masked_cross_entropy, engine.from_module
+    twin_wire = ex.FixedLayerExchanger(TwinModel.exchange_global_model)
+    plain = engine.ClientLogic(wired(net()), ce)
+    if kind == "ditto_mkmmd":
+        kw = dict(beta_global_update_interval=0, feature_l2_norm_weight=0.1) if tiny else {}
+        return dict(logic=mmd.DittoMkMmdClientLogic(wired(TwinModel(net(), net())), ce,
+                                                    feature_model=wired(net()), **kw),
+                    strategy=FedAvg, exchanger=twin_wire)
+    if kind == "mrmtl_mkmmd":
+        kw = dict(beta_global_update_interval=-1) if tiny else {}
+        return dict(logic=mmd.MrMtlMkMmdClientLogic(wired(net()), ce, **kw),
+                    strategy=FedAvg, exchanger=KeepLocalExchanger())
+    # the tiny deep arms at JAX's tests' weight 1 (their default 10 makes a
+    # one-ulp input change move the tiny run by 7.5e-4)
+    tiny_deep = dict(optimization_steps=1, deep_mmd_loss_weight=1.0)
+    if kind == "ditto_deep_mmd":
+        kw = dict(mmd_kernel_train_interval=-1 if train_kernel else 0,
+                  **tiny_deep) if tiny else {}
+        return dict(logic=mmd.DittoDeepMmdClientLogic(
+                        wired(TwinModel(net(), net())), ce, feature_model=wired(net()),
+                        feature_sizes={"features": width}, **kw),
+                    strategy=FedAvg, exchanger=twin_wire)
+    if kind == "mrmtl_deep_mmd":
+        kw = dict(mmd_kernel_train_interval=2 if train_kernel else 0,
+                  **tiny_deep) if tiny else {}
+        return dict(logic=mmd.MrMtlDeepMmdClientLogic(wired(net()), ce,
+                                                      feature_sizes={"features": width}, **kw),
+                    strategy=FedAvg, exchanger=KeepLocalExchanger())
+    if kind == "flash":
+        from fl4health_tpu_torch.clients.flash import FlashEarlyStopConfig
+
+        return dict(logic=plain, strategy=Flash, sim=dict(
+            local_epochs=FLASH_EPOCHS,
+            flash_early_stopping=FlashEarlyStopConfig(FLASH_GAMMA, FLASH_EPOCHS)))
+    if kind == "feddg_ga":
+        n = 3 if tiny else DP_CLIENTS
+        return dict(logic=plain, strategy=lambda: FedDgGa(n_clients=n, num_rounds=4))
+    if kind == "dynamic_layer":
+        return dict(logic=plain, strategy=FedAvgDynamicLayer,
+                    exchanger=ex.DynamicLayerExchanger(mode="topk", exchange_fraction=0.5))
+    if kind == "sparse":
+        return dict(logic=plain, strategy=FedAvgSparse,
+                    exchanger=ex.SparseExchanger(sparsity_level=0.3))
+    if kind == "model_merge":
+        return dict(logic=plain, strategy=ModelMergeStrategy)
+    raise ValueError(kind)
+
+
+def breadth_sim(kind: str, tiny: bool, device: str, mode: str = "pipelined",
+                nudge: float = 0.0, train_kernel: bool = True):
+    """An arm's simulation: SGD(0.05), f32; tiny: the split-model fixture's
+    3 clients, batch 8, one local epoch, seed 3; else the 64
+    ``dp_cifar_cnn`` clients, batch 32, 5 local steps (Flash: 2 epochs),
+    seed 0. ``nudge`` (+inf or -inf): every training input one ulp that
+    way (the run's own sensitivity). ``train_kernel``: see
+    :func:`breadth_arm`."""
+    from fl4health_tpu_torch import optim
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.server.simulation import ClientDataset, FederatedSimulation
+
+    arm = breadth_arm(kind, tiny, train_kernel)
+    data = pfl_datasets(tiny, False, device)
+    if nudge:
+        step = lambda x: torch.nextafter(x, torch.full_like(x, nudge))  # noqa: E731
+        data = [ClientDataset(step(torch.as_tensor(d.x_train)), d.y_train, d.x_val, d.y_val)
+                for d in data]
+    kw = arm.get("sim") or (dict(local_epochs=1) if tiny else dict(local_steps=LOCAL_STEPS))
+    if tiny and "flash_early_stopping" in kw:
+        from fl4health_tpu_torch.clients.flash import FlashEarlyStopConfig
+
+        kw = dict(local_epochs=3, flash_early_stopping=FlashEarlyStopConfig(1e-3, 3))
+    return FederatedSimulation(
+        logic=arm["logic"], tx=optim.sgd(0.05), strategy=arm["strategy"](),
+        datasets=data, batch_size=8 if tiny else BATCH,
+        metrics=MetricManager((efficient.accuracy(),)), exchanger=arm.get("exchanger"),
+        seed=3 if tiny else 0, execution_mode=mode, device=device, **kw)
+
+
+def local_models(sim) -> None:
+    """The clients' locally trained models, as the model-merge clients bring
+    them: one round of local training on the next round's plan (its
+    ``_fit_round``), the trained client states kept, the server's left."""
+    mask = torch.ones((sim.n_clients,), dtype=torch.float32, device=sim.device)
+    _, sim.client_states, _, _, _ = sim._fit_round(
+        sim.server_state, sim.client_states, sim._round_batches(len(sim.history) + 1), mask,
+        len(sim.history) + 1, sim._val_batches()[0])
+
+
+def merge_and_evaluate(sim) -> dict:
+    """``ModelMergeServer``'s merge of the local models and its evaluation,
+    then ``EvaluateServer`` on the merged model again (same numbers)."""
+    from fl4health_tpu_torch.server.servers import EvaluateServer, ModelMergeServer
+
+    local_models(sim)
+    merged, losses, metrics = ModelMergeServer(sim).fit()
+    again = EvaluateServer(sim).fit()
+    if again != (losses, metrics):
+        fail(f"model_merge: EvaluateServer {again} differs from the merge's {losses, metrics}")
+    return {"merged": merged, "eval_losses": losses, "eval_metrics": metrics}
+
+
+def _history_gap(a, b) -> float:
+    """The largest difference of two runs' fit and eval losses (every key);
+    fails on differing keys or non-finite values."""
+    worst = 0.0
+    for x, y in zip(a.history, b.history, strict=True):
+        for field in ("fit_losses", "eval_losses"):
+            u, v = getattr(x, field), getattr(y, field)
+            if set(u) != set(v) or not all(np.isfinite(w) for w in u.values()):
+                fail(f"round {x.round}: {field} {u} against {v}")
+            worst = max(worst, *(abs(u[k] - v[k]) for k in u))
+    return worst
+
+
+def _kernel_gaps(a: dict, b: dict) -> tuple[float, float]:
+    """Two deep kernels' largest and mean entry gaps, the mean without the
+    last layer's bias: it cancels in every feature distance, so its
+    gradient is 0 in real arithmetic and adamw moves it by rounding alone."""
+    last = max(k for k in b if k.startswith("featurizer/")).rsplit("/", 1)[0] + "/bias"
+    gaps = {k: (a[k].cpu().double() - b[k].double()).abs().flatten() for k in b}
+    return (max(float(g.max()) for g in gaps.values()),
+            float(torch.cat([g for k, g in gaps.items() if k != last]).mean()))
+
+
+def _deep_kernel(sim) -> dict:
+    return sim.client_states.extra["deep_mmd"]["features"]
+
+
+def tiny_breadth_parity() -> dict:
+    """Every arm's tiny fixture on the card and on the CPU, 2 rounds from the
+    same init: each round's fit and eval losses (every key) within 1e-5;
+    the model-merge arm also its merged model's evaluation. Each deep arm
+    runs with its kernel fixed and trained. The kernel is sharp
+    (``sigma_phi`` 0.005): even a fixed kernel's tiny run moves by more
+    than 1e-5 on a one-ulp input change; and its training ascends a
+    t-statistic whose variance is a difference of two nearly equal f32
+    sums, Adam turning its rounding into lr-sized moves. So the deep arms'
+    losses are held to the larger of 1e-5 and twice the CPU run's own move
+    when its inputs move by one ulp (up or down), and a trained kernel's
+    params to the CPU's own spread: the largest entry gap within twice,
+    the mean entry gap within 4 times the nudged runs' largest."""
+    err, deep_arms = {}, {}
+    for kind in BREADTH_KINDS:
+        deep = "deep_mmd" in kind
+        for trained in (False, True) if deep else (True,):
+            name = f"{kind}_{'trained' if trained else 'fixed'}" if deep else kind
+            make = functools.partial(breadth_sim, kind, True, train_kernel=trained)
+            runs = {"card": make("cuda"), "cpu": make("cpu")}
+            ways = (float("inf"), float("-inf")) if deep else ()
+            for way in ways:
+                runs[f"cpu_nudged{way}"] = make("cpu", nudge=way)
+            for sim in runs.values():
+                sim.fit(BREADTH_TINY_ROUNDS)
+            worst = _history_gap(runs["card"], runs["cpu"])
+            if kind == "model_merge":
+                m_card, m_cpu = (merge_and_evaluate(runs[d]) for d in ("card", "cpu"))
+                worst = max(worst, *(abs(m_card["eval_losses"][k] - m_cpu["eval_losses"][k])
+                                     for k in m_cpu["eval_losses"]))
+            bound = BREADTH_TINY_TOL
+            if not deep:
+                err[name] = worst
+            else:
+                own = max(_history_gap(runs[f"cpu_nudged{way}"], runs["cpu"]) for way in ways)
+                bound = max(BREADTH_TINY_TOL, 2 * own)
+                arm = deep_arms[name] = {"card_vs_cpu": worst, "cpu_one_ulp": own,
+                                         "bound": bound}
+            if not worst <= bound:
+                fail(f"tiny {name}: card-vs-CPU max abs err {worst} > {bound}")
+            if deep and trained:
+                kc, kp = _deep_kernel(runs["card"]), _deep_kernel(runs["cpu"])
+                steps = int(kp.opt_state[0].count.max())
+                spread = [_kernel_gaps(_deep_kernel(runs[f"cpu_nudged{way}"]).params, kp.params)
+                          for way in ways]
+                gap_max, gap_mean = _kernel_gaps(kc.params, kp.params)
+                own_max, own_mean = (max(g[i] for g in spread) for i in (0, 1))
+                arm.update({"adam_steps": steps, "kernel_gap_max": gap_max,
+                            "kernel_gap_mean": gap_mean, "cpu_one_ulp_kernel_max": own_max,
+                            "cpu_one_ulp_kernel_mean": own_mean})
+                if not (steps > 0 and gap_max <= 2 * own_max and gap_mean <= 4 * own_mean):
+                    fail(f"tiny {name}: kernel params part by {gap_max} (mean {gap_mean}) "
+                         f"after {steps} adamw steps; the CPU's one-ulp spread {own_max} "
+                         f"(mean {own_mean})")
+    out = {"phase": "tiny_breadth_parity", "rounds": BREADTH_TINY_ROUNDS,
+           "max_abs_err": err, "deep_mmd": deep_arms}
+    print(json.dumps(out))
+    return out
+
+
+class HostTimer:
+    """Wraps a module function: the host seconds and calls spent in it (its
+    ops' dispatch; the device runs them behind)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.inner = module, name, getattr(module, name)
+        self.seconds, self.calls = 0.0, 0
+
+    def __enter__(self):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return self.inner(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+
+
+def all_launches(fa, dp) -> dict:
+    """K1-K5's launch counts (the tensor-core ones are among K3-K5's)."""
+    return {k: v for c in (fa.LAUNCHES, dp.LAUNCHES) for k, v in c.items()}
+
+
+def breadth_arm_run(kind: str, fa, dp) -> dict:
+    """One arm at full width: the pipelined route (a cold round, then a warm
+    round timed, the peak above the arm's start), the chunked route's 2
+    rounds bit for bit the pipelined ones (FedDG-GA, whose eval update
+    keeps it pipelined as in JAX: the chunked route refused, the inline
+    rounds bit for bit instead); MK-MMD's warm round also the QP's host
+    time; model merge also the merge and evaluation of local models."""
+    from fl4health_tpu_torch.clients import mmd
+
+    sims = {}
+    t_arm = time.time()
+    sim = breadth_sim(kind, False, "cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    sim.fit(1)
+    torch.cuda.synchronize()
+    cold = time.time() - t0
+    with HostTimer(mmd, "optimize_betas") as qp:
+        t0 = time.time()
+        sim.fit(1)
+        torch.cuda.synchronize()
+        warm = time.time() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    sims["pipelined"] = sim
+    for r in sim.history:
+        values = [*r.fit_losses.values(), *r.eval_losses.values()]
+        if not all(np.isfinite(v) for v in values):
+            fail(f"{kind}_cifar_cnn round {r.round}: non-finite losses {r.fit_losses} "
+                 f"{r.eval_losses}")
+    other = "inline" if kind == "feddg_ga" else "chunked"
+    if kind == "feddg_ga":
+        try:
+            breadth_sim(kind, False, "cuda", mode="chunked").fit(1)
+            fail("feddg_ga_cifar_cnn: the chunked route was not refused")
+        except ValueError as e:
+            if "update_after_eval" not in str(e):
+                raise
+        twin = breadth_sim(kind, False, "cuda")
+        inline_rounds(twin, BREADTH_ROUNDS)
+    else:
+        twin = breadth_sim(kind, False, "cuda", mode="chunked")
+        twin.fit(BREADTH_ROUNDS)
+    equal = history_equal(sim, twin) and states_equal(sim, twin)
+    if not equal:
+        fail(f"{kind}_cifar_cnn: the {other} route parts from the pipelined route")
+    arm = {"phase": f"{kind}_cifar_cnn", "clients": DP_CLIENTS, "cold_round_s": cold,
+           "warm_round_s": warm, "peak_gib_above_start": peak,
+           f"{other}_bit_equal": equal,
+           "fit_losses": [r.fit_losses for r in sim.history],
+           "eval_losses": [r.eval_losses["checkpoint"] for r in sim.history]}
+    if qp.calls:
+        arm.update(qp_host_s_warm_round=qp.seconds, qp_calls_warm_round=qp.calls)
+    st = sim.server_state
+    if kind in ("ditto_mkmmd", "mrmtl_mkmmd"):
+        betas = sim.client_states.extra["mkmmd_betas"]["features"]
+        moved = float((betas - 1.0 / 19).abs().max())
+        sums = betas.sum(-1)
+        if not (moved > 1e-4 and float((sums - 1).abs().max()) < 1e-4):
+            fail(f"{kind}_cifar_cnn: betas moved {moved}, sums {sums.min()}..{sums.max()}")
+        arm["betas_moved"] = moved
+    if kind in ("ditto_deep_mmd", "mrmtl_deep_mmd"):
+        k = sim.client_states.extra["deep_mmd"]["features"]
+        steps = int(k.opt_state[0].count.min())
+        if steps < 5:  # one kernel training a round, 5 steps each
+            fail(f"{kind}_cifar_cnn: the kernels trained {steps} steps")
+        arm["kernel_adam_steps"] = steps
+    if kind == "feddg_ga":
+        w = st.adjustment_weights
+        arm["adjustment_weights"] = [float(w.min()), float(w.max())]
+        if not (abs(float(w.sum()) - 1.0) < 1e-5 and float(w.max() - w.min()) > 0.0):
+            fail(f"feddg_ga_cifar_cnn: weights {arm['adjustment_weights']}, sum {w.sum()}")
+    if kind in ("dynamic_layer", "sparse"):
+        sent = torch.cat([v.reshape(-1) for v in st.updated.values()])
+        arm["updated_share"] = float(sent.mean())
+        if not 0.0 < arm["updated_share"] <= 1.0:
+            fail(f"{kind}_cifar_cnn: aggregation refreshed {arm['updated_share']}")
+    if kind == "model_merge":
+        merged = {}
+        for name, s in (("pipelined", sim), (other, twin)):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            merged[name] = merge_and_evaluate(s)
+            torch.cuda.synchronize()
+            arm[f"merge_eval_s_{name}"] = time.time() - t0
+        a, b = merged["pipelined"], merged[other]
+        if not (a["eval_losses"] == b["eval_losses"] and all(
+                torch.equal(a["merged"][k], b["merged"][k]) for k in a["merged"])):
+            fail("model_merge_cifar_cnn: the routes' merges differ")
+        arm["merged_eval_losses"] = a["eval_losses"]
+    arm["arm_wall_s"] = time.time() - t_arm
+    print(json.dumps(arm))
+    return arm
+
+
+def fedpca_mnist() -> dict:
+    """``fedpca_example``'s flow at the DP path's count: 64 clients' 160 rows
+    of 28x28x1 synthetic data flattened to 784, each client's top 8 axes by
+    ``PcaModule(low_rank=True)``, ``FedPCA(8)``'s merge, on the card (timed,
+    warm) and on the CPU: the singular values within 5e-4 of their size,
+    each component after aligning its column's sign and the pooled
+    validation rows' explained variance within 5e-4."""
+    from fl4health_tpu_torch.models.autoencoders import PcaModule
+    from fl4health_tpu_torch.strategies.base import FitResults
+    from fl4health_tpu_torch.strategies.fedpca import FedPCA, PcaPacket
+
+    data = image_datasets(DP_CLIENTS, DP_TRAIN, DP_VAL, (28, 28, 1))
+
+    def merge(device):
+        pca, strategy = PcaModule(low_rank=True, rank_estimation=PCA_COMPONENTS), FedPCA(
+            PCA_COMPONENTS)
+        states = [pca.fit(torch.as_tensor(d.x_train).to(device).reshape(len(d.x_train), -1))
+                  for d in data]
+        server = strategy.init({"components": states[0].components,
+                                "singular_values": states[0].singular_values})
+        results = FitResults(
+            packets=PcaPacket(torch.stack([s.components for s in states]),
+                              torch.stack([s.singular_values for s in states])),
+            sample_counts=torch.full((DP_CLIENTS,), float(DP_TRAIN), device=device),
+            train_losses={}, train_metrics={},
+            mask=torch.ones((DP_CLIENTS,), device=device))
+        return strategy.aggregate(server, results, 1)
+
+    walls = []
+    for _ in range(2):  # cold, then warm
+        torch.cuda.synchronize()
+        t0 = time.time()
+        card = merge("cuda")
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    cpu = merge("cpu")
+    # the singular values are a few hundred: held relative to their size
+    # (5e-4 absolute is below f32's resolution there)
+    sv = check("fedpca singular values", card.singular_values.cpu(), cpu.singular_values,
+               0, PCA_TOL)
+    got, want = card.components.cpu(), cpu.components
+    signs = torch.sign((got * want).sum(0))
+    comp = check("fedpca components (signs aligned)", got * signs, want, PCA_TOL, 0)
+    pooled = torch.cat([torch.as_tensor(d.x_val).reshape(len(d.x_val), -1) for d in data])
+    pooled = pooled - pooled.mean(0)
+    ratio = {name: float(((pooled @ u) ** 2).sum() / (pooled ** 2).sum())
+             for name, u in (("card", got), ("cpu", want))}
+    if not abs(ratio["card"] - ratio["cpu"]) <= PCA_TOL:
+        fail(f"fedpca_mnist: explained variance card {ratio['card']} CPU {ratio['cpu']}")
+    out = {"phase": "fedpca_mnist", "clients": DP_CLIENTS, "rows": DP_TRAIN, "width": 784,
+           "components": PCA_COMPONENTS, "cold_s": walls[0], "warm_s": walls[1],
+           "singular_values": [float(v) for v in cpu.singular_values],
+           "singular_values_max_abs_err": sv, "components_max_abs_err": comp,
+           "signs_flipped": int((signs < 0).sum()), "explained_variance": ratio}
+    print(json.dumps(out))
+    return out
+
+
+def breadth_slice(fa, dp) -> dict:
+    """Phase 40: the tiny fixtures card against CPU, the nine arms at the DP
+    path's width and traffic (64 clients, batch 32, 5 SGD(0.05) steps, f32,
+    2 rounds), FedPCA's merge card against CPU; K1-K5 launch 0 times over
+    the phase, as in JAX."""
+    fa.reset_launch_counts()
+    dp.reset_launch_counts()
+    t_phase = time.time()
+    tiny = tiny_breadth_parity()
+    tiny_wall = time.time() - t_phase
+    arms = {}
+    for kind in BREADTH_KINDS:
+        arms[kind] = breadth_arm_run(kind, fa, dp)
+        torch.cuda.empty_cache()
+    pca = fedpca_mnist()
+    launches = all_launches(fa, dp)
+    if any(launches.values()):
+        fail(f"phase 40 launched K1-K5: {launches}")
+    out = {"phase": "algorithm_breadth", "arms": len(arms) + 1,
+           "wall_s": time.time() - t_phase,
+           "tiny_max_abs_err": max(tiny["max_abs_err"].values()),
+           "tiny_deep_mmd": tiny["deep_mmd"], "tiny_wall_s": tiny_wall,
+           "arm_wall_s": {k: a["arm_wall_s"] for k, a in arms.items()},
+           "warm_round_s": {k: a["warm_round_s"] for k, a in arms.items()},
+           "peak_gib_above_start": {k: a["peak_gib_above_start"] for k, a in arms.items()},
+           "qp_host_s_warm_round": {k: arms[k]["qp_host_s_warm_round"]
+                                    for k in ("ditto_mkmmd", "mrmtl_mkmmd")},
+           "fedpca_warm_s": pca["warm_s"], "launches": launches}
+    print(card_line())
+    print(json.dumps(out))
+    return out
+
+
 def elapsed(t_start: float, after: str) -> None:
     """The script's wall so far, after a slice's phases (where its 1200 s
     go)."""
@@ -6252,6 +6704,10 @@ def main() -> int:
         # a one-rank NCCL mesh, FedPM's masked models, FedBN's statistics
         model_state = model_state_slice(fa, dp)
         elapsed(t_start, "model state, FedPM, FedBN, mesh async and admin (39)")
+        # the algorithm-breadth slice: MK-MMD and deep MMD, Flash, FedDG-GA,
+        # partial exchange, model merge and FedPCA
+        breadth = breadth_slice(fa, dp)
+        elapsed(t_start, "algorithm breadth (40)")
     finally:
         torch.backends.cudnn.deterministic = deterministic
     del cohort
@@ -6295,6 +6751,8 @@ def main() -> int:
             "launches_mesh_zero1_bert_lora_fedopt":
                 mesh["bert"]["mesh_pipelined"]["launches"][name],
             "launches_ring_transformer_long": mesh["ring"]["mesh_pipelined"]["launches"][name],
+            # the algorithm-breadth slice (phase 40): every arm, none
+            "launches_algorithm_breadth": breadth["launches"][name],
             "launches_nnunet_fullres": nnunet_launches[name],
             "launches_cohort_dp_cifar_cnn": cohort_launches[name],
             "launches_async_dp_cifar_cnn": async_launches[name],
@@ -6360,6 +6818,7 @@ def main() -> int:
             "launches_mesh_async_dp_cifar_cnn_chunked":
                 model_state["mesh_async"]["mesh_chunked"]["launches"][name],
             "launches_mesh_ops_dp_cifar_cnn": model_state["mesh_ops"]["mesh"]["launches"][name],
+            "launches_algorithm_breadth": breadth["launches"][name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

@@ -298,6 +298,27 @@ def masked_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
 
 
+def masked_mse(preds: torch.Tensor, targets: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Mean over valid examples of each example's mean squared error."""
+    per = torch.square(preds - targets).reshape(preds.shape[0], -1).mean(dim=-1)
+    m = mask.float()
+    return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def masked_bce_with_logits(logits: torch.Tensor, targets: torch.Tensor,
+                           mask: torch.Tensor) -> torch.Tensor:
+    """Mean over valid examples of each example's mean binary cross
+    entropy on logits, as optax's ``sigmoid_binary_cross_entropy`` writes
+    it (``-z log s(x) - (1 - z) log s(-x)``)."""
+    logits = logits.reshape(logits.shape[0], -1)
+    targets = targets.reshape(targets.shape[0], -1).to(torch.float32)
+    per = (-targets * F.logsigmoid(logits)
+           - (1.0 - targets) * F.logsigmoid(-logits)).mean(dim=-1)
+    m = mask.float()
+    return (per * m).sum() / torch.clamp(m.sum(), min=1.0)
+
+
 # ---------------------------------------------------------------------------
 # Train / eval phases
 # ---------------------------------------------------------------------------
@@ -535,7 +556,7 @@ def make_local_train(logic: ClientLogic, tx: GradientTransformation,
 
     def _train(state: TrainState, ctx: Any, batches: Batch):
         device = batches.step_mask.device
-        meter = LossMeter.create(loss_keys, device)
+        meter = LossMeter.create(loss_keys, device=device)
         mstate = metric_manager.init(device)
         acc = telemetry_acc_init(device) if collect_telemetry else None
         for s in range(batches.step_mask.shape[0]):
@@ -572,7 +593,7 @@ def make_local_eval(logic: ClientLogic, metric_manager: MetricManager,
     @torch.no_grad()
     def evaluate(state: TrainState, ctx: Any, batches: Batch):
         device = batches.step_mask.device
-        meter = LossMeter.create(loss_keys, device)
+        meter = LossMeter.create(loss_keys, device=device)
         mstate = metric_manager.init(device)
         key, step_key = state.rng, None
         for s in range(batches.step_mask.shape[0]):
@@ -638,7 +659,7 @@ def make_local_train_with_early_stopping(
 
     def train(state: TrainState, ctx: Any, batches: Batch, val_batches: Batch):
         device = batches.step_mask.device
-        meter = LossMeter.create(loss_keys, device)
+        meter = LossMeter.create(loss_keys, device=device)
         mstate = metric_manager.init(device)
         total = batches.step_mask.shape[0]
         n_chunks = -(-total // interval)

@@ -95,6 +95,26 @@ def flax_leaf_order(params: dict) -> list[str]:
     return sorted(params, key=lambda path: tuple(path.split("/")))
 
 
+def ravel(params: dict) -> tuple[torch.Tensor, Callable[[torch.Tensor], dict]]:
+    """A ``Params`` dict as one 1-D vector, its leaves in JAX's flatten
+    order (``flax_leaf_order``), and the function back (JAX's
+    ``ravel_pytree``); the vector is float32 unless every leaf shares
+    another dtype."""
+    order = flax_leaf_order(params)
+    dtypes = {params[k].dtype for k in order}
+    dtype = dtypes.pop() if len(dtypes) == 1 else torch.float32
+    flat = torch.cat([params[k].reshape(-1).to(dtype) for k in order])
+    sizes = [params[k].numel() for k in order]
+    shapes = {k: params[k].shape for k in order}
+    leaf_dtypes = {k: params[k].dtype for k in order}
+
+    def unravel(vector: torch.Tensor) -> dict:
+        pieces = dict(zip(order, torch.split(vector, sizes)))
+        return {k: pieces[k].reshape(shapes[k]).to(leaf_dtypes[k]) for k in params}
+
+    return flat, unravel
+
+
 def global_norm(params: dict) -> torch.Tensor:
     """l2 norm over a ``Params`` dict's leaves, the squares summed in JAX's
     leaf order."""

@@ -132,3 +132,15 @@ def optax_state_to_torch(state: Any, device: str | torch.device = "cpu") -> Any:
     if isinstance(state, tuple) and not hasattr(state, "_fields"):  # a chain
         return tuple(optax_state_to_torch(s, device) for s in state)
     raise TypeError(f"no conversion for an optax state of type {kind}")
+
+
+def deep_mmd_state_to_torch(state: Any, device: str | torch.device = "cpu") -> Any:
+    """A JAX ``DeepMmdState`` (its arrays as numpy) -> the port's: the
+    params (``{"featurizer": DeepKernelNet's flax params, "log_epsilon",
+    "sigma_q_root", "sigma_phi_root"}``) flattened to
+    ``featurizer/Dense_0/kernel``, ..., the adamw state through
+    ``optax_state_to_torch``."""
+    from fl4health_tpu_torch.losses.mmd import DeepMmdState
+
+    return DeepMmdState(params=flax_to_torch(state.params, device),
+                        opt_state=optax_state_to_torch(state.opt_state, device))

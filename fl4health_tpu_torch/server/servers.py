@@ -2,9 +2,10 @@
 ``fl4health_tpu/server/servers.py`` the port's slices use): the polling
 protocol (``poll_clients``); per-client sample-count polling; SCAFFOLD's
 warm start and ``ScaffoldServer``; ``FedPmServer``, ``FedProxServer``,
-``DittoServer`` and ``MrMtlServer``; and the instance-level, DP-SCAFFOLD and client-level DP
+``DittoServer`` and ``MrMtlServer``; the instance-level, DP-SCAFFOLD and client-level DP
 servers, which configure the matching accountant and return the run's
-epsilon with its history.
+epsilon with its history; and the evaluate-only ``EvaluateServer`` and the
+one-shot ``ModelMergeServer``.
 """
 
 from __future__ import annotations
@@ -15,11 +16,14 @@ from typing import Any, Callable, Mapping, Sequence
 
 import torch
 
+from fl4health_tpu_torch.parallel.compat import client_total
 from fl4health_tpu_torch.privacy.accountants import (
     FlClientLevelAccountantFixedSamplingNoReplacement,
     FlClientLevelAccountantPoissonSampling, FlInstanceLevelAccountant)
 from fl4health_tpu_torch.server.client_manager import PoissonSamplingManager
+from fl4health_tpu_torch.server.pipeline import HostPull
 from fl4health_tpu_torch.server.simulation import FederatedSimulation
+from fl4health_tpu_torch.strategies.base import replace_global_params
 from fl4health_tpu_torch.strategies.fedprox import FedAvgWithAdaptiveConstraint
 from fl4health_tpu_torch.strategies.scaffold import Scaffold
 
@@ -229,3 +233,52 @@ class ClientLevelDpFedAvgServer:
         logger.info("Client-level DP run: epsilon=%.4f at delta=%.2e over %d rounds",
                     epsilon, delta, n_rounds)
         return self.sim.fit(n_rounds), epsilon
+
+
+# ---------------------------------------------------------------------------
+# Evaluate-only and model-merge servers
+# ---------------------------------------------------------------------------
+
+class EvaluateServer:
+    """One federated evaluation round: install ``params`` (a checkpoint's
+    weights) as the global model, when given, broadcast it, evaluate on
+    every client and aggregate. No training round runs."""
+
+    def __init__(self, sim: FederatedSimulation, params=None):
+        self.sim = sim
+        self.params = params
+
+    def fit(self):
+        """-> (aggregated eval losses, aggregated eval metrics) as floats."""
+        sim = self.sim
+        if self.params is not None:
+            # through any strategy wrapper (compression, quarantine)
+            sim.server_state = replace_global_params(sim.strategy, sim.server_state,
+                                                     self.params)
+        val_batches, val_counts = sim._val_batches()
+        # the round hands the client stack back with the pulled params
+        sim.client_states, losses, metrics, *_ = sim._eval_round(
+            sim.server_state, sim.client_states, val_batches, val_counts)
+        host = HostPull((losses, metrics)).result()  # one transfer
+        return ({k: float(v) for k, v in host[0].items()},
+                {k: float(v) for k, v in host[1].items()})
+
+
+class ModelMergeServer:
+    """One-shot parameter merge and federated evaluation: the clients'
+    current (locally trained) weights averaged uniformly, the merged model
+    evaluated on every client."""
+
+    def __init__(self, sim: FederatedSimulation):
+        self.sim = sim
+
+    def fit(self):
+        """-> (merged params, eval losses, eval metrics)."""
+        sim = self.sim
+        n = float(sim.n_clients)
+        # a program of the mesh: each rank sums its block, then all ranks'
+        merged = sim._program_builder.jit(
+            lambda stacked: {k: client_total(s) / n for k, s in stacked.items()})(
+                sim.client_states.params)
+        losses, metrics = EvaluateServer(sim, params=merged).fit()
+        return merged, losses, metrics

@@ -202,10 +202,11 @@ dense buffered-async routes run under a mesh as the synchronous ones do
 (each rank its block of ``pending`` too; async with a cohort and a mesh is
 refused, as in JAX), and an armed admin plane's retunes, received by rank
 0's endpoint, are broadcast at each pipelined boundary so every rank
-applies them at the same round. Left out here:
-FLASH early stopping (``flash_early_stopping``), which raises
-``NotImplementedError`` when set, and the ``WandBReporter``; so of JAX's
-reasons for the pipelined route, only those of the features above apply.
+applies them at the same round. FLASH early stopping
+(``flash_early_stopping``) replaces the local train with
+``clients/flash.py``'s epoch loop, as in JAX. Left out here: the
+``WandBReporter``; so of JAX's reasons for the pipelined route, only those
+of the features above apply.
 """
 
 from __future__ import annotations
@@ -484,12 +485,7 @@ class FederatedSimulation:
         recovery: Any = None,
         device: str | torch.device = "cuda",
     ):
-        # JAX's parameters in JAX's order (a positional call binds alike);
-        # the one whose module is not ported yet refuses a value
-        if flash_early_stopping is not None:
-            raise NotImplementedError(
-                "FederatedSimulation(flash_early_stopping=...) is not ported yet "
-                "(ROADMAP.md A12)")
+        # JAX's parameters in JAX's order (a positional call binds alike)
         if mesh is not None and not isinstance(mesh, MeshConfig):
             raise TypeError(
                 "mesh must be a MeshConfig (or None); got "
@@ -544,6 +540,18 @@ class FederatedSimulation:
         self._eval_loss_keys = tuple(eval_loss_keys)
         self.reporters = list(reporters)
         self.early_stopping = early_stopping
+        self.flash_early_stopping = flash_early_stopping
+        if flash_early_stopping is not None:
+            # Flash is epoch-defined: the reference refuses step-wise training
+            if local_epochs is None:
+                raise ValueError("flash_early_stopping requires local_epochs")
+            if early_stopping is not None:
+                raise ValueError("flash_early_stopping and early_stopping are exclusive")
+            if flash_early_stopping.n_epochs != local_epochs:
+                raise ValueError(
+                    f"flash_early_stopping.n_epochs={flash_early_stopping.n_epochs} "
+                    f"must equal local_epochs={local_epochs}: the gamma rule is "
+                    "defined per true local epoch")
         self.failure_policy = failure_policy or FailurePolicy()
         # callable(round) -> (x_list, y_list) | None, called at the top of
         # each round: fresh train arrays of the original shapes and dtypes
@@ -1058,6 +1066,21 @@ class FederatedSimulation:
             train = engine.make_local_train_with_early_stopping(
                 logic, tx, self.metrics, self.early_stopping, loss_keys,
                 precision=self.precision, collect_telemetry=collect_telemetry)
+        elif self.flash_early_stopping is not None:
+            from fl4health_tpu_torch.clients.flash import make_flash_local_train
+
+            # the gamma rule's epoch loop keeps no telemetry accumulator: the
+            # engine's statistics come back NaN, as in JAX (the update norm
+            # is measured outside the train)
+            flash_train = make_flash_local_train(logic, tx, self.metrics,
+                                                 self.flash_early_stopping, loss_keys,
+                                                 precision=self.precision)
+
+            def train(state, ctx, batches, val_batches):
+                outs = flash_train(state, ctx, batches, val_batches)
+                if collect_telemetry:
+                    return (*outs, telem.nan_engine_telemetry(batches.step_mask.device))
+                return outs
         else:
             plain_train = engine.make_local_train(logic, tx, self.metrics, loss_keys,
                                                   precision=self.precision,
@@ -1069,11 +1092,17 @@ class FederatedSimulation:
                                           ("checkpoint", *self._eval_keys()))
         evaluate_after_fit = getattr(self.strategy, "evaluate_after_fit", False)
         scaling_active = self._precision_scaling
+        # a partial exchange's pull reads the strategy's whole payload (the
+        # packet's mask of refreshed leaves), not just its params
+        wants_packet = getattr(exchanger, "wants_packet_payload", False)
+
+        def pull_source(payload):
+            return payload if wants_packet else payload_params(payload)
 
         def client_fit(state: TrainState, payload, batches: Batch,
                        participate: torch.Tensor, val_batches: Batch):
             orig = state
-            pulled = exchanger.pull(payload_params(payload), state.params)
+            pulled = exchanger.pull(pull_source(payload), state.params)
             state = dataclasses.replace(state, params=pulled)
             ctx = logic.init_round_context(state, payload)
             new_state, losses, metrics, _, *engine_telem = train(state, ctx, batches,
@@ -1104,7 +1133,7 @@ class FederatedSimulation:
             return new_state, packet, losses, metrics
 
         def client_eval(state: TrainState, payload, batches: Batch):
-            pulled = exchanger.pull(payload_params(payload), state.params)
+            pulled = exchanger.pull(pull_source(payload), state.params)
             st = dataclasses.replace(state, params=pulled)
             ctx = logic.init_round_context(st, payload)
             losses, metrics = evaluate(st, ctx, batches)
@@ -1921,20 +1950,30 @@ class FederatedSimulation:
         return rnd % every == 0 or rnd >= self._fit_last_round
 
     def _async_pending_template(self, val_batches):
-        """The ``pending`` buffer's structure, shapes and dtypes without a
-        dispatch on the card: the prologue run on the CPU over copies of the
-        state with one step of one example a client (``pending``'s shapes
-        depend on neither)."""
+        """The ``pending`` buffer's structure, the template a frame's
+        restore reads (it takes the structure and the frame's values):
+        the prologue run once on fake tensors (``FakeTensorMode``: no
+        device work, no kernel launch, a kernel's fake branch answers) with
+        one step of one example a client (``pending``'s structure depends
+        on neither)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
         prologue, _ = self._async_programs()
+        mode = FakeTensorMode(allow_non_fake_inputs=True)
+        fake = lambda tree: ptu.tree_map(  # noqa: E731
+            lambda t: mode.from_tensor(t) if isinstance(t, torch.Tensor) else t, tree)
 
         def one_example(b: Batch) -> Batch:
-            cut = lambda t: t[:, :1, :1].cpu()  # noqa: E731
-            return Batch(x=ptu.tree_map(cut, b.x), y=ptu.tree_map(cut, b.y),
-                         example_mask=cut(b.example_mask), step_mask=b.step_mask[:, :1].cpu())
+            cut = lambda t: t[:, :1, :1]  # noqa: E731
+            return fake(Batch(x=ptu.tree_map(cut, b.x), y=ptu.tree_map(cut, b.y),
+                              example_mask=cut(b.example_mask), step_mask=b.step_mask[:, :1]))
 
-        cpu = lambda tree: ptu.tree_map(lambda t: t.cpu(), tree)  # noqa: E731
-        _, pending = prologue(cpu(self.server_state), cpu(self.client_states),
-                              one_example(self._round_batches(1)), one_example(val_batches))
+        # the batches are staged (on the card, from pinned memory) before
+        # the fake mode starts
+        args = (fake(self.server_state), fake(self.client_states),
+                one_example(self._round_batches(1)), one_example(val_batches))
+        with mode:
+            _, pending = prologue(*args)
         return pending
 
     def _maybe_resume(self, n_rounds: int, plan=None) -> int:

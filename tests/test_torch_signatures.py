@@ -37,6 +37,7 @@ MISSING = {
     ("clients.engine", "epoch_batches"): _KEY,
     ("clients.nnunet", "NnunetClientLogic.augment"): _KEY,
     ("core.pytree", "global_norm"): {"tree": RENAMED},
+    ("core.pytree", "ravel"): {"tree": RENAMED},
     ("core.pytree", "leaf_paths"): {"tree": RENAMED},
     ("core.pytree", "select_by_path"): {"tree": RENAMED},
     ("datasets.synthetic", "synthetic_classification"): _KEY,
@@ -48,8 +49,11 @@ MISSING = {
         "block_q": PALLAS, "block_k": PALLAS, "interpret": PALLAS},
     ("kernels.flash_attention", "flash_attention_lse"): {
         "block_q": PALLAS, "block_k": PALLAS, "interpret": PALLAS},
-    ("losses.containers", "LossMeter.create"): {"meter_type": "A12"},
     ("losses.contrastive", "cosine_similarity"): {"axis": RENAMED},
+    **{("losses.mmd", f"DeepMmd.{fn}"): _KEY for fn in ("init", "train", "train_step")},
+    ("models.autoencoders", "reparameterize"): _KEY,
+    ("models.autoencoders", "VariationalAe.sampling"): _KEY,
+    ("models.autoencoders", "ConditionalVae.sampling"): _KEY,
     ("models.masked", "bernoulli_ste"): _KEY,
     ("nnunet.augment", "augment_patch_batch"): _KEY,
     ("observability.manifest", "run_manifest"): {"donation": "Buffer donation"},
@@ -194,6 +198,53 @@ def test_the_personalization_callables_are_shared(key):
     assert key in SHARED, key
 
 
+# the algorithm-breadth slice's public callables (MMD, Flash, FedDG-GA,
+# partial exchange, model merge, the autoencoders, FedPCA), each held by
+# the checks below
+BREADTH = [
+    ("losses.mmd", "default_gammas"), ("losses.mmd", "uniform_betas"), ("losses.mmd", "mkmmd"),
+    ("losses.mmd", "optimize_betas"),
+    *_methods("losses.mmd", "DeepMmd", "__init__", "init", "value", "train_step", "train"),
+    *_methods("clients.mmd", "DittoMkMmdClientLogic", "__init__", "training_loss"),
+    *_methods("clients.mmd", "MrMtlMkMmdClientLogic", "__init__", "training_loss"),
+    *_methods("clients.mmd", "DittoDeepMmdClientLogic", "__init__", "training_loss"),
+    *_methods("clients.mmd", "MrMtlDeepMmdClientLogic", "__init__", "training_loss"),
+    ("clients.engine", "masked_mse"), ("clients.engine", "masked_bce_with_logits"),
+    ("losses.containers", "LossMeter.create"), ("losses.containers", "TrainingLosses.as_dict"),
+    ("losses.containers", "EvaluationLosses.as_dict"),
+    ("clients.flash", "make_flash_local_train"),
+    *_methods("strategies.flash", "Flash", "__init__", "init", "aggregate"),
+    *_methods("strategies.feddg_ga", "FedDgGa", "__init__", "init", "aggregate",
+              "update_after_eval"),
+    *_methods("strategies.feddg_ga", "FedDgGaAdaptiveConstraint", "__init__", "init",
+              "client_payload", "aggregate", "update_after_eval"),
+    ("exchange.packer", "packet_like"), ("exchange.packer", "full_leaf_mask"),
+    ("exchange.packer", "full_element_mask"),
+    *_methods("exchange.exchanger", "DynamicLayerExchanger", "push", "pull"),
+    *_methods("exchange.exchanger", "SparseExchanger", "push", "pull"),
+    *_methods("strategies.dynamic_layer", "FedAvgDynamicLayer", "__init__", "init",
+              "client_payload", "aggregate"),
+    *_methods("strategies.dynamic_layer", "FedAvgSparse", "__init__", "init",
+              "client_payload", "aggregate"),
+    *_methods("strategies.model_merge", "ModelMergeStrategy", "__init__", "init", "aggregate"),
+    *_methods("server.servers", "EvaluateServer", "__init__", "fit"),
+    *_methods("server.servers", "ModelMergeServer", "__init__", "fit"),
+    ("models.autoencoders", "reparameterize"), ("models.autoencoders", "unpack_vae_output"),
+    ("models.autoencoders", "kl_to_standard_normal"), ("models.autoencoders", "make_vae_loss"),
+    *_methods("models.autoencoders", "BasicAe", "encode", "decode"),
+    *_methods("models.autoencoders", "PcaModule", "__init__", "maybe_reshape", "fit",
+              "project_lower_dim", "project_back", "reconstruction_error",
+              "projection_variance", "explained_variance_ratios",
+              "cumulative_explained_variance"),
+    *_methods("strategies.fedpca", "FedPCA", "__init__", "init", "global_params", "aggregate"),
+]
+
+
+@pytest.mark.parametrize("key", BREADTH, ids=lambda k: f"{k[0]}:{k[1]}")
+def test_the_algorithm_breadth_callables_are_shared(key):
+    assert key in SHARED, key
+
+
 def test_shared_parameters_come_in_jax_order():
     bad = {}
     for key in SHARED:
@@ -240,6 +291,5 @@ def test_every_allow_list_reason_is_in_the_roadmap(anchor):
 def test_the_simulation_takes_jax_arguments_in_jax_slots():
     j = _positional(JAX[("server.simulation", "FederatedSimulation.__init__")])
     t = _positional(PORT[("server.simulation", "FederatedSimulation.__init__")])
-    # every JAX argument (flash_early_stopping refuses a value) and
-    # the port's device last
+    # every JAX argument and the port's device last
     assert t == j + ["device"]
