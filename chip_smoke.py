@@ -152,7 +152,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      policy: 144 forward, 120 dQ and 120 dK/dV launches, exactly, all on
      the tensor cores; finite losses falling over the rounds; each client
      pushes exactly its trainable elements; no frozen leaf of any client
-     moves.
+     moves. It starts from a file: its initial params written as a
+     BERT-base ``.pt`` state dict in torch's Linear convention, the model
+     re-initialized from another seed and warm-started by
+     ``warm_up_from_file(torch_linear_convention=True)``, bit-equal to the
+     written tree.
  20. ``precision_mnist``: MnistNet (dtype=None) on bench.py's cifar_cnn
      traffic (64 clients, batch 32, 5 SGD(0.05) steps, FedAvg, 28x28x1), 3
      rounds in each of the f32, bf16 and fp16 (dynamic loss scaling) arms
@@ -239,7 +243,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      and across them: bit-equal to a straight run, 5 K1 and 40 K2 a round
      run; frame bytes, ``write_s``, a restore, the trees' pull; warm rounds
      with a frame every round against none, in turns), ``ckpt_drill`` (the
-     SIGKILL drill in child processes: straight, killed after round 2's
+     SIGKILL drill in child processes, each started before the checkpoint
+     phases and warm when its spec comes (``DrillChildPool``): straight,
+     killed after round 2's
      frame, killed 4 KiB into round 3's write; the torn run's newest
      generation flipped; the resumed and the falling-back children's final
      params' bytes and loss history equal the straight child's),
@@ -331,6 +337,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
      bit for bit the pipelined one (FedDG-GA: refused, its inline rounds
      instead), the MK-MMD QP's host time; ``fedpca_mnist`` against the
      CPU's SVDs after signs; no K1-K5 launch.
+ 41. The cross-silo slice: the native framing must be live (the C++
+     codec built with ``g++`` at first use, not its Python twin); each arm's
+     tiny run on the card against the CPU (5e-4); then
+     ``cross_silo_fedprox`` (research/fedprox_cluster/run_local_cluster.py:
+     5 ``LoopbackServer`` silos over TCP, 8 rounds, ``fedprox_synthetic``
+     120 rows of dim 30 in 6 classes, ``Mlp((16,), 6)``, 4 SGD(0.05) steps
+     of batch 8, mu in {0.01, 0.1, 1.0}, 3 runs, ``find_best_hp_dir`` over
+     the dumps), ``cross_silo_dp_cifar_cnn`` (4 DP silos of the DP path's
+     client, 160 rows, 2 rounds of ``broadcast_round`` and
+     ``weighted_merge``: frame bytes, f32 then f64 (ROADMAP.md R13),
+     encode and decode ms, K1/K2 5 and 40 a silo-round),
+     ``cross_silo_async_compressed`` (examples/cross_silo_buffered_async_
+     example: compressed frames, ``SiloUpdateBuffer``, a ``chaos_handler``
+     straggler, traced frames: the staleness and the flow ids at both ends)
+     and ``tabular_alignment`` (examples/feature_alignment_example: the two
+     polls, FedAvg on the card, ``balanced_accuracy``, ``f1``, ``binned_auc``
+     on the eval path); no K3-K5 launch.
 ``fit`` takes its default route, ``execution_mode`` "auto": chunked unless
 something needs the host between rounds (a strict failure policy, a data
 provider), then pipelined. Neither waits for the device inside a round, so
@@ -348,6 +371,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import importlib
 import json
 import math
 import os
@@ -355,6 +379,7 @@ import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -2397,6 +2422,48 @@ def dropout_parity() -> None:
                       **res}))
 
 
+def bert_warm_start(sim) -> dict:
+    """Config 3 from a file: write the simulation's initial params to a
+    BERT-base-width ``.pt`` state dict in torch's Linear convention (2-D
+    Dense kernels as ``[out, in]`` weights), re-initialize the model from
+    another generator seed, warm-start it with ``warm_up_from_file(...,
+    torch_linear_convention=True)`` and install the result; the warmed tree
+    must equal the written one bit for bit, so the run goes on as before."""
+    from fl4health_tpu_torch.preprocessing.checkpoint_io import warm_up_from_file
+
+    written = {k: v.detach().cpu().clone() for k, v in sim.global_params.items()}
+    state_dict = {}
+    for path, leaf in written.items():
+        dotted = path.replace("/", ".")
+        if dotted.endswith(".kernel") and leaf.ndim == 2 and "embed" not in dotted.lower():
+            state_dict[dotted[:-len("kernel")] + "weight"] = leaf.T.contiguous()
+        else:
+            state_dict[dotted] = leaf
+    root = ckpt_dir("warm")
+    path = os.path.join(root, "bert_base.pt")
+    t0 = time.perf_counter()
+    torch.save(state_dict, path)
+    save_s = time.perf_counter() - t0
+    fresh = sim.logic.model.init(torch.Generator().manual_seed(1))
+    moved = sum(not torch.equal(fresh[k].cpu(), written[k]) for k in written)
+    t0 = time.perf_counter()
+    warmed = warm_up_from_file(fresh, path, torch_linear_convention=True)
+    load_s = time.perf_counter() - t0
+    file_bytes = os.path.getsize(path)
+    drop_dirs(root)
+    equal = set(warmed) == set(written) and all(
+        warmed[k].dtype == written[k].dtype and torch.equal(warmed[k].cpu(), written[k])
+        for k in written)
+    out = {"file_bytes": file_bytes, "leaves": len(written),
+           "transposed_leaves": sum(k.endswith(".weight") for k in state_dict),
+           "fresh_leaves_apart": moved, "bit_equal": equal, "save_s": save_s,
+           "warm_up_s": load_s}
+    if not equal or moved == 0:
+        fail(f"config 3 warm start: {out}")
+    sim.set_global_params(warmed)
+    return out
+
+
 def bert_main_path(fa) -> dict:
     """bert_lora_fedopt_base: config 3 at BERT-base width, 4 clients, 2
     FedOpt rounds through K3-K5, pipelined under a strict failure policy."""
@@ -2409,6 +2476,7 @@ def bert_main_path(fa) -> dict:
     sim = build_bert_sim(BERT_CFG, data, torch.bfloat16, "cuda", 0, flash_attention, False,
                          BERT_LR, batch, steps,
                          failure_policy=FailurePolicy(accept_failures=False))
+    warm = bert_warm_start(sim)
     init = {k: v.clone() for k, v in sim.global_params.items()}
     trainable = lora_trainable_mask(init)
     frozen = [k for k, t in trainable.items() if not t]
@@ -2472,7 +2540,7 @@ def bert_main_path(fa) -> dict:
                       "frozen_leaves_unmoved_on_every_client": unmoved_after_fit,
                       "server_frozen_leaf_drift_max": server_drift,
                       "launches": launches, "expected_launches": expected,
-                      "wgmma_launches": wgmma}))
+                      "wgmma_launches": wgmma, "warm_start": warm}))
     if launches != expected:
         fail(f"config 3 launches {launches}, expected {expected}")
     if wgmma != launches:
@@ -3637,16 +3705,93 @@ def drill_spec(root: str, factory: str, tag: str, ckpt: str, kill=None) -> tuple
             os.path.join(root, f"{tag}.json"))
 
 
-def drill_wave(specs: dict) -> tuple[dict, float]:
-    """The children of ``specs`` side by side, one process each; their
-    results by name and the wave's wall."""
-    from fl4health_tpu_torch.resilience.recovery import run_child
+class DrillChildPool:
+    """The drills' child processes, started before the checkpoint phases so
+    that their start-up (the interpreter, torch and the port's imports, the
+    CUDA context, cuBLAS and cuDNN, the DP extension's load) overlaps those
+    phases instead of each drill wave. Each is a real process
+    (``python3 chip_smoke.py --drill-child``) that waits for a spec path on
+    stdin and then runs ``recovery.child_main``: the wave's kill points
+    SIGKILL or SIGTERM it for real, and its exit status is the process's.
+    ``close`` ends the children no wave took."""
 
-    t0 = time.time()
-    with ThreadPoolExecutor(len(specs)) as pool:
-        futures = {name: pool.submit(run_child, *spec, 600.0) for name, spec in specs.items()}
-        results = {name: f.result() for name, f in futures.items()}
-    return results, time.time() - t0
+    def __init__(self, n: int):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="fl4h_children_")
+        self.free = []
+        for i in range(n):
+            logs = [open(os.path.join(self.dir, f"{i}.{kind}"), "w") for kind in ("out", "err")]
+            proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--drill-child"],
+                stdin=subprocess.PIPE, stdout=logs[0], stderr=logs[1], text=True,
+                cwd=str(Path(__file__).resolve().parent), start_new_session=True)
+            for f in logs:
+                f.close()
+            self.free.append((proc, i))
+        self.taken = []
+
+    def wave(self, specs: dict, timeout_s: float = 600.0) -> tuple[dict, float]:
+        """The children of ``specs`` (name -> (spec, spec path)) side by
+        side, one warm process each; their results by name and the wave's
+        wall."""
+        from fl4health_tpu_torch.resilience.recovery import collect_child
+
+        t0 = time.time()
+        running = {}
+        for name, (spec, path) in specs.items():
+            with open(path, "w") as f:
+                json.dump(spec, f)
+            proc, i = self.free.pop(0)
+            self.taken.append(proc)
+            proc.stdin.write(path + "\n")
+            proc.stdin.close()
+            running[name] = (proc, i, spec)
+        results = {}
+        for name, (proc, i, spec) in running.items():
+            try:
+                code = proc.wait(timeout=max(1.0, timeout_s - (time.time() - t0)))
+            except subprocess.TimeoutExpired:
+                self.close()
+                fail(f"drill child {name} did not end within {timeout_s} s")
+            out, err = (Path(self.dir, f"{i}.{kind}").read_text() for kind in ("out", "err"))
+            results[name] = collect_child(spec, code, out, err)
+        return results, time.time() - t0
+
+    def close(self) -> None:
+        for proc, _ in self.free:
+            proc.stdin.close()  # an empty spec line: the child exits
+        for proc in [p for p, _ in self.free] + self.taken:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        self.free, self.taken = [], []
+        drop_dirs(self.dir)
+
+
+def drill_child() -> int:
+    """``python3 chip_smoke.py --drill-child``: start up as a drill child
+    does (imports, the CUDA context, cuBLAS and cuDNN, the DP extension),
+    then read one spec path from stdin and run ``recovery.child_main`` on
+    it; exit at once on an empty line."""
+    import fl4health_tpu_torch.checkpointing  # noqa: F401
+    import fl4health_tpu_torch.clients.instance_level_dp  # noqa: F401
+    import fl4health_tpu_torch.models.cnn  # noqa: F401
+    import fl4health_tpu_torch.observability  # noqa: F401
+    import fl4health_tpu_torch.server.simulation  # noqa: F401
+    from fl4health_tpu_torch.kernels import dp_clip
+    from fl4health_tpu_torch.resilience.recovery import child_main
+
+    x = torch.ones((1, 1, 4, 4), device="cuda")
+    F.conv2d(x, torch.ones((1, 1, 3, 3), device="cuda"))
+    torch.ones((2, 2), device="cuda") @ torch.ones((2, 2), device="cuda")
+    dp_clip.build_extension()
+    torch.cuda.synchronize()
+    path = sys.stdin.readline().strip()
+    return child_main(path) if path else 0
 
 
 def ckpt_drill_specs(root: str) -> tuple[dict, dict]:
@@ -3703,25 +3848,29 @@ def ckpt_drill_check(res: dict, damaged: str, walls: list) -> dict:
     return out
 
 
-def drills() -> dict:
+def drills(children: DrillChildPool) -> dict:
     """``ckpt_drill`` and ``obs_sigterm_drill``, their children in two
-    waves side by side (each child is deterministic on the card whatever
-    else runs): the first wave the five children that start fresh (3 + 2),
-    the second the three resumes (2 + 1). Between the waves the torn ring
-    is flipped and the SIGTERM bundle read. Each drill's checks are its
-    own; ``wave_s`` is both drills' walls."""
+    waves side by side, each a warm process of ``children`` (each child is
+    deterministic on the card whatever else runs): the first wave the five
+    children that start fresh (3 + 2), the second the three resumes (2 +
+    1). Between the waves the torn ring is flipped and the SIGTERM bundle
+    read. Each drill's checks are its own; ``wave_s`` is both drills'
+    walls."""
     from fl4health_tpu_torch.resilience.recovery import corrupt_newest_generation
 
     roots = {"ckpt": ckpt_dir("drill"), "obs": ckpt_dir("sigterm")}
     ckpt_first, ckpt_second = ckpt_drill_specs(roots["ckpt"])
     obs_first, obs_second = obs_sigterm_specs(roots["obs"])
-    first, w1 = drill_wave({**{("ckpt", k): v for k, v in ckpt_first.items()},
+    first, w1 = children.wave({**{("ckpt", k): v for k, v in ckpt_first.items()},
                             **{("obs", k): v for k, v in obs_first.items()}})
     ckpt_res = {k: v for (d, k), v in first.items() if d == "ckpt"}
     obs_res = {k: v for (d, k), v in first.items() if d == "obs"}
+    torn = first[("ckpt", "torn")]
+    if torn.returncode != -signal.SIGKILL:
+        fail(f"ckpt_drill torn child exited {torn.returncode}: {torn.stderr[-3000:]}")
     damaged = corrupt_newest_generation(os.path.join(roots["ckpt"], "torn_ckpt"), mode="flip")
     verdict = obs_sigterm_bundle(obs_res, roots["obs"])
-    second, w2 = drill_wave({**{("ckpt", k): v for k, v in ckpt_second.items()},
+    second, w2 = children.wave({**{("ckpt", k): v for k, v in ckpt_second.items()},
                              **{("obs", k): v for k, v in obs_second.items()}})
     ckpt_res.update({k: v for (d, k), v in second.items() if d == "ckpt"})
     obs_res.update({k: v for (d, k), v in second.items() if d == "obs"})
@@ -6550,6 +6699,541 @@ def breadth_slice(fa, dp) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 41: the cross-silo slice
+# ---------------------------------------------------------------------------
+
+# research/fedprox_cluster/run_local_cluster.py at its published sizes, and
+# at its FL4HEALTH_SWEEP_TINY sizes for the card-against-CPU run
+XS_FEDPROX = dict(silos=5, rounds=8, runs=3, rows=120, dim=30, classes=6, steps=4, batch=8,
+                  mus=(0.01, 0.1, 1.0))
+XS_FEDPROX_TINY = dict(silos=2, rounds=2, runs=1, rows=24, dim=8, classes=3, steps=2, batch=8,
+                       mus=(0.1,))
+# the DP path's client as a silo: CifarNet (bf16 compute), 160 rows, batch
+# 32, 5 DP-SGD steps (C 1, sigma 1), SGD(0.05); 4 silos, 2 rounds. Tiny: the
+# CPU test's DP composition (an Mlp(8, (16,), 3) of 24 rows, f32)
+XS_DP = dict(silos=4, rounds=2, rows=160, batch=32, steps=5)
+XS_DP_TINY = dict(silos=2, rounds=2, rows=24, batch=8, steps=2)
+# examples/cross_silo_buffered_async_example/run.py and its config.yaml:
+# 4 silos of 40 rows of synthetic_classification((6,), 3 classes), Mlp
+# (16,), SGD(0.05), batch 8, 5 local steps, buffer 2, 4 events, top-k 0.25
+# + int8 frames, silo 3 a 0.2 s chaos straggler
+XS_ASYNC = dict(silos=4, events=4, k=2, rows=48, n=40, batch=8, steps=5, delay_s=0.2)
+XS_ASYNC_TINY = dict(silos=2, events=2, k=2, rows=24, n=16, batch=8, steps=2, delay_s=0.05)
+# examples/feature_alignment_example: 3 clients of 60 rows (48 train),
+# Adam(5e-3), FedAvg, batch 8, 5 local steps, 3 rounds
+XS_TABULAR = dict(rows=60, train=48, rounds=3, batch=8, steps=5)
+
+
+class XsSilo:
+    """One silo: private rows and local training on ``device`` behind a
+    ``LoopbackServer`` handler speaking wire frames (the research script's
+    ``make_silo``). The received params are cast to the state's dtype and
+    device (after round 1 ``weighted_merge`` broadcasts f64, ROADMAP.md
+    R13, which JAX's jit casts the same way). The silos of a job are
+    threads of one process sharing the card, so they handle requests in
+    turns (``lock``): a silo's own work is then timed without the others'
+    GIL handoffs, and the kernels' launch counters (plain Python counters)
+    count every launch. A round's wall is the sum of its silos', where
+    separate machines would give their maximum."""
+
+    def __init__(self, logic, tx, seed: int, x, y, batch: int, steps: int, device: str,
+                 lock, ctx_fn=None, reply_fn=None, wrap=None):
+        from fl4health_tpu_torch import rng
+        from fl4health_tpu_torch.clients import engine
+        from fl4health_tpu_torch.metrics import efficient
+        from fl4health_tpu_torch.metrics.base import MetricManager
+        from fl4health_tpu_torch.transport import LoopbackServer
+
+        self.device = torch.device(device)
+        self.x, self.y = x.to(self.device), y.to(self.device)
+        self.logic, self.batch, self.steps = logic, batch, steps
+        self.ctx_fn, self.reply_fn, self.lock = ctx_fn, reply_fn, lock
+        self.state = engine.create_train_state(logic, tx, rng.PRNGKey(seed),
+                                               torch.Generator().manual_seed(seed), self.device)
+        self.train = engine.make_local_train(
+            logic, tx, MetricManager((efficient.accuracy(),)),
+            loss_keys=("backward", *getattr(logic, "extra_loss_keys", ())))
+        self.handle_s: list[float] = []
+        self.server = LoopbackServer(self.handle if wrap is None else wrap(self.handle))
+        self.addr = (self.server.host, self.server.port)
+
+    def handle(self, frame: bytes) -> bytes:
+        import dataclasses
+
+        from fl4health_tpu_torch.clients import engine
+        from fl4health_tpu_torch.transport import decode, encode
+
+        with self.lock:
+            t0 = time.perf_counter()
+            received = decode(frame, like=self.state.params)
+            pulled = {k: v.to(self.device, self.state.params[k].dtype)
+                      for k, v in received.items()}
+            self.state = dataclasses.replace(self.state, params=pulled)
+            ctx = self.ctx_fn(self) if self.ctx_fn else None
+            batches = engine.epoch_batches(self.state.rng, self.x, self.y, self.batch,
+                                           n_steps=self.steps)
+            self.state, losses, metrics, _ = self.train(self.state, ctx, batches)
+            if self.reply_fn is not None:
+                reply = self.reply_fn(self, pulled)
+            else:
+                reply = encode({"params": self.state.params,
+                                "n": torch.tensor(float(self.x.shape[0])),
+                                "loss": losses["backward"], "accuracy": metrics["accuracy"]})
+            self.handle_s.append(time.perf_counter() - t0)
+        return reply
+
+    def close(self) -> None:
+        self.server.close()
+
+
+def xs_fedprox_job(cfg: dict, mu: float, run_idx: int, device: str, out_dir: str | None):
+    """One (mu, run) job of the research script: silos up, FedProx rounds
+    over TCP, its JsonReporter-style dump down. Returns the final global
+    params, the dump and the rounds' walls and frame bytes."""
+    import types
+
+    from fl4health_tpu_torch import optim, rng
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.clients.fedprox import FedProxClientLogic
+    from fl4health_tpu_torch.datasets.synthetic import fedprox_synthetic
+    from fl4health_tpu_torch.models.cnn import Mlp
+    from fl4health_tpu_torch.transport import broadcast_round, encode, weighted_merge
+
+    # drawn on the host, so the card and the CPU runs train on the same rows
+    shards = fedprox_synthetic(rng.PRNGKey(run_idx), cfg["silos"], cfg["rows"], alpha=0.5,
+                               beta=0.5, dim=cfg["dim"], n_classes=cfg["classes"])
+
+    def ctx_fn(silo):  # mu rides the payload in the reference; the job pins it
+        return silo.logic.init_round_context(silo.state, types.SimpleNamespace(
+            drift_penalty_weight=torch.tensor(mu, device=silo.device)))
+
+    silos, lock = [], threading.Lock()
+    for i, (x, y) in enumerate(shards):
+        logic = FedProxClientLogic(engine.from_module(Mlp(cfg["dim"], (16,), cfg["classes"])),
+                                   engine.masked_cross_entropy)
+        silos.append(XsSilo(logic, optim.sgd(0.05), 100 * run_idx + i, x, y, cfg["batch"],
+                            cfg["steps"], device, lock, ctx_fn=ctx_fn))
+    init = {k: v.cpu() for k, v in silos[0].state.params.items()}
+    template = {"params": init, "n": torch.zeros(()), "loss": torch.zeros(()),
+                "accuracy": torch.zeros(())}
+    params, dump = init, {"host_type": "server", "mu": mu, "rounds": {}}
+    walls, frame_bytes = [], []
+    try:
+        for rnd in range(1, cfg["rounds"] + 1):
+            t0 = time.perf_counter()
+            replies = broadcast_round([s.addr for s in silos], params, template)
+            params, _ = weighted_merge(replies)
+            walls.append(time.perf_counter() - t0)
+            frame_bytes.append(len(encode(params)))
+            dump["rounds"][str(rnd)] = {
+                "fit_loss": float(np.mean([float(r["loss"]) for r in replies])),
+                "accuracy": float(np.mean([float(r["accuracy"]) for r in replies]))}
+    finally:
+        for s in silos:
+            s.close()
+    dump["silo_handle_s"] = [t for s in silos for t in s.handle_s]
+    if out_dir is not None:
+        run_dir = Path(out_dir) / f"mu_{mu}" / f"Run{run_idx + 1}"
+        run_dir.mkdir(parents=True, exist_ok=True)
+        (run_dir / "server_metrics.json").write_text(json.dumps(dump, indent=2))
+    return params, dump, walls, frame_bytes
+
+
+def xs_dp_silos(cfg: dict, device: str, tiny: bool, lock) -> list:
+    """The DP silos: ``InstanceLevelDpClientLogic`` under ``make_local_train``
+    alone (the round context None), as the DP path's client trains."""
+    from fl4health_tpu_torch import optim, rng
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.clients.instance_level_dp import InstanceLevelDpClientLogic
+    from fl4health_tpu_torch.datasets.synthetic import fedprox_synthetic, synthetic_classification
+    from fl4health_tpu_torch.models.cnn import CifarNet, Mlp
+
+    silos = []
+    for i in range(cfg["silos"]):
+        if tiny:
+            x, y = fedprox_synthetic(rng.PRNGKey(0), cfg["silos"], cfg["rows"], dim=8,
+                                     n_classes=3)[i]
+            module = Mlp(8, (16,), 3)
+        else:
+            x, y = synthetic_classification(rng.PRNGKey(i, device), cfg["rows"], (32, 32, 3), 10)
+            module = CifarNet(dtype=torch.bfloat16, input_shape=(32, 32, 3))
+        logic = InstanceLevelDpClientLogic(engine.from_module(module),
+                                           engine.masked_cross_entropy, clipping_bound=DP_CLIP,
+                                           noise_multiplier=DP_SIGMA)
+        silos.append(XsSilo(logic, optim.sgd(0.05), i, x, y, cfg["batch"], cfg["steps"],
+                            device, lock))
+    return silos
+
+
+def xs_dp_job(cfg: dict, device: str, tiny: bool, dp=None) -> dict:
+    """``cross_silo_dp_cifar_cnn``: ``broadcast_round`` and
+    ``weighted_merge`` over the DP silos; each round's frame bytes, the
+    encode and decode ms of its frames, its wall, K1/K2 launches."""
+    from fl4health_tpu_torch.transport import broadcast_round, decode, encode, weighted_merge
+
+    silos = xs_dp_silos(cfg, device, tiny, threading.Lock())
+    # round 1 broadcasts silo 0's init from the card (each leaf pulled by
+    # the encode), later rounds the merged f64 params from the host
+    params = dict(silos[0].state.params)
+    template = {"params": params, "n": torch.zeros(()), "loss": torch.zeros(()),
+                "accuracy": torch.zeros(())}
+    out = {"rounds": [], "losses": []}
+    try:
+        if dp is not None:
+            dp.reset_launch_counts()
+        for _ in range(cfg["rounds"]):
+            frame = encode(params)
+            encode_ms = 1e3 * min(timed(lambda: encode(params)) for _ in range(3))
+            t0 = time.perf_counter()
+            replies = broadcast_round([s.addr for s in silos], params, template)
+            wall = time.perf_counter() - t0
+            reply_frame = encode(replies[0])
+            decode_ms = 1e3 * min(timed(lambda: decode(reply_frame, like=template))
+                                  for _ in range(3))
+            params, _ = weighted_merge(replies)
+            out["rounds"].append({"frame_bytes": len(frame), "reply_bytes": len(reply_frame),
+                                  "frame_dtype": frame_dtype(frame),
+                                  "encode_ms": encode_ms, "decode_ms": decode_ms,
+                                  "wall_s": wall,
+                                  "silo_handle_s": [s.handle_s[-1] for s in silos]})
+            out["losses"].append([float(r["loss"]) for r in replies])
+        if dp is not None:
+            torch.cuda.synchronize()
+            out["launches"] = dict(dp.LAUNCHES)
+    finally:
+        for s in silos:
+            s.close()
+    out["params"] = params
+    return out
+
+
+def timed(fn) -> float:
+    """The host seconds of one call of ``fn``."""
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def frame_dtype(frame: bytes) -> str:
+    """The dtype of a dense frame's first leaf (its header)."""
+    from fl4health_tpu_torch.transport.native import get_framing
+
+    return json.loads(get_framing().unframe(frame)[0])["leaves"][0]["dtype"]
+
+
+def xs_async_job(cfg: dict, device: str) -> dict:
+    """``cross_silo_async_compressed``: the buffered-async example's recipe
+    with traced frames: every silo replies a COMPRESSED delta (top-k 0.25,
+    int8), silo ``silos - 1`` straggles behind ``chaos_handler``'s delay,
+    a ``SiloUpdateBuffer`` takes ``k`` updates an event and discounts each
+    by its staleness. The tracer is on, so each dispatch carries a trace
+    context and each silo runs under ``traced_handler``: the flow ids of
+    the coordinator's starts, the silos' steps and the replies' ends."""
+    from fl4health_tpu_torch import optim, rng
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.compression.config import CompressionConfig
+    from fl4health_tpu_torch.datasets.synthetic import synthetic_classification
+    from fl4health_tpu_torch.models.cnn import Mlp
+    from fl4health_tpu_torch.observability import traced_handler
+    from fl4health_tpu_torch.observability.spans import Tracer, set_tracer
+    from fl4health_tpu_torch.resilience import TransportFaultPolicy, chaos_handler
+    from fl4health_tpu_torch.server.async_schedule import staleness_discount
+    from fl4health_tpu_torch.transport import SiloUpdateBuffer, encode
+    from fl4health_tpu_torch.transport.codec import decode_compressed, encode_compressed
+
+    comp = CompressionConfig(topk_fraction=0.25, quant_bits=8)
+
+    def delta_reply(silo, pulled):
+        return encode_compressed({k: (silo.state.params[k] - pulled[k]).float()
+                                  for k in pulled}, comp)
+
+    silos, lock = [], threading.Lock()
+    for s in range(cfg["silos"]):
+        x, y = synthetic_classification(rng.PRNGKey(s), cfg["rows"], (6,), 3, class_sep=2.0)
+        slow = s == cfg["silos"] - 1
+
+        def wrap(handler, slow=slow, s=s):
+            handler = traced_handler(handler)
+            if slow:
+                handler = chaos_handler(handler, TransportFaultPolicy(
+                    delay_s=cfg["delay_s"], delay_probability=1.0), seed=0, silo_idx=s)
+            return handler
+
+        logic = engine.ClientLogic(engine.from_module(Mlp(6, (16,), 3)),
+                                   engine.masked_cross_entropy)
+        silos.append(XsSilo(logic, optim.sgd(0.05), s, x[:cfg["n"]], y[:cfg["n"]],
+                            cfg["batch"], cfg["steps"], device, lock, reply_fn=delta_reply,
+                            wrap=wrap))
+    init = {k: v.cpu() for k, v in silos[0].state.params.items()}
+    addrs = [s.addr for s in silos]
+    counts = {f"{h}:{p}": float(cfg["n"]) for h, p in addrs}
+    tracer = Tracer(enabled=True)
+    prev = set_tracer(tracer)
+    buffer = SiloUpdateBuffer(init, decoder=lambda raw: decode_compressed(raw, like=init))
+    params, version, events = init, 0, []
+    try:
+        buffer.dispatch(addrs, params, version)
+        for event in range(1, cfg["events"] + 1):
+            t0 = time.perf_counter()
+            arrivals = buffer.take(cfg["k"], timeout=120.0)
+            stal = [float(version - a.version) for a in arrivals]
+            w = np.asarray([counts[a.result.silo] for a in arrivals]) * np.asarray(
+                staleness_discount(np.asarray(stal)))
+            w = w / w.sum()
+            params = {k: params[k] + sum(float(wi) * a.reply[k] for wi, a in zip(w, arrivals))
+                      for k in params}
+            version += 1
+            consumed = [next(a for a in addrs if f"{a[0]}:{a[1]}" == r.result.silo)
+                        for r in arrivals]
+            buffer.dispatch(consumed, params, version)
+            events.append({"event": event, "arrived": [a.result.silo.split(":")[-1]
+                                                       for a in arrivals],
+                           "staleness": stal, "wall_s": time.perf_counter() - t0})
+        leftover = buffer.take(buffer.in_flight() + buffer.pending(), timeout=120.0)
+    finally:
+        buffer.close()
+        for s in silos:
+            s.close()
+        set_tracer(prev)
+    flows = {ph: sorted({e["id"] for e in tracer.events if e.get("ph") == ph})
+             for ph in ("s", "t", "f")}
+    comp_bytes = len(encode_compressed(init, comp))
+    return {"events": events, "params": params, "flows": flows,
+            "late_staleness": [float(version - a.version) for a in leftover],
+            "wire_bytes_dense": len(encode(init)), "wire_bytes_compressed": comp_bytes}
+
+
+class ColumnTable:
+    """A column table without pandas (the card's machine has none):
+    ``.columns``, ``len()`` and ``[name]``, all that feature alignment
+    reads."""
+
+    def __init__(self, columns: dict):
+        self._cols = dict(columns)
+
+    @property
+    def columns(self):
+        return list(self._cols)
+
+    def __len__(self):
+        return len(next(iter(self._cols.values())))
+
+    def __getitem__(self, name):
+        return self._cols[name]
+
+
+def tabular_frame(n: int, seed: int, drop: bool = False) -> ColumnTable:
+    """The example's frame: age, bp (absent where ``drop``), sex, outcome."""
+    r = np.random.default_rng(seed)
+    age, bp = r.uniform(20, 90, n), r.uniform(90, 180, n)
+    sex = r.choice(["F", "M"], n).astype(object)
+    score = (age / 90 + (bp - 90) / 90 + (sex == "M") * 0.3) / 2.3
+    y = (score + r.normal(0, 0.15, n) > 0.55).astype(int).astype(str).astype(object)
+    d = {"pid": np.arange(n), "age": age, "bp": bp, "sex": sex, "outcome": y}
+    if drop:
+        del d["bp"]
+    return ColumnTable(d)
+
+
+def xs_tabular_job(device: str, init: dict | None = None) -> tuple:
+    """``tabular_alignment``: the example's three clients (the second
+    without ``bp``), the two polls, then FedAvg on ``device`` with
+    ``balanced_accuracy``, ``f1`` and ``binned_auc`` on the eval path. The
+    server keeps the simulation's initial params (``initial_params``)."""
+    from fl4health_tpu_torch import optim
+    from fl4health_tpu_torch.clients import engine
+    from fl4health_tpu_torch.feature_alignment.orchestration import (
+        TabularDataClient, TabularFeatureAlignmentServer)
+    from fl4health_tpu_torch.metrics import efficient
+    from fl4health_tpu_torch.metrics.base import MetricManager
+    from fl4health_tpu_torch.models.cnn import Mlp
+    from fl4health_tpu_torch.server.simulation import ClientDataset, FederatedSimulation
+    from fl4health_tpu_torch.strategies.fedavg import FedAvg
+
+    cfg = XS_TABULAR
+    clients = [TabularDataClient(tabular_frame(cfg["rows"], s, drop=(s == 2)), "pid",
+                                 ["outcome"]) for s in (1, 2, 3)]
+
+    def builder(in_dim, out_dim, aligned):
+        data = []
+        for c in aligned:
+            x, y = c.aligned_arrays()
+            y = y.astype(np.int32)
+            n = cfg["train"]
+            data.append(ClientDataset(x[:n], y[:n], x[n:], y[n:]))
+        sim = FederatedSimulation(
+            logic=engine.ClientLogic(engine.from_module(Mlp(in_dim, (16,), out_dim)),
+                                     engine.masked_cross_entropy),
+            tx=optim.adam(5e-3), strategy=FedAvg(), datasets=data, batch_size=cfg["batch"],
+            metrics=MetricManager((efficient.accuracy(), efficient.balanced_accuracy(out_dim),
+                                   efficient.f1(out_dim), efficient.binned_auc())),
+            local_steps=cfg["steps"], seed=0, device=device)
+        if init is not None:
+            sim.set_global_params(init)
+        server.initial_params = {k: v.cpu().clone() for k, v in sim.global_params.items()}
+        return sim
+
+    server = TabularFeatureAlignmentServer({}, clients, builder)
+    t0 = time.perf_counter()
+    hist = server.fit(cfg["rounds"])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return server, hist, time.perf_counter() - t0
+
+
+def xs_card_vs_cpu() -> dict:
+    """Each arm's tiny run on the card against the CPU, 5e-4: the FedProx
+    job, the DP job (K1/K2 on the card, their plain versions on the CPU),
+    the async job with every silo consumed each event (an order-free merge)
+    and the tabular run."""
+    errs = {}
+    (gp, gd, _, _), (cp, cd, _, _) = (xs_fedprox_job(XS_FEDPROX_TINY, 0.1, 0, d, None)
+                                      for d in ("cuda", "cpu"))
+    for r in gd["rounds"]:
+        check(f"xs fedprox tiny loss r{r}", torch.tensor(gd["rounds"][r]["fit_loss"]),
+              torch.tensor(cd["rounds"][r]["fit_loss"]), 5e-4, 0)
+    errs["fedprox"] = max(check(f"xs fedprox tiny {k}", gp[k], cp[k], 5e-4, 0) for k in cp)
+    g, c = (xs_dp_job(XS_DP_TINY, d, True) for d in ("cuda", "cpu"))
+    check("xs dp tiny losses", torch.tensor(g["losses"]), torch.tensor(c["losses"]), 5e-4, 0)
+    errs["dp"] = max(check(f"xs dp tiny {k}", g["params"][k], c["params"][k], 5e-4, 0)
+                     for k in c["params"])
+    tiny_async = dict(XS_ASYNC_TINY, k=XS_ASYNC_TINY["silos"])
+    g, c = (xs_async_job(tiny_async, d) for d in ("cuda", "cpu"))
+    errs["async"] = max(check(f"xs async tiny {k}", g["params"][k], c["params"][k], 5e-4, 0)
+                        for k in c["params"])
+    gs, gh, _ = xs_tabular_job("cuda")
+    cs, ch, _ = xs_tabular_job("cpu", init=gs.initial_params)
+    errs["tabular"] = xs_tabular_compare(gs, gh, cs, ch)
+    return errs
+
+
+def xs_tabular_compare(gs, gh, cs, ch) -> float:
+    """The card's tabular run against the CPU's (started from the card
+    run's initial params) over the same aligned arrays."""
+    for gc, cc in zip(gs.clients, cs.clients):
+        for a, b in zip(gc.aligned_arrays(), cc.aligned_arrays()):
+            if not np.array_equal(a, b):
+                fail("tabular_alignment: the aligned arrays differ between the runs")
+    err = 0.0
+    for gr, cr in zip(gh, ch, strict=True):
+        for got, want in ((gr.fit_losses, cr.fit_losses), (gr.eval_losses, cr.eval_losses),
+                          (gr.eval_metrics, cr.eval_metrics)):
+            for k in want:
+                err = max(err, check(f"tabular r{gr.round} {k}", torch.tensor(got[k]),
+                                     torch.tensor(want[k]), 5e-4, 0))
+    return err
+
+
+def cross_silo_slice(fa, dp) -> dict:
+    """Phase 41: the cross-silo transport, the metrics and data tail and
+    feature alignment on the card. The native framing must be live; the
+    tiny arms run on the card against the CPU (5e-4); then the four arms at
+    their published sizes. K1/K2 launch in the DP arm alone (5 and 40 a
+    silo-round), K3-K5 not at all."""
+    from fl4health_tpu_torch.transport import native
+    from fl4health_tpu_torch.utils.hp_search import find_best_hp_dir
+
+    t_phase = time.time()
+    t0 = time.perf_counter()
+    lib = native.get_native()
+    build_s = time.perf_counter() - t0
+    if lib is None:
+        fail("phase 41: the native framing did not build (the Python twin is live)")
+    fa.reset_launch_counts()
+    dp.reset_launch_counts()
+    tiny = xs_card_vs_cpu()
+    tiny_wall = time.time() - t_phase
+    fa.reset_launch_counts()
+    dp.reset_launch_counts()
+
+    # cross_silo_fedprox: the research script's mu grid, find_best_hp_dir
+    root = ckpt_dir("cluster")
+    cfg = XS_FEDPROX
+    t0 = time.time()
+    jobs = {}
+    for mu in cfg["mus"]:
+        for run_idx in range(cfg["runs"]):
+            _, dump, walls, nbytes = xs_fedprox_job(cfg, mu, run_idx, "cuda", root)
+            jobs[(mu, run_idx)] = {"final_accuracy": dump["rounds"][str(cfg["rounds"])]
+                                   ["accuracy"], "round_walls_s": walls, "frame_bytes": nbytes,
+                                   "silo_handle_s": dump.pop("silo_handle_s")}
+    best_dir, best_score = find_best_hp_dir(root, metric="accuracy", minimize=False)
+    drop_dirs(root)
+    fedprox = {"arm": "cross_silo_fedprox", "wall_s": time.time() - t0, "jobs": len(jobs),
+               "best": best_dir.name if best_dir else None, "best_mean_accuracy": best_score,
+               "round_wall_s": [min(w for j in jobs.values() for w in j["round_walls_s"]),
+                                max(w for j in jobs.values() for w in j["round_walls_s"])],
+               "frame_bytes": sorted({b for j in jobs.values() for b in j["frame_bytes"]}),
+               "silo_handle_ms_median": 1e3 * statistics.median(
+                   t for j in jobs.values() for t in j["silo_handle_s"]),
+               "final_accuracy": {f"mu_{m}/Run{r + 1}": j["final_accuracy"]
+                                  for (m, r), j in jobs.items()}}
+    if best_dir is None or not all(np.isfinite(j["final_accuracy"]) for j in jobs.values()):
+        fail(f"cross_silo_fedprox: no selection or a non-finite run: {fedprox}")
+    print(json.dumps(fedprox))
+
+    # cross_silo_dp_cifar_cnn: K1/K2 in each DP silo
+    t0 = time.time()
+    dpj = xs_dp_job(XS_DP, "cuda", False, dp)
+    silo_rounds = XS_DP["silos"] * XS_DP["rounds"]
+    per = {k: v / silo_rounds for k, v in dpj["launches"].items()}
+    want = {"dp_sq_norms": XS_DP["steps"], "dp_scaled_sum": XS_DP["steps"] * len(CIFAR_LEAVES)}
+    dp_arm = {"arm": "cross_silo_dp_cifar_cnn", "wall_s": time.time() - t0,
+              "rounds": dpj["rounds"], "launches": dpj["launches"],
+              "launches_per_silo_round": per,
+              "losses": dpj["losses"]}
+    print(json.dumps(dp_arm))
+    if per != want:
+        fail(f"cross_silo_dp_cifar_cnn launches {per} a silo-round, expected {want}")
+    r1, r2 = dpj["rounds"][0], dpj["rounds"][1]
+    if (r1["frame_dtype"], r2["frame_dtype"]) != ("float32", "float64"):
+        fail(f"cross_silo_dp_cifar_cnn: frames {r1['frame_dtype']}, {r2['frame_dtype']}; "
+             "R13 gives f32 then f64")
+    if not all(np.isfinite(v) for row in dpj["losses"] for v in row):
+        fail(f"cross_silo_dp_cifar_cnn: non-finite losses {dpj['losses']}")
+
+    # cross_silo_async_compressed
+    t0 = time.time()
+    aj = xs_async_job(XS_ASYNC, "cuda")
+    starts = set(aj["flows"]["s"])
+    async_arm = {"arm": "cross_silo_async_compressed", "wall_s": time.time() - t0,
+                 "events": aj["events"], "late_staleness": aj["late_staleness"],
+                 "flow_ids": aj["flows"], "wire_bytes_dense": aj["wire_bytes_dense"],
+                 "wire_bytes_compressed": aj["wire_bytes_compressed"]}
+    print(json.dumps(async_arm))
+    if not (set(aj["flows"]["t"]) <= starts and set(aj["flows"]["f"]) <= starts
+            and len(starts) == XS_ASYNC["events"] + 1):
+        fail(f"cross_silo_async_compressed: flow ids do not pair {aj['flows']}")
+    if not any(s > 0 for e in aj["events"] for s in e["staleness"]) and not any(
+            s > 0 for s in aj["late_staleness"]):
+        fail("cross_silo_async_compressed: the straggler's update never arrived stale")
+
+    # tabular_alignment (its card-against-CPU run is in xs_card_vs_cpu)
+    server, hist, wall = xs_tabular_job("cuda")
+    last = hist[-1]
+    tab = {"arm": "tabular_alignment", "wall_s": wall,
+           "dims": [server.dimension_info["input_dimension"],
+                    server.dimension_info["output_dimension"]],
+           "eval_metrics": last.eval_metrics, "fit_losses": [r.fit_losses["backward"]
+                                                             for r in hist]}
+    print(json.dumps(tab))
+    if not {"balanced_accuracy", "f1", "roc_auc"} <= set(last.eval_metrics) or not all(
+            np.isfinite(v) for v in last.eval_metrics.values()):
+        fail(f"tabular_alignment: eval metrics {last.eval_metrics}")
+
+    launches = all_launches(fa, dp)
+    if any(launches[k] for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")):
+        fail(f"phase 41 launched K3-K5: {launches}")
+    out = {"phase": "cross_silo", "wall_s": time.time() - t_phase, "framing": "native",
+           "framing_build_s": build_s, "tiny_max_abs_err": tiny, "tiny_wall_s": tiny_wall,
+           "arm_wall_s": {a["arm"]: a["wall_s"] for a in (fedprox, dp_arm, async_arm, tab)},
+           "launches": launches}
+    print(card_line())
+    print(json.dumps(out))
+    return out
+
+
 def elapsed(t_start: float, after: str) -> None:
     """The script's wall so far, after a slice's phases (where its 1200 s
     go)."""
@@ -6558,14 +7242,16 @@ def elapsed(t_start: float, after: str) -> None:
 
 def main() -> int:
     t_start = time.time()
+    if sys.argv[1:] == ["--drill-child"]:
+        return drill_child()
     if not torch.cuda.is_available():
         print("chip_smoke: needs an NVIDIA card; torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     from fl4health_tpu_torch.kernels import dp_clip as dp
-    from fl4health_tpu_torch.kernels import flash_attention as fa
-
+    # the module: the package exports the function of that name, as JAX's does
+    fa = importlib.import_module("fl4health_tpu_torch.kernels.flash_attention")
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False  # and f32 convolutions too
     card = card_line()
@@ -6663,6 +7349,8 @@ def main() -> int:
     # (TF32 is off throughout)
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
+    # the drills' 8 children start up now, beside the checkpoint phases
+    children = DrillChildPool(8)
     try:
         ckpt = ckpt_dp_cifar_cnn(dp)
         ckpt_cohort = ckpt_cohort_dp_cifar_cnn(dp, cohort["sources"][COHORT_SIZES[0]])
@@ -6675,7 +7363,8 @@ def main() -> int:
         obs = obs_dp_cifar_cnn(dp)
         obs_halt_bundle(dp)
         obs_cohort_dp_cifar_cnn(dp, cohort["sources"])
-        drills()
+        drills(children)
+        children.close()
         elapsed(t_start, "observability, the two drills (33)")
         # the recovery slice: the tiny drill card against CPU, the four DP
         # arms on both routes, the cohort's quarantine by registry id, the
@@ -6710,7 +7399,13 @@ def main() -> int:
         elapsed(t_start, "algorithm breadth (40)")
     finally:
         torch.backends.cudnn.deterministic = deterministic
+        children.close()
     del cohort
+    torch.cuda.empty_cache()
+    # the cross-silo slice: the transport, the metrics and data tail,
+    # feature alignment (the config-3 warm start runs in its main path)
+    cross_silo = cross_silo_slice(fa, dp)
+    elapsed(t_start, "cross-silo (41)")
 
     replaces = {"flash_fwd": "fl4health_tpu/kernels/flash_attention.py:71",
                 "flash_bwd_dq": "fl4health_tpu/kernels/flash_attention.py:141",
@@ -6753,6 +7448,8 @@ def main() -> int:
             "launches_ring_transformer_long": mesh["ring"]["mesh_pipelined"]["launches"][name],
             # the algorithm-breadth slice (phase 40): every arm, none
             "launches_algorithm_breadth": breadth["launches"][name],
+            # the cross-silo slice (phase 41): none
+            "launches_cross_silo": cross_silo["launches"][name],
             "launches_nnunet_fullres": nnunet_launches[name],
             "launches_cohort_dp_cifar_cnn": cohort_launches[name],
             "launches_async_dp_cifar_cnn": async_launches[name],
@@ -6819,6 +7516,8 @@ def main() -> int:
                 model_state["mesh_async"]["mesh_chunked"]["launches"][name],
             "launches_mesh_ops_dp_cifar_cnn": model_state["mesh_ops"]["mesh"]["launches"][name],
             "launches_algorithm_breadth": breadth["launches"][name],
+            # the cross-silo slice (phase 41): its DP arm, 4 silos x 2 rounds
+            "launches_cross_silo": cross_silo["launches"][name],
             "max_abs_err": dp_errs[torch.float32][name],
             "max_abs_err_bf16": dp_errs[torch.bfloat16][name],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],

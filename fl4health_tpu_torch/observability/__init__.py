@@ -39,7 +39,10 @@ recorder, the fleet ledger and postmortem bundles.
   ``/clients/<id>``, and ``/admin/slo``, ``/admin/scalars`` while the
   operations plane is armed) and the run manifest;
 - :mod:`~fl4health_tpu_torch.observability.device_specs` — published
-  device peaks.
+  device peaks;
+- :mod:`~fl4health_tpu_torch.observability.tracectx` — the cross-silo
+  trace context that rides in a wire frame's header, and the flow ids that
+  join the coordinator's and the silos' traces.
 
 :class:`Observability` is the facade ``FederatedSimulation`` accepts, with
 JAX's constructor. Disabled, every hook is a shared no-op: no device sync,
@@ -70,6 +73,7 @@ from fl4health_tpu_torch.observability.slo import SLOEngine, SLOPolicy
 from fl4health_tpu_torch.observability.spans import (_NULL_SPAN, Span, Tracer, get_tracer,
                                                      set_tracer)
 from fl4health_tpu_torch.observability.timeseries import RoundTimeSeries
+from fl4health_tpu_torch.observability.tracectx import TraceContext, flow_id, traced_handler
 
 __all__ = [
     "Observability",
@@ -103,6 +107,9 @@ __all__ = [
     "set_registry",
     "profile_round",
     "synced",
+    "TraceContext",
+    "flow_id",
+    "traced_handler",
 ]
 
 class Observability:

@@ -1,17 +1,20 @@
 """Reporters: metric and event sinks (counterpart of
-``fl4health_tpu/reporting/base.py``, less its ``WandBReporter``).
+``fl4health_tpu/reporting/base.py``).
 
 ``BaseReporter`` with ``initialize``/``report(data, round, epoch, step)``/
 ``shutdown``; ``ReportsManager`` fans out to several; ``JsonReporter``
 accumulates the JAX package's nested ``{..., "rounds": {r: {...}}}`` dict
 and dumps it as JSON on shutdown, so readers of a JAX run's report read a
-port run's too.
+port run's too; ``WandBReporter`` logs JAX's payloads to wandb, imported
+only when it initializes (the card's machine has none: it then reports
+nothing, with a warning).
 """
 
 from __future__ import annotations
 
 import datetime
 import json
+import logging
 import os
 import uuid
 from typing import Any, Mapping, Sequence
@@ -19,6 +22,8 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 
 from fl4health_tpu_torch.core.io import atomic_write
+
+logger = logging.getLogger(__name__)
 
 # Arrays up to this many elements serialize as JSON lists; larger ones are
 # summarized (a reporter dict is a log line, not a checkpoint format).
@@ -122,3 +127,36 @@ def _jsonify(data: Mapping[str, Any]) -> dict:
             except (TypeError, ValueError):
                 out[k] = str(v)
     return out
+
+
+class WandBReporter(BaseReporter):
+    """wandb sink. ``wandb`` is imported in ``initialize``; where it is
+    absent or its init fails, the reporter drops every report and says so
+    once, with a warning."""
+
+    def __init__(self, project: str = "fl4health_tpu", **init_kwargs):
+        self.project = project
+        self.init_kwargs = init_kwargs
+        self._run = None
+
+    def initialize(self, **kwargs):
+        try:
+            import wandb  # type: ignore
+
+            self._run = wandb.init(project=self.project, **self.init_kwargs)
+        except Exception as e:
+            logger.warning("WandBReporter disabled (wandb init failed: %s: %s); "
+                           "reports will be dropped.", type(e).__name__, e)
+            self._run = None
+
+    def report(self, data, round=None, epoch=None, step=None):
+        if self._run is None:
+            return
+        payload = dict(_jsonify(data))
+        if round is not None:
+            payload["round"] = round
+        self._run.log(payload)
+
+    def shutdown(self):
+        if self._run is not None:
+            self._run.finish()

@@ -18,10 +18,9 @@ route around client failures on every route of ``fit``.
   driving a :class:`RecoveryPolicy` escalation ladder (retry ->
   quarantine -> robustify -> degrade -> halt) with flight-recorder
   suspect attribution (:mod:`.suspects`), checkpoint-ring rollback and
-  probation.
-
-JAX's ``chaos_handler`` is not exported: it wraps a cross-silo silo's
-handler, and the transport is not ported yet (ROADMAP.md A13).
+  probation;
+- :func:`chaos_handler`: deterministic wire chaos around a cross-silo
+  silo's handler (``transport/``).
 """
 
 from fl4health_tpu_torch.resilience.aggregators import (
@@ -36,6 +35,7 @@ from fl4health_tpu_torch.resilience.faults import (
     ClientFault,
     FaultPlan,
     TransportFaultPolicy,
+    chaos_handler,
 )
 from fl4health_tpu_torch.resilience.quarantine import (
     QuarantinePolicy,
@@ -91,6 +91,7 @@ __all__ = [
     "ClientFault",
     "FaultPlan",
     "TransportFaultPolicy",
+    "chaos_handler",
     "RetryPolicy",
     "RetryDeadlineError",
     "CircuitBreaker",

@@ -25,15 +25,19 @@ sign-flip attack, ``s = k`` the scaling attack, ``s = NaN`` the poison).
 When the packet tree is not params-shaped the factor multiplies each float
 leaf instead.
 
-``TransportFaultPolicy`` is kept as data; the wire chaos that reads it
-(JAX's ``chaos_handler``) wraps the cross-silo transport, which the port
-does not have yet.
+- **Wire faults**: :func:`chaos_handler` wraps a cross-silo silo's request
+  handler (``transport/loopback.py``) with the plan's
+  ``TransportFaultPolicy``: delays, dropped replies and flipped bytes, drawn
+  from ``random.Random(f"{seed}:{silo_idx}")`` in JAX's order, so a plan
+  gives the same faults in both packages.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+import random as _pyrandom
+import time
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -251,3 +255,43 @@ class FaultPlan:
             return None
         return {"round": int(round_idx), "dropped": dropped,
                 "corrupted": corrupted, "kinds": kinds}
+
+
+class _InjectedDrop(RuntimeError):
+    """Raised inside a chaos-wrapped handler to kill the reply: the loopback
+    server logs it and closes the connection, which the caller sees as a
+    connection failure (a crashed silo)."""
+
+
+def chaos_handler(
+    handler: Callable[[bytes], bytes],
+    policy: TransportFaultPolicy,
+    seed: int = 0,
+    silo_idx: int = 0,
+    sleep: Callable[[float], None] = time.sleep,
+) -> Callable[[bytes], bytes]:
+    """Wrap a silo request handler with deterministic wire chaos.
+
+    Draws come from ``random.Random(f"{seed}:{silo_idx}")`` in a fixed
+    order a request (delay, drop, corrupt), so a plan gives the same fault
+    sequence every run and in both packages. ``sleep`` is injectable, so a
+    test records the delays instead of paying them; the draw order is the
+    same either way."""
+    rng = _pyrandom.Random(f"{seed}:{silo_idx}")
+
+    def wrapped(frame: bytes) -> bytes:
+        r_delay, r_drop, r_corrupt = rng.random(), rng.random(), rng.random()
+        if policy.delay_s > 0 and r_delay < policy.delay_probability:
+            sleep(policy.delay_s)
+        if r_drop < policy.drop_probability:
+            raise _InjectedDrop(f"chaos: dropped request at silo {silo_idx}")
+        reply = handler(frame)
+        if r_corrupt < policy.corrupt_probability and reply:
+            # flip one mid-frame byte: the framing's CRC catches it and the
+            # caller sees a decode failure, not silent corruption
+            buf = bytearray(reply)
+            buf[len(buf) // 2] ^= 0xFF
+            reply = bytes(buf)
+        return reply
+
+    return wrapped

@@ -236,6 +236,13 @@ def run_child(spec: dict[str, Any], spec_path: str, timeout_s: float = 600.0) ->
         [sys.executable, "-m", "fl4health_tpu_torch.resilience.recovery", spec_path],
         capture_output=True, text=True, timeout=timeout_s, env=dict(os.environ),
         cwd=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))))
+    return collect_child(spec, proc.returncode, proc.stdout, proc.stderr)
+
+
+def collect_child(spec: dict[str, Any], returncode: int, stdout: str = "",
+                  stderr: str = "") -> DrillResult:
+    """A finished drill child's artifacts from ``spec["out_dir"]`` (None
+    where it died before writing them), however the child was started."""
     out_dir = spec["out_dir"]
     params = history = done = None
     if os.path.exists(os.path.join(out_dir, _DONE)):
@@ -245,8 +252,8 @@ def run_child(spec: dict[str, Any], spec_path: str, timeout_s: float = 600.0) ->
             history = json.load(f)
         with open(os.path.join(out_dir, _DONE)) as f:
             done = json.load(f)
-    return DrillResult(returncode=proc.returncode, params_bytes=params, history=history,
-                       stdout=proc.stdout, stderr=proc.stderr, done=done)
+    return DrillResult(returncode=returncode, params_bytes=params, history=history,
+                       stdout=stdout, stderr=stderr, done=done)
 
 
 def corrupt_newest_generation(ckpt_dir: str, name: str = "state", *, mode: str = "truncate",

@@ -1,6 +1,6 @@
 """Retry, backoff and circuit-breaking for the cross-silo wire path
 (counterpart of ``fl4health_tpu/resilience/retry.py``, a copy of its host
-code; the transport that composes it is not ported yet, ROADMAP.md A13):
+code), which ``transport/coordinator.py`` composes:
 
 - :func:`classify_failure`: map an exception to the ``reason`` label of
   ``transport_rpc_failures_total`` (``timeout`` / ``connection`` /

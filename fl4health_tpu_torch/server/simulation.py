@@ -1002,9 +1002,13 @@ class FederatedSimulation:
             params = b.gather(params, self._tp_specs_named())
         return params
 
-    def set_global_params(self, params) -> None:
-        """Install weights (same keys and shapes as the model's) as the
-        global model and as every client's."""
+    def set_global_params(self, params, broadcast_to_clients: bool = True) -> None:
+        """Install weights (same keys and shapes as the model's, cast to the
+        model's dtypes) as the global model (a warm start:
+        ``preprocessing/checkpoint_io.py``). With ``broadcast_to_clients``
+        every client's local params reset to them too, the only path by
+        which leaves that are never exchanged (personal layers, a frozen
+        LoRA base) receive the pretrained values."""
         ref = self.global_params
         if set(params) != set(ref):
             raise ValueError("set_global_params: keys do not match the model's "
@@ -1020,8 +1024,9 @@ class FederatedSimulation:
             params = b.put(params, self._tp_specs_named())
         # through any wrapper (CompressingStrategy keeps the params inside)
         self.server_state = replace_global_params(self.strategy, self.server_state, params)
-        self.client_states = dataclasses.replace(
-            self.client_states, params=ptu.stack_clients([params] * self._n_local))
+        if broadcast_to_clients:
+            self.client_states = dataclasses.replace(
+                self.client_states, params=ptu.stack_clients([params] * self._n_local))
 
     def set_train_data(self, xs: Sequence[Any], ys: Sequence[Any]) -> None:
         """Swap every client's training arrays (per-round data refresh).

@@ -15,6 +15,7 @@ Tolerances:
 """
 
 import torch_threads  # noqa: F401  (first: one torch thread a test process)
+import importlib
 import dataclasses
 
 import numpy as np
@@ -29,7 +30,8 @@ from fl4health_tpu_torch.clients.clipping import ClippingClientLogic
 from fl4health_tpu_torch.clients.instance_level_dp import InstanceLevelDpClientLogic
 from fl4health_tpu_torch.core import pytree as ptu
 from fl4health_tpu_torch.kernels import dp_clip as dp
-from fl4health_tpu_torch.kernels import flash_attention as fa
+# the module: the package exports the function of that name, as JAX's does
+fa = importlib.import_module("fl4health_tpu_torch.kernels.flash_attention")
 from fl4health_tpu_torch.kernels.fold import fold_vmapped
 from fl4health_tpu_torch.losses.containers import LossMeter
 from fl4health_tpu_torch.metrics import efficient

@@ -13,9 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from fl4health_tpu_torch.kernels import flash_attention as tfa
-
-# the package re-exports the function under the module's name
+# both packages re-export the function under the module's name
+tfa = importlib.import_module("fl4health_tpu_torch.kernels.flash_attention")
 jfa = importlib.import_module("fl4health_tpu.kernels.flash_attention")
 
 FWD = dict(atol=2e-5, rtol=1e-4)

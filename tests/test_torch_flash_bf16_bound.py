@@ -21,8 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from fl4health_tpu_torch.kernels import flash_attention as tfa
-
+# the module: the package exports the function of that name, as JAX's does
+tfa = importlib.import_module("fl4health_tpu_torch.kernels.flash_attention")
 jfa = importlib.import_module("fl4health_tpu.kernels.flash_attention")
 
 # the bounds the card holds the bf16 kernels to (chip_smoke.py, the card tests)

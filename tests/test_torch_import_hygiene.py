@@ -67,7 +67,7 @@ def test_sources_were_found():
     assert {"__init__.py", "registry.py", "manifest.py", "telemetry.py", "health.py",
             "flightrec.py", "bundle.py", "cudamon.py", "device_specs.py", "exposition.py",
             "fleet.py", "sketches.py", "spans.py", "flops.py", "stages.py", "hloscan.py",
-            "introspect.py", "timeseries.py", "slo.py", "adminplane.py"} == obs
+            "introspect.py", "timeseries.py", "slo.py", "adminplane.py", "tracectx.py"} == obs
     # and every resilience and sweep module: the supervisor, its suspect
     # ranking, the in-graph quarantine, retry; the scalar hoisting, the grid
     # spec, the bucketing and the runner
@@ -81,6 +81,17 @@ def test_sources_were_found():
     parallel = {p.name for p in SOURCES if p.parent.name == "parallel"}
     assert {"__init__.py", "compat.py", "mesh.py", "program.py", "zero.py", "tp.py",
             "ring_attention.py"} == parallel
+    # and the last slice's packages: the cross-silo transport, feature
+    # alignment, preprocessing and the utils
+    by_dir = lambda d: {p.name for p in SOURCES if p.parent.name == d}  # noqa: E731
+    assert {"__init__.py", "native.py", "codec.py", "loopback.py",
+            "coordinator.py"} == by_dir("transport")
+    assert {"__init__.py", "schema.py", "preprocessor.py",
+            "orchestration.py"} == by_dir("feature_alignment")
+    assert {"__init__.py", "warm_up.py", "checkpoint_io.py",
+            "autoencoders.py"} == by_dir("preprocessing")
+    assert {"__init__.py", "config.py", "random.py", "hp_search.py", "peft.py",
+            "tpu_probe.py"} == by_dir("utils")
 
 
 def test_package_imports_without_jax():

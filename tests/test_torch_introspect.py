@@ -22,6 +22,7 @@
   flash kernels; a failing introspection degrades to a warning."""
 
 import torch_threads  # noqa: F401  (first: one torch thread a test process)
+import importlib
 import logging
 
 import jax
@@ -46,7 +47,8 @@ from fl4health_tpu_torch import rng as trng
 from fl4health_tpu_torch.clients import engine as tengine
 from fl4health_tpu_torch.clients.instance_level_dp import InstanceLevelDpClientLogic as TDpLogic
 from fl4health_tpu_torch.kernels import dp_clip as tdp
-from fl4health_tpu_torch.kernels import flash_attention as tfa
+# the module: the package exports the function of that name, as JAX's does
+tfa = importlib.import_module("fl4health_tpu_torch.kernels.flash_attention")
 from fl4health_tpu_torch.metrics import efficient as tefficient
 from fl4health_tpu_torch.metrics.base import MetricManager as TMetricManager
 from fl4health_tpu_torch.models import cnn as tcnn

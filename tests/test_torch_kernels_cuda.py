@@ -10,12 +10,13 @@ port's machine does not need.)
 """
 
 import torch_threads  # noqa: F401  (first: one torch thread a test process)
+import importlib
 import numpy as np
 import pytest
 import torch
 
-from fl4health_tpu_torch.kernels import flash_attention as fa
-
+# the module: the package exports the function of that name, as JAX's does
+fa = importlib.import_module("fl4health_tpu_torch.kernels.flash_attention")
 pytestmark = pytest.mark.cuda
 
 # f32 bounds of the JAX kernel tests (tests/kernels/test_flash_attention.py)

@@ -12,14 +12,15 @@ CUDA is absent. Run on the card with
 """
 
 import torch_threads  # noqa: F401  (first: one torch thread a test process)
+import importlib
 import os
 
 import pytest
 import torch
 import torch.distributed as dist
 
-from fl4health_tpu_torch.kernels import flash_attention as fa
-
+# the module: the package exports the function of that name, as JAX's does
+fa = importlib.import_module("fl4health_tpu_torch.kernels.flash_attention")
 pytestmark = pytest.mark.cuda
 
 

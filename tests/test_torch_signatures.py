@@ -73,8 +73,8 @@ MISSING = {
                         ("PoissonSamplingManager", ("draw_cohort", "sample",
                                                     "sample_indices")))
        for fn in fns},
-    ("server.simulation", "FederatedSimulation.set_global_params"): {
-        "broadcast_to_clients": "A12"},
+    ("datasets.synthetic", "fedprox_synthetic"): _KEY,
+    ("datasets.synthetic", "dirichlet_partition"): _KEY,
 }
 
 

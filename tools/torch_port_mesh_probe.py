@@ -25,6 +25,7 @@ Run from the repository root: ``python3 tools/torch_port_mesh_probe.py``.
 from __future__ import annotations
 
 import functools
+import importlib
 import json
 import os
 import shutil
@@ -55,7 +56,8 @@ def main() -> int:
         print("torch_port_mesh_probe: needs an NVIDIA card", file=sys.stderr)
         return 1
     import chip_smoke as c
-    from fl4health_tpu_torch.kernels import flash_attention as fa
+    # the module: the package exports the function of that name, as JAX's does
+    fa = importlib.import_module("fl4health_tpu_torch.kernels.flash_attention")
     from fl4health_tpu_torch.kernels.flash_attention import flash_attention
     from fl4health_tpu_torch.parallel import compat
     from fl4health_tpu_torch.parallel.mesh import make_mesh
